@@ -15,7 +15,12 @@ import torch
 
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.models import TransformerEnsemble, VisionTransformer3D
-from vit3d_ensemble_tpu_torch.ops import attention, fused_attention, fused_mlp
+from vit3d_ensemble_tpu_torch.ops import (
+    attention,
+    attention_layer,
+    fused_attention,
+    fused_mlp,
+)
 from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
 
 pytestmark = pytest.mark.gpu
@@ -167,3 +172,89 @@ def test_ensemble_runs_on_the_card(cuda):
         out = ens.to(torch.bfloat16)(x.to(torch.bfloat16))
     assert out.shape == (4, 1) and out.is_cuda
     assert bool(((out > 0) & (out < 1)).all())
+
+
+# (B, T, D, H): the K3 shapes of `chip_smoke.py` (conf 1-18 at B=512,
+# conf 19-22 at B=64, the stretch model at B=2), a tiny sequence, and
+# hd 16 / 64 with T over 4 and 5 shared-memory chunks of keys.
+K3_SHAPES = [(512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
+             (64, 257, 16, 4), (64, 257, 8, 8), (2, 513, 768, 12),
+             (2, 5, 16, 4), (3, 700, 64, 4), (2, 200, 128, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,H", K3_SHAPES)
+def test_attention_layer_kernel_matches_plain(cuda, dtype, B, T, D, H):
+    qkv = torch.randn(B, T, 3 * D, generator=cuda, device="cuda").to(dtype)
+    q, k, v = attention_layer._split(qkv)
+    before = attention_layer.launches
+    out = attention_layer.attention_core(q, k, v, H)
+    torch.cuda.synchronize()
+    assert attention_layer.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, T, D) and out.is_contiguous()
+    _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype)
+
+
+def test_attention_layer_reads_strided_views(cuda):
+    """q, k, v of a wider row, at an odd element offset, and of a batch
+    whose volumes are not adjacent."""
+    wide = torch.randn(3, 65, 3 * 32 + 7, generator=cuda, device="cuda")
+    for qkv in (wide[..., 7:], wide[..., 1:97], wide[::2, :, :96]):
+        q, k, v = attention_layer._split(qkv)
+        _close(attention_layer.attention_core(q, k, v, 8),
+               attention_layer._plain_attention_core(q, k, v, 8),
+               torch.float32)
+
+
+def test_attention_layer_raises_on_what_it_does_not_take(cuda):
+    q, k, v = attention_layer._split(torch.zeros(2, 65, 36, device="cuda"))
+    with pytest.raises(ValueError, match="head_dim 3"):
+        attention_layer.attention_core(q, k, v, 4)
+    q, k, v = attention_layer._split(
+        torch.zeros(2, 65, 48, device="cuda", dtype=torch.float16))
+    with pytest.raises(TypeError):
+        attention_layer.attention_core(q, k, v, 4)
+    q, k, v = attention_layer._split(torch.zeros(2, 65, 48, device="cuda"))
+    with pytest.raises(ValueError, match="strides"):
+        attention_layer.attention_core(q, k.contiguous(), v, 4)
+
+
+def test_attention_layer_gradients_recompute_through_plain(cuda):
+    B, T, D, H = 2, 65, 32, 8
+    args = [torch.randn(B, T, D, generator=cuda, device="cuda"),
+            torch.randn(3 * D, D, generator=cuda, device="cuda") * 0.3,
+            torch.randn(3 * D, generator=cuda, device="cuda") * 0.1,
+            torch.randn(D, D, generator=cuda, device="cuda") * 0.3,
+            torch.randn(D, generator=cuda, device="cuda") * 0.1]
+    # one fixed cotangent, as `tests/test_ops.py:128-130` compares VJPs
+    g = torch.randn(B, T, D, generator=cuda, device="cuda")
+    grads = []
+    for fn in (attention_layer.fused_attention_layer,
+               attention_layer._plain_attention_layer):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves, H).backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("conf", [1, 2, 3, 20])
+def test_model_under_layer_matches_plain_modules(cuda, conf):
+    """f32, every attention sublayer on K3 (conf 20: p=8, 257 tokens)."""
+    model = VisionTransformer3D(ViTConfig.from_conf(conf), zero_head=False,
+                                vis=False)
+    x = torch.randn(2, 128, 128, 5, 1, generator=cuda, device="cuda")
+    before = attention_layer.launches
+    attention.set_default_attention_impl("layer")
+    try:
+        with torch.no_grad():
+            out = model(x)
+            assert attention_layer.launches == before + model.config.num_layers
+            attention.set_default_attention_impl("plain")
+            mlp_select.set_default_mlp_impl("plain")
+            ref = model(x)
+    finally:
+        mlp_select.set_default_mlp_impl("auto")
+        attention.set_default_attention_impl("auto")
+    torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)

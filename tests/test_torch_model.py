@@ -261,16 +261,23 @@ def test_cpu_forward_launches_no_kernel(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port loads no jax, flax or vit3d_ensemble_tpu module."""
+    """Importing the port loads no jax, flax or vit3d_ensemble_tpu module,
+    and none of pandas, sklearn or PIL, which the card's host lacks."""
     code = (
         "import sys\n"
         "import vit3d_ensemble_tpu_torch, vit3d_ensemble_tpu_torch.models, "
         "vit3d_ensemble_tpu_torch.ops, vit3d_ensemble_tpu_torch.checkpoint, "
         "vit3d_ensemble_tpu_torch.ops.fused_mlp, "
         "vit3d_ensemble_tpu_torch.ops.fused_attention, "
-        "vit3d_ensemble_tpu_torch.ops._build\n"
-        "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vit3d_ensemble_tpu'))\n"
+        "vit3d_ensemble_tpu_torch.ops.attention_layer, "
+        "vit3d_ensemble_tpu_torch.ops._build, "
+        "vit3d_ensemble_tpu_torch.data, vit3d_ensemble_tpu_torch.metrics, "
+        "vit3d_ensemble_tpu_torch.train.trainer, "
+        "vit3d_ensemble_tpu_torch.train.ensemble_trainer, "
+        "vit3d_ensemble_tpu_torch.utils.metrics_log\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'vit3d_ensemble_tpu', 'pandas', 'sklearn', "
+        "'PIL'))\n"
         "print(repr(bad))\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -15,17 +15,32 @@ torch names.
     `torch_ensemble_to_flax` (`checkpoint.py:219-234`): `transformer_{i}`
     -> `transformers.{i}.`, and `meta/classifier` -> `classifier.*`.
 
-Native `.bin` and msgpack checkpoint I/O is not ported yet.
+  * `save_state_dict` writes a `state_dict` with `torch.save`, atomically,
+    as the trainers' `save_path` does.
+
+Reading the JAX package's msgpack checkpoints is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
+
+
+def save_state_dict(path: str, state: Mapping[str, torch.Tensor]) -> None:
+    """`torch.save` of CPU copies of `state` through a temporary file and a
+    rename, so a preempted write never leaves a truncated checkpoint (the
+    contract of the JAX package's `save_pytree`, `checkpoint.py:37-47`)."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().cpu() for k, v in state.items()}, tmp)
+    os.replace(tmp, path)
 
 
 def _t(a) -> torch.Tensor:

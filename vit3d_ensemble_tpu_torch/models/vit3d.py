@@ -29,7 +29,9 @@ from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.ops.attention import (
     dot_product_attention,
     dropout,
+    get_default_attention_impl,
 )
+from vit3d_ensemble_tpu_torch.ops.attention_layer import fused_attention_layer
 from vit3d_ensemble_tpu_torch.ops.fused_mlp import fused_mlp
 from vit3d_ensemble_tpu_torch.ops.mlp import get_default_mlp_impl
 
@@ -168,6 +170,17 @@ class Attention(nn.Module):
         B, T, D = x.shape
         H = cfg.num_heads
         hd = D // H
+        rate = cfg.attention_dropout_rate
+        if (get_default_attention_impl() == "layer" and not return_probs
+                and (deterministic or rate == 0.0)):
+            # the whole sublayer on K3 (`vit3d.py:142-162`); with attention
+            # dropout inactive the skipped dropouts draw nothing, so the
+            # dropout stream is the einsum path's
+            w = torch.cat([self.query.weight, self.key.weight,
+                           self.value.weight])
+            b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
+            return fused_attention_layer(x, w, b, self.out.weight,
+                                         self.out.bias, H), None
         if D <= _FUSED_QKV_MAX_D:
             # one (D, 3D) matmul, q|k|v along the output axis (`vit3d.py:181`)
             w = torch.cat([self.query.weight, self.key.weight,
@@ -178,7 +191,6 @@ class Attention(nn.Module):
         else:
             q, k, v = (lin(x).view(B, T, H, hd).transpose(1, 2)
                        for lin in (self.query, self.key, self.value))
-        rate = cfg.attention_dropout_rate
         context, probs = dot_product_attention(
             q, k, v, dropout_p=rate, generator=generator,
             deterministic=deterministic, return_probs=return_probs)

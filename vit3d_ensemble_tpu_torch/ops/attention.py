@@ -9,13 +9,18 @@ context.  Implementations:
   * ``kernel`` — the K2 kernel (`ops/fused_attention.py`) when dropout is
                  inactive;
   * ``auto``   — K2 on a CUDA tensor when head_dim <= 16, no probabilities
-                 are asked for and dropout is inactive; ``plain`` otherwise.
+                 are asked for and dropout is inactive; ``plain`` otherwise;
+  * ``layer``  — the whole-sublayer kernel K3 (`ops/attention_layer.py`),
+                 which `models/vit3d.Attention` takes on probs-free paths
+                 with attention dropout inactive, training included.  Where
+                 it does not apply (vis mode, active attention dropout) the
+                 call reaches this function and runs ``plain``, as the JAX
+                 package degrades to its einsum (`attention.py:131-134`).
 
 ``auto`` differs from the JAX package on purpose: its choice of the einsum
 path rests on TPU v5e measurements (`attention.py:136-144`), which say
 nothing of the H100.  The JAX ``vpu`` impl is the einsum's math on another
-TPU unit and has no counterpart here.  ``layer`` (the whole-sublayer kernel
-K3) is not ported yet.
+TPU unit and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -30,18 +35,13 @@ from vit3d_ensemble_tpu_torch.ops.fused_attention import (
     fused_attention,
 )
 
-_IMPLS = ("auto", "plain", "kernel")
+_IMPLS = ("auto", "plain", "kernel", "layer")
 _DEFAULT_IMPL = "auto"
-
-_LAYER_NOT_PORTED = ("attention impl 'layer' needs the K3 kernel "
-                     "(ROADMAP.md, TPU kernels still to port: K3)")
 
 
 def set_default_attention_impl(impl: str) -> None:
     """Select the process-wide default attention implementation."""
     global _DEFAULT_IMPL
-    if impl == "layer":
-        raise NotImplementedError(_LAYER_NOT_PORTED)
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl: {impl!r}")
     _DEFAULT_IMPL = impl
@@ -90,17 +90,18 @@ def dot_product_attention(
       q, k, v: (..., num_heads, seq, head_dim) tensors.
       return_probs: also return post-softmax attention probabilities
         (pre-dropout), matching `modeling.py:89-90`.
-      impl: 'auto' | 'plain' | 'kernel' | None (process default).
+      impl: 'auto' | 'plain' | 'kernel' | 'layer' | None (process default).
 
     Returns:
       (context, probs) with context (..., num_heads, seq, head_dim) and
       probs (..., num_heads, seq, seq) or None.
     """
     impl = impl or _DEFAULT_IMPL
-    if impl == "layer":
-        raise NotImplementedError(_LAYER_NOT_PORTED)
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl: {impl!r}")
+    if impl == "layer":
+        # the sublayer kernel did not apply at the call site
+        impl = "plain"
     dropout_off = deterministic or dropout_p == 0.0
     if impl == "auto":
         impl = ("kernel" if q.is_cuda and q.shape[-1] <= TINY_HD
