@@ -5,15 +5,19 @@
 
 Builds the port's CUDA kernels from `vit3d_ensemble_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, and drives the port's
-two paths, each with the kernels' launch counters set to 0 just before it
-and read just after:
+paths, each with the kernels' launch counters set to 0 just before it and
+read just after:
 
   * serving: all 18 baseline ViTs in bf16 at B=512, then batch-1..8 latency
     of conf 9 and of the {5,9,11} stacking ensemble (K1, K2);
   * training, in f32: `train_baseline` on conf 9 at full width and depth
     under the attention impls `auto` (K2, K1 in evaluation) and `layer`
     (K3), and `train_ensemble` on {5,9,11} under `layer`; with dropout off,
-    each kernel run is held to the same run on the plain modules.
+    each kernel run is held to the same run on the plain modules;
+  * the stretch model, `vit_b16_128cubed` (128^3 volumes, 513 tokens,
+    D=768, 12 layers) at full width and depth: in f32 at B=1 against the
+    plain modules, then served in bf16 at B=8 under `auto` (K4, K1's wide
+    body) and under `layer` (K3).
 
 Every line it prints is a JSON object.  The last is
 `{"ok": true, "device": {...}}`; it is printed only when every check
@@ -36,7 +40,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vit3d_ensemble_tpu_torch.configs import BASELINE_CONFS, BEST_ENSEMBLE, ViTConfig
+from vit3d_ensemble_tpu_torch.configs import (
+    BASELINE_CONFS,
+    BEST_ENSEMBLE,
+    ViTConfig,
+    vit_b16_128cubed,
+)
 from vit3d_ensemble_tpu_torch.data import SplitArrays
 from vit3d_ensemble_tpu_torch.models import TransformerEnsemble, VisionTransformer3D
 from vit3d_ensemble_tpu_torch.ops import (
@@ -66,10 +75,18 @@ PEAK_BYTES = 3.35e12
 # accumulate in f32 and round at the same points, so they differ by the
 # order of f32 sums and by bf16 rounding flips that order causes.
 TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (0.05, 0.05)}
+# K4 in bf16 has a tighter gate of its own.  Its inputs are made so that the
+# context has a root mean square of 1 at every S (see `model_views`), where
+# the kernel's largest error read 0.031 at |ctx| = 16 and at most 0.61 of
+# this gate anywhere (NVIDIA H100 80GB HBM3), while a version that drops the
+# last key misses it on 17 % of the elements at S = 513, by up to 89 times
+# (phase `K4` prints both: `max_err_over_gate`, `dropped_key_*`).
+K4_BF16_TOL = (0.02, 0.02)
 # The serving path in bf16, kernels against the plain modules: the plain
 # MLP and einsum attention round to bf16 after every op, the kernels only
-# at the JAX kernels' points; over up to 8 pre-LN layers that leaves a few
-# bf16 ulps (0.03 at |t| = 4) on the normalised tokens.
+# at the JAX kernels' points; over up to 8 pre-LN layers (12 in the stretch
+# model, which read 0.094) that leaves a few bf16 ulps (0.03 at |t| = 4) on
+# the normalised tokens.
 TOKENS_BF16_ATOL = 0.25
 # The same model in f32, kernels against plain modules (`test_model_parity`).
 TOKENS_F32_ATOL = 2e-4
@@ -86,8 +103,16 @@ TRAIN_METRICS_ATOL = 1e-4
 # order gave at most 5.0e-7 of it (K1; K3 2.4e-4 at gradients of ~1,000).
 GRAD_RTOL = 1e-4
 
-#: Each kernel's wrapper module, whose `launches` counts its launches.
-KERNELS = {"K1": fused_mlp, "K2": fused_attention, "K3": attention_layer}
+# The stretch path (`benchmarks/stretch_vitb.py:28,47`): volumes a batch and
+# passes of a timed run.
+STRETCH_B = 8
+STRETCH_ITERS = 20
+
+#: Each kernel's launch counter: the wrapper module and the attribute that
+#: its wrapper adds one to per launch.
+KERNELS = {"K1": (fused_mlp, "launches"), "K2": (fused_attention, "launches"),
+           "K3": (attention_layer, "launches"),
+           "K4": (fused_attention, "launches_k4")}
 
 failures: list = []
 #: the card's name and power limit, as nvidia-smi gives them, set by main()
@@ -129,20 +154,21 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
             "operations" if by_ops >= by_bytes else "bytes")
 
 
-def compare(out, ref, dtype) -> tuple:
-    atol, rtol = TOL[dtype]
+def compare(out, ref, dtype, tol=None) -> tuple:
+    atol, rtol = tol or TOL[dtype]
     diff = (out.float() - ref.float()).abs()
     ok = bool((diff <= atol + rtol * ref.float().abs()).all())
     return float(diff.max()), ok, atol, rtol
 
 
 def reset_launches() -> None:
-    for module in KERNELS.values():
-        module.launches = 0
+    for module, counter in KERNELS.values():
+        setattr(module, counter, 0)
 
 
 def launches() -> dict:
-    return {name: module.launches for name, module in KERNELS.items()}
+    return {name: getattr(module, counter)
+            for name, (module, counter) in KERNELS.items()}
 
 
 def smi(query: str) -> str:
@@ -161,7 +187,8 @@ def ptxas_summary(log: str) -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    logs = _build.build(["fused_mlp", "tiny_attention", "attention_layer"])
+    logs = _build.build(["fused_mlp", "tiny_attention", "attention_layer",
+                         "attention"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
@@ -213,9 +240,15 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active: int,
     return case
 
 
-def phase_k1(gen) -> dict:
-    """K1 against its plain version at the serving path's shapes, then at
-    the training path's."""
+# The stretch path's K1 shapes: D=768, M=3072, the token rows of B=8 and of
+# B=1 (both leave a partial row tile), and a few rows alone.
+STRETCH_ROWS = (STRETCH_B * 513, 513, 70)
+
+
+def phase_k1(gen) -> tuple:
+    """K1 against its plain version at the serving path's shapes, at the
+    training path's, then at the stretch path's (the wide bodies).  Returns
+    the serving and the stretch path's largest bf16 cases."""
     main = None
     for dtype in (torch.bfloat16, torch.float32):
         for D in (16, 32, 64):
@@ -227,7 +260,14 @@ def phase_k1(gen) -> dict:
     for N in TRAIN_ROWS:
         for D, M in K1_TRAIN_WIDTHS:
             k1_case(gen, torch.float32, N, D, M, M, "train")
-    return main
+    wide = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for N in STRETCH_ROWS:
+            for active in (3072, 2072):
+                case = k1_case(gen, dtype, N, 768, 3072, active, "stretch")
+                if (dtype, N, active) == (torch.bfloat16, STRETCH_ROWS[0], 3072):
+                    wide = case
+    return main, wide
 
 
 # (H, hd) of the trained configs: conf 9 (16, 1), conf 5 and 11 (8, 4).
@@ -277,11 +317,14 @@ def phase_k2(gen) -> dict:
 # K3 at (B, T, D, H): conf 1-18's (D, H) classes at B=512, conf 19-22's at
 # B=64 (p=8: 257 tokens), the stretch model at B=2; then the training
 # path's own shapes in f32: conf 9 (D=16, H=16) at the batch of 4 and at
-# the 24 validation volumes, and conf 5/11's class at 4.
+# the 24 validation volumes, and conf 5/11's class at 4; then the stretch
+# path's under `layer`: bf16 at its batch, f32 at B=1.
 K3_CASES = ((512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
             (64, 257, 16, 4), (64, 257, 8, 8), (2, 513, 768, 12))
 K3_TRAIN_CASES = ((4, 65, 16, 16), (24, 65, 16, 16), (4, 65, 32, 8),
                   (24, 65, 32, 8))
+K3_STRETCH_CASES = ((torch.bfloat16, (STRETCH_B, 513, 768, 12)),
+                    (torch.float32, (1, 513, 768, 12)))
 
 
 def phase_k3(gen) -> dict:
@@ -291,6 +334,7 @@ def phase_k3(gen) -> dict:
     cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
              for shape in K3_CASES]
     cases += [(torch.float32, shape) for shape in K3_TRAIN_CASES]
+    cases += K3_STRETCH_CASES
     for dtype, (nb, T, D, H) in cases:
         qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda").to(dtype)
         q, k, v = attention_layer._split(qkv)
@@ -318,22 +362,89 @@ def phase_k3(gen) -> dict:
     return main
 
 
-def k4_yardstick(gen) -> dict:
-    """K4 is not ported: its bound and SDPA's time at its shape, the
-    stretch model's attention (B=2, H=12, S=513, hd=64) in bf16."""
-    nb, H, S, hd = 2, 12, 513, 64
-    q, k, v = (torch.randn(nb, H, S, hd, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(3))
-    with torch.no_grad():
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50)
-    bound_ms, bound_by = bound(4.0 * nb * H * S * S * hd,
-                               4.0 * nb * H * S * hd * q.element_size(),
-                               torch.bfloat16)
-    case = {"phase": "K4_yardstick", "dtype": "bfloat16", "B": nb, "H": H,
-            "S": S, "hd": hd, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
-    emit(case)
-    return case
+# K4 at (B, H, S, hd): the stretch path's shape, the same at B=2, a small
+# ragged one, and fewer keys than one chunk of 64.
+K4_CASES = ((STRETCH_B, 12, 513, 64), (2, 12, 513, 64), (3, 2, 70, 32),
+            (2, 3, 40, 64))
+
+
+def model_views(gen, shape, dtype) -> list:
+    """q, k, v as `models/vit3d.Attention` makes them above D=64: the
+    (B, H, S, hd) views of three (B, S, H * hd) projections.  q and k are
+    unit normal, so a row's softmax spreads over about S / e keys; v is
+    scaled by sqrt(S / e), so that the context's root mean square is 1
+    whatever S is, and an absolute tolerance means the same at every shape."""
+    nb, H, S, hd = shape
+    scales = (1.0, 1.0, math.sqrt(S / math.e))
+    return [(torch.randn(nb, S, H * hd, generator=gen, device="cuda") * c)
+            .to(dtype).view(nb, S, H, hd).transpose(1, 2) for c in scales]
+
+
+def phase_k4(gen) -> dict:
+    """K4 against its plain version on the model's strided views; SDPA on
+    the same views is the library yardstick (the port never calls it).  The
+    gate is tried on a known fault in every case: the plain version without
+    the last key (at S = 513 a key chunk's single live column) must fail it.
+    The JAX kernel's own rounding (`_plain_attention`, normalised
+    probabilities) is held to the JAX tolerance beside it."""
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
+        for shape in K4_CASES:
+            nb, H, S, hd = shape
+            q, k, v = model_views(gen, shape, dtype)
+            with torch.no_grad():
+                out = fused_attention.fused_attention(q, k, v)
+                ref = fused_attention._plain_attention_k4(q, k, v)
+                err, ok, atol, rtol = compare(out, ref, dtype, tol)
+                short = fused_attention._plain_attention_k4(
+                    q, k[:, :, :-1], v[:, :, :-1])
+                gate = atol + rtol * ref.float().abs()
+                over_gate = float(((out.float() - ref.float()).abs() / gate).max())
+                dropped = (short.float() - ref.float()).abs() / gate
+                dropped_share = float((dropped > 1).float().mean())
+                gate_ok = dropped_share > 0
+                jax_err, jax_ok, _, _ = compare(
+                    out, fused_attention._plain_attention(q, k, v), dtype)
+                rms = float(ref.float().square().mean().sqrt())
+                merged = out.transpose(1, 2).reshape(nb, S, H * hd)
+                view_ok = merged.data_ptr() == out.data_ptr()
+                ms = time_ms(lambda: fused_attention.fused_attention(q, k, v), 50)
+                plain_ms = time_ms(
+                    lambda: fused_attention._plain_attention_k4(q, k, v), 10)
+                library_ms = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v), 50)
+                # `ms` is no less than the host's time to make one call; the
+                # kernel's own time is its device time under the profiler
+                device_ms = None
+                if S == 513:
+                    _, groups = device_time(
+                        lambda: [fused_attention.fused_attention(q, k, v)
+                                 for _ in range(10)], host_ops=False)
+                    device_ms = groups.get("K4", 0.0) / 10
+            bh = nb * H
+            bound_ms, bound_by = bound(4.0 * bh * S * S * hd,
+                                       4.0 * bh * S * hd * q.element_size(),
+                                       dtype)
+            case = {"phase": "K4", "dtype": str(dtype).split(".")[1], "B": nb,
+                    "H": H, "S": S, "hd": hd, "max_abs_err": err, "atol": atol,
+                    "rtol": rtol, "ok": ok, "ctx_rms": rms,
+                    "max_err_over_gate": over_gate,
+                    "gate_rejects_dropped_key": gate_ok,
+                    "dropped_key_share_over_gate": dropped_share,
+                    "dropped_key_max_over_gate": float(dropped.max()),
+                    "max_abs_err_normalised_rounding": jax_err,
+                    "ok_normalised_rounding": jax_ok,
+                    "heads_merge_as_view": view_ok,
+                    "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            emit(case)
+            check(ok and gate_ok and jax_ok and view_ok and device_ms != 0.0,
+                  f"K4 {case}")
+            if (dtype, shape) == (torch.bfloat16, K4_CASES[0]):
+                main = case
+    return main
 
 
 def phase_gradients(gen) -> None:
@@ -357,6 +468,11 @@ def phase_gradients(gen) -> None:
     b2 = torch.randn(16, generator=gen, device="cuda") * 0.1
     qkv = [torch.randn(2, 4, 65, 16, generator=gen, device="cuda")
            for _ in range(3)]
+    wide = [torch.randn(2, 35, 128, generator=gen, device="cuda"),
+            torch.randn(256, 128, generator=gen, device="cuda") * 0.05,
+            torch.randn(256, generator=gen, device="cuda") * 0.1,
+            torch.randn(128, 256, generator=gen, device="cuda") * 0.05,
+            torch.randn(128, generator=gen, device="cuda") * 0.1]
     layer = [torch.randn(2, 65, 32, generator=gen, device="cuda"),
              torch.randn(96, 32, generator=gen, device="cuda") * 0.3,
              torch.randn(96, generator=gen, device="cuda") * 0.1,
@@ -369,6 +485,11 @@ def phase_gradients(gen) -> None:
                fused_attention._plain_attention, qkv),
         "K3": (lambda *a: attention_layer.fused_attention_layer(*a, 8),
                lambda *a: attention_layer._plain_attention_layer(*a, 8), layer),
+        "K1 wide": (lambda *a: fused_mlp.fused_mlp(*a, 200),
+                    lambda *a: fused_mlp._plain_mlp(*a, 200), wide),
+        "K4": (fused_attention.fused_attention,
+               fused_attention._plain_attention_k4,
+               model_views(gen, (2, 2, 70, 64), torch.float32)),
     }
     for name, (kernel, plain, args) in cases.items():
         grads, cotangent = [], None
@@ -480,7 +601,7 @@ def phase_main_path(gen) -> dict:
               "launches": counts, "expected_launches": expected,
               "ms_per_pass_by_conf": per_model, "after_run": clocks})
         for name, n in counts.items():
-            want = 0 if name == "K3" else expected
+            want = expected if name in ("K1", "K2") else 0
             check(n == want, f"{name} launched {n} times, expected {want}")
 
         for conf, model in zip(BASELINE_CONFS, models):
@@ -508,7 +629,8 @@ def phase_main_path(gen) -> dict:
 
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K2", "tiny_attention"),
-                 ("K3", "attention_layer"),
+                 ("K3", "attention_layer"), ("K4", "attention_tc"),
+                 ("K4", "attention_f32"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
                  ("gemm", "nvjet"), ("gemm", "gemm"), ("gemm", "cutlass"),
                  ("optimizer", "multi_tensor"), ("softmax", "softmax"),
@@ -608,6 +730,112 @@ def phase_latency(gen) -> None:
             check(ok, f"latency {name} B={batch}: output {tuple(out.shape)}")
 
 
+def phase_stretch(gen) -> dict:
+    """`vit_b16_128cubed` at full width and depth on seeded weights: in f32
+    at B=1 against the plain modules, then served in bf16 at B=8 as
+    `benchmarks/stretch_vitb.py` serves it, under `auto` (K4 and K1 a
+    layer) and under `layer` (K3 and K1 a layer)."""
+    cfg = vit_b16_128cubed()
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                generator=torch.Generator().manual_seed(SEED))
+    model.eval()
+    layers = cfg.num_layers
+    expect = {"auto": {"K1": layers, "K2": 0, "K3": 0, "K4": layers},
+              "layer": {"K1": layers, "K2": 0, "K3": layers, "K4": 0}}
+
+    def run_plain(x):
+        set_impls("plain")
+        try:
+            return model(x)
+        finally:
+            set_impls("auto")
+
+    def passes(x) -> float:
+        """Host seconds of STRETCH_ITERS passes, ending in a synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STRETCH_ITERS):
+            model(x)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    with torch.no_grad():
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+        x = torch.randn(STRETCH_B, 128, 128, 128, 1, generator=gen,
+                        device="cuda")
+
+        ref = run_plain(x[:1])
+        for impl in expect:
+            set_impls(impl)
+            reset_launches()
+            try:
+                out = model(x[:1])
+            finally:
+                counts = launches()
+                set_impls("auto")
+            err = max(float((out.tokens - ref.tokens).abs().max()),
+                      float((out.logits - ref.logits).abs().max()))
+            ok = err <= TOKENS_F32_ATOL and counts == expect[impl]
+            emit({"phase": "stretch_f32", "impl": impl, "B": 1,
+                  "max_abs_err": err, "atol": TOKENS_F32_ATOL,
+                  "launches": counts, "expected_launches": expect[impl],
+                  "ok": ok})
+            check(ok, f"stretch f32 {impl}: max abs err {err}, launched "
+                      f"{counts}")
+
+        model.to(torch.bfloat16)
+        x = x.to(torch.bfloat16)
+        ref = run_plain(x)
+        result = {}
+        for impl in expect:
+            set_impls(impl)
+            try:
+                model(x)                    # warm-up
+                reset_launches()
+                seconds = passes(x)
+                counts = launches()
+                clocks = smi("clocks.sm,power.draw,temperature.gpu")
+                # the same run again, for its spread (not counted above)
+                repeats = [seconds] + [passes(x) for _ in range(REPEATS - 1)]
+                out = model(x)
+                busy, groups = device_time(lambda: model(x))
+            finally:
+                set_impls("auto")
+            want = {k: n * STRETCH_ITERS for k, n in expect[impl].items()}
+            wall = statistics.median(repeats) / STRETCH_ITERS * 1e3
+            volumes = STRETCH_B * STRETCH_ITERS
+            diff = (out.tokens.float() - ref.tokens.float()).abs()
+            err = float(diff.max())
+            shape_ok = (tuple(out.tokens.shape)
+                        == (STRETCH_B, cfg.seq_len, cfg.hidden_size)
+                        and tuple(out.logits.shape)
+                        == (STRETCH_B, cfg.num_classes))
+            finite = bool(torch.isfinite(out.tokens).all()
+                          and torch.isfinite(out.logits).all())
+            ok = (shape_ok and finite and err <= TOKENS_BF16_ATOL
+                  and counts == want and busy > 0)
+            emit({"phase": "stretch", "card": card, "impl": impl,
+                  "config": "vit_b16_128cubed", "dtype": "bfloat16",
+                  "B": STRETCH_B, "layers": layers, "iters": STRETCH_ITERS,
+                  "seconds": seconds, "volumes_per_s": volumes / seconds,
+                  "volumes_per_s_repeats": [volumes / r for r in repeats],
+                  "ms_per_batch": wall, "launches": counts,
+                  "expected_launches": want, "tokens_max_abs_err": err,
+                  "tokens_mean_abs_err": float(diff.mean()),
+                  "atol": TOKENS_BF16_ATOL, "shape_ok": shape_ok,
+                  "finite": finite, "device_busy_ms": busy,
+                  "device_idle_share": 1.0 - busy / wall,
+                  "by_group_ms": groups, "after_run": clocks, "ok": ok})
+            check(ok, f"stretch {impl}: err {err}, shape {shape_ok}, finite "
+                      f"{finite}, launched {counts} of {want}, busy {busy}")
+            result[impl] = {"launches": counts, "ms_per_batch": wall,
+                            "volumes_per_s": volumes / seconds,
+                            "device_busy_ms": busy}
+    return result
+
+
 # The training phases (`_common.py:69`'s batch of 4).  Data: synthetic
 # volumes made from the seed, balanced labels, the positives shifted by 0.5.
 TRAIN_N, VAL_N = 64, 24
@@ -644,10 +872,10 @@ def training_runs(name: str, run, steps: int, layers: int, evals: int,
     # forwards; with it off, every forward
     k1 = {True: layers * (evals + 1), False: layers * forwards}
     attn = {"auto": "K2", "layer": "K3"}
-    expect = {(impl, dropout): {"K1": k1[dropout], "K2": 0, "K3": 0,
+    expect = {(impl, dropout): {"K1": k1[dropout], "K2": 0, "K3": 0, "K4": 0,
                                 attn[impl]: layers * forwards}
               for impl in impls for dropout in (True, False)}
-    expect[("plain", False)] = {"K1": 0, "K2": 0, "K3": 0}
+    expect[("plain", False)] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
     results = {}
     counts = {}
     for impl, dropout in expect:
@@ -770,51 +998,63 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1 = phase_k1(gen)
+    k1, k1_wide = phase_k1(gen)
     k2 = phase_k2(gen)
     k3 = phase_k3(gen)
-    k4 = k4_yardstick(gen)
+    k4 = phase_k4(gen)
     phase_gradients(gen)
     phase_f32_model(gen)
     main_path = phase_main_path(gen)
     phase_profile(main_path, gen)
     phase_latency(gen)
+    stretch = phase_stretch(gen)
     train = phase_train()
     train_ens = phase_train_ensemble()
     by_path = {name: {"serve": main_path["launches"][name],
                       "train_layer": train["launches"][name],
-                      "train_ensemble_layer": train_ens["launches"][name]}
+                      "train_ensemble_layer": train_ens["launches"][name],
+                      "stretch": stretch["auto"]["launches"][name],
+                      "stretch_layer": stretch["layer"]["launches"][name]}
                for name in KERNELS}
+    shape_keys = ("dtype", "N", "D", "M", "active", "B", "H", "S", "T", "hd")
+    number_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
+    # K4 also carries its device time under the profiler (see phase_k4)
 
-    def row(name, source, replaces, case, path):
+    def row(name, source, replaces, case, path, **more):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": by_path[name][path],
                 "path": path, "launches_by_path": by_path[name],
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": case["library_ms"],
-                "shape": {k: case[k] for k in case
-                          if k in ("dtype", "N", "D", "M", "active", "B", "H",
-                                   "S", "T", "hd")}}
+                "shape": {k: case[k] for k in case if k in shape_keys},
+                **more}
 
     emit({"kernels": [
         row("K1", "vit3d_ensemble_tpu_torch/csrc/fused_mlp.cu",
-            "vit3d_ensemble_tpu/ops/pallas_mlp.py:87", k1, "serve"),
+            "vit3d_ensemble_tpu/ops/pallas_mlp.py:87", k1, "serve",
+            # the same kernel's wide body at the stretch path's shape
+            stretch_case={k: k1_wide[k] for k in k1_wide
+                          if k in shape_keys + number_keys}),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2, "serve"),
         row("K3", "vit3d_ensemble_tpu_torch/csrc/attention_layer.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
             "train_layer"),
+        row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
+            "vit3d_ensemble_tpu/ops/pallas_attention.py:118", k4, "stretch",
+            device_ms=k4["device_ms"]),
     ], "not_ported": [
         # K1b and K1c compute K1's function: K1's bound and library time
         {"name": "K1b", "replaces": "vit3d_ensemble_tpu/ops/pallas_mlp.py:126",
          **{k: k1[k] for k in ("bound_ms", "bound_by", "library_ms")}},
         {"name": "K1c", "replaces": "vit3d_ensemble_tpu/ops/pallas_mlp.py:142",
          **{k: k1[k] for k in ("bound_ms", "bound_by", "library_ms")}},
-        {"name": "K4", "replaces": "vit3d_ensemble_tpu/ops/pallas_attention.py:118",
-         **{k: k4[k] for k in ("bound_ms", "bound_by", "library_ms")}},
     ], "training": {"train": train["timing"],
                     "train_ensemble": train_ens["timing"]},
+        "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
+                    for impl, res in stretch.items()},
         "seconds": time.perf_counter() - t_start})
     if failures:
         for what in failures:

@@ -10,6 +10,8 @@ Tolerances are the JAX package's own for its kernels
 version accumulate in f32 and round at the same points.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -43,8 +45,18 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = cudnn
 
 
-def _close(out, ref, dtype):
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+# K4 in bf16 on a context of root mean square 1 (`_model_views`): the kernel
+# read at most 0.61 of this gate on an NVIDIA H100 80GB HBM3, and a version
+# that drops one key of 513 misses it on 17 % of the elements.
+K4_BF16_TOL = dict(atol=0.02, rtol=0.02)
+
+
+def _close(out, ref, dtype, tol=None):
+    torch.testing.assert_close(out.float(), ref.float(), **(tol or TOL[dtype]))
+
+
+def _k4_tol(dtype):
+    return K4_BF16_TOL if dtype == torch.bfloat16 else None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -107,9 +119,18 @@ def test_tiny_attention_takes_strided_inputs(cuda):
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
-    big = torch.zeros(1, 12, 65, 64, device="cuda")
-    with pytest.raises(NotImplementedError, match="K4"):
-        fused_attention.fused_attention(big, big, big)
+    odd = torch.zeros(1, 12, 65, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fused_attention.fused_attention(odd, odd, odd)
+    strided = torch.zeros(1, 12, 64, 65, device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="along head_dim"):
+        fused_attention.fused_attention(strided, strided, strided)
+    for D in (48, 96, 1088):
+        x = torch.zeros(65, D, device="cuda")
+        w1, w2 = torch.zeros(128, D, device="cuda"), torch.zeros(D, 128, device="cuda")
+        with pytest.raises(ValueError, match="hidden size"):
+            fused_mlp.fused_mlp(x, w1, torch.zeros(128, device="cuda"), w2,
+                                torch.zeros(D, device="cuda"))
     x = torch.zeros(65, 48, device="cuda")
     w1, w2 = torch.zeros(128, 48, device="cuda"), torch.zeros(48, 128, device="cuda")
     with pytest.raises(ValueError, match="hidden size"):
@@ -250,6 +271,157 @@ def test_model_under_layer_matches_plain_modules(cuda, conf):
         with torch.no_grad():
             out = model(x)
             assert attention_layer.launches == before + model.config.num_layers
+            attention.set_default_attention_impl("plain")
+            mlp_select.set_default_mlp_impl("plain")
+            ref = model(x)
+    finally:
+        mlp_select.set_default_mlp_impl("auto")
+        attention.set_default_attention_impl("auto")
+    torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)
+
+
+# (B, H, S, hd): the stretch path's shape at B=8 and at B=2, a small ragged
+# one, fewer keys than one chunk of 64, one row over a chunk, hd 128.
+K4_SHAPES = [(8, 12, 513, 64), (2, 12, 513, 64), (3, 2, 70, 32), (2, 3, 40, 64),
+             (1, 2, 65, 128), (2, 2, 200, 32)]
+
+
+def _model_views(gen, shape, dtype):
+    """q, k, v as the model makes them: (B, H, S, hd) views of three
+    (B, S, H * hd) projections.  v is scaled by sqrt(S / e), so that the
+    context's root mean square is 1 at every S."""
+    B, H, S, hd = shape
+    scales = (1.0, 1.0, math.sqrt(S / math.e))
+    return [(torch.randn(B, S, H * hd, generator=gen, device="cuda") * c)
+            .to(dtype).view(B, S, H, hd).transpose(1, 2) for c in scales]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_attention_kernel_matches_plain(cuda, dtype, shape):
+    q, k, v = _model_views(cuda, shape, dtype)
+    assert not q.is_contiguous()
+    before = (fused_attention.launches, fused_attention.launches_k4)
+    out = fused_attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches,
+            fused_attention.launches_k4) == (before[0], before[1] + 1)
+    assert out.dtype == dtype and out.shape == q.shape
+    # the heads merge without a copy, as in `models/vit3d.Attention`
+    B, H, S, hd = shape
+    merged = out.transpose(1, 2).reshape(B, S, H * hd)
+    assert merged.data_ptr() == out.data_ptr() and merged.is_contiguous()
+    ref = fused_attention._plain_attention_k4(q, k, v)
+    _close(out, ref, dtype, _k4_tol(dtype))
+    # the gate tells a context that lacks the last key from the right one
+    with pytest.raises(AssertionError):
+        _close(fused_attention._plain_attention_k4(q, k[:, :, :-1], v[:, :, :-1]),
+               ref, dtype, _k4_tol(dtype))
+    # the JAX kernel's rounding (normalised probabilities), its tolerance
+    _close(out, fused_attention._plain_attention(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_other_layouts(cuda, dtype):
+    """Contiguous (B, H, S, hd), a 3-d (H, S, hd) input, q, k, v with unlike
+    strides, an empty batch, and a view at an address that is not 16-byte
+    aligned: read as it lies in f32, refused in bf16."""
+    q, k, v = ((torch.randn(2, 3, 70, 64, generator=cuda, device="cuda") * c)
+               .to(dtype) for c in (1.0, 1.0, math.sqrt(70 / math.e)))
+    plain = fused_attention._plain_attention_k4
+    tol = _k4_tol(dtype)
+    _close(fused_attention.fused_attention(q, k, v), plain(q, k, v), dtype, tol)
+    _close(fused_attention.fused_attention(q[0], k[0], v[0]),
+           plain(q[0], k[0], v[0]), dtype, tol)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    _close(fused_attention.fused_attention(q, kt, v), plain(q, kt, v), dtype, tol)
+    before = fused_attention.launches_k4
+    assert fused_attention.fused_attention(q[:0], k[:0], v[:0]).shape == (0, 3, 70, 64)
+    assert fused_attention.launches_k4 == before      # nothing was launched
+    flat = torch.randn(1 + 2 * 3 * 70 * 64, generator=cuda, device="cuda").to(dtype)
+    odd = flat[1:].view(2, 3, 70, 64)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fused_attention.fused_attention(odd, k, v)
+    else:
+        _close(fused_attention.fused_attention(odd, k, v), plain(odd, k, v), dtype)
+
+
+# (N, D, M, active): the stretch path's rows at B=8 and B=1 at full width
+# and masked, a partial row tile, a narrower wide D, the top of the range,
+# a width the chunks do not divide, and M % 8 != 0.
+WIDE_K1_CASES = [(4104, 768, 3072, 3072), (4104, 768, 3072, 2072),
+                 (513, 768, 3072, 3072), (70, 768, 256, 200),
+                 (70, 128, 512, 512), (33, 1024, 96, 96), (50, 192, 100, 77),
+                 (40, 256, 2204, 2000), (40, 768, 64, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,M,active", WIDE_K1_CASES)
+def test_wide_fused_mlp_kernel_matches_plain(cuda, dtype, N, D, M, active):
+    bound = (6.0 / (D + M)) ** 0.5          # the model's xavier init
+    x = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
+    w1, w2 = (((torch.rand(*s, generator=cuda, device="cuda") * 2 - 1) * bound)
+              .to(dtype) for s in ((M, D), (D, M)))
+    b1 = (torch.randn(M, generator=cuda, device="cuda") * 0.1).to(dtype)
+    b2 = (torch.randn(D, generator=cuda, device="cuda") * 0.1).to(dtype)
+    before = fused_mlp.launches
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active), dtype)
+
+
+def test_wide_gradients_recompute_through_plain(cuda):
+    x = torch.randn(2, 35, 128, generator=cuda, device="cuda")
+    w1 = torch.randn(256, 128, generator=cuda, device="cuda") * 0.05
+    b1 = torch.randn(256, generator=cuda, device="cuda") * 0.1
+    w2 = torch.randn(128, 256, generator=cuda, device="cuda") * 0.05
+    b2 = torch.randn(128, generator=cuda, device="cuda") * 0.1
+    qkv = _model_views(cuda, (2, 2, 70, 64), torch.float32)
+    for kernel, plain, args in (
+            (lambda *a: fused_mlp.fused_mlp(*a, 200),
+             lambda *a: fused_mlp._plain_mlp(*a, 200), [x, w1, b1, w2, b2]),
+            (fused_attention.fused_attention,
+             fused_attention._plain_attention_k4, qkv)):
+        grads = []
+        for fn in (kernel, plain):
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            (fn(*leaves) ** 2).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _small_stretch_config():
+    """The stretch model's shape class at a small size: z-patching, separate
+    q/k/v projections (D > 64), head_dim 64."""
+    return ViTConfig(patch_size=(16, 16, 16), hidden_size=128, num_heads=2,
+                     mlp_dim=256, num_layers=2, img_size=32, z_size=32)
+
+
+@pytest.mark.parametrize("impl,counts", [("auto", (2, 0, 0, 2)),
+                                         ("kernel", (2, 0, 0, 2)),
+                                         ("layer", (2, 0, 2, 0))])
+def test_small_stretch_model_matches_plain_modules(cuda, impl, counts):
+    """f32: K1's wide body and K4 (or K3 under `layer`) in the model, with
+    the launches the code should make: (K1, K2, K3, K4)."""
+    model = VisionTransformer3D(_small_stretch_config(), zero_head=False,
+                                vis=False)
+    x = torch.randn(3, 32, 32, 32, 1, generator=cuda, device="cuda")
+
+    def launches():
+        return (fused_mlp.launches, fused_attention.launches,
+                attention_layer.launches, fused_attention.launches_k4)
+
+    attention.set_default_attention_impl(impl)
+    try:
+        with torch.no_grad():
+            before = launches()
+            out = model(x)
+            assert tuple(b - a for a, b in zip(before, launches())) == counts
             attention.set_default_attention_impl("plain")
             mlp_select.set_default_mlp_impl("plain")
             ref = model(x)

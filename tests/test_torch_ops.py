@@ -205,6 +205,22 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
         fused_attention._launch(q, q, q)
 
 
+@pytest.mark.parametrize("impl", ["auto", "kernel"])
+def test_cpu_tensors_launch_no_kernel_at_head_dim_64(monkeypatch, impl):
+    """K4's regime: on the CPU every impl computes plain math, `auto` the
+    einsum and `kernel` K4's plain version, and nothing is launched."""
+    monkeypatch.setattr(fused_attention, "launches", 0)
+    monkeypatch.setattr(fused_attention, "launches_k4", 0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv((2, 3, 70, 64), 10))
+    ctx, probs = attention.dot_product_attention(q, k, v, impl=impl)
+    ref, _ = attention.dot_product_attention(q, k, v, impl="plain")
+    assert probs is None
+    torch.testing.assert_close(ctx, ref, atol=2e-5, rtol=1e-4)
+    assert (fused_attention.launches, fused_attention.launches_k4) == (0, 0)
+    with pytest.raises(RuntimeError, match="kernel launch on cpu"):
+        fused_attention._launch(q, k, v)
+
+
 def test_mlp_checks_reject_what_the_kernel_does_not_take():
     x, w1, b1, w2, b2 = _torch_mlp_args(*_mlp_data(9, 16, 96))
     fmlp._check(x, w1, b1, w2, b2)          # accepted
@@ -223,10 +239,28 @@ def test_mlp_checks_reject_what_the_kernel_does_not_take():
 
 def test_attention_checks_reject_what_the_kernel_does_not_take():
     q = torch.zeros(2, 4, 65, 16)
-    fused_attention._check(q, q, q)        # accepted
-    with pytest.raises(NotImplementedError, match="K4"):
-        big = torch.zeros(2, 12, 513, 64)
-        fused_attention._check(big, big, big)
+    fused_attention._check(q, q, q)        # accepted: K2
+    big = torch.zeros(2, 12, 513, 64)
+    fused_attention._check(big, big, big)  # accepted: K4
+    views = [torch.zeros(2, 513, 768).view(2, 513, 12, 64).transpose(1, 2)
+             for _ in range(3)]            # as the model makes them
+    fused_attention._check(*views)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        odd = torch.zeros(2, 12, 65, 48)
+        fused_attention._check(odd, odd, odd)
+    with pytest.raises(ValueError, match="along head_dim"):
+        strided = torch.zeros(2, 12, 64, 513).transpose(2, 3)
+        fused_attention._check(strided, strided, strided)
+    # bf16 rows are copied 16 bytes at a time; f32 is read by scalars
+    flat = torch.zeros(1 + 2 * 3 * 70 * 64)
+    odd = flat[1:].view(2, 3, 70, 64)
+    fused_attention._check(odd, odd, odd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        odd = flat.bfloat16()[1:].view(2, 3, 70, 64)
+        fused_attention._check(odd, odd, odd)
+    with pytest.raises(ValueError, match="tokens"):
+        long = torch.zeros(1, 1, 1, 32).expand(1, 1, 65535 * 64 + 1, 32)
+        fused_attention._check(long, long, long)
     with pytest.raises(TypeError):
         fused_attention._check(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):

@@ -189,6 +189,9 @@ class Attention(nn.Module):
             qkv = F.linear(x, w, b).view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]
         else:
+            # separate projections; the kernel for this width (K4) reads the
+            # (B, H, T, hd) views through their strides and hands back a
+            # (B, T, H, hd) buffer, so neither transpose below copies
             q, k, v = (lin(x).view(B, T, H, hd).transpose(1, 2)
                        for lin in (self.query, self.key, self.value))
         context, probs = dot_product_attention(
@@ -203,8 +206,9 @@ class Mlp(nn.Module):
     """GELU MLP with the reference's d >> D widths (`modeling.py:102-124`).
 
     With dropout inactive and the MLP impl 'auto' on a CUDA tensor (or
-    'kernel'), fc1 -> GELU -> fc2 runs as the fused kernel K1.  Otherwise
-    the plain modules run, with the reference's dropout between GELU and fc2.
+    'kernel'), fc1 -> GELU -> fc2 runs as the fused kernel K1, which raises
+    on a hidden size it does not take.  Otherwise the plain modules run,
+    with the reference's dropout between GELU and fc2.
     """
 
     def __init__(self, config: ViTConfig):

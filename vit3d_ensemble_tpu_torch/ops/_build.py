@@ -100,10 +100,12 @@ def load(name: str) -> ctypes.CDLL:
 
 def entry(name: str, argtypes) -> ctypes._CFuncPtr:
     """`<name>_launch` of `csrc/<name>.cu`, typed: every pointer and the
-    stream as c_void_p, so ctypes never cuts them to 32 bits."""
+    stream as c_void_p, so ctypes never cuts them to 32 bits.  The library
+    keeps one function object per symbol, so the types are set once."""
     fn = getattr(load(name), f"{name}_launch")
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return fn
 
 

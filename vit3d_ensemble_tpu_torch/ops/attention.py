@@ -1,4 +1,4 @@
-"""Multi-head dot-product attention for the tiny-head 3D-ViT regime.
+"""Multi-head dot-product attention of the 3D ViTs.
 
 Counterpart of `vit3d_ensemble_tpu/ops/attention.py` (the reference's
 `models/modeling.py:55-99`): scores = QK^T / sqrt(head_dim) -> softmax ->
@@ -6,10 +6,11 @@ context.  Implementations:
 
   * ``plain``  — the einsum formulation (`_xla_attention`), with attention
                  dropout and the probabilities it returns;
-  * ``kernel`` — the K2 kernel (`ops/fused_attention.py`) when dropout is
-                 inactive;
-  * ``auto``   — K2 on a CUDA tensor when head_dim <= 16, no probabilities
-                 are asked for and dropout is inactive; ``plain`` otherwise;
+  * ``kernel`` — the fused kernels behind `ops/fused_attention.py` when
+                 dropout is inactive: K2 at head_dim <= 16, K4 above (the
+                 stretch model's 64); a head_dim neither takes raises;
+  * ``auto``   — ``kernel`` on a CUDA tensor when no probabilities are asked
+                 for and dropout is inactive; ``plain`` otherwise;
   * ``layer``  — the whole-sublayer kernel K3 (`ops/attention_layer.py`),
                  which `models/vit3d.Attention` takes on probs-free paths
                  with attention dropout inactive, training included.  Where
@@ -30,10 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from vit3d_ensemble_tpu_torch.ops.fused_attention import (
-    TINY_HD,
-    fused_attention,
-)
+from vit3d_ensemble_tpu_torch.ops.fused_attention import fused_attention
 
 _IMPLS = ("auto", "plain", "kernel", "layer")
 _DEFAULT_IMPL = "auto"
@@ -104,8 +102,8 @@ def dot_product_attention(
         impl = "plain"
     dropout_off = deterministic or dropout_p == 0.0
     if impl == "auto":
-        impl = ("kernel" if q.is_cuda and q.shape[-1] <= TINY_HD
-                and not return_probs and dropout_off else "plain")
+        impl = ("kernel" if q.is_cuda and not return_probs and dropout_off
+                else "plain")
     if impl == "kernel" and dropout_off:
         context = fused_attention(q, k, v)
         probs = None

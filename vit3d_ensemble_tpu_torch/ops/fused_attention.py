@@ -1,16 +1,28 @@
-"""K2, the tiny-head attention (head_dim <= 16) as a CUDA kernel for Hopper.
+"""K2 and K4, the fused attention kernels, as CUDA kernels for Hopper.
 
-Counterpart of `vit3d_ensemble_tpu/ops/pallas_attention.py`.  The kernel
-(`csrc/tiny_attention.cu`) computes softmax(q k^T / sqrt(hd)) v with one
-thread per query row and an online softmax, so no S x S tile is stored; its
-source note says what bounds it on the H100.
+Counterpart of `vit3d_ensemble_tpu/ops/pallas_attention.py`: ctx =
+softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
 
-q, k, v: (..., H, S, hd), the JAX package's public layout; the wrapper makes
-them contiguous.  On a CPU tensor `fused_attention` computes
-`_plain_attention`; on a CUDA tensor it launches the kernel or raises.
-head_dim > 16 (the stretch model) needs the K4 kernel, which is not ported
-yet.  Backward recomputes through `_plain_attention`, as the JAX custom VJP
-does (`pallas_attention.py:203-206`).
+  * K2 (`csrc/tiny_attention.cu`), head_dim <= 16: one thread per query row
+    and an online softmax on CUDA cores.  The wrapper makes q, k, v
+    contiguous.
+  * K4 (`csrc/attention.cu`), head_dim in {32, 64, 128} (the stretch model's
+    64 at 513 tokens): a block per (volume, head, tile of 64 query rows)
+    walks the keys in chunks with an online softmax, so no S x S tile is
+    stored; in bf16 both products run on the tensor cores.  It reads q, k, v
+    through their strides (unit stride along head_dim; in bf16 whole
+    16-byte pieces from an aligned address), as the model's
+    `lin(x).view(B, T, H, hd).transpose(1, 2)` gives them, and writes the
+    context (B, S, H, hd), returned as its (B, H, S, hd) view, so that the
+    model's merge of the heads copies nothing.
+
+Each source note says what bounds its kernel on the H100.
+
+q, k, v: (..., H, S, hd), the JAX package's public layout.  On a CPU tensor
+`fused_attention` computes the kernel's plain version (`_plain_attention`
+for K2, `_plain_attention_k4` for K4); on a CUDA tensor it launches the
+kernel or raises.  Backward recomputes through the plain version, as the JAX
+custom VJP does through its einsum (`pallas_attention.py:203-206`).
 """
 
 from __future__ import annotations
@@ -24,15 +36,21 @@ from vit3d_ensemble_tpu_torch.ops import _build
 
 #: K2 launches in this process; the wrapper adds one per kernel launch.
 launches = 0
+#: K4 launches in this process, counted likewise.
+launches_k4 = 0
 
 #: head_dim at or below which K2 serves.
 TINY_HD = 16
+#: head dims K4 is instantiated for.
+HEAD_DIMS_K4 = (32, 64, 128)
+#: most tokens K4 takes: 65,535 tiles of 64 query rows.
+MAX_TOKENS_K4 = 65535 * 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _plain_attention(q, k, v):
-    """The kernel's function in plain PyTorch (`_reference_attention`,
+    """K2's function in plain PyTorch (`_reference_attention`,
     `pallas_attention.py:187-191`): scores, softmax and context in f32, the
     output rounded to the input type once, as the kernel does."""
     hd = q.shape[-1]
@@ -41,14 +59,39 @@ def _plain_attention(q, k, v):
     return torch.einsum("...hqk,...hkd->...hqd", probs, v.float()).to(q.dtype)
 
 
+def _plain_attention_k4(q, k, v):
+    """K4's function in plain PyTorch, f32 sums, rounding where the kernel
+    rounds: the unnormalised probabilities exp(s - max) go to the input type
+    before the second product, the row sums stay f32, and the context is
+    divided by them and rounded once.  The JAX kernel rounds the normalised
+    probabilities instead (`pallas_attention.py:133`); for f32 inputs both are
+    `_reference_attention` up to the order of the sums."""
+    hd = q.shape[-1]
+    scores = torch.einsum("...hqd,...hkd->...hqk", q.float(), k.float())
+    scores = scores / math.sqrt(hd)
+    # a softmax ignores a shift of all scores: the max carries no gradient
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True).detach())
+    ctx = torch.einsum("...hqk,...hkd->...hqd", e.to(q.dtype).float(),
+                       v.float())
+    return (ctx / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def _plain(q, k, v):
+    """The plain version of the kernel that serves q's head_dim."""
+    if q.shape[-1] <= TINY_HD:
+        return _plain_attention(q, k, v)
+    return _plain_attention_k4(q, k, v)
+
+
 def _check(q, k, v) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernels do not take."""
     if q.dim() < 2:
         raise ValueError(f"fused_attention: q has shape {tuple(q.shape)}")
-    if q.shape[-1] > TINY_HD:
-        raise NotImplementedError(
-            f"fused_attention: head_dim {q.shape[-1]} > {TINY_HD} needs the "
-            "K4 kernel (ROADMAP.md, TPU kernels still to port: K4)")
+    hd = q.shape[-1]
+    if hd > TINY_HD and hd not in HEAD_DIMS_K4:
+        raise ValueError(
+            f"fused_attention: head_dim {hd} is neither <= {TINY_HD} (K2) "
+            f"nor one of {HEAD_DIMS_K4} (K4)")
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} is not float32 "
                         "or bfloat16")
@@ -57,13 +100,29 @@ def _check(q, k, v) -> None:
             raise ValueError(
                 f"fused_attention: {name} is {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}, q is {tuple(q.shape)} {q.dtype} on {q.device}")
+    if hd > TINY_HD:
+        # K4 reads through the strides; K2's wrapper copies instead
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(-1) != 1:
+                raise ValueError(
+                    f"fused_attention: {name} has stride {t.stride(-1)} "
+                    "along head_dim, K4 needs 1")
+            # the bf16 body copies rows 16 bytes at a time; f32 reads scalars
+            if t.dtype == torch.bfloat16 and (
+                    t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
+                raise ValueError(
+                    f"fused_attention: {name} at address {t.data_ptr():#x} "
+                    f"with strides {t.stride()}: in bfloat16 K4 needs a "
+                    "16-byte aligned address and strides that are multiples "
+                    "of 8")
+        # the grid's second axis, tiles of 64 query rows, holds 65,535
+        if q.shape[-2] > MAX_TOKENS_K4:
+            raise ValueError(f"fused_attention: {q.shape[-2]} tokens, K4 "
+                             f"takes {MAX_TOKENS_K4}")
 
 
-def _launch(q, k, v):
+def _launch_k2(q, k, v):
     global launches
-    if q.device.type != "cuda":
-        raise RuntimeError(f"fused_attention: kernel launch on {q.device}")
-    _check(q, k, v)
     S, hd = q.shape[-2], q.shape[-1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh = q.numel() // (S * hd) if S * hd else 0
@@ -82,6 +141,48 @@ def _launch(q, k, v):
     return out
 
 
+def _as_bhsd(t):
+    """(..., H, S, hd) -> (B, H, S, hd): leading axes fold into one, as a
+    view where the strides allow it."""
+    if t.dim() == 4:
+        return t
+    if t.dim() < 4:
+        return t[(None,) * (4 - t.dim())]
+    return t.flatten(0, t.dim() - 4)
+
+
+def _launch_k4(q, k, v):
+    global launches_k4
+    shape = q.shape
+    q, k, v = (_as_bhsd(t) for t in (q, k, v))
+    B, H, S, hd = q.shape
+    if B * H >= 2 ** 31:
+        raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
+    if B * H * S == 0:          # nothing to compute, nothing launched
+        return q.new_empty(shape)
+    fn = _build.entry("attention",
+                      [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      + [ctypes.c_longlong] * 9
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), B, H, S, hd, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], 1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+    _build.check("attention", err)
+    launches_k4 += 1
+    return out.transpose(1, 2).reshape(shape)
+
+
+def _launch(q, k, v):
+    if q.device.type != "cuda":
+        raise RuntimeError(f"fused_attention: kernel launch on {q.device}")
+    _check(q, k, v)
+    if q.shape[-1] <= TINY_HD:
+        return _launch_k2(q, k, v)
+    return _launch_k4(q, k, v)
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
@@ -94,13 +195,14 @@ class _FusedAttention(torch.autograd.Function):
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = _plain_attention(*inputs)
+            out = _plain(*inputs)
             grads = iter(torch.autograd.grad(out, wanted, g))
         return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
 def fused_attention(q, k, v):
-    """softmax(q k^T / sqrt(hd)) v; q, k, v: (..., H, S, hd), hd <= 16."""
+    """softmax(q k^T / sqrt(hd)) v; q, k, v: (..., H, S, hd), hd <= 16 (K2)
+    or in {32, 64, 128} (K4)."""
     if q.device.type == "cpu":
-        return _plain_attention(q, k, v)
+        return _plain(q, k, v)
     return _FusedAttention.apply(q, k, v)

@@ -26,8 +26,16 @@ from vit3d_ensemble_tpu_torch.ops import _build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: hidden sizes the kernel is instantiated for (every registry config's D).
+#: hidden sizes of the narrow regime (every D of the 22 registry configs).
 WIDTHS = (8, 16, 32, 64)
+#: the wide regime: every multiple of WIDE_STEP above it up to WIDE_MAX
+#: (the stretch model's D = 768), on the kernel's wide bodies.
+WIDE_STEP, WIDE_MAX = 64, 1024
+
+
+def supported_width(D: int) -> bool:
+    """Whether the kernel takes hidden size D."""
+    return D in WIDTHS or (WIDE_STEP < D <= WIDE_MAX and D % WIDE_STEP == 0)
 
 
 def _plain_mlp(x, w1, b1, w2, b2, mlp_active):
@@ -49,8 +57,10 @@ def _check(x, w1, b1, w2, b2) -> None:
     M = w1.shape[0]
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_mlp: dtype {x.dtype} is not float32 or bfloat16")
-    if D not in WIDTHS:
-        raise ValueError(f"fused_mlp: hidden size {D} is not one of {WIDTHS}")
+    if not supported_width(D):
+        raise ValueError(
+            f"fused_mlp: hidden size {D} is not one of {WIDTHS} nor a "
+            f"multiple of {WIDE_STEP} up to {WIDE_MAX}")
     shapes = {"w1": (w1, (M, D)), "b1": (b1, (M,)), "w2": (w2, (D, M)),
               "b2": (b2, (D,))}
     for name, (t, shape) in shapes.items():
