@@ -27,6 +27,8 @@ is present or any check fails.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -56,6 +58,7 @@ from vit3d_ensemble_tpu_torch.ops import (
     fused_mlp,
 )
 from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
+from vit3d_ensemble_tpu_torch.sweep import engine, stack
 from vit3d_ensemble_tpu_torch.train.ensemble_trainer import train_ensemble
 from vit3d_ensemble_tpu_torch.train.trainer import init_baseline, train_baseline
 
@@ -112,7 +115,10 @@ STRETCH_ITERS = 20
 #: its wrapper adds one to per launch.
 KERNELS = {"K1": (fused_mlp, "launches"), "K2": (fused_attention, "launches"),
            "K3": (attention_layer, "launches"),
-           "K4": (fused_attention, "launches_k4")}
+           "K4": (fused_attention, "launches_k4"),
+           "K1b": (fused_mlp, "launches_k1b"), "K1c": (fused_mlp, "launches_k1c")}
+#: The fused-FFN kernels by `fused_mlp._MLP_VARIANT`.
+VARIANT_KERNELS = {"seq": "K1", "chunked": "K1b", "pipelined2": "K1c"}
 
 failures: list = []
 #: the card's name and power limit, as nvidia-smi gives them, set by main()
@@ -123,8 +129,10 @@ T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
-    """Print one JSON line, stamped with the seconds since the start."""
-    print(json.dumps({**obj, "t": round(time.perf_counter() - T0, 3)}),
+    """Print one JSON line, stamped with the card's name and power limit
+    once known, and the seconds since the start."""
+    stamp = {"card": card} if card else {}
+    print(json.dumps({**obj, **stamp, "t": round(time.perf_counter() - T0, 3)}),
           flush=True)
 
 
@@ -161,6 +169,11 @@ def compare(out, ref, dtype, tol=None) -> tuple:
     return float(diff.max()), ok, atol, rtol
 
 
+def counts_of(**nonzero) -> dict:
+    """Launch counts of every kernel: 0 but for those named."""
+    return {name: nonzero.get(name, 0) for name in KERNELS}
+
+
 def reset_launches() -> None:
     for module, counter in KERNELS.values():
         setattr(module, counter, 0)
@@ -187,8 +200,8 @@ def ptxas_summary(log: str) -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    logs = _build.build(["fused_mlp", "tiny_attention", "attention_layer",
-                         "attention"])
+    logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
+                         "tiny_attention", "attention_layer", "attention"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
@@ -203,40 +216,85 @@ TRAIN_ROWS = (4 * 65, 24 * 65)
 K1_TRAIN_WIDTHS = ((16, 2048), (32, 2048), (32, 3072))
 
 
-def k1_case(gen, dtype, N: int, D: int, M: int, active: int,
-            path: str) -> dict:
-    """K1 against its plain version on one shape, timed."""
+@contextlib.contextmanager
+def mlp_variant(variant: str):
+    """`fused_mlp._MLP_VARIANT` set to `variant` inside the block."""
+    before = fused_mlp._MLP_VARIANT
+    fused_mlp._MLP_VARIANT = variant
+    try:
+        yield
+    finally:
+        fused_mlp._MLP_VARIANT = before
+
+
+def mlp_weights(gen, dtype, D: int, M: int, lead=()) -> list:
+    """xavier-scaled weights (the model's init) and small biases."""
     bound_w = (6.0 / (D + M)) ** 0.5
-    x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
-    w1 = ((torch.rand(M, D, generator=gen, device="cuda") * 2 - 1)
-          * bound_w).to(dtype)
-    b1 = (torch.randn(M, generator=gen, device="cuda") * 0.02).to(dtype)
-    w2 = ((torch.rand(D, M, generator=gen, device="cuda") * 2 - 1)
-          * bound_w).to(dtype)
-    b2 = (torch.randn(D, generator=gen, device="cuda") * 0.02).to(dtype)
-    w1a, b1a = w1[:active], b1[:active]
-    w2a = w2[:, :active].contiguous()
-    with torch.no_grad():
-        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
-        ref = fused_mlp._plain_mlp(x, w1, b1, w2, b2, active)
+
+    def uniform(*shape):
+        return ((torch.rand(*lead, *shape, generator=gen, device="cuda") * 2 - 1)
+                * bound_w).to(dtype)
+
+    def small(n):
+        return (torch.randn(*lead, n, generator=gen, device="cuda") * 0.02).to(dtype)
+
+    w1 = uniform(M, D)
+    b1 = small(M)
+    w2 = uniform(D, M)
+    return [w1, b1, w2, small(D)]
+
+
+def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
+            variant: str = "seq", models: int = 0) -> dict:
+    """A fused-FFN kernel (K1, or the variant's K1b or K1c) against its
+    plain version on one shape, timed.  With `models` > 0 the weights carry
+    that leading model axis and `active` is a list of one width a model,
+    given to the kernel as a device tensor; the library chain is then
+    `baddbmm` -> `F.gelu` -> `baddbmm` with the width mask folded into w2,
+    as the JAX wrapper folds it (`pallas_mlp.py:172-176`)."""
+    lead = (models,) if models else ()
+    x = torch.randn(*lead, N, D, generator=gen, device="cuda").to(dtype)
+    w1, b1, w2, b2 = mlp_weights(gen, dtype, D, M, lead)
+    plain = (fused_mlp._plain_mlp_chunked if variant == "chunked"
+             else fused_mlp._plain_mlp)
+    if models:
+        widths = torch.tensor(active, dtype=torch.int32, device="cuda")
+        w2m = w2 * (torch.arange(M, device="cuda") < widths[:, None, None]).to(dtype)
+        b1u, b2u = b1.unsqueeze(1), b2.unsqueeze(1)
+        w1t, w2t = w1.transpose(1, 2), w2m.transpose(1, 2)
+
+        def library():
+            return torch.baddbmm(b2u, F.gelu(torch.baddbmm(b1u, x, w1t)), w2t)
+        live = sum(active)
+    else:
+        widths = active
+        w1a, b1a = w1[:active], b1[:active]
+        w2a = w2[:, :active].contiguous()
+
+        def library():
+            return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
+        live = active
+    with torch.no_grad(), mlp_variant(variant):
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+        ref = plain(x, w1, b1, w2, b2, widths)
         err, ok, atol, rtol = compare(out, ref, dtype)
-        ms = time_ms(lambda: fused_mlp.fused_mlp(x, w1, b1, w2, b2, active), 20)
-        plain_ms = time_ms(lambda: fused_mlp._plain_mlp(
-            x, w1, b1, w2, b2, active), 5)
-        library_ms = time_ms(lambda: F.linear(
-            F.gelu(F.linear(x, w1a, b1a)), w2a, b2), 20)
+        ms = time_ms(lambda: fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths), 20)
+        plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, widths), 5)
+        library_ms = time_ms(library, 20)
     elt = x.element_size()
+    P = max(models, 1)
     bound_ms, bound_by = bound(
-        4.0 * N * D * active,
-        elt * (2 * N * D + 2 * D * active + active + D), dtype)
-    case = {"phase": "K1", "path": path, "dtype": str(dtype).split(".")[1],
-            "N": N, "D": D, "M": M, "active": active,
-            "max_abs_err": err, "atol": atol, "rtol": rtol,
-            "ok": ok, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+        4.0 * N * D * live,
+        elt * (2 * P * N * D + 2 * D * live + live + P * D)
+        + (4 * P if models else 0), dtype)
+    case = {"phase": VARIANT_KERNELS[variant], "card": card, "path": path,
+            "dtype": str(dtype).split(".")[1], "N": N, "D": D, "M": M,
+            "active": active, "models": models, "max_abs_err": err,
+            "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
     emit(case)
-    check(ok, f"K1 {case}")
+    check(ok, f"{case['phase']} {case}")
     return case
 
 
@@ -418,7 +476,7 @@ def phase_k4(gen) -> dict:
                 # kernel's own time is its device time under the profiler
                 device_ms = None
                 if S == 513:
-                    _, groups = device_time(
+                    _, groups, _ = device_time(
                         lambda: [fused_attention.fused_attention(q, k, v)
                                  for _ in range(10)], host_ops=False)
                     device_ms = groups.get("K4", 0.0) / 10
@@ -491,14 +549,35 @@ def phase_gradients(gen) -> None:
                fused_attention._plain_attention_k4,
                model_views(gen, (2, 2, 70, 64), torch.float32)),
     }
+    # three models of one launch, each its own width (K1's model axis, K1b,
+    # K1c), from a generator of their own, so the draws above stay as they were
+    own = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    stacked = [torch.randn(3, 130, 16, generator=own, device="cuda"),
+               *mlp_weights(own, torch.float32, 16, 1100, (3,))]
+    widths = torch.tensor([1100, 600, 30], dtype=torch.int32, device="cuda")
+
+    def in_variant(variant):
+        def run(*a):
+            with mlp_variant(variant):
+                return fused_mlp.fused_mlp(*a, widths)
+        return run
+
+    cases.update({
+        "K1 model axis": (in_variant("seq"),
+                          lambda *a: fused_mlp._plain_mlp(*a, widths), stacked),
+        "K1b": (in_variant("chunked"),
+                lambda *a: fused_mlp._plain_mlp_chunked(*a, widths), stacked),
+        "K1c": (in_variant("pipelined2"),
+                lambda *a: fused_mlp._plain_mlp(*a, widths), stacked),
+    })
     for name, (kernel, plain, args) in cases.items():
         grads, cotangent = [], None
         for fn in (kernel, plain):
             leaves = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*leaves)
             if cotangent is None:
-                cotangent = torch.randn(out.shape, generator=gen,
-                                        device="cuda")
+                cotangent = torch.randn(out.shape, device="cuda",
+                                        generator=own if args is stacked else gen)
             out.backward(cotangent)
             grads.append([t.grad for t in leaves])
         err = max(float((a - b).abs().max()) for a, b in zip(*grads))
@@ -556,20 +635,20 @@ def phase_f32_model(gen) -> None:
         check(ok, f"f32 conf {conf}: max abs err {err}")
 
 
-def timed_passes(models, x) -> tuple:
-    """ITERS calls of each model in turn: host seconds around the whole run,
-    ending in a synchronize, and device ms per call of each model."""
+def timed_passes(models, x, iters: int = ITERS) -> tuple:
+    """`iters` calls of each model in turn: host seconds around the whole
+    run, ending in a synchronize, and device ms per call of each model."""
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(models) + 1)]
     t0 = time.perf_counter()
     events[0].record()
     for i, model in enumerate(models):
-        for _ in range(ITERS):
+        for _ in range(iters):
             model(x)
         events[i + 1].record()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    per_model = {c: events[i].elapsed_time(events[i + 1]) / ITERS
+    per_model = {c: events[i].elapsed_time(events[i + 1]) / iters
                  for i, c in enumerate(BASELINE_CONFS)}
     return seconds, per_model
 
@@ -601,7 +680,7 @@ def phase_main_path(gen) -> dict:
               "launches": counts, "expected_launches": expected,
               "ms_per_pass_by_conf": per_model, "after_run": clocks})
         for name, n in counts.items():
-            want = expected if name in ("K1", "K2") else 0
+            want = expected if name in ("K1", "K2") else 0  # K1b, K1c: 0
             check(n == want, f"{name} launched {n} times, expected {want}")
 
         for conf, model in zip(BASELINE_CONFS, models):
@@ -628,7 +707,8 @@ def phase_main_path(gen) -> dict:
 
 
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
-KERNEL_GROUPS = (("K1", "fused_mlp"), ("K2", "tiny_attention"),
+KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1b", "chunked_"), ("K1c", "pipelined_"),
+                 ("K2", "tiny_attention"),
                  ("K3", "attention_layer"), ("K4", "attention_tc"),
                  ("K4", "attention_f32"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
@@ -639,10 +719,10 @@ KERNEL_GROUPS = (("K1", "fused_mlp"), ("K2", "tiny_attention"),
 
 def device_time(fn, host_ops: bool = True) -> tuple:
     """Kernel time on the device (ms) of one call of `fn` under
-    torch.profiler, in total and by group.  Kernels of one stream do not
-    overlap, so their sum is the time the device was busy.  `host_ops=False`
-    records the device's kernels alone, which costs the host far less on a
-    run of many small steps."""
+    torch.profiler, in total and by group, and the number of kernels it ran.
+    Kernels of one stream do not overlap, so their sum is the time the
+    device was busy.  `host_ops=False` records the device's kernels alone,
+    which costs the host far less on a run of many small steps."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if host_ops:
@@ -651,12 +731,14 @@ def device_time(fn, host_ops: bool = True) -> tuple:
         fn()
         torch.cuda.synchronize()
     groups: dict = {}
+    kernels = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         group = next((g for g, pat in KERNEL_GROUPS if pat in e.key), "other")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-    return sum(groups.values()), groups
+        kernels += e.count
+    return sum(groups.values()), groups, kernels
 
 
 def phase_profile(main_path: dict, gen) -> None:
@@ -670,7 +752,7 @@ def phase_profile(main_path: dict, gen) -> None:
             model(x)
 
     with torch.no_grad():
-        busy, groups = device_time(one_pass)
+        busy, groups, _ = device_time(one_pass)
     wall = main_path["ms_per_pass"]
     emit({"phase": "profile", "card": card, "work": "18-model pass, B=512",
           "device_busy_ms": busy, "wall_ms": wall,
@@ -681,7 +763,7 @@ def phase_profile(main_path: dict, gen) -> None:
     model = models[BASELINE_CONFS.index(9)]
     with torch.no_grad():
         res, _ = latency(model, xb, 1)
-        busy, groups = device_time(lambda: model(xb))
+        busy, groups, _ = device_time(lambda: model(xb))
     emit({"phase": "profile", "card": card, "work": "conf 9, B=1",
           "device_busy_ms": busy, "wall_ms": res["ms_per_batch"],
           "device_idle_share": 1.0 - busy / res["ms_per_batch"],
@@ -740,8 +822,8 @@ def phase_stretch(gen) -> dict:
                                 generator=torch.Generator().manual_seed(SEED))
     model.eval()
     layers = cfg.num_layers
-    expect = {"auto": {"K1": layers, "K2": 0, "K3": 0, "K4": layers},
-              "layer": {"K1": layers, "K2": 0, "K3": layers, "K4": 0}}
+    expect = {"auto": counts_of(K1=layers, K4=layers),
+              "layer": counts_of(K1=layers, K3=layers)}
 
     def run_plain(x):
         set_impls("plain")
@@ -800,7 +882,7 @@ def phase_stretch(gen) -> dict:
                 # the same run again, for its spread (not counted above)
                 repeats = [seconds] + [passes(x) for _ in range(REPEATS - 1)]
                 out = model(x)
-                busy, groups = device_time(lambda: model(x))
+                busy, groups, _ = device_time(lambda: model(x))
             finally:
                 set_impls("auto")
             want = {k: n * STRETCH_ITERS for k, n in expect[impl].items()}
@@ -861,7 +943,7 @@ def synthetic_split(n: int, seed: int) -> SplitArrays:
 
 
 def training_runs(name: str, run, steps: int, layers: int, evals: int,
-                  impls) -> dict:
+                  impls, short_steps: int) -> dict:
     """Drive one trainer under each kernel impl in `impls`, dropout on and
     off, and under `plain` with dropout off, with the launch counters read
     around each run; check finite losses, the launch counts, and with
@@ -872,10 +954,10 @@ def training_runs(name: str, run, steps: int, layers: int, evals: int,
     # forwards; with it off, every forward
     k1 = {True: layers * (evals + 1), False: layers * forwards}
     attn = {"auto": "K2", "layer": "K3"}
-    expect = {(impl, dropout): {"K1": k1[dropout], "K2": 0, "K3": 0, "K4": 0,
-                                attn[impl]: layers * forwards}
+    expect = {(impl, dropout): counts_of(**{"K1": k1[dropout],
+                                            attn[impl]: layers * forwards})
               for impl in impls for dropout in (True, False)}
-    expect[("plain", False)] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    expect[("plain", False)] = counts_of()
     results = {}
     counts = {}
     for impl, dropout in expect:
@@ -924,15 +1006,16 @@ def training_runs(name: str, run, steps: int, layers: int, evals: int,
             # the profiler's cost grows with the events it records: take
             # the busy share on the short run (its first evaluation period)
             short_ms = wall_time_ms(lambda: run(True, short=True))
-            busy, groups = device_time(lambda: run(True, short=True),
-                                       host_ops=False)
+            busy, groups, kernels = device_time(lambda: run(True, short=True),
+                                                host_ops=False)
         finally:
             set_impls("auto")
         check(busy > 0, f"{name} {impl}: the profiler saw no device time")
         timing[impl] = {"ms_per_step": [w / steps for w in walls[impl]],
                         "short_run_wall_ms": short_ms,
                         "short_run_device_busy_ms": busy,
-                        "device_idle_share": 1.0 - busy / short_ms}
+                        "device_idle_share": 1.0 - busy / short_ms,
+                        "kernels_per_step_short_run": kernels / short_steps}
         emit({"phase": f"{name}_time", "card": card, "impl": impl,
               "steps": steps, "evals": evals + 1, **timing[impl],
               "by_group_ms": groups})
@@ -960,7 +1043,8 @@ def phase_train() -> dict:
         return train_baseline(config, train, val, **hyper)
 
     return training_runs("train", run, TRAIN_STEPS, cfg.num_layers,
-                         TRAIN_STEPS // EVAL_EVERY, ("auto", "layer"))
+                         TRAIN_STEPS // EVAL_EVERY, ("auto", "layer"),
+                         short_steps=EVAL_EVERY)
 
 
 def phase_train_ensemble() -> dict:
@@ -980,7 +1064,227 @@ def phase_train_ensemble() -> dict:
     steps = ENSEMBLE_EPOCHS * TRAIN_N // 4
     return training_runs("train_ensemble", run, steps,
                          sum(c.num_layers for c in cfgs), ENSEMBLE_EPOCHS,
-                         ("layer",))
+                         ("layer",), short_steps=TRAIN_N // 4)
+
+# K1 with the model axis at the sweep's evaluation shape (`run_group` on the
+# (64, 4) group): 30 cells (6 confs x 5 folds) of 24 validation volumes x 65
+# tokens, each cell its own width (confs 1, 4, 7: 2048; 10, 13, 16: 3072).
+MODEL_AXIS_ROWS = VAL_N * 65
+MODEL_AXIS_WIDTHS = [2048] * 15 + [3072] * 15
+
+
+def phase_model_axis(gen) -> dict:
+    """K1 with the model axis against its plain version, in f32 (the
+    sweep's type) and bf16.  Returns the f32 case."""
+    cases = {dtype: k1_case(gen, dtype, MODEL_AXIS_ROWS, 64, 3072,
+                            MODEL_AXIS_WIDTHS, "sweep_eval",
+                            models=len(MODEL_AXIS_WIDTHS))
+             for dtype in (torch.float32, torch.bfloat16)}
+    return cases[torch.float32]
+
+
+def phase_mlp_variants(gen) -> dict:
+    """K1b and K1c against their plain versions at K1's narrow serving
+    shapes, masked and unmasked, and at the model-axis shape.  Returns each
+    variant's serving case at (bf16, D=64, M=3072) and its model-axis case
+    in f32."""
+    out = {}
+    for variant in ("chunked", "pipelined2"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for D in (16, 32, 64):
+                for M in (2048, 3072):
+                    for active in (M, M - 1000):
+                        case = k1_case(gen, dtype, B * 65, D, M, active,
+                                       "serve", variant)
+                        if (dtype, D, M, active) == (torch.bfloat16, 64, 3072, 3072):
+                            out[variant] = case
+            case = k1_case(gen, dtype, MODEL_AXIS_ROWS, 64, 3072,
+                           MODEL_AXIS_WIDTHS, "sweep_eval", variant,
+                           models=len(MODEL_AXIS_WIDTHS))
+            if dtype == torch.float32:
+                out[f"{variant}_model_axis"] = case
+    return out
+
+
+# The 18-model pass timed under each variant in turns, as
+# `benchmarks/kernel_variants.py:108-112` does; passes a turn.
+VARIANT_TURNS = ("seq", "chunked", "pipelined2", "pipelined2", "chunked", "seq")
+VARIANT_ITERS = 10
+
+
+def phase_variants(main_path: dict) -> dict:
+    """The 18-model bf16 pass at B=512 on K1, K1b and K1c in turns, with the
+    launch counts that show which kernel ran, and each variant's tokens of
+    conf 1 against K1's."""
+    models, x = main_path["models"], main_path["x"]
+    layers = sum(ViTConfig.from_conf(c).num_layers for c in BASELINE_CONFS)
+    result = {v: {"volumes_per_s": []} for v in VARIANT_KERNELS}
+    with torch.no_grad():
+        ref = models[0](x).tokens.float()
+        for variant in VARIANT_TURNS:
+            kernel = VARIANT_KERNELS[variant]
+            with mlp_variant(variant):
+                for model in models:        # warm-up
+                    model(x)
+                reset_launches()
+                seconds, _ = timed_passes(models, x, VARIANT_ITERS)
+                counts = launches()
+                err = float((models[0](x).tokens.float() - ref).abs().max())
+            want = counts_of(**{kernel: layers * VARIANT_ITERS,
+                                "K2": layers * VARIANT_ITERS})
+            rate = B * VARIANT_ITERS / seconds
+            ok = counts == want and err <= TOKENS_BF16_ATOL
+            emit({"phase": "variants", "card": card, "variant": variant,
+                  "kernel": kernel, "B": B, "iters": VARIANT_ITERS,
+                  "seconds": seconds, "volumes_per_s": rate,
+                  "launches": counts, "expected_launches": want,
+                  "conf1_tokens_max_abs_err_vs_seq": err,
+                  "atol": TOKENS_BF16_ATOL, "ok": ok})
+            check(ok, f"variants {variant}: launched {counts} of {want}, "
+                      f"tokens err {err}")
+            result[variant]["volumes_per_s"].append(rate)
+            result[variant].setdefault("launches", counts)
+    return result
+
+
+# The sweep: `run_group` over the three groups of confs 1-18 at full width
+# and depth, f32, on F synthetic folds shaped like the training phases' data
+# (TRAIN_N volumes to train, VAL_N to validate, drawn from one pool), with
+# the training phases' hyperparameters; dropout as configured.
+SWEEP_FOLDS = 5
+SWEEP_POOL = 120
+SWEEP_HYPER = dict(num_steps=20, eval_every=10, train_batch_size=4,
+                   learning_rate=1e-2, warmup_steps=10, seed=SEED)
+# A grouped run against `train_baseline` on the same cell, dropout 0: both
+# run K1 and K2 on the same values, but the grouped linears are batched
+# products (`torch.baddbmm`), whose f32 sums run in another order than
+# `F.linear`'s; 20 SGD steps carry that into the parameters.
+SWEEP_LOSS_ATOL = 1e-5
+SWEEP_PARAM_ATOL = 1e-4
+PooledSplit = collections.namedtuple("PooledSplit", "row_idx labels mean")
+
+
+def sweep_data(hyper):
+    """A balanced pool of volumes (positives shifted by 0.5) and SWEEP_FOLDS
+    folds of disjoint train and validation rows."""
+    rng = np.random.default_rng(SEED)
+    labels = np.tile([0, 1], SWEEP_POOL // 2).astype(np.float32)
+    pool = rng.normal(size=(SWEEP_POOL, 128, 128, 5, 1)).astype(np.float32)
+    pool[labels == 1] += 0.5
+    folds = []
+    for _ in range(SWEEP_FOLDS):
+        order = rng.permutation(SWEEP_POOL).astype(np.int32)
+        tr, va = order[:TRAIN_N], order[TRAIN_N:TRAIN_N + VAL_N]
+        mean = float(pool[tr].mean())
+        folds.append((PooledSplit(tr, labels[tr], mean),
+                      PooledSplit(va, labels[va], mean)))
+    return pool, folds, engine.stack_folds(pool, folds, hyper)
+
+
+def phase_sweep() -> dict:
+    """`run_group` on each group: ms a step and cell-steps/s (host clock,
+    set-up included, and with the set-up measured alone subtracted), the
+    device's idle share and kernels a step on the first evaluation period,
+    and the launch counts, K1's being its model-axis launches."""
+    hyper = engine.SweepHyper(**SWEEP_HYPER)
+    pool, folds, data = sweep_data(hyper)
+    steps, evals = hyper.num_steps, hyper.num_steps // hyper.eval_every
+    short = dataclasses.replace(hyper, num_steps=hyper.eval_every)
+    result = {"groups": {}, "launches": counts_of()}
+    for group in stack.group_configs(BASELINE_CONFS):
+        G, L = len(group.confs), group.max_layers
+        P = G * SWEEP_FOLDS
+        runs = []
+        reset_launches()
+        wall = wall_time_ms(lambda: runs.append(engine.run_group(group, data, hyper)))
+        counts = launches()
+        res = runs[0]
+        setup = wall_time_ms(lambda: stack.init_group_params(
+            group, SWEEP_FOLDS, hyper.seed, device="cuda"))
+        short_ms = wall_time_ms(lambda: engine.run_group(group, data, short))
+        busy, groups, kernels = device_time(
+            lambda: engine.run_group(group, data, short), host_ops=False)
+        # dropout on: K1 serves the evaluations (deterministic) alone, K2
+        # every forward (attention dropout is 0)
+        want = counts_of(K1=L * (evals + 1), K2=L * (steps + evals + 1))
+        finite = bool(np.isfinite(res.losses).all())
+        shapes = (res.losses.shape == (steps, G, SWEEP_FOLDS)
+                  and res.best_metrics.shape == (G, SWEEP_FOLDS, 11)
+                  and res.best_probs.shape == (G, SWEEP_FOLDS, VAL_N))
+        ok = counts == want and finite and shapes and busy > 0
+        key = f"{group.hidden_size}x{group.num_heads}"
+        line = {"phase": "sweep", "card": card, "group": key,
+                "confs": list(group.confs), "cells": P, "steps": steps,
+                "evals": evals + 1, "B": hyper.train_batch_size,
+                "wall_ms": wall, "setup_ms": setup,
+                "ms_per_step": wall / steps,
+                "ms_per_step_after_setup": (wall - setup) / steps,
+                "cell_steps_per_s": P * steps / (wall / 1e3),
+                "cell_steps_per_s_after_setup": P * steps / ((wall - setup) / 1e3),
+                "short_run_steps": short.num_steps,
+                "short_run_wall_ms": short_ms,
+                "short_run_device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / short_ms,
+                "device_idle_share_after_setup":
+                    1.0 - busy / (short_ms - setup),
+                "kernels_per_step_short_run": kernels / short.num_steps,
+                "launches": counts, "expected_launches": want,
+                "launches_per_step": {k: n / steps for k, n in counts.items()},
+                "k1_model_axis_launches": counts["K1"],
+                "k1_models_per_launch": P,
+                "first_loss": float(res.losses[0].mean()),
+                "last_loss": float(res.losses[-1].mean()),
+                "median_best_auroc": float(np.median(res.best_metrics[..., 3])),
+                "finite_losses": finite, "shapes_ok": shapes,
+                "by_group_ms": groups, "ok": ok}
+        emit(line)
+        check(ok, f"sweep {key}: launched {counts} of {want}, finite {finite}, "
+                  f"shapes {shapes}, busy {busy}")
+        result["groups"][key] = {k: line[k] for k in (
+            "cells", "ms_per_step", "ms_per_step_after_setup",
+            "cell_steps_per_s", "cell_steps_per_s_after_setup",
+            "device_idle_share", "device_idle_share_after_setup",
+            "kernels_per_step_short_run",
+            "k1_model_axis_launches")}
+        for k, n in counts.items():
+            result["launches"][k] += n
+    phase_sweep_parity(pool, folds, data, hyper)
+    return result
+
+
+def phase_sweep_parity(pool, folds, data, hyper) -> None:
+    """With dropout 0, the (16, 16) group's grouped run against
+    `train_baseline` run alone on two of its cells (its first conf on the
+    first fold, its last on the last)."""
+    group = next(g for g in stack.group_configs(BASELINE_CONFS)
+                 if g.hidden_size == 16)
+    group = dataclasses.replace(group, dropout_rate=0.0)
+    res = engine.run_group(group, data, hyper)
+    members = stack.unpad_group_params(res.best_params, group)
+
+    def split(ps):
+        vols = pool[ps.row_idx] - np.float32(ps.mean)
+        return SplitArrays(vols, ps.labels.astype(np.int32),
+                           [""] * len(vols), [""] * len(vols))
+
+    for g, f in ((0, 0), (len(group.confs) - 1, SWEEP_FOLDS - 1)):
+        train, val = folds[f]
+        alone = train_baseline(group.member_config(g), split(train),
+                               split(val), **SWEEP_HYPER)
+        loss_err = float(np.abs(res.losses[:, g, f] - np.asarray(alone.losses)).max())
+        param_err = max(float((members[g][k][f] - v).abs().max())
+                        for k, v in alone.best_params.items())
+        metric_err = max(abs(float(res.best_metrics[g, f, i]) - alone.metrics[k])
+                         for i, k in enumerate(engine.METRIC_KEYS))
+        ok = loss_err <= SWEEP_LOSS_ATOL and param_err <= SWEEP_PARAM_ATOL
+        emit({"phase": "sweep_parity", "card": card, "conf": group.confs[g],
+              "fold": f, "against": "train_baseline", "dropout": False,
+              "max_loss_err": loss_err, "loss_atol": SWEEP_LOSS_ATOL,
+              "max_param_err": param_err, "param_atol": SWEEP_PARAM_ATOL,
+              "max_metric_err": metric_err, "ok": ok})
+        check(ok, f"sweep parity conf {group.confs[g]} fold {f}: loss err "
+                  f"{loss_err}, param err {param_err}")
+
 
 
 def main() -> int:
@@ -999,6 +1303,11 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1, k1_wide = phase_k1(gen)
+    # the phases of the fused-FFN variants and the model axis draw from a
+    # generator of their own, so the phases that follow draw what they drew
+    own = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    k1_models = phase_model_axis(own)
+    k1_variants = phase_mlp_variants(own)
     k2 = phase_k2(gen)
     k3 = phase_k3(gen)
     k4 = phase_k4(gen)
@@ -1006,17 +1315,24 @@ def main() -> int:
     phase_f32_model(gen)
     main_path = phase_main_path(gen)
     phase_profile(main_path, gen)
+    variants = phase_variants(main_path)
     phase_latency(gen)
     stretch = phase_stretch(gen)
     train = phase_train()
     train_ens = phase_train_ensemble()
+    sweep = phase_sweep()
     by_path = {name: {"serve": main_path["launches"][name],
+                      "variants_chunked": variants["chunked"]["launches"][name],
+                      "variants_pipelined2":
+                          variants["pipelined2"]["launches"][name],
                       "train_layer": train["launches"][name],
                       "train_ensemble_layer": train_ens["launches"][name],
                       "stretch": stretch["auto"]["launches"][name],
-                      "stretch_layer": stretch["layer"]["launches"][name]}
+                      "stretch_layer": stretch["layer"]["launches"][name],
+                      "sweep": sweep["launches"][name]}
                for name in KERNELS}
-    shape_keys = ("dtype", "N", "D", "M", "active", "B", "H", "S", "T", "hd")
+    shape_keys = ("dtype", "N", "D", "M", "active", "models", "B", "H", "S",
+                  "T", "hd")
     number_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms")
     # K4 also carries its device time under the profiler (see phase_k4)
@@ -1031,12 +1347,26 @@ def main() -> int:
                 "shape": {k: case[k] for k in case if k in shape_keys},
                 **more}
 
+    def case_of(case, path=None):
+        """A case's shape and numbers, with its path's launches."""
+        out = {k: case[k] for k in case if k in shape_keys + number_keys}
+        return {**out, "launches": by_path[VARIANT_KERNELS["seq"]][path]} if path else out
+
     emit({"kernels": [
         row("K1", "vit3d_ensemble_tpu_torch/csrc/fused_mlp.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:87", k1, "serve",
-            # the same kernel's wide body at the stretch path's shape
-            stretch_case={k: k1_wide[k] for k in k1_wide
-                          if k in shape_keys + number_keys}),
+            # the same kernel's wide body at the stretch path's shape, and
+            # its model axis at the sweep's evaluation shape (f32)
+            stretch_case=case_of(k1_wide),
+            model_axis_case=case_of(k1_models, "sweep")),
+        row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
+            "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
+            "variants_chunked",
+            model_axis_case=case_of(k1_variants["chunked_model_axis"])),
+        row("K1c", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
+            "vit3d_ensemble_tpu/ops/pallas_mlp.py:142", k1_variants["pipelined2"],
+            "variants_pipelined2",
+            model_axis_case=case_of(k1_variants["pipelined2_model_axis"])),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2, "serve"),
         row("K3", "vit3d_ensemble_tpu_torch/csrc/attention_layer.cu",
@@ -1045,14 +1375,11 @@ def main() -> int:
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:118", k4, "stretch",
             device_ms=k4["device_ms"]),
-    ], "not_ported": [
-        # K1b and K1c compute K1's function: K1's bound and library time
-        {"name": "K1b", "replaces": "vit3d_ensemble_tpu/ops/pallas_mlp.py:126",
-         **{k: k1[k] for k in ("bound_ms", "bound_by", "library_ms")}},
-        {"name": "K1c", "replaces": "vit3d_ensemble_tpu/ops/pallas_mlp.py:142",
-         **{k: k1[k] for k in ("bound_ms", "bound_by", "library_ms")}},
-    ], "training": {"train": train["timing"],
-                    "train_ensemble": train_ens["timing"]},
+    ], "variants_volumes_per_s": {v: r["volumes_per_s"]
+                                  for v, r in variants.items()},
+        "training": {"train": train["timing"],
+                     "train_ensemble": train_ens["timing"]},
+        "sweep": sweep["groups"],
         "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
                     for impl, res in stretch.items()},
         "seconds": time.perf_counter() - t_start})

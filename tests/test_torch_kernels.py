@@ -430,3 +430,141 @@ def test_small_stretch_model_matches_plain_modules(cuda, impl, counts):
         attention.set_default_attention_impl("auto")
     torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)
+
+
+# --- K1's model axis, K1b and K1c ---------------------------------------------
+
+VARIANTS = {"seq": "launches", "chunked": "launches_k1b",
+            "pipelined2": "launches_k1c"}
+
+
+def _plain_of(variant):
+    return (fused_mlp._plain_mlp_chunked if variant == "chunked"
+            else fused_mlp._plain_mlp)
+
+
+def _mlp_weights(gen, dtype, D, M, lead=()):
+    """The model's xavier-scaled weights, small biases."""
+    bound = (6.0 / (D + M)) ** 0.5
+    w1, w2 = (((torch.rand(*lead, *s, generator=gen, device="cuda") * 2 - 1)
+               * bound).to(dtype) for s in ((M, D), (D, M)))
+    b1 = (torch.randn(*lead, M, generator=gen, device="cuda") * 0.1).to(dtype)
+    b2 = (torch.randn(*lead, D, generator=gen, device="cuda") * 0.1).to(dtype)
+    return w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,M,active", [
+    (3 * 65 + 7, 8, 2204, 2204), (3 * 65 + 7, 16, 2048, 2048),
+    (3 * 65 + 7, 32, 3072, 1000), (3 * 65 + 7, 64, 1100, 1100),
+    (3 * 65 + 7, 64, 3072, 0), (3 * 65 + 7, 16, 2204, 2000),
+    (33280, 64, 3072, 3072),   # more row tiles than K1c's persistent blocks
+    (40000, 16, 600, 513)])
+def test_mlp_variants_match_plain(cuda, monkeypatch, variant, dtype, N, D, M,
+                                  active):
+    """K1, K1b and K1c against their plain versions (K1b: fc2 summed over
+    512-column chunks), one counter step a call."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    x = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M)
+    counts = {c: getattr(fused_mlp, c) for c in VARIANTS.values()}
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    for c, n in counts.items():
+        assert getattr(fused_mlp, c) == n + (c == VARIANTS[variant])
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, _plain_of(variant)(x, w1, b1, w2, b2, active), dtype)
+
+
+@pytest.mark.parametrize("D", [8, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipelined_equals_seq_bitwise(cuda, monkeypatch, dtype, D):
+    """K1c sums in K1's order, so the two agree to the bit."""
+    x = torch.randn(9000, D, generator=cuda, device="cuda").to(dtype)
+    args = _mlp_weights(cuda, dtype, D, 2048)
+    seq = fused_mlp.fused_mlp(x, *args, 1500)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
+    assert torch.equal(fused_mlp.fused_mlp(x, *args, 1500), seq)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,M", [(8, 2204), (16, 1100), (32, 2048), (64, 3072)])
+def test_model_axis_matches_plain(cuda, monkeypatch, variant, dtype, D, M):
+    """P = 4 models in one launch, each with its own width read on the
+    device (one of them 0), against the model-axis plain version and
+    against each model launched alone."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    P, N = 4, 24 * 65
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
+    active = torch.tensor([M, M - 700, 0, 513], dtype=torch.int32,
+                          device="cuda")
+    counter = VARIANTS[variant]
+    before = getattr(fused_mlp, counter)
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    assert getattr(fused_mlp, counter) == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, _plain_of(variant)(x, w1, b1, w2, b2, active), dtype)
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p],
+                                    int(active[p]))
+        assert torch.equal(out[p], alone)
+    # one int for every model
+    _close(fused_mlp.fused_mlp(x, w1, b1, w2, b2, 700),
+           _plain_of(variant)(x, w1, b1, w2, b2, 700), dtype)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variant_gradients_recompute_through_plain(cuda, monkeypatch, variant):
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    x = torch.randn(3, 130, 16, generator=cuda, device="cuda")
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, 16, 1100, (3,))
+    active = torch.tensor([1100, 600, 30], dtype=torch.int32, device="cuda")
+    grads = []
+    for fn in (fused_mlp.fused_mlp, _plain_of(variant)):
+        leaves = [a.clone().requires_grad_() for a in (x, w1, b1, w2, b2)]
+        (fn(*leaves, active) ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    # masked hidden columns get zero weight gradients
+    assert torch.all(grads[0][1][1, 600:] == 0) and torch.all(grads[0][1][2, 30:] == 0)
+
+
+def test_variants_raise_on_what_they_do_not_take(cuda, monkeypatch):
+    x = torch.zeros(65, 128, device="cuda")
+    args = (torch.zeros(256, 128, device="cuda"), torch.zeros(256, device="cuda"),
+            torch.zeros(128, 256, device="cuda"), torch.zeros(128, device="cuda"))
+    fused_mlp.fused_mlp(x, *args)        # K1 takes the wide regime
+    for variant in ("chunked", "pipelined2"):
+        monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+        with pytest.raises(ValueError, match="hidden size 128"):
+            fused_mlp.fused_mlp(x, *args)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "seq")
+    w1, b1, w2, b2 = (torch.zeros(s, device="cuda")
+                      for s in ((2, 64, 16), (2, 64), (2, 16, 64), (2, 16)))
+    with pytest.raises(ValueError, match="expected \\(2, ..., 16\\)"):
+        fused_mlp.fused_mlp(torch.zeros(3, 65, 16, device="cuda"), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="3 entries for 2 models"):
+        fused_mlp.fused_mlp(torch.zeros(2, 65, 16, device="cuda"), w1, b1, w2, b2,
+                            torch.ones(3, dtype=torch.int32, device="cuda"))
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "fused")
+    with pytest.raises(ValueError, match="unknown fused_mlp variant"):
+        fused_mlp.fused_mlp(torch.zeros(2, 65, 16, device="cuda"), w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_regime_takes_no_model_axis(cuda, dtype):
+    """K1's wide bodies run one model with a host width: a stacked call at a
+    wide D raises, and a tensor width is read on the host."""
+    P, N, D, M = 3, 70, 128, 512
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
+    with pytest.raises(ValueError, match="model axis takes the hidden sizes"):
+        fused_mlp.fused_mlp(x, w1, b1, w2, b2)
+    width = torch.tensor(200, dtype=torch.int32, device="cuda")
+    _close(fused_mlp.fused_mlp(x[0], w1[0], b1[0], w2[0], b2[0], width),
+           fused_mlp._plain_mlp(x[0], w1[0], b1[0], w2[0], b2[0], 200), dtype)

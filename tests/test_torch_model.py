@@ -274,7 +274,11 @@ def test_port_imports_no_jax():
         "vit3d_ensemble_tpu_torch.data, vit3d_ensemble_tpu_torch.metrics, "
         "vit3d_ensemble_tpu_torch.train.trainer, "
         "vit3d_ensemble_tpu_torch.train.ensemble_trainer, "
-        "vit3d_ensemble_tpu_torch.utils.metrics_log\n"
+        "vit3d_ensemble_tpu_torch.utils.metrics_log, "
+        "vit3d_ensemble_tpu_torch.utils.profiling, "
+        "vit3d_ensemble_tpu_torch.sweep, vit3d_ensemble_tpu_torch.sweep.stack, "
+        "vit3d_ensemble_tpu_torch.sweep.stacked, "
+        "vit3d_ensemble_tpu_torch.sweep.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vit3d_ensemble_tpu', 'pandas', 'sklearn', "
         "'PIL'))\n"

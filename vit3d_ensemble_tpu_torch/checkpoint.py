@@ -16,7 +16,8 @@ torch names.
     -> `transformers.{i}.`, and `meta/classifier` -> `classifier.*`.
 
   * `save_state_dict` writes a `state_dict` with `torch.save`, atomically,
-    as the trainers' `save_path` does.
+    as the trainers' `save_path` does; `baseline_ckpt_path` names the
+    per-(conf, fold) files of the sweep in the reference's layout.
 
 Reading the JAX package's msgpack checkpoints is not ported yet.
 """
@@ -41,6 +42,18 @@ def save_state_dict(path: str, state: Mapping[str, torch.Tensor]) -> None:
     tmp = path + ".tmp"
     torch.save({k: v.detach().cpu() for k, v in state.items()}, tmp)
     os.replace(tmp, path)
+
+
+def baseline_ckpt_path(output_dir: str, kind: str, conf: int, tag: str) -> str:
+    """The reference's checkpoint layout (`checkpoint.baseline_ckpt_path`,
+    `checkpoint.py:55-64`), with the reference's `.bin` extension for a
+    `torch.save`d `state_dict` (`train_baseline_cv.py:128-134`).
+
+    kind: 'baseline' | 'cv_baseline' | 'boot_baseline'
+    tag:  e.g. 'conf5', 'cv1', 'boot17'
+    """
+    return os.path.join(output_dir, f"{kind}_models", f"conf{conf}",
+                        f"{tag}.bin")
 
 
 def _t(a) -> torch.Tensor:

@@ -54,30 +54,26 @@
 //
 // Layouts follow torch.nn.Linear: x (n, D), w1 (m, D), b1 (m), w2 (D, m),
 // b2 (D), out (n, D), all contiguous.  f32 or bf16, f32 accumulation.
+//
+// The model axis (the sweep's stacked (config, fold) cells), narrow regime
+// only: the narrow bodies take P weight sets stacked along a leading axis
+// and run model p on blockIdx.y, with its own width mask read from device
+// memory (`mlp_common.cuh`, `Model`).  They are compiled twice, with and
+// without the axis (AXIS), so a single model with a host width runs the
+// code it ran before the axis existed.  The wide bodies have no model
+// axis: on an H100, in one call against the bodies without it, the offsets
+// and the width held in registers cost them registers and time beyond the
+// grid dimension, so a stacked call at a wide D is refused.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "mlp_common.cuh"
 
 namespace {
+
+using namespace mlp;
 
 constexpr int TILE_N = 64;    // token rows per block
 constexpr int CHUNK = 64;     // hidden columns per step
 constexpr int THREADS = 256;  // CUDA-core body: a 16 x 16 grid of threads
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float gelu_erf(float h) {
-  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752440f));
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -85,12 +81,18 @@ constexpr size_t smem_bytes() {
                                   TILE_N * (CHUNK + 1) + D * (CHUNK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool AXIS>
 __global__ void __launch_bounds__(THREADS)
 fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const T* __restrict__ b1, const T* __restrict__ w2,
                  const T* __restrict__ b2, T* __restrict__ out, int n, int m,
-                 int active) {
+                 const int* __restrict__ active_p, int active_all) {
+  int active = active_all;
+  if constexpr (AXIS) {
+    const Model<T> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
+    x = md.x, w1 = md.w1, b1 = md.b1, w2 = md.w2, b2 = md.b2, out = md.out;
+    active = md.active;
+  }
   constexpr int DP = D + 1;          // padded rows: odd strides, no bank conflicts
   constexpr int CP = CHUNK + 1;
   constexpr int OJ = (D + 15) / 16;  // output columns per thread
@@ -211,33 +213,6 @@ struct TcStage {  // one buffer of a weight chunk in shared memory
   float b1[CHUNK];
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a * b for one 16x8x16 tile: a in the m16n8k16 A layout (row-major),
-// b in the B layout (column-major), c in the accumulator layout.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global -> shared copy; bytes past src_bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-
 // Stage w1[c0:c0+CHUNK, :], w2[:, c0:c0+CHUNK] and b1[c0:c0+CHUNK], zero past
 // `active`.  w2 rows go by 16-byte copies when m % 8 == 0 (every piece then
 // starts 16-byte aligned), else element by element.
@@ -271,14 +246,21 @@ __device__ __forceinline__ void tc_stage(TcStage<D>& st, const __nv_bfloat16* w1
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int D>
+template <int D, bool AXIS>
 __global__ void __launch_bounds__(TC_THREADS)
 fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ w1,
                     const __nv_bfloat16* __restrict__ b1,
                     const __nv_bfloat16* __restrict__ w2,
                     const __nv_bfloat16* __restrict__ b2,
-                    __nv_bfloat16* __restrict__ out, int n, int m, int active) {
+                    __nv_bfloat16* __restrict__ out, int n, int m,
+                    const int* __restrict__ active_p, int active_all) {
+  int active = active_all;
+  if constexpr (AXIS) {
+    const Model<__nv_bfloat16> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
+    x = md.x, w1 = md.w1, b1 = md.b1, w2 = md.w2, b2 = md.b2, out = md.out;
+    active = md.active;
+  }
   constexpr int XP = TcStage<D>::XP, CP = TcStage<D>::CP;
   constexpr int KX = D / 16;  // fc1 k-steps
   constexpr int NO = D / 8;   // fc2 output tiles of 8 columns
@@ -626,37 +608,61 @@ fused_mlp_wide_f32_kernel(const float* __restrict__ x, const float* __restrict__
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
-                   const void* b2, void* out, int n, int m, int active,
-                   cudaStream_t stream) {
+template <typename T, int D, bool AXIS>
+cudaError_t launch_axis(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* out, int n, int m, const int* active_p,
+                        int active, int models, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_mlp_kernel<T, D, AXIS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + TILE_N - 1) / TILE_N);
-  fused_mlp_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((n + TILE_N - 1) / TILE_N, models);
+  fused_mlp_kernel<T, D, AXIS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), n, m,
-      active);
+      active_p, active);
+  return cudaGetLastError();
+}
+
+// The model axis when there is one: more than one model, or a width on the
+// device.
+template <typename T, int D>
+cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
+                   const void* b2, void* out, int n, int m, const int* active_p,
+                   int active, int models, cudaStream_t stream) {
+  return models > 1 || active_p != nullptr
+             ? launch_axis<T, D, true>(x, w1, b1, w2, b2, out, n, m, active_p, active,
+                                       models, stream)
+             : launch_axis<T, D, false>(x, w1, b1, w2, b2, out, n, m, active_p, active,
+                                        models, stream);
+}
+
+template <int D, bool AXIS>
+cudaError_t launch_tc_axis(const void* x, const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* out, int n, int m, const int* active_p,
+                           int active, int models, cudaStream_t stream) {
+  constexpr size_t smem = 2 * sizeof(TcStage<D>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_tc_kernel<D, AXIS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  using bf16 = __nv_bfloat16;
+  const dim3 grid((n + TILE_N - 1) / TILE_N, models);
+  fused_mlp_tc_kernel<D, AXIS><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), n,
+      m, active_p, active);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
-                      const void* b2, void* out, int n, int m, int active,
-                      cudaStream_t stream) {
-  constexpr size_t smem = 2 * sizeof(TcStage<D>);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  using bf16 = __nv_bfloat16;
-  const dim3 grid((n + TILE_N - 1) / TILE_N);
-  fused_mlp_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), n,
-      m, active);
-  return cudaGetLastError();
+                      const void* b2, void* out, int n, int m, const int* active_p,
+                      int active, int models, cudaStream_t stream) {
+  return models > 1 || active_p != nullptr
+             ? launch_tc_axis<D, true>(x, w1, b1, w2, b2, out, n, m, active_p, active,
+                                       models, stream)
+             : launch_tc_axis<D, false>(x, w1, b1, w2, b2, out, n, m, active_p, active,
+                                        models, stream);
 }
 
 template <int NT>
@@ -711,46 +717,54 @@ cudaError_t dispatch_wide(int dtype, const void* x, const void* w1, const void* 
 #undef CASE
 }
 
+#define MLP_ARGS x, w1, b1, w2, b2, out, n, m, active_p, active, models, stream
+
 cudaError_t dispatch_bf16(int d, const void* x, const void* w1, const void* b1,
                           const void* w2, const void* b2, void* out, int n, int m,
-                          int active, cudaStream_t stream) {
+                          const int* active_p, int active, int models, cudaStream_t stream) {
   switch (d) {
-    case 8: return launch<__nv_bfloat16, 8>(x, w1, b1, w2, b2, out, n, m, active, stream);
-    case 16: return launch_tc<16>(x, w1, b1, w2, b2, out, n, m, active, stream);
-    case 32: return launch_tc<32>(x, w1, b1, w2, b2, out, n, m, active, stream);
-    case 64: return launch_tc<64>(x, w1, b1, w2, b2, out, n, m, active, stream);
+    case 8: return launch<__nv_bfloat16, 8>(MLP_ARGS);
+    case 16: return launch_tc<16>(MLP_ARGS);
+    case 32: return launch_tc<32>(MLP_ARGS);
+    case 64: return launch_tc<64>(MLP_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_f32(int d, const void* x, const void* w1, const void* b1,
-                     const void* w2, const void* b2, void* out, int n, int m,
-                     int active, cudaStream_t stream) {
+                         const void* w2, const void* b2, void* out, int n, int m,
+                         const int* active_p, int active, int models, cudaStream_t stream) {
   switch (d) {
-    case 8: return launch<float, 8>(x, w1, b1, w2, b2, out, n, m, active, stream);
-    case 16: return launch<float, 16>(x, w1, b1, w2, b2, out, n, m, active, stream);
-    case 32: return launch<float, 32>(x, w1, b1, w2, b2, out, n, m, active, stream);
-    case 64: return launch<float, 64>(x, w1, b1, w2, b2, out, n, m, active, stream);
+    case 8: return launch<float, 8>(MLP_ARGS);
+    case 16: return launch<float, 16>(MLP_ARGS);
+    case 32: return launch<float, 32>(MLP_ARGS);
+    case 64: return launch<float, 64>(MLP_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).  n == 0 launches nothing.
+// n token rows per model, `models` weight sets (P >= 1).  active_p: the
+// width mask of each model on the device, or null for `active` in all; the
+// wide regime takes one model and a host width only.  dtype: 0 = float32,
+// 1 = bfloat16.  Returns cudaGetLastError() after the launch (0 on
+// success).  n == 0 launches nothing.
 extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
                                 void* out, int n, int d, int m, int active,
-                                int dtype, void* stream) {
+                                const int* active_p, int models, int dtype,
+                                void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((dtype == 0 || dtype == 1) && is_wide(d))
-    return (int)dispatch_wide(dtype, x, w1, b1, w2, b2, out, n, d, m, active, s);
-  if (dtype == 0) return (int)dispatch_f32(d, x, w1, b1, w2, b2, out, n, m, active, s);
-  if (dtype == 1) return (int)dispatch_bf16(d, x, w1, b1, w2, b2, out, n, m, active, s);
+  if (n == 0 || models == 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  if ((dtype == 0 || dtype == 1) && is_wide(d)) {
+    if (models != 1 || active_p != nullptr) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_wide(dtype, x, w1, b1, w2, b2, out, n, d, m, active, stream);
+  }
+  if (dtype == 0) return (int)dispatch_f32(d, MLP_ARGS);
+  if (dtype == 1) return (int)dispatch_bf16(d, MLP_ARGS);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,10 +2,10 @@
 
 Each `csrc/<name>.cu` becomes one shared library with a plain C interface,
 compiled for Hopper (`sm_90a`) at first use into `build/kernels/` at the
-root of the checkout.  The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import time: the CPU tests import every module
-on a machine with no `nvcc`.
+root of the checkout.  The library's file name carries a hash of its source,
+the `csrc/*.cuh` headers and the flags, so an edited source is rebuilt
+and a stale library is never loaded.  Nothing here runs at import time: the
+CPU tests import every module on a machine with no `nvcc`.
 """
 
 from __future__ import annotations
@@ -42,7 +42,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers beside the sources count too: an edited header rebuilds
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

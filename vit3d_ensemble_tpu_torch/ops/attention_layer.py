@@ -115,13 +115,34 @@ def _launch(q, k, v, n_heads):
     return out
 
 
+class _AttentionCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_heads = n_heads
+        return _launch(q, k, v, n_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = _plain_attention_core(*inputs, ctx.n_heads)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None)
+
+
 def attention_core(q, k, v, n_heads):
     """softmax(q k^T / sqrt(hd)) v per head; q, k, v: (B, T, D) views that
-    share their strides (the slices of one QKV output), ctx (B, T, D).  No
-    autograd: `fused_attention_layer` is the differentiable entry."""
+    share their strides (the slices of one QKV output), ctx (B, T, D).  The
+    backward recomputes through `_plain_attention_core`, as the sublayer's
+    does; the stacked sweep model (`sweep/stacked.py`), whose projections
+    carry a model axis, trains through it."""
     if q.device.type == "cpu":
         return _plain_attention_core(q, k, v, n_heads)
-    return _launch(q, k, v, n_heads)
+    return _AttentionCore.apply(q, k, v, n_heads)
 
 
 class _FusedAttentionLayer(torch.autograd.Function):

@@ -1,16 +1,35 @@
-"""K1, the fused FFN (fc1 -> GELU -> fc2) as a CUDA kernel for Hopper.
+"""K1, the fused FFN (fc1 -> GELU -> fc2) as a CUDA kernel for Hopper, and
+its variants K1b and K1c.
 
-Counterpart of `vit3d_ensemble_tpu/ops/pallas_mlp.py`.  The kernel
-(`csrc/fused_mlp.cu`) keeps the (tokens, mlp_dim) intermediate on chip;
-its source note says what bounds it on the H100 and how it is laid out.
+Counterpart of `vit3d_ensemble_tpu/ops/pallas_mlp.py`.  The kernels keep
+the (tokens, mlp_dim) intermediate on chip; each source note says what
+bounds it on the H100 and how it is laid out:
+
+  * K1, `csrc/fused_mlp.cu` (`_mlp_kernel`, variant "seq");
+  * K1b, `csrc/mlp_chunked.cu` (`_chunked_mlp_kernel`, "chunked"): fc2
+    summed in f32 over chunks of `_CHUNK_M` hidden columns, on producer and
+    consumer warps;
+  * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
+    K1's function, software-pipelined in a persistent block.
+
+`_MLP_VARIANT`, a module constant as in the JAX package, says which one
+`fused_mlp` launches; it is read at each call.  K1b and K1c take the narrow
+regime only (D in `WIDTHS`) and raise on a wide D.
 
 Weights use the torch.nn.Linear layout: w1 (M, D), b1 (M,), w2 (D, M),
-b2 (D,).  `mlp_active` masks hidden columns at or past it to exact zero,
-the runtime width mask of the sweep.
+b2 (D,).  With a leading model axis, w1 (P, M, D), b1 (P, M), w2 (P, D, M),
+b2 (P, D), x is (P, ..., D): one weight set per model, the sweep's stacked
+(config, fold) cells; the narrow regime only.  `mlp_active` masks hidden
+columns at or past it to exact zero, the runtime width mask of the sweep:
+an int for every model, or an int tensor with one entry per model (or one
+for all), which the narrow bodies read on the device, so a call never waits
+for the host.  K1's wide bodies take one model and a host width: a tensor
+width is read on the host there.
 
-On a CPU tensor `fused_mlp` computes `_plain_mlp`; on a CUDA tensor it
-launches the kernel or raises.  Backward recomputes through `_plain_mlp`, as
-the JAX custom VJP does (`pallas_mlp.py:250-255`).
+On a CPU tensor `fused_mlp` computes the variant's plain version
+(`_plain_mlp`, or `_plain_mlp_chunked` for K1b); on a CUDA tensor it
+launches the kernel or raises.  Backward recomputes through `_plain_mlp`,
+as the JAX custom VJP does (`pallas_mlp.py:250-255`).
 """
 
 from __future__ import annotations
@@ -22,47 +41,127 @@ import torch.nn.functional as F
 
 from vit3d_ensemble_tpu_torch.ops import _build
 
-#: K1 launches in this process; the wrapper adds one per kernel launch.
+#: Launches in this process of K1, K1b and K1c; each wrapper adds one per
+#: kernel launch.
 launches = 0
+launches_k1b = 0
+launches_k1c = 0
+
+#: The kernel `fused_mlp` launches (`pallas_mlp.py:122`).
+_MLP_VARIANT = "seq"  # "seq" | "chunked" | "pipelined2"
+#: K1b's summation chunk of hidden columns (`pallas_mlp.py:123`).
+_CHUNK_M = 512
+
+#: variant -> (the library in `csrc/`, its launch counter in this module)
+_KERNELS = {"seq": ("fused_mlp", "launches"),
+            "chunked": ("mlp_chunked", "launches_k1b"),
+            "pipelined2": ("mlp_pipelined", "launches_k1c")}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: hidden sizes of the narrow regime (every D of the 22 registry configs).
 WIDTHS = (8, 16, 32, 64)
 #: the wide regime: every multiple of WIDE_STEP above it up to WIDE_MAX
-#: (the stretch model's D = 768), on the kernel's wide bodies.
+#: (the stretch model's D = 768), on K1's wide bodies.
 WIDE_STEP, WIDE_MAX = 64, 1024
 
 
-def supported_width(D: int) -> bool:
-    """Whether the kernel takes hidden size D."""
-    return D in WIDTHS or (WIDE_STEP < D <= WIDE_MAX and D % WIDE_STEP == 0)
+def supported_width(D: int, variant: str = "seq") -> bool:
+    """Whether the variant's kernel takes hidden size D."""
+    wide = WIDE_STEP < D <= WIDE_MAX and D % WIDE_STEP == 0
+    return D in WIDTHS or (variant == "seq" and wide)
 
 
-def _plain_mlp(x, w1, b1, w2, b2, mlp_active):
-    """The kernel's function in plain PyTorch (`_reference_mlp`,
-    `pallas_mlp.py:233-237`), accumulating in f32 and rounding where the
-    kernel does: GELU's output to the input type before fc2, and the result.
-    For f32 inputs it is `_reference_mlp` exactly."""
-    dtype = x.dtype
-    h = F.gelu(F.linear(x.float(), w1.float(), b1.float()))
+def _active_bound(mlp_active, w1, device):
+    """The width mask's bound, shaped to broadcast over the hidden
+    activations: per-model widths become (P, 1, 1)."""
+    if isinstance(mlp_active, torch.Tensor):
+        mlp_active = mlp_active.to(device)
+        if w1.dim() == 3 and mlp_active.dim() == 1:
+            return mlp_active[:, None, None]
+    return mlp_active
+
+
+def _hidden(x, w1, b1, mlp_active):
+    """gelu(x @ w1^T + b1) in f32, masked, rounded to the input type (where
+    every kernel rounds, `pallas_mlp.py:93`) and back to f32.  x is (..., D)
+    or, with a model axis, (P, N, D)."""
+    if w1.dim() == 3:
+        h = torch.baddbmm(b1.float().unsqueeze(1), x.float(),
+                          w1.float().transpose(1, 2))
+    else:
+        h = F.linear(x.float(), w1.float(), b1.float())
+    h = F.gelu(h)
     cols = torch.arange(h.shape[-1], device=h.device)
-    h = h * (cols < mlp_active).to(h.dtype)
-    h = h.to(dtype).float()
-    return F.linear(h, w2.float(), b2.float()).to(dtype)
+    h = h * (cols < _active_bound(mlp_active, w1, h.device)).to(h.dtype)
+    return h.to(x.dtype).float()
 
 
-def _check(x, w1, b1, w2, b2) -> None:
-    """Raise on anything the kernel does not take."""
+def _by_model(plain):
+    """Run `plain` on x (P, ..., D) as (P, N, D) when the weights carry a
+    model axis."""
+    def run(x, w1, b1, w2, b2, mlp_active):
+        if w1.dim() == 3:
+            out = plain(x.reshape(w1.shape[0], -1, x.shape[-1]), w1, b1, w2,
+                        b2, mlp_active)
+            return out.reshape(x.shape)
+        return plain(x, w1, b1, w2, b2, mlp_active)
+
+    run.__doc__ = plain.__doc__
+    return run
+
+
+@_by_model
+def _plain_mlp(x, w1, b1, w2, b2, mlp_active):
+    """The kernels' function in plain PyTorch (`_reference_mlp`,
+    `pallas_mlp.py:233-237`), accumulating in f32 and rounding where the
+    kernels do: GELU's output to the input type before fc2, and the result.
+    For f32 inputs it is `_reference_mlp` exactly.  K1's and K1c's plain
+    version."""
+    h = _hidden(x, w1, b1, mlp_active)
+    if w1.dim() == 3:
+        out = torch.baddbmm(b2.float().unsqueeze(1), h,
+                            w2.float().transpose(1, 2))
+    else:
+        out = F.linear(h, w2.float(), b2.float())
+    return out.to(x.dtype)
+
+
+@_by_model
+def _plain_mlp_chunked(x, w1, b1, w2, b2, mlp_active):
+    """K1b's plain version (`_chunked_mlp_kernel`, `pallas_mlp.py:126-139`):
+    `_plain_mlp` with fc2's partial products summed in f32 chunk by chunk,
+    `_CHUNK_M` hidden columns each, in the kernel's order."""
+    h = _hidden(x, w1, b1, mlp_active)
+    w2t = w2.float().transpose(-1, -2)
+    acc = None
+    for c in range(0, h.shape[-1], _CHUNK_M):
+        part = h[..., c:c + _CHUNK_M] @ w2t[..., c:c + _CHUNK_M, :]
+        acc = part if acc is None else acc + part
+    return (acc + b2.float().unsqueeze(-2)).to(x.dtype)
+
+
+def _check(x, w1, b1, w2, b2, variant: str = "seq") -> None:
+    """Raise on anything the variant's kernel does not take."""
     D = x.shape[-1]
-    M = w1.shape[0]
+    M = w1.shape[-2]
+    lead = tuple(w1.shape[:1]) if w1.dim() == 3 else ()
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_mlp: dtype {x.dtype} is not float32 or bfloat16")
-    if not supported_width(D):
-        raise ValueError(
-            f"fused_mlp: hidden size {D} is not one of {WIDTHS} nor a "
-            f"multiple of {WIDE_STEP} up to {WIDE_MAX}")
-    shapes = {"w1": (w1, (M, D)), "b1": (b1, (M,)), "w2": (w2, (D, M)),
-              "b2": (b2, (D,))}
+    if not supported_width(D, variant):
+        if variant == "seq":
+            raise ValueError(
+                f"fused_mlp: hidden size {D} is not one of {WIDTHS} nor a "
+                f"multiple of {WIDE_STEP} up to {WIDE_MAX}")
+        raise ValueError(f"fused_mlp: variant {variant!r} takes the hidden "
+                         f"sizes {WIDTHS}, not hidden size {D}")
+    if lead and D not in WIDTHS:
+        raise ValueError(f"fused_mlp: the model axis takes the hidden sizes "
+                         f"{WIDTHS}, not hidden size {D}")
+    if lead and (x.dim() < 2 or x.shape[0] != lead[0]):
+        raise ValueError(f"fused_mlp: x has shape {tuple(x.shape)}, expected "
+                         f"({lead[0]}, ..., {D}) for {lead[0]} models")
+    shapes = {"w1": (w1, lead + (M, D)), "b1": (b1, lead + (M,)),
+              "w2": (w2, lead + (D, M)), "b2": (b2, lead + (D,))}
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_mlp: {name} has shape {tuple(t.shape)}, "
@@ -73,38 +172,65 @@ def _check(x, w1, b1, w2, b2) -> None:
                              f"x is {x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"fused_mlp: {name} is not contiguous")
-    if x.numel() // D >= 2 ** 31:
-        raise ValueError("fused_mlp: more than 2**31 - 1 token rows")
+    if x.numel() // (D * (lead[0] if lead else 1)) >= 2 ** 31:
+        raise ValueError("fused_mlp: more than 2**31 - 1 token rows a model")
 
 
-def _launch(x, w1, b1, w2, b2, active: int):
-    global launches
+def _active_arg(mlp_active, models: int, M: int, device, on_device: bool):
+    """(the width for every model, or None with an int32 tensor of one
+    width per model on `device`).  A tensor is read on the host only where
+    the kernel takes no width on the device (`on_device` False: K1's wide
+    bodies)."""
+    if isinstance(mlp_active, torch.Tensor) and not on_device:
+        mlp_active = int(mlp_active)
+    if not isinstance(mlp_active, torch.Tensor):
+        return min(max(int(mlp_active), 0), M), None
+    per_model = mlp_active.to(device=device, dtype=torch.int32).reshape(-1)
+    if per_model.numel() == 1:
+        per_model = per_model.expand(models)
+    if per_model.numel() != models:
+        raise ValueError(f"fused_mlp: mlp_active has {per_model.numel()} "
+                         f"entries for {models} models")
+    return 0, per_model.contiguous()
+
+
+def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
-    _check(x, w1, b1, w2, b2)
-    fn = _build.entry("fused_mlp", [ctypes.c_int] + [ctypes.c_void_p] * 6
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    # the kernel copies weights in 16-byte pieces: realign an odd view
-    x, w1, b1, w2, b2 = (t if t.data_ptr() % 16 == 0 else t.clone()
-                         for t in (x, w1, b1, w2, b2))
-    D, M = x.shape[-1], w1.shape[0]
+    _check(x, w1, b1, w2, b2, variant)
+    name, counter = _KERNELS[variant]
+    fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
+                      + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p])
+    # the kernels copy x and the weights in 16-byte pieces: realign an odd
+    # view.  A model's slice of a contiguous stacked buffer starts 16-byte
+    # aligned (D is a multiple of 8), so a stacked buffer is never copied;
+    # the biases are read by element and never need it.
+    x, w1, w2 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, w1, w2))
+    models = w1.shape[0] if w1.dim() == 3 else 1
+    D, M = x.shape[-1], w1.shape[-2]
+    active, per_model = _active_arg(mlp_active, models, M, x.device,
+                                    on_device=D in WIDTHS)
     out = torch.empty_like(x)
-    n = x.numel() // D
+    n = x.numel() // (D * models)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M,
-             min(max(active, 0), M), _DTYPES[x.dtype], stream)
-    _build.check("fused_mlp", err)
-    launches += 1
+             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M, active,
+             None if per_model is None else per_model.data_ptr(), models,
+             _DTYPES[x.dtype], stream)
+    _build.check(name, err)
+    globals()[counter] += 1
     return out
 
 
 class _FusedMlp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, active):
+    def forward(ctx, x, w1, b1, w2, b2, mlp_active, variant):
         ctx.save_for_backward(x, w1, b1, w2, b2)
-        ctx.active = active
-        return _launch(x, w1, b1, w2, b2, active)
+        ctx.mlp_active = mlp_active
+        return _launch(x, w1, b1, w2, b2, mlp_active, variant)
 
     @staticmethod
     def backward(ctx, g):
@@ -113,20 +239,25 @@ class _FusedMlp(torch.autograd.Function):
                   for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = _plain_mlp(*inputs, ctx.active)
+            out = _plain_mlp(*inputs, ctx.mlp_active)
             grads = iter(torch.autograd.grad(out, wanted, g))
         return (*(next(grads) if t.requires_grad else None for t in inputs),
-                None)
+                None, None)
 
 
 def fused_mlp(x, w1, b1, w2, b2, mlp_active=None):
-    """gelu(x @ w1.T + b1), hidden columns >= mlp_active zeroed, @ w2.T + b2.
+    """gelu(x @ w1.T + b1), hidden columns >= mlp_active zeroed, @ w2.T + b2,
+    on the kernel `_MLP_VARIANT` names.
 
-    x: (..., D).  `mlp_active` is an int or a 0-d tensor (None: all M
-    columns); the kernel takes it as a host int.
+    x: (..., D), or (P, ..., D) with weights stacked over P models.
+    `mlp_active`: None (all M columns), an int, or an int tensor of one
+    width for every model or one per model.
     """
-    M = w1.shape[0]
-    active = M if mlp_active is None else mlp_active
+    variant = _MLP_VARIANT
+    if variant not in _KERNELS:
+        raise ValueError(f"unknown fused_mlp variant: {variant!r}")
+    active = w1.shape[-2] if mlp_active is None else mlp_active
     if x.device.type == "cpu":
-        return _plain_mlp(x, w1, b1, w2, b2, active)
-    return _FusedMlp.apply(x, w1, b1, w2, b2, int(active))
+        plain = _plain_mlp_chunked if variant == "chunked" else _plain_mlp
+        return plain(x, w1, b1, w2, b2, active)
+    return _FusedMlp.apply(x, w1, b1, w2, b2, active, variant)

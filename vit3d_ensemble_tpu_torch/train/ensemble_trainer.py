@@ -32,9 +32,10 @@ from vit3d_ensemble_tpu_torch.metrics import (
     compute_eval_metrics,
     metrics_vector,
 )
-from vit3d_ensemble_tpu_torch.models import TransformerEnsemble, VisionTransformer3D
+from vit3d_ensemble_tpu_torch.models import TransformerEnsemble
 from vit3d_ensemble_tpu_torch.models.ensemble import MetaHead
 from vit3d_ensemble_tpu_torch.models.vit3d import resolve_device
+from vit3d_ensemble_tpu_torch.sweep.stack import _pad_to, _shapes
 from vit3d_ensemble_tpu_torch.train.losses import masked_bce_on_probs
 from vit3d_ensemble_tpu_torch.train.optim import adam
 from vit3d_ensemble_tpu_torch.train.selection import (
@@ -74,23 +75,6 @@ def init_ensemble(configs: Sequence[ViTConfig],
     for member, state in zip(model.transformers, member_params):
         member.load_state_dict(state)
     return model
-
-
-def _pad_to(small: torch.Tensor, target_shape) -> torch.Tensor:
-    """Zero-pad `small` up to target_shape (trailing-region padding), a copy
-    of `sweep/stack._pad_to`."""
-    if tuple(small.shape) == tuple(target_shape):
-        return small
-    out = small.new_zeros(target_shape)
-    out[tuple(slice(0, s) for s in small.shape)] = small
-    return out
-
-
-def _shapes(config: ViTConfig) -> Dict[str, torch.Size]:
-    """The parameter shapes of a model of `config`, allocating nothing."""
-    with torch.device("meta"):
-        model = VisionTransformer3D(config, device="meta")
-    return {k: v.shape for k, v in model.state_dict().items()}
 
 
 def pad_members_to_templates(configs: Sequence[ViTConfig],

@@ -1,8 +1,9 @@
 """Structured metrics logging: a JSON-lines event stream per run.
 
-A copy of `MetricsLogger` (`vit3d_ensemble_tpu/utils/metrics_log.py`), which
-the trainers take as their `metrics_logger`: one JSON object per line,
-appended to the file it is given.
+A copy of `MetricsLogger` and `default_logger`
+(`vit3d_ensemble_tpu/utils/metrics_log.py`); the trainers take a logger as
+their `metrics_logger`: one JSON object per line, appended to the file it is
+given.
 """
 
 from __future__ import annotations
@@ -27,3 +28,9 @@ class MetricsLogger:
         record.update(fields)
         with open(self.path, "a") as f:
             f.write(json.dumps(record, default=float) + "\n")
+
+
+def default_logger(output_dir: Optional[str]) -> MetricsLogger:
+    """`<output_dir>/metrics.jsonl`, or a logger that writes nothing."""
+    return MetricsLogger(
+        os.path.join(output_dir, "metrics.jsonl") if output_dir else None)
