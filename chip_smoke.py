@@ -17,7 +17,8 @@ read just after:
   * the stretch model, `vit_b16_128cubed` (128^3 volumes, 513 tokens,
     D=768, 12 layers) at full width and depth: in f32 at B=1 against the
     plain modules, then served in bf16 at B=8 under `auto` (K4, K1's wide
-    body) and under `layer` (K3).
+    body) and under `layer` (K3's sublayer, whose head_dim-64 core runs on
+    K4's body: counter `K3_on_K4`).
 
 Every line it prints is a JSON object.  The last is
 `{"ok": true, "device": {...}}`; it is printed only when every check
@@ -32,6 +33,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -115,6 +117,8 @@ STRETCH_ITERS = 20
 #: its wrapper adds one to per launch.
 KERNELS = {"K1": (fused_mlp, "launches"), "K2": (fused_attention, "launches"),
            "K3": (attention_layer, "launches"),
+           # K3's core launches that took K4's body (head_dim 32/64/128)
+           "K3_on_K4": (attention_layer, "launches_k4"),
            "K4": (fused_attention, "launches_k4"),
            "K1b": (fused_mlp, "launches_k1b"), "K1c": (fused_mlp, "launches_k1c")}
 #: The fused-FFN kernels by `fused_mlp._MLP_VARIANT`.
@@ -198,13 +202,28 @@ def ptxas_summary(log: str) -> dict:
             "spill_store_bytes": sum(spills)}
 
 
+def sass_count(name: str, opcode: str) -> int:
+    """Lines of `cuobjdump -sass` of `csrc/<name>.cu`'s library that hold
+    the opcode (the toolkit's cuobjdump, beside its nvcc)."""
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=120, check=True)
+    return sum(opcode in line for line in res.stdout.splitlines())
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
                          "tiny_attention", "attention_layer", "attention"])
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    # K1's bf16 wide body runs on wgmma: its SASS holds HGMMA instructions
+    hgmma = sass_count("fused_mlp", "HGMMA")
+    emit({"phase": "build", "seconds": seconds,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
-          "ptxas": {name: ptxas_summary(log) for name, log in logs.items()}})
+          "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
+          "fused_mlp_sass_hgmma": hgmma,
+          "fused_mlp_sass_utmaldg": sass_count("fused_mlp", "UTMALDG")})
+    check(hgmma > 0, "fused_mlp's library holds no HGMMA instruction")
 
 
 # The training path's shapes, in f32: token rows of a batch of 4 volumes
@@ -245,13 +264,15 @@ def mlp_weights(gen, dtype, D: int, M: int, lead=()) -> list:
 
 
 def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
-            variant: str = "seq", models: int = 0) -> dict:
+            variant: str = "seq", models: int = 0, device: bool = False) -> dict:
     """A fused-FFN kernel (K1, or the variant's K1b or K1c) against its
     plain version on one shape, timed.  With `models` > 0 the weights carry
     that leading model axis and `active` is a list of one width a model,
     given to the kernel as a device tensor; the library chain is then
     `baddbmm` -> `F.gelu` -> `baddbmm` with the width mask folded into w2,
-    as the JAX wrapper folds it (`pallas_mlp.py:172-176`)."""
+    as the JAX wrapper folds it (`pallas_mlp.py:172-176`).  With `device`,
+    the kernel's and the chain's device time under the profiler too: the
+    events' `ms` is no less than the host's time to make a call."""
     lead = (models,) if models else ()
     x = torch.randn(*lead, N, D, generator=gen, device="cuda").to(dtype)
     w1, b1, w2, b2 = mlp_weights(gen, dtype, D, M, lead)
@@ -281,6 +302,15 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
         ms = time_ms(lambda: fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths), 20)
         plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, widths), 5)
         library_ms = time_ms(library, 20)
+        device_ms = library_device_ms = None
+        if device:
+            busy, groups, _ = device_time(
+                lambda: [fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+                         for _ in range(10)], host_ops=False)
+            device_ms = groups.get(VARIANT_KERNELS[variant], 0.0) / 10
+            check(device_ms > 0, f"K1 device time {device_ms} of {busy / 10} ms")
+            library_device_ms = device_time(
+                lambda: [library() for _ in range(10)], host_ops=False)[0] / 10
     elt = x.element_size()
     P = max(models, 1)
     bound_ms, bound_by = bound(
@@ -293,6 +323,8 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
             "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+    if device:
+        case.update(device_ms=device_ms, library_device_ms=library_device_ms)
     emit(case)
     check(ok, f"{case['phase']} {case}")
     return case
@@ -322,7 +354,11 @@ def phase_k1(gen) -> tuple:
     for dtype in (torch.bfloat16, torch.float32):
         for N in STRETCH_ROWS:
             for active in (3072, 2072):
-                case = k1_case(gen, dtype, N, 768, 3072, active, "stretch")
+                # device time too at B=8, and in bf16 at B=1, where the
+                # events' ms is the host's cost of a call
+                case = k1_case(gen, dtype, N, 768, 3072, active, "stretch",
+                               device=N == STRETCH_ROWS[0] or
+                               (dtype, N) == (torch.bfloat16, STRETCH_ROWS[1]))
                 if (dtype, N, active) == (torch.bfloat16, STRETCH_ROWS[0], 3072):
                     wide = case
     return main, wide
@@ -385,39 +421,85 @@ K3_STRETCH_CASES = ((torch.bfloat16, (STRETCH_B, 513, 768, 12)),
                     (torch.float32, (1, 513, 768, 12)))
 
 
-def phase_k3(gen) -> dict:
+def phase_k3(gen) -> tuple:
     """K3 against its plain version; SDPA on the same q, k, v views is the
-    library yardstick (the port never calls it)."""
-    main = None
+    library yardstick (the port never calls it).  At head_dim 64 the core
+    runs on K4's body (counter `K3_on_K4`) and is held as phase `K4` holds
+    that body: v in the QKV buffer is scaled so that the context's root
+    mean square is 1 (see `model_views`), bf16 has K4's gate, and the plain
+    version without the last key must fail the gate.  The stretch path's
+    cases also take both device times under the profiler.  Returns the
+    training path's main case and the stretch path's bf16 case."""
+    main = stretch = None
     cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
              for shape in K3_CASES]
     cases += [(torch.float32, shape) for shape in K3_TRAIN_CASES]
     cases += K3_STRETCH_CASES
     for dtype, (nb, T, D, H) in cases:
-        qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda").to(dtype)
+        on_k4 = D // H in attention_layer.HEAD_DIMS_K4
+        qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda")
+        if on_k4:
+            qkv[..., 2 * D:] *= math.sqrt(T / math.e)
+        qkv = qkv.to(dtype)
         q, k, v = attention_layer._split(qkv)
         heads = [t.unflatten(-1, (H, D // H)).transpose(1, 2) for t in (q, k, v)]
+        tol = K4_BF16_TOL if on_k4 and dtype == torch.bfloat16 else None
         with torch.no_grad():
+            before = launches()
             out = attention_layer.attention_core(q, k, v, H)
+            counts = {name: n - before[name] for name, n in launches().items()}
             ref = attention_layer._plain_attention_core(q, k, v, H)
-            err, ok, atol, rtol = compare(out, ref, dtype)
+            err, ok, atol, rtol = compare(out, ref, dtype, tol)
+            gate_check = {}
+            if on_k4:
+                gate = atol + rtol * ref.float().abs()
+                short = attention_layer._plain_attention_core(
+                    q, k[:, :-1], v[:, :-1], H)
+                dropped = (short.float() - ref.float()).abs() / gate
+                gate_check = {
+                    "ctx_rms": float(ref.float().square().mean().sqrt()),
+                    "max_err_over_gate":
+                        float(((out.float() - ref.float()).abs() / gate).max()),
+                    "dropped_key_share_over_gate":
+                        float((dropped > 1).float().mean()),
+                    "dropped_key_max_over_gate": float(dropped.max())}
+                gate_check["gate_rejects_dropped_key"] = (
+                    gate_check["dropped_key_share_over_gate"] > 0)
             ms = time_ms(lambda: attention_layer.attention_core(q, k, v, H), 50)
             plain_ms = time_ms(
                 lambda: attention_layer._plain_attention_core(q, k, v, H), 10)
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(*heads), 50)
+            device_ms = library_device_ms = None
+            if (dtype, (nb, T, D, H)) in K3_STRETCH_CASES:
+                # only the core's kernel runs in the call
+                device_ms = device_time(
+                    lambda: [attention_layer.attention_core(q, k, v, H)
+                             for _ in range(10)], host_ops=False)[0] / 10
+                library_device_ms = device_time(
+                    lambda: [F.scaled_dot_product_attention(*heads)
+                             for _ in range(10)], host_ops=False)[0] / 10
+        want = counts_of(K3=1, **({"K3_on_K4": 1} if on_k4 else {}))
         bound_ms, bound_by = bound(4.0 * nb * T * T * D,
                                    4.0 * nb * T * D * qkv.element_size(), dtype)
         case = {"phase": "K3", "dtype": str(dtype).split(".")[1], "B": nb,
-                "T": T, "D": D, "H": H, "hd": D // H, "max_abs_err": err,
-                "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
+                "T": T, "D": D, "H": H, "hd": D // H,
+                "body": "K4" if on_k4 else "K3", "launches": counts,
+                "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+                **gate_check,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
+        if device_ms is not None:
+            case.update(device_ms=device_ms, library_device_ms=library_device_ms)
         emit(case)
-        check(ok, f"K3 {case}")
+        check(ok and counts == want and device_ms != 0.0
+              and gate_check.get("gate_rejects_dropped_key", True),
+              f"K3 {case}, expected launches {want}")
         if (dtype, (nb, T, D, H)) == (torch.float32, K3_TRAIN_CASES[0]):
             main = case
-    return main
+        if (dtype, (nb, T, D, H)) == K3_STRETCH_CASES[0]:
+            stretch = case
+    return main, stretch
 
 
 # K4 at (B, H, S, hd): the stretch path's shape, the same at B=2, a small
@@ -562,6 +644,12 @@ def phase_gradients(gen) -> None:
                 return fused_mlp.fused_mlp(*a, widths)
         return run
 
+    # the sublayer at head_dim 64, its core on K4's body
+    layer64 = [torch.randn(2, 70, 128, generator=own, device="cuda"),
+               torch.randn(384, 128, generator=own, device="cuda") * 0.1,
+               torch.randn(384, generator=own, device="cuda") * 0.1,
+               torch.randn(128, 128, generator=own, device="cuda") * 0.1,
+               torch.randn(128, generator=own, device="cuda") * 0.1]
     cases.update({
         "K1 model axis": (in_variant("seq"),
                           lambda *a: fused_mlp._plain_mlp(*a, widths), stacked),
@@ -569,6 +657,9 @@ def phase_gradients(gen) -> None:
                 lambda *a: fused_mlp._plain_mlp_chunked(*a, widths), stacked),
         "K1c": (in_variant("pipelined2"),
                 lambda *a: fused_mlp._plain_mlp(*a, widths), stacked),
+        "K3 on K4's body": (
+            lambda *a: attention_layer.fused_attention_layer(*a, 2),
+            lambda *a: attention_layer._plain_attention_layer(*a, 2), layer64),
     })
     for name, (kernel, plain, args) in cases.items():
         grads, cotangent = [], None
@@ -576,8 +667,9 @@ def phase_gradients(gen) -> None:
             leaves = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*leaves)
             if cotangent is None:
+                mine = args is stacked or args is layer64
                 cotangent = torch.randn(out.shape, device="cuda",
-                                        generator=own if args is stacked else gen)
+                                        generator=own if mine else gen)
             out.backward(cotangent)
             grads.append([t.grad for t in leaves])
         err = max(float((a - b).abs().max()) for a, b in zip(*grads))
@@ -707,7 +799,8 @@ def phase_main_path(gen) -> dict:
 
 
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
-KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1b", "chunked_"), ("K1c", "pipelined_"),
+KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
+                 ("K1c", "pipelined_"),
                  ("K2", "tiny_attention"),
                  ("K3", "attention_layer"), ("K4", "attention_tc"),
                  ("K4", "attention_f32"),
@@ -822,8 +915,9 @@ def phase_stretch(gen) -> dict:
                                 generator=torch.Generator().manual_seed(SEED))
     model.eval()
     layers = cfg.num_layers
+    # under `layer`, K3's head_dim-64 core runs on K4's body
     expect = {"auto": counts_of(K1=layers, K4=layers),
-              "layer": counts_of(K1=layers, K3=layers)}
+              "layer": counts_of(K1=layers, K3=layers, K3_on_K4=layers)}
 
     def run_plain(x):
         set_impls("plain")
@@ -1309,7 +1403,7 @@ def main() -> int:
     k1_models = phase_model_axis(own)
     k1_variants = phase_mlp_variants(own)
     k2 = phase_k2(gen)
-    k3 = phase_k3(gen)
+    k3, k3_stretch = phase_k3(gen)
     k4 = phase_k4(gen)
     phase_gradients(gen)
     phase_f32_model(gen)
@@ -1334,8 +1428,9 @@ def main() -> int:
     shape_keys = ("dtype", "N", "D", "M", "active", "models", "B", "H", "S",
                   "T", "hd")
     number_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                   "library_ms")
-    # K4 also carries its device time under the profiler (see phase_k4)
+                   "library_ms", "device_ms", "library_device_ms")
+    # K4, K1's wide case and K3's stretch case also carry their device
+    # time under the profiler (see phase_k4)
 
     def row(name, source, replaces, case, path, **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -1371,7 +1466,14 @@ def main() -> int:
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2, "serve"),
         row("K3", "vit3d_ensemble_tpu_torch/csrc/attention_layer.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
-            "train_layer"),
+            "train_layer",
+            # head_dim 64 at T=513 on K4's body (`csrc/attention.cu`), as the
+            # stretch path under `layer` runs it
+            stretch_case={**case_of(k3_stretch),
+                          "body": "vit3d_ensemble_tpu_torch/csrc/attention.cu",
+                          "launches": by_path["K3"]["stretch_layer"],
+                          "launches_on_k4_body":
+                              by_path["K3_on_K4"]["stretch_layer"]}),
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:118", k4, "stretch",
             device_ms=k4["device_ms"]),

@@ -65,6 +65,56 @@ def test_plain_attention_layer_matches_jax(B, T, D, H):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 2e-5), ("bfloat16", 0.05)])
+def test_plain_attention_layer_matches_jax_at_head_dim_64(dtype, atol):
+    """The stretch model's head_dim 64 at a scaled-down (B, T, D, H) =
+    (2, 70, 128, 2), where the port's sublayer takes K4's body and so K4's
+    plain version; JAX runs its `_attn_core_kernel` in interpret mode.  f32
+    within 2e-5 (measured 4.3e-6); bf16 within the JAX bf16 tolerance 0.05
+    + 0.05 * |ref| (measured 0.070 at outputs up to 9.8: K4 rounds the
+    unnormalised probabilities, the JAX kernel the normalised ones)."""
+    B, T, D, H = 2, 70, 128, 2
+    args = _layer_data(7, B, T, D)
+    # xavier-scaled projections, so that the scores stay near unit scale
+    args = (args[0], args[1] * (32 / D) ** 0.5, args[2],
+            args[3] * (32 / D) ** 0.5, args[4])
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_fused_attention_layer(
+            *(jnp.asarray(a, dtype=dtype) for a in args), H)
+    torch_dtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    out = attention_layer.fused_attention_layer(
+        *(t.to(torch_dtype) for t in _torch_args(*args)), H)
+    assert out.dtype == torch_dtype and out.shape == (B, T, D)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=atol, rtol=atol if dtype != np.float32
+                               else 1e-4)
+
+
+@pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
+                                   (24, False), (48, False), (256, False)])
+def test_check_takes_k4_head_dims(hd, ok):
+    """Head dims 32, 64 and 128 pass `_check` on K4's route (the QKV
+    buffer's views pass K4's stride checks); other head dims above 16 are
+    refused."""
+    H = 2
+    q, k, v = attention_layer._split(torch.zeros(2, 65, 3 * H * hd,
+                                                 dtype=torch.bfloat16))
+    if ok:
+        attention_layer._check(q, k, v, H)
+    else:
+        with pytest.raises(ValueError, match=f"head_dim {hd}"):
+            attention_layer._check(q, k, v, H)
+
+
+def test_check_refuses_misaligned_bf16_views_on_k4_route():
+    """K4 reads bf16 rows 16 bytes at a time: a QKV buffer whose views are
+    not 16-byte aligned raises, as `fused_attention._check` does."""
+    buf = torch.zeros(2, 65, 3 * 128 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_layer._check(*attention_layer._split(buf[..., 1:]), 2)
+
+
 def test_attention_layer_gradients_match_jax_vjp():
     """Every input's gradient under one fixed cotangent (as
     `tests/test_ops.py:107-137` compares them), of scale 0.1 so that the

@@ -197,7 +197,8 @@ def test_ensemble_runs_on_the_card(cuda):
 
 # (B, T, D, H): the K3 shapes of `chip_smoke.py` (conf 1-18 at B=512,
 # conf 19-22 at B=64, the stretch model at B=2), a tiny sequence, and
-# hd 16 / 64 with T over 4 and 5 shared-memory chunks of keys.
+# hd 16 / 64 with T over 4 and 5 shared-memory chunks of keys.  The hd-64
+# shapes (the stretch model's, and (2, 200, 128, 2)) take K4's body.
 K3_SHAPES = [(512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
              (64, 257, 16, 4), (64, 257, 8, 8), (2, 513, 768, 12),
              (2, 5, 16, 4), (3, 700, 64, 4), (2, 200, 128, 2)]
@@ -208,10 +209,16 @@ K3_SHAPES = [(512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
 def test_attention_layer_kernel_matches_plain(cuda, dtype, B, T, D, H):
     qkv = torch.randn(B, T, 3 * D, generator=cuda, device="cuda").to(dtype)
     q, k, v = attention_layer._split(qkv)
-    before = attention_layer.launches
+    before = (attention_layer.launches, attention_layer.launches_k4,
+              fused_attention.launches_k4)
     out = attention_layer.attention_core(q, k, v, H)
     torch.cuda.synchronize()
-    assert attention_layer.launches == before + 1
+    on_k4 = D // H in attention_layer.HEAD_DIMS_K4
+    # K3's counter counts every core launch, its second one those on K4's
+    # body; K4's own counter counts only `fused_attention`'s calls
+    assert (attention_layer.launches, attention_layer.launches_k4,
+            fused_attention.launches_k4) == (before[0] + 1, before[1] + on_k4,
+                                             before[2])
     assert out.dtype == dtype and out.shape == (B, T, D) and out.is_contiguous()
     _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype)
 
@@ -350,11 +357,15 @@ def test_attention_kernel_takes_other_layouts(cuda, dtype):
 
 # (N, D, M, active): the stretch path's rows at B=8 and B=1 at full width
 # and masked, a partial row tile, a narrower wide D, the top of the range,
-# a width the chunks do not divide, and M % 8 != 0.
+# a width the chunks do not divide, M % 8 != 0 (bf16: w2 read through a
+# zero-padded copy), no active column (the output is b2), one output tile
+# with the width mask inside it, one row, and D = 128 with M = 3072 (many
+# column tiles over a thin k).
 WIDE_K1_CASES = [(4104, 768, 3072, 3072), (4104, 768, 3072, 2072),
                  (513, 768, 3072, 3072), (70, 768, 256, 200),
                  (70, 128, 512, 512), (33, 1024, 96, 96), (50, 192, 100, 77),
-                 (40, 256, 2204, 2000), (40, 768, 64, 0)]
+                 (40, 256, 2204, 2000), (40, 768, 64, 0), (128, 128, 128, 77),
+                 (1, 768, 3072, 3072), (300, 128, 3072, 3072)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -372,6 +383,31 @@ def test_wide_fused_mlp_kernel_matches_plain(cuda, dtype, N, D, M, active):
     assert fused_mlp.launches == before + 1
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active), dtype)
+
+
+def test_wide_bf16_body_counts_one_and_raises(cuda):
+    """A bf16 wide call is two grid launches (fc1 + GELU, then fc2) and one
+    step of `fused_mlp.launches`; the wrapper raises on a tensor that is
+    not on the card, and the entry point refuses (no plain fallback) a base
+    that TMA cannot read."""
+    N, D, M = 70, 768, 256
+    x = torch.randn(N, D, generator=cuda, device="cuda").bfloat16()
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.bfloat16, D, M)
+    before = fused_mlp.launches
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, 200)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, 200), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="kernel launch on cpu"):
+        fused_mlp._launch(*(t.cpu() for t in (x, w1, b1, w2, b2)), 200)
+    odd = torch.empty(N * D + 1, device="cuda", dtype=torch.bfloat16)[1:].view(N, D)
+    odd.copy_(x)
+    with pytest.raises(RuntimeError, match="fused_mlp launch failed"):
+        err = fused_mlp._launch_wide_bf16(
+            odd, w1, b1, w2, b2, torch.empty_like(x), N, 200,
+            torch.cuda.current_stream().cuda_stream)
+        fused_mlp._build.check("fused_mlp", err)
+    assert fused_mlp.launches == before + 1
 
 
 def test_wide_gradients_recompute_through_plain(cuda):
@@ -402,19 +438,21 @@ def _small_stretch_config():
                      mlp_dim=256, num_layers=2, img_size=32, z_size=32)
 
 
-@pytest.mark.parametrize("impl,counts", [("auto", (2, 0, 0, 2)),
-                                         ("kernel", (2, 0, 0, 2)),
-                                         ("layer", (2, 0, 2, 0))])
+@pytest.mark.parametrize("impl,counts", [("auto", (2, 0, 0, 2, 0)),
+                                         ("kernel", (2, 0, 0, 2, 0)),
+                                         ("layer", (2, 0, 2, 0, 2))])
 def test_small_stretch_model_matches_plain_modules(cuda, impl, counts):
-    """f32: K1's wide body and K4 (or K3 under `layer`) in the model, with
-    the launches the code should make: (K1, K2, K3, K4)."""
+    """f32: K1's wide body and K4 (or K3 under `layer`, on K4's body at
+    head_dim 64) in the model, with the launches the code should make:
+    (K1, K2, K3, K4, K3 on K4's body)."""
     model = VisionTransformer3D(_small_stretch_config(), zero_head=False,
                                 vis=False)
     x = torch.randn(3, 32, 32, 32, 1, generator=cuda, device="cuda")
 
     def launches():
         return (fused_mlp.launches, fused_attention.launches,
-                attention_layer.launches, fused_attention.launches_k4)
+                attention_layer.launches, fused_attention.launches_k4,
+                attention_layer.launches_k4)
 
     attention.set_default_attention_impl(impl)
     try:

@@ -11,12 +11,21 @@
 // whose rows are `ld` elements apart, and ctx is written (B, T, D) row-major,
 // ready for the out projection.
 //
+// Which body serves which head_dim: this one serves hd in {1, 4, 16}, every
+// D / H of the 22 registry configs, at T = 65 and 257.  hd in {32, 64, 128}
+// (the stretch model's 64 at T = 513) goes to K4's tensor-core body in
+// `attention.cu`, which takes the same (B, H, T, hd) views of the QKV buffer
+// through their strides and writes (B, T, H, hd), the (B, T, D) layout this
+// kernel writes (`ops/attention_layer.py` routes it).  Why: at T = 513 and
+// hd = 64 this CUDA-core body took 0.56 ms a layer on an H100 (B = 8, 12
+// heads) against K4's 0.053 ms of device time; at T = 65 and hd <= 16 it
+// beats the library's fused attention (0.043 ms against 0.144 at hd = 1).
+//
 // What bounds it on the H100: bytes at the model's shapes.  The function
 // reads q, k, v and writes ctx, 4*T*D values a volume, against 4*T*T*D
 // operations: T/2 operations per byte in bf16, far below the card's ratio
-// at T = 65 and 257; at T = 513 with hd = 64 it is near the line for f32
-// CUDA cores.  hd in {1, 4} is too thin for tensor cores, so this kernel
-// runs on CUDA cores for every hd.
+// at T = 65 and 257.  hd in {1, 4} is too thin for tensor cores, so this
+// body runs on CUDA cores.
 //
 // Design: a block owns one volume, a group of G heads and a tile of R query
 // rows, one thread per (head, row).  R splits T into near-equal tiles of at
@@ -36,7 +45,7 @@
 //
 // Layout: q, k, v point at (B, T, D) views with row stride `ld` and batch
 // stride `bs` (elements) and unit column stride; o is (B, T, D) contiguous.
-// f32 or bf16; hd in {1, 4, 16, 64}, every D / H of the model registry.
+// f32 or bf16; hd in {1, 4, 16}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,7 +195,7 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v, void* 
   switch (hd) {
 #define CASE(HD) \
   case HD: return launch<T, HD>(q, k, v, o, b, t, h, ld, bs, scale, stream);
-    CASE(1) CASE(4) CASE(16) CASE(64)
+    CASE(1) CASE(4) CASE(16)
 #undef CASE
     default: return cudaErrorInvalidValue;
   }

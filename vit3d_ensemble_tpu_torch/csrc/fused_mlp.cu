@@ -31,22 +31,41 @@
 // D = 768, M = 3072).  What bounds it there: operations.  M / D is 4, so the
 // intermediate is no longer the larger part of the bytes, and 4*N*D*M
 // multiply-adds at the tensor-core peak (39 us at N = 4,104 in bf16) exceed
-// the time of every byte.  The plan above does not carry over: a (64, D) f32
-// accumulator is 196 KB at D = 768, three quarters of an SM's registers, and
-// the x tile no longer fits registers either.  Of the plans that do fit, a
-// block per (row tile, slab of output columns) computes fc1 once per slab, a
-// multiple of the operations that bound the kernel, and a cluster of blocks
-// that shares h through distributed shared memory is a larger design than a
-// first version needs.  So the wide bodies shorten the row tile until the
-// full-D accumulator fits the registers, and pay for it by streaming both
-// weight matrices through every block (out of L2, which holds them):
-//   * bf16: a tile of 32 rows, 8 warps, chunks of 32 hidden columns.  The x
-//     tile stays in shared memory; fc1 loops over D with all 8 warps on one
-//     (32, 32) chunk of h (2 row groups x 4 column tiles), which passes
-//     through shared memory as bf16 (K1's rounding point) to fc2, where a
-//     warp owns 16 rows and a quarter of the D output columns: 96 f32
-//     accumulators a thread at D = 768.  w1's chunk streams in under fc2 and
-//     w2's under fc1 (cp.async, one group each).
+// the time of every byte.  The narrow plan does not carry over: a full-D f32
+// accumulator is 196 KB for 64 rows at D = 768, three quarters of an SM's
+// registers.  An earlier body of this kernel kept it by cutting the tile to
+// 32 rows, so every block streamed both 4.7 MB weight matrices out of L2
+// (~1.2 GB a call), unhidden, on mma.sync: 0.47 ms on an H100 against 0.09
+// for the library's linear -> gelu -> linear.
+//   * bf16 (`wide_gemm_kernel`): two GEMM phases, with h going through L2.
+//     Phase 1, fc1 + bias + exact erf GELU, rounded once to bf16 (the
+//     rounding point of pallas_mlp.py:93), columns at or past `active`
+//     written as 0, into an (N, M8) scratch that the wrapper allocates (M8:
+//     M rounded up to 8), over the first ceil(active / 128) column tiles of
+//     128 x 128.  Phase 2, fc2 + b2 from that scratch, on 128 x 192 tiles
+//     where those fill every SM (one wave on 132 SMs at N = 4,104, D = 768)
+//     and 128 x 64 where they do not (N = 513), its k-loop stopped at
+//     `active` rounded up to 64 (the scratch holds zeros past `active`).
+//     Why h goes through L2: keeping it on chip needs a (rows, D) f32
+//     accumulator, so 32-row tiles again, or fc1 recomputed for every slab
+//     of output columns, and 64-row tiles would still leave 67 of 132 SMs
+//     idle at N = 4,104; the scratch is 25 MB there, which the 50 MB L2
+//     holds between the phases, and its write and read are ~2 % of the
+//     operations' time.  Each phase is a warp-specialised Hopper GEMM: one
+//     producer thread keeps a ring of shared-memory stages loading with TMA
+//     (128-byte swizzle, completion on mbarriers, zero fill past the edges,
+//     so ragged N needs no masking), two consumer warpgroups run
+//     wgmma.mma_async m64nBNk16 straight from those stages, each on 64 of the
+//     tile's rows, `setmaxnreg` moves registers from the producer's
+//     warpgroup to theirs, the block is persistent (the next tile's loads
+//     run under this one's epilogue), and the epilogue writes bf16 through a
+//     swizzled staging tile with TMA stores (clipped at the edges).  fc2's
+//     tile widths come from an ablation on an H100 at the stretch shape:
+//     wider tiles need fewer k-steps and loads an operation, until they no
+//     longer fill the SMs.  M % 8 != 0:
+//     w2's row stride is then not a multiple of 16 bytes, which TMA refuses,
+//     so the wrapper hands the kernel a zero-padded (D, M8) copy of w2, made
+//     only for such M (no registry config has one).
 //   * f32: a tile of 16 rows, 256 threads, chunks of 16 hidden columns, CUDA
 //     cores with 16-byte shared-memory reads; a thread owns one h entry in
 //     fc1 and one row by D / 16 columns in fc2.  The chunks are staged with
@@ -64,6 +83,11 @@
 // axis: on an H100, in one call against the bodies without it, the offsets
 // and the width held in registers cost them registers and time beyond the
 // grid dimension, so a stacked call at a wide D is refused.
+
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+
+#include <algorithm>
+#include <atomic>
 
 #include "mlp_common.cuh"
 
@@ -345,164 +369,461 @@ fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
 // ---------------------------------------------------------------------------
 // The wide regime: D a multiple of 64, 128 <= D <= 1024 (see the note above).
+// bf16: two warp-specialised GEMM phases on wgmma, fed by TMA.
 // ---------------------------------------------------------------------------
 
-constexpr int W_ROWS = 32;     // token rows per block
-constexpr int W_CHUNK = 32;    // hidden columns per step
-constexpr int W_THREADS = 256; // 8 warps: 2 row groups x 4 column groups
-constexpr int W_CP = W_CHUNK + 8;  // w2 and h rows: 16 bytes of pad
+constexpr int G_BK = 64;       // k of a stage: 64 bf16 = one 128-byte swizzle row
+constexpr int G_BM = 128;      // rows of a tile
+constexpr int G_THREADS = 384; // warpgroup 0 the producer, 1 and 2 the consumers
+constexpr int FC1_BN = 128;    // fc1's tile: 128 x 128 of h
+// fc2's tile: 128 x 192 of the output where those tiles fill every SM (the
+// stretch model's N = 4,104 at D = 768: 132 tiles), else 128 x 64 (N = 513:
+// 60 tiles, where 128 x 192 would leave 112 of 132 SMs idle)
+constexpr int FC2_BN_WIDE = 192, FC2_BN_NARROW = 64;
 
-constexpr size_t wide_tc_smem_bytes(int d) {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * W_ROWS * (d + 8) + d * W_CP + W_ROWS * W_CP) +
-         sizeof(float) * W_CHUNK;
+// The stages fill the shared memory left after the epilogue's staging tile.
+template <int BN>
+struct GemmShape {
+  static constexpr int A_BYTES = G_BM * G_BK * 2;
+  static constexpr int B_BYTES = BN * G_BK * 2;
+  static constexpr int C_BYTES = G_BM * BN * 2;
+  static constexpr int STAGES_FIT = (225 * 1024 - 2048 - C_BYTES - 256) / (A_BYTES + B_BYTES);
+  static constexpr int STAGES = STAGES_FIT < 8 ? STAGES_FIT : 8;
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * (A_BYTES + B_BYTES) + C_BYTES + 2 * STAGES * sizeof(uint64_t);
+  static_assert(STAGES >= 2, "the ring needs two stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage w1[c0:c0+W_CHUNK, :] and b1[c0:c0+W_CHUNK], zero past `active`.
-__device__ __forceinline__ void wide_stage_w1(__nv_bfloat16* w1s, float* b1s,
-                                              const __nv_bfloat16* w1,
-                                              const __nv_bfloat16* b1, int d, int c0,
-                                              int active) {
-  const int xp = d + 8, pieces = d / 8;
-  for (int i = threadIdx.x; i < W_CHUNK * pieces; i += W_THREADS) {
-    const int c = i / pieces, p = i % pieces;
-    const bool live = c0 + c < active;
-    cp_async16(w1s + c * xp + p * 8, live ? w1 + (size_t)(c0 + c) * d + p * 8 : w1,
-               live ? 16 : 0);
-  }
-  for (int c = threadIdx.x; c < W_CHUNK; c += W_THREADS)
-    b1s[c] = c0 + c < active ? __bfloat162float(b1[c0 + c]) : 0.f;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-// Stage w2[:, c0:c0+W_CHUNK], zero past `active`: 16-byte copies when
-// m % 8 == 0 (every piece then starts 16-byte aligned), else by element.
-__device__ __forceinline__ void wide_stage_w2(__nv_bfloat16* w2s, const __nv_bfloat16* w2,
-                                              int d, int m, int c0, int active) {
-  if (m % 8 == 0) {
-    for (int i = threadIdx.x; i < d * (W_CHUNK / 8); i += W_THREADS) {
-      const int o = i / (W_CHUNK / 8), col = c0 + (i % (W_CHUNK / 8)) * 8;
-      const int live = min(max(active - col, 0), 8);
-      cp_async16(w2s + o * W_CP + col - c0, live ? w2 + (size_t)o * m + col : w2, 2 * live);
-    }
-  } else {
-    for (int i = threadIdx.x; i < d * W_CHUNK; i += W_THREADS) {
-      const int o = i / W_CHUNK, c = i % W_CHUNK;
-      w2s[o * W_CP + c] =
-          c0 + c < active ? w2[(size_t)o * m + c0 + c] : __float2bfloat16(0.f);
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  A wait
+// that spins for 2^35 clocks (~20 s) traps, so a pipeline fault fails the
+// launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
     }
   }
 }
 
-// NT: the output tiles of 8 columns a warp may own, so D <= 32 * NT.
-template <int NT>
-__global__ void __launch_bounds__(W_THREADS)
-fused_mlp_wide_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ w1,
-                         const __nv_bfloat16* __restrict__ b1,
-                         const __nv_bfloat16* __restrict__ w2,
-                         const __nv_bfloat16* __restrict__ b2,
-                         __nv_bfloat16* __restrict__ out, int n, int d, int m, int active) {
-  const int xp = d + 8;  // x and w1 rows: D values + 16 bytes of pad
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [W_ROWS][xp]
-  __nv_bfloat16* w1s = xs + W_ROWS * xp;                           // [W_CHUNK][xp]
-  __nv_bfloat16* w2s = w1s + W_CHUNK * xp;                         // [d][W_CP]
-  __nv_bfloat16* hs = w2s + d * W_CP;                              // [W_ROWS][W_CP]
-  float* b1s = reinterpret_cast<float*>(hs + W_ROWS * W_CP);       // [W_CHUNK]
+// One (64 columns, `rows`) box of a 2-d tensor map into shared memory; the
+// bytes count toward `bar`'s transaction (zero-filled ones past the edges too).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rg = warp / 4, cg = warp % 4;  // row group of 16, column group
-  const int row0 = blockIdx.x * W_ROWS;
-  const int nt = d / 32;        // this warp's output tiles: columns o0 + 8*j
-  const int o0 = cg * (d / 4);
+// One (64 columns, 64 rows) box from shared memory to the tensor map; the
+// hardware clips what lies past the edges.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
+                                          int row) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(col), "r"(row)
+               : "memory");
+}
 
-  // the x tile, zero past the last row; it lands with w1's first chunk
-  for (int i = threadIdx.x; i < W_ROWS * (d / 8); i += W_THREADS) {
-    const int r = i / (d / 8), p = i % (d / 8);
-    const bool live = row0 + r < n;
-    cp_async16(xs + r * xp + p * 8, live ? x + (size_t)(row0 + r) * d + p * 8 : x,
-               live ? 16 : 0);
-  }
-  wide_stage_w1(w1s, b1s, w1, b1, d, 0, active);
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
 
-  float acc[NT][4];
+// The issuing thread's TMA stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The wgmma descriptor of a K-major operand tile that TMA loaded with the
+// 128-byte swizzle: rows of 128 bytes (64 bf16 of k), 8-row groups 1024 bytes
+// apart (SBO), swizzle mode 1 (128B).  The tile starts 1024-byte aligned; a
+// k-step of 16 adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x N, f32) += a (64 x 16, K-major in shared memory) * b (N x 16,
+// K-major in shared memory)
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<192>(float (&d)[96], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin the accumulators: the compiler may not move their reads or writes
+// across this point.  Around every wgmma batch, so that no other
+// instruction touches them while one is in flight (ptxas would serialise
+// the wgmmas otherwise).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  const __nv_bfloat16* xr = xs + (16 * rg + g) * xp + 2 * t;   // x rows g, g + 8
-  const __nv_bfloat16* w1r = w1s + (8 * cg + g) * xp + 2 * t;  // hidden column g
-  __nv_bfloat16* hw = hs + (16 * rg + g) * W_CP + 8 * cg + 2 * t;
-  const __nv_bfloat16* hr = hs + (16 * rg + g) * W_CP + 2 * t;
+// out = epilogue(A @ B^T) over (128, BN) tiles, both operands K-major bf16
+// behind TMA maps, k = 64 * k_tiles, a tile index t at row tile t / col_tiles
+// and column tile t % col_tiles.  Epilogue: + bias[col] (zero at and past
+// `cols`); GELU: then exact erf GELU, and columns at or past `cols` written
+// as 0 (fc1: `cols` = the width mask); else (fc2) bias only.  The result
+// goes out in bf16, one rounding, through a 128-byte-swizzled staging tile
+// and TMA stores.
+//
+// Persistent: block b takes tiles b, b + gridDim.x, ...  Warpgroup 0 gives
+// up registers (setmaxnreg) and one of its threads keeps a ring of STAGES
+// (A, B) stages loading with TMA across the block's tiles, k-step `it` of
+// the block's sequence into stage it % STAGES, each stage tracked by a
+// `full` mbarrier (its bytes arrived) and an `empty` one (both consumers are
+// done with it), so the next tile's loads run under this tile's epilogue.
+// Consumer warpgroup c takes the extra registers and runs wgmma on rows
+// 64c .. 64c+63 of the tile, one k-step's batch in flight behind the next: a
+// stage is released once the wgmma that read it has retired.
+template <int BN, bool GELU>
+__global__ void __launch_bounds__(G_THREADS, 1)
+wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const __grid_constant__ CUtensorMap map_out,
+                 const __nv_bfloat16* __restrict__ bias, int cols, int k_tiles, int tiles,
+                 int col_tiles) {
+  using S = GemmShape<BN>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
+  unsigned char* smem = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
+  unsigned char* a_st = smem;                        // [STAGES][128][64]
+  unsigned char* b_st = a_st + STAGES * S::A_BYTES;  // [STAGES][BN][64]
+  unsigned char* c_st = b_st + STAGES * S::B_BYTES;  // [2][BN/64][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(c_st + S::C_BYTES);
+  uint64_t* empty = full + STAGES;
 
-  for (int c0 = 0; c0 < active; c0 += W_CHUNK) {
-    wide_stage_w2(w2s, w2, d, m, c0, active);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);  // w1's chunk (and x) landed
-    __syncthreads();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-    // fc1: this warp's (16, 8) tile of h = x @ w1c^T.  Columns past `active`
-    // have zero weights and bias, so h = 0 there and gelu(0) = 0.
-    // Four partial sums over interleaved k-steps, so that one mma need not
-    // wait for the one before it (D is a multiple of 64).
-    float hp[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) hp[u][0] = hp[u][1] = hp[u][2] = hp[u][3] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += 64) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + 16 * u;
-        const uint32_t a[4] = {lds32(xr + k), lds32(xr + 8 * xp + k), lds32(xr + k + 8),
-                               lds32(xr + 8 * xp + k + 8)};
-        mma_bf16(hp[u], a, lds32(w1r + k), lds32(w1r + k + 8));
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival from each consumer warpgroup
     }
-    float h[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = (hp[0][e] + hp[1][e]) + (hp[2][e] + hp[3][e]);
-    // + b1, GELU in f32, rounded to bf16 (pallas_mlp.py:93), to shared memory
-    const float bb0 = b1s[8 * cg + 2 * t], bb1 = b1s[8 * cg + 2 * t + 1];
-    *reinterpret_cast<uint32_t*>(hw) = pack_bf16(gelu_erf(h[0] + bb0), gelu_erf(h[1] + bb1));
-    *reinterpret_cast<uint32_t*>(hw + 8 * W_CP) =
-        pack_bf16(gelu_erf(h[2] + bb0), gelu_erf(h[3] + bb1));
-    __syncthreads();  // h is whole; every warp is done with w1s and b1s
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    if (c0 + W_CHUNK < active) wide_stage_w1(w1s, b1s, w1, b1, d, c0 + W_CHUNK, active);
-    asm volatile("cp.async.commit_group;\n" ::);  // an empty group after the last chunk
-    asm volatile("cp.async.wait_group 1;\n" ::);  // w2's chunk landed
-    __syncthreads();
-
-    // fc2: acc += gelu(h) @ w2c^T over this warp's 16 rows and nt column tiles
-#pragma unroll
-    for (int s = 0; s < W_CHUNK / 16; ++s) {
-      const uint32_t ha[4] = {lds32(hr + 16 * s), lds32(hr + 8 * W_CP + 16 * s),
-                              lds32(hr + 16 * s + 8), lds32(hr + 8 * W_CP + 16 * s + 8)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j < nt) {
-          const __nv_bfloat16* wp = w2s + (o0 + 8 * j + g) * W_CP + 16 * s + 2 * t;
-          mma_bf16(acc[j], ha, lds32(wp), lds32(wp + 8));
+  if (wg == 0) {
+    // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int row0 = (t / col_tiles) * G_BM, col0 = (t % col_tiles) * BN;
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // at once on the first lap
+          mbar_expect_tx(&full[s], S::A_BYTES + S::B_BYTES);
+          tma_load(a_st + s * S::A_BYTES, &map_a, &full[s], kt * G_BK, row0);
+          tma_load(b_st + s * S::B_BYTES, &map_b, &full[s], kt * G_BK, col0);
         }
       }
     }
-    __syncthreads();  // every warp is done with w2s and hs before they are refilled
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-
-  const int r_lo = row0 + 16 * rg + g, r_hi = r_lo + 8;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int warp = tid / 32, lane = tid % 32;
+    unsigned char* stage_c = c_st + c * (BN / 64) * 8192;  // this warpgroup's 64 rows
+    float acc[BN / 2];
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int row0 = (t / col_tiles) * G_BM, col0 = (t % col_tiles) * BN;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < nt) {
-      const int o = o0 + 8 * j + 2 * t;
-      const float bb0 = __bfloat162float(b2[o]), bb1 = __bfloat162float(b2[o + 1]);
-      if (r_lo < n)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r_lo * d + o) =
-            pack_bf16(acc[j][0] + bb0, acc[j][1] + bb1);
-      if (r_hi < n)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r_hi * d + o) =
-            pack_bf16(acc[j][2] + bb0, acc[j][3] + bb1);
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint64_t da = sw128_desc(a_st + s * S::A_BYTES + c * 8192);
+        const uint64_t db = sw128_desc(b_st + s * S::B_BYTES);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G_BK / 16; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // the k-step before this one has been read
+        fence_regs(acc);
+        if (kt > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (k_tiles > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // Epilogue.  The last tile's stores have read the staging tile.
+      if (tid == 0) tma_store_wait_read();
+      bar_sync(1 + c, 128);
+      // Accumulator layout of m64nBNk16: register 4j + 2i + e holds row
+      // 16 * warp + lane / 4 + 8i, column 8j + 2 * (lane % 4) + e.
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j + 2 * (lane % 4);
+        const float bb0 = col < cols ? __bfloat162float(bias[col]) : 0.f;
+        const float bb1 = col + 1 < cols ? __bfloat162float(bias[col + 1]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float v0 = acc[4 * j + 2 * i] + bb0, v1 = acc[4 * j + 2 * i + 1] + bb1;
+          if constexpr (GELU) {
+            // exact erf GELU in f32, rounded once to bf16 (pallas_mlp.py:93);
+            // columns past the width mask are exact zeros
+            v0 = col < cols ? gelu_erf(v0) : 0.f;
+            v1 = col + 1 < cols ? gelu_erf(v1) : 0.f;
+          }
+          // the staging tile of 64 columns is swizzled as TMA's 128-byte
+          // mode expects: 16-byte chunk q of row r lies at chunk q ^ (r % 8)
+          const int r = 16 * warp + lane / 4 + 8 * i;
+          const int chunk = (j % 8) ^ (r % 8);
+          *reinterpret_cast<uint32_t*>(stage_c + (j / 8) * 8192 + r * 128 + chunk * 16 +
+                                       (lane % 4) * 4) = pack_bf16(v0, v1);
+        }
+      }
+      // the generic-proxy writes above, visible to TMA; then one thread stores
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(1 + c, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int u = 0; u < BN / 64; ++u)
+          tma_store(&map_out, stage_c + u * 8192, col0 + 64 * u, row0 + 64 * c);
+        tma_store_commit();
+      }
     }
+    if (tid == 0) tma_store_wait_read();  // before the block's shared memory goes
   }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not the runtime: it is reached
+// through the runtime's entry-point query, so the library needs no -lcuda.  The function is looked
+// up once; the maps themselves are encoded on every call (the caching
+// allocator hands the same addresses to other tensors).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major bf16 matrix (rows, cols) with row stride `ld`
+// elements, read or written in boxes of 64 columns by `box_rows` rows with the
+// 128-byte swizzle; out-of-range elements load as zero.  TMA needs a 16-byte
+// aligned base and a row stride that is a multiple of 16 bytes.
+bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0)
+    return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)G_BK, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What the host asks the runtime once a device, not on every call: the SM
+// count, and (in launch_gemm) the raised shared-memory limit of each
+// instantiation.  Devices past MAX_DEVICES are asked every time.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> cached[MAX_DEVICES];
+  const bool cacheable = device >= 0 && device < MAX_DEVICES;
+  if (cacheable && (*sms = cached[device].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && cacheable) cached[device].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// out (rows, out_cols) = epilogue(A @ B^T) over k_tiles of 64, on a
+// persistent grid of at most one block an SM.
+template <int BN, bool GELU>
+cudaError_t launch_gemm(int device, const void* a, int a_cols, int a_ld, const void* b,
+                        int b_rows, int b_cols, int b_ld, void* out, int out_cols, int out_ld,
+                        const void* bias, int cols, int rows, int k_tiles, int col_tiles,
+                        int sms, cudaStream_t stream) {
+  using S = GemmShape<BN>;
+  CUtensorMap map_a, map_b, map_out;
+  if (!encode_map(&map_a, a, rows, a_cols, a_ld, G_BM) ||
+      !encode_map(&map_b, b, b_rows, b_cols, b_ld, BN) ||
+      !encode_map(&map_out, out, rows, out_cols, out_ld, 64))
+    return cudaErrorInvalidValue;
+  auto* kernel = wide_gemm_kernel<BN, GELU>;
+  static std::atomic<unsigned long long> smem_set{0};  // one bit a device
+  const unsigned long long bit = device >= 0 && device < MAX_DEVICES ? 1ull << device : 0;
+  if (bit == 0 || !(smem_set.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const int tiles = col_tiles * ((rows + G_BM - 1) / G_BM);
+  kernel<<<std::min(tiles, sms), G_THREADS, S::SMEM, stream>>>(
+      map_a, map_b, map_out, static_cast<const __nv_bfloat16*>(bias), cols, k_tiles, tiles,
+      col_tiles);
+  return cudaGetLastError();
 }
 
 constexpr int F_ROWS = 16;   // token rows per block
@@ -665,23 +986,6 @@ cudaError_t launch_tc(const void* x, const void* w1, const void* b1, const void*
                                         models, stream);
 }
 
-template <int NT>
-cudaError_t launch_wide_tc(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* out, int n, int d, int m, int active,
-                           cudaStream_t stream) {
-  const size_t smem = wide_tc_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_wide_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  using bf16 = __nv_bfloat16;
-  const dim3 grid((n + W_ROWS - 1) / W_ROWS);
-  fused_mlp_wide_tc_kernel<NT><<<grid, W_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), n,
-      d, m, active);
-  return cudaGetLastError();
-}
-
 template <int JMAX>
 cudaError_t launch_wide_f32(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, void* out, int n, int d, int m, int active,
@@ -698,18 +1002,15 @@ cudaError_t launch_wide_f32(const void* x, const void* w1, const void* b1, const
   return cudaGetLastError();
 }
 
-// The wide regime's kernels are instantiated per quarter of its range: the
+// The f32 wide kernel is instantiated per quarter of its range: the
 // accumulators of a thread are sized for D up to 256, 512, 768 and 1024.
 bool is_wide(int d) { return d > 64 && d <= 1024 && d % 64 == 0; }
 
-cudaError_t dispatch_wide(int dtype, const void* x, const void* w1, const void* b1,
-                          const void* w2, const void* b2, void* out, int n, int d, int m,
-                          int active, cudaStream_t stream) {
-#define CASE(Q)                                                                            \
-  case Q:                                                                                  \
-    return dtype == 1                                                                      \
-               ? launch_wide_tc<8 * Q>(x, w1, b1, w2, b2, out, n, d, m, active, stream)    \
-               : launch_wide_f32<16 * Q>(x, w1, b1, w2, b2, out, n, d, m, active, stream);
+cudaError_t dispatch_wide_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                              const void* b2, void* out, int n, int d, int m, int active,
+                              cudaStream_t stream) {
+#define CASE(Q) \
+  case Q: return launch_wide_f32<16 * Q>(x, w1, b1, w2, b2, out, n, d, m, active, stream);
   switch ((d + 255) / 256) {
     CASE(1) CASE(2) CASE(3) CASE(4)
     default: return cudaErrorInvalidValue;
@@ -759,13 +1060,52 @@ extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
   if (err != cudaSuccess) return (int)err;
   if (n == 0 || models == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if ((dtype == 0 || dtype == 1) && is_wide(d)) {
-    if (models != 1 || active_p != nullptr) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_wide(dtype, x, w1, b1, w2, b2, out, n, d, m, active, stream);
+  if (is_wide(d)) {  // bf16 takes fused_mlp_wide_launch
+    if (dtype != 0 || models != 1 || active_p != nullptr) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_wide_f32(x, w1, b1, w2, b2, out, n, d, m, active, stream);
   }
   if (dtype == 0) return (int)dispatch_f32(d, MLP_ARGS);
   if (dtype == 1) return (int)dispatch_bf16(d, MLP_ARGS);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 wide regime: one model, a host width.  x (n, d), w1 (m, d), b1
+// (m), w2 (d, m) with row stride ld_w2 (m, or m rounded up to 8 for a
+// zero-padded copy: TMA needs 16-byte row strides), b2 (d), h (n, ld_h) the
+// scratch for gelu(fc1) with ld_h = m rounded up to 8, out (n, d); every
+// base 16-byte aligned.  Two launches on `stream`: fc1 + GELU into h over the
+// first ceil(active / 128) column tiles, then fc2 + b2 over
+// ceil(active / 64) k-tiles of h.  Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for a shape or layout it does not take
+// (nothing launched).  n == 0 launches nothing.
+extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, const void* b1,
+                                     const void* w2, int ld_w2, const void* b2, void* h,
+                                     int ld_h, void* out, int n, int d, int m, int active,
+                                     void* stream_) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!is_wide(d) || m < 1 || ld_w2 < m || ld_h < m || ld_h % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  int sms = 0;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  active = std::min(std::max(active, 0), m);
+  if (active > 0) {
+    err = launch_gemm<FC1_BN, true>(device, x, d, d, w1, m, d, d, h, ld_h, ld_h, b1, active,
+                                    n, d / G_BK, (active + FC1_BN - 1) / FC1_BN, sms, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int k_tiles = (active + G_BK - 1) / G_BK;
+  const int row_tiles = (n + G_BM - 1) / G_BM;
+  const int wide_cols = (d + FC2_BN_WIDE - 1) / FC2_BN_WIDE;
+  if (row_tiles * wide_cols >= sms)
+    return (int)launch_gemm<FC2_BN_WIDE, false>(device, h, ld_h, ld_h, w2, d, m, ld_w2, out, d,
+                                                d, b2, d, n, k_tiles, wide_cols, sms, stream);
+  return (int)launch_gemm<FC2_BN_NARROW, false>(device, h, ld_h, ld_h, w2, d, m, ld_w2, out, d,
+                                                d, b2, d, n, k_tiles, d / FC2_BN_NARROW, sms,
+                                                stream);
 }
 
 extern "C" const char* fused_mlp_error_string(int err) {

@@ -100,11 +100,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, argtypes) -> ctypes._CFuncPtr:
-    """`<name>_launch` of `csrc/<name>.cu`, typed: every pointer and the
-    stream as c_void_p, so ctypes never cuts them to 32 bits.  The library
-    keeps one function object per symbol, so the types are set once."""
-    fn = getattr(load(name), f"{name}_launch")
+def entry(name: str, argtypes, symbol: str = "") -> ctypes._CFuncPtr:
+    """`symbol` (by default `<name>_launch`) of `csrc/<name>.cu`, typed:
+    every pointer and the stream as c_void_p, so ctypes never cuts them to
+    32 bits.  The library keeps one function object per symbol, so the
+    types are set once."""
+    fn = getattr(load(name), symbol or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -3,9 +3,19 @@ attention -> out projection, with the attention core as a CUDA kernel.
 
 Counterpart of `vit3d_ensemble_tpu/ops/pallas_attention_layer.py`.  The two
 projections stay `F.linear`, as the JAX package leaves them to XLA; the
-kernel (`csrc/attention_layer.cu`) reads q, k and v in place from the
-(B, T, 3D) QKV output and writes the (B, T, D) context for the out
-projection.  Its source note says what bounds it on the H100.
+attention core reads q, k and v in place from the (B, T, 3D) QKV output and
+writes the (B, T, D) context for the out projection.  Two bodies serve it,
+by head_dim:
+
+  * hd in `HEAD_DIMS` (1, 4, 16; every D / H of the 22 registry configs):
+    K3's own CUDA-core body, `csrc/attention_layer.cu`;
+  * hd in `HEAD_DIMS_K4` (32, 64, 128; the stretch model's 64): K4's
+    tensor-core body, `csrc/attention.cu`, on the (B, H, T, hd) views of the
+    QKV buffer, writing (B, T, H, hd), which is the (B, T, D) context, so no
+    copy surrounds it.  Its plain version is K4's, `_plain_attention_k4`,
+    which rounds where that kernel rounds.
+
+Each source note says what bounds its kernel on the H100.
 
 Weights use the torch.nn.Linear layout: wqkv (3D, D) is the query, key and
 value weights stacked in that order, bqkv (3D,), wout (D, D), bout (D,).
@@ -27,11 +37,16 @@ import torch.nn.functional as F
 
 from vit3d_ensemble_tpu_torch.ops import _build, fused_attention
 
-#: K3 launches in this process; the wrapper adds one per kernel launch.
+#: Attention-core launches of the sublayer in this process, on either body;
+#: the wrapper adds one per kernel launch.
 launches = 0
+#: Those of them that took K4's body (head_dim in HEAD_DIMS_K4).
+launches_k4 = 0
 
-#: head dims the kernel is instantiated for: every D / H of the registry.
-HEAD_DIMS = (1, 4, 16, 64)
+#: head dims K3's own body is instantiated for: every D / H of the registry.
+HEAD_DIMS = (1, 4, 16)
+#: head dims served by K4's tensor-core body.
+HEAD_DIMS_K4 = fused_attention.HEAD_DIMS_K4
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,17 +57,21 @@ def _split(qkv: torch.Tensor):
     return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
 
 
+def _heads(a, n_heads):
+    """(B, T, D) -> the (B, H, T, hd) view, no copy."""
+    return a.unflatten(-1, (n_heads, a.shape[-1] // n_heads)).transpose(1, 2)
+
+
 def _plain_attention_core(q, k, v, n_heads):
-    """The kernel's function in plain PyTorch: q, k, v (B, T, D) ->
-    ctx (B, T, D), K2's plain version on the per-head views (scores,
-    softmax and context in f32, the output rounded once, as the kernel
-    does)."""
+    """The kernels' function in plain PyTorch: q, k, v (B, T, D) ->
+    ctx (B, T, D), the plain version of the body that serves the head_dim
+    (`fused_attention._plain`) on the per-head views.  At head_dim <= 16,
+    K2's (scores, softmax and context in f32, the output rounded once, as
+    K3's body does); above, K4's (in bf16 the unnormalised probabilities
+    are rounded before the second product, as K4's body does; in f32 the
+    same function)."""
     B, T, D = q.shape
-
-    def heads(a):
-        return a.unflatten(-1, (n_heads, D // n_heads)).transpose(1, 2)
-
-    ctx = fused_attention._plain_attention(heads(q), heads(k), heads(v))
+    ctx = fused_attention._plain(*(_heads(t, n_heads) for t in (q, k, v)))
     return ctx.transpose(1, 2).reshape(B, T, D)
 
 
@@ -85,25 +104,39 @@ def _check(q, k, v, n_heads) -> None:
     if n_heads <= 0 or D % n_heads:
         raise ValueError(f"attention_layer: {n_heads} heads do not divide "
                          f"hidden size {D}")
-    if D // n_heads not in HEAD_DIMS:
-        raise ValueError(f"attention_layer: head_dim {D // n_heads} is not one "
-                         f"of {HEAD_DIMS}")
+    hd = D // n_heads
+    if hd not in HEAD_DIMS + HEAD_DIMS_K4:
+        raise ValueError(f"attention_layer: head_dim {hd} is not one of "
+                         f"{HEAD_DIMS} (K3's body) or {HEAD_DIMS_K4} (K4's)")
     if q.stride(2) != 1:
         raise ValueError("attention_layer: q, k, v need unit column stride")
     if B >= 2 ** 31 or T >= 2 ** 31:
         raise ValueError("attention_layer: more than 2**31 - 1 volumes or tokens")
+    if hd in HEAD_DIMS_K4:
+        # K4's own checks on the per-head views: in bf16 16-byte aligned
+        # addresses and strides, at most MAX_TOKENS_K4 tokens
+        fused_attention._check(*(_heads(t, n_heads) for t in (q, k, v)))
 
 
 def _launch(q, k, v, n_heads):
-    global launches
+    global launches, launches_k4
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_layer: kernel launch on {q.device}")
     _check(q, k, v, n_heads)
+    B, T, D = q.shape
+    if D // n_heads in HEAD_DIMS_K4:
+        # K4 writes (B, T, H, hd): the (B, T, D) context itself
+        out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
+        if B * T:
+            fused_attention.k4_into(*(_heads(t, n_heads) for t in (q, k, v)),
+                                    out.view(B, T, n_heads, D // n_heads))
+            launches += 1
+            launches_k4 += 1
+        return out
     fn = _build.entry("attention_layer",
                       [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_longlong] * 2
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    B, T, D = q.shape
     hd = D // n_heads
     out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -151,25 +151,35 @@ def _as_bhsd(t):
     return t.flatten(0, t.dim() - 4)
 
 
-def _launch_k4(q, k, v):
-    global launches_k4
-    shape = q.shape
-    q, k, v = (_as_bhsd(t) for t in (q, k, v))
+def k4_into(q, k, v, out) -> None:
+    """Launch K4's kernel on (B, H, S, hd) views q, k, v (checked by
+    `_check`, B * H * S > 0), writing the context into `out`, a contiguous
+    (B, S, H, hd) tensor.  Counts nothing: each caller counts its own
+    launches (this module's `launches_k4`, and K3's wrapper, whose head
+    dims above 16 take this body)."""
     B, H, S, hd = q.shape
     if B * H >= 2 ** 31:
         raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
-    if B * H * S == 0:          # nothing to compute, nothing launched
-        return q.new_empty(shape)
     fn = _build.entry("attention",
                       [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_longlong] * 9
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), B, H, S, hd, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], 1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     _build.check("attention", err)
+
+
+def _launch_k4(q, k, v):
+    global launches_k4
+    shape = q.shape
+    q, k, v = (_as_bhsd(t) for t in (q, k, v))
+    B, H, S, hd = q.shape
+    if B * H * S == 0:          # nothing to compute, nothing launched
+        return q.new_empty(shape)
+    out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
+    k4_into(q, k, v, out)
     launches_k4 += 1
     return out.transpose(1, 2).reshape(shape)
 

@@ -194,15 +194,32 @@ def _active_arg(mlp_active, models: int, M: int, device, on_device: bool):
     return 0, per_model.contiguous()
 
 
+def _launch_wide_bf16(x, w1, b1, w2, b2, out, n: int, active: int,
+                      stream) -> int:
+    """K1's bf16 wide body (`fused_mlp_wide_launch`): fc1 + GELU into an
+    (n, M8) scratch, M rounded up to 8, that stays in L2, then fc2 from it.
+    Returns the entry point's CUDA error code."""
+    D, M = x.shape[-1], w1.shape[0]
+    m8 = -(-M // 8) * 8
+    if m8 != M:
+        # TMA reads rows whose stride is a multiple of 16 bytes: w2's rows
+        # of M values are not, so the kernel reads a zero-padded copy
+        w2 = F.pad(w2, (0, m8 - M))
+    h = torch.empty(n, m8, dtype=x.dtype, device=x.device)
+    fn = _build.entry("fused_mlp", [ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p], symbol="fused_mlp_wide_launch")
+    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              w2.data_ptr(), w2.shape[1], b2.data_ptr(), h.data_ptr(), m8,
+              out.data_ptr(), n, D, M, active, stream)
+
+
 def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
     _check(x, w1, b1, w2, b2, variant)
     name, counter = _KERNELS[variant]
-    fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
-                      + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p])
     # the kernels copy x and the weights in 16-byte pieces: realign an odd
     # view.  A model's slice of a contiguous stacked buffer starts 16-byte
     # aligned (D is a multiple of 8), so a stacked buffer is never copied;
@@ -216,10 +233,17 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     out = torch.empty_like(x)
     n = x.numel() // (D * models)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M, active,
-             None if per_model is None else per_model.data_ptr(), models,
-             _DTYPES[x.dtype], stream)
+    if x.dtype == torch.bfloat16 and D not in WIDTHS:
+        err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
+    else:
+        fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
+                          + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+        err = fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M,
+                 active, None if per_model is None else per_model.data_ptr(),
+                 models, _DTYPES[x.dtype], stream)
     _build.check(name, err)
     globals()[counter] += 1
     return out
