@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -216,14 +217,39 @@ def phase_build() -> None:
     logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
                          "tiny_attention", "attention_layer", "attention"])
     seconds = time.perf_counter() - t0
-    # K1's bf16 wide body runs on wgmma: its SASS holds HGMMA instructions
-    hgmma = sass_count("fused_mlp", "HGMMA")
+    # K1's bf16 wide body and K4's bf16 body run on wgmma fed by TMA: their
+    # SASS holds HGMMA and UTMALDG instructions
+    sass = {f"{name}_sass_{op.lower()}": sass_count(name, op)
+            for name in ("fused_mlp", "attention") for op in ("HGMMA", "UTMALDG")}
     emit({"phase": "build", "seconds": seconds,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
-          "fused_mlp_sass_hgmma": hgmma,
-          "fused_mlp_sass_utmaldg": sass_count("fused_mlp", "UTMALDG")})
-    check(hgmma > 0, "fused_mlp's library holds no HGMMA instruction")
+          **sass, "k4_plan": [k4_plan(*shape) for shape in K4_PLAN_SHAPES]})
+    for name, n in sass.items():
+        check(n > 0, f"{name}: the library holds no such instruction")
+
+
+# K4's bf16 body at the stretch path's shape (and K3's on it, the same), and
+# at head_dim 128 and 32 on the card tests' S = 200.
+K4_PLAN_SHAPES = ((STRETCH_B, 12, 513, 64), (2, 4, 200, 128), (2, 4, 200, 32))
+K4_PLAN_KEYS = ("rows_a_block", "threads_a_block", "smem_bytes_a_block",
+                "registers_at_entry", "blocks_an_sm", "sms", "blocks",
+                "warpgroup_tiles", "one_tile_blocks", "key_steps_a_tile",
+                "tiles_on_busiest_sm")
+
+
+def k4_plan(nb: int, H: int, S: int, hd: int) -> dict:
+    """K4's tiles and waves at one shape, as `attention_plan` reckons them
+    from the runtime's occupancy, with the waves of blocks and the warpgroup
+    tiles an SM on average beside the busiest SM's."""
+    out = (ctypes.c_int * len(K4_PLAN_KEYS))()
+    fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                      "attention_plan")
+    _build.check("attention", fn(torch.cuda.current_device(), nb, H, S, hd, out))
+    plan = dict(zip(K4_PLAN_KEYS, out))
+    return {"shape": [nb, H, S, hd], **plan,
+            "waves": plan["blocks"] / (plan["sms"] * plan["blocks_an_sm"]),
+            "tiles_an_sm_mean": plan["warpgroup_tiles"] / plan["sms"]}
 
 
 # The training path's shapes, in f32: token rows of a batch of 4 volumes
@@ -380,6 +406,16 @@ def k2_case(gen, dtype, nb: int, H: int, hd: int, path: str) -> dict:
         ms = time_ms(lambda: fused_attention.fused_attention(q, k, v), 50)
         plain_ms = time_ms(lambda: fused_attention._plain_attention(q, k, v), 10)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50)
+        # at the serving shapes the events' ms is mostly the host's; the
+        # kernels' own times are their device times under the profiler
+        device_ms = library_device_ms = None
+        if path == "serve" and dtype == torch.bfloat16:
+            device_ms = device_time(
+                lambda: [fused_attention.fused_attention(q, k, v)
+                         for _ in range(10)], host_ops=False)[0] / 10
+            library_device_ms = device_time(
+                lambda: [F.scaled_dot_product_attention(q, k, v)
+                         for _ in range(10)], host_ops=False)[0] / 10
     bh = nb * H
     bound_ms, bound_by = bound(4.0 * bh * S * S * hd,
                                4.0 * bh * S * hd * q.element_size(), dtype)
@@ -387,9 +423,10 @@ def k2_case(gen, dtype, nb: int, H: int, hd: int, path: str) -> dict:
             "B": nb, "H": H, "S": S, "hd": hd, "max_abs_err": err,
             "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
     emit(case)
-    check(ok, f"K2 {case}")
+    check(ok and device_ms != 0.0, f"K2 {case}")
     return case
 
 
@@ -419,6 +456,9 @@ K3_TRAIN_CASES = ((4, 65, 16, 16), (24, 65, 16, 16), (4, 65, 32, 8),
                   (24, 65, 32, 8))
 K3_STRETCH_CASES = ((torch.bfloat16, (STRETCH_B, 513, 768, 12)),
                     (torch.float32, (1, 513, 768, 12)))
+# K3's own body at the serving shape of conf 1-18's (64, 4) class, also
+# timed on the device (its events' ms is mostly the host's)
+K3_SERVE_TIMED = ((torch.bfloat16, K3_CASES[0]),)
 
 
 def phase_k3(gen) -> tuple:
@@ -428,9 +468,10 @@ def phase_k3(gen) -> tuple:
     that body: v in the QKV buffer is scaled so that the context's root
     mean square is 1 (see `model_views`), bf16 has K4's gate, and the plain
     version without the last key must fail the gate.  The stretch path's
-    cases also take both device times under the profiler.  Returns the
-    training path's main case and the stretch path's bf16 case."""
-    main = stretch = None
+    cases, and bf16 at the serving shape of conf 1-18's (64, 4) class, also
+    take both device times under the profiler.  Returns the training path's
+    main case, the stretch path's bf16 case and that serving case."""
+    main = stretch = serve = None
     cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
              for shape in K3_CASES]
     cases += [(torch.float32, shape) for shape in K3_TRAIN_CASES]
@@ -471,7 +512,7 @@ def phase_k3(gen) -> tuple:
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(*heads), 50)
             device_ms = library_device_ms = None
-            if (dtype, (nb, T, D, H)) in K3_STRETCH_CASES:
+            if (dtype, (nb, T, D, H)) in K3_STRETCH_CASES + K3_SERVE_TIMED:
                 # only the core's kernel runs in the call
                 device_ms = device_time(
                     lambda: [attention_layer.attention_core(q, k, v, H)
@@ -499,13 +540,21 @@ def phase_k3(gen) -> tuple:
             main = case
         if (dtype, (nb, T, D, H)) == K3_STRETCH_CASES[0]:
             stretch = case
-    return main, stretch
+        if (dtype, (nb, T, D, H)) == K3_SERVE_TIMED[0]:
+            serve = case
+    return main, stretch, serve
 
 
-# K4 at (B, H, S, hd): the stretch path's shape, the same at B=2, a small
-# ragged one, and fewer keys than one chunk of 64.
-K4_CASES = ((STRETCH_B, 12, 513, 64), (2, 12, 513, 64), (3, 2, 70, 32),
-            (2, 3, 40, 64))
+# K4 at (B, H, S, hd) on the model's views: the stretch path's shape, the
+# same at B=2, a small ragged one, and fewer keys than one chunk of 64; then
+# where the bf16 body's tiling is most likely to break: S = 64 and 128 (no
+# tail), S = 1 and 15 (fewer keys than the narrowest chunk of 16), S = 200
+# at hd 32 and 128.  Last, the stretch shape at B=2 on K3's views into the
+# (B, T, 3D) QKV buffer.
+K4_CASES = tuple((shape, "model") for shape in (
+    (STRETCH_B, 12, 513, 64), (2, 12, 513, 64), (3, 2, 70, 32), (2, 3, 40, 64),
+    (2, 12, 64, 64), (2, 12, 128, 64), (2, 12, 1, 64), (2, 12, 15, 64),
+    (2, 4, 200, 32), (2, 4, 200, 128))) + (((2, 12, 513, 64), "qkv"),)
 
 
 def model_views(gen, shape, dtype) -> list:
@@ -520,6 +569,24 @@ def model_views(gen, shape, dtype) -> list:
             .to(dtype).view(nb, S, H, hd).transpose(1, 2) for c in scales]
 
 
+def qkv_views(gen, shape, dtype) -> list:
+    """q, k, v as K3 hands them to K4's body: (B, H, S, hd) views into one
+    (B, S, 3 * H * hd) QKV buffer, v scaled as in `model_views`."""
+    nb, H, S, hd = shape
+    qkv = torch.randn(nb, S, 3 * H * hd, generator=gen, device="cuda")
+    qkv[..., 2 * H * hd:] *= math.sqrt(S / math.e)
+    return [t.unflatten(-1, (H, hd)).transpose(1, 2)
+            for t in attention_layer._split(qkv.to(dtype))]
+
+
+def without_last_key(q, k, v):
+    """K4's plain version over all keys but the last; with a single key, the
+    empty sum 0."""
+    if k.shape[-2] == 1:
+        return torch.zeros_like(q)
+    return fused_attention._plain_attention_k4(q, k[:, :, :-1], v[:, :, :-1])
+
+
 def phase_k4(gen) -> dict:
     """K4 against its plain version on the model's strided views; SDPA on
     the same views is the library yardstick (the port never calls it).  The
@@ -530,15 +597,15 @@ def phase_k4(gen) -> dict:
     main = None
     for dtype in (torch.bfloat16, torch.float32):
         tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
-        for shape in K4_CASES:
+        for shape, views in K4_CASES:
             nb, H, S, hd = shape
-            q, k, v = model_views(gen, shape, dtype)
+            make = model_views if views == "model" else qkv_views
+            q, k, v = make(gen, shape, dtype)
             with torch.no_grad():
                 out = fused_attention.fused_attention(q, k, v)
                 ref = fused_attention._plain_attention_k4(q, k, v)
                 err, ok, atol, rtol = compare(out, ref, dtype, tol)
-                short = fused_attention._plain_attention_k4(
-                    q, k[:, :, :-1], v[:, :, :-1])
+                short = without_last_key(q, k, v)
                 gate = atol + rtol * ref.float().abs()
                 over_gate = float(((out.float() - ref.float()).abs() / gate).max())
                 dropped = (short.float() - ref.float()).abs() / gate
@@ -556,18 +623,22 @@ def phase_k4(gen) -> dict:
                     lambda: F.scaled_dot_product_attention(q, k, v), 50)
                 # `ms` is no less than the host's time to make one call; the
                 # kernel's own time is its device time under the profiler
-                device_ms = None
+                device_ms = library_device_ms = None
                 if S == 513:
                     _, groups, _ = device_time(
                         lambda: [fused_attention.fused_attention(q, k, v)
                                  for _ in range(10)], host_ops=False)
                     device_ms = groups.get("K4", 0.0) / 10
+                    library_device_ms = device_time(
+                        lambda: [F.scaled_dot_product_attention(q, k, v)
+                                 for _ in range(10)], host_ops=False)[0] / 10
             bh = nb * H
             bound_ms, bound_by = bound(4.0 * bh * S * S * hd,
                                        4.0 * bh * S * hd * q.element_size(),
                                        dtype)
             case = {"phase": "K4", "dtype": str(dtype).split(".")[1], "B": nb,
-                    "H": H, "S": S, "hd": hd, "max_abs_err": err, "atol": atol,
+                    "H": H, "S": S, "hd": hd, "views": views,
+                    "max_abs_err": err, "atol": atol,
                     "rtol": rtol, "ok": ok, "ctx_rms": rms,
                     "max_err_over_gate": over_gate,
                     "gate_rejects_dropped_key": gate_ok,
@@ -577,12 +648,13 @@ def phase_k4(gen) -> dict:
                     "ok_normalised_rounding": jax_ok,
                     "heads_merge_as_view": view_ok,
                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
+                    "library_ms": library_ms,
+                    "library_device_ms": library_device_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
             emit(case)
             check(ok and gate_ok and jax_ok and view_ok and device_ms != 0.0,
                   f"K4 {case}")
-            if (dtype, shape) == (torch.bfloat16, K4_CASES[0]):
+            if (dtype, (shape, views)) == (torch.bfloat16, K4_CASES[0]):
                 main = case
     return main
 
@@ -802,7 +874,7 @@ def phase_main_path(gen) -> dict:
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
                  ("K1c", "pipelined_"),
                  ("K2", "tiny_attention"),
-                 ("K3", "attention_layer"), ("K4", "attention_tc"),
+                 ("K3", "attention_layer"), ("K4", "attention_wgmma"),
                  ("K4", "attention_f32"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
                  ("gemm", "nvjet"), ("gemm", "gemm"), ("gemm", "cutlass"),
@@ -810,27 +882,36 @@ KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
                  ("reduce", "reduce_kernel"), ("elementwise", "elementwise"))
 
 
+PROFILE_TRIES = 3
+
+
 def device_time(fn, host_ops: bool = True) -> tuple:
     """Kernel time on the device (ms) of one call of `fn` under
     torch.profiler, in total and by group, and the number of kernels it ran.
     Kernels of one stream do not overlap, so their sum is the time the
     device was busy.  `host_ops=False` records the device's kernels alone,
-    which costs the host far less on a run of many small steps."""
+    which costs the host far less on a run of many small steps.  A trace
+    that holds no device event at all (read once on an H100 in a run where
+    the same case traced before and after) is taken again, up to
+    PROFILE_TRIES times; `fn` runs once a try."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if host_ops:
         activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    groups: dict = {}
-    kernels = 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        group = next((g for g, pat in KERNEL_GROUPS if pat in e.key), "other")
-        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-        kernels += e.count
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups: dict = {}
+        kernels = 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            group = next((g for g, pat in KERNEL_GROUPS if pat in e.key), "other")
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+            kernels += e.count
+        if kernels:
+            break
     return sum(groups.values()), groups, kernels
 
 
@@ -1403,7 +1484,7 @@ def main() -> int:
     k1_models = phase_model_axis(own)
     k1_variants = phase_mlp_variants(own)
     k2 = phase_k2(gen)
-    k3, k3_stretch = phase_k3(gen)
+    k3, k3_stretch, k3_serve = phase_k3(gen)
     k4 = phase_k4(gen)
     phase_gradients(gen)
     phase_f32_model(gen)
@@ -1463,10 +1544,14 @@ def main() -> int:
             "variants_pipelined2",
             model_axis_case=case_of(k1_variants["pipelined2_model_axis"])),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
-            "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2, "serve"),
+            "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2, "serve",
+            device_ms=k2["device_ms"],
+            library_device_ms=k2["library_device_ms"]),
         row("K3", "vit3d_ensemble_tpu_torch/csrc/attention_layer.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
             "train_layer",
+            # bf16 at the serving shape of conf 1-18's (64, 4) class
+            serve_case=case_of(k3_serve),
             # head_dim 64 at T=513 on K4's body (`csrc/attention.cu`), as the
             # stretch path under `layer` runs it
             stretch_case={**case_of(k3_stretch),
@@ -1476,7 +1561,8 @@ def main() -> int:
                               by_path["K3_on_K4"]["stretch_layer"]}),
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:118", k4, "stretch",
-            device_ms=k4["device_ms"]),
+            device_ms=k4["device_ms"],
+            library_device_ms=k4["library_device_ms"]),
     ], "variants_volumes_per_s": {v: r["volumes_per_s"]
                                   for v, r in variants.items()},
         "training": {"train": train["timing"],

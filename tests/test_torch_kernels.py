@@ -289,9 +289,16 @@ def test_model_under_layer_matches_plain_modules(cuda, conf):
 
 
 # (B, H, S, hd): the stretch path's shape at B=8 and at B=2, a small ragged
-# one, fewer keys than one chunk of 64, one row over a chunk, hd 128.
+# one, fewer keys than one chunk of 64, one row over a chunk, hd 128; then
+# where the bf16 body's tiling is most likely to break: S = 64 and 128 (no
+# tail), S = 1 and 15 (fewer keys than the narrowest chunk of 16), S = 200
+# at hd 32 and 128 (a tail of 8 keys, the 64-byte swizzle and two boxes of
+# hd).  Each runs on the model's views; the stretch shape at B=2 also on K3's
+# views into the (B, T, 3D) QKV buffer.
 K4_SHAPES = [(8, 12, 513, 64), (2, 12, 513, 64), (3, 2, 70, 32), (2, 3, 40, 64),
-             (1, 2, 65, 128), (2, 2, 200, 32)]
+             (1, 2, 65, 128), (2, 2, 200, 32), (2, 12, 64, 64), (2, 12, 128, 64),
+             (2, 12, 1, 64), (2, 12, 15, 64), (2, 4, 200, 32), (2, 4, 200, 128)]
+K4_CASES = [(shape, "model") for shape in K4_SHAPES] + [((2, 12, 513, 64), "qkv")]
 
 
 def _model_views(gen, shape, dtype):
@@ -304,11 +311,30 @@ def _model_views(gen, shape, dtype):
             .to(dtype).view(B, S, H, hd).transpose(1, 2) for c in scales]
 
 
+def _qkv_views(gen, shape, dtype):
+    """q, k, v as K3 hands them to K4's body: (B, H, S, hd) views into one
+    (B, S, 3 * H * hd) QKV buffer, v scaled as in `_model_views`."""
+    B, H, S, hd = shape
+    qkv = torch.randn(B, S, 3 * H * hd, generator=gen, device="cuda")
+    qkv[..., 2 * H * hd:] *= math.sqrt(S / math.e)
+    return [t.unflatten(-1, (H, hd)).transpose(1, 2)
+            for t in attention_layer._split(qkv.to(dtype))]
+
+
+def _without_last_key(q, k, v):
+    """The plain version over all keys but the last; with a single key, the
+    empty sum 0."""
+    if k.shape[-2] == 1:
+        return torch.zeros_like(q)
+    return fused_attention._plain_attention_k4(q, k[:, :, :-1], v[:, :, :-1])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", K4_SHAPES)
-def test_attention_kernel_matches_plain(cuda, dtype, shape):
-    q, k, v = _model_views(cuda, shape, dtype)
-    assert not q.is_contiguous()
+@pytest.mark.parametrize("shape,views", K4_CASES)
+def test_attention_kernel_matches_plain(cuda, dtype, shape, views):
+    make = _model_views if views == "model" else _qkv_views
+    q, k, v = make(cuda, shape, dtype)
+    assert shape[2] == 1 or not q.is_contiguous()   # one row is contiguous
     before = (fused_attention.launches, fused_attention.launches_k4)
     out = fused_attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
@@ -323,8 +349,7 @@ def test_attention_kernel_matches_plain(cuda, dtype, shape):
     _close(out, ref, dtype, _k4_tol(dtype))
     # the gate tells a context that lacks the last key from the right one
     with pytest.raises(AssertionError):
-        _close(fused_attention._plain_attention_k4(q, k[:, :, :-1], v[:, :, :-1]),
-               ref, dtype, _k4_tol(dtype))
+        _close(_without_last_key(q, k, v), ref, dtype, _k4_tol(dtype))
     # the JAX kernel's rounding (normalised probabilities), its tolerance
     _close(out, fused_attention._plain_attention(q, k, v), dtype)
 

@@ -54,8 +54,14 @@ def _jax_attention(q, k, v, dtype=jnp.float32):
     return np.asarray(out.astype(jnp.float32))
 
 
-# (B, H, S, hd) with hd > 16: the JAX wrapper takes `_attention_kernel`
-K4_SHAPES = [(2, 2, 70, 64), (1, 3, 130, 32)]
+# (B, H, S, hd) with hd > 16: the JAX wrapper takes `_attention_kernel`.
+# Then the token counts where K4's tiling on the card is most likely to
+# break: S = 513 (a last key chunk of one key, a query tile of one row),
+# 64 and 128 (no tail), 1 and 15 (fewer keys than the narrowest chunk),
+# 200 at hd 32 and 128.
+K4_SHAPES = [(2, 2, 70, 64), (1, 3, 130, 32), (2, 2, 513, 64), (2, 2, 64, 64),
+             (2, 2, 128, 64), (2, 2, 1, 64), (2, 2, 15, 64), (2, 2, 200, 32),
+             (2, 2, 200, 128)]
 
 
 @pytest.mark.parametrize("shape", K4_SHAPES)
@@ -67,11 +73,12 @@ def test_plain_attention_k4_matches_jax_fused_attention_f32(shape):
                                atol=2e-5, rtol=1e-4)
 
 
-def test_plain_attention_k4_matches_jax_fused_attention_bf16():
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_plain_attention_k4_matches_jax_fused_attention_bf16(shape):
     """The JAX kernel rounds the normalised probabilities to bf16 before the
     second product, the port the unnormalised ones: both within the JAX
     package's bf16 tolerance of each other."""
-    q, k, v = _qkv(K4_SHAPES[0], 1)
+    q, k, v = _qkv(shape, 1)
     out = fused_attention.fused_attention(
         *(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
     assert out.dtype == torch.bfloat16

@@ -11,264 +11,346 @@
 //
 // What bounds it on the H100: the function reads q, k, v and writes ctx,
 // 4 * BH * S * hd values, against 4 * BH * S * S * hd operations: S / 2
-// operations a byte in bf16, 256 at S = 513, which is just below the card's
-// ratio of 295.  At the stretch shape (BH = 96, S = 513, hd = 64, bf16) the
-// bytes take 7.5 us and the operations 6.5 us at the tensor-core peak, so the
-// two bounds nearly meet, and only tensor cores come near either.  In f32 the
+// operations a byte in bf16, 256 at S = 513, just below the card's ratio of
+// 295.  At the stretch shape (BH = 96, S = 513, hd = 64, bf16) the bytes
+// (25.2 MB) take 7.5 us at 3.35 TB/s and the operations (6.47 GFLOP) 6.5 us
+// at the 989 TFLOP/s tensor-core peak, so the two bounds nearly meet, and
+// only Hopper's full tensor-core rate (wgmma) comes near either.  In f32 the
 // operations on CUDA cores bound it (97 us at the 67 TFLOP/s peak).
 //
-// Design: a block owns one (volume, head) and a tile of 64 query rows, and
-// walks the keys in chunks of 64, staged with their values in shared memory.
-// Per chunk it computes the (64, 64) scores, masks keys past S to -inf before
-// the row max, updates the running max and sum of each row, rescales the
-// context sums when the max rose, and adds exp(s - max) @ v.  Every chunk
-// holds at least one live key, so the running max is finite from the first
-// chunk on and the final sum is at least 1: no division by zero.  Query rows
-// past S are computed on zeros and not written.  Two bodies share that plan:
-//   * bf16: four warps, 16 rows each, both products on the tensor cores
-//     (mma.sync m16n8k16, f32 accumulation).  A warp keeps its q rows as A
-//     fragments in registers.  The score accumulators are laid out exactly as
-//     the A fragments of the second product, so the probabilities go from one
-//     product to the next in registers, rounded to bf16 there (unnormalised:
-//     the TPU kernel rounds the normalised ones, which an online softmax
-//     does not have; `_plain_attention_k4` rounds where this kernel does).
-//     v's B fragments come from its row-major chunk through ldmatrix.trans.
-//     The chunks are double-buffered with cp.async.
-//   * f32: 256 threads as a 16 x 16 grid on CUDA cores, each a 4 x 4 register
-//     tile of the scores; the probabilities pass through shared memory to the
-//     second product, where a thread owns 4 rows and hd / 16 columns.
+// Which body takes which input: bf16 at head_dim 32, 64 and 128 runs the
+// Hopper body below; f32 at every head_dim runs the CUDA-core body at the
+// end (the JAX tolerance of 2e-5 rules out TF32 tensor cores).
+//
+// The bf16 body, one block of three warpgroups per (volume, head) and 128
+// query rows:
+//   * Warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
+//     one of its threads loads by TMA, first the block's q rows (64 a
+//     consumer), then a ring of STAGES (k, v) stages of 64 keys each,
+//     completion on `full` mbarriers, reuse on `empty` ones.  The three
+//     tensor maps are 4-d over the strided (B, H, S, hd) storage, outer
+//     dimensions ordered by stride, so the model's
+//     `lin(x).view(B, S, H, hd).transpose(1, 2)` views and K3's views into
+//     the (B, T, 3D) QKV buffer load without a copy.  Rows past S load as
+//     zeros (TMA's zero fill), so a masked key meets a 0, never a NaN.
+//   * Warpgroups 1 and 2 are the consumers, 64 query rows each, sharing every
+//     (k, v) stage.  Per chunk: the scores S = q k^T by wgmma m64nNk16 with q
+//     and k from 128-byte-swizzled shared memory (64-byte at hd 32); keys
+//     past S masked to -inf; the running max and sum of each row updated and
+//     the context rescaled; exp(s - max) rounded to bf16 in registers, where
+//     the score accumulators already lie as wgmma's A fragments, so the
+//     probabilities never leave the SM; then ctx += p v by wgmma with p from
+//     registers and v through a transposed (N-major) descriptor on its
+//     row-major stage.  Both products accumulate in f32.
+//   * The ragged tail of keys: a chunk of 64 holds 64 keys but for the last,
+//     which holds S - 64 * (chunks - 1).  When that is 16 or fewer (S = 513:
+//     one key), the last chunk runs on 16 keys, wgmma m64n16k16 for its
+//     scores and one 16-key step of p v, not a chunk of 64: 8.25 chunk-steps
+//     a query tile at S = 513, not 9.
+//   * Rounding, as before: the unnormalised probabilities exp(s - max) go to
+//     bf16 before the second product, the row sums stay f32, and the context
+//     is divided by them and rounded once.  The TPU kernel rounds the
+//     normalised probabilities instead, which an online softmax does not
+//     have; `_plain_attention_k4` rounds where this kernel does.
+//   * Every chunk holds at least one live key, so a row's running max is
+//     finite from the first chunk on and its final sum is at least 1.
+//
+// Tiles and waves at the stretch shape (BH = 96, S = 513, hd 64): 513 =
+// 8 * 64 + 1, so a head has 9 query tiles of 64 rows, 8 full and one with a
+// single live row: 864 warpgroup tiles.  wgmma's M is 64, so the single row
+// costs a whole tile (1/9 of the work); the key tail costs a quarter chunk.
+// Blocks of 128 rows give 5 a head, 480 in all: 384 with two tiles and 96
+// (the last of each head) with one, whose second warpgroup has no row and
+// leaves at once.  A block takes 83 KB of shared memory (two q tiles and 4
+// stages of 16 KB) and 384 threads at 80 registers (consumers 104 after
+// setmaxnreg), so two are resident an SM: 264 at once on 132 SMs.  864 tiles
+// do not divide among 132 SMs (6.55 an SM), so no tiling fills whole waves;
+// what this one does: the one-tile blocks come last in the grid's order
+// (grid y = row block, dispatched after every head's earlier row blocks),
+// so they fill the second wave's gaps: 264 two-tile blocks, then 120
+// two-tile and 96 one-tile blocks on 264 slots, about 7 tiles on the
+// busiest SM against 6.55 on average.  Each head's k and v (131 KB) are
+// read from L2 by 5 blocks, not 9 (63 MB in all, not 113).  `attention_plan`
+// returns this reckoning for any shape, with the occupancy the runtime
+// reports; `chip_smoke.py` prints it in its `build` phase.  hd 128 takes
+// one block an SM (165 KB of shared memory; consumers at 232 registers for
+// 64 + 32 accumulators); hd 32 two.
 //
 // Layout: q, k, v are (B, H, S, hd) views with unit stride along hd and any
-// strides (in elements) along B, H and S, as the model's
-// `lin(x).view(B, T, H, hd).transpose(1, 2)` gives them; for bf16 the base
-// pointers and strides are multiples of 16 bytes.  ctx is written (B, S, H,
+// strides (in elements) along B, H and S; for bf16 the base pointers and
+// strides are multiples of 16 bytes (TMA's rule).  ctx is written (B, S, H,
 // hd) contiguous, so that the model's merge of the heads is a view.
-// f32 or bf16; hd in {32, 64, 128}.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
+#include <vector>
+
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;  // query rows per block
+using namespace sm90;
+
+constexpr int ROWS = 64;  // query rows of a tile (wgmma's M; the f32 body's block)
 constexpr int KEYS = 64;  // keys per chunk
+constexpr int TAIL = 16;  // the narrow last chunk: wgmma N for its scores, one k-step of p v
 
 struct Strides {  // of a (B, H, S, hd) view, in elements
   long long b, h, s;
 };
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on wgmma, fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int TC_WARPS = 4;
-constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
+constexpr int BLOCK_ROWS = CONSUMERS * ROWS;  // query rows of a block
+constexpr int WG_THREADS = 128 * (1 + CONSUMERS);
+constexpr int STAGES = 4;                     // (k, v) stages in the ring
+
+// The shared-memory tiles of one head_dim: 64 rows of hd bf16, stored as
+// boxes of one swizzle row's width (64 values with the 128-byte swizzle, 32
+// with the 64-byte one at hd 32), each 64 rows deep.
+template <int HD>
+struct Tile {
+  static constexpr int SW = HD >= 64 ? 128 : 64;  // bytes of a swizzle row
+  static constexpr int BOX_COLS = SW / 2;
+  static constexpr int BOXES = HD / BOX_COLS;
+  static constexpr int BOX_BYTES = ROWS * SW;
+  static constexpr int BYTES = BOXES * BOX_BYTES;  // 64 rows of hd
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma's swizzle mode
+  // Two blocks an SM where the registers allow: at hd 128 the consumers
+  // need 64 context and 32 score accumulators and take one block an SM.
+  static constexpr int BLOCKS_PER_SM = HD <= 64 ? 2 : 1;
+  // setmaxnreg: the producer's and the consumers' registers.  A block enters
+  // with 65,536 / (384 * BLOCKS_PER_SM) rounded down to 8 (168 or 80); what
+  // the producer gives up covers what the two consumers take.
+  static constexpr int PRODUCER_REGS = BLOCKS_PER_SM == 1 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = BLOCKS_PER_SM == 1 ? 232 : 104;
+  static constexpr size_t SMEM =
+      1024 + (size_t)(CONSUMERS + 2 * STAGES) * BYTES + (1 + 2 * STAGES) * sizeof(uint64_t);
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The position (1..3) of the row, head and batch coordinates in a tensor
+// map's dimensions, packed 2 bits each (see `encode_view`).
+__device__ __forceinline__ int coord(int order, int pos, int row, int head, int batch) {
+  return (order & 3) == pos ? row : ((order >> 2) & 3) == pos ? head : batch;
 }
 
-// c += a * b for one 16x8x16 tile: a in the m16n8k16 A layout (row-major),
-// b in the B layout (column-major), c in the accumulator layout.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment of a 16 (k) x 8 (n) tile stored row-major in shared memory,
-// k along the rows: lane l < 16 passes the address of row l, 8 values wide.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(a));
-}
-
-// 16-byte global -> shared copy; bytes past src_bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-
-// Stage keys j0 .. j0 + KEYS - 1 of one head and their values, rows of
-// HD + 8 values (16 bytes of pad: fragment reads hit distinct banks); keys
-// past s are zero-filled, so a masked probability of 0 meets a 0, never a NaN.
+// Rows row .. row + 63 of one head, all hd columns, by TMA into `dst`.
 template <int HD>
-__device__ __forceinline__ void tc_stage(__nv_bfloat16* ks, __nv_bfloat16* vs,
-                                         const __nv_bfloat16* k, const __nv_bfloat16* v,
-                                         long long k_row, long long v_row, int j0, int s) {
-  constexpr int KP = HD + 8;
-  for (int i = threadIdx.x; i < KEYS * (HD / 8); i += TC_THREADS) {
-    const int j = i / (HD / 8), p = i % (HD / 8);
-    const bool live = j0 + j < s;
-    cp_async16(ks + j * KP + p * 8, live ? k + (j0 + j) * k_row + p * 8 : k, live ? 16 : 0);
-    cp_async16(vs + j * KP + p * 8, live ? v + (j0 + j) * v_row + p * 8 : v, live ? 16 : 0);
+__device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap* map, int order,
+                                          uint64_t* bar, int row, int head, int batch) {
+  using T = Tile<HD>;
+  const int c1 = coord(order, 1, row, head, batch), c2 = coord(order, 2, row, head, batch),
+            c3 = coord(order, 3, row, head, batch);
+#pragma unroll
+  for (int x = 0; x < T::BOXES; ++x)
+    tma_load_4d(dst + x * T::BOX_BYTES, map, bar, x * T::BOX_COLS, c1, c2, c3);
+}
+
+// One chunk of NC keys (key0 ..) for this warpgroup's 64 query rows: scores,
+// online softmax, ctx += p v.  Accumulator register 4j + 2i + e of
+// m64nNk16 holds row 16 * warp + lane / 4 + 8i, column 8j + 2 * (lane % 4)
+// + e; this thread's two rows are i = 0, 1.  `last`: keys at or past s are
+// masked.
+template <int HD, int NC>
+__device__ __forceinline__ void chunk(float (&o)[HD / 2], float (&m)[2], float (&l)[2],
+                                      const unsigned char* q_st, const unsigned char* k_st,
+                                      const unsigned char* v_st, int key0, int s, bool last,
+                                      float scale_log2) {
+  using T = Tile<HD>;
+  const int t = threadIdx.x % 4;
+
+  // scores: hd / 16 k-steps of 32 bytes, a box further every BOX_COLS values
+  float sc[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) sc[i] = 0.f;
+  const uint64_t dq = smem_desc(q_st, 16, 8 * T::SW, T::LAYOUT);
+  const uint64_t dk = smem_desc(k_st, 16, 8 * T::SW, T::LAYOUT);
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 16 / T::BOX_COLS) * T::BOX_BYTES + (kk * 16 % T::BOX_COLS) * 2;
+    wgmma<NC>(sc, dq + (off >> 4), dk + (off >> 4));
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+
+  if (last) {
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (key0 + 8 * j + 2 * t + e >= s) sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mx[i] = fmaxf(mx[i], fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+  float corr[2], mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the four lanes of a quad share a row
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // the chunk holds a live key, so the new max is finite; the first
+    // chunk's correction is exp(-inf) = 0 on sums that are 0
+    const float next = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f((m[i] - next) * scale_log2);
+    m[i] = next;
+    mb[i] = next * scale_log2;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= corr[i];
+      o[4 * j + 2 * i + 1] *= corr[i];
+    }
+  // exp(s / sqrt(hd) - max) = exp2(s * scale_log2 - max * scale_log2)
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + 2 * i + e], scale_log2, -mb[i]));
+        sc[4 * j + 2 * i + e] = p;
+        l[i] += p;
+      }
+  // the probabilities as A fragments of the 16-key steps of p v: register r
+  // of step kk holds row i = r % 2, keys 16 kk + 8 (r / 2) + 2t + {0, 1},
+  // which are score registers 8 kk + 2r and 8 kk + 2r + 1
+  uint32_t pa[NC / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+  // ctx += p v: v's stage is row-major (keys, hd), N-major for wgmma: k-steps
+  // of 16 keys are 16 swizzle rows apart, 8-key groups SBO apart, and hd's
+  // boxes LBO apart
+  const uint64_t dv = smem_desc(v_st, T::BOX_BYTES, 8 * T::SW, T::LAYOUT);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk) wgmma_rs_tb<HD>(o, pa[kk], dv + ((kk * 16 * T::SW) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
 }
 
 template <int HD>
-constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 2 * 2 * KEYS * (HD + 8);  // 2 buffers of k | v
-}
-
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS)
-attention_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int s,
-                    int h, Strides qs, Strides ks, Strides vs, float scale) {
-  constexpr int KP = HD + 8;
-  constexpr int KS = HD / 16;  // k-steps of q k^T
-  constexpr int NO = HD / 8;   // context tiles of 8 columns
-  constexpr int NJ = KEYS / 8; // score tiles of 8 keys
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][k | v][KEYS * KP]
+__global__ void __launch_bounds__(WG_THREADS, Tile<HD>::BLOCKS_PER_SM)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
+                       int s, int h, int orders, float scale_log2) {
+  using T = Tile<HD>;
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
+  unsigned char* smem = att_smem + ((1024 - (smem_u32(att_smem) & 1023)) & 1023);
+  unsigned char* q_st = smem;                           // [CONSUMERS][BYTES]
+  unsigned char* k_st = q_st + CONSUMERS * T::BYTES;    // [STAGES][BYTES]
+  unsigned char* v_st = k_st + STAGES * T::BYTES;       // [STAGES][BYTES]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_st + STAGES * T::BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int b = blockIdx.x / h, hh = blockIdx.x % h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = blockIdx.y * ROWS + warp * 16;  // this warp's first row
-  const int r_lo = row0 + g, r_hi = r_lo + 8;
-  const bool warp_live = row0 < s;
-  q += b * qs.b + hh * qs.h;
-  k += b * ks.b + hh * ks.h;
-  v += b * vs.b + hh * vs.h;
-
-  // q rows r_lo and r_hi as the first product's A fragments, zero past s
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int i = 0; i < KS; ++i) {
-    const int c = 16 * i + 2 * t;
-    qa[i][0] = r_lo < s ? ld32(q + r_lo * qs.s + c) : 0u;
-    qa[i][1] = r_hi < s ? ld32(q + r_hi * qs.s + c) : 0u;
-    qa[i][2] = r_lo < s ? ld32(q + r_lo * qs.s + c + 8) : 0u;
-    qa[i][3] = r_hi < s ? ld32(q + r_hi * qs.s + c + 8) : 0u;
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of rows r_lo, r_hi
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of their sums
-
+  const int row0 = blockIdx.y * BLOCK_ROWS;
+  // consumers with a row below s; the last row block of S = 513 has one
+  const int live = min(CONSUMERS, (s - row0 + ROWS - 1) / ROWS);
   const int chunks = (s + KEYS - 1) / KEYS;
-  tc_stage<HD>(stage, stage + KEYS * KP, k, v, ks.s, vs.s, 0, s);
-  for (int c = 0; c < chunks; ++c) {
-    const int buf = c & 1;
-    if (c + 1 < chunks) {
-      __nv_bfloat16* next = stage + (buf ^ 1) * 2 * KEYS * KP;
-      tc_stage<HD>(next, next + KEYS * KP, k, v, ks.s, vs.s, (c + 1) * KEYS, s);
-      asm volatile("cp.async.wait_group 1;\n" ::);  // this chunk's copies landed
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], live);  // one arrival from each live consumer
     }
-    __syncthreads();
-    const __nv_bfloat16* kc = stage + buf * 2 * KEYS * KP;
-    const __nv_bfloat16* vc = kc + KEYS * KP;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    if (warp_live) {
-      // scores of 16 rows against the chunk's 64 keys
-      float sc[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-        const __nv_bfloat16* kp = kc + (8 * j + g) * KP + 2 * t;
-#pragma unroll
-        for (int i = 0; i < KS; ++i) mma_bf16(sc[j], qa[i], ld32(kp + 16 * i), ld32(kp + 16 * i + 8));
-      }
-
-      // scale, mask the keys past s, and take each row's max over the chunk
-      float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int key = c * KEYS + 8 * j + 2 * t;
-        sc[j][0] = key < s ? sc[j][0] * scale : -INFINITY;
-        sc[j][1] = key + 1 < s ? sc[j][1] * scale : -INFINITY;
-        sc[j][2] = key < s ? sc[j][2] * scale : -INFINITY;
-        sc[j][3] = key + 1 < s ? sc[j][3] * scale : -INFINITY;
-        mx_lo = fmaxf(mx_lo, fmaxf(sc[j][0], sc[j][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(sc[j][2], sc[j][3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {  // the four lanes that share a row
-        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-      }
-      // the chunk holds a live key, so the new max is finite; the first
-      // chunk's correction is exp(-inf) = 0 on sums that are 0
-      const float n_lo = fmaxf(m_lo, mx_lo), n_hi = fmaxf(m_hi, mx_hi);
-      const float c_lo = __expf(m_lo - n_lo), c_hi = __expf(m_hi - n_hi);
-      m_lo = n_lo;
-      m_hi = n_hi;
-      l_lo *= c_lo;
-      l_hi *= c_hi;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        acc[j][0] *= c_lo;
-        acc[j][1] *= c_lo;
-        acc[j][2] *= c_hi;
-        acc[j][3] *= c_hi;
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        sc[j][0] = __expf(sc[j][0] - n_lo);
-        sc[j][1] = __expf(sc[j][1] - n_lo);
-        sc[j][2] = __expf(sc[j][2] - n_hi);
-        sc[j][3] = __expf(sc[j][3] - n_hi);
-        l_lo += sc[j][0] + sc[j][1];
-        l_hi += sc[j][2] + sc[j][3];
-      }
-
-      // acc += p @ v: the probabilities, rounded to bf16, are already in the
-      // A layout; v's B fragments come transposed out of its row-major chunk
-#pragma unroll
-      for (int i = 0; i < KEYS / 16; ++i) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(sc[2 * i][0], sc[2 * i][1]);
-        pa[1] = pack_bf16(sc[2 * i][2], sc[2 * i][3]);
-        pa[2] = pack_bf16(sc[2 * i + 1][0], sc[2 * i + 1][1]);
-        pa[3] = pack_bf16(sc[2 * i + 1][2], sc[2 * i + 1][3]);
-        const __nv_bfloat16* vp = vc + (16 * i + lane % 16) * KP;
-#pragma unroll
-        for (int j = 0; j < NO; ++j) {
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, vp + 8 * j);
-          mma_bf16(acc[j], pa, b0, b1);
-        }
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS) : "memory");
+    if (tid == 0) {
+      const int oq = orders & 63, ok = (orders >> 6) & 63, ov = (orders >> 12) & 63;
+      mbar_expect_tx(q_full, live * T::BYTES);
+      for (int c = 0; c < live; ++c)
+        load_rows<HD>(q_st + c * T::BYTES, &map_q, oq, q_full, row0 + c * ROWS, hh, b);
+      for (int i = 0; i < chunks; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);  // at once on the first lap
+        mbar_expect_tx(&full[st], 2 * T::BYTES);
+        load_rows<HD>(k_st + st * T::BYTES, &map_k, ok, &full[st], i * KEYS, hh, b);
+        load_rows<HD>(v_st + st * T::BYTES, &map_v, ov, &full[st], i * KEYS, hh, b);
       }
     }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    return;
   }
 
-  if (!warp_live) return;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS) : "memory");
+  const int c = wg - 1;
+  if (c >= live) return;  // no query row of this warpgroup lies below s
+  const int warp = tid / 32, lane = tid % 32;
+  const unsigned char* q_mine = q_st + c * T::BYTES;
+
+  float acc[HD / 2];
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows i = 0, 1 (raw scores)
+  float l[2] = {0.f, 0.f};              // this thread's share of their sums
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < chunks; ++i) {
+    const int st = i % STAGES;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const unsigned char* kc = k_st + st * T::BYTES;
+    const unsigned char* vc = v_st + st * T::BYTES;
+    const int key0 = i * KEYS;
+    if (i + 1 < chunks)
+      chunk<HD, KEYS>(acc, m, l, q_mine, kc, vc, key0, s, false, scale_log2);
+    else if (s - key0 <= TAIL)
+      chunk<HD, TAIL>(acc, m, l, q_mine, kc, vc, key0, s, true, scale_log2);
+    else
+      chunk<HD, KEYS>(acc, m, l, q_mine, kc, vc, key0, s, true, scale_log2);
+    if (tid == 0) mbar_arrive(&empty[st]);  // both products that read it have retired
   }
-  const float i_lo = 1.f / l_lo, i_hi = 1.f / l_hi;  // each sum holds its max's exp(0) = 1
-  __nv_bfloat16* o_lo = o + (((long long)b * s + r_lo) * h + hh) * HD + 2 * t;
-  __nv_bfloat16* o_hi = o + (((long long)b * s + r_hi) * h + hh) * HD + 2 * t;
+
 #pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    if (r_lo < s)
-      *reinterpret_cast<uint32_t*>(o_lo + 8 * j) = pack_bf16(acc[j][0] * i_lo, acc[j][1] * i_lo);
-    if (r_hi < s)
-      *reinterpret_cast<uint32_t*>(o_hi + 8 * j) = pack_bf16(acc[j][2] * i_hi, acc[j][3] * i_hi);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + c * ROWS + 16 * warp + g + 8 * i;
+    if (r >= s) continue;
+    const float inv = 1.f / l[i];  // each sum holds its max's exp(0) = 1
+    __nv_bfloat16* out = o + (((long long)b * s + r) * h + hh) * HD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
   }
 }
 
@@ -407,30 +489,81 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < OJ; ++j) out[tx + 16 * j] = acc[i][j] * inv;
   }
 }
+// The map of one (B, H, S, hd) bf16 view: hd innermost, then S, H and B in
+// the order of their strides (smallest first), boxes of one swizzle row's
+// width by 64 rows of S; rows past S load as zeros.  `order` gets the
+// positions of the row, head and batch coordinates (see `coord`).  TMA needs
+// a 16-byte aligned base and strides that are multiples of 16 bytes.
+template <int HD>
+bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, int s,
+                 Strides st) {
+  using T = Tile<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  struct Dim {
+    long long size, stride;
+    int which;  // 0 row, 1 head, 2 batch
+  } d[3] = {{s, st.s, 0}, {h, st.h, 1}, {b, st.b, 2}};
+  for (int i = 1; i < 3; ++i)  // by stride, ascending
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim x = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = x;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)HD, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)T::BOX_COLS, 1, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  *order = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (d[i].stride < 0 || d[i].stride % 8 != 0) return false;
+    dims[i + 1] = (cuuint64_t)d[i].size;
+    strides[i] = (cuuint64_t)d[i].stride * 2;
+    if (d[i].which == 0) box[i + 1] = ROWS;
+    *order |= (i + 1) << (2 * d[i].which);
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 body's shared-memory limit, raised once a device.
+template <int HD>
+cudaError_t wgmma_ready(int device) {
+  static std::atomic<unsigned long long> smem_set{0};  // one bit a device
+  return raise_smem_limit_once((const void*)attention_wgmma_kernel<HD>, (int)Tile<HD>::SMEM,
+                               device, smem_set);
+}
 
 template <int HD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int b, int h,
-                      int s, Strides qs, Strides ks, Strides vs, float scale,
-                      cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_wgmma(int device, const void* q, const void* k, const void* v, void* o,
+                         int b, int h, int s, Strides qs, Strides ks, Strides vs, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  int oq, ok, ov;
+  if (!encode_view<HD>(&map_q, &oq, q, b, h, s, qs) ||
+      !encode_view<HD>(&map_k, &ok, k, b, h, s, ks) ||
+      !encode_view<HD>(&map_v, &ov, v, b, h, s, vs))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = wgmma_ready<HD>(device);
   if (err != cudaSuccess) return err;
-  using bf16 = __nv_bfloat16;
-  const dim3 grid(b * h, (s + ROWS - 1) / ROWS);
-  attention_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), s, h, qs, ks, vs, scale);
+  const dim3 grid(b * h, (s + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  attention_wgmma_kernel<HD><<<grid, WG_THREADS, Tile<HD>::SMEM, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, h, oq | (ok << 6) | (ov << 12),
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int b, int h,
-                       int s, Strides qs, Strides ks, Strides vs, float scale,
+cudaError_t launch_f32(int device, const void* q, const void* k, const void* v, void* o, int b,
+                       int h, int s, Strides qs, Strides ks, Strides vs, float scale,
                        cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err =
+      raise_smem_limit_once((const void*)attention_f32_kernel<HD>, (int)smem, device, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (s + ROWS - 1) / ROWS);
   attention_f32_kernel<HD><<<grid, F_THREADS, smem, stream>>>(
@@ -439,12 +572,56 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+// The bf16 body's tiles and waves at one shape (see the note at the top).
+template <int HD>
+cudaError_t plan(int device, int b, int h, int s, int* out) {
+  using T = Tile<HD>;
+  cudaError_t err = wgmma_ready<HD>(device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attention_wgmma_kernel<HD>,
+                                                      WG_THREADS, T::SMEM);
+  if (err != cudaSuccess) return err;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, attention_wgmma_kernel<HD>);
+  if (err != cudaSuccess) return err;
+  const long long bh = (long long)b * h;
+  const int row_blocks = (s + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int tiles = (s + ROWS - 1) / ROWS;  // warpgroup tiles a head
+  const int chunks = (s + KEYS - 1) / KEYS;
+  const int last = s - (chunks - 1) * KEYS;
+  out[0] = BLOCK_ROWS;
+  out[1] = WG_THREADS;
+  out[2] = (int)T::SMEM;
+  out[3] = attr.numRegs;
+  out[4] = per_sm;
+  out[5] = sms;
+  out[6] = (int)(bh * row_blocks);             // blocks
+  out[7] = (int)(bh * tiles);                  // warpgroup tiles
+  out[8] = (int)(bh * (tiles % CONSUMERS ? 1 : 0));  // blocks with one live tile
+  out[9] = 4 * (chunks - 1) + (last <= TAIL ? 1 : 4);  // 16-key steps a tile
+  // Tiles on the busiest SM if every tile takes as long: blocks in the
+  // grid's order (x the head, y the row block, so every head's last, fuller
+  // or not, comes last), each wave of per_sm * sms blocks one a slot, slot i
+  // on SM i % sms.
+  const int last_tiles = tiles - (row_blocks - 1) * CONSUMERS;
+  const long long slots = (long long)per_sm * sms;
+  std::vector<int> load(sms > 0 ? sms : 1, 0);
+  for (long long i = 0; i < bh * row_blocks && slots > 0; ++i)
+    load[(i % slots) % sms] += i / bh < row_blocks - 1 ? CONSUMERS : last_tiles;
+  out[10] = *std::max_element(load.begin(), load.end());
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v: (b, h, s, hd) views with unit
 // stride along hd and the given strides (elements) along b, h and s; o is
 // (b, s, h, hd) contiguous.  Returns cudaGetLastError() after the launch (0
-// on success).  b * h == 0 or s == 0 launches nothing.
+// on success), or cudaErrorInvalidValue for a layout the bf16 body's tensor
+// maps refuse (nothing launched).  b * h == 0 or s == 0 launches nothing.
 extern "C" int attention_launch(int device, const void* q, const void* k, const void* v,
                                 void* o, int b, int h, int s, int hd, long long q_b,
                                 long long q_h, long long q_s, long long k_b, long long k_h,
@@ -455,16 +632,33 @@ extern "C" int attention_launch(int device, const void* q, const void* k, const 
   if (b == 0 || h == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides qs{q_b, q_h, q_s}, ks{k_b, k_h, k_s}, vs{v_b, v_h, v_s};
-#define CASE(HD)                                                                         \
-  case HD:                                                                               \
-    return (int)(dtype == 1 ? launch_tc<HD>(q, k, v, o, b, h, s, qs, ks, vs, scale, st)  \
-                            : launch_f32<HD>(q, k, v, o, b, h, s, qs, ks, vs, scale, st));
+#define CASE(HD)                                                                              \
+  case HD:                                                                                    \
+    return (int)(dtype == 1                                                                   \
+                     ? launch_wgmma<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st)   \
+                     : launch_f32<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (hd) {
     CASE(32) CASE(64) CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CASE
+}
+
+// The bf16 body's plan at (b, h, s, hd), into out[11]: rows a block, threads
+// a block, shared-memory bytes a block, registers a thread (at entry, before
+// setmaxnreg), blocks resident an SM, SMs, blocks, warpgroup tiles, blocks
+// with a single live tile, 16-key steps a tile, warpgroup tiles on the
+// busiest SM.  Returns a cudaError_t.
+extern "C" int attention_plan(int device, int b, int h, int s, int hd, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  switch (hd) {
+    case 32: return (int)plan<32>(device, b, h, s, out);
+    case 64: return (int)plan<64>(device, b, h, s, out);
+    case 128: return (int)plan<128>(device, b, h, s, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* attention_error_string(int err) {

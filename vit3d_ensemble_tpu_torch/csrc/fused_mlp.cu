@@ -84,16 +84,16 @@
 // and the width held in registers cost them registers and time beyond the
 // grid dimension, so a stacked call at a wide D is refused.
 
-#include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
-
 #include <algorithm>
 #include <atomic>
 
 #include "mlp_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 using namespace mlp;
+using namespace sm90;
 
 constexpr int TILE_N = 64;    // token rows per block
 constexpr int CHUNK = 64;     // hidden columns per step
@@ -394,215 +394,6 @@ struct GemmShape {
   static_assert(STAGES >= 2, "the ring needs two stages");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.  A wait
-// that spins for 2^35 clocks (~20 s) traps, so a pipeline fault fails the
-// launch instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 35)) {
-      __trap();
-    }
-  }
-}
-
-// One (64 columns, `rows`) box of a 2-d tensor map into shared memory; the
-// bytes count toward `bar`'s transaction (zero-filled ones past the edges too).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
-      : "memory");
-}
-
-// One (64 columns, 64 rows) box from shared memory to the tensor map; the
-// hardware clips what lies past the edges.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
-                                          int row) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
-                   "l"(reinterpret_cast<uint64_t>(map)),
-               "r"(smem_u32(src)), "r"(col), "r"(row)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// The issuing thread's TMA stores have read their shared memory.
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// The wgmma descriptor of a K-major operand tile that TMA loaded with the
-// 128-byte swizzle: rows of 128 bytes (64 bf16 of k), 8-row groups 1024 bytes
-// apart (SBO), swizzle mode 1 (128B).  The tile starts 1024-byte aligned; a
-// k-step of 16 adds 32 bytes to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
-}
-
-// d (64 x N, f32) += a (64 x 16, K-major in shared memory) * b (N x 16,
-// K-major in shared memory)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<192>(float (&d)[96], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin the accumulators: the compiler may not move their reads or writes
-// across this point.  Around every wgmma batch, so that no other
-// instruction touches them while one is in flight (ptxas would serialise
-// the wgmmas otherwise).
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // out = epilogue(A @ B^T) over (128, BN) tiles, both operands K-major bf16
 // behind TMA maps, k = 64 * k_tiles, a tile index t at row tile t / col_tiles
 // and column tile t % col_tiles.  Epilogue: + bias[col] (zero at and past
@@ -681,8 +472,8 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int kt = 0; kt < k_tiles; ++kt, ++it) {
         const int s = it % STAGES;
         mbar_wait(&full[s], (it / STAGES) & 1);
-        const uint64_t da = sw128_desc(a_st + s * S::A_BYTES + c * 8192);
-        const uint64_t db = sw128_desc(b_st + s * S::B_BYTES);
+        const uint64_t da = smem_desc(a_st + s * S::A_BYTES + c * 8192, 16, 1024, 1);
+        const uint64_t db = smem_desc(b_st + s * S::B_BYTES, 16, 1024, 1);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
@@ -737,66 +528,6 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled lives in libcuda, not the runtime: it is reached
-// through the runtime's entry-point query, so the library needs no -lcuda.  The function is looked
-// up once; the maps themselves are encoded on every call (the caching
-// allocator hands the same addresses to other tensors).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a row-major bf16 matrix (rows, cols) with row stride `ld`
-// elements, read or written in boxes of 64 columns by `box_rows` rows with the
-// 128-byte swizzle; out-of-range elements load as zero.  TMA needs a 16-byte
-// aligned base and a row stride that is a multiple of 16 bytes.
-bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0)
-    return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)G_BK, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// What the host asks the runtime once a device, not on every call: the SM
-// count, and (in launch_gemm) the raised shared-memory limit of each
-// instantiation.  Devices past MAX_DEVICES are asked every time.
-constexpr int MAX_DEVICES = 64;
-
-cudaError_t sm_count(int device, int* sms) {
-  static std::atomic<int> cached[MAX_DEVICES];
-  const bool cacheable = device >= 0 && device < MAX_DEVICES;
-  if (cacheable && (*sms = cached[device].load(std::memory_order_relaxed)) > 0)
-    return cudaSuccess;
-  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && cacheable) cached[device].store(*sms, std::memory_order_relaxed);
-  return err;
-}
-
 // out (rows, out_cols) = epilogue(A @ B^T) over k_tiles of 64, on a
 // persistent grid of at most one block an SM.
 template <int BN, bool GELU>
@@ -812,13 +543,9 @@ cudaError_t launch_gemm(int device, const void* a, int a_cols, int a_ld, const v
     return cudaErrorInvalidValue;
   auto* kernel = wide_gemm_kernel<BN, GELU>;
   static std::atomic<unsigned long long> smem_set{0};  // one bit a device
-  const unsigned long long bit = device >= 0 && device < MAX_DEVICES ? 1ull << device : 0;
-  if (bit == 0 || !(smem_set.load(std::memory_order_relaxed) & bit)) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
-    if (err != cudaSuccess) return err;
-    smem_set.fetch_or(bit, std::memory_order_relaxed);
-  }
+  const cudaError_t err =
+      raise_smem_limit_once((const void*)kernel, (int)S::SMEM, device, smem_set);
+  if (err != cudaSuccess) return err;
   const int tiles = col_tiles * ((rows + G_BM - 1) / G_BM);
   kernel<<<std::min(tiles, sms), G_THREADS, S::SMEM, stream>>>(
       map_a, map_b, map_out, static_cast<const __nv_bfloat16*>(bias), cols, k_tiles, tiles,

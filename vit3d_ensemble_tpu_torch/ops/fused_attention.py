@@ -7,14 +7,19 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     and an online softmax on CUDA cores.  The wrapper makes q, k, v
     contiguous.
   * K4 (`csrc/attention.cu`), head_dim in {32, 64, 128} (the stretch model's
-    64 at 513 tokens): a block per (volume, head, tile of 64 query rows)
-    walks the keys in chunks with an online softmax, so no S x S tile is
-    stored; in bf16 both products run on the tensor cores.  It reads q, k, v
-    through their strides (unit stride along head_dim; in bf16 whole
-    16-byte pieces from an aligned address), as the model's
-    `lin(x).view(B, T, H, hd).transpose(1, 2)` gives them, and writes the
-    context (B, S, H, hd), returned as its (B, H, S, hd) view, so that the
-    model's merge of the heads copies nothing.
+    64 at 513 tokens): the keys are walked in chunks with an online softmax,
+    so no S x S tile is stored.  In bf16 (every head_dim) a block takes one
+    (volume, head) and 128 query rows: a producer warp loads q and a ring of
+    (k, v) chunks of 64 keys by TMA, and two consumer warpgroups of 64 rows
+    run both products on `wgmma` (the probabilities stay in registers,
+    rounded to bf16 unnormalised; a last chunk of at most 16 live keys runs
+    16 wide).  f32 runs a block per 64 query rows on CUDA cores.  It reads
+    q, k, v through their strides (unit stride along head_dim; in bf16 a
+    16-byte aligned address and strides that are multiples of 16 bytes,
+    TMA's rule), as the model's `lin(x).view(B, T, H, hd).transpose(1, 2)`
+    and K3's views into its QKV buffer give them, and writes the context
+    (B, S, H, hd), returned as its (B, H, S, hd) view, so that the model's
+    merge of the heads copies nothing.
 
 Each source note says what bounds its kernel on the H100.
 
@@ -43,7 +48,8 @@ launches_k4 = 0
 TINY_HD = 16
 #: head dims K4 is instantiated for.
 HEAD_DIMS_K4 = (32, 64, 128)
-#: most tokens K4 takes: 65,535 tiles of 64 query rows.
+#: most tokens K4 takes: 65,535 tiles of 64 query rows (the f32 body's;
+#: the bf16 body's tiles are 128 rows).
 MAX_TOKENS_K4 = 65535 * 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,7 +113,8 @@ def _check(q, k, v) -> None:
                 raise ValueError(
                     f"fused_attention: {name} has stride {t.stride(-1)} "
                     "along head_dim, K4 needs 1")
-            # the bf16 body copies rows 16 bytes at a time; f32 reads scalars
+            # the bf16 body loads by TMA (16-byte aligned base and strides);
+            # f32 reads scalars
             if t.dtype == torch.bfloat16 and (
                     t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
                 raise ValueError(
@@ -115,7 +122,7 @@ def _check(q, k, v) -> None:
                     f"with strides {t.stride()}: in bfloat16 K4 needs a "
                     "16-byte aligned address and strides that are multiples "
                     "of 8")
-        # the grid's second axis, tiles of 64 query rows, holds 65,535
+        # the grid's second axis holds 65,535 row tiles: 64 rows in f32
         if q.shape[-2] > MAX_TOKENS_K4:
             raise ValueError(f"fused_attention: {q.shape[-2]} tokens, K4 "
                              f"takes {MAX_TOKENS_K4}")
