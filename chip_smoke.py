@@ -9,7 +9,9 @@ paths, each with the kernels' launch counters set to 0 just before it and
 read just after:
 
   * serving: all 18 baseline ViTs in bf16 at B=512, then batch-1..8 latency
-    of conf 9 and of the {5,9,11} stacking ensemble (K1, K2);
+    of conf 9 and of the {5,9,11} stacking ensemble (K1, K2; K2 reads q, k,
+    v in place from the QKV product and writes the context for the head
+    merge, so the pass holds no copies around it);
   * training, in f32: `train_baseline` on conf 9 at full width and depth
     under the attention impls `auto` (K2, K1 in evaluation) and `layer`
     (K3), and `train_ensemble` on {5,9,11} under `layer`; with dropout off,
@@ -75,18 +77,23 @@ LATENCY_BATCHES = (1, 4, 8)
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# Exponentials an SM issues a clock (MUFU.EX2, Hopper); the rate a second
+# is this times the SMs times the SM clock nvidia-smi reports, set by main().
+EX2_PER_SM_CLOCK = 16
+exp_rate = 0.0
 
 # Kernel against plain version: the JAX package's own tolerances
 # (`tests/test_pallas_mlp.py:31,47`, `tests/test_ops.py:31`).  Both sides
 # accumulate in f32 and round at the same points, so they differ by the
 # order of f32 sums and by bf16 rounding flips that order causes.
 TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (0.05, 0.05)}
-# K4 in bf16 has a tighter gate of its own.  Its inputs are made so that the
-# context has a root mean square of 1 at every S (see `model_views`), where
-# the kernel's largest error read 0.031 at |ctx| = 16 and at most 0.61 of
-# this gate anywhere (NVIDIA H100 80GB HBM3), while a version that drops the
-# last key misses it on 17 % of the elements at S = 513, by up to 89 times
-# (phase `K4` prints both: `max_err_over_gate`, `dropped_key_*`).
+# K4 in bf16 has a tighter gate of its own, and K2 is held to it too.  Its
+# inputs are made so that the context has a root mean square of 1 at every
+# S (see `model_views`, `k2_views`), where K4's largest error read 0.031 at
+# |ctx| = 16 and at most 0.61 of this gate anywhere (NVIDIA H100 80GB HBM3),
+# while a version that drops the last key misses it on 17 % of the elements
+# at S = 513, by up to 89 times (phases `K4` and `K2` print both:
+# `max_err_over_gate`, `dropped_key_*`).
 K4_BF16_TOL = (0.02, 0.02)
 # The serving path in bf16, kernels against the plain modules: the plain
 # MLP and einsum attention round to bf16 after every op, the kernels only
@@ -160,11 +167,14 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple:
-    by_ops = flops / PEAK_FLOPS[dtype]
-    by_bytes = nbytes / PEAK_BYTES
-    return (max(by_ops, by_bytes) * 1e3,
-            "operations" if by_ops >= by_bytes else "bytes")
+def bound(flops: float, nbytes: float, dtype, exps: float = 0.0) -> tuple:
+    """The least ms the card could take: the largest of the operations over
+    the peak rate for their type, the bytes over the memory rate and the
+    exponentials over the card's exponential rate; and which one it is."""
+    times = {"operations": flops / PEAK_FLOPS[dtype], "bytes": nbytes / PEAK_BYTES,
+             "exponentials": exps / exp_rate}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def compare(out, ref, dtype, tol=None) -> tuple:
@@ -197,10 +207,14 @@ def smi(query: str) -> str:
 
 
 def ptxas_summary(log: str) -> dict:
+    """Each library's entries, most registers, spilled bytes, and the
+    (mangled) entries that spill."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+    entries = re.findall(r"Function properties for (\S+)\n\s+\d+ bytes stack "
+                         r"frame, (\d+) bytes spill stores", log)
     return {"entries": len(regs), "max_registers": max(regs, default=None),
-            "spill_store_bytes": sum(spills)}
+            "spill_store_bytes": sum(int(n) for _, n in entries),
+            "spilling_entries": [name for name, n in entries if int(n)]}
 
 
 def sass_count(name: str, opcode: str) -> int:
@@ -217,10 +231,16 @@ def phase_build() -> None:
     logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
                          "tiny_attention", "attention_layer", "attention"])
     seconds = time.perf_counter() - t0
+    # a library built before this run: the compiler's report saved beside it
+    logs = {name: log or _build.library_path(name).with_suffix(".log").read_text()
+            for name, log in logs.items()}
     # K1's bf16 wide body and K4's bf16 body run on wgmma fed by TMA: their
-    # SASS holds HGMMA and UTMALDG instructions
+    # SASS holds HGMMA and UTMALDG instructions; K2's bf16 body at head_dim
+    # 16 runs on mma.sync (HMMA), and both its bodies on MUFU.EX2
     sass = {f"{name}_sass_{op.lower()}": sass_count(name, op)
             for name in ("fused_mlp", "attention") for op in ("HGMMA", "UTMALDG")}
+    sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
+                 sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
     emit({"phase": "build", "seconds": seconds,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
@@ -392,57 +412,114 @@ def phase_k1(gen) -> tuple:
 
 # (H, hd) of the trained configs: conf 9 (16, 1), conf 5 and 11 (8, 4).
 K2_TRAIN_HEADS = ((16, 1), (8, 4))
+# (B, H, S, hd) of the serving pass (conf 1-18's three classes at B=512)
+# and of conf 19-22's 257 tokens at B=64.
+K2_SERVE_SHAPES = ((B, 4, 65, 16), (B, 8, 65, 4), (B, 16, 65, 1))
+K2_T257_SHAPES = ((64, 4, 257, 4), (64, 8, 257, 1))
 
 
-def k2_case(gen, dtype, nb: int, H: int, hd: int, path: str) -> dict:
-    """K2 against its plain version on one shape, timed."""
-    S = 65
-    q, k, v = (torch.randn(nb, H, S, hd, generator=gen, device="cuda")
-               .to(dtype) for _ in range(3))
+def k2_views(gen, shape, dtype, offset: int = 0) -> list:
+    """q, k, v as the serving model hands them to K2: (B, H, S, hd) views
+    into one (B, S, 3, H, hd) QKV product, `offset` elements into its
+    storage (1: no view is 16-byte aligned).  v is scaled by sqrt(S / e),
+    so that the context's root mean square is 1 at every S (see
+    `model_views`)."""
+    nb, H, S, hd = shape
+    qkv = torch.randn(nb, S, 3, H, hd, generator=gen, device="cuda")
+    qkv[:, :, 2] *= math.sqrt(S / math.e)
+    flat = torch.empty(offset + qkv.numel(), dtype=dtype, device="cuda")
+    qkv = flat[offset:].view(qkv.shape).copy_(qkv)
+    return list(qkv.permute(2, 0, 3, 1, 4))
+
+
+def k2_case(gen, dtype, shape, path: str, offset: int = 0,
+            device: bool = True) -> dict:
+    """K2 against its plain version on the model's QKV views, timed; SDPA
+    on the same views, and on contiguous copies of them, is the library
+    yardstick (the port never calls it).  bf16 has K4's gate on a context
+    of rms 1, f32 the JAX tolerance; at S >= 64 the gate must reject the
+    plain version without the last key (at S = 65 the key past a 64-key
+    tile).  With `device`, the device times under the profiler: `device_ms`
+    K2's kernel alone, `call_device_ms` every kernel of a call."""
+    nb, H, S, hd = shape
+    q, k, v = k2_views(gen, shape, dtype, offset)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
+    plain = fused_attention._plain_attention
     with torch.no_grad():
+        before = fused_attention.launches
         out = fused_attention.fused_attention(q, k, v)
-        ref = fused_attention._plain_attention(q, k, v)
-        err, ok, atol, rtol = compare(out, ref, dtype)
+        torch.cuda.synchronize()
+        one_launch = fused_attention.launches == before + 1
+        ref = plain(q, k, v)
+        err, ok, atol, rtol = compare(out, ref, dtype, tol)
+        gate = atol + rtol * ref.float().abs()
+        dropped = (plain(q, k[:, :, :-1], v[:, :, :-1]).float()
+                   - ref.float()).abs() / gate
+        dropped_share = float((dropped > 1).float().mean())
+        gate_ok = S < 64 or dropped_share > 0
+        merged = out.transpose(1, 2).reshape(nb, S, H * hd)
+        view_ok = merged.data_ptr() == out.data_ptr() and merged.is_contiguous()
         ms = time_ms(lambda: fused_attention.fused_attention(q, k, v), 50)
-        plain_ms = time_ms(lambda: fused_attention._plain_attention(q, k, v), 10)
+        plain_ms = time_ms(lambda: plain(q, k, v), 10)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50)
-        # at the serving shapes the events' ms is mostly the host's; the
-        # kernels' own times are their device times under the profiler
-        device_ms = library_device_ms = None
-        if path == "serve" and dtype == torch.bfloat16:
-            device_ms = device_time(
+        # at these shapes the events' ms is mostly the host's; the kernels'
+        # own times are their device times under the profiler
+        timed = {}
+        if device:
+            busy, groups, _ = device_time(
                 lambda: [fused_attention.fused_attention(q, k, v)
-                         for _ in range(10)], host_ops=False)[0] / 10
-            library_device_ms = device_time(
-                lambda: [F.scaled_dot_product_attention(q, k, v)
-                         for _ in range(10)], host_ops=False)[0] / 10
+                         for _ in range(10)], host_ops=False)
+            timed = {
+                "device_ms": groups.get("K2", 0.0) / 10,
+                "call_device_ms": busy / 10,
+                "library_device_ms": device_time(
+                    lambda: [F.scaled_dot_product_attention(q, k, v)
+                             for _ in range(10)], host_ops=False)[0] / 10,
+                "library_contiguous_device_ms": device_time(
+                    lambda: [F.scaled_dot_product_attention(qc, kc, vc)
+                             for _ in range(10)], host_ops=False)[0] / 10}
     bh = nb * H
     bound_ms, bound_by = bound(4.0 * bh * S * S * hd,
-                               4.0 * bh * S * hd * q.element_size(), dtype)
+                               4.0 * bh * S * hd * q.element_size(), dtype,
+                               exps=bh * S * S)
     case = {"phase": "K2", "path": path, "dtype": str(dtype).split(".")[1],
-            "B": nb, "H": H, "S": S, "hd": hd, "max_abs_err": err,
-            "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "device_ms": device_ms, "library_device_ms": library_device_ms,
+            "B": nb, "H": H, "S": S, "hd": hd, "views": "qkv",
+            "offset_elements": offset, "max_abs_err": err, "atol": atol,
+            "rtol": rtol, "ok": ok, "ctx_rms": float(ref.float().square().mean().sqrt()),
+            "max_err_over_gate": float(((out.float() - ref.float()).abs() / gate).max()),
+            "gate_rejects_dropped_key": gate_ok,
+            "dropped_key_share_over_gate": dropped_share,
+            "dropped_key_max_over_gate": float(dropped.max()),
+            "heads_merge_as_view": view_ok, "one_launch": one_launch,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **timed,
             "bound_ms": bound_ms, "bound_by": bound_by}
     emit(case)
-    check(ok and device_ms != 0.0, f"K2 {case}")
+    check(ok and gate_ok and view_ok and one_launch
+          and timed.get("device_ms", 1.0) > 0, f"K2 {case}")
     return case
 
 
 def phase_k2(gen) -> dict:
-    """K2 against its plain version at the serving path's shapes, then at
-    the training path's (a batch of 4, the 24 validation volumes)."""
-    main = None
+    """K2 against its plain version on the model's QKV views: the serving
+    pass's shapes in bf16 and f32, bf16 once more on views that are not
+    16-byte aligned, conf 19-22's shapes at T=257 in bf16, then the training
+    path's in f32 (a batch of 4, the 24 validation volumes).  Returns the
+    serving cases in bf16 by head_dim, and the training cases."""
+    out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for H, hd in ((4, 16), (8, 4), (16, 1)):
-            case = k2_case(gen, dtype, B, H, hd, "serve")
-            if (dtype, hd) == (torch.bfloat16, 16):
-                main = case
-    for nb in (4, 24):
-        for H, hd in K2_TRAIN_HEADS:
-            k2_case(gen, torch.float32, nb, H, hd, "train")
-    return main
+        for shape in K2_SERVE_SHAPES:
+            case = k2_case(gen, dtype, shape, "serve",
+                           device=dtype == torch.bfloat16)
+            if dtype == torch.bfloat16:
+                out[shape[-1]] = case
+    out["unaligned"] = k2_case(gen, torch.bfloat16, K2_SERVE_SHAPES[0],
+                               "serve", offset=1)
+    out["t257"] = [k2_case(gen, torch.bfloat16, shape, "serve_t257")
+                   for shape in K2_T257_SHAPES]
+    out["train"] = [k2_case(gen, torch.float32, (nb, H, 65, hd), "train")
+                    for nb in (4, 24) for H, hd in K2_TRAIN_HEADS]
+    return out
 
 
 # K3 at (B, T, D, H): conf 1-18's (D, H) classes at B=512, conf 19-22's at
@@ -522,7 +599,8 @@ def phase_k3(gen) -> tuple:
                              for _ in range(10)], host_ops=False)[0] / 10
         want = counts_of(K3=1, **({"K3_on_K4": 1} if on_k4 else {}))
         bound_ms, bound_by = bound(4.0 * nb * T * T * D,
-                                   4.0 * nb * T * D * qkv.element_size(), dtype)
+                                   4.0 * nb * T * D * qkv.element_size(), dtype,
+                                   exps=nb * H * T * T)
         case = {"phase": "K3", "dtype": str(dtype).split(".")[1], "B": nb,
                 "T": T, "D": D, "H": H, "hd": D // H,
                 "body": "K4" if on_k4 else "K3", "launches": counts,
@@ -635,7 +713,7 @@ def phase_k4(gen) -> dict:
             bh = nb * H
             bound_ms, bound_by = bound(4.0 * bh * S * S * hd,
                                        4.0 * bh * S * hd * q.element_size(),
-                                       dtype)
+                                       dtype, exps=bh * S * S)
             case = {"phase": "K4", "dtype": str(dtype).split(".")[1], "B": nb,
                     "H": H, "S": S, "hd": hd, "views": views,
                     "max_abs_err": err, "atol": atol,
@@ -926,22 +1004,23 @@ def phase_profile(main_path: dict, gen) -> None:
             model(x)
 
     with torch.no_grad():
-        busy, groups, _ = device_time(one_pass)
+        busy, groups, kernels = device_time(one_pass)
     wall = main_path["ms_per_pass"]
     emit({"phase": "profile", "card": card, "work": "18-model pass, B=512",
           "device_busy_ms": busy, "wall_ms": wall,
-          "device_idle_share": 1.0 - busy / wall, "by_group_ms": groups})
+          "device_idle_share": 1.0 - busy / wall, "kernels": kernels,
+          "by_group_ms": groups})
     check(busy > 0, "profiler saw no device time on the main path")
     xb = torch.randn(1, 128, 128, 5, 1, generator=gen,
                      device="cuda").to(torch.bfloat16)
     model = models[BASELINE_CONFS.index(9)]
     with torch.no_grad():
         res, _ = latency(model, xb, 1)
-        busy, groups, _ = device_time(lambda: model(xb))
+        busy, groups, kernels = device_time(lambda: model(xb))
     emit({"phase": "profile", "card": card, "work": "conf 9, B=1",
           "device_busy_ms": busy, "wall_ms": res["ms_per_batch"],
           "device_idle_share": 1.0 - busy / res["ms_per_batch"],
-          "by_group_ms": groups})
+          "kernels": kernels, "by_group_ms": groups})
 
 
 def latency(model, x, batch: int):
@@ -1469,9 +1548,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    global card
+    global card, exp_rate
     card = smi("name,power.limit")
-    emit({"phase": "device", "nvidia_smi": card,
+    sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = EX2_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6
+    emit({"phase": "device", "nvidia_smi": card, "sms": sms,
+          "sm_clock_max_mhz": sm_clock_mhz, "exponentials_per_s": exp_rate,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
@@ -1507,9 +1590,10 @@ def main() -> int:
                       "sweep": sweep["launches"][name]}
                for name in KERNELS}
     shape_keys = ("dtype", "N", "D", "M", "active", "models", "B", "H", "S",
-                  "T", "hd")
+                  "T", "hd", "path", "offset_elements")
     number_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                   "library_ms", "device_ms", "library_device_ms")
+                   "library_ms", "device_ms", "library_device_ms",
+                   "library_contiguous_device_ms", "call_device_ms")
     # K4, K1's wide case and K3's stretch case also carry their device
     # time under the profiler (see phase_k4)
 
@@ -1544,9 +1628,14 @@ def main() -> int:
             "variants_pipelined2",
             model_axis_case=case_of(k1_variants["pipelined2_model_axis"])),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
-            "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2, "serve",
-            device_ms=k2["device_ms"],
-            library_device_ms=k2["library_device_ms"]),
+            "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2[16], "serve",
+            device_ms=k2[16]["device_ms"],
+            library_device_ms=k2[16]["library_device_ms"],
+            # the serving pass's other head dims (CUDA-core body), conf
+            # 19-22's T=257, and the training path's f32 shapes
+            other_cases=[case_of(c) for c in
+                         [k2[4], k2[1], k2["unaligned"], *k2["t257"],
+                          *k2["train"]]]),
         row("K3", "vit3d_ensemble_tpu_torch/csrc/attention_layer.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
             "train_layer",

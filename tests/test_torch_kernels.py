@@ -45,9 +45,10 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = cudnn
 
 
-# K4 in bf16 on a context of root mean square 1 (`_model_views`): the kernel
-# read at most 0.61 of this gate on an NVIDIA H100 80GB HBM3, and a version
-# that drops one key of 513 misses it on 17 % of the elements.
+# K4 (and K2) in bf16 on a context of root mean square 1 (`_model_views`,
+# `_k2_views`): K4 read at most 0.61 of this gate on an NVIDIA H100 80GB
+# HBM3, and a version that drops one key of 513 misses it on 17 % of the
+# elements.
 K4_BF16_TOL = dict(atol=0.02, rtol=0.02)
 
 
@@ -80,20 +81,77 @@ def test_fused_mlp_kernel_matches_plain(cuda, dtype, D, M, active):
     _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active), dtype)
 
 
+def _k2_views(gen, B, H, S, hd, dtype, offset=0):
+    """q, k, v as the serving model hands them to K2: (B, H, S, hd) views
+    into one (B, S, 3, H, hd) QKV product, `offset` elements into its
+    storage (1: no view is 16-byte aligned).  v is scaled by sqrt(S / e),
+    so that the context's root mean square is 1 at every S."""
+    qkv = torch.randn(B, S, 3, H, hd, generator=gen, device="cuda")
+    qkv[:, :, 2] *= math.sqrt(S / math.e)
+    flat = torch.empty(offset + qkv.numel(), dtype=dtype, device="cuda")
+    qkv = flat[offset:].view(qkv.shape).copy_(qkv)
+    return list(qkv.permute(2, 0, 3, 1, 4))
+
+
+def _k2_tol(dtype):
+    return K4_BF16_TOL if dtype == torch.bfloat16 else None
+
+
+# Every body and tiling of K2: S = 1 and 5 (one partial query tile), 64 (no
+# tail), 65 (the serving shape: a 65th row alone in its tile, a 65th key
+# past a 64-key tile), 257 and 300 (conf 19-22's 257 tokens: more than one
+# 128-key chunk); head_dim 1, 2, 4, 8 (CUDA cores), 12 and 16 (in bf16 on
+# the tensor cores, 12 zero-filled to 16).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [
-    (2, 4, 65, 16), (3, 8, 65, 4), (1, 16, 65, 1), (2, 4, 5, 16),
-    (2, 2, 300, 8),     # more keys than one shared-memory pass
-])
-def test_tiny_attention_kernel_matches_plain(cuda, dtype, shape):
-    q, k, v = (torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
-               for _ in range(3))
+@pytest.mark.parametrize("S", [1, 5, 64, 65, 257, 300])
+@pytest.mark.parametrize("hd", [1, 2, 4, 8, 12, 16])
+def test_tiny_attention_kernel_matches_plain(cuda, dtype, S, hd):
+    B, H = 2, min(16, max(2, 32 // hd))
+    q, k, v = _k2_views(cuda, B, H, S, hd, dtype)
     before = fused_attention.launches
     out = fused_attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    _close(out, fused_attention._plain_attention(q, k, v), dtype)
+    # the heads merge without a copy, as in `models/vit3d.Attention`
+    merged = out.transpose(1, 2).reshape(B, S, H * hd)
+    assert merged.data_ptr() == out.data_ptr() and merged.is_contiguous()
+    ref = fused_attention._plain_attention(q, k, v)
+    _close(out, ref, dtype, _k2_tol(dtype))
+    if S >= 64:
+        # the gate tells a context that lacks the last key from the right one
+        short = fused_attention._plain_attention(q, k[:, :, :-1], v[:, :, :-1])
+        with pytest.raises(AssertionError):
+            _close(short, ref, dtype, _k2_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,hd", [(4, 16), (8, 4), (16, 1), (2, 12)])
+def test_tiny_attention_takes_strided_inputs(cuda, dtype, H, hd):
+    """Views that are not 16-byte aligned (bf16 head_dim 16 then loads by
+    element), contiguous (B, H, S, hd) tensors, q, k, v of unlike strides,
+    a view whose head_dim stride is not 1 (copied first), 3-d and 5-d
+    inputs, and an empty batch."""
+    q, k, v = _k2_views(cuda, 2, H, 65, hd, dtype, offset=1)
+    plain, tol = fused_attention._plain_attention, _k2_tol(dtype)
+    _close(fused_attention.fused_attention(q, k, v), plain(q, k, v), dtype, tol)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    _close(fused_attention.fused_attention(qc, kc, vc), plain(qc, kc, vc),
+           dtype, tol)
+    _close(fused_attention.fused_attention(q, kc, v), plain(q, kc, v), dtype, tol)
+    if hd > 1:
+        kt = kc.transpose(2, 3).contiguous().transpose(2, 3)
+        assert kt.stride(-1) != 1
+        _close(fused_attention.fused_attention(q, kt, v), plain(q, kt, v),
+               dtype, tol)
+    _close(fused_attention.fused_attention(q[0], k[0], v[0]),
+           plain(q[0], k[0], v[0]), dtype, tol)
+    q5, k5, v5 = (t.view(1, *t.shape) for t in (qc, kc, vc))
+    _close(fused_attention.fused_attention(q5, k5, v5), plain(q5, k5, v5),
+           dtype, tol)
+    before = fused_attention.launches
+    assert fused_attention.fused_attention(q[:0], k[:0], v[:0]).shape == (0, H, 65, hd)
+    assert fused_attention.launches == before      # nothing was launched
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -109,13 +167,6 @@ def test_fused_mlp_takes_unaligned_views(cuda, dtype):
         D, device="cuda", dtype=dtype)
     _close(fused_mlp.fused_mlp(x, w1, b1, w2, b2),
            fused_mlp._plain_mlp(x, w1, b1, w2, b2, M), dtype)
-
-
-def test_tiny_attention_takes_strided_inputs(cuda):
-    qkv = torch.randn(2, 65, 3, 4, 16, generator=cuda, device="cuda")
-    q, k, v = qkv.permute(2, 0, 3, 1, 4)
-    _close(fused_attention.fused_attention(q, k, v),
-           fused_attention._plain_attention(q, k, v), torch.float32)
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):

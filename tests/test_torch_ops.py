@@ -19,6 +19,9 @@ from vit3d_ensemble_tpu.ops.attention import (
     dot_product_attention as jax_dot_product_attention,
 )
 from vit3d_ensemble_tpu.ops.pallas_attention import (
+    _tiny_attention_impl,
+)
+from vit3d_ensemble_tpu.ops.pallas_attention import (
     fused_attention as jax_fused_attention,
 )
 from vit3d_ensemble_tpu.ops.pallas_mlp import fused_mlp as jax_fused_mlp
@@ -120,6 +123,73 @@ def test_plain_attention_matches_jax_fused_attention(shape):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
                                rtol=1e-4)
+
+
+# K2's plain version in both types, with the bf16 rounding of its
+# tensor-core body at head_dim 16 (unnormalised probabilities to bf16),
+# against the JAX kernel: the serving shapes, a tiny sequence, and conf
+# 19-22's 257 tokens.  The JAX tolerances: 2e-5 in f32, 0.05 in bf16.
+K2_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+          torch.bfloat16: dict(atol=0.05, rtol=0.05)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(2, 2, 257, 4)])
+def test_k2_plain_matches_jax_tiny_attention(shape, dtype):
+    q, k, v = _qkv(shape, 11)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        ref = _tiny_attention_impl(*(jnp.asarray(a).astype(jdt)
+                                     for a in (q, k, v)))
+    out = fused_attention._plain_attention(
+        *(torch.from_numpy(a).to(dtype) for a in (q, k, v)))
+    assert out.dtype == dtype
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **K2_TOL[dtype])
+
+
+@pytest.mark.parametrize("H,hd", [(4, 16), (8, 4), (16, 1)])
+def test_k2_reads_the_models_qkv_views_in_place(monkeypatch, H, hd):
+    """The serving model's q, k, v, views into its (B, T, 3, H, hd) QKV
+    product, reach K2's launcher with their own addresses and strides, and
+    the context comes back as a view of the (B, T, H, hd) buffer the kernel
+    writes, so the merge of the heads copies nothing.  The launcher is
+    faked: the CPU has no kernel."""
+    calls = []
+    monkeypatch.setattr(_build, "entry", lambda *a, **kw: (
+        lambda *args: calls.append(args) or 0))
+    monkeypatch.setattr(_build, "check", lambda name, err: None)
+    monkeypatch.setattr(fused_attention, "_stream", lambda device: 0)
+    monkeypatch.setattr(fused_attention, "launches", 0)
+    B, T, D = 2, 65, H * hd
+    x = torch.randn(B, T, D, dtype=torch.bfloat16)
+    w = torch.randn(3 * D, D, dtype=torch.bfloat16)
+    qkv = torch.nn.functional.linear(x, w).view(B, T, 3, H, hd)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)        # as `models/vit3d.Attention`
+    ctx = fused_attention._launch_k2(q, k, v)
+    (args,) = calls
+    assert fused_attention.launches == 1
+    assert args[1:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[5:9] == (B, H, T, hd)
+    assert args[9:18] == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    assert args[9:12] == (T * 3 * D, hd, 3 * D)
+    assert args[20] == 1                    # rows may be read 16 bytes a load
+    assert ctx.shape == q.shape and ctx.dtype == q.dtype
+    merged = ctx.transpose(1, 2).reshape(B, T, D)
+    assert merged.data_ptr() == ctx.data_ptr() == args[4]
+    assert merged.is_contiguous()
+    # a view 2 bytes off a 16-byte boundary is read as it lies, by element
+    flat = torch.zeros(1 + B * H * T * hd, dtype=torch.bfloat16)
+    odd = flat[1:].view(B, H, T, hd)
+    fused_attention._launch_k2(odd, k, v)
+    assert calls[-1][1] == odd.data_ptr() and calls[-1][20] == 0
+    # a head_dim stride other than 1 is the one layout copied first
+    if hd > 1:
+        strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+        fused_attention._launch_k2(strided, k, v)
+        assert calls[-1][1] != strided.data_ptr()
+        assert calls[-1][9:12] == (H * T * hd, T * hd, hd)
 
 
 @pytest.mark.parametrize("impl", ["auto", "plain", "kernel"])

@@ -3,9 +3,17 @@
 Counterpart of `vit3d_ensemble_tpu/ops/pallas_attention.py`: ctx =
 softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
 
-  * K2 (`csrc/tiny_attention.cu`), head_dim <= 16: one thread per query row
-    and an online softmax on CUDA cores.  The wrapper makes q, k, v
-    contiguous.
+  * K2 (`csrc/tiny_attention.cu`), head_dim <= 16.  In bf16 at head_dim
+    9-16 (the registry's 16) a warp runs a 16-row query tile of one head on
+    the tensor cores (`mma.sync`; the probabilities stay in registers,
+    rounded to bf16 unnormalised, as K4 rounds them); at the serving shape
+    a persistent block streams (volume, head) items, loading the next by
+    cp.async while it computes this one.  In f32, and in bf16 at head_dim
+    <= 8 (the registry's 4 and 1), a thread takes R query rows of one head,
+    the heads of a group sharing a warp, on CUDA cores with one `ex2` a
+    score.  It reads q, k, v through their strides (unit stride along
+    head_dim: a view without it is copied first) and writes the context
+    (B, S, H, hd), as K4 does.
   * K4 (`csrc/attention.cu`), head_dim in {32, 64, 128} (the stretch model's
     64 at 513 tokens): the keys are walked in chunks with an online softmax,
     so no S x S tile is stored.  In bf16 (every head_dim) a block takes one
@@ -19,7 +27,8 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     TMA's rule), as the model's `lin(x).view(B, T, H, hd).transpose(1, 2)`
     and K3's views into its QKV buffer give them, and writes the context
     (B, S, H, hd), returned as its (B, H, S, hd) view, so that the model's
-    merge of the heads copies nothing.
+    merge of the heads copies nothing (K2 likewise, from the model's views
+    into its (B, T, 3, H, hd) QKV product).
 
 Each source note says what bounds its kernel on the H100.
 
@@ -46,6 +55,8 @@ launches_k4 = 0
 
 #: head_dim at or below which K2 serves.
 TINY_HD = 16
+#: head_dim above which K2's bf16 body runs on the tensor cores.
+TC_HD = 8
 #: head dims K4 is instantiated for.
 HEAD_DIMS_K4 = (32, 64, 128)
 #: most tokens K4 takes: 65,535 tiles of 64 query rows (the f32 body's;
@@ -58,8 +69,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _plain_attention(q, k, v):
     """K2's function in plain PyTorch (`_reference_attention`,
     `pallas_attention.py:187-191`): scores, softmax and context in f32, the
-    output rounded to the input type once, as the kernel does."""
+    output rounded to the input type once, as the kernel does.  In bf16 at
+    TC_HD < head_dim <= TINY_HD, where the kernel runs on the tensor cores,
+    it rounds where they round: the unnormalised probabilities to bf16
+    (`_plain_attention_k4`)."""
     hd = q.shape[-1]
+    if q.dtype == torch.bfloat16 and TC_HD < hd <= TINY_HD:
+        return _plain_attention_k4(q, k, v)
     scores = torch.einsum("...hqd,...hkd->...hqk", q.float(), k.float())
     probs = torch.softmax(scores / math.sqrt(hd), dim=-1)
     return torch.einsum("...hqk,...hkd->...hqd", probs, v.float()).to(q.dtype)
@@ -107,7 +123,8 @@ def _check(q, k, v) -> None:
                 f"fused_attention: {name} is {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}, q is {tuple(q.shape)} {q.dtype} on {q.device}")
     if hd > TINY_HD:
-        # K4 reads through the strides; K2's wrapper copies instead
+        # K4 reads through the strides; K2's wrapper copies a view whose
+        # head_dim stride is not 1
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(-1) != 1:
                 raise ValueError(
@@ -128,24 +145,51 @@ def _check(q, k, v) -> None:
                              f"takes {MAX_TOKENS_K4}")
 
 
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _k2_plan(q, k, v):
+    """What K2 is launched on: the (B, H, S, hd) views of q, k, v that the
+    kernel reads through their strides (a view whose head_dim stride is not
+    1 is copied first, the only copy), the (B, S, H, hd) buffer it writes,
+    and whether every view's base is 16-byte aligned and its volume and
+    token strides multiples of 16 bytes, so that the kernel may read rows 16
+    bytes at a time where its layout allows (else it reads by element)."""
+    views = []
+    for t in (q, k, v):
+        t = _as_bhsd(t)
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            t = t.contiguous()
+        views.append(t)
+    B, H, S, hd = views[0].shape
+    out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
+    elt = q.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) * elt % 16 == 0
+                  and t.stride(2) * elt % 16 == 0 for t in views)
+    return views, out, aligned
+
+
 def _launch_k2(q, k, v):
     global launches
-    S, hd = q.shape[-2], q.shape[-1]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bh = q.numel() // (S * hd) if S * hd else 0
-    if bh >= 2 ** 31:
-        raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
-    fn = _build.entry("tiny_attention",
-                      [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), bh, S, hd, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-             stream)
-    _build.check("tiny_attention", err)
-    launches += 1
-    return out
+    shape = q.shape
+    (q, k, v), out, aligned = _k2_plan(q, k, v)
+    B, H, S, hd = q.shape
+    if B * H * S:               # else nothing to compute, nothing launched
+        if B * H >= 2 ** 31:
+            raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
+        fn = _build.entry("tiny_attention",
+                          [ctypes.c_int] + [ctypes.c_void_p] * 4
+                          + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+        err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), B, H, S, hd, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(hd),
+                 _DTYPES[q.dtype], int(aligned), _stream(q.device))
+        _build.check("tiny_attention", err)
+        launches += 1
+    return out.transpose(1, 2).reshape(shape)
 
 
 def _as_bhsd(t):
@@ -171,10 +215,10 @@ def k4_into(q, k, v, out) -> None:
                       [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_longlong] * 9
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), B, H, S, hd, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], 1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+             *v.stride()[:3], 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+             _stream(q.device))
     _build.check("attention", err)
 
 
