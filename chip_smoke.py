@@ -20,7 +20,10 @@ read just after:
     D=768, 12 layers) at full width and depth: in f32 at B=1 against the
     plain modules, then served in bf16 at B=8 under `auto` (K4, K1's wide
     body) and under `layer` (K3's sublayer, whose head_dim-64 core runs on
-    K4's body: counter `K3_on_K4`).
+    K4's body: counter `K3_on_K4`);
+  * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
+    K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
+  * the sweep engine (`run_group`) on the three groups of conf 1-18.
 
 Every line it prints is a JSON object.  The last is
 `{"ok": true, "device": {...}}`; it is printed only when every check
@@ -81,6 +84,12 @@ PEAK_BYTES = 3.35e12
 # is this times the SMs times the SM clock nvidia-smi reports, set by main().
 EX2_PER_SM_CLOCK = 16
 exp_rate = 0.0
+# FP32 instructions an SM issues a clock (4 schedulers of 32 lanes); a GELU
+# costs `gelu_fp32` of them, counted in its SASS by `phase_build`, so the
+# card runs `gelu_rate` GELUs a second (set by main() and phase_build).
+FP32_PER_SM_CLOCK = 128
+fp32_rate = 0.0
+gelu_rate = 0.0
 
 # Kernel against plain version: the JAX package's own tolerances
 # (`tests/test_pallas_mlp.py:31,47`, `tests/test_ops.py:31`).  Both sides
@@ -125,7 +134,9 @@ STRETCH_ITERS = 20
 #: its wrapper adds one to per launch.
 KERNELS = {"K1": (fused_mlp, "launches"), "K2": (fused_attention, "launches"),
            "K3": (attention_layer, "launches"),
-           # K3's core launches that took K4's body (head_dim 32/64/128)
+           # K3's core launches that took K2's body (head_dim <= 16) and
+           # K4's (head_dim 32/64/128)
+           "K3_on_K2": (attention_layer, "launches_k2"),
            "K3_on_K4": (attention_layer, "launches_k4"),
            "K4": (fused_attention, "launches_k4"),
            "K1b": (fused_mlp, "launches_k1b"), "K1c": (fused_mlp, "launches_k1c")}
@@ -167,11 +178,15 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, dtype, exps: float = 0.0) -> tuple:
+def bound(flops: float, nbytes: float, dtype, exps: float = 0.0,
+          gelus: float = 0.0) -> tuple:
     """The least ms the card could take: the largest of the operations over
-    the peak rate for their type, the bytes over the memory rate and the
+    the peak rate for their type (the products' at the tensor cores' or
+    FP32 peak, and the exact-erf GELUs' FP32 instructions at the FP32 pipes'
+    issue rate, whichever is longer), the bytes over the memory rate and the
     exponentials over the card's exponential rate; and which one it is."""
-    times = {"operations": flops / PEAK_FLOPS[dtype], "bytes": nbytes / PEAK_BYTES,
+    ops = max(flops / PEAK_FLOPS[dtype], gelus / gelu_rate if gelus else 0.0)
+    times = {"operations": ops, "bytes": nbytes / PEAK_BYTES,
              "exponentials": exps / exp_rate}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
@@ -207,46 +222,125 @@ def smi(query: str) -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Each library's entries, most registers, spilled bytes, and the
-    (mangled) entries that spill."""
+    """Each library's entries, most registers, spilled bytes, the (mangled)
+    entries that spill, and ptxas's notes that it serialised wgmmas
+    (C7515) or waited on one itself (C7517)."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     entries = re.findall(r"Function properties for (\S+)\n\s+\d+ bytes stack "
                          r"frame, (\d+) bytes spill stores", log)
     return {"entries": len(regs), "max_registers": max(regs, default=None),
             "spill_store_bytes": sum(int(n) for _, n in entries),
-            "spilling_entries": [name for name, n in entries if int(n)]}
+            "spilling_entries": [name for name, n in entries if int(n)],
+            "wgmma_serialized": log.count("(C7515)"),
+            "wgmma_wait_injected": log.count("(C7517)")}
+
+
+def sass_of(path) -> str:
+    """`cuobjdump -sass` of a library or cubin (the toolkit's cuobjdump,
+    beside its nvcc)."""
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
 
 
 def sass_count(name: str, opcode: str) -> int:
-    """Lines of `cuobjdump -sass` of `csrc/<name>.cu`'s library that hold
-    the opcode (the toolkit's cuobjdump, beside its nvcc)."""
-    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
-    res = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
-                         capture_output=True, text=True, timeout=120, check=True)
-    return sum(opcode in line for line in res.stdout.splitlines())
+    """Lines of the SASS of `csrc/<name>.cu`'s library that hold the opcode."""
+    return sum(opcode in line for line in sass_of(_build.library_path(name)).splitlines())
+
+
+# The exact-erf GELU of the fused FFNs (`mlp_common.cuh`), alone in a kernel
+# beside the same kernel without it, compiled with the kernels' flags: the
+# difference of their SASS is the GELU's instructions.
+GELU_PROBE = """
+#include "mlp_common.cuh"
+extern "C" __global__ void gelu_probe(float* x, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = mlp::gelu_erf(x[i]);
+}
+extern "C" __global__ void copy_probe(float* x, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = __int_as_float(__float_as_int(x[i]) ^ 0x80000000);
+}
+"""
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def gelu_instructions() -> dict:
+    """The GELU's SASS instructions by pipe: `fp32` (F* opcodes: FFMA, FMUL,
+    FADD, FSEL, FSETP...), `mufu` (the exponential unit) and `other`, from
+    the probe kernel less the copy kernel, constants materialised in
+    registers (MOV, HFMA2.MMA, IMAD.MOV: hoisted out of a kernel's loops)
+    left out."""
+    out = _build.BUILD_DIR / "gelu_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(GELU_PROBE)
+    cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+           "-cubin", "-I", str(_build.CSRC), "-o", str(out / "probe.cubin"),
+           str(out / "probe.cu")]
+    subprocess.run(cmd, capture_output=True, text=True, timeout=120, check=True)
+    counts = {}
+    for fn in sass_of(out / "probe.cubin").split("Function : ")[1:]:
+        name = fn.split()[0]
+        ops = [m.group(2) for m in SASS_LINE.finditer(fn)]
+        ops = [o for o in ops if o not in ("NOP", "MOV", "HFMA2.MMA", "IMAD.MOV.U32")]
+        counts[name] = collections.Counter(
+            "mufu" if o.startswith("MUFU") else "fp32" if o[0] == "F" else "other"
+            for o in ops)
+    gelu, copy = counts["gelu_probe"], counts["copy_probe"]
+    return {k: gelu[k] - copy[k] for k in ("fp32", "mufu", "other")}
 
 
 def phase_build() -> None:
+    global gelu_rate
     t0 = time.perf_counter()
     logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
-                         "tiny_attention", "attention_layer", "attention"])
+                         "tiny_attention", "attention"])
     seconds = time.perf_counter() - t0
     # a library built before this run: the compiler's report saved beside it
     logs = {name: log or _build.library_path(name).with_suffix(".log").read_text()
             for name, log in logs.items()}
-    # K1's bf16 wide body and K4's bf16 body run on wgmma fed by TMA: their
-    # SASS holds HGMMA and UTMALDG instructions; K2's bf16 body at head_dim
-    # 16 runs on mma.sync (HMMA), and both its bodies on MUFU.EX2
+    # K1's bf16 wide body, K1c's bf16 body and K4's bf16 body run on wgmma
+    # fed by TMA: their SASS holds HGMMA and UTMALDG instructions; K2's bf16
+    # body at head_dim 16 runs on mma.sync (HMMA), and both its bodies on
+    # MUFU.EX2
     sass = {f"{name}_sass_{op.lower()}": sass_count(name, op)
-            for name in ("fused_mlp", "attention") for op in ("HGMMA", "UTMALDG")}
+            for name in ("fused_mlp", "mlp_pipelined", "attention")
+            for op in ("HGMMA", "UTMALDG")}
     sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
+    gelu = gelu_instructions()
+    # the GELU's FP32 instructions at the FP32 pipes' issue rate, its
+    # exponentials (one a GELU at most) at the exponential unit's
+    gelu_rate = min(fp32_rate / max(gelu["fp32"], 1), exp_rate / max(gelu["mufu"], 1))
     emit({"phase": "build", "seconds": seconds,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
-          **sass, "k4_plan": [k4_plan(*shape) for shape in K4_PLAN_SHAPES]})
+          **sass, "k4_plan": [k4_plan(*shape) for shape in K4_PLAN_SHAPES],
+          "k1c_plan": [k1c_plan(*case) for case in K1C_PLAN_CASES],
+          "gelu_instructions": gelu, "gelus_per_s": gelu_rate})
     for name, n in sass.items():
         check(n > 0, f"{name}: the library holds no such instruction")
+    check(gelu["fp32"] > 0, f"GELU probe: {gelu}")
+    check(ptxas_summary(logs["mlp_pipelined"])["wgmma_serialized"] == 0,
+          "ptxas serialised K1c's wgmmas")
+
+
+# K1c's grid at the shapes of its phase: the bf16 serving pass (one model)
+# and the sweep's evaluation with the model axis in f32 and bf16.
+K1C_PLAN_CASES = ((torch.bfloat16, 64, B * 65, 1), (torch.float32, 64, 24 * 65, 30),
+                  (torch.bfloat16, 64, 24 * 65, 30))
+
+
+def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
+    """`fused_mlp.k1c_plan` at one shape from the card's occupancy, with the
+    body's registers and shared memory."""
+    shape = fused_mlp.k1c_shape(torch.device("cuda", torch.cuda.current_device()),
+                                D, dtype)
+    plan = fused_mlp.k1c_plan(n, models, shape["tile_rows"],
+                              shape["sms"] * shape["blocks_an_sm"])
+    check(plan["blocks"] <= plan["slots"], f"K1c plan {plan} exceeds the slots")
+    return {"dtype": str(dtype).split(".")[1], "D": D, "n": n, "models": models,
+            **shape, **plan}
 
 
 # K4's bf16 body at the stretch path's shape (and K3's on it, the same), and
@@ -362,13 +456,17 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
     bound_ms, bound_by = bound(
         4.0 * N * D * live,
         elt * (2 * P * N * D + 2 * D * live + live + P * D)
-        + (4 * P if models else 0), dtype)
+        + (4 * P if models else 0), dtype, gelus=N * live)
     case = {"phase": VARIANT_KERNELS[variant], "card": card, "path": path,
             "dtype": str(dtype).split(".")[1], "N": N, "D": D, "M": M,
             "active": active, "models": models, "max_abs_err": err,
             "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # the bound's terms: the products at the peak for their type,
+            # the exact-erf GELUs at the FP32 pipes' rate
+            "products_ms": 4.0 * N * D * live / PEAK_FLOPS[dtype] * 1e3,
+            "gelus_ms": N * live / gelu_rate * 1e3}
     if device:
         case.update(device_ms=device_ms, library_device_ms=library_device_ms)
     emit(case)
@@ -523,73 +621,81 @@ def phase_k2(gen) -> dict:
 
 
 # K3 at (B, T, D, H): conf 1-18's (D, H) classes at B=512, conf 19-22's at
-# B=64 (p=8: 257 tokens), the stretch model at B=2; then the training
-# path's own shapes in f32: conf 9 (D=16, H=16) at the batch of 4 and at
-# the 24 validation volumes, and conf 5/11's class at 4; then the stretch
-# path's under `layer`: bf16 at its batch, f32 at B=1.
+# B=64 (p=8: 257 tokens), the stretch model at B=2, and head_dim 2 and 8
+# (no registry config: K2's body takes every head_dim up to 16); then the
+# training path's own shapes in f32: conf 9 (D=16, H=16) at the batch of 4
+# and at the 24 validation volumes, and conf 5/11's class at 4; then the
+# stretch path's under `layer`: bf16 at its batch, f32 at B=1.
 K3_CASES = ((512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
-            (64, 257, 16, 4), (64, 257, 8, 8), (2, 513, 768, 12))
+            (64, 257, 16, 4), (64, 257, 8, 8), (2, 513, 768, 12),
+            (512, 65, 16, 8), (512, 65, 64, 8))
 K3_TRAIN_CASES = ((4, 65, 16, 16), (24, 65, 16, 16), (4, 65, 32, 8),
                   (24, 65, 32, 8))
 K3_STRETCH_CASES = ((torch.bfloat16, (STRETCH_B, 513, 768, 12)),
                     (torch.float32, (1, 513, 768, 12)))
-# K3's own body at the serving shape of conf 1-18's (64, 4) class, also
-# timed on the device (its events' ms is mostly the host's)
-K3_SERVE_TIMED = ((torch.bfloat16, K3_CASES[0]),)
+# K3's core also timed on the device (the events' ms is mostly the host's),
+# beside SDPA's on the same views: the three serving classes in bf16, conf
+# 19-22's (16, 4) class at T=257, the f32 training shape, and the stretch
+# path's
+K3_DEVICE_TIMED = ((torch.bfloat16, K3_CASES[0]), (torch.bfloat16, K3_CASES[1]),
+                   (torch.bfloat16, K3_CASES[2]), (torch.bfloat16, K3_CASES[3]),
+                   (torch.float32, K3_TRAIN_CASES[0])) + K3_STRETCH_CASES
 
 
 def phase_k3(gen) -> tuple:
     """K3 against its plain version; SDPA on the same q, k, v views is the
-    library yardstick (the port never calls it).  At head_dim 64 the core
-    runs on K4's body (counter `K3_on_K4`) and is held as phase `K4` holds
-    that body: v in the QKV buffer is scaled so that the context's root
-    mean square is 1 (see `model_views`), bf16 has K4's gate, and the plain
-    version without the last key must fail the gate.  The stretch path's
-    cases, and bf16 at the serving shape of conf 1-18's (64, 4) class, also
-    take both device times under the profiler.  Returns the training path's
-    main case, the stretch path's bf16 case and that serving case."""
-    main = stretch = serve = None
+    library yardstick (the port never calls it).  The core runs on the body
+    of the fused attention kernel that serves its head_dim: K2's up to 16
+    (counter `K3_on_K2`; each case names the body K2's dispatch reports it
+    launched, `fused_attention.k2_body_launched`), K4's at 64 (`K3_on_K4`).  Each case is held as phases `K2` and
+    `K4` hold those bodies: v in the QKV buffer is scaled so that the
+    context's root mean square is 1 (see `model_views`), bf16 has K4's gate,
+    and at T >= 64 the plain version without the last key must fail it.
+    The cases of K3_DEVICE_TIMED also take both device times under the
+    profiler.  Returns the training path's main case, the stretch path's
+    bf16 case and the serving cases timed on the device."""
+    main = stretch = None
+    serve = []
     cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
              for shape in K3_CASES]
     cases += [(torch.float32, shape) for shape in K3_TRAIN_CASES]
     cases += K3_STRETCH_CASES
     for dtype, (nb, T, D, H) in cases:
-        on_k4 = D // H in attention_layer.HEAD_DIMS_K4
+        hd = D // H
+        on_k4 = hd in attention_layer.HEAD_DIMS_K4
         qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda")
-        if on_k4:
-            qkv[..., 2 * D:] *= math.sqrt(T / math.e)
+        qkv[..., 2 * D:] *= math.sqrt(T / math.e)
         qkv = qkv.to(dtype)
         q, k, v = attention_layer._split(qkv)
-        heads = [t.unflatten(-1, (H, D // H)).transpose(1, 2) for t in (q, k, v)]
-        tol = K4_BF16_TOL if on_k4 and dtype == torch.bfloat16 else None
+        heads = [t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (q, k, v)]
+        tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
+        timed = (dtype, (nb, T, D, H)) in K3_DEVICE_TIMED
         with torch.no_grad():
             before = launches()
             out = attention_layer.attention_core(q, k, v, H)
             counts = {name: n - before[name] for name, n in launches().items()}
+            body = ("K4" if on_k4
+                    else f"K2:{fused_attention.k2_body_launched()}")
             ref = attention_layer._plain_attention_core(q, k, v, H)
             err, ok, atol, rtol = compare(out, ref, dtype, tol)
-            gate_check = {}
-            if on_k4:
-                gate = atol + rtol * ref.float().abs()
-                short = attention_layer._plain_attention_core(
-                    q, k[:, :-1], v[:, :-1], H)
-                dropped = (short.float() - ref.float()).abs() / gate
-                gate_check = {
-                    "ctx_rms": float(ref.float().square().mean().sqrt()),
-                    "max_err_over_gate":
-                        float(((out.float() - ref.float()).abs() / gate).max()),
-                    "dropped_key_share_over_gate":
-                        float((dropped > 1).float().mean()),
-                    "dropped_key_max_over_gate": float(dropped.max())}
-                gate_check["gate_rejects_dropped_key"] = (
-                    gate_check["dropped_key_share_over_gate"] > 0)
+            gate = atol + rtol * ref.float().abs()
+            short = attention_layer._plain_attention_core(q, k[:, :-1], v[:, :-1], H)
+            dropped = (short.float() - ref.float()).abs() / gate
+            gate_check = {
+                "ctx_rms": float(ref.float().square().mean().sqrt()),
+                "max_err_over_gate":
+                    float(((out.float() - ref.float()).abs() / gate).max()),
+                "dropped_key_share_over_gate": float((dropped > 1).float().mean()),
+                "dropped_key_max_over_gate": float(dropped.max())}
+            gate_check["gate_rejects_dropped_key"] = (
+                T < 64 or gate_check["dropped_key_share_over_gate"] > 0)
             ms = time_ms(lambda: attention_layer.attention_core(q, k, v, H), 50)
             plain_ms = time_ms(
                 lambda: attention_layer._plain_attention_core(q, k, v, H), 10)
             library_ms = time_ms(
                 lambda: F.scaled_dot_product_attention(*heads), 50)
             device_ms = library_device_ms = None
-            if (dtype, (nb, T, D, H)) in K3_STRETCH_CASES + K3_SERVE_TIMED:
+            if timed:
                 # only the core's kernel runs in the call
                 device_ms = device_time(
                     lambda: [attention_layer.attention_core(q, k, v, H)
@@ -597,29 +703,28 @@ def phase_k3(gen) -> tuple:
                 library_device_ms = device_time(
                     lambda: [F.scaled_dot_product_attention(*heads)
                              for _ in range(10)], host_ops=False)[0] / 10
-        want = counts_of(K3=1, **({"K3_on_K4": 1} if on_k4 else {}))
+        want = counts_of(K3=1, **{"K3_on_K4" if on_k4 else "K3_on_K2": 1})
         bound_ms, bound_by = bound(4.0 * nb * T * T * D,
                                    4.0 * nb * T * D * qkv.element_size(), dtype,
                                    exps=nb * H * T * T)
         case = {"phase": "K3", "dtype": str(dtype).split(".")[1], "B": nb,
-                "T": T, "D": D, "H": H, "hd": D // H,
-                "body": "K4" if on_k4 else "K3", "launches": counts,
-                "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
-                **gate_check,
+                "T": T, "D": D, "H": H, "hd": hd, "body": body,
+                "launches": counts, "max_abs_err": err, "atol": atol,
+                "rtol": rtol, "ok": ok, **gate_check,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
-        if device_ms is not None:
+        if timed:
             case.update(device_ms=device_ms, library_device_ms=library_device_ms)
         emit(case)
         check(ok and counts == want and device_ms != 0.0
-              and gate_check.get("gate_rejects_dropped_key", True),
+              and gate_check["gate_rejects_dropped_key"],
               f"K3 {case}, expected launches {want}")
         if (dtype, (nb, T, D, H)) == (torch.float32, K3_TRAIN_CASES[0]):
             main = case
         if (dtype, (nb, T, D, H)) == K3_STRETCH_CASES[0]:
             stretch = case
-        if (dtype, (nb, T, D, H)) == K3_SERVE_TIMED[0]:
-            serve = case
+        if timed and (dtype, (nb, T, D, H)) not in K3_STRETCH_CASES:
+            serve.append(case)
     return main, stretch, serve
 
 
@@ -951,8 +1056,7 @@ def phase_main_path(gen) -> dict:
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
                  ("K1c", "pipelined_"),
-                 ("K2", "tiny_attention"),
-                 ("K3", "attention_layer"), ("K4", "attention_wgmma"),
+                 ("K2", "tiny_attention"), ("K4", "attention_wgmma"),
                  ("K4", "attention_f32"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
                  ("gemm", "nvjet"), ("gemm", "gemm"), ("gemm", "cutlass"),
@@ -993,10 +1097,11 @@ def device_time(fn, host_ops: bool = True) -> tuple:
     return sum(groups.values()), groups, kernels
 
 
-def phase_profile(main_path: dict, gen) -> None:
+def phase_profile(main_path: dict, gen) -> float:
     """Device busy share of the main path and of B=1 serving: device time of
     one call under the profiler over the wall time of the same work measured
-    without it (the profiler slows the host, not the kernels)."""
+    without it (the profiler slows the host, not the kernels).  Returns the
+    main path's device busy ms a pass."""
     models, x = main_path["models"], main_path["x"]
 
     def one_pass():
@@ -1011,6 +1116,7 @@ def phase_profile(main_path: dict, gen) -> None:
           "device_idle_share": 1.0 - busy / wall, "kernels": kernels,
           "by_group_ms": groups})
     check(busy > 0, "profiler saw no device time on the main path")
+    auto_busy = busy
     xb = torch.randn(1, 128, 128, 5, 1, generator=gen,
                      device="cuda").to(torch.bfloat16)
     model = models[BASELINE_CONFS.index(9)]
@@ -1021,6 +1127,43 @@ def phase_profile(main_path: dict, gen) -> None:
           "device_busy_ms": busy, "wall_ms": res["ms_per_batch"],
           "device_idle_share": 1.0 - busy / res["ms_per_batch"],
           "kernels": kernels, "by_group_ms": groups})
+    return auto_busy
+
+
+def phase_layer_pass(main_path: dict, auto_busy: float) -> dict:
+    """The 18-model bf16 pass at B=512 under `layer`: K3's sublayer in every
+    layer, its core at head_dim 16, 4 and 1 on K2's body.  The device time
+    of one pass under the profiler, taken as `profile` takes `auto`'s,
+    beside that; the launch counts of one pass; and each model's tokens
+    against the same model under `auto` (the same kernels on the same
+    values but for the sublayer's projections)."""
+    models, x = main_path["models"], main_path["x"]
+    layers = sum(ViTConfig.from_conf(c).num_layers for c in BASELINE_CONFS)
+
+    def one_pass():
+        return [model(x).tokens for model in models]
+
+    with torch.no_grad():
+        ref = one_pass()
+        set_impls("layer")
+        try:
+            one_pass()                  # warm-up
+            reset_launches()
+            out = one_pass()
+            counts = launches()
+            busy, groups, kernels = device_time(one_pass)
+        finally:
+            set_impls("auto")
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(out, ref))
+    want = counts_of(K1=layers, K3=layers, K3_on_K2=layers)
+    ok = counts == want and busy > 0 and err <= TOKENS_BF16_ATOL
+    emit({"phase": "layer_pass", "card": card, "work": "18-model pass, B=512",
+          "impl": "layer", "device_busy_ms": busy,
+          "auto_device_busy_ms": auto_busy, "kernels": kernels,
+          "by_group_ms": groups, "launches": counts, "expected_launches": want,
+          "tokens_max_abs_err_vs_auto": err, "atol": TOKENS_BF16_ATOL, "ok": ok})
+    check(ok, f"layer pass: launched {counts} of {want}, busy {busy}, err {err}")
+    return {"launches": counts, "device_busy_ms": busy}
 
 
 def latency(model, x, batch: int):
@@ -1207,9 +1350,11 @@ def training_runs(name: str, run, steps: int, layers: int, evals: int,
     # with dropout on, K1 serves only the deterministic (evaluation)
     # forwards; with it off, every forward
     k1 = {True: layers * (evals + 1), False: layers * forwards}
-    attn = {"auto": "K2", "layer": "K3"}
-    expect = {(impl, dropout): counts_of(**{"K1": k1[dropout],
-                                            attn[impl]: layers * forwards})
+    # under `layer` K3's core runs on K2's body (the trained configs' head
+    # dims are at most 16)
+    attn = {"auto": ("K2",), "layer": ("K3", "K3_on_K2")}
+    expect = {(impl, dropout): counts_of(K1=k1[dropout], **{
+        kernel: layers * forwards for kernel in attn[impl]})
               for impl in impls for dropout in (True, False)}
     expect[("plain", False)] = counts_of()
     results = {}
@@ -1339,22 +1484,26 @@ def phase_model_axis(gen) -> dict:
 
 def phase_mlp_variants(gen) -> dict:
     """K1b and K1c against their plain versions at K1's narrow serving
-    shapes, masked and unmasked, and at the model-axis shape.  Returns each
-    variant's serving case at (bf16, D=64, M=3072) and its model-axis case
-    in f32."""
+    shapes, masked and unmasked, and at the model-axis shape; K1c's serving
+    case at (bf16, D=64, M=3072) and its model-axis case in f32 also by
+    device time beside the library chain's.  Returns each variant's serving
+    case at (bf16, D=64, M=3072) and its model-axis case in f32."""
     out = {}
     for variant in ("chunked", "pipelined2"):
+        timed = variant == "pipelined2"   # K1c's device time beside the chain's
         for dtype in (torch.bfloat16, torch.float32):
             for D in (16, 32, 64):
                 for M in (2048, 3072):
                     for active in (M, M - 1000):
+                        main = (dtype, D, M, active) == (torch.bfloat16, 64, 3072, 3072)
                         case = k1_case(gen, dtype, B * 65, D, M, active,
-                                       "serve", variant)
-                        if (dtype, D, M, active) == (torch.bfloat16, 64, 3072, 3072):
+                                       "serve", variant, device=timed and main)
+                        if main:
                             out[variant] = case
             case = k1_case(gen, dtype, MODEL_AXIS_ROWS, 64, 3072,
                            MODEL_AXIS_WIDTHS, "sweep_eval", variant,
-                           models=len(MODEL_AXIS_WIDTHS))
+                           models=len(MODEL_AXIS_WIDTHS),
+                           device=timed and dtype == torch.float32)
             if dtype == torch.float32:
                 out[f"{variant}_model_axis"] = case
     return out
@@ -1548,13 +1697,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    global card, exp_rate
+    global card, exp_rate, fp32_rate
     card = smi("name,power.limit")
     sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     exp_rate = EX2_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6
+    fp32_rate = FP32_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6
     emit({"phase": "device", "nvidia_smi": card, "sms": sms,
           "sm_clock_max_mhz": sm_clock_mhz, "exponentials_per_s": exp_rate,
+          "fp32_instructions_per_s": fp32_rate,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
@@ -1572,7 +1723,8 @@ def main() -> int:
     phase_gradients(gen)
     phase_f32_model(gen)
     main_path = phase_main_path(gen)
-    phase_profile(main_path, gen)
+    auto_busy = phase_profile(main_path, gen)
+    layer_pass = phase_layer_pass(main_path, auto_busy)
     variants = phase_variants(main_path)
     phase_latency(gen)
     stretch = phase_stretch(gen)
@@ -1580,6 +1732,7 @@ def main() -> int:
     train_ens = phase_train_ensemble()
     sweep = phase_sweep()
     by_path = {name: {"serve": main_path["launches"][name],
+                      "serve_layer": layer_pass["launches"][name],
                       "variants_chunked": variants["chunked"]["launches"][name],
                       "variants_pipelined2":
                           variants["pipelined2"]["launches"][name],
@@ -1594,8 +1747,13 @@ def main() -> int:
     number_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms", "device_ms", "library_device_ms",
                    "library_contiguous_device_ms", "call_device_ms")
-    # K4, K1's wide case and K3's stretch case also carry their device
+    # K4, K1's wide case, K1c's and K3's timed cases also carry their device
     # time under the profiler (see phase_k4)
+    for path in by_path["K3"]:
+        on_bodies = by_path["K3_on_K2"][path] + by_path["K3_on_K4"][path]
+        check(on_bodies == by_path["K3"][path],
+              f"K3 on {path}: {by_path['K3'][path]} launches, {on_bodies} "
+              "on K2's and K4's bodies")
 
     def row(name, source, replaces, case, path, **more):
         return {"name": name, "route": "cuda", "source": source,
@@ -1626,7 +1784,11 @@ def main() -> int:
         row("K1c", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:142", k1_variants["pipelined2"],
             "variants_pipelined2",
-            model_axis_case=case_of(k1_variants["pipelined2_model_axis"])),
+            device_ms=k1_variants["pipelined2"]["device_ms"],
+            library_device_ms=k1_variants["pipelined2"]["library_device_ms"],
+            plan=k1c_plan(*K1C_PLAN_CASES[0]),
+            model_axis_case={**case_of(k1_variants["pipelined2_model_axis"]),
+                             "plan": k1c_plan(*K1C_PLAN_CASES[1])}),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2[16], "serve",
             device_ms=k2[16]["device_ms"],
@@ -1636,15 +1798,22 @@ def main() -> int:
             other_cases=[case_of(c) for c in
                          [k2[4], k2[1], k2["unaligned"], *k2["t257"],
                           *k2["train"]]]),
-        row("K3", "vit3d_ensemble_tpu_torch/csrc/attention_layer.cu",
+        # K3's core runs on K2's body at head_dim <= 16 (the training
+        # path's conf 9: head_dim 1) and on K4's at 32-128
+        row("K3", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
             "train_layer",
-            # bf16 at the serving shape of conf 1-18's (64, 4) class
-            serve_case=case_of(k3_serve),
-            # head_dim 64 at T=513 on K4's body (`csrc/attention.cu`), as the
-            # stretch path under `layer` runs it
-            stretch_case={**case_of(k3_stretch),
-                          "body": "vit3d_ensemble_tpu_torch/csrc/attention.cu",
+            sources={"head_dim <= 16": "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
+                     "head_dim >= 32": "vit3d_ensemble_tpu_torch/csrc/attention.cu"},
+            body=k3["body"],
+            launches_on_k2_body=by_path["K3_on_K2"]["train_layer"],
+            # bf16 at the serving pass's three classes and conf 19-22's
+            # (16, 4) class, f32 at the training shape, each with its device
+            # time beside SDPA's
+            serve_cases=[{**case_of(c), "body": c["body"]} for c in k3_serve],
+            # head_dim 64 at T=513 on K4's body, as the stretch path under
+            # `layer` runs it
+            stretch_case={**case_of(k3_stretch), "body": k3_stretch["body"],
                           "launches": by_path["K3"]["stretch_layer"],
                           "launches_on_k4_body":
                               by_path["K3_on_K4"]["stretch_layer"]}),

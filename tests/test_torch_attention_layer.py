@@ -107,6 +107,65 @@ def test_check_takes_k4_head_dims(hd, ok):
             attention_layer._check(q, k, v, H)
 
 
+@pytest.mark.parametrize("hd", list(range(1, 17)))
+def test_check_takes_every_head_dim_up_to_16(hd):
+    """Every head_dim up to 16 passes `_check` on K2's route, in f32 and on
+    bf16 views at any alignment (K2's body reads by element where 16-byte
+    loads do not fit), as JAX's `_attn_core_kernel` takes any head_dim."""
+    H = 3
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.zeros(2, 65, 3 * H * hd + 1, dtype=dtype)
+        attention_layer._check(*attention_layer._split(buf[..., 1:]), H)
+        attention_layer._check(*attention_layer._split(buf[..., :-1]), H)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,H", SHAPES + [(2, 65, 16, 8), (2, 65, 64, 8)])
+def test_k2_reads_the_head_views_strides(dtype, B, T, D, H):
+    """K3 hands K2 its (B, T, D) views with the head count, not the (B, H,
+    T, hd) views: K2's `tiny_attention_qkv_launch` reads each view's heads
+    at the (volume, head, token) strides (stride(0), D / H, stride(1)).
+    Those are the head views' own, on the QKV buffer and on views of a wider
+    row at an odd offset, and the three views share them."""
+    wide = torch.zeros(B, T, 3 * D + 3, dtype=dtype)
+    for qkv in (torch.zeros(B, T, 3 * D, dtype=dtype), wide[..., 1:3 * D + 1]):
+        q, k, v = attention_layer._split(qkv)
+        attention_layer._check(q, k, v, H)
+        for t in (q, k, v):
+            heads = attention_layer._heads(t, H)
+            assert tuple(heads.shape) == (B, H, T, D // H)
+            assert heads.stride()[:3] == (q.stride(0), D // H, q.stride(1))
+            assert heads.stride(3) == 1
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 2e-5), ("bfloat16", 0.05)])
+@pytest.mark.parametrize("D,H", [(16, 8), (64, 8)])
+def test_plain_attention_layer_matches_jax_at_head_dims_2_and_8(dtype, atol,
+                                                               D, H):
+    """head_dim 2 and 8, which no registry config has and JAX's kernel
+    takes: the port's sublayer on K2's plain version (CUDA cores: scores,
+    softmax and context in f32) against the JAX kernel in interpret mode,
+    f32 within 2e-5, bf16 within the JAX bf16 tolerance 0.05 + 0.05 * |ref|
+    (both round the projections to bf16, at other points)."""
+    B, T = 2, 65
+    args = _layer_data(11, B, T, D)
+    # projections of standard deviation 1 / sqrt(D), so that q, k, v and the
+    # output have unit scale
+    args = (args[0], args[1] / (0.3 * D ** 0.5), args[2],
+            args[3] / (0.3 * D ** 0.5), args[4])
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_fused_attention_layer(
+            *(jnp.asarray(a, dtype=dtype) for a in args), H)
+    torch_dtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    out = attention_layer.fused_attention_layer(
+        *(t.to(torch_dtype) for t in _torch_args(*args)), H)
+    assert out.dtype == torch_dtype and out.shape == (B, T, D)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=atol, rtol=atol if dtype != np.float32
+                               else 1e-4)
+
+
 def test_check_refuses_misaligned_bf16_views_on_k4_route():
     """K4 reads bf16 rows 16 bytes at a time: a QKV buffer whose views are
     not 16-byte aligned raises, as `fused_attention._check` does."""
@@ -255,8 +314,8 @@ def test_checks_reject_what_the_kernel_does_not_take():
     q, k, v = attention_layer._split(qkv)
     attention_layer._check(q, k, v, 8)          # accepted: strided views
     attention_layer._check(q, k, v, 32)         # hd 1 accepted
-    with pytest.raises(ValueError, match="head_dim 3"):
-        wide = torch.zeros(2, 65, 36)
+    with pytest.raises(ValueError, match="head_dim 20"):
+        wide = torch.zeros(2, 65, 240)
         attention_layer._check(*attention_layer._split(wide), 4)
     with pytest.raises(ValueError, match="do not divide"):
         attention_layer._check(q, k, v, 5)

@@ -248,11 +248,31 @@ def test_ensemble_runs_on_the_card(cuda):
 
 # (B, T, D, H): the K3 shapes of `chip_smoke.py` (conf 1-18 at B=512,
 # conf 19-22 at B=64, the stretch model at B=2), a tiny sequence, and
-# hd 16 / 64 with T over 4 and 5 shared-memory chunks of keys.  The hd-64
-# shapes (the stretch model's, and (2, 200, 128, 2)) take K4's body.
+# hd 16 / 64 with T over several 64-key chunks.  Head dims up to 16 take
+# K2's body, the hd-64 shapes (the stretch model's, and (2, 200, 128, 2))
+# K4's.
 K3_SHAPES = [(512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
              (64, 257, 16, 4), (64, 257, 8, 8), (2, 513, 768, 12),
              (2, 5, 16, 4), (3, 700, 64, 4), (2, 200, 128, 2)]
+
+
+def _k3_counts():
+    return (attention_layer.launches, attention_layer.launches_k2,
+            attention_layer.launches_k4, fused_attention.launches,
+            fused_attention.launches_k4)
+
+
+def _k3_launch_checked(q, k, v, H):
+    """K3's core once, with its counters: one launch, on the body that
+    serves the head_dim; K2's and K4's own counters do not move."""
+    before = _k3_counts()
+    out = attention_layer.attention_core(q, k, v, H)
+    torch.cuda.synchronize()
+    on_k4 = q.shape[-1] // H in attention_layer.HEAD_DIMS_K4
+    assert _k3_counts() == (before[0] + 1, before[1] + (not on_k4),
+                            before[2] + on_k4, before[3], before[4])
+    assert out.dtype == q.dtype and out.shape == q.shape and out.is_contiguous()
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -260,18 +280,60 @@ K3_SHAPES = [(512, 65, 64, 4), (512, 65, 32, 8), (512, 65, 16, 16),
 def test_attention_layer_kernel_matches_plain(cuda, dtype, B, T, D, H):
     qkv = torch.randn(B, T, 3 * D, generator=cuda, device="cuda").to(dtype)
     q, k, v = attention_layer._split(qkv)
-    before = (attention_layer.launches, attention_layer.launches_k4,
-              fused_attention.launches_k4)
-    out = attention_layer.attention_core(q, k, v, H)
-    torch.cuda.synchronize()
-    on_k4 = D // H in attention_layer.HEAD_DIMS_K4
-    # K3's counter counts every core launch, its second one those on K4's
-    # body; K4's own counter counts only `fused_attention`'s calls
-    assert (attention_layer.launches, attention_layer.launches_k4,
-            fused_attention.launches_k4) == (before[0] + 1, before[1] + on_k4,
-                                             before[2])
-    assert out.dtype == dtype and out.shape == (B, T, D) and out.is_contiguous()
+    out = _k3_launch_checked(q, k, v, H)
     _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype)
+
+
+def _k3_qkv(gen, lead, T, H, hd, dtype):
+    """A (*lead, T, 3 H hd) QKV buffer with v scaled by sqrt(T / e), so that
+    the context's root mean square is 1 (as `_k2_views`)."""
+    qkv = torch.randn(*lead, T, 3 * H * hd, generator=gen, device="cuda")
+    qkv[..., 2 * H * hd:] *= math.sqrt(T / math.e)
+    return qkv.to(dtype)
+
+
+# K3's core at every head_dim that K2's body serves, at the registry's T = 65
+# and 257, on the views of the sublayer's (B, T, 3D) QKV buffer: in bf16
+# the views start and step by multiples of 16 bytes, so hd 16 takes K2's
+# streamed tensor-core body at T = 65, and 9-15 its block-a-head one.  The
+# plain version is the body's own function: K2's gate, which must reject
+# the context without the last key.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [65, 257])
+@pytest.mark.parametrize("hd", list(range(1, 17)))
+def test_attention_layer_on_k2_body_at_every_head_dim(cuda, dtype, T, hd):
+    H = max(2, 64 // (4 * hd))
+    q, k, v = attention_layer._split(_k3_qkv(cuda, (3,), T, H, hd, dtype))
+    out = _k3_launch_checked(q, k, v, H)
+    if dtype == torch.float32 or hd <= fused_attention.TC_HD:
+        body = "simt"
+    elif hd < 16:
+        body = "tc_by_element"
+    else:
+        body = "tc_stream" if T <= 80 else "tc"
+    assert fused_attention.k2_body_launched() == body
+    ref = attention_layer._plain_attention_core(q, k, v, H)
+    _close(out, ref, dtype, _k2_tol(dtype))
+    short = attention_layer._plain_attention_core(q, k[:, :-1], v[:, :-1], H)
+    with pytest.raises(AssertionError):
+        _close(short, ref, dtype, _k2_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,H", [(64, 4), (32, 8), (16, 16)])
+def test_attention_layer_on_the_sweeps_buffer(cuda, dtype, D, H):
+    """The stacked sweep model's (P·B, T, 3D) QKV output (`sweep/stacked.py`),
+    a batched product's, takes the same route as the sublayer's buffer."""
+    P, B, T = 3, 2, 65
+    h = torch.randn(P, B * T, D, generator=cuda, device="cuda")
+    w = torch.randn(P, D, 3 * D, generator=cuda, device="cuda") / math.sqrt(D)
+    qkv = torch.bmm(h, w).to(dtype).reshape(P * B, T, 3 * D)
+    q, k, v = attention_layer._split(qkv)
+    out = _k3_launch_checked(q, k, v, H)
+    if dtype == torch.bfloat16 and D // H == 16:
+        assert fused_attention.k2_body_launched() == "tc_stream"
+    _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype,
+           _k2_tol(dtype))
 
 
 def test_attention_layer_reads_strided_views(cuda):
@@ -286,8 +348,8 @@ def test_attention_layer_reads_strided_views(cuda):
 
 
 def test_attention_layer_raises_on_what_it_does_not_take(cuda):
-    q, k, v = attention_layer._split(torch.zeros(2, 65, 36, device="cuda"))
-    with pytest.raises(ValueError, match="head_dim 3"):
+    q, k, v = attention_layer._split(torch.zeros(2, 65, 240, device="cuda"))
+    with pytest.raises(ValueError, match="head_dim 20"):
         attention_layer.attention_core(q, k, v, 4)
     q, k, v = attention_layer._split(
         torch.zeros(2, 65, 48, device="cuda", dtype=torch.float16))
@@ -600,6 +662,38 @@ def test_pipelined_equals_seq_bitwise(cuda, monkeypatch, dtype, D):
     seq = fused_mlp.fused_mlp(x, *args, 1500)
     monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
     assert torch.equal(fused_mlp.fused_mlp(x, *args, 1500), seq)
+
+
+# K1c's row tiles: one row, a ragged tile of 63, exactly one 64-row tile,
+# one and two 128-row tiles (the bf16 body's) and a row past them, and the
+# serving pass's 33,280 rows; at D = 16, 32 and 64 (the bf16 body's TMA
+# swizzle of 32, 64 and 128 bytes), masked inside a chunk.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 63, 64, 127, 128, 129, 33280])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_pipelined_row_tiles_match_plain(cuda, monkeypatch, dtype, N, D):
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
+    M, active = 2048, 1500
+    x = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M)
+    before = fused_mlp.launches_k1c
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches_k1c == before + 1
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active), dtype)
+
+
+def test_k1c_plan_fits_the_card(cuda):
+    """The plan from the card's own occupancy never puts more blocks on the
+    grid than the resident slots at the model counts the paths use."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in fused_mlp.WIDTHS:
+            shape = fused_mlp.k1c_shape(torch.device("cuda", 0), D, dtype)
+            assert shape["blocks_an_sm"] >= 1
+            slots = shape["sms"] * shape["blocks_an_sm"]
+            for models, n in ((1, 33280), (30, 1560), (15, 260)):
+                plan = fused_mlp.k1c_plan(n, models, shape["tile_rows"], slots)
+                assert plan["blocks"] <= slots
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

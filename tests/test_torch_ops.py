@@ -307,6 +307,32 @@ def test_mlp_checks_reject_what_the_kernel_does_not_take():
         fmlp._check(x, w1.bfloat16(), b1, w2, b2)
 
 
+@pytest.mark.parametrize("models", [1, 15, 30])
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4])
+def test_k1c_plan_fills_at_most_the_resident_slots(models, per_sm):
+    """K1c's grid on 132 SMs at 1-4 resident blocks an SM: never more blocks
+    than slots, no block without a tile, every tile in exactly one block's
+    run (the kernel's floor(b T / B) rule), runs balanced to within one; at
+    the serving shape (one model, 33,280 rows) and the sweep's evaluation
+    (1,560 rows a model), in the bf16 body's 128-row and the CUDA-core
+    body's 64-row tiles."""
+    slots = 132 * per_sm
+    for n in (33280, 1560, 1):
+        for rows in (128, 64):
+            plan = fmlp.k1c_plan(n, models, rows, slots)
+            tiles, blocks = plan["tiles_a_model"], plan["blocks_a_model"]
+            assert tiles == -(-n // rows)
+            assert plan["blocks"] == blocks * models <= slots
+            assert 1 <= blocks <= tiles
+            runs = [(b + 1) * tiles // blocks - b * tiles // blocks
+                    for b in range(blocks)]
+            assert sum(runs) == tiles and min(runs) >= 1
+            assert max(runs) - min(runs) <= 1
+            assert (max(runs), min(runs)) == (plan["most_tiles_a_block"],
+                                              plan["fewest_tiles_a_block"])
+            assert plan["waves"] <= 1.0
+
+
 def test_attention_checks_reject_what_the_kernel_does_not_take():
     q = torch.zeros(2, 4, 65, 16)
     fused_attention._check(q, q, q)        # accepted: K2

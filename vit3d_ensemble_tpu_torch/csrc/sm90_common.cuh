@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by K1's wide body (`fused_mlp.cu`)
-// and K4 (`attention.cu`): shared-memory addresses, mbarriers, TMA loads and
+// Hopper (sm_90a) building blocks shared by K1's wide body (`fused_mlp.cu`),
+// K1c's bf16 body (`mlp_pipelined.cu`) and K4 (`attention.cu`): shared-memory addresses, mbarriers, TMA loads and
 // stores, wgmma descriptors and instructions, and on the host the
 // tensor-map encoder, the SM count and the shared-memory limit, each asked
 // of the runtime once a device.
@@ -67,6 +67,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// One box of a 3-d tensor map into shared memory at coordinates (c0, c1,
+// c2), innermost first; completion and zero fill as `tma_load`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of a 4-d tensor map into shared memory at coordinates (c0, c1,
 // c2, c3), innermost first; completion and zero fill as `tma_load`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -113,12 +124,15 @@ __device__ __forceinline__ uint64_t smem_desc(const void* tile, uint32_t lbo, ui
 }
 
 // d (64 x N, f32) = a (64 x 16, K-major in shared memory) * b (N x 16,
-// K-major in shared memory) + d
+// K-major in shared memory) + d; with `accumulate` 0, d's old value is not
+// read (d = a * b)
 template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                      int accumulate = 1);
 
 template <>
-__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a, uint64_t b,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -127,11 +141,12 @@ __device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a, uint64_t b)
       "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -149,11 +164,12 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -183,11 +199,12 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t 
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 template <>
-__device__ __forceinline__ void wgmma<192>(float (&d)[96], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma<192>(float (&d)[96], uint64_t a, uint64_t b,
+                                           int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -229,7 +246,7 @@ __device__ __forceinline__ void wgmma<192>(float (&d)[96], uint64_t a, uint64_t 
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x N, f32) += a (64 x 16, bf16 in registers, the m16n8k16 A fragment
@@ -316,6 +333,67 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x N, f32) += a (64 x 16, bf16 in registers, the layout of
+// `wgmma_rs_tb`) * b (N x 16, K-major in shared memory, as `wgmma` reads
+// it); with `accumulate` 0, d = a * b.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate = 1);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -335,6 +413,14 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // cuTensorMapEncodeTiled lives in libcuda, not the runtime: it is reached
@@ -380,6 +466,30 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, i
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                 strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a bf16 tensor (depth, rows, cols), rows `ld` elements apart
+// and matrices rows * ld apart, read in boxes of (box_cols, box_rows, 1)
+// with the swizzle of `swizzle` bytes (32, 64 or 128: box_cols * 2 at
+// most; 0: none); out-of-range elements load as zero.  A box never crosses from one
+// matrix into the next.  TMA needs a 16-byte aligned base and a row stride
+// that is a multiple of 16 bytes.
+inline bool encode_map_3d(CUtensorMap* map, const void* base, int depth, int rows, int cols,
+                          int ld, int box_cols, int box_rows, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0)
+    return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

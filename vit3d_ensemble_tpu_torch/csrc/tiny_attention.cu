@@ -8,7 +8,9 @@
 // Layout: q, k, v are (B, H, S, hd) views with unit stride along hd and any
 // other strides, in elements: the serving model hands over the (B, T, 3, H,
 // hd) QKV product permuted, so a token's q|k|v for all heads is one
-// contiguous row and nothing is copied first.  o is written (B, S, H, hd)
+// contiguous row and nothing is copied first; the attention sublayer's core
+// (K3) hands over the (B, T, D) views of its (B, T, 3D) QKV buffer, read as
+// their heads (`tiny_attention_qkv_launch`).  o is written (B, S, H, hd)
 // contiguous, so the model's merge of the heads is a view.  f32 or bf16.
 //
 // What bounds it on the H100, at the serving shapes (B = 512, S = 65, bf16):
@@ -706,6 +708,63 @@ cudaError_t dispatch_simt(int hd, const void* q, const void* k, const void* v, v
   return cudaErrorInvalidValue;
 }
 
+// The bodies a launch can take, in the order `tiny_attention_last_body`
+// reports them.
+enum Body : int { SIMT = 0, TC_BY_ELEMENT = 1, TC = 2, TC_STREAM = 3 };
+
+// The body of this process's last successful launch (-1: none yet).
+int last_body = -1;
+
+int sm_count(int device) {  // cached: the attribute costs the host a call
+  static int sms[64];
+  int& n = sms[device & 63];
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    n = 0;
+  return n;
+}
+
+// Whether rows may be read 16 bytes at a time where a body's layout allows
+// it: the base is 16-byte aligned and the volume and token strides are
+// multiples of 16 bytes.
+bool aligned16(const void* p, const Strides& s, int elt) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b * elt % 16 == 0 && s.s * elt % 16 == 0;
+}
+
+int launch(int device, const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+           int hd, const Strides& sq, const Strides& sk, const Strides& sv, float scale,
+           int dtype, bool aligned, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)B * H * S == 0) return 0;
+  if (hd < 1 || hd > 16 || (long long)B * H >= (1LL << 31) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const float c = scale * LOG2E;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sms = sm_count(device);
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  Body body = SIMT;
+  if (dtype == 1 && hd > 8) {
+    const bool vec = aligned && hd == 16 && sq.h % 8 == 0 && sk.h % 8 == 0 && sv.h % 8 == 0;
+    if (vec && S <= 80) {
+      body = TC_STREAM;
+      err = launch_tc_stream(device, B, H, S, hd, q, k, v, o, sq, sk, sv, c, sms, st);
+    } else {
+      body = vec ? TC : TC_BY_ELEMENT;
+      if (vec)
+        launch_tc<true>(B, H, S, hd, q, k, v, o, sq, sk, sv, c, st);
+      else
+        launch_tc<false>(B, H, S, hd, q, k, v, o, sq, sk, sv, c, st);
+      err = cudaGetLastError();
+    }
+  } else if (dtype == 0) {
+    err = dispatch_simt<float>(hd, q, k, v, o, B, H, S, sq, sk, sv, c, aligned, sms, st);
+  } else {
+    err = dispatch_simt<__nv_bfloat16>(hd, q, k, v, o, B, H, S, sq, sk, sv, c, aligned, sms, st);
+  }
+  if (err == cudaSuccess) last_body = body;
+  return (int)err;
+}
+
 }  // namespace
 
 // q, k, v: (B, H, S, hd) views, strides in elements (unit along hd); o:
@@ -721,33 +780,34 @@ extern "C" int tiny_attention_launch(int device, const void* q, const void* k, c
                                      long long sqh, long long sqs, long long skb, long long skh,
                                      long long sks, long long svb, long long svh, long long svs,
                                      float scale, int dtype, int aligned, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if ((long long)B * H * S == 0) return 0;
-  if (hd < 1 || hd > 16 || (long long)B * H >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs};
-  const float c = scale * LOG2E;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  if (dtype == 1 && hd > 8) {
-    const bool vec = aligned && hd == 16 && sqh % 8 == 0 && skh % 8 == 0 && svh % 8 == 0;
-    if (vec && S <= 80)
-      return (int)launch_tc_stream(device, B, H, S, hd, q, k, v, o, sq, sk, sv, c, sms, st);
-    if (vec)
-      launch_tc<true>(B, H, S, hd, q, k, v, o, sq, sk, sv, c, st);
-    else
-      launch_tc<false>(B, H, S, hd, q, k, v, o, sq, sk, sv, c, st);
-    return (int)cudaGetLastError();
-  }
-  if (dtype == 0)
-    return (int)dispatch_simt<float>(hd, q, k, v, o, B, H, S, sq, sk, sv, c, aligned, sms, st);
-  if (dtype == 1)
-    return (int)dispatch_simt<__nv_bfloat16>(hd, q, k, v, o, B, H, S, sq, sk, sv, c, aligned,
-                                             sms, st);
-  return (int)cudaErrorInvalidValue;
+  return launch(device, q, k, v, o, B, H, S, hd, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
+                Strides{svb, svh, svs}, scale, dtype, aligned != 0, stream);
 }
+
+// The same on the (B, T, D) views q, k, v of a (B, T, 3D) QKV buffer, read
+// as H heads of D / H: each view's (volume, head, token) strides are
+// (volume_stride, D / H, token_stride).  The scale 1 / sqrt(hd) and the
+// alignment are worked out here, so the attention sublayer's core (K3)
+// passes the fewest arguments the host must convert a call.  o: (B, T, D)
+// contiguous.
+extern "C" int tiny_attention_qkv_launch(int device, const void* q, const void* k, const void* v,
+                                         void* o, int B, int T, int D, int H,
+                                         long long volume_stride, long long token_stride,
+                                         int dtype, void* stream) {
+  if (H <= 0 || D % H) return (int)cudaErrorInvalidValue;
+  const int hd = D / H, elt = dtype == 1 ? 2 : 4;
+  const Strides s{volume_stride, hd, token_stride};
+  // the three views step alike: only their bases differ
+  const bool aligned = aligned16(q, s, elt) && aligned16(k, s, elt) && aligned16(v, s, elt);
+  return launch(device, q, k, v, o, B, H, T, hd, s, s, s, (float)(1.0 / sqrt((double)hd)),
+                dtype, aligned, stream);
+}
+
+// The body this process's last successful launch took: 0 the CUDA cores
+// (`tiny_attention_simt_kernel`), 1 the tensor cores reading by element and
+// 2 by 16 bytes (`tiny_attention_tc_kernel`), 3 the streamed tensor-core
+// body (`tiny_attention_tc_stream_kernel`); -1 before any launch.
+extern "C" int tiny_attention_last_body() { return last_body; }
 
 extern "C" const char* tiny_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

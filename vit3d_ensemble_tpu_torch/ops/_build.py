@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -103,12 +104,14 @@ def load(name: str) -> ctypes.CDLL:
 def entry(name: str, argtypes, symbol: str = "") -> ctypes._CFuncPtr:
     """`symbol` (by default `<name>_launch`) of `csrc/<name>.cu`, typed:
     every pointer and the stream as c_void_p, so ctypes never cuts them to
-    32 bits.  The library keeps one function object per symbol, so the
-    types are set once."""
-    fn = getattr(load(name), symbol or f"{name}_launch")
-    if fn.argtypes is None:
+    32 bits.  Kept by name and symbol once typed, so a launch finds its
+    function in one dict lookup, without the build lock."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol or f"{name}_launch")
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
     return fn
 
 

@@ -3,19 +3,24 @@ attention -> out projection, with the attention core as a CUDA kernel.
 
 Counterpart of `vit3d_ensemble_tpu/ops/pallas_attention_layer.py`.  The two
 projections stay `F.linear`, as the JAX package leaves them to XLA; the
-attention core reads q, k and v in place from the (B, T, 3D) QKV output and
-writes the (B, T, D) context for the out projection.  Two bodies serve it,
-by head_dim:
+attention core reads q, k and v in place from the (B, T, 3D) QKV output, as
+(B, H, T, hd) views of it, and writes the (B, T, D) context for the out
+projection.  The core runs on the body of the fused attention kernel that
+serves its head_dim (`ops/fused_attention.py`), so no copy surrounds it:
 
-  * hd in `HEAD_DIMS` (1, 4, 16; every D / H of the 22 registry configs):
-    K3's own CUDA-core body, `csrc/attention_layer.cu`;
+  * hd in `HEAD_DIMS` (1 to 16; the registry's 1, 4 and 16): K2's body,
+    `csrc/tiny_attention.cu`, through `fused_attention.k2_into` (in bf16 at
+    hd 9-16 the tensor cores, streamed at T <= 80, since the views of the
+    QKV buffer start and step by multiples of 16 bytes; else the CUDA
+    cores), counted in `launches_k2`;
   * hd in `HEAD_DIMS_K4` (32, 64, 128; the stretch model's 64): K4's
-    tensor-core body, `csrc/attention.cu`, on the (B, H, T, hd) views of the
-    QKV buffer, writing (B, T, H, hd), which is the (B, T, D) context, so no
-    copy surrounds it.  Its plain version is K4's, `_plain_attention_k4`,
-    which rounds where that kernel rounds.
+    tensor-core body, `csrc/attention.cu`, through `fused_attention.k4_into`,
+    counted in `launches_k4`.
 
-Each source note says what bounds its kernel on the H100.
+Both write (B, T, H, hd), which is the (B, T, D) context.  The plain
+version of the core is that body's own (`fused_attention._plain`), which
+rounds where the kernel rounds.  Each source note says what bounds its
+kernel on the H100.
 
 Weights use the torch.nn.Linear layout: wqkv (3D, D) is the query, key and
 value weights stacked in that order, bqkv (3D,), wout (D, D), bout (D,).
@@ -29,26 +34,26 @@ never kept between the passes.
 
 from __future__ import annotations
 
-import ctypes
-import math
-
 import torch
 import torch.nn.functional as F
 
-from vit3d_ensemble_tpu_torch.ops import _build, fused_attention
+from vit3d_ensemble_tpu_torch.ops import fused_attention
 
 #: Attention-core launches of the sublayer in this process, on either body;
 #: the wrapper adds one per kernel launch.
 launches = 0
+#: Those of them that took K2's body (head_dim in HEAD_DIMS).
+launches_k2 = 0
 #: Those of them that took K4's body (head_dim in HEAD_DIMS_K4).
 launches_k4 = 0
 
-#: head dims K3's own body is instantiated for: every D / H of the registry.
-HEAD_DIMS = (1, 4, 16)
+#: head dims served by K2's body: every head_dim up to 16, as JAX's
+#: `_attn_core_kernel` takes any.
+HEAD_DIMS = tuple(range(1, fused_attention.TINY_HD + 1))
 #: head dims served by K4's tensor-core body.
 HEAD_DIMS_K4 = fused_attention.HEAD_DIMS_K4
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _split(qkv: torch.Tensor):
@@ -63,13 +68,13 @@ def _heads(a, n_heads):
 
 
 def _plain_attention_core(q, k, v, n_heads):
-    """The kernels' function in plain PyTorch: q, k, v (B, T, D) ->
+    """The kernel's function in plain PyTorch: q, k, v (B, T, D) ->
     ctx (B, T, D), the plain version of the body that serves the head_dim
-    (`fused_attention._plain`) on the per-head views.  At head_dim <= 16,
-    K2's (scores, softmax and context in f32, the output rounded once, as
-    K3's body does); above, K4's (in bf16 the unnormalised probabilities
-    are rounded before the second product, as K4's body does; in f32 the
-    same function)."""
+    (`fused_attention._plain`) on the per-head views, which is that body's
+    own function.  Scores, softmax and context in f32, the output rounded
+    once; in bf16 where the body runs on the tensor cores (K2's at head_dim
+    9-16, K4's) the unnormalised probabilities are rounded to bf16 before
+    the second product, as those bodies round them."""
     B, T, D = q.shape
     ctx = fused_attention._plain(*(_heads(t, n_heads) for t in (q, k, v)))
     return ctx.transpose(1, 2).reshape(B, T, D)
@@ -78,8 +83,8 @@ def _plain_attention_core(q, k, v, n_heads):
 def _plain_attention_layer(h, wqkv, bqkv, wout, bout, n_heads):
     """`_reference_attention_layer` (`pallas_attention_layer.py:136-150`),
     rounding where the kernel path rounds: the projections in the input
-    type, the attention core in f32 with its output rounded once.  For f32
-    inputs it is `_reference_attention_layer` exactly."""
+    type, the attention core as `_plain_attention_core`.  For f32 inputs it
+    is `_reference_attention_layer` exactly."""
     ctx = _plain_attention_core(*_split(F.linear(h, wqkv, bqkv)), n_heads)
     return F.linear(ctx, wout, bout)
 
@@ -106,8 +111,9 @@ def _check(q, k, v, n_heads) -> None:
                          f"hidden size {D}")
     hd = D // n_heads
     if hd not in HEAD_DIMS + HEAD_DIMS_K4:
-        raise ValueError(f"attention_layer: head_dim {hd} is not one of "
-                         f"{HEAD_DIMS} (K3's body) or {HEAD_DIMS_K4} (K4's)")
+        raise ValueError(f"attention_layer: head_dim {hd} is neither <= "
+                         f"{HEAD_DIMS[-1]} (K2's body) nor one of "
+                         f"{HEAD_DIMS_K4} (K4's)")
     if q.stride(2) != 1:
         raise ValueError("attention_layer: q, k, v need unit column stride")
     if B >= 2 ** 31 or T >= 2 ** 31:
@@ -119,31 +125,25 @@ def _check(q, k, v, n_heads) -> None:
 
 
 def _launch(q, k, v, n_heads):
-    global launches, launches_k4
+    global launches, launches_k2, launches_k4
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_layer: kernel launch on {q.device}")
     _check(q, k, v, n_heads)
     B, T, D = q.shape
-    if D // n_heads in HEAD_DIMS_K4:
-        # K4 writes (B, T, H, hd): the (B, T, D) context itself
-        out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
-        if B * T:
-            fused_attention.k4_into(*(_heads(t, n_heads) for t in (q, k, v)),
-                                    out.view(B, T, n_heads, D // n_heads))
-            launches += 1
-            launches_k4 += 1
-        return out
-    fn = _build.entry("attention_layer",
-                      [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                      + [ctypes.c_longlong] * 2
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     hd = D // n_heads
+    # both bodies write (B, T, H, hd): the (B, T, D) context itself
     out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), B, T, n_heads, hd, q.stride(1), q.stride(0),
-             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
-    _build.check("attention_layer", err)
+    if B * T == 0:              # nothing to compute, nothing launched
+        return out
+    if hd in HEAD_DIMS_K4:
+        fused_attention.k4_into(*(_heads(t, n_heads) for t in (q, k, v)),
+                                out.view(B, T, n_heads, hd))
+        launches_k4 += 1
+    else:
+        # the (B, T, D) views and the head count, without making the head
+        # views: the training path is bound by the host's time a call
+        fused_attention.k2_into(q, k, v, out, n_heads)
+        launches_k2 += 1
     launches += 1
     return out
 

@@ -13,7 +13,8 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     the heads of a group sharing a warp, on CUDA cores with one `ex2` a
     score.  It reads q, k, v through their strides (unit stride along
     head_dim: a view without it is copied first) and writes the context
-    (B, S, H, hd), as K4 does.
+    (B, S, H, hd), as K4 does.  K3's core at head_dim <= 16 runs on this
+    body too, on the views of its (B, T, 3D) QKV buffer (`k2_into`).
   * K4 (`csrc/attention.cu`), head_dim in {32, 64, 128} (the stretch model's
     64 at 513 tokens): the keys are walked in chunks with an online softmax,
     so no S x S tile is stored.  In bf16 (every head_dim) a block takes one
@@ -28,7 +29,8 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     and K3's views into its QKV buffer give them, and writes the context
     (B, S, H, hd), returned as its (B, H, S, hd) view, so that the model's
     merge of the heads copies nothing (K2 likewise, from the model's views
-    into its (B, T, 3, H, hd) QKV product).
+    into its (B, T, 3, H, hd) QKV product).  K3's core at these head dims
+    runs on this body (`k4_into`).
 
 Each source note says what bounds its kernel on the H100.
 
@@ -152,10 +154,8 @@ def _stream(device) -> int:
 def _k2_plan(q, k, v):
     """What K2 is launched on: the (B, H, S, hd) views of q, k, v that the
     kernel reads through their strides (a view whose head_dim stride is not
-    1 is copied first, the only copy), the (B, S, H, hd) buffer it writes,
-    and whether every view's base is 16-byte aligned and its volume and
-    token strides multiples of 16 bytes, so that the kernel may read rows 16
-    bytes at a time where its layout allows (else it reads by element)."""
+    1 is copied first, the only copy) and the (B, S, H, hd) buffer it
+    writes."""
     views = []
     for t in (q, k, v):
         t = _as_bhsd(t)
@@ -164,30 +164,76 @@ def _k2_plan(q, k, v):
         views.append(t)
     B, H, S, hd = views[0].shape
     out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
-    elt = q.element_size()
-    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) * elt % 16 == 0
-                  and t.stride(2) * elt % 16 == 0 for t in views)
-    return views, out, aligned
+    return views, out
+
+
+#: the bodies of `csrc/tiny_attention.cu`, by the code its dispatch reports
+K2_BODIES = ("simt", "tc_by_element", "tc", "tc_stream")
+
+_K2_ARGS = {
+    # (B, H, S, hd) views and their (volume, head, token) strides
+    "tiny_attention_launch": [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    # (B, T, D) views of a QKV buffer and their volume and token strides
+    "tiny_attention_qkv_launch": [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+    + [ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def k2_into(q, k, v, out, n_heads: int = 0) -> None:
+    """Launch K2's kernel on q, k, v, writing the context into `out`, a
+    contiguous (B, S, H, hd) tensor (B * H * S > 0): q, k, v are (B, H, S,
+    hd) views with unit stride along head_dim, or, given `n_heads`, (B, S,
+    D) views that share their strides (K3's views of its QKV buffer), read
+    as their `n_heads` heads of D / n_heads without making the head views.
+    The kernel picks its body from the dtype, head_dim, tokens and the
+    views' alignment (`k2_body_launched` reports it): whether every view's
+    base is 16-byte aligned and its volume and token strides multiples of
+    16 bytes, so that rows may be read 16 bytes at a time where its layout
+    allows (K3's entry works that out itself).  Counts nothing: each caller
+    counts its own launches (this module's `launches`, and K3's wrapper,
+    whose head dims up to 16 take this kernel)."""
+    if n_heads:
+        B, S, D = q.shape
+        symbol = "tiny_attention_qkv_launch"
+        err = _build.entry("tiny_attention", _K2_ARGS[symbol], symbol)(
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, S, D, n_heads, q.stride(0), q.stride(1),
+            _DTYPES[q.dtype], _stream(q.device))
+    else:
+        B, H, S, hd = q.shape
+        if B * H >= 2 ** 31:
+            raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
+        elt = q.element_size()
+        aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) * elt % 16 == 0
+                      and t.stride(2) * elt % 16 == 0 for t in (q, k, v))
+        symbol = "tiny_attention_launch"
+        err = _build.entry("tiny_attention", _K2_ARGS[symbol], symbol)(
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, H, S, hd, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+            int(aligned), _stream(q.device))
+    _build.check("tiny_attention", err)
+
+
+def k2_body_launched() -> str:
+    """The body of `csrc/tiny_attention.cu` that this process's last K2
+    launch took, as the kernel's dispatch reports it (one of K2_BODIES)."""
+    body = _build.entry("tiny_attention", [], "tiny_attention_last_body")()
+    if body < 0:
+        raise RuntimeError("fused_attention: K2 has not been launched")
+    return K2_BODIES[body]
 
 
 def _launch_k2(q, k, v):
     global launches
     shape = q.shape
-    (q, k, v), out, aligned = _k2_plan(q, k, v)
+    (q, k, v), out = _k2_plan(q, k, v)
     B, H, S, hd = q.shape
     if B * H * S:               # else nothing to compute, nothing launched
-        if B * H >= 2 ** 31:
-            raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
-        fn = _build.entry("tiny_attention",
-                          [ctypes.c_int] + [ctypes.c_void_p] * 4
-                          + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p])
-        err = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), B, H, S, hd, *q.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(hd),
-                 _DTYPES[q.dtype], int(aligned), _stream(q.device))
-        _build.check("tiny_attention", err)
+        k2_into(q, k, v, out)
         launches += 1
     return out.transpose(1, 2).reshape(shape)
 

@@ -10,7 +10,9 @@ bounds it on the H100 and how it is laid out:
     summed in f32 over chunks of `_CHUNK_M` hidden columns, on producer and
     consumer warps;
   * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
-    K1's function, software-pipelined in a persistent block.
+    K1's function, software-pipelined in a persistent block (in bf16 at D
+    >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
+    `k1c_plan` lays out.
 
 `_MLP_VARIANT`, a module constant as in the JAX package, says which one
 `fused_mlp` launches; it is read at each call.  K1b and K1c take the narrow
@@ -215,6 +217,69 @@ def _launch_wide_bf16(x, w1, b1, w2, b2, out, n: int, active: int,
               out.data_ptr(), n, D, M, active, stream)
 
 
+#: K1c's body at (device, D, dtype): its `mlp_pipelined_shape`, asked once.
+_K1C_SHAPES: dict = {}
+K1C_SHAPE_KEYS = ("tile_rows", "threads_a_block", "smem_bytes_a_block",
+                  "registers_at_entry", "blocks_an_sm", "sms")
+
+
+def k1c_shape(device, D: int, dtype) -> dict:
+    """K1c's body for (D, dtype) on `device`: its row tile, threads, shared
+    memory, registers, and the blocks an SM and SMs the runtime reports."""
+    key = (device.index, D, dtype)
+    if key not in _K1C_SHAPES:
+        out = (ctypes.c_int * len(K1C_SHAPE_KEYS))()
+        fn = _build.entry("mlp_pipelined", [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                          "mlp_pipelined_shape")
+        _build.check("mlp_pipelined", fn(device.index, D, _DTYPES[dtype], out))
+        _K1C_SHAPES[key] = dict(zip(K1C_SHAPE_KEYS, out))
+    return _K1C_SHAPES[key]
+
+
+def k1c_plan(n: int, models: int, tile_rows: int, slots: int) -> dict:
+    """K1c's persistent grid: grid y the models, grid x `blocks_a_model`
+    blocks of each, as many as the resident `slots` (SMs times blocks an
+    SM) hold when shared among the models, and never more than a model's row
+    tiles; block b of B takes the tiles floor(b T / B) .. floor((b + 1) T / B),
+    so the blocks' tiles differ by at most one.  Only where the models
+    outnumber the slots does the grid exceed them: a block a model."""
+    tiles = -(-n // tile_rows)
+    per_model = max(1, min(tiles, slots // models))
+    return {"tile_rows": tile_rows, "tiles_a_model": tiles,
+            "blocks_a_model": per_model, "blocks": per_model * models,
+            "slots": slots, "waves": per_model * models / slots,
+            "most_tiles_a_block": -(-tiles // per_model),
+            "fewest_tiles_a_block": tiles // per_model}
+
+
+def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
+                models: int, stream) -> int:
+    """K1c (`mlp_pipelined_launch`) on `k1c_plan`'s grid.  Returns the entry
+    point's CUDA error code."""
+    D, M = x.shape[-1], w1.shape[-2]
+    m8 = -(-M // 8) * 8
+    if x.dtype == torch.bfloat16 and D >= 16:
+        # the wgmma body reads w2 and b1 by TMA, whose rows must start on
+        # 16 bytes: zero-padded copies where M is not a multiple of 8 (no
+        # registry config), a copy of a b1 view off that alignment
+        if m8 != M:
+            w2, b1 = F.pad(w2, (0, m8 - M)), F.pad(b1, (0, m8 - M))
+        elif b1.data_ptr() % 16:
+            b1 = b1.clone()
+    shape = k1c_shape(x.device, D, x.dtype)
+    plan = k1c_plan(n, models, shape["tile_rows"],
+                    shape["sms"] * shape["blocks_an_sm"])
+    fn = _build.entry("mlp_pipelined", [ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                      + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
+    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              w2.data_ptr(), w2.shape[-1], b2.data_ptr(), out.data_ptr(), n, D,
+              M, active, None if per_model is None else per_model.data_ptr(),
+              models, plan["blocks_a_model"], _DTYPES[x.dtype], stream)
+
+
 def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
@@ -235,6 +300,9 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if x.dtype == torch.bfloat16 and D not in WIDTHS:
         err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
+    elif variant == "pipelined2":
+        err = _launch_k1c(x, w1, b1, w2, b2, out, n, active, per_model,
+                          models, stream)
     else:
         fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
                           + [ctypes.c_int] * 4
