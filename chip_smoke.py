@@ -11,7 +11,8 @@ read just after:
   * serving: all 18 baseline ViTs in bf16 at B=512, then batch-1..8 latency
     of conf 9 and of the {5,9,11} stacking ensemble (K1, K2; K2 reads q, k,
     v in place from the QKV product and writes the context for the head
-    merge, so the pass holds no copies around it);
+    merge, so the pass holds no copies around it; K1's bf16 calls run on
+    K1c's `wgmma` pipeline: counters `K1_on_K1c` and `K1_own`);
   * training, in f32: `train_baseline` on conf 9 at full width and depth
     under the attention impls `auto` (K2, K1 in evaluation) and `layer`
     (K3), and `train_ensemble` on {5,9,11} under `layer`; with dropout off,
@@ -85,11 +86,14 @@ PEAK_BYTES = 3.35e12
 EX2_PER_SM_CLOCK = 16
 exp_rate = 0.0
 # FP32 instructions an SM issues a clock (4 schedulers of 32 lanes); a GELU
-# costs `gelu_fp32` of them, counted in its SASS by `phase_build`, so the
-# card runs `gelu_rate` GELUs a second (set by main() and phase_build).
+# costs the FP32 instructions and exponentials counted in its SASS by
+# `phase_build`, so the card runs `gelu_rate[dtype]` GELUs of the kernels'
+# type a second (set by main() and phase_build): the JAX kernels' rule,
+# exact erf in f32 and the polynomial in bf16 (`GELU_OF`).
 FP32_PER_SM_CLOCK = 128
 fp32_rate = 0.0
-gelu_rate = 0.0
+GELU_OF = {torch.float32: "erf", torch.bfloat16: "poly"}
+gelu_rate: dict = {}
 
 # Kernel against plain version: the JAX package's own tolerances
 # (`tests/test_pallas_mlp.py:31,47`, `tests/test_ops.py:31`).  Both sides
@@ -132,7 +136,12 @@ STRETCH_ITERS = 20
 
 #: Each kernel's launch counter: the wrapper module and the attribute that
 #: its wrapper adds one to per launch.
-KERNELS = {"K1": (fused_mlp, "launches"), "K2": (fused_attention, "launches"),
+KERNELS = {"K1": (fused_mlp, "launches"),
+           # K1's launches on K1c's `wgmma` pipeline (bf16, D 16-64) and on
+           # its own bodies
+           "K1_on_K1c": (fused_mlp, "launches_on_k1c"),
+           "K1_own": (fused_mlp, "launches_own"),
+           "K2": (fused_attention, "launches"),
            "K3": (attention_layer, "launches"),
            # K3's core launches that took K2's body (head_dim <= 16) and
            # K4's (head_dim 32/64/128)
@@ -182,10 +191,12 @@ def bound(flops: float, nbytes: float, dtype, exps: float = 0.0,
           gelus: float = 0.0) -> tuple:
     """The least ms the card could take: the largest of the operations over
     the peak rate for their type (the products' at the tensor cores' or
-    FP32 peak, and the exact-erf GELUs' FP32 instructions at the FP32 pipes'
-    issue rate, whichever is longer), the bytes over the memory rate and the
-    exponentials over the card's exponential rate; and which one it is."""
-    ops = max(flops / PEAK_FLOPS[dtype], gelus / gelu_rate if gelus else 0.0)
+    FP32 peak, and the GELUs of the type's form, `GELU_OF`, at their FP32
+    instructions' and exponentials' rate, whichever is longer), the bytes
+    over the memory rate and the exponentials over the card's exponential
+    rate; and which one it is."""
+    ops = max(flops / PEAK_FLOPS[dtype],
+              gelus / gelu_rate[dtype] if gelus else 0.0)
     times = {"operations": ops, "bytes": nbytes / PEAK_BYTES,
              "exponentials": exps / exp_rate}
     by = max(times, key=times.get)
@@ -202,6 +213,13 @@ def compare(out, ref, dtype, tol=None) -> tuple:
 def counts_of(**nonzero) -> dict:
     """Launch counts of every kernel: 0 but for those named."""
     return {name: nonzero.get(name, 0) for name in KERNELS}
+
+
+def k1_split(n: int, dtype, D: int) -> dict:
+    """`n` K1 launches at hidden size D, by the body `fused_mlp` routes
+    them to: counts_of's arguments for K1 and its body counter."""
+    body = fused_mlp._k1_body(dtype, D)
+    return {"K1": n, "K1_on_K1c" if body == "wgmma_pipeline" else "K1_own": n}
 
 
 def reset_launches() -> None:
@@ -248,51 +266,91 @@ def sass_count(name: str, opcode: str) -> int:
     return sum(opcode in line for line in sass_of(_build.library_path(name)).splitlines())
 
 
-# The exact-erf GELU of the fused FFNs (`mlp_common.cuh`), alone in a kernel
-# beside the same kernel without it, compiled with the kernels' flags: the
-# difference of their SASS is the GELU's instructions.
+# The fused FFNs' two GELUs (`mlp_common.cuh`: exact erf, the f32 bodies';
+# the TPU kernels' polynomial, the bf16 bodies'), each alone in a kernel
+# beside the same kernel without it, compiled with the kernels' flags into
+# a library of its own: the difference of their SASS is a GELU's
+# instructions, and the library's entry runs either on the card.
 GELU_PROBE = """
 #include "mlp_common.cuh"
-extern "C" __global__ void gelu_probe(float* x, int n) {
+extern "C" __global__ void gelu_erf_probe(float* x, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) x[i] = mlp::gelu_erf(x[i]);
+}
+extern "C" __global__ void gelu_poly_probe(float* x, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = mlp::gelu_poly(x[i]);
 }
 extern "C" __global__ void copy_probe(float* x, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) x[i] = __int_as_float(__float_as_int(x[i]) ^ 0x80000000);
 }
+// which: 0 exact erf, 1 the polynomial; in place on x[0:n]
+extern "C" int gelu_probe_launch(int which, float* x, int n, void* stream) {
+  auto* k = which == 0 ? gelu_erf_probe : gelu_poly_probe;
+  k<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, n);
+  return (int)cudaGetLastError();
+}
 """
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+GELU_PROBE_LIB = "libgelu_probe.so"
+# The device GELUs on 2**20 points of [-8, 8] against their plain versions,
+# F.gelu and `fused_mlp.poly_gelu`: both sides round the same f32
+# operations in the same order (and take erff from CUDA's math library).
+GELU_PROBE_POINTS = 2 ** 20
+GELU_PROBE_ATOL = 1e-6
 
 
-def gelu_instructions() -> dict:
-    """The GELU's SASS instructions by pipe: `fp32` (F* opcodes: FFMA, FMUL,
-    FADD, FSEL, FSETP...), `mufu` (the exponential unit) and `other`, from
-    the probe kernel less the copy kernel, constants materialised in
-    registers (MOV, HFMA2.MMA, IMAD.MOV: hoisted out of a kernel's loops)
-    left out."""
+def start_gelu_probe():
+    """Write the probe's source and start its nvcc; returns the process."""
     out = _build.BUILD_DIR / "gelu_probe"
     out.mkdir(parents=True, exist_ok=True)
     (out / "probe.cu").write_text(GELU_PROBE)
-    cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-           "-cubin", "-I", str(_build.CSRC), "-o", str(out / "probe.cubin"),
-           str(out / "probe.cu")]
-    subprocess.run(cmd, capture_output=True, text=True, timeout=120, check=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+           "-o", str(out / GELU_PROBE_LIB), str(out / "probe.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def gelu_probe(proc) -> dict:
+    """Each GELU's SASS instructions by pipe, `fp32` (F* opcodes: FFMA, FMUL,
+    FADD, FMNMX, FSEL...), `mufu` (the exponential unit) and `other`, from
+    its probe kernel less the copy kernel, constants materialised in
+    registers (MOV, HFMA2.MMA, IMAD.MOV: hoisted out of a kernel's loops)
+    left out; and its largest difference from its plain version on the
+    card."""
+    log, _ = proc.communicate(timeout=300)
+    if proc.returncode:
+        raise RuntimeError(f"GELU probe build failed:\n{log}")
+    lib = _build.BUILD_DIR / "gelu_probe" / GELU_PROBE_LIB
     counts = {}
-    for fn in sass_of(out / "probe.cubin").split("Function : ")[1:]:
+    for fn in sass_of(lib).split("Function : ")[1:]:
         name = fn.split()[0]
         ops = [m.group(2) for m in SASS_LINE.finditer(fn)]
         ops = [o for o in ops if o not in ("NOP", "MOV", "HFMA2.MMA", "IMAD.MOV.U32")]
         counts[name] = collections.Counter(
             "mufu" if o.startswith("MUFU") else "fp32" if o[0] == "F" else "other"
             for o in ops)
-    gelu, copy = counts["gelu_probe"], counts["copy_probe"]
-    return {k: gelu[k] - copy[k] for k in ("fp32", "mufu", "other")}
+    launch = ctypes.CDLL(str(lib)).gelu_probe_launch
+    launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    h = torch.linspace(-8.0, 8.0, GELU_PROBE_POINTS, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for which, (form, plain) in enumerate((("erf", F.gelu),
+                                           ("poly", fused_mlp.poly_gelu))):
+        y = h.clone()
+        err = launch(which, y.data_ptr(), y.numel(), stream)
+        torch.cuda.synchronize()
+        probe, copy = counts[f"gelu_{form}_probe"], counts["copy_probe"]
+        out[form] = {**{k: probe[k] - copy[k] for k in ("fp32", "mufu", "other")},
+                     "launch_error": err,
+                     "max_abs_err_vs_plain": float((y - plain(h)).abs().max())}
+    return out
 
 
 def phase_build() -> None:
-    global gelu_rate
     t0 = time.perf_counter()
+    probe = start_gelu_probe()
     logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
                          "tiny_attention", "attention"])
     seconds = time.perf_counter() - t0
@@ -308,19 +366,28 @@ def phase_build() -> None:
             for op in ("HGMMA", "UTMALDG")}
     sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
-    gelu = gelu_instructions()
-    # the GELU's FP32 instructions at the FP32 pipes' issue rate, its
+    gelu = gelu_probe(probe)
+    # each GELU's FP32 instructions at the FP32 pipes' issue rate, its
     # exponentials (one a GELU at most) at the exponential unit's
-    gelu_rate = min(fp32_rate / max(gelu["fp32"], 1), exp_rate / max(gelu["mufu"], 1))
+    for dtype, form in GELU_OF.items():
+        g = gelu[form]
+        gelu_rate[dtype] = min(fp32_rate / max(g["fp32"], 1),
+                               exp_rate / g["mufu"] if g["mufu"] else math.inf)
     emit({"phase": "build", "seconds": seconds,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
           **sass, "k4_plan": [k4_plan(*shape) for shape in K4_PLAN_SHAPES],
           "k1c_plan": [k1c_plan(*case) for case in K1C_PLAN_CASES],
-          "gelu_instructions": gelu, "gelus_per_s": gelu_rate})
+          "gelu_instructions": gelu, "gelu_probe_points": GELU_PROBE_POINTS,
+          "gelu_probe_atol": GELU_PROBE_ATOL,
+          "gelus_per_s": {GELU_OF[d]: r for d, r in gelu_rate.items()}})
     for name, n in sass.items():
         check(n > 0, f"{name}: the library holds no such instruction")
-    check(gelu["fp32"] > 0, f"GELU probe: {gelu}")
+    for form, g in gelu.items():
+        check(g["fp32"] > 0 and g["launch_error"] == 0
+              and g["max_abs_err_vs_plain"] <= GELU_PROBE_ATOL,
+              f"GELU probe {form}: {g}")
+    check(gelu["poly"]["mufu"] == 0, f"the polynomial GELU takes exponentials: {gelu}")
     check(ptxas_summary(logs["mlp_pipelined"])["wgmma_serialized"] == 0,
           "ptxas serialised K1c's wgmmas")
 
@@ -403,6 +470,35 @@ def mlp_weights(gen, dtype, D: int, M: int, lead=()) -> list:
     return [w1, b1, w2, small(D)]
 
 
+#: The trace groups of the fused-FFN kernels (KERNEL_GROUPS); the calls of
+#: a K1, K1b or K1c case launch nothing else.
+MLP_GROUPS = ("K1", "K1b", "K1c")
+
+
+def mlp_device_ms(fn, calls: int = 10) -> float:
+    """Device ms a call of the fused-FFN kernels under the profiler, over
+    `calls` calls of `fn`."""
+    _, groups, _, _ = device_time(lambda: [fn() for _ in range(calls)],
+                               host_ops=False)
+    return sum(groups.get(g, 0.0) for g in MLP_GROUPS) / calls
+
+
+def host_ms(fn, iters: int = 50, repeats: int = 5) -> float:
+    """Host ms to make a call, synchronising before and after each run of
+    `iters` calls but not between them: what a call costs the host while
+    the card works.  The median of `repeats` runs, as the host is shared."""
+    runs = []
+    for _ in range(repeats):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(runs) / iters * 1e3
+
+
 def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
             variant: str = "seq", models: int = 0, device: bool = False) -> dict:
     """A fused-FFN kernel (K1, or the variant's K1b or K1c) against its
@@ -410,8 +506,10 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
     that leading model axis and `active` is a list of one width a model,
     given to the kernel as a device tensor; the library chain is then
     `baddbmm` -> `F.gelu` -> `baddbmm` with the width mask folded into w2,
-    as the JAX wrapper folds it (`pallas_mlp.py:172-176`).  With `device`,
-    the kernel's and the chain's device time under the profiler too: the
+    as the JAX wrapper folds it (`pallas_mlp.py:172-176`).  The chain
+    computes exact erf GELU in every type: it is the yardstick of time, and
+    the kernels are held to their plain versions.  With `device`, the
+    kernel's and the chain's device time under the profiler too: the
     events' `ms` is no less than the host's time to make a call."""
     lead = (models,) if models else ()
     x = torch.randn(*lead, N, D, generator=gen, device="cuda").to(dtype)
@@ -435,20 +533,23 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
         def library():
             return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
         live = active
+
+    def call():
+        return fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+
     with torch.no_grad(), mlp_variant(variant):
-        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+        out = call()
+        body = fused_mlp.k1_body_launched() if variant == "seq" else None
         ref = plain(x, w1, b1, w2, b2, widths)
         err, ok, atol, rtol = compare(out, ref, dtype)
-        ms = time_ms(lambda: fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths), 20)
+        ms = time_ms(call, 20)
+        call_host_ms = host_ms(call)
         plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, widths), 5)
         library_ms = time_ms(library, 20)
         device_ms = library_device_ms = None
         if device:
-            busy, groups, _ = device_time(
-                lambda: [fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
-                         for _ in range(10)], host_ops=False)
-            device_ms = groups.get(VARIANT_KERNELS[variant], 0.0) / 10
-            check(device_ms > 0, f"K1 device time {device_ms} of {busy / 10} ms")
+            device_ms = mlp_device_ms(call)
+            check(device_ms > 0, f"{VARIANT_KERNELS[variant]} device time {device_ms}")
             library_device_ms = device_time(
                 lambda: [library() for _ in range(10)], host_ops=False)[0] / 10
     elt = x.element_size()
@@ -459,14 +560,15 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
         + (4 * P if models else 0), dtype, gelus=N * live)
     case = {"phase": VARIANT_KERNELS[variant], "card": card, "path": path,
             "dtype": str(dtype).split(".")[1], "N": N, "D": D, "M": M,
-            "active": active, "models": models, "max_abs_err": err,
-            "atol": atol, "rtol": rtol, "ok": ok, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "active": active, "models": models, "body": body,
+            "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+            "ms": ms, "host_ms": call_host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_gelu": "erf",
             "bound_ms": bound_ms, "bound_by": bound_by,
             # the bound's terms: the products at the peak for their type,
-            # the exact-erf GELUs at the FP32 pipes' rate
+            # the GELUs of the kernels' form (`GELU_OF`) at their rate
             "products_ms": 4.0 * N * D * live / PEAK_FLOPS[dtype] * 1e3,
-            "gelus_ms": N * live / gelu_rate * 1e3}
+            "gelu": GELU_OF[dtype], "gelus_ms": N * live / gelu_rate[dtype] * 1e3}
     if device:
         case.update(device_ms=device_ms, library_device_ms=library_device_ms)
     emit(case)
@@ -477,20 +579,33 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
 # The stretch path's K1 shapes: D=768, M=3072, the token rows of B=8 and of
 # B=1 (both leave a partial row tile), and a few rows alone.
 STRETCH_ROWS = (STRETCH_B * 513, 513, 70)
+# K1's bf16 calls on the latency path: B = 1, 4 and 8 volumes of 65 tokens
+# at conf 9's widths, each by device time.
+LATENCY_ROWS = tuple(b * 65 for b in LATENCY_BATCHES)
+LATENCY_WIDTHS = (16, 2048)
 
 
 def phase_k1(gen) -> tuple:
-    """K1 against its plain version at the serving path's shapes, at the
-    training path's, then at the stretch path's (the wide bodies).  Returns
-    the serving and the stretch path's largest bf16 cases."""
+    """K1 against its plain version at the serving path's shapes (in bf16
+    at M = 3,072 and at conf 9's widths by device time too), at the latency
+    path's (LATENCY_ROWS), at the training path's, then at the stretch
+    path's (the wide bodies).  Returns the serving and the stretch path's
+    largest bf16 cases, and the latency path's cases."""
     main = None
     for dtype in (torch.bfloat16, torch.float32):
         for D in (16, 32, 64):
             for M in (2048, 3072):
                 for active in (M, M - 1000):
-                    case = k1_case(gen, dtype, B * 65, D, M, active, "serve")
+                    timed = dtype == torch.bfloat16 and active == M and (
+                        M == 3072 or (D, M) == LATENCY_WIDTHS)
+                    case = k1_case(gen, dtype, B * 65, D, M, active, "serve",
+                                   device=timed)
                     if (dtype, D, M, active) == (torch.bfloat16, 64, 3072, 3072):
                         main = case
+    # a generator of their own, so the phases that follow draw what they drew
+    own = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    small = [k1_case(own, torch.bfloat16, N, *LATENCY_WIDTHS, LATENCY_WIDTHS[1],
+                     "latency", device=True) for N in LATENCY_ROWS]
     for N in TRAIN_ROWS:
         for D, M in K1_TRAIN_WIDTHS:
             k1_case(gen, torch.float32, N, D, M, M, "train")
@@ -505,7 +620,7 @@ def phase_k1(gen) -> tuple:
                                (dtype, N) == (torch.bfloat16, STRETCH_ROWS[1]))
                 if (dtype, N, active) == (torch.bfloat16, STRETCH_ROWS[0], 3072):
                     wide = case
-    return main, wide
+    return main, wide, small
 
 
 # (H, hd) of the trained configs: conf 9 (16, 1), conf 5 and 11 (8, 4).
@@ -565,7 +680,7 @@ def k2_case(gen, dtype, shape, path: str, offset: int = 0,
         # own times are their device times under the profiler
         timed = {}
         if device:
-            busy, groups, _ = device_time(
+            busy, groups, _, _ = device_time(
                 lambda: [fused_attention.fused_attention(q, k, v)
                          for _ in range(10)], host_ops=False)
             timed = {
@@ -808,7 +923,7 @@ def phase_k4(gen) -> dict:
                 # kernel's own time is its device time under the profiler
                 device_ms = library_device_ms = None
                 if S == 513:
-                    _, groups, _ = device_time(
+                    _, groups, _, _ = device_time(
                         lambda: [fused_attention.fused_attention(q, k, v)
                                  for _ in range(10)], host_ops=False)
                     device_ms = groups.get("K4", 0.0) / 10
@@ -1021,14 +1136,16 @@ def phase_main_path(gen) -> dict:
                                for _ in range(REPEATS - 1)]
         layers = sum(ViTConfig.from_conf(c).num_layers for c in BASELINE_CONFS)
         expected = layers * ITERS
+        # K1 and K2 once a layer, K1 on the body of B volumes of 65 tokens
+        # (every conf of 1-18 has D in 16..64); K1b, K1c never
+        want = counts_of(K2=expected,
+                         **k1_split(expected, torch.bfloat16, 64))
         emit({"phase": "main_path", "card": card, "B": B, "iters": ITERS,
               "seconds": seconds, "volumes_per_s": B * ITERS / seconds,
               "volumes_per_s_repeats": [B * ITERS / s for s in repeats],
-              "launches": counts, "expected_launches": expected,
+              "launches": counts, "expected_launches": want,
               "ms_per_pass_by_conf": per_model, "after_run": clocks})
-        for name, n in counts.items():
-            want = expected if name in ("K1", "K2") else 0  # K1b, K1c: 0
-            check(n == want, f"{name} launched {n} times, expected {want}")
+        check(counts == want, f"main path launched {counts}, expected {want}")
 
         for conf, model in zip(BASELINE_CONFS, models):
             out = model(x)
@@ -1054,8 +1171,11 @@ def phase_main_path(gen) -> dict:
 
 
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
+# `pipelined_wgmma_kernel` is K1's bf16 body at D 16-64 and K1c's: every
+# path but the `variants` phase's K1c turns launches it as K1, so it is
+# K1's group.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
-                 ("K1c", "pipelined_"),
+                 ("K1", "pipelined_wgmma"), ("K1c", "pipelined_core"),
                  ("K2", "tiny_attention"), ("K4", "attention_wgmma"),
                  ("K4", "attention_f32"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
@@ -1064,37 +1184,43 @@ KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
                  ("reduce", "reduce_kernel"), ("elementwise", "elementwise"))
 
 
-PROFILE_TRIES = 3
+PROFILE_TRIES = 4
 
 
 def device_time(fn, host_ops: bool = True) -> tuple:
     """Kernel time on the device (ms) of one call of `fn` under
-    torch.profiler, in total and by group, and the number of kernels it ran.
-    Kernels of one stream do not overlap, so their sum is the time the
-    device was busy.  `host_ops=False` records the device's kernels alone,
-    which costs the host far less on a run of many small steps.  A trace
-    that holds no device event at all (read once on an H100 in a run where
-    the same case traced before and after) is taken again, up to
-    PROFILE_TRIES times; `fn` runs once a try."""
+    torch.profiler, in total and by group, the number of kernels it ran,
+    and that number by group.  Kernels of one stream do not overlap, so
+    their sum is the time the device was busy.  `host_ops=False` records
+    the device's kernels alone, which costs the host far less on a run of
+    many small steps.  A trace can lack device events: on an H100 one held
+    none in a run where the same case traced before and after, and one held
+    3 of a case's 10 launches.  So the call is traced until two traces hold
+    the same number of kernels, the most any held, up to PROFILE_TRIES
+    times, and the trace with the most is taken; `fn` runs once a try."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if host_ops:
         activities.insert(0, ProfilerActivity.CPU)
+    best = None
     for _ in range(PROFILE_TRIES):
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         groups: dict = {}
-        kernels = 0
+        counts: dict = {}
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             group = next((g for g, pat in KERNEL_GROUPS if pat in e.key), "other")
             groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-            kernels += e.count
-        if kernels:
+            counts[group] = counts.get(group, 0) + e.count
+        kernels = sum(counts.values())
+        if best is not None and kernels and kernels == best[2]:
             break
-    return sum(groups.values()), groups, kernels
+        if best is None or kernels > best[2]:
+            best = (sum(groups.values()), groups, kernels, counts)
+    return best
 
 
 def phase_profile(main_path: dict, gen) -> float:
@@ -1109,12 +1235,12 @@ def phase_profile(main_path: dict, gen) -> float:
             model(x)
 
     with torch.no_grad():
-        busy, groups, kernels = device_time(one_pass)
+        busy, groups, kernels, by_group = device_time(one_pass)
     wall = main_path["ms_per_pass"]
     emit({"phase": "profile", "card": card, "work": "18-model pass, B=512",
           "device_busy_ms": busy, "wall_ms": wall,
           "device_idle_share": 1.0 - busy / wall, "kernels": kernels,
-          "by_group_ms": groups})
+          "by_group_ms": groups, "kernels_by_group": by_group})
     check(busy > 0, "profiler saw no device time on the main path")
     auto_busy = busy
     xb = torch.randn(1, 128, 128, 5, 1, generator=gen,
@@ -1122,11 +1248,12 @@ def phase_profile(main_path: dict, gen) -> float:
     model = models[BASELINE_CONFS.index(9)]
     with torch.no_grad():
         res, _ = latency(model, xb, 1)
-        busy, groups, kernels = device_time(lambda: model(xb))
+        busy, groups, kernels, by_group = device_time(lambda: model(xb))
     emit({"phase": "profile", "card": card, "work": "conf 9, B=1",
           "device_busy_ms": busy, "wall_ms": res["ms_per_batch"],
           "device_idle_share": 1.0 - busy / res["ms_per_batch"],
-          "kernels": kernels, "by_group_ms": groups})
+          "kernels": kernels, "by_group_ms": groups,
+          "kernels_by_group": by_group})
     return auto_busy
 
 
@@ -1151,16 +1278,18 @@ def phase_layer_pass(main_path: dict, auto_busy: float) -> dict:
             reset_launches()
             out = one_pass()
             counts = launches()
-            busy, groups, kernels = device_time(one_pass)
+            busy, groups, kernels, by_group = device_time(one_pass)
         finally:
             set_impls("auto")
     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(out, ref))
-    want = counts_of(K1=layers, K3=layers, K3_on_K2=layers)
+    want = counts_of(K3=layers, K3_on_K2=layers,
+                     **k1_split(layers, torch.bfloat16, 64))
     ok = counts == want and busy > 0 and err <= TOKENS_BF16_ATOL
     emit({"phase": "layer_pass", "card": card, "work": "18-model pass, B=512",
           "impl": "layer", "device_busy_ms": busy,
           "auto_device_busy_ms": auto_busy, "kernels": kernels,
-          "by_group_ms": groups, "launches": counts, "expected_launches": want,
+          "by_group_ms": groups, "kernels_by_group": by_group,
+          "launches": counts, "expected_launches": want,
           "tokens_max_abs_err_vs_auto": err, "atol": TOKENS_BF16_ATOL, "ok": ok})
     check(ok, f"layer pass: launched {counts} of {want}, busy {busy}, err {err}")
     return {"launches": counts, "device_busy_ms": busy}
@@ -1200,12 +1329,20 @@ def phase_latency(gen) -> None:
     for name, model in (("conf9", single), ("ensemble_5_9_11", ensemble)):
         model = model.to(torch.bfloat16).eval()
         for batch in LATENCY_BATCHES:
+            reset_launches()
             res, out = latency(model, x, batch)
+            counts = launches()
             out = out.logits if name == "conf9" else out
-            ok = tuple(out.shape) == (batch, 1) and bool(torch.isfinite(out).all())
+            # every K1 call of the batch on K1c's pipeline (conf 5, 9 and
+            # 11 have D 32, 16 and 32)
+            body = k1_split(counts["K1"], torch.bfloat16, 16)
+            ok = (tuple(out.shape) == (batch, 1) and bool(torch.isfinite(out).all())
+                  and all(counts[k] == n for k, n in body.items()))
             emit({"phase": "latency", "card": card, "model": name,
-                  "B": batch, **res, "ok": ok})
-            check(ok, f"latency {name} B={batch}: output {tuple(out.shape)}")
+                  "B": batch, **res, "launches": counts,
+                  "k1_body": fused_mlp.k1_body_launched(), "ok": ok})
+            check(ok, f"latency {name} B={batch}: output {tuple(out.shape)}, "
+                      f"launched {counts}")
 
 
 def phase_stretch(gen) -> dict:
@@ -1219,8 +1356,9 @@ def phase_stretch(gen) -> dict:
     model.eval()
     layers = cfg.num_layers
     # under `layer`, K3's head_dim-64 core runs on K4's body
-    expect = {"auto": counts_of(K1=layers, K4=layers),
-              "layer": counts_of(K1=layers, K3=layers, K3_on_K4=layers)}
+    expect = {"auto": counts_of(K1=layers, K1_own=layers, K4=layers),
+              "layer": counts_of(K1=layers, K1_own=layers, K3=layers,
+                                 K3_on_K4=layers)}
 
     def run_plain(x):
         set_impls("plain")
@@ -1279,7 +1417,7 @@ def phase_stretch(gen) -> dict:
                 # the same run again, for its spread (not counted above)
                 repeats = [seconds] + [passes(x) for _ in range(REPEATS - 1)]
                 out = model(x)
-                busy, groups, _ = device_time(lambda: model(x))
+                busy, groups, _, _ = device_time(lambda: model(x))
             finally:
                 set_impls("auto")
             want = {k: n * STRETCH_ITERS for k, n in expect[impl].items()}
@@ -1353,7 +1491,7 @@ def training_runs(name: str, run, steps: int, layers: int, evals: int,
     # under `layer` K3's core runs on K2's body (the trained configs' head
     # dims are at most 16)
     attn = {"auto": ("K2",), "layer": ("K3", "K3_on_K2")}
-    expect = {(impl, dropout): counts_of(K1=k1[dropout], **{
+    expect = {(impl, dropout): counts_of(K1=k1[dropout], K1_own=k1[dropout], **{
         kernel: layers * forwards for kernel in attn[impl]})
               for impl in impls for dropout in (True, False)}
     expect[("plain", False)] = counts_of()
@@ -1405,8 +1543,8 @@ def training_runs(name: str, run, steps: int, layers: int, evals: int,
             # the profiler's cost grows with the events it records: take
             # the busy share on the short run (its first evaluation period)
             short_ms = wall_time_ms(lambda: run(True, short=True))
-            busy, groups, kernels = device_time(lambda: run(True, short=True),
-                                                host_ops=False)
+            busy, groups, kernels, _ = device_time(
+                lambda: run(True, short=True), host_ops=False)
         finally:
             set_impls("auto")
         check(busy > 0, f"{name} {impl}: the profiler saw no device time")
@@ -1533,8 +1671,9 @@ def phase_variants(main_path: dict) -> dict:
                 seconds, _ = timed_passes(models, x, VARIANT_ITERS)
                 counts = launches()
                 err = float((models[0](x).tokens.float() - ref).abs().max())
-            want = counts_of(**{kernel: layers * VARIANT_ITERS,
-                                "K2": layers * VARIANT_ITERS})
+            n = layers * VARIANT_ITERS
+            want = counts_of(K2=n, **(k1_split(n, torch.bfloat16, 64)
+                                      if kernel == "K1" else {kernel: n}))
             rate = B * VARIANT_ITERS / seconds
             ok = counts == want and err <= TOKENS_BF16_ATOL
             emit({"phase": "variants", "card": card, "variant": variant,
@@ -1605,11 +1744,12 @@ def phase_sweep() -> dict:
         setup = wall_time_ms(lambda: stack.init_group_params(
             group, SWEEP_FOLDS, hyper.seed, device="cuda"))
         short_ms = wall_time_ms(lambda: engine.run_group(group, data, short))
-        busy, groups, kernels = device_time(
+        busy, groups, kernels, _ = device_time(
             lambda: engine.run_group(group, data, short), host_ops=False)
         # dropout on: K1 serves the evaluations (deterministic) alone, K2
         # every forward (attention dropout is 0)
-        want = counts_of(K1=L * (evals + 1), K2=L * (steps + evals + 1))
+        want = counts_of(K1=L * (evals + 1), K1_own=L * (evals + 1),
+                         K2=L * (steps + evals + 1))
         finite = bool(np.isfinite(res.losses).all())
         shapes = (res.losses.shape == (steps, G, SWEEP_FOLDS)
                   and res.best_metrics.shape == (G, SWEEP_FOLDS, 11)
@@ -1711,7 +1851,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1, k1_wide = phase_k1(gen)
+    k1, k1_wide, k1_latency = phase_k1(gen)
     # the phases of the fused-FFN variants and the model axis draw from a
     # generator of their own, so the phases that follow draw what they drew
     own = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1749,6 +1889,11 @@ def main() -> int:
                    "library_contiguous_device_ms", "call_device_ms")
     # K4, K1's wide case, K1c's and K3's timed cases also carry their device
     # time under the profiler (see phase_k4)
+    for path in by_path["K1"]:
+        on_bodies = by_path["K1_on_K1c"][path] + by_path["K1_own"][path]
+        check(on_bodies == by_path["K1"][path],
+              f"K1 on {path}: {by_path['K1'][path]} launches, {on_bodies} "
+              "on K1c's pipeline and its own bodies")
     for path in by_path["K3"]:
         on_bodies = by_path["K3_on_K2"][path] + by_path["K3_on_K4"][path]
         check(on_bodies == by_path["K3"][path],
@@ -1771,8 +1916,18 @@ def main() -> int:
         return {**out, "launches": by_path[VARIANT_KERNELS["seq"]][path]} if path else out
 
     emit({"kernels": [
-        row("K1", "vit3d_ensemble_tpu_torch/csrc/fused_mlp.cu",
+        # K1's serving calls run on K1c's wgmma pipeline (bf16, D 16-64),
+        # f32 and the wide regime on its own bodies
+        row("K1", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:87", k1, "serve",
+            sources={"bf16, D 16-64":
+                     "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
+                     "otherwise": "vit3d_ensemble_tpu_torch/csrc/fused_mlp.cu"},
+            body=k1["body"], device_ms=k1["device_ms"],
+            library_device_ms=k1["library_device_ms"],
+            launches_on_k1c_body=by_path["K1_on_K1c"]["serve"],
+            # the latency path's calls (B = 1, 4, 8 at conf 9's widths)
+            latency_cases=[case_of(c) for c in k1_latency],
             # the same kernel's wide body at the stretch path's shape, and
             # its model axis at the sweep's evaluation shape (f32)
             stretch_case=case_of(k1_wide),

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""One turn of a parent/change comparison of the port on one NVIDIA GPU.
+
+    python3 chip_turns.py ROOT TURN [--repeats R]
+
+Measures the `vit3d_ensemble_tpu_torch` package of the checkout at ROOT
+(this checkout, or an older commit unpacked with `git archive` into a
+directory that `.gitignore` lists) with this checkout's yardsticks, the
+helpers of the `chip_smoke.py` beside this script (`device_time`,
+`time_ms`, `host_ms`, `latency`, `timed_passes`), so that two checkouts are
+timed alike:
+
+  * K1 in bf16 at the latency path's calls (B = 1, 4 and 8 volumes of 65
+    tokens at conf 9's (D, M) = (16, 2,048)) and at the serving pass's
+    (33,280 rows, M = 3,072, D = 16, 32 and 64): ms by CUDA events, device
+    ms under the profiler (10 calls), host ms to make a call;
+  * the 18-model bf16 pass at B=512: device time of one pass under `auto`
+    and under `layer`, and wall ms a pass (three runs of 20 passes);
+  * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
+    batch over R rounds (each round every model and batch once), and conf
+    9's device time a batch at B = 1.
+
+Prints one JSON line a measurement, tagged with TURN.  Run it in turns
+(parent, change, change, parent, ...) in one call and compare like lines.
+Exits non-zero when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import statistics
+import sys
+
+K1_SHAPES = ((65, 16, 2048), (260, 16, 2048), (520, 16, 2048),
+             (33280, 16, 3072), (33280, 32, 3072), (33280, 64, 3072))
+BUILD = ["fused_mlp", "mlp_chunked", "mlp_pipelined", "tiny_attention",
+         "attention"]
+
+
+def load_smoke(root: pathlib.Path):
+    """This checkout's `chip_smoke` module, importing ROOT's package."""
+    sys.path.insert(0, str(root))
+    import vit3d_ensemble_tpu_torch as pkg
+    found = pathlib.Path(pkg.__file__).resolve().parents[1]
+    if found != root:
+        raise RuntimeError(f"imported the package from {found}, not {root}")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("root", type=pathlib.Path)
+    ap.add_argument("turn")
+    ap.add_argument("--repeats", type=int, default=5)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_turns: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs = load_smoke(args.root.resolve())
+    from vit3d_ensemble_tpu_torch.configs import (BASELINE_CONFS, BEST_ENSEMBLE,
+                                                  ViTConfig)
+    from vit3d_ensemble_tpu_torch.models import (TransformerEnsemble,
+                                                 VisionTransformer3D)
+    from vit3d_ensemble_tpu_torch.ops import _build, fused_mlp
+    cs.card = cs.smi("name,power.limit")
+
+    def emit(obj):
+        cs.emit({"turn": args.turn, **obj})
+
+    _build.build(BUILD)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    with torch.no_grad():
+        for N, D, M in K1_SHAPES:
+            x = torch.randn(N, D, generator=gen, device="cuda").to(bf16)
+            weights = cs.mlp_weights(gen, bf16, D, M)
+
+            def call():
+                return fused_mlp.fused_mlp(x, *weights)
+
+            call()
+            body = getattr(fused_mlp, "k1_body_launched", lambda: None)()
+            emit({"phase": "k1", "N": N, "D": D, "M": M, "body": body,
+                  "ms": cs.time_ms(call, 20), "device_ms": cs.mlp_device_ms(call),
+                  "host_ms": cs.host_ms(call)})
+
+        x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,
+                        device="cuda").to(bf16)
+        models = [VisionTransformer3D(ViTConfig.from_conf(c), zero_head=False,
+                                      vis=False,
+                                      generator=torch.Generator().manual_seed(c))
+                  .to(bf16).eval() for c in BASELINE_CONFS]
+
+        def one_pass():
+            for model in models:
+                model(x)
+
+        one_pass()
+        torch.cuda.synchronize()
+        walls = [cs.timed_passes(models, x)[0] / cs.ITERS * 1e3 for _ in range(3)]
+        line = {"phase": "pass", "B": cs.B, "wall_ms": walls}
+        for impl in ("auto", "layer"):
+            cs.set_impls(impl)
+            try:
+                one_pass()
+                busy, groups, kernels, _ = cs.device_time(one_pass)
+            finally:
+                cs.set_impls("auto")
+            line[impl] = {"device_busy_ms": busy, "kernels": kernels,
+                          "by_group_ms": groups}
+        emit(line)
+        del models, x
+
+        xl = torch.randn(max(cs.LATENCY_BATCHES), 128, 128, 5, 1, generator=gen,
+                         device="cuda").to(bf16)
+        single = VisionTransformer3D(ViTConfig.from_conf(9), zero_head=False,
+                                     vis=False,
+                                     generator=torch.Generator().manual_seed(9))
+        ensemble = TransformerEnsemble(
+            [ViTConfig.from_conf(c) for c in BEST_ENSEMBLE], zero_head=False,
+            generator=torch.Generator().manual_seed(cs.SEED))
+        served = {"conf9": single.to(bf16).eval(),
+                  "ensemble_5_9_11": ensemble.to(bf16).eval()}
+        runs = {(name, b): [] for name in served for b in cs.LATENCY_BATCHES}
+        for _ in range(args.repeats):
+            for name, model in served.items():
+                for batch in cs.LATENCY_BATCHES:
+                    res, _ = cs.latency(model, xl, batch)
+                    runs[name, batch].append(res["ms_per_batch"])
+        for (name, batch), ms in runs.items():
+            emit({"phase": "latency", "model": name, "B": batch,
+                  "ms_per_batch": ms, "median_ms": statistics.median(ms)})
+        xb = xl[:1].contiguous()
+        busy, groups, kernels, _ = cs.device_time(lambda: served["conf9"](xb))
+        emit({"phase": "latency_device", "model": "conf9", "B": 1,
+              "device_busy_ms": busy, "kernels": kernels, "by_group_ms": groups})
+    print(json.dumps({"turn": args.turn, "ok": True}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -656,12 +656,85 @@ def test_mlp_variants_match_plain(cuda, monkeypatch, variant, dtype, N, D, M,
 @pytest.mark.parametrize("D", [8, 16, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pipelined_equals_seq_bitwise(cuda, monkeypatch, dtype, D):
-    """K1c sums in K1's order, so the two agree to the bit."""
+    """K1c sums in K1's order, so the two agree to the bit.  In bf16 at
+    D >= 16 K1 launches K1c's own kernel, so there the case holds only the
+    two wrappers to one launch of it."""
     x = torch.randn(9000, D, generator=cuda, device="cuda").to(dtype)
     args = _mlp_weights(cuda, dtype, D, 2048)
     seq = fused_mlp.fused_mlp(x, *args, 1500)
     monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
     assert torch.equal(fused_mlp.fused_mlp(x, *args, 1500), seq)
+
+
+# K1's bf16 calls at D >= 16, on K1c's `wgmma` pipeline, at one row, the
+# latency path's token rows (B = 1, 4, 8 volumes of 65) and the serving
+# pass's, at conf 9's widths and the widest class's: against the plain
+# version (the TPU kernels' polynomial GELU), one K1 launch counted on that
+# body and none as K1c's.
+@pytest.mark.parametrize("N", [1, 65, 260, 520, 33280])
+@pytest.mark.parametrize("D,M,active", [(16, 2048, 2048), (64, 3072, 2072),
+                                        (32, 3072, 3072)])
+def test_k1_bf16_on_the_pipeline_matches_plain(cuda, N, D, M, active):
+    x = torch.randn(N, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    args = _mlp_weights(cuda, torch.bfloat16, D, M)
+    before = (fused_mlp.launches, fused_mlp.launches_on_k1c,
+              fused_mlp.launches_own, fused_mlp.launches_k1c)
+    out = fused_mlp.fused_mlp(x, *args, active)
+    torch.cuda.synchronize()
+    assert fused_mlp.k1_body_launched() == "wgmma_pipeline"
+    assert (fused_mlp.launches, fused_mlp.launches_on_k1c,
+            fused_mlp.launches_own, fused_mlp.launches_k1c) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    _close(out, fused_mlp._plain_mlp(x, *args, active), torch.bfloat16)
+
+
+@pytest.mark.parametrize("N", [520, 33280])
+def test_k1_bf16_gradients_are_the_exact_references(cuda, N):
+    """In bf16 the forward takes the polynomial GELU and the
+    backward differentiates the exact-erf reference, as JAX's does: for a
+    fixed cotangent, autograd's gradients through `_plain_mlp(exact=True)`,
+    to the bit."""
+    x = torch.randn(N, 32, generator=cuda, device="cuda").to(torch.bfloat16)
+    args = _mlp_weights(cuda, torch.bfloat16, 32, 2048)
+    cot = torch.randn(N, 32, generator=cuda, device="cuda").to(torch.bfloat16)
+    grads = []
+    for fn in (fused_mlp.fused_mlp,
+               lambda *a: fused_mlp._plain_mlp(*a, exact=True)):
+        leaves = [a.clone().requires_grad_() for a in (x, *args)]
+        fn(*leaves, 1500).backward(cot)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_k1_bf16_kept_tensor_maps_follow_shape_and_contents(cuda):
+    """The pipeline keeps the tensor maps it encoded, by address and shape:
+    one buffer read at two row counts, and one weight buffer refilled
+    between calls, each against the plain version."""
+    D, M = 32, 2048
+    xs = torch.randn(520, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.bfloat16, D, M)
+    for rows in (520, 65, 520, 260):
+        for _ in range(2):
+            x = xs[:rows]
+            _close(fused_mlp.fused_mlp(x, w1, b1, w2, b2, M),
+                   fused_mlp._plain_mlp(x, w1, b1, w2, b2, M), torch.bfloat16)
+            for t, new in zip((w1, b1, w2, b2),
+                              _mlp_weights(cuda, torch.bfloat16, D, M)):
+                t.copy_(new)
+
+
+def test_k1_bf16_model_axis_on_the_pipeline_matches_plain(cuda):
+    """K1 in bf16 with the model axis at the sweep's evaluation shape, one
+    width a model on the device, on K1c's pipeline."""
+    P, N, D, M = 30, 24 * 65, 64, 3072
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    args = _mlp_weights(cuda, torch.bfloat16, D, M, (P,))
+    active = torch.tensor([2048] * 15 + [3072] * 15, dtype=torch.int32,
+                          device="cuda")
+    out = fused_mlp.fused_mlp(x, *args, active)
+    assert fused_mlp.k1_body_launched() == "wgmma_pipeline"
+    _close(out, fused_mlp._plain_mlp(x, *args, active), torch.bfloat16)
 
 
 # K1c's row tiles: one row, a ragged tile of 63, exactly one 64-row tile,

@@ -24,6 +24,8 @@ from vit3d_ensemble_tpu.ops.pallas_attention import (
 from vit3d_ensemble_tpu.ops.pallas_attention import (
     fused_attention as jax_fused_attention,
 )
+from vit3d_ensemble_tpu.ops.pallas_mlp import _poly_gelu as jax_poly_gelu
+from vit3d_ensemble_tpu.ops.pallas_mlp import _reference_mlp as jax_reference_mlp
 from vit3d_ensemble_tpu.ops.pallas_mlp import fused_mlp as jax_fused_mlp
 from vit3d_ensemble_tpu_torch.ops import _build, attention, fused_attention
 from vit3d_ensemble_tpu_torch.ops import fused_mlp as fmlp
@@ -66,14 +68,42 @@ def test_plain_mlp_matches_jax_fused_mlp_f32(D, M, active):
 
 @pytest.mark.parametrize("active", [96, 64])
 def test_plain_mlp_matches_jax_fused_mlp_bf16(active):
-    """Both round GELU's output to bf16 before fc2; the JAX kernel's bf16
-    GELU is a polynomial within 5.73e-4 of erf GELU, the port's is erf."""
+    """Both round GELU's output to bf16 before fc2, and both take the JAX
+    kernel's bf16 GELU, the polynomial within 5.73e-4 of erf GELU
+    (`_poly_gelu`; the port's `poly_gelu`)."""
     args = _mlp_data(1, 16, 96)
     ref = _jax_fused_mlp(args, active, jnp.bfloat16)
     out = fmlp.fused_mlp(*_torch_mlp_args(*args, dtype=torch.bfloat16),
                          active)
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize("active", [3072, 2072])
+def test_plain_mlp_matches_jax_fused_mlp_bf16_at_full_width(active):
+    """The serving pass's widest class (D 64, M 3,072) in bf16, whole and
+    masked, on 130 rows: the JAX kernel in interpret mode against the
+    port's plain version, both on the polynomial GELU."""
+    args = _mlp_data(12, 64, 3072)
+    ref = _jax_fused_mlp(args, active, jnp.bfloat16)
+    out = fmlp.fused_mlp(*_torch_mlp_args(*args, dtype=torch.bfloat16),
+                         active)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=0.05, rtol=0.05)
+
+
+def test_poly_gelu_is_the_jax_kernels_bf16_gelu():
+    """The port's copy of `_poly_gelu` against JAX's on the JAX test's grid
+    (`tests/test_pallas_mlp.py:54-57`), in f32: both round each product
+    and sum on its own, in the same order, so they agree within 1e-6; and
+    within that test's 7e-4 of exact GELU."""
+    h = np.linspace(-16.0, 16.0, 40001, dtype=np.float32)
+    ref = np.asarray(jax_poly_gelu(jnp.asarray(h)))
+    out = fmlp.poly_gelu(torch.from_numpy(h))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+    exact = torch.nn.functional.gelu(torch.from_numpy(h))
+    np.testing.assert_allclose(out.numpy(), exact.numpy(), rtol=0, atol=7e-4)
 
 
 def test_fused_mlp_gradients_match_jax():
@@ -91,6 +121,54 @@ def test_fused_mlp_gradients_match_jax():
     # masked trailing columns receive zero weight gradients
     assert np.all(t_args[1].grad.numpy()[64:] == 0)
     assert np.all(t_args[3].grad.numpy()[:, 64:] == 0)
+
+
+def test_fused_mlp_bf16_gradients_are_the_exact_references():
+    """In bf16 the forward takes the polynomial GELU, and the backward
+    differentiates the exact-erf reference, as JAX's `_bwd` does through
+    `_reference_mlp` (`pallas_mlp.py:233-255`).  For one fixed cotangent
+    the port's gradients equal autograd's through `_plain_mlp(exact=True)`
+    and differ from those through the polynomial forward; and they agree
+    with JAX's `_reference_mlp` differentiated in f32 on the same
+    bf16-rounded inputs, within the bf16 tolerance of the forward (0.05 +
+    0.05 rel: the port rounds h and its gradients to bf16)."""
+    args = _mlp_data(13, 16, 96)
+    cot = np.random.default_rng(14).normal(size=args[0].shape)
+    rounded = [jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)
+               for a in (*args, cot)]
+    _, vjp = jax.vjp(lambda *a: jax_reference_mlp(*a, 64), *rounded[:5])
+    g_ref = vjp(rounded[5])
+
+    def grads(fn):
+        leaves = [t.requires_grad_() for t in
+                  _torch_mlp_args(*args, dtype=torch.bfloat16)]
+        fn(*leaves, 64).backward(torch.from_numpy(cot).bfloat16())
+        return [t.grad for t in leaves]
+
+    got = grads(fmlp.fused_mlp)
+    exact = grads(lambda *a: fmlp._plain_mlp(*a, exact=True))
+    poly = grads(fmlp._plain_mlp)
+    assert all(torch.equal(a, b) for a, b in zip(got, exact))
+    assert not all(torch.equal(a, b) for a, b in zip(got, poly))
+    transposed = (False, True, False, True, False)
+    for t, ref, tr in zip(got, g_ref, transposed):
+        t = t.float().numpy()
+        np.testing.assert_allclose(t.T if tr else t, np.asarray(ref),
+                                   atol=0.05, rtol=0.05)
+
+
+def test_k1_routes_each_call_to_one_body():
+    """The body a K1 call takes, by type and hidden size: f32 and bf16 at
+    D = 8 on the CUDA cores, bf16 at a wide D on the `wgmma` GEMMs, and bf16
+    at D 16-64 on K1c's pipeline."""
+    assert fmlp._k1_body(torch.float32, 64) == "cuda_cores"
+    assert fmlp._k1_body(torch.float32, 768) == "cuda_cores"
+    assert fmlp._k1_body(torch.bfloat16, 8) == "cuda_cores"
+    assert fmlp._k1_body(torch.bfloat16, 768) == "wide_wgmma"
+    for D in (16, 32, 64):
+        assert fmlp._k1_body(torch.bfloat16, D) == "wgmma_pipeline"
+    assert set(fmlp.K1_BODIES) == {"wgmma_pipeline", "cuda_cores",
+                                   "wide_wgmma"}
 
 
 def test_fused_mlp_accepts_tensor_width():

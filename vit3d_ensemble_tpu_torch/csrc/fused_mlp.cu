@@ -9,23 +9,30 @@
 // bytes of that intermediate going to device memory and back.  Inside this
 // kernel the intermediate never leaves the SM; what is left is operations:
 // 4*N*D*M multiply-adds and N*M GELUs.  The GELUs run on CUDA cores in f32
-// whatever the matmul units, so they, not the tensor cores, set the floor.
+// whatever the matmul units: in f32 exact erf GELUs (`gelu_erf`, 23 FP32
+// instructions and an exponential each) set the floor; in bf16 the TPU
+// kernels' polynomial (`gelu_poly`, 16 FP32 instructions, no exponential)
+// still outweighs the products at the tensor cores' rate (`mlp_common.cuh`).
 //
 // Design: one block takes a tile of 64 token rows.  The x tile and an f32
 // accumulator of (64, D) stay on chip for the whole block.  The block walks
 // the hidden width in chunks of 64 columns; per chunk it stages
 // w1[c0:c0+64, :] and w2[:, c0:c0+64] in shared memory, computes
-// h = x @ w1c^T + b1c in f32, applies exact erf GELU in f32, rounds it to the
+// h = x @ w1c^T + b1c in f32, applies the GELU of the input type in f32
+// (`gelu<T>`: the JAX kernels' choice, pallas_mlp.py:179), rounds it to the
 // input type (the rounding point of pallas_mlp.py:93), and adds h @ w2c^T into
 // the accumulator.  The loop stops at `active`, and columns past it in the
 // last chunk are zeroed, which is the runtime width mask of the sweep (the
 // JAX wrapper folds it into w2's rows instead).  The last row tile is masked,
-// so no padding is needed.  Two bodies share that plan:
-//   * bf16 with D in {16, 32, 64} (the serving path): both products on the
-//     tensor cores (mma.sync, f32 accumulation), h kept in registers between
-//     them, weight chunks double-buffered with cp.async (see below).
-//   * f32, and D = 8: CUDA-core FMAs, each thread a 4x4 register tile of h,
-//     h staged through shared memory between the two products.
+// so no padding is needed.  This file's body for that plan:
+//   * f32, and bf16 at D = 8: CUDA-core FMAs, each thread a 4x4 register
+//     tile of h, h staged through shared memory between the two products.
+// bf16 at D in {16, 32, 64} is not here: the wrapper (`ops/fused_mlp.py`)
+// sends those calls to K1c's warp-specialised wgmma pipeline
+// (`mlp_pipelined.cu`), which computes this function.  An earlier mma.sync
+// body of 64-row blocks served them; on an H100 the pipeline took less
+// device time at every row count timed, 1 to 33,280, so it was removed
+// (PERF.md).
 //
 // The wide regime, D a multiple of 64 from 128 to 1024 (the stretch model's
 // D = 768, M = 3072).  What bounds it there: operations.  M / D is 4, so the
@@ -38,8 +45,8 @@
 // (~1.2 GB a call), unhidden, on mma.sync: 0.47 ms on an H100 against 0.09
 // for the library's linear -> gelu -> linear.
 //   * bf16 (`wide_gemm_kernel`): two GEMM phases, with h going through L2.
-//     Phase 1, fc1 + bias + exact erf GELU, rounded once to bf16 (the
-//     rounding point of pallas_mlp.py:93), columns at or past `active`
+//     Phase 1, fc1 + bias + the bf16 GELU (`gelu_poly`), rounded once to
+//     bf16 (the rounding point of pallas_mlp.py:93), columns at or past `active`
 //     written as 0, into an (N, M8) scratch that the wrapper allocates (M8:
 //     M rounded up to 8), over the first ceil(active / 128) column tiles of
 //     128 x 128.  Phase 2, fc2 + b2 from that scratch, on 128 x 192 tiles
@@ -180,7 +187,7 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         // gelu(h) rounded to the input type before fc2, as the TPU kernel does
-        const float g = to_f32(from_f32<T>(gelu_erf(h[i][j] + bias)));
+        const float g = to_f32(from_f32<T>(gelu<T>(h[i][j] + bias)));
         hs[(ty + 16 * i) * CP + tx + 16 * j] = keep ? g : 0.f;
       }
     }
@@ -216,157 +223,6 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-// Tensor-core body for bf16, D in {16, 32, 64}.  Four warps, each owning 16
-// of the tile's 64 rows, run mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// A warp keeps its x rows as A fragments in registers for the whole kernel.
-// Per chunk, fc1 leaves h in accumulator registers laid out exactly as the
-// A fragments of fc2 (row g = lane/4 holds columns 2*(lane%4)+{0,1} of every
-// 8-column tile), so bias, GELU and the bf16 rounding happen in registers
-// and h is never stored anywhere.  Only the weight chunks go through shared
-// memory, double-buffered with cp.async so the next chunk streams in while
-// this one computes.
-constexpr int TC_WARPS = 4;
-constexpr int TC_THREADS = 32 * TC_WARPS;
-
-template <int D>
-struct TcStage {  // one buffer of a weight chunk in shared memory
-  static constexpr int XP = D + 8;       // w1 rows: D values + 16 bytes of pad
-  static constexpr int CP = CHUNK + 8;   // w2 rows: CHUNK values + 16 bytes of pad
-  __nv_bfloat16 w1[CHUNK * XP];          // w1[c0 + c, :] at w1[c * XP]
-  __nv_bfloat16 w2[D * CP];              // w2[o, c0:c0+CHUNK] at w2[o * CP]
-  float b1[CHUNK];
-};
-
-// Stage w1[c0:c0+CHUNK, :], w2[:, c0:c0+CHUNK] and b1[c0:c0+CHUNK], zero past
-// `active`.  w2 rows go by 16-byte copies when m % 8 == 0 (every piece then
-// starts 16-byte aligned), else element by element.
-template <int D>
-__device__ __forceinline__ void tc_stage(TcStage<D>& st, const __nv_bfloat16* w1,
-                                         const __nv_bfloat16* b1,
-                                         const __nv_bfloat16* w2, int m, int c0,
-                                         int active) {
-  constexpr int XP = TcStage<D>::XP, CP = TcStage<D>::CP;
-  for (int i = threadIdx.x; i < CHUNK * (D / 8); i += TC_THREADS) {
-    const int c = i / (D / 8), p = i % (D / 8);
-    const bool live = c0 + c < active;
-    cp_async16(st.w1 + c * XP + p * 8, live ? w1 + (size_t)(c0 + c) * D + p * 8 : w1,
-               live ? 16 : 0);
-  }
-  if (m % 8 == 0) {
-    for (int i = threadIdx.x; i < D * (CHUNK / 8); i += TC_THREADS) {
-      const int o = i / (CHUNK / 8), col = c0 + (i % (CHUNK / 8)) * 8;
-      const int live = min(max(active - col, 0), 8);
-      cp_async16(st.w2 + o * CP + col - c0, live ? w2 + (size_t)o * m + col : w2, 2 * live);
-    }
-  } else {
-    for (int i = threadIdx.x; i < D * CHUNK; i += TC_THREADS) {
-      const int o = i / CHUNK, c = i % CHUNK;
-      st.w2[o * CP + c] =
-          c0 + c < active ? w2[(size_t)o * m + c0 + c] : __float2bfloat16(0.f);
-    }
-  }
-  for (int c = threadIdx.x; c < CHUNK; c += TC_THREADS)
-    st.b1[c] = c0 + c < active ? __bfloat162float(b1[c0 + c]) : 0.f;
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int D, bool AXIS>
-__global__ void __launch_bounds__(TC_THREADS)
-fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w1,
-                    const __nv_bfloat16* __restrict__ b1,
-                    const __nv_bfloat16* __restrict__ w2,
-                    const __nv_bfloat16* __restrict__ b2,
-                    __nv_bfloat16* __restrict__ out, int n, int m,
-                    const int* __restrict__ active_p, int active_all) {
-  int active = active_all;
-  if constexpr (AXIS) {
-    const Model<__nv_bfloat16> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
-    x = md.x, w1 = md.w1, b1 = md.b1, w2 = md.w2, b2 = md.b2, out = md.out;
-    active = md.active;
-  }
-  constexpr int XP = TcStage<D>::XP, CP = TcStage<D>::CP;
-  constexpr int KX = D / 16;  // fc1 k-steps
-  constexpr int NO = D / 8;   // fc2 output tiles of 8 columns
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TcStage<D>* stage = reinterpret_cast<TcStage<D>*>(smem_raw);  // [2]
-
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r_lo = blockIdx.x * TILE_N + (threadIdx.x / 32) * 16 + g;
-  const int r_hi = r_lo + 8;
-
-  // x rows r_lo and r_hi as fc1's A fragments, zero past the last row
-  uint32_t xa[KX][4];
-#pragma unroll
-  for (int s = 0; s < KX; ++s) {
-    const int k = 16 * s + 2 * t;
-    xa[s][0] = r_lo < n ? *reinterpret_cast<const uint32_t*>(x + (size_t)r_lo * D + k) : 0u;
-    xa[s][1] = r_hi < n ? *reinterpret_cast<const uint32_t*>(x + (size_t)r_hi * D + k) : 0u;
-    xa[s][2] = r_lo < n ? *reinterpret_cast<const uint32_t*>(x + (size_t)r_lo * D + k + 8) : 0u;
-    xa[s][3] = r_hi < n ? *reinterpret_cast<const uint32_t*>(x + (size_t)r_hi * D + k + 8) : 0u;
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  if (active > 0) tc_stage<D>(stage[0], w1, b1, w2, m, 0, active);
-  for (int c0 = 0, buf = 0; c0 < active; c0 += CHUNK, buf ^= 1) {
-    if (c0 + CHUNK < active) {
-      tc_stage<D>(stage[buf ^ 1], w1, b1, w2, m, c0 + CHUNK, active);
-      asm volatile("cp.async.wait_group 1;\n" ::);  // this chunk's copies landed
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const TcStage<D>& st = stage[buf];
-
-    // h = x @ w1c^T, 8 tiles of 8 hidden columns.  Columns past `active`
-    // have zero weights and bias, so h = 0 there and gelu(0) = 0.
-    float h[CHUNK / 8][4];
-#pragma unroll
-    for (int j = 0; j < CHUNK / 8; ++j) {
-      h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.f;
-      const __nv_bfloat16* wp = st.w1 + (8 * j + g) * XP + 2 * t;
-#pragma unroll
-      for (int s = 0; s < KX; ++s) mma_bf16(h[j], xa[s], lds32(wp + 16 * s), lds32(wp + 16 * s + 8));
-    }
-
-    // + b1, GELU in f32, rounded to bf16 (pallas_mlp.py:93), straight into
-    // fc2's A fragments; then acc += gelu(h) @ w2c^T
-#pragma unroll
-    for (int s = 0; s < CHUNK / 16; ++s) {
-      uint32_t ha[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = 2 * s + half;
-        const float bb0 = st.b1[8 * j + 2 * t], bb1 = st.b1[8 * j + 2 * t + 1];
-        ha[2 * half] = pack_bf16(gelu_erf(h[j][0] + bb0), gelu_erf(h[j][1] + bb1));
-        ha[2 * half + 1] = pack_bf16(gelu_erf(h[j][2] + bb0), gelu_erf(h[j][3] + bb1));
-      }
-#pragma unroll
-      for (int jo = 0; jo < NO; ++jo) {
-        const __nv_bfloat16* wp = st.w2 + (8 * jo + g) * CP + 16 * s + 2 * t;
-        mma_bf16(acc[jo], ha, lds32(wp), lds32(wp + 8));
-      }
-    }
-    __syncthreads();  // every warp is done with stage[buf] before it is refilled
-  }
-
-#pragma unroll
-  for (int jo = 0; jo < NO; ++jo) {
-    const int o = 8 * jo + 2 * t;
-    const float bb0 = __bfloat162float(b2[o]), bb1 = __bfloat162float(b2[o + 1]);
-    if (r_lo < n)
-      *reinterpret_cast<uint32_t*>(out + (size_t)r_lo * D + o) =
-          pack_bf16(acc[jo][0] + bb0, acc[jo][1] + bb1);
-    if (r_hi < n)
-      *reinterpret_cast<uint32_t*>(out + (size_t)r_hi * D + o) =
-          pack_bf16(acc[jo][2] + bb0, acc[jo][3] + bb1);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The wide regime: D a multiple of 64, 128 <= D <= 1024 (see the note above).
 // bf16: two warp-specialised GEMM phases on wgmma, fed by TMA.
@@ -397,10 +253,10 @@ struct GemmShape {
 // out = epilogue(A @ B^T) over (128, BN) tiles, both operands K-major bf16
 // behind TMA maps, k = 64 * k_tiles, a tile index t at row tile t / col_tiles
 // and column tile t % col_tiles.  Epilogue: + bias[col] (zero at and past
-// `cols`); GELU: then exact erf GELU, and columns at or past `cols` written
-// as 0 (fc1: `cols` = the width mask); else (fc2) bias only.  The result
-// goes out in bf16, one rounding, through a 128-byte-swizzled staging tile
-// and TMA stores.
+// `cols`); GELU: then the bf16 GELU (`gelu_poly`), and columns at or past
+// `cols` written as 0 (fc1: `cols` = the width mask); else (fc2) bias only.
+// The result goes out in bf16, one rounding, through a 128-byte-swizzled
+// staging tile and TMA stores.
 //
 // Persistent: block b takes tiles b, b + gridDim.x, ...  Warpgroup 0 gives
 // up registers (setmaxnreg) and one of its threads keeps a ring of STAGES
@@ -501,10 +357,10 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         for (int i = 0; i < 2; ++i) {
           float v0 = acc[4 * j + 2 * i] + bb0, v1 = acc[4 * j + 2 * i + 1] + bb1;
           if constexpr (GELU) {
-            // exact erf GELU in f32, rounded once to bf16 (pallas_mlp.py:93);
+            // the bf16 GELU in f32, rounded once to bf16 (pallas_mlp.py:93);
             // columns past the width mask are exact zeros
-            v0 = col < cols ? gelu_erf(v0) : 0.f;
-            v1 = col + 1 < cols ? gelu_erf(v1) : 0.f;
+            v0 = col < cols ? gelu_poly(v0) : 0.f;
+            v1 = col + 1 < cols ? gelu_poly(v1) : 0.f;
           }
           // the staging tile of 64 columns is swizzled as TMA's 128-byte
           // mode expects: 16-byte chunk q of row r lies at chunk q ^ (r % 8)
@@ -685,34 +541,6 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
                                         models, stream);
 }
 
-template <int D, bool AXIS>
-cudaError_t launch_tc_axis(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* out, int n, int m, const int* active_p,
-                           int active, int models, cudaStream_t stream) {
-  constexpr size_t smem = 2 * sizeof(TcStage<D>);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_tc_kernel<D, AXIS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  using bf16 = __nv_bfloat16;
-  const dim3 grid((n + TILE_N - 1) / TILE_N, models);
-  fused_mlp_tc_kernel<D, AXIS><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out), n,
-      m, active_p, active);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
-                      const void* b2, void* out, int n, int m, const int* active_p,
-                      int active, int models, cudaStream_t stream) {
-  return models > 1 || active_p != nullptr
-             ? launch_tc_axis<D, true>(x, w1, b1, w2, b2, out, n, m, active_p, active,
-                                       models, stream)
-             : launch_tc_axis<D, false>(x, w1, b1, w2, b2, out, n, m, active_p, active,
-                                        models, stream);
-}
-
 template <int JMAX>
 cudaError_t launch_wide_f32(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, void* out, int n, int d, int m, int active,
@@ -747,18 +575,6 @@ cudaError_t dispatch_wide_f32(const void* x, const void* w1, const void* b1, con
 
 #define MLP_ARGS x, w1, b1, w2, b2, out, n, m, active_p, active, models, stream
 
-cudaError_t dispatch_bf16(int d, const void* x, const void* w1, const void* b1,
-                          const void* w2, const void* b2, void* out, int n, int m,
-                          const int* active_p, int active, int models, cudaStream_t stream) {
-  switch (d) {
-    case 8: return launch<__nv_bfloat16, 8>(MLP_ARGS);
-    case 16: return launch_tc<16>(MLP_ARGS);
-    case 32: return launch_tc<32>(MLP_ARGS);
-    case 64: return launch_tc<64>(MLP_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 cudaError_t dispatch_f32(int d, const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* out, int n, int m,
                          const int* active_p, int active, int models, cudaStream_t stream) {
@@ -776,7 +592,8 @@ cudaError_t dispatch_f32(int d, const void* x, const void* w1, const void* b1,
 // n token rows per model, `models` weight sets (P >= 1).  active_p: the
 // width mask of each model on the device, or null for `active` in all; the
 // wide regime takes one model and a host width only.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns cudaGetLastError() after the launch (0 on
+// 1 = bfloat16 (D = 8 only: `mlp_pipelined_launch` takes bf16 at D 16-64,
+// `fused_mlp_wide_launch` the wide regime).  Returns cudaGetLastError() after the launch (0 on
 // success).  n == 0 launches nothing.
 extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
@@ -792,7 +609,8 @@ extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
     return (int)dispatch_wide_f32(x, w1, b1, w2, b2, out, n, d, m, active, stream);
   }
   if (dtype == 0) return (int)dispatch_f32(d, MLP_ARGS);
-  if (dtype == 1) return (int)dispatch_bf16(d, MLP_ARGS);
+  // bf16 at D 16-64 runs on K1c's pipeline (`mlp_pipelined_launch`)
+  if (dtype == 1 && d == 8) return (int)launch<__nv_bfloat16, 8>(MLP_ARGS);
   return (int)cudaErrorInvalidValue;
 }
 

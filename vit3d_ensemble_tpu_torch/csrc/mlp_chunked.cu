@@ -11,7 +11,8 @@
 // the two kinds of work to different warps.
 //
 // What bounds it on the H100: as K1 (`fused_mlp.cu`), operations: 4*n*D*M
-// multiply-adds and n*M exact-erf GELUs, the GELUs on the FP32 pipes.
+// multiply-adds and n*M GELUs, the GELUs on the FP32 pipes (`gelu<T>`:
+// exact erf in f32, the TPU kernels' polynomial in bf16, `mlp_common.cuh`).
 //
 // Design: a block owns 64 token rows of one model (blockIdx.y, as K1) and
 // runs 8 warps in two roles that hand hidden columns over in sub-chunks of
@@ -167,8 +168,8 @@ chunked_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
         for (int k = 0; k < KX; ++k) mma_bf16(h, xa[k], lds32(wp + 16 * k), lds32(wp + 16 * k + 8));
         const float bb0 = s.b1[b][8 * jt + 2 * t], bb1 = s.b1[b][8 * jt + 2 * t + 1];
-        hv[jt][0] = pack_bf16(gelu_erf(h[0] + bb0), gelu_erf(h[1] + bb1));
-        hv[jt][1] = pack_bf16(gelu_erf(h[2] + bb0), gelu_erf(h[3] + bb1));
+        hv[jt][0] = pack_bf16(gelu_poly(h[0] + bb0), gelu_poly(h[1] + bb1));
+        hv[jt][1] = pack_bf16(gelu_poly(h[2] + bb0), gelu_poly(h[3] + bb1));
       }
       bar_sync(PRODUCERS, ROLE_THREADS);  // every producer is done with w1[b], b1[b]
 
@@ -316,7 +317,7 @@ chunked_core_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         const float bias = s.b1[b][c];
 #pragma unroll
         for (int i = 0; i < 8; ++i)  // rounded to the input type before fc2
-          h[i][jj] = keep ? to_f32(from_f32<T>(gelu_erf(h[i][jj] + bias))) : 0.f;
+          h[i][jj] = keep ? to_f32(from_f32<T>(gelu<T>(h[i][jj] + bias))) : 0.f;
       }
 
       if (j >= 2) bar_sync(EMPTY0 + b, THREADS);

@@ -27,10 +27,37 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// Exact GELU, erf form, in f32 (torch's F.gelu and the JAX f32 path).
+// Exact GELU, erf form, in f32 (torch's F.gelu and the JAX kernels' f32
+// path): the f32 bodies' GELU.
 __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752440f));
 }
+
+// The TPU kernels' bf16 GELU (`pallas_mlp.py:_poly_gelu`, chosen there for
+// every bf16 input): h * (0.5 + y * Q(y^2)), y = h clamped to +-3.6, Q of
+// degree 5 fitted to GELU itself; at most 5.73e-4 from exact GELU, no
+// exponential.  The bf16 bodies' GELU.  Its constants and its order of
+// operations are JAX's, and each product and sum is rounded on its own, as
+// there and in the plain version (`fused_mlp.poly_gelu`): Q's terms cancel
+// near |h| = 3.5, where fused multiply-adds would move the result by up to
+// 2.1e-6.  16 FP32 instructions.
+__device__ __forceinline__ float gelu_poly(float h) {
+  const float y = fminf(fmaxf(h, -3.6f), 3.6f);
+  const float v = __fmul_rn(y, y);
+  float acc = -4.423316663e-07f;
+  acc = __fadd_rn(__fmul_rn(acc, v), 2.512920360e-05f);
+  acc = __fadd_rn(__fmul_rn(acc, v), -5.935066324e-04f);
+  acc = __fadd_rn(__fmul_rn(acc, v), 7.701753005e-03f);
+  acc = __fadd_rn(__fmul_rn(acc, v), -6.220111867e-02f);
+  acc = __fadd_rn(__fmul_rn(acc, v), 3.961523962e-01f);
+  return __fmul_rn(h, __fadd_rn(0.5f, __fmul_rn(y, acc)));
+}
+
+// The GELU of a body computing in T: the JAX kernels' rule,
+// `fast_gelu = x.dtype == bfloat16` (`pallas_mlp.py:179`).
+template <typename T> __device__ __forceinline__ float gelu(float h);
+template <> __device__ __forceinline__ float gelu<float>(float h) { return gelu_erf(h); }
+template <> __device__ __forceinline__ float gelu<__nv_bfloat16>(float h) { return gelu_poly(h); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half

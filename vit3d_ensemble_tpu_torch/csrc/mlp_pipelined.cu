@@ -12,13 +12,16 @@
 // next, so the pipeline lives inside a block, a hidden chunk apart instead
 // of a grid step, and nothing is read before it is written.
 //
-// What bounds it on the H100: as K1 (`fused_mlp.cu`), the n*M exact-erf
-// GELUs on the FP32 pipes, not the 4*n*D*M multiply-adds.  At the serving
-// shape (n = 33,280, D = 64, M = 3,072, bf16) the products take 26.5 us at
-// the tensor cores' peak; the 102 M GELUs, some twenty FP32 instructions
-// each, about 0.06-0.08 ms at 128 lanes an SM.  So the design's aim is that
-// the tensor cores and the loads hide under the GELUs, which run on every
-// SM all the time.
+// What bounds it on the H100: as K1 (`fused_mlp.cu`), the n*M GELUs on the
+// FP32 pipes, not the 4*n*D*M multiply-adds.  At the serving shape (n =
+// 33,280, D = 64, M = 3,072, bf16) the products take 26.5 us at the tensor
+// cores' peak; the 102 M GELUs, in bf16 the TPU kernels' polynomial
+// (`gelu_poly`, 16 FP32 instructions each; the f32 bodies keep exact erf,
+// 23 and an exponential), about 0.05 ms at 128 lanes an SM.  So the
+// design's aim is that the tensor cores and the loads hide under the GELUs,
+// which run on every SM all the time.  This body also serves every K1 bf16
+// call at D >= 16 (counted as K1's launches there), the serving pass and
+// the latency path included.
 //
 // Design, bf16 with D in {16, 32, 64} (`pipelined_wgmma_kernel`): a
 // persistent, warp-specialised block of three warpgroups, one block an SM.
@@ -33,7 +36,7 @@
 //   * Warpgroups 1 and 2 own 64 rows of the tile each.  For the item (tile,
 //     chunk c) a consumer issues fc1 of the next item as an SS wgmma
 //     (m64n64, D / 16 k-steps) into one of two accumulators, and while the
-//     tensor cores run it adds b1 and runs the erf GELU of item c on the
+//     tensor cores run it adds b1 and runs the GELU of item c on the
 //     other accumulator, rounds it to bf16 in place as fc2's A fragments
 //     (register A, as K4 passes p), and issues fc2 of item c as an RS wgmma
 //     (m64nD, 4 k-steps, B straight from w2's stage).  `wgmma.wait_group 1`
@@ -49,8 +52,7 @@
 //     each block taking a contiguous run of row tiles, balanced to within
 //     one.  The parent's grid gave each model ceil(slots / models) blocks,
 //     which at 30 models left a second, nearly empty wave.
-// fc2's chunks are summed in K1's order, k-step by k-step, on wgmma instead
-// of K1's mma.sync.
+// fc2's chunks are summed in the chunks' order, k-step by k-step.
 //
 // f32, and D = 8 (`pipelined_core_kernel`): K1's CUDA-core tiling (64-row
 // tile, 256 threads, a thread a 4 x 4 tile of h and 4 rows by D / 16 output
@@ -169,9 +171,10 @@ __device__ __forceinline__ void pipe_item(const Pipe& pp, int i, float (&h)[2][3
   for (int j = 0; j < 8; ++j) b[j] = b1s[4 * j + threadIdx.x % 4];
   if (i + 1 < pp.items) issue_fc1<D>(pp, i + 1, h[Q]);
 
-  // + b1, exact erf GELU in f32, rounded to bf16 (pallas_mlp.py:93) as
-  // fc2's A fragments.  Register r of k-step kk of that A holds row lane / 4
-  // + 8 (r % 2), columns 16 kk + 8 (r / 2) + 2t + {0, 1}: the h registers
+  // + b1, the bf16 GELU (`gelu_poly`) in f32, rounded to bf16
+  // (pallas_mlp.py:93) as fc2's A fragments.  Register r of k-step kk of
+  // that A holds row lane / 4 + 8 (r % 2), columns 16 kk + 8 (r / 2) + 2t +
+  // {0, 1}: the h registers
   // 8 kk + 2r and 8 kk + 2r + 1 (register 4j + 2r' + e of h holds row
   // lane / 4 + 8r', column 8j + 2t + e).  h itself is only read: a register
   // of a wgmma's accumulator written by another instruction while one is in
@@ -181,8 +184,8 @@ __device__ __forceinline__ void pipe_item(const Pipe& pp, int i, float (&h)[2][3
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const uint32_t bias = b[2 * kk + r / 2];
-      a[P][kk][r] = pack_bf16(gelu_erf(h[P][8 * kk + 2 * r] + __uint_as_float(bias << 16)),
-                              gelu_erf(h[P][8 * kk + 2 * r + 1] +
+      a[P][kk][r] = pack_bf16(gelu_poly(h[P][8 * kk + 2 * r] + __uint_as_float(bias << 16)),
+                              gelu_poly(h[P][8 * kk + 2 * r + 1] +
                                        __uint_as_float(bias & 0xffff0000u)));
     }
   if ((c + 1) * CHUNK > pp.active) {  // the last, partial chunk: columns past the mask are 0
@@ -450,7 +453,7 @@ pipelined_core_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         // gelu(h) rounded to the input type before fc2, as the TPU kernel does
-        const float g = to_f32(from_f32<T>(gelu_erf(h[i][j] + bias)));
+        const float g = to_f32(from_f32<T>(gelu<T>(h[i][j] + bias)));
         s.h[(ty + 16 * i) * CP + tx + 16 * j] = keep ? g : 0.f;
       }
     }

@@ -11,6 +11,7 @@
 
 #include <atomic>
 #include <cstdint>
+#include <mutex>
 
 namespace sm90 {
 
@@ -425,8 +426,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
 
 // cuTensorMapEncodeTiled lives in libcuda, not the runtime: it is reached
 // through the runtime's entry-point query, so the library needs no -lcuda.  The function is looked
-// up once; the maps themselves are encoded on every call (the caching
-// allocator hands the same addresses to other tensors).
+// up once.  `encode_map` encodes its maps on every call; `encode_map_3d`
+// keeps the maps it encoded (see `Map3dCache`).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -475,11 +476,59 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, i
 // most; 0: none); out-of-range elements load as zero.  A box never crosses from one
 // matrix into the next.  TMA needs a 16-byte aligned base and a row stride
 // that is a multiple of 16 bytes.
+//
+// A map is a function of these arguments alone, so the map encoded for the
+// same arguments before is the same map, whatever tensor now lies at that
+// address.  Encoding costs the host more than the rest of a launch, and a
+// serving loop passes the same weights, and from the caching allocator the
+// same activation addresses, call after call: the maps are kept in a
+// direct-mapped table of `Map3dCache::SLOTS` entries, indexed by a hash of
+// the arguments; a collision costs one encode.
+struct Map3dKey {
+  const void* base;
+  int depth, rows, cols, ld, box_cols, box_rows, swizzle;
+  bool operator==(const Map3dKey& o) const {
+    return base == o.base && depth == o.depth && rows == o.rows && cols == o.cols &&
+           ld == o.ld && box_cols == o.box_cols && box_rows == o.box_rows &&
+           swizzle == o.swizzle;
+  }
+  size_t slot(size_t slots) const {
+    uint64_t h = reinterpret_cast<uintptr_t>(base);
+    for (const int v : {depth, rows, cols, ld, box_cols, box_rows, swizzle})
+      h = (h ^ (uint32_t)v) * 0x100000001b3ull;  // FNV-1a's multiplier
+    return (size_t)((h ^ (h >> 29)) % slots);
+  }
+};
+
+struct Map3dCache {
+  static constexpr size_t SLOTS = 1024;
+  struct Slot {
+    CUtensorMap map;
+    Map3dKey key;
+    bool full;
+  };
+  std::mutex lock;
+  Slot slots[SLOTS];
+};
+
+inline Map3dCache& map_3d_cache() {
+  static Map3dCache cache;
+  return cache;
+}
+
 inline bool encode_map_3d(CUtensorMap* map, const void* base, int depth, int rows, int cols,
                           int ld, int box_cols, int box_rows, int swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0)
     return false;
+  const Map3dKey key{base, depth, rows, cols, ld, box_cols, box_rows, swizzle};
+  Map3dCache& cache = map_3d_cache();
+  Map3dCache::Slot& slot = cache.slots[key.slot(Map3dCache::SLOTS)];
+  std::lock_guard<std::mutex> hold(cache.lock);
+  if (slot.full && slot.key == key) {
+    *map = slot.map;
+    return true;
+  }
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
@@ -488,9 +537,12 @@ inline bool encode_map_3d(CUtensorMap* map, const void* base, int depth, int row
                                 : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                 : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  slot = {*map, key, true};
+  return true;
 }
 
 // What the host asks the runtime once a device, not on every call: the SM

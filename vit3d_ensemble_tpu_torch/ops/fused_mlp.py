@@ -28,10 +28,24 @@ for all), which the narrow bodies read on the device, so a call never waits
 for the host.  K1's wide bodies take one model and a host width: a tensor
 width is read on the host there.
 
+The GELU follows the JAX kernels' rule (`pallas_mlp.py:179`): exact erf
+in f32, and in bf16 their clamped odd polynomial (`poly_gelu`, at most
+5.73e-4 from exact GELU), in the kernels and in the plain versions alike.
+
+K1's narrow bf16 calls at D >= 16 run on K1c's warp-specialised `wgmma`
+pipeline (`csrc/mlp_pipelined.cu`), whatever their token rows: on an H100
+it took less device time than the `mma.sync` body of 64-row blocks that
+served them before, at every row count from 1 to 33,280 (PERF.md).  A
+launch there counts as K1's (`launches`); `launches_on_k1c` and
+`launches_own` split K1's launches by library (`k1_body_launched` names the
+last body).
+
 On a CPU tensor `fused_mlp` computes the variant's plain version
 (`_plain_mlp`, or `_plain_mlp_chunked` for K1b); on a CUDA tensor it
-launches the kernel or raises.  Backward recomputes through `_plain_mlp`,
-as the JAX custom VJP does (`pallas_mlp.py:250-255`).
+launches the kernel or raises.  Backward, on either, differentiates the
+exact-erf reference (`_plain_mlp` with `exact=True`), as the JAX custom VJP
+does through `_reference_mlp` (`pallas_mlp.py:233-255`), whatever GELU the
+forward took.
 """
 
 from __future__ import annotations
@@ -48,6 +62,10 @@ from vit3d_ensemble_tpu_torch.ops import _build
 launches = 0
 launches_k1b = 0
 launches_k1c = 0
+#: K1's launches by body: on K1c's `wgmma` pipeline, and on its own bodies
+#: in `csrc/fused_mlp.cu`; the two add up to `launches`.
+launches_on_k1c = 0
+launches_own = 0
 
 #: The kernel `fused_mlp` launches (`pallas_mlp.py:122`).
 _MLP_VARIANT = "seq"  # "seq" | "chunked" | "pipelined2"
@@ -65,6 +83,18 @@ WIDTHS = (8, 16, 32, 64)
 #: the wide regime: every multiple of WIDE_STEP above it up to WIDE_MAX
 #: (the stretch model's D = 768), on K1's wide bodies.
 WIDE_STEP, WIDE_MAX = 64, 1024
+#: K1's bodies, as `k1_body_launched` names them.
+K1_BODIES = ("wgmma_pipeline", "cuda_cores", "wide_wgmma")
+_last_body = None
+
+#: The TPU kernels' bf16 GELU (`pallas_mlp.py:_BF16_GELU_A`,
+#: `_BF16_GELU_COEFS`): h * (0.5 + y * Q(y^2)), y = clamp(h, -A, A), Q's
+#: coefficients from the constant term up.
+_BF16_GELU_A = 3.6
+_BF16_GELU_COEFS = (
+    3.961523962e-01, -6.220111867e-02, 7.701753005e-03,
+    -5.935066324e-04, 2.512920360e-05, -4.423316663e-07,
+)
 
 
 def supported_width(D: int, variant: str = "seq") -> bool:
@@ -83,16 +113,31 @@ def _active_bound(mlp_active, w1, device):
     return mlp_active
 
 
-def _hidden(x, w1, b1, mlp_active):
+def poly_gelu(h):
+    """The TPU kernels' bf16 GELU (`pallas_mlp.py:_poly_gelu`) on an f32
+    tensor, in JAX's order of operations, each rounded to f32: Q by Horner's
+    rule from its last coefficient.  No exponential; at most 5.73e-4 from
+    exact GELU."""
+    y = h.clamp(-_BF16_GELU_A, _BF16_GELU_A)
+    v = y * y
+    acc = torch.full_like(v, _BF16_GELU_COEFS[-1])
+    for c in _BF16_GELU_COEFS[-2::-1]:
+        acc = acc * v + c
+    return h * (0.5 + y * acc)
+
+
+def _hidden(x, w1, b1, mlp_active, exact: bool = False):
     """gelu(x @ w1^T + b1) in f32, masked, rounded to the input type (where
     every kernel rounds, `pallas_mlp.py:93`) and back to f32.  x is (..., D)
-    or, with a model axis, (P, N, D)."""
+    or, with a model axis, (P, N, D).  The GELU is the kernels': `poly_gelu`
+    for bf16 inputs, exact erf otherwise, or exact erf in every type with
+    `exact`."""
     if w1.dim() == 3:
         h = torch.baddbmm(b1.float().unsqueeze(1), x.float(),
                           w1.float().transpose(1, 2))
     else:
         h = F.linear(x.float(), w1.float(), b1.float())
-    h = F.gelu(h)
+    h = poly_gelu(h) if x.dtype == torch.bfloat16 and not exact else F.gelu(h)
     cols = torch.arange(h.shape[-1], device=h.device)
     h = h * (cols < _active_bound(mlp_active, w1, h.device)).to(h.dtype)
     return h.to(x.dtype).float()
@@ -101,25 +146,27 @@ def _hidden(x, w1, b1, mlp_active):
 def _by_model(plain):
     """Run `plain` on x (P, ..., D) as (P, N, D) when the weights carry a
     model axis."""
-    def run(x, w1, b1, w2, b2, mlp_active):
+    def run(x, w1, b1, w2, b2, mlp_active, **kw):
         if w1.dim() == 3:
             out = plain(x.reshape(w1.shape[0], -1, x.shape[-1]), w1, b1, w2,
-                        b2, mlp_active)
+                        b2, mlp_active, **kw)
             return out.reshape(x.shape)
-        return plain(x, w1, b1, w2, b2, mlp_active)
+        return plain(x, w1, b1, w2, b2, mlp_active, **kw)
 
     run.__doc__ = plain.__doc__
     return run
 
 
 @_by_model
-def _plain_mlp(x, w1, b1, w2, b2, mlp_active):
-    """The kernels' function in plain PyTorch (`_reference_mlp`,
-    `pallas_mlp.py:233-237`), accumulating in f32 and rounding where the
+def _plain_mlp(x, w1, b1, w2, b2, mlp_active, exact: bool = False):
+    """The kernels' function in plain PyTorch (`_mlp_kernel`,
+    `pallas_mlp.py:87-94`), accumulating in f32 and rounding where the
     kernels do: GELU's output to the input type before fc2, and the result.
-    For f32 inputs it is `_reference_mlp` exactly.  K1's and K1c's plain
-    version."""
-    h = _hidden(x, w1, b1, mlp_active)
+    For f32 inputs it is `_reference_mlp` (`:233-237`) exactly; bf16 takes
+    the kernels' polynomial GELU.  K1's and K1c's plain version.  With
+    `exact`, exact erf GELU in every type: the function the backward
+    differentiates, as JAX's does `_reference_mlp`."""
+    h = _hidden(x, w1, b1, mlp_active, exact)
     if w1.dim() == 3:
         out = torch.baddbmm(b2.float().unsqueeze(1), h,
                             w2.float().transpose(1, 2))
@@ -236,6 +283,11 @@ def k1c_shape(device, D: int, dtype) -> dict:
     return _K1C_SHAPES[key]
 
 
+def _blocks_a_model(n: int, models: int, tile_rows: int, slots: int) -> int:
+    """`k1c_plan`'s blocks a model, alone: what a launch needs."""
+    return max(1, min(-(-n // tile_rows), slots // models))
+
+
 def k1c_plan(n: int, models: int, tile_rows: int, slots: int) -> dict:
     """K1c's persistent grid: grid y the models, grid x `blocks_a_model`
     blocks of each, as many as the resident `slots` (SMs times blocks an
@@ -244,12 +296,18 @@ def k1c_plan(n: int, models: int, tile_rows: int, slots: int) -> dict:
     so the blocks' tiles differ by at most one.  Only where the models
     outnumber the slots does the grid exceed them: a block a model."""
     tiles = -(-n // tile_rows)
-    per_model = max(1, min(tiles, slots // models))
+    per_model = _blocks_a_model(n, models, tile_rows, slots)
     return {"tile_rows": tile_rows, "tiles_a_model": tiles,
             "blocks_a_model": per_model, "blocks": per_model * models,
             "slots": slots, "waves": per_model * models / slots,
             "most_tiles_a_block": -(-tiles // per_model),
             "fewest_tiles_a_block": tiles // per_model}
+
+
+#: `mlp_pipelined_launch`'s arguments, as ctypes types.
+_K1C_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
@@ -267,20 +325,34 @@ def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
         elif b1.data_ptr() % 16:
             b1 = b1.clone()
     shape = k1c_shape(x.device, D, x.dtype)
-    plan = k1c_plan(n, models, shape["tile_rows"],
-                    shape["sms"] * shape["blocks_an_sm"])
-    fn = _build.entry("mlp_pipelined", [ctypes.c_int] + [ctypes.c_void_p] * 4
-                      + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                      + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p])
+    blocks = _blocks_a_model(n, models, shape["tile_rows"],
+                             shape["sms"] * shape["blocks_an_sm"])
+    fn = _build.entry("mlp_pipelined", _K1C_ARGTYPES)
     return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
               w2.data_ptr(), w2.shape[-1], b2.data_ptr(), out.data_ptr(), n, D,
               M, active, None if per_model is None else per_model.data_ptr(),
-              models, plan["blocks_a_model"], _DTYPES[x.dtype], stream)
+              models, blocks, _DTYPES[x.dtype], stream)
+
+
+def _k1_body(dtype, D: int) -> str:
+    """The body a K1 call takes: in bf16, K1c's pipeline at D 16-64 and
+    the `wgmma` GEMMs at a wide D; in f32, and in bf16 at D = 8, the CUDA
+    cores (`fused_mlp_launch`'s own dispatch)."""
+    if dtype != torch.bfloat16 or D == 8:
+        return "cuda_cores"
+    return "wgmma_pipeline" if D in WIDTHS else "wide_wgmma"
+
+
+def k1_body_launched() -> str:
+    """The body that this process's last K1 launch took (one of
+    K1_BODIES)."""
+    if _last_body is None:
+        raise RuntimeError("fused_mlp: K1 has not been launched")
+    return _last_body
 
 
 def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
+    global _last_body, launches_on_k1c, launches_own
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
     _check(x, w1, b1, w2, b2, variant)
@@ -298,11 +370,14 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     out = torch.empty_like(x)
     n = x.numel() // (D * models)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16 and D not in WIDTHS:
+    body = _k1_body(x.dtype, D) if variant == "seq" else None
+    if body == "wide_wgmma":
         err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
-    elif variant == "pipelined2":
+    elif variant == "pipelined2" or body == "wgmma_pipeline":
+        # K1c's library; on K1's routed calls, counted as K1's launch
         err = _launch_k1c(x, w1, b1, w2, b2, out, n, active, per_model,
                           models, stream)
+        name = "mlp_pipelined"
     else:
         fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
                           + [ctypes.c_int] * 4
@@ -314,14 +389,26 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
                  models, _DTYPES[x.dtype], stream)
     _build.check(name, err)
     globals()[counter] += 1
+    if body is not None:
+        _last_body = body
+        if body == "wgmma_pipeline":
+            launches_on_k1c += 1
+        else:
+            launches_own += 1
     return out
 
 
 class _FusedMlp(torch.autograd.Function):
+    """The variant's kernel on a CUDA tensor, its plain version on a CPU
+    one; the backward of the exact-erf reference on both."""
+
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, mlp_active, variant):
         ctx.save_for_backward(x, w1, b1, w2, b2)
         ctx.mlp_active = mlp_active
+        if x.device.type == "cpu":
+            plain = _plain_mlp_chunked if variant == "chunked" else _plain_mlp
+            return plain(x, w1, b1, w2, b2, mlp_active)
         return _launch(x, w1, b1, w2, b2, mlp_active, variant)
 
     @staticmethod
@@ -331,7 +418,7 @@ class _FusedMlp(torch.autograd.Function):
                   for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = _plain_mlp(*inputs, ctx.mlp_active)
+            out = _plain_mlp(*inputs, ctx.mlp_active, exact=True)
             grads = iter(torch.autograd.grad(out, wanted, g))
         return (*(next(grads) if t.requires_grad else None for t in inputs),
                 None, None)
@@ -349,7 +436,4 @@ def fused_mlp(x, w1, b1, w2, b2, mlp_active=None):
     if variant not in _KERNELS:
         raise ValueError(f"unknown fused_mlp variant: {variant!r}")
     active = w1.shape[-2] if mlp_active is None else mlp_active
-    if x.device.type == "cpu":
-        plain = _plain_mlp_chunked if variant == "chunked" else _plain_mlp
-        return plain(x, w1, b1, w2, b2, active)
     return _FusedMlp.apply(x, w1, b1, w2, b2, active, variant)
