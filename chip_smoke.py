@@ -80,6 +80,9 @@ LATENCY_BATCHES = (1, 4, 8)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The TF32 tensor-core peak: K4's f32 body takes each f32 product as three
+# TF32 ones (3xTF32), so its operations are 3x the product's at this rate.
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # Exponentials an SM issues a clock (MUFU.EX2, Hopper); the rate a second
 # is this times the SMs times the SM clock nvidia-smi reports, set by main().
@@ -188,14 +191,14 @@ def time_ms(fn, iters: int) -> float:
 
 
 def bound(flops: float, nbytes: float, dtype, exps: float = 0.0,
-          gelus: float = 0.0) -> tuple:
+          gelus: float = 0.0, peak: float = 0.0) -> tuple:
     """The least ms the card could take: the largest of the operations over
     the peak rate for their type (the products' at the tensor cores' or
-    FP32 peak, and the GELUs of the type's form, `GELU_OF`, at their FP32
-    instructions' and exponentials' rate, whichever is longer), the bytes
-    over the memory rate and the exponentials over the card's exponential
-    rate; and which one it is."""
-    ops = max(flops / PEAK_FLOPS[dtype],
+    FP32 peak, or at `peak` where given, and the GELUs of the type's form,
+    `GELU_OF`, at their FP32 instructions' and exponentials' rate,
+    whichever is longer), the bytes over the memory rate and the
+    exponentials over the card's exponential rate; and which one it is."""
+    ops = max(flops / (peak or PEAK_FLOPS[dtype]),
               gelus / gelu_rate[dtype] if gelus else 0.0)
     times = {"operations": ops, "bytes": nbytes / PEAK_BYTES,
              "exponentials": exps / exp_rate}
@@ -291,6 +294,29 @@ extern "C" int gelu_probe_launch(int which, float* x, int n, void* stream) {
   k<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, n);
   return (int)cudaGetLastError();
 }
+// mma.sync m16n8k8 in TF32 (K4's f32 body's instruction): each warp runs
+// `iters` rounds of 8 independent products
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a, uint32_t b) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a), "r"(a + 1), "r"(a + 2), "r"(a + 3), "r"(b), "r"(b + 1));
+}
+extern "C" __global__ void mma_tf32_probe(float* out, int iters) {
+  float c[8][4] = {};
+  const uint32_t a = threadIdx.x, b = 3 * threadIdx.x;
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_tf32(c[j], a, b + j);
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j)
+    for (int e = 0; e < 4; ++e) s += c[j][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_tf32_probe_launch(float* out, int blocks, int iters, void* stream) {
+  mma_tf32_probe<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
+  return (int)cudaGetLastError();
+}
 """
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 GELU_PROBE_LIB = "libgelu_probe.so"
@@ -310,6 +336,31 @@ def start_gelu_probe():
            "-o", str(out / GELU_PROBE_LIB), str(out / "probe.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+
+
+# The TF32 rate that `mma.sync` reaches: 8 blocks of 4 warps an SM, each
+# warp 4,096 rounds of 8 independent m16n8k8 products (2,048 operations
+# each).  Set by `phase_build`; K4's f32 cases give their bound at it too.
+MMA_PROBE_ITERS = 4096
+mma_tf32_rate = 0.0
+
+
+def mma_tf32_probe() -> dict:
+    """TFLOP/s of `mma.sync` m16n8k8 in TF32 on every SM, by CUDA events
+    (the probe library's `mma_tf32_probe`, built beside the GELU probes)."""
+    global mma_tf32_rate
+    launch = ctypes.CDLL(str(_build.BUILD_DIR / "gelu_probe" / GELU_PROBE_LIB)
+                         ).mma_tf32_probe_launch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 128, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    errors = []
+    ms = time_ms(lambda: errors.append(launch(out.data_ptr(), blocks,
+                                              MMA_PROBE_ITERS, stream)), 5)
+    mma_tf32_rate = blocks * 4 * MMA_PROBE_ITERS * 8 * 2048 / (ms * 1e-3)
+    return {"tflops": mma_tf32_rate / 1e12, "ms": ms, "blocks": blocks,
+            "launch_errors": sum(e != 0 for e in errors)}
 
 
 def gelu_probe(proc) -> dict:
@@ -360,13 +411,16 @@ def phase_build() -> None:
     # K1's bf16 wide body, K1c's bf16 body and K4's bf16 body run on wgmma
     # fed by TMA: their SASS holds HGMMA and UTMALDG instructions; K2's bf16
     # body at head_dim 16 runs on mma.sync (HMMA), and both its bodies on
-    # MUFU.EX2
+    # MUFU.EX2; K4's f32 body on mma.sync in TF32, in every instantiation
     sass = {f"{name}_sass_{op.lower()}": sass_count(name, op)
             for name in ("fused_mlp", "mlp_pipelined", "attention")
             for op in ("HGMMA", "UTMALDG")}
     sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
+    tf32 = k4_f32_sass()
+    attention_ptxas = ptxas_summary(logs["attention"])
     gelu = gelu_probe(probe)
+    mma = mma_tf32_probe()
     # each GELU's FP32 instructions at the FP32 pipes' issue rate, its
     # exponentials (one a GELU at most) at the exponential unit's
     for dtype, form in GELU_OF.items():
@@ -376,13 +430,21 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": seconds,
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
-          **sass, "k4_plan": [k4_plan(*shape) for shape in K4_PLAN_SHAPES],
+          **sass, "attention_f32_sass_hmma_tf32": tf32,
+          "k4_plan": [k4_plan(*shape, dtype) for dtype in (torch.bfloat16, torch.float32)
+                      for shape in K4_PLAN_SHAPES],
           "k1c_plan": [k1c_plan(*case) for case in K1C_PLAN_CASES],
           "gelu_instructions": gelu, "gelu_probe_points": GELU_PROBE_POINTS,
-          "gelu_probe_atol": GELU_PROBE_ATOL,
+          "gelu_probe_atol": GELU_PROBE_ATOL, "mma_sync_tf32": mma,
           "gelus_per_s": {GELU_OF[d]: r for d, r in gelu_rate.items()}})
     for name, n in sass.items():
         check(n > 0, f"{name}: the library holds no such instruction")
+    check(len(tf32) == 6 and all(n > 0 for n in tf32.values()),
+          f"K4's f32 instantiations' TF32 HMMAs: {tf32}")
+    check(mma["launch_errors"] == 0 and mma["tflops"] > 0,
+          f"mma.sync TF32 probe: {mma}")
+    check(not any("tf32x3" in e for e in attention_ptxas["spilling_entries"]),
+          f"K4's f32 body spills: {attention_ptxas['spilling_entries']}")
     for form, g in gelu.items():
         check(g["fp32"] > 0 and g["launch_error"] == 0
               and g["max_abs_err_vs_plain"] <= GELU_PROBE_ATOL,
@@ -410,27 +472,47 @@ def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
             **shape, **plan}
 
 
-# K4's bf16 body at the stretch path's shape (and K3's on it, the same), and
+def k4_f32_sass() -> dict:
+    """Lines of TF32 HMMA in each instantiation of K4's f32 body (head_dim,
+    16- or 4-byte copies), by its mangled name in the library's SASS."""
+    return {fn.split()[0]: sum("HMMA" in line and "TF32" in line
+                               for line in fn.splitlines())
+            for fn in sass_of(_build.library_path("attention")).split("Function : ")[1:]
+            if "attention_tf32x3_kernel" in fn.split()[0]}
+
+
+# K4's bodies at the stretch path's shape (and K3's on them, the same), and
 # at head_dim 128 and 32 on the card tests' S = 200.
 K4_PLAN_SHAPES = ((STRETCH_B, 12, 513, 64), (2, 4, 200, 128), (2, 4, 200, 32))
-K4_PLAN_KEYS = ("rows_a_block", "threads_a_block", "smem_bytes_a_block",
-                "registers_at_entry", "blocks_an_sm", "sms", "blocks",
-                "warpgroup_tiles", "one_tile_blocks", "key_steps_a_tile",
-                "tiles_on_busiest_sm")
+# `attention_plan`'s report: in bf16 the query tiles are a consumer
+# warpgroup's 64 rows and a key step 16 keys, the registers those at entry
+# (before setmaxnreg); in f32 a warp's 16 rows and 8 keys
+K4_PLAN_KEYS = {
+    torch.bfloat16: ("rows_a_block", "threads_a_block", "smem_bytes_a_block",
+                     "registers_at_entry", "blocks_an_sm", "sms", "blocks",
+                     "warpgroup_tiles", "one_tile_blocks", "key_steps_a_tile",
+                     "tiles_on_busiest_sm"),
+    torch.float32: ("rows_a_block", "threads_a_block", "smem_bytes_a_block",
+                    "registers", "blocks_an_sm", "sms", "blocks", "warp_tiles",
+                    "blocks_with_an_idle_warp", "key_steps_a_tile",
+                    "tiles_on_busiest_sm")}
 
 
-def k4_plan(nb: int, H: int, S: int, hd: int) -> dict:
-    """K4's tiles and waves at one shape, as `attention_plan` reckons them
-    from the runtime's occupancy, with the waves of blocks and the warpgroup
-    tiles an SM on average beside the busiest SM's."""
-    out = (ctypes.c_int * len(K4_PLAN_KEYS))()
-    fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p],
+def k4_plan(nb: int, H: int, S: int, hd: int, dtype=torch.bfloat16) -> dict:
+    """K4's tiles and waves at one shape for the body of `dtype`, as
+    `attention_plan` reckons them from the runtime's occupancy, with the
+    waves of blocks and the query tiles an SM on average beside the busiest
+    SM's."""
+    keys = K4_PLAN_KEYS[dtype]
+    out = (ctypes.c_int * len(keys))()
+    fn = _build.entry("attention", [ctypes.c_int] * 6 + [ctypes.c_void_p],
                       "attention_plan")
-    _build.check("attention", fn(torch.cuda.current_device(), nb, H, S, hd, out))
-    plan = dict(zip(K4_PLAN_KEYS, out))
-    return {"shape": [nb, H, S, hd], **plan,
+    _build.check("attention", fn(torch.cuda.current_device(), nb, H, S, hd,
+                                 fused_attention._DTYPES[dtype], out))
+    plan = dict(zip(keys, out))
+    return {"dtype": str(dtype).split(".")[1], "shape": [nb, H, S, hd], **plan,
             "waves": plan["blocks"] / (plan["sms"] * plan["blocks_an_sm"]),
-            "tiles_an_sm_mean": plan["warpgroup_tiles"] / plan["sms"]}
+            "tiles_an_sm_mean": plan[keys[7]] / plan["sms"]}
 
 
 # The training path's shapes, in f32: token rows of a batch of 4 volumes
@@ -768,8 +850,8 @@ def phase_k3(gen) -> tuple:
     and at T >= 64 the plain version without the last key must fail it.
     The cases of K3_DEVICE_TIMED also take both device times under the
     profiler.  Returns the training path's main case, the stretch path's
-    bf16 case and the serving cases timed on the device."""
-    main = stretch = None
+    cases by dtype and the serving cases timed on the device."""
+    main, stretch = None, {}
     serve = []
     cases = [(dtype, shape) for dtype in (torch.bfloat16, torch.float32)
              for shape in K3_CASES]
@@ -789,7 +871,7 @@ def phase_k3(gen) -> tuple:
             before = launches()
             out = attention_layer.attention_core(q, k, v, H)
             counts = {name: n - before[name] for name, n in launches().items()}
-            body = ("K4" if on_k4
+            body = (f"K4:{fused_attention.k4_body_launched()}" if on_k4
                     else f"K2:{fused_attention.k2_body_launched()}")
             ref = attention_layer._plain_attention_core(q, k, v, H)
             err, ok, atol, rtol = compare(out, ref, dtype, tol)
@@ -819,15 +901,19 @@ def phase_k3(gen) -> tuple:
                     lambda: [F.scaled_dot_product_attention(*heads)
                              for _ in range(10)], host_ops=False)[0] / 10
         want = counts_of(K3=1, **{"K3_on_K4" if on_k4 else "K3_on_K2": 1})
-        bound_ms, bound_by = bound(4.0 * nb * T * T * D,
-                                   4.0 * nb * T * D * qkv.element_size(), dtype,
-                                   exps=nb * H * T * T)
+        if on_k4:
+            bounds = attention_bound(dtype, nb * H, T, hd, qkv.element_size())
+        else:
+            bound_ms, bound_by = bound(4.0 * nb * T * T * D,
+                                       4.0 * nb * T * D * qkv.element_size(),
+                                       dtype, exps=nb * H * T * T)
+            bounds = {"bound_ms": bound_ms, "bound_by": bound_by}
         case = {"phase": "K3", "dtype": str(dtype).split(".")[1], "B": nb,
                 "T": T, "D": D, "H": H, "hd": hd, "body": body,
                 "launches": counts, "max_abs_err": err, "atol": atol,
                 "rtol": rtol, "ok": ok, **gate_check,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                **bounds}
         if timed:
             case.update(device_ms=device_ms, library_device_ms=library_device_ms)
         emit(case)
@@ -836,8 +922,8 @@ def phase_k3(gen) -> tuple:
               f"K3 {case}, expected launches {want}")
         if (dtype, (nb, T, D, H)) == (torch.float32, K3_TRAIN_CASES[0]):
             main = case
-        if (dtype, (nb, T, D, H)) == K3_STRETCH_CASES[0]:
-            stretch = case
+        if (dtype, (nb, T, D, H)) in K3_STRETCH_CASES:
+            stretch[dtype] = case
         if timed and (dtype, (nb, T, D, H)) not in K3_STRETCH_CASES:
             serve.append(case)
     return main, stretch, serve
@@ -877,6 +963,31 @@ def qkv_views(gen, shape, dtype) -> list:
             for t in attention_layer._split(qkv.to(dtype))]
 
 
+def exact_attention_k4(q, k, v):
+    """K4's function in f64 from the inputs as they are: the exact context,
+    against which an f32 plain version and the f32 kernel are both
+    approximations."""
+    s = torch.einsum("...hqd,...hkd->...hqk", q.double(), k.double())
+    s = s / math.sqrt(q.shape[-1])
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.einsum("...hqk,...hkd->...hqd", e, v.double()) / e.sum(dim=-1, keepdim=True)
+
+
+def over_gate(out, ref, tol) -> tuple:
+    """The elements of out further from ref than atol + rtol |ref|, and the
+    largest distance over that gate."""
+    atol, rtol = tol
+    ratio = (out.double() - ref.double()).abs() / (atol + rtol * ref.double().abs())
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+# K4 in f32 with q and k doubled at the stretch shape: scores 4 times
+# larger, where the 3xTF32 products' hi * lo terms weigh most.  The kernel
+# is held to the exact (f64) context at the f32 tolerance; the f32 plain
+# version's distance from it is printed beside.
+K4_F32_SCALED_SHAPE = (2, 12, 513, 64)
+
+
 def without_last_key(q, k, v):
     """K4's plain version over all keys but the last; with a single key, the
     empty sum 0."""
@@ -885,14 +996,35 @@ def without_last_key(q, k, v):
     return fused_attention._plain_attention_k4(q, k[:, :, :-1], v[:, :, :-1])
 
 
+def attention_bound(dtype, bh: int, S: int, hd: int, elt: int) -> dict:
+    """The bound of K4's function (K3's on K4's body the same) at (B * H, S,
+    hd): q, k, v read and the context written once, 4 bh S^2 hd operations
+    and bh S^2 exponentials.  The f32 body runs its products in 3xTF32:
+    three times the operations at the TF32 peak, beside the bound of the
+    same products on CUDA cores at the FP32 peak (`bound_ms_cuda_cores`) and
+    of the three at the rate `mma.sync` reaches in TF32 on this card
+    (`bound_ms_mma_sync`, `mma_tf32_probe`)."""
+    flops, nbytes, exps = 4.0 * bh * S * S * hd, 4.0 * bh * S * hd * elt, bh * S * S
+    if dtype != torch.float32:
+        ms, by = bound(flops, nbytes, dtype, exps=exps)
+        return {"bound_ms": ms, "bound_by": by}
+    ms, by = bound(3 * flops, nbytes, dtype, exps=exps, peak=PEAK_TF32)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_ms_cuda_cores": bound(flops, nbytes, dtype, exps=exps)[0],
+            "bound_ms_mma_sync": bound(3 * flops, nbytes, dtype, exps=exps,
+                                       peak=mma_tf32_rate)[0]}
+
+
 def phase_k4(gen) -> dict:
     """K4 against its plain version on the model's strided views; SDPA on
     the same views is the library yardstick (the port never calls it).  The
     gate is tried on a known fault in every case: the plain version without
     the last key (at S = 513 a key chunk's single live column) must fail it.
     The JAX kernel's own rounding (`_plain_attention`, normalised
-    probabilities) is held to the JAX tolerance beside it."""
-    main = None
+    probabilities) is held to the JAX tolerance beside it.  Each case names
+    the body the dispatch launched (`fused_attention.k4_body_launched`).
+    Returns the stretch path's case in bf16 and in f32."""
+    main = {}
     for dtype in (torch.bfloat16, torch.float32):
         tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
         for shape, views in K4_CASES:
@@ -901,17 +1033,26 @@ def phase_k4(gen) -> dict:
             q, k, v = make(gen, shape, dtype)
             with torch.no_grad():
                 out = fused_attention.fused_attention(q, k, v)
+                body = fused_attention.k4_body_launched()
                 ref = fused_attention._plain_attention_k4(q, k, v)
                 err, ok, atol, rtol = compare(out, ref, dtype, tol)
                 short = without_last_key(q, k, v)
                 gate = atol + rtol * ref.float().abs()
-                over_gate = float(((out.float() - ref.float()).abs() / gate).max())
+                over_gate_ratio = float(((out.float() - ref.float()).abs() / gate).max())
                 dropped = (short.float() - ref.float()).abs() / gate
                 dropped_share = float((dropped > 1).float().mean())
                 gate_ok = dropped_share > 0
                 jax_err, jax_ok, _, _ = compare(
                     out, fused_attention._plain_attention(q, k, v), dtype)
                 rms = float(ref.float().square().mean().sqrt())
+                exact = {}
+                if dtype == torch.float32:
+                    ref64 = exact_attention_k4(q, k, v)
+                    exact = {"max_err_over_gate_exact":
+                             over_gate(out, ref64, TOL[dtype])[1],
+                             "plain_max_err_over_gate_exact":
+                             over_gate(ref, ref64, TOL[dtype])[1]}
+                    del ref64
                 merged = out.transpose(1, 2).reshape(nb, S, H * hd)
                 view_ok = merged.data_ptr() == out.data_ptr()
                 ms = time_ms(lambda: fused_attention.fused_attention(q, k, v), 50)
@@ -930,15 +1071,11 @@ def phase_k4(gen) -> dict:
                     library_device_ms = device_time(
                         lambda: [F.scaled_dot_product_attention(q, k, v)
                                  for _ in range(10)], host_ops=False)[0] / 10
-            bh = nb * H
-            bound_ms, bound_by = bound(4.0 * bh * S * S * hd,
-                                       4.0 * bh * S * hd * q.element_size(),
-                                       dtype, exps=bh * S * S)
             case = {"phase": "K4", "dtype": str(dtype).split(".")[1], "B": nb,
-                    "H": H, "S": S, "hd": hd, "views": views,
+                    "H": H, "S": S, "hd": hd, "views": views, "body": body,
                     "max_abs_err": err, "atol": atol,
                     "rtol": rtol, "ok": ok, "ctx_rms": rms,
-                    "max_err_over_gate": over_gate,
+                    "max_err_over_gate": over_gate_ratio, **exact,
                     "gate_rejects_dropped_key": gate_ok,
                     "dropped_key_share_over_gate": dropped_share,
                     "dropped_key_max_over_gate": float(dropped.max()),
@@ -948,12 +1085,36 @@ def phase_k4(gen) -> dict:
                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms,
                     "library_device_ms": library_device_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by}
+                    **attention_bound(dtype, nb * H, S, hd, q.element_size())}
             emit(case)
-            check(ok and gate_ok and jax_ok and view_ok and device_ms != 0.0,
-                  f"K4 {case}")
-            if (dtype, (shape, views)) == (torch.bfloat16, K4_CASES[0]):
-                main = case
+            body_ok = body == ("bf16_wgmma" if dtype == torch.bfloat16
+                               else "f32_tf32x3")
+            check(ok and gate_ok and jax_ok and view_ok and body_ok
+                  and device_ms != 0.0, f"K4 {case}")
+            if (shape, views) == K4_CASES[0]:
+                main[dtype] = case
+    # drawn from a generator of its own, so the phases that follow draw what
+    # they drew before this case
+    own = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v = model_views(own, K4_F32_SCALED_SHAPE, torch.float32)
+    q, k = q * 2, k * 2
+    with torch.no_grad():
+        out = fused_attention.fused_attention(q, k, v)
+        body = fused_attention.k4_body_launched()
+        ref = exact_attention_k4(q, k, v)
+        over, ratio = over_gate(out, ref, TOL[torch.float32])
+        plain_over, plain_ratio = over_gate(
+            fused_attention._plain_attention_k4(q, k, v), ref, TOL[torch.float32])
+        dropped_over, _ = over_gate(exact_attention_k4(q, k[:, :, :-1], v[:, :, :-1]),
+                                    ref, TOL[torch.float32])
+    case = {"phase": "K4_f32_scaled", "shape": list(K4_F32_SCALED_SHAPE),
+            "qk_scale": 2.0, "body": body, "reference": "f64",
+            "over_gate": over, "max_err_over_gate": ratio,
+            "plain_over_gate": plain_over, "plain_max_err_over_gate": plain_ratio,
+            "gate_rejects_dropped_key": dropped_over > 0,
+            "ok": over == 0 and dropped_over > 0 and body == "f32_tf32x3"}
+    emit(case)
+    check(case["ok"], f"K4 f32 scaled {case}")
     return main
 
 
@@ -1176,8 +1337,9 @@ def phase_main_path(gen) -> dict:
 # K1's group.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
                  ("K1", "pipelined_wgmma"), ("K1c", "pipelined_core"),
-                 ("K2", "tiny_attention"), ("K4", "attention_wgmma"),
-                 ("K4", "attention_f32"),
+                 # every kernel of `attention.cu` (its bf16 and f32 bodies,
+                 # and an older checkout's, as `chip_turns.py` times them)
+                 ("K2", "tiny_attention"), ("K4", "attention_"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
                  ("gemm", "nvjet"), ("gemm", "gemm"), ("gemm", "cutlass"),
                  ("optimizer", "multi_tensor"), ("softmax", "softmax"),
@@ -1195,15 +1357,19 @@ def device_time(fn, host_ops: bool = True) -> tuple:
     the device's kernels alone, which costs the host far less on a run of
     many small steps.  A trace can lack device events: on an H100 one held
     none in a run where the same case traced before and after, and one held
-    3 of a case's 10 launches.  So the call is traced until two traces hold
-    the same number of kernels, the most any held, up to PROFILE_TRIES
-    times, and the trace with the most is taken; `fn` runs once a try."""
+    3 of a case's 10 launches, and in one run four traces in a row of one
+    case held none.  So the call is traced until two traces hold the same
+    number of kernels, the most any held, up to PROFILE_TRIES times (twice
+    that while every trace is empty), and the trace with the most is taken;
+    `fn` runs once a try."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if host_ops:
         activities.insert(0, ProfilerActivity.CPU)
     best = None
-    for _ in range(PROFILE_TRIES):
+    for i in range(2 * PROFILE_TRIES):
+        if i >= PROFILE_TRIES and best[2]:
+            break
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
@@ -1384,28 +1550,35 @@ def phase_stretch(gen) -> dict:
                         device="cuda")
 
         ref = run_plain(x[:1])
+        result = {}
         for impl in expect:
             set_impls(impl)
             reset_launches()
             try:
                 out = model(x[:1])
-            finally:
                 counts = launches()
+                # a pass's device time; K4's body (`attention_tf32x3`) is
+                # K4's under `auto` and K3's core under `layer`
+                busy, groups, _, _ = device_time(lambda: model(x[:1]))
+            finally:
                 set_impls("auto")
             err = max(float((out.tokens - ref.tokens).abs().max()),
                       float((out.logits - ref.logits).abs().max()))
-            ok = err <= TOKENS_F32_ATOL and counts == expect[impl]
+            ok = err <= TOKENS_F32_ATOL and counts == expect[impl] and busy > 0
             emit({"phase": "stretch_f32", "impl": impl, "B": 1,
                   "max_abs_err": err, "atol": TOKENS_F32_ATOL,
                   "launches": counts, "expected_launches": expect[impl],
-                  "ok": ok})
+                  "device_busy_ms": busy, "k4_body_ms": groups.get("K4", 0.0),
+                  "k4_body_share": groups.get("K4", 0.0) / busy if busy else None,
+                  "by_group_ms": groups, "ok": ok})
             check(ok, f"stretch f32 {impl}: max abs err {err}, launched "
-                      f"{counts}")
+                      f"{counts}, busy {busy}")
+            result[f"f32_{impl}"] = {"launches": counts, "device_busy_ms": busy,
+                                     "k4_body_ms": groups.get("K4", 0.0)}
 
         model.to(torch.bfloat16)
         x = x.to(torch.bfloat16)
         ref = run_plain(x)
-        result = {}
         for impl in expect:
             set_impls(impl)
             try:
@@ -1880,6 +2053,9 @@ def main() -> int:
                       "train_ensemble_layer": train_ens["launches"][name],
                       "stretch": stretch["auto"]["launches"][name],
                       "stretch_layer": stretch["layer"]["launches"][name],
+                      "stretch_f32": stretch["f32_auto"]["launches"][name],
+                      "stretch_f32_layer":
+                          stretch["f32_layer"]["launches"][name],
                       "sweep": sweep["launches"][name]}
                for name in KERNELS}
     shape_keys = ("dtype", "N", "D", "M", "active", "models", "B", "H", "S",
@@ -1968,14 +2144,35 @@ def main() -> int:
             serve_cases=[{**case_of(c), "body": c["body"]} for c in k3_serve],
             # head_dim 64 at T=513 on K4's body, as the stretch path under
             # `layer` runs it
-            stretch_case={**case_of(k3_stretch), "body": k3_stretch["body"],
+            stretch_case={**case_of(k3_stretch[torch.bfloat16]),
+                          "body": k3_stretch[torch.bfloat16]["body"],
                           "launches": by_path["K3"]["stretch_layer"],
                           "launches_on_k4_body":
-                              by_path["K3_on_K4"]["stretch_layer"]}),
+                              by_path["K3_on_K4"]["stretch_layer"]},
+            # the same in f32 at B=1, on K4's 3xTF32 body
+            stretch_f32_case={**case_of(k3_stretch[torch.float32]),
+                              "body": k3_stretch[torch.float32]["body"],
+                              "bound_ms_cuda_cores":
+                                  k3_stretch[torch.float32]["bound_ms_cuda_cores"],
+                              "bound_ms_mma_sync":
+                                  k3_stretch[torch.float32]["bound_ms_mma_sync"],
+                              "launches": by_path["K3"]["stretch_f32_layer"],
+                              "launches_on_k4_body":
+                                  by_path["K3_on_K4"]["stretch_f32_layer"]}),
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
-            "vit3d_ensemble_tpu/ops/pallas_attention.py:118", k4, "stretch",
-            device_ms=k4["device_ms"],
-            library_device_ms=k4["library_device_ms"]),
+            "vit3d_ensemble_tpu/ops/pallas_attention.py:118",
+            k4[torch.bfloat16], "stretch",
+            device_ms=k4[torch.bfloat16]["device_ms"],
+            library_device_ms=k4[torch.bfloat16]["library_device_ms"],
+            # f32 (the B=1 stretch forward's, 3xTF32 on the tensor cores)
+            # at the stretch shape, with its launches on the f32 paths
+            f32_case={**case_of(k4[torch.float32]),
+                      "body": k4[torch.float32]["body"],
+                      "bound_ms_cuda_cores": k4[torch.float32]["bound_ms_cuda_cores"],
+                      "bound_ms_mma_sync": k4[torch.float32]["bound_ms_mma_sync"],
+                      "launches": by_path["K4"]["stretch_f32"],
+                      "launches_k3_on_k4_body_layer":
+                          by_path["K3_on_K4"]["stretch_f32_layer"]}),
     ], "variants_volumes_per_s": {v: r["volumes_per_s"]
                                   for v, r in variants.items()},
         "training": {"train": train["timing"],

@@ -18,7 +18,12 @@ timed alike:
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
     batch over R rounds (each round every model and batch once), and conf
-    9's device time a batch at B = 1.
+    9's device time a batch at B = 1;
+  * the stretch model `vit_b16_128cubed` in f32 at B = 1: device time of
+    one pass under `auto` (K4) and `layer` (K3's core on K4's body), with
+    the group of K4's kernels, and K4 in f32 alone at the stretch shape
+    (8, 12, 513, 64) and as K3 runs it at B = 1 (1, 513, 768, 12), device
+    ms under the profiler (10 calls).
 
 Prints one JSON line a measurement, tagged with TURN.  Run it in turns
 (parent, change, change, parent, ...) in one call and compare like lines.
@@ -68,10 +73,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs = load_smoke(args.root.resolve())
     from vit3d_ensemble_tpu_torch.configs import (BASELINE_CONFS, BEST_ENSEMBLE,
-                                                  ViTConfig)
+                                                  ViTConfig, vit_b16_128cubed)
     from vit3d_ensemble_tpu_torch.models import (TransformerEnsemble,
                                                  VisionTransformer3D)
-    from vit3d_ensemble_tpu_torch.ops import _build, fused_mlp
+    from vit3d_ensemble_tpu_torch.ops import (_build, attention_layer,
+                                              fused_attention, fused_mlp)
     cs.card = cs.smi("name,power.limit")
 
     def emit(obj):
@@ -144,6 +150,43 @@ def main() -> int:
         busy, groups, kernels, _ = cs.device_time(lambda: served["conf9"](xb))
         emit({"phase": "latency_device", "model": "conf9", "B": 1,
               "device_busy_ms": busy, "kernels": kernels, "by_group_ms": groups})
+        del served, single, ensemble, xl, xb
+
+        f32 = torch.float32
+        stretch = VisionTransformer3D(vit_b16_128cubed(), zero_head=False,
+                                      vis=False,
+                                      generator=torch.Generator().manual_seed(cs.SEED))
+        stretch.eval()
+        x1 = torch.randn(1, 128, 128, 128, 1, generator=gen, device="cuda")
+        line = {"phase": "stretch_f32", "B": 1}
+        for impl in ("auto", "layer"):
+            cs.set_impls(impl)
+            try:
+                stretch(x1)
+                busy, groups, kernels, _ = cs.device_time(lambda: stretch(x1))
+            finally:
+                cs.set_impls("auto")
+            line[impl] = {"device_busy_ms": busy, "kernels": kernels,
+                          "k4_body_ms": groups.get("K4", 0.0),
+                          "by_group_ms": groups}
+        emit(line)
+        del stretch, x1
+
+        q, k, v = cs.model_views(gen, (8, 12, 513, 64), f32)
+        fused_attention.fused_attention(q, k, v)
+        _, groups, _, _ = cs.device_time(
+            lambda: [fused_attention.fused_attention(q, k, v) for _ in range(10)],
+            host_ops=False)
+        emit({"phase": "k4_f32", "shape": [8, 12, 513, 64],
+              "device_ms": groups.get("K4", 0.0) / 10})
+        qkv = torch.randn(1, 513, 3 * 768, generator=gen, device="cuda")
+        q, k, v = attention_layer._split(qkv)
+        attention_layer.attention_core(q, k, v, 12)
+        _, groups, _, _ = cs.device_time(
+            lambda: [attention_layer.attention_core(q, k, v, 12) for _ in range(10)],
+            host_ops=False)
+        emit({"phase": "k3_f32", "B": 1, "T": 513, "D": 768, "H": 12,
+              "device_ms": groups.get("K4", 0.0) / 10})
     print(json.dumps({"turn": args.turn, "ok": True}), flush=True)
     return 0
 

@@ -493,6 +493,50 @@ def test_attention_kernel_takes_other_layouts(cuda, dtype):
         _close(fused_attention.fused_attention(odd, k, v), plain(odd, k, v), dtype)
 
 
+def _exact_attention_k4(q, k, v):
+    """K4's function in f64, from the f32 inputs: the exact context that
+    the f32 plain version approximates."""
+    s = torch.einsum("...hqd,...hkd->...hqk", q.double(), k.double())
+    s = s / math.sqrt(q.shape[-1])
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.einsum("...hqk,...hkd->...hqd", e, v.double()) / e.sum(dim=-1, keepdim=True)
+
+
+def test_attention_kernel_f32_with_scores_four_times_larger(cuda):
+    """f32 at the stretch shape with q and k doubled: the scores are 4 times
+    larger, the softmax peaks on fewer keys, and the hi * lo terms of the
+    3xTF32 products weigh most.  Held to the unchanged f32 tolerance of the
+    exact (f64) context: at these scores the f32 plain version's own
+    rounding of the scores moves the context by about the tolerance
+    (`chip_smoke.py`, phase `K4`, prints both), so it is no reference here."""
+    q, k, v = _model_views(cuda, (2, 12, 513, 64), torch.float32)
+    q, k = q * 2, k * 2
+    out = fused_attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.k4_body_launched() == "f32_tf32x3"
+    ref = _exact_attention_k4(q, k, v)
+    _close(out, ref, torch.float32)
+    with pytest.raises(AssertionError):
+        _close(_exact_attention_k4(q, k[:, :, :-1], v[:, :, :-1]), ref, torch.float32)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_attention_kernel_f32_copies_by_alignment(cuda, offset):
+    """f32 views whose bases and strides are multiples of 16 bytes are
+    copied 16 bytes at a time; a view one element into its storage takes
+    the 4-byte copies, at the stretch shape, with the same result."""
+    B, H, S, hd = 2, 12, 513, 64
+    views = []
+    for c in (1.0, 1.0, math.sqrt(S / math.e)):
+        flat = torch.randn(offset + B * S * H * hd, generator=cuda, device="cuda")
+        views.append(flat[offset:].mul_(c).view(B, S, H, hd).transpose(1, 2))
+    out = fused_attention.fused_attention(*views)
+    torch.cuda.synchronize()
+    assert fused_attention.k4_body_launched() == (
+        "f32_tf32x3_4byte" if offset else "f32_tf32x3")
+    _close(out, fused_attention._plain_attention_k4(*views), torch.float32)
+
+
 # (N, D, M, active): the stretch path's rows at B=8 and B=1 at full width
 # and masked, a partial row tile, a narrower wide D, the top of the range,
 # a width the chunks do not divide, M % 8 != 0 (bf16: w2 read through a

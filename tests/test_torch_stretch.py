@@ -10,6 +10,8 @@ kernels themselves are held to those on the card
 (`tests/test_torch_kernels.py`, `chip_smoke.py`).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -85,6 +87,66 @@ def test_plain_attention_k4_matches_jax_fused_attention_bf16(shape):
     np.testing.assert_allclose(out.float().numpy(),
                                _jax_attention(q, k, v, jnp.bfloat16),
                                atol=0.05, rtol=0.05)
+
+
+def _tf32(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` rounds it on the card: 10
+    mantissa bits, to nearest, ties away from zero (finite x: the carry of
+    adding half an ulp of TF32 to the magnitude's bits rounds it up)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3(a, b):
+    """a @ b as K4's f32 body computes it on the tensor cores: each operand
+    split into TF32 hi and lo (lo = tf32(x - hi)), and lo_a hi_b + hi_a lo_b
+    + hi_a hi_b summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32x1(a, b):
+    """a @ b as one TF32 product."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_k4_f32(q, k, v, product):
+    """K4's f32 function with both products taken by `product`: the
+    unnormalised probabilities exp(s - max) in f32, the context divided by
+    the f32 row sums once (`_plain_attention_k4`'s rounding)."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    scores = product(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return (product(e, v) / e.sum(dim=-1, keepdim=True)).numpy()
+
+
+def _k4_f32_inputs(shape, seed):
+    """q, k unit normal, v scaled by sqrt(S / e) so that the context's root
+    mean square is 1 at every S, as the card tests make them."""
+    q, k, v = _qkv(shape, seed)
+    return q, k, (v * np.float32(math.sqrt(shape[2] / math.e)))
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_tf32x3_emulation_matches_jax_fused_attention_f32(shape):
+    """Both products of K4's f32 body in 3xTF32, emulated to the bit of the
+    operand splits, hold the JAX tolerance against JAX's f32 kernel."""
+    q, k, v = _k4_f32_inputs(shape, 4)
+    np.testing.assert_allclose(_emulated_k4_f32(q, k, v, _tf32x3),
+                               _jax_attention(q, k, v), atol=2e-5, rtol=1e-4)
+
+
+def test_one_tf32_product_misses_the_jax_tolerance():
+    """The same with one TF32 product a product fails it: the tolerance
+    tells 3xTF32 from TF32."""
+    q, k, v = _k4_f32_inputs((2, 2, 513, 64), 4)
+    x = torch.tensor([1.0, 1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert _tf32(x).tolist() == [1.0, 1 + 2.0 ** -10, 1 + 2 * 2.0 ** -10,
+                                 -(1 + 2.0 ** -10)]  # ties away from zero
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(_emulated_k4_f32(q, k, v, _tf32x1),
+                                   _jax_attention(q, k, v), atol=2e-5,
+                                   rtol=1e-4)
 
 
 def test_plain_attention_k4_takes_the_models_strided_views():

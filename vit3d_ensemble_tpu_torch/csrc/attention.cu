@@ -16,11 +16,19 @@
 // (25.2 MB) take 7.5 us at 3.35 TB/s and the operations (6.47 GFLOP) 6.5 us
 // at the 989 TFLOP/s tensor-core peak, so the two bounds nearly meet, and
 // only Hopper's full tensor-core rate (wgmma) comes near either.  In f32 the
-// operations on CUDA cores bound it (97 us at the 67 TFLOP/s peak).
+// products run in 3xTF32 (below), three TF32 products for each f32 one:
+// 19.4 GFLOP at the 495 TFLOP/s TF32 peak, 39 us, against 15 us for the
+// bytes (50.4 MB); on CUDA cores they would take 97 us at the 67 TFLOP/s
+// FP32 peak.
 //
 // Which body takes which input: bf16 at head_dim 32, 64 and 128 runs the
-// Hopper body below; f32 at every head_dim runs the CUDA-core body at the
-// end (the JAX tolerance of 2e-5 rules out TF32 tensor cores).
+// `wgmma` body below; f32 at the same head dims the `mma.sync` 3xTF32 body
+// after it.  One TF32 product (10 mantissa bits) misses the JAX tolerance
+// of 2e-5 + 1e-4 |ref| (`tests/test_torch_stretch.py` emulates both); three
+// hold it: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest, and a * b = lo_a hi_b + hi_a lo_b + hi_a hi_b with
+// f32 sums, the dropped lo_a lo_b below 2^-22 |a b|: as close to an f64
+// reference as plain f32 is.
 //
 // The bf16 body, one block of three warpgroups per (volume, head) and 128
 // query rows:
@@ -76,6 +84,38 @@
 // one block an SM (165 KB of shared memory; consumers at 232 registers for
 // 64 + 32 accumulators); hd 32 two.
 //
+// The f32 body, one block of 4 warps per (volume, head) and 64 query rows,
+// 16 a warp, on `mma.sync` m16n8k8 in TF32 (`wgmma` takes TF32 only with
+// both operands K-major, and v's (keys, hd) stage is N-major for p v; the
+// threads load `mma.sync` fragments in any layout):
+//   * The block's q rows, then a ring of (k, v) stages of 32 keys (3 stages,
+//     2 at hd 128), come by cp.async into rows padded by 4 floats, so that
+//     each warp's fragment reads fall on 32 distinct banks; 16-byte copies
+//     where every base and stride is a multiple of 16 bytes, 4-byte copies
+//     otherwise (a second instantiation; `attention_last_body` says which
+//     ran).  Rows past S are zero-filled.  One __syncthreads a chunk: the
+//     stage it frees is refilled while the warps compute on the others.
+//   * Every operand is split into TF32 hi and lo as its fragment loads
+//     (rounded to nearest, ties away, as cvt.rna, in two integer
+//     instructions), and each 16x8x8 product runs as lo*hi, hi*lo and
+//     hi*hi.  The tensor cores truncate inside an `mma`: every term and the
+//     sum it is added to are aligned at the largest and cut below its f32
+//     ulp.  So a small term never meets a long sum inside one: the scores'
+//     hi*hi terms and small terms go into two accumulators from 0 for 4
+//     k-steps (32 of hd) and are added in f32, and a chunk's p v starts
+//     from 0 and is added to the rescaled context in f32.  One accumulator
+//     for all three terms over all of hd, as CUTLASS's 3xTF32 GEMMs keep,
+//     missed the f32 tolerance with q and k doubled (scores 4 times larger).
+//   * The scores stay in the `mma` accumulators, with the online softmax in
+//     registers (exp2 with the scale folded in, as the bf16 body).  An
+//     accumulator holds keys 2t and 2t + 1 of an 8-key step where the A
+//     fragment of p v wants t and t + 4, so each step's keys are taken in
+//     the order 0, 2, 4, 6, 1, 3, 5, 7: p is split where it lies, and B
+//     reads v's rows 2t and 2t + 1.
+//   * A last chunk of at most 8 live keys runs one 8-key step (S = 513: 16
+//     chunks of 32 and one step, not 17 chunks); keys past S are masked to
+//     -inf.  The context is divided by the f32 row sums once, at the end.
+//
 // Layout: q, k, v are (B, H, S, hd) views with unit stride along hd and any
 // strides (in elements) along B, H and S; for bf16 the base pointers and
 // strides are multiples of 16 bytes (TMA's rule).  ctx is written (B, S, H,
@@ -96,7 +136,7 @@ namespace {
 
 using namespace sm90;
 
-constexpr int ROWS = 64;  // query rows of a tile (wgmma's M; the f32 body's block)
+constexpr int ROWS = 64;  // query rows of a tile (wgmma's M)
 constexpr int KEYS = 64;  // keys per chunk
 constexpr int TAIL = 16;  // the narrow last chunk: wgmma N for its scores, one k-step of p v
 
@@ -355,140 +395,344 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
-// f32 on CUDA cores
+// f32 on the tensor cores in 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr int F_THREADS = 256;  // a 16 x 16 grid of threads
+constexpr int F_WARPS = 4;                 // warps a block, 16 query rows each
+constexpr int F_ROWS = 16 * F_WARPS;       // query rows of a block
+constexpr int F_THREADS = 32 * F_WARPS;
+constexpr int F_KEYS = 32;                 // keys a stage
+constexpr int F_TAIL = 8;                  // the narrow last chunk: one n-tile of scores
 
 template <int HD>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (size_t)(ROWS * (HD + 1) + KEYS * (HD + 1) + KEYS * HD +
-                                  ROWS * (KEYS + 1));
+struct F32Tile {
+  // Rows padded by 4 floats: 16-byte aligned for cp.async, and every
+  // fragment read of a warp (q and k at rows g, columns t; v at rows 2t,
+  // columns g) falls on 32 distinct banks.
+  static constexpr int LD = HD + 4;
+  static constexpr int STAGES = HD == 128 ? 2 : 3;  // (k, v) stages in the ring
+  // blocks an SM that the registers must allow: as many as the shared
+  // memory does at hd 64 (3 of 70 KB), 2 at hd 128 (101 KB)
+  static constexpr int MIN_BLOCKS = HD == 128 ? 2 : 3;
+  static constexpr int Q_FLOATS = F_ROWS * LD;
+  static constexpr int KV_FLOATS = F_KEYS * LD;     // one operand of a stage
+  static constexpr size_t SMEM = sizeof(float) * (size_t)(Q_FLOATS + 2 * STAGES * KV_FLOATS);
+};
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// f32 bits: what cvt.rna.tf32.f32 gives for finite x, in 2 instructions
+// where ptxas makes cvt.rna 4 (it guards against infinities and NaNs; these
+// operands are finite, a masked score's probability being 0).  Half a TF32
+// ulp added to the magnitude's bits carries into the kept ones at or past a
+// tie.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(F_THREADS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int s, int h,
-                     Strides qs, Strides ks, Strides vs, float scale) {
-  constexpr int HP = HD + 1;    // padded rows: odd strides, no bank conflicts
-  constexpr int PP = KEYS + 1;
-  constexpr int OJ = HD / 16;   // context columns per thread
-  extern __shared__ float smem[];
-  float* qt = smem;             // [ROWS][HP]
-  float* kt = qt + ROWS * HP;   // [KEYS][HP]
-  float* vt = kt + KEYS * HP;   // [KEYS][HD]
-  float* pt = vt + KEYS * HD;   // [ROWS][PP]
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32: the operands of 3xTF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a * b for one 16x8x8 tile, TF32 in, f32 accumulate (A row-major,
+// B column-major).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x4 f32 tiles from shared memory, one a register: lanes 8i .. 8i + 7
+// give the rows of tile i, and a thread gets row lane / 4, column lane % 4
+// of each (ldmatrix's 8x8 b16 tiles, a column pair taken as one f32).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// The same for f32 bits, as ldmatrix gives them.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  split_tf32(__uint_as_float(x), hi, lo);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + n - 1 of one head's (S, HD) view (row r at src + r *
+// ss) into a padded tile, by cp.async (the caller commits and waits); rows at
+// or past s are zero-filled.  VEC: 16-byte copies (base and row stride
+// multiples of 16 bytes), else 4-byte ones.
+template <int HD, bool VEC>
+__device__ __forceinline__ void load_rows_f32(float* tile, const float* __restrict__ src,
+                                              long long ss, int row0, int n, int s) {
+  constexpr int LD = F32Tile<HD>::LD, W = VEC ? 4 : 1;  // floats a copy
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n * (HD / W); i += F_THREADS) {
+    const int r = i / (HD / W), c = i % (HD / W) * W;
+    const bool live = row0 + r < s;
+    const float* from = live ? src + (row0 + r) * ss + c : src;
+    if constexpr (VEC)
+      cp_async16(smem_u32(tile + r * LD + c), from, live);
+    else
+      cp_async4(smem_u32(tile + r * LD + c), from, live);
+  }
+}
+
+// One chunk of NC keys (key0 ..) for this warp's 16 query rows (q_w, its
+// rows of the q tile): scores, online softmax, ctx += p v, both products in
+// 3xTF32: each operand split into TF32 hi and lo, and each 16x8x8 product
+// taken as lo*hi + hi*lo + hi*hi.  An `mma` aligns its terms and the sum it
+// adds them to at the largest and drops the bits below that one's f32 ulp
+// (truncating), so no `mma` adds into a long sum: the scores' hi*hi and
+// small terms go into two accumulators from 0 for every KQ k-steps, added
+// in f32, and each chunk's p v (lo*hi, hi*lo, hi*hi a k-step) starts from 0
+// and is added to the rescaled context in f32 (one FMA).  Accumulator
+// register 2i + e of n-tile j holds row g + 8i (g = lane / 4), column 8j +
+// 2t + e (t = lane % 4).  `last`: keys at or past s are masked.
+template <int HD, int NC>
+__device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2], float (&l)[2],
+                                             const float* q_w, const float* kc, const float* vc,
+                                             int key0, int s, bool last, float scale_log2) {
+  constexpr int LD = F32Tile<HD>::LD;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+
+  // scores: A = q rows g, g + 8 at columns t, t + 4 of the 8-column k-step;
+  // B = k row (key) g at the same columns; both by ldmatrix, A's four tiles
+  // rows 0-7 and 8-15 at columns 0-3 and 4-7 of the step, B's two keys'
+  // tiles of n-tiles j and j + 1
+  const int r8 = lane % 8, tile = lane / 8;
+  const float* q_row = q_w + (r8 + 8 * (tile % 2)) * LD + 4 * (tile / 2);
+  const float* k_row = kc + (r8 + 8 * (tile / 2)) * LD + 4 * (tile % 2);
+  // KQ k-steps at a time, the hi*hi terms into `big` and the lo*hi and
+  // hi*lo ones into `small`, both from 0: no small term meets a large sum
+  // inside an `mma`, and the scores take one f32 rounding a KQ k-steps
+  constexpr int KQ = HD / 8 < 4 ? HD / 8 : 4;
+  float sc[NC / 8][4];
+#pragma unroll 1
+  for (int kq = 0; kq < HD / 8; kq += KQ) {
+    float big[NC / 8][4], small[NC / 8][4];
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[j][e] = small[j][e] = 0.f;
+#pragma unroll
+    for (int kk = kq; kk < kq + KQ; ++kk) {
+      uint32_t qa[4], ah[4], al[4];
+      ldmatrix_x4(qa, q_row + 8 * kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(qa[i], ah[i], al[i]);
+      uint32_t bh[NC / 8][2], bl[NC / 8][2];
+#pragma unroll
+      for (int j = 0; j < NC / 8; j += 2) {
+        uint32_t kb[4];
+        if (j + 1 < NC / 8) {
+          ldmatrix_x4(kb, k_row + 8 * j * LD + 8 * kk);
+        } else {  // the one n-tile of the narrow tail: its two tiles, twice
+          ldmatrix_x4(kb, kc + (r8 + 8 * j) * LD + 4 * (tile % 2) + 8 * kk);
+        }
+#pragma unroll
+        for (int i = 0; i < 4 && j + i / 2 < NC / 8; ++i)
+          split_tf32(kb[i], bh[j + i / 2][i % 2], bl[j + i / 2][i % 2]);
+      }
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) mma_tf32(small[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) mma_tf32(small[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) mma_tf32(big[j], ah, bh[j][0], bh[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = kq == 0 ? big[j][e] + small[j][e] : sc[j][e] + (big[j][e] + small[j][e]);
+  }
+
+  if (last) {
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (key0 + 8 * j + 2 * t + e >= s) sc[j][e] = sc[j][2 + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mx[i] = fmaxf(mx[i], fmaxf(sc[j][2 * i], sc[j][2 * i + 1]));
+  float corr[2], mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the four lanes of a quad share a row
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // the chunk holds a live key, so the new max is finite; the first
+    // chunk's correction is exp(-inf) = 0 on sums that are 0
+    const float next = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f((m[i] - next) * scale_log2);
+    m[i] = next;
+    mb[i] = next * scale_log2;
+    l[i] *= corr[i];
+  }
+  // exp(s / sqrt(hd) - max) = exp2(s * scale_log2 - max * scale_log2)
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(sc[j][e], scale_log2, -mb[e / 2]));
+      sc[j][e] = p;
+      l[e / 2] += p;
+    }
+
+  // pv = p v, 8 keys a k-step.  The A fragment wants columns t and t + 4 of
+  // the step where the scores' accumulators hold keys 2t and 2t + 1, so the
+  // step's keys are taken in the order 0, 2, 4, 6, 1, 3, 5, 7: p stays in
+  // the registers it was computed in, and B reads v's rows 2t and 2t + 1
+  // (column g of each 8-column n-tile).
+  // in column groups of PVN n-tiles, so that pv and the context (HD / 2
+  // registers) fit beside the rest at hd 128
+  constexpr int PVN = HD == 128 ? 4 : HD / 8;
+#pragma unroll
+  for (int n0 = 0; n0 < HD / 8; n0 += PVN) {
+    float pv[PVN][4];
+#pragma unroll
+    for (int n = 0; n < PVN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NC / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(sc[kk][0], ah[0], al[0]);
+      split_tf32(sc[kk][2], ah[1], al[1]);
+      split_tf32(sc[kk][1], ah[2], al[2]);
+      split_tf32(sc[kk][3], ah[3], al[3]);
+      const float* vb = vc + (8 * kk + 2 * t) * LD + 8 * n0 + g;
+      constexpr int G = 4;  // n-tiles whose B fragments are held at once
+#pragma unroll
+      for (int n1 = 0; n1 < PVN; n1 += G) {
+        uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+        for (int n = 0; n < G; ++n) {
+          split_tf32(vb[8 * (n1 + n)], bh[n][0], bl[n][0]);
+          split_tf32(vb[LD + 8 * (n1 + n)], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < G; ++n) mma_tf32(pv[n1 + n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < G; ++n) mma_tf32(pv[n1 + n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < G; ++n) mma_tf32(pv[n1 + n], ah, bh[n][0], bh[n][1]);
+      }
+    }
+    // ctx = ctx * corr + p v
+#pragma unroll
+    for (int n = 0; n < PVN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n0 + n][e] = fmaf(o[n0 + n][e], corr[e / 2], pv[n][e]);
+  }
+}
+
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<HD>::MIN_BLOCKS)
+attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o, int s, int h,
+                        Strides qs, Strides ks, Strides vs, float scale_log2) {
+  using T = F32Tile<HD>;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* q_st = f32_smem;                        // [F_ROWS][LD]
+  float* k_st = q_st + T::Q_FLOATS;              // [STAGES][F_KEYS][LD]
+  float* v_st = k_st + T::STAGES * T::KV_FLOATS; // [STAGES][F_KEYS][LD]
 
   const int b = blockIdx.x / h, hh = blockIdx.x % h;
-  const int row0 = blockIdx.y * ROWS;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * F_ROWS;
+  const int chunks = (s + F_KEYS - 1) / F_KEYS;
   q += b * qs.b + hh * qs.h;
   k += b * ks.b + hh * ks.h;
   v += b * vs.b + hh * vs.h;
 
-  for (int i = tid; i < ROWS * HD; i += F_THREADS) {
-    const int r = i / HD, d = i % HD;
-    qt[r * HP + d] = row0 + r < s ? q[(row0 + r) * qs.s + d] : 0.f;
+  // the ring: q with the first stage in one group, then one group a stage,
+  // committed even when empty so that group i is always stage i's
+  load_rows_f32<HD, VEC>(q_st, q, qs.s, row0, F_ROWS, s);
+#pragma unroll
+  for (int i = 0; i < T::STAGES - 1; ++i) {
+    if (i < chunks) {
+      load_rows_f32<HD, VEC>(k_st + i * T::KV_FLOATS, k, ks.s, i * F_KEYS, F_KEYS, s);
+      load_rows_f32<HD, VEC>(v_st + i * T::KV_FLOATS, v, vs.s, i * F_KEYS, F_KEYS, s);
+    }
+    cp_async_commit();
   }
 
-  // Rows ty + 16*i of the tile belong to this thread, with keys tx + 16*j of
-  // a chunk in the first product and context columns tx + 16*j in the second.
-  float acc[4][OJ];
-  float mx[4], sum[4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool live = row0 + 16 * warp < s;  // a query row of this warp lies below s
+  const float* q_w = q_st + 16 * warp * T::LD;
+  float acc[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mx[i] = -INFINITY;
-    sum[i] = 0.f;
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (raw scores)
+  float l[2] = {0.f, 0.f};              // this thread's share of their sums
+
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<T::STAGES - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();                 // everyone's have, and chunk c - 1 is done with
+    const int next = c + T::STAGES - 1, nst = next % T::STAGES;
+    if (next < chunks) {
+      load_rows_f32<HD, VEC>(k_st + nst * T::KV_FLOATS, k, ks.s, next * F_KEYS, F_KEYS, s);
+      load_rows_f32<HD, VEC>(v_st + nst * T::KV_FLOATS, v, vs.s, next * F_KEYS, F_KEYS, s);
+    }
+    cp_async_commit();
+    if (!live) continue;
+    const float* kc = k_st + (c % T::STAGES) * T::KV_FLOATS;
+    const float* vc = v_st + (c % T::STAGES) * T::KV_FLOATS;
+    const int key0 = c * F_KEYS;
+    if (c + 1 < chunks)
+      chunk_tf32x3<HD, F_KEYS>(acc, m, l, q_w, kc, vc, key0, s, false, scale_log2);
+    else if (s - key0 <= F_TAIL)
+      chunk_tf32x3<HD, F_TAIL>(acc, m, l, q_w, kc, vc, key0, s, true, scale_log2);
+    else
+      chunk_tf32x3<HD, F_KEYS>(acc, m, l, q_w, kc, vc, key0, s, true, scale_log2);
   }
-
-  for (int j0 = 0; j0 < s; j0 += KEYS) {
-    __syncthreads();  // the previous chunk's reads of kt, vt and pt are done
-    for (int i = tid; i < KEYS * HD; i += F_THREADS) {
-      const int j = i / HD, d = i % HD;
-      const bool live = j0 + j < s;
-      kt[j * HP + d] = live ? k[(j0 + j) * ks.s + d] : 0.f;
-      vt[j * HD + d] = live ? v[(j0 + j) * vs.s + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qt[(ty + 16 * i) * HP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kt[(tx + 16 * j) * HP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
+  cp_async_wait<0>();  // no copy outlives the block
+  if (!live) return;
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // scale, mask the keys past s, and take the row's max over the chunk:
-      // the 16 threads of a row are one half of a warp
-      float top = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = j0 + tx + 16 * j < s ? sc[i][j] * scale : -INFINITY;
-        top = fmaxf(top, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
-        top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, off));
-      // the chunk holds a live key, so the new max is finite
-      const float next = fmaxf(mx[i], top);
-      const float corr = expf(mx[i] - next);  // 0 at the first chunk
-      mx[i] = next;
-      sum[i] *= corr;
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - next);
-        sum[i] += p;
-        pt[(ty + 16 * i) * PP + tx + 16 * j] = p;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < KEYS; ++c) {
-      float pv[4], vv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = pt[(ty + 16 * i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) vv[j] = vt[c * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float total = sum[i];
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
-    const int r = row0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 16 * warp + g + 8 * i;
     if (r >= s) continue;
-    const float inv = 1.f / total;  // the sum holds its max's exp(0) = 1
-    float* out = o + (((long long)b * s + r) * h + hh) * HD;
+    const float inv = 1.f / l[i];  // each sum holds its max's exp(0) = 1
+    float* out = o + (((long long)b * s + r) * h + hh) * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < OJ; ++j) out[tx + 16 * j] = acc[i][j] * inv;
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
   }
 }
+
 // The map of one (B, H, S, hd) bf16 view: hd innermost, then S, H and B in
 // the order of their strides (smallest first), boxes of one swizzle row's
 // width by 64 rows of S; rows past S load as zeros.  `order` gets the
@@ -529,6 +773,10 @@ bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The bodies of this file, by the code `attention_last_body` reports.
+enum Body { BF16_WGMMA = 0, F32_TF32X3 = 1, F32_TF32X3_4BYTE = 2 };
+std::atomic<int> last_body{-1};
+
 // The bf16 body's shared-memory limit, raised once a device.
 template <int HD>
 cudaError_t wgmma_ready(int device) {
@@ -549,6 +797,7 @@ cudaError_t launch_wgmma(int device, const void* q, const void* k, const void* v
     return cudaErrorInvalidValue;
   const cudaError_t err = wgmma_ready<HD>(device);
   if (err != cudaSuccess) return err;
+  last_body.store(BF16_WGMMA, std::memory_order_relaxed);
   const dim3 grid(b * h, (s + BLOCK_ROWS - 1) / BLOCK_ROWS);
   attention_wgmma_kernel<HD><<<grid, WG_THREADS, Tile<HD>::SMEM, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, h, oq | (ok << 6) | (ov << 12),
@@ -556,25 +805,58 @@ cudaError_t launch_wgmma(int device, const void* q, const void* k, const void* v
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_f32(int device, const void* q, const void* k, const void* v, void* o, int b,
-                       int h, int s, Strides qs, Strides ks, Strides vs, float scale,
-                       cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<HD>();
-  static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t err =
-      raise_smem_limit_once((const void*)attention_f32_kernel<HD>, (int)smem, device, smem_set);
+// The f32 body's shared-memory limit, raised once a device.
+template <int HD, bool VEC>
+cudaError_t tf32x3_ready(int device) {
+  static std::atomic<unsigned long long> smem_set{0};  // one bit a device
+  return raise_smem_limit_once((const void*)attention_tf32x3_kernel<HD, VEC>,
+                               (int)F32Tile<HD>::SMEM, device, smem_set);
+}
+
+template <int HD, bool VEC>
+cudaError_t launch_tf32x3_as(int device, const void* q, const void* k, const void* v, void* o,
+                             int b, int h, int s, Strides qs, Strides ks, Strides vs,
+                             float scale, cudaStream_t stream) {
+  const cudaError_t err = tf32x3_ready<HD, VEC>(device);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, (s + ROWS - 1) / ROWS);
-  attention_f32_kernel<HD><<<grid, F_THREADS, smem, stream>>>(
+  last_body.store(VEC ? F32_TF32X3 : F32_TF32X3_4BYTE, std::memory_order_relaxed);
+  const dim3 grid(b * h, (s + F_ROWS - 1) / F_ROWS);
+  attention_tf32x3_kernel<HD, VEC><<<grid, F_THREADS, F32Tile<HD>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), s, h, qs, ks, vs, scale);
+      static_cast<float*>(o), s, h, qs, ks, vs, scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+// A view whose rows cp.async may copy 16 bytes at a time.
+bool rows_16b(const void* base, Strides st) {
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && st.b % 4 == 0 && st.h % 4 == 0 &&
+         st.s % 4 == 0;
+}
+
+template <int HD>
+cudaError_t launch_tf32x3(int device, const void* q, const void* k, const void* v, void* o,
+                          int b, int h, int s, Strides qs, Strides ks, Strides vs, float scale,
+                          cudaStream_t stream) {
+  if (rows_16b(q, qs) && rows_16b(k, ks) && rows_16b(v, vs))
+    return launch_tf32x3_as<HD, true>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, stream);
+  return launch_tf32x3_as<HD, false>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, stream);
+}
+
+// Query tiles on the busiest SM if every tile takes as long: blocks in the
+// grid's order (x the head, y the row block, so every head's last row block,
+// fuller or not, comes last), each wave of `slots` blocks one a slot, slot i
+// on SM i % sms; a block holds `full` tiles but a head's last, which holds
+// `last`.
+int busiest_sm(long long bh, int row_blocks, int full, int last, long long slots, int sms) {
+  std::vector<int> load(sms > 0 ? sms : 1, 0);
+  for (long long i = 0; i < bh * row_blocks && slots > 0; ++i)
+    load[(i % slots) % sms] += i / bh < row_blocks - 1 ? full : last;
+  return *std::max_element(load.begin(), load.end());
 }
 
 // The bf16 body's tiles and waves at one shape (see the note at the top).
 template <int HD>
-cudaError_t plan(int device, int b, int h, int s, int* out) {
+cudaError_t plan_bf16(int device, int b, int h, int s, int* out) {
   using T = Tile<HD>;
   cudaError_t err = wgmma_ready<HD>(device);
   if (err != cudaSuccess) return err;
@@ -602,16 +884,43 @@ cudaError_t plan(int device, int b, int h, int s, int* out) {
   out[7] = (int)(bh * tiles);                  // warpgroup tiles
   out[8] = (int)(bh * (tiles % CONSUMERS ? 1 : 0));  // blocks with one live tile
   out[9] = 4 * (chunks - 1) + (last <= TAIL ? 1 : 4);  // 16-key steps a tile
-  // Tiles on the busiest SM if every tile takes as long: blocks in the
-  // grid's order (x the head, y the row block, so every head's last, fuller
-  // or not, comes last), each wave of per_sm * sms blocks one a slot, slot i
-  // on SM i % sms.
-  const int last_tiles = tiles - (row_blocks - 1) * CONSUMERS;
-  const long long slots = (long long)per_sm * sms;
-  std::vector<int> load(sms > 0 ? sms : 1, 0);
-  for (long long i = 0; i < bh * row_blocks && slots > 0; ++i)
-    load[(i % slots) % sms] += i / bh < row_blocks - 1 ? CONSUMERS : last_tiles;
-  out[10] = *std::max_element(load.begin(), load.end());
+  out[10] = busiest_sm(bh, row_blocks, CONSUMERS, tiles - (row_blocks - 1) * CONSUMERS,
+                       (long long)per_sm * sms, sms);
+  return cudaSuccess;
+}
+
+// The f32 body's: warp tiles of 16 query rows, F_WARPS a block.
+template <int HD>
+cudaError_t plan_f32(int device, int b, int h, int s, int* out) {
+  using T = F32Tile<HD>;
+  cudaError_t err = tf32x3_ready<HD, true>(device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, attention_tf32x3_kernel<HD, true>, F_THREADS, T::SMEM);
+  if (err != cudaSuccess) return err;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, attention_tf32x3_kernel<HD, true>);
+  if (err != cudaSuccess) return err;
+  const long long bh = (long long)b * h;
+  const int row_blocks = (s + F_ROWS - 1) / F_ROWS;
+  const int tiles = (s + 15) / 16;  // warp tiles a head
+  const int chunks = (s + F_KEYS - 1) / F_KEYS;
+  const int last = s - (chunks - 1) * F_KEYS;
+  out[0] = F_ROWS;
+  out[1] = F_THREADS;
+  out[2] = (int)T::SMEM;
+  out[3] = attr.numRegs;
+  out[4] = per_sm;
+  out[5] = sms;
+  out[6] = (int)(bh * row_blocks);             // blocks
+  out[7] = (int)(bh * tiles);                  // warp tiles
+  out[8] = (int)(bh * (tiles % F_WARPS ? 1 : 0));  // blocks with an idle warp
+  out[9] = F_KEYS / 8 * (chunks - 1) + (last <= F_TAIL ? 1 : F_KEYS / 8);  // 8-key steps a tile
+  out[10] = busiest_sm(bh, row_blocks, F_WARPS, tiles - (row_blocks - 1) * F_WARPS,
+                       (long long)per_sm * sms, sms);
   return cudaSuccess;
 }
 
@@ -636,7 +945,7 @@ extern "C" int attention_launch(int device, const void* q, const void* k, const 
   case HD:                                                                                    \
     return (int)(dtype == 1                                                                   \
                      ? launch_wgmma<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st)   \
-                     : launch_f32<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st));
+                     : launch_tf32x3<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (hd) {
     CASE(32) CASE(64) CASE(128)
@@ -645,21 +954,30 @@ extern "C" int attention_launch(int device, const void* q, const void* k, const 
 #undef CASE
 }
 
-// The bf16 body's plan at (b, h, s, hd), into out[11]: rows a block, threads
-// a block, shared-memory bytes a block, registers a thread (at entry, before
-// setmaxnreg), blocks resident an SM, SMs, blocks, warpgroup tiles, blocks
-// with a single live tile, 16-key steps a tile, warpgroup tiles on the
-// busiest SM.  Returns a cudaError_t.
-extern "C" int attention_plan(int device, int b, int h, int s, int hd, int* out) {
+// The plan of the body that takes dtype (as in attention_launch) at (b, h,
+// s, hd), into out[11]: rows a block, threads a block, shared-memory bytes a
+// block, registers a thread (bf16: at entry, before setmaxnreg), blocks
+// resident an SM, SMs, blocks, query tiles (bf16: warpgroup tiles of 64
+// rows; f32: warp tiles of 16), blocks with an idle tile, key steps a tile
+// (bf16: 16 keys; f32: 8), query tiles on the busiest SM.  Returns a
+// cudaError_t.
+extern "C" int attention_plan(int device, int b, int h, int s, int hd, int dtype, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+#define CASE(HD)                                                                              \
+  case HD:                                                                                    \
+    return (int)(dtype == 1 ? plan_bf16<HD>(device, b, h, s, out)                             \
+                            : plan_f32<HD>(device, b, h, s, out));
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 32: return (int)plan<32>(device, b, h, s, out);
-    case 64: return (int)plan<64>(device, b, h, s, out);
-    case 128: return (int)plan<128>(device, b, h, s, out);
+    CASE(32) CASE(64) CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef CASE
 }
+
+// The body this process's last launch took (enum Body), -1 before any.
+extern "C" int attention_last_body() { return last_body.load(std::memory_order_relaxed); }
 
 extern "C" const char* attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

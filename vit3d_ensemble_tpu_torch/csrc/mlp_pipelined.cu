@@ -57,8 +57,11 @@
 // f32, and D = 8 (`pipelined_core_kernel`): K1's CUDA-core tiling (64-row
 // tile, 256 threads, a thread a 4 x 4 tile of h and 4 rows by D / 16 output
 // columns, h and the weight chunk through shared memory, three blocks an
-// SM) on the same persistent, balanced grid, in 64-row tiles.  TF32 would
-// break the JAX tolerance of 2e-5.  The parent's body (two shared-memory
+// SM) on the same persistent, balanced grid, in 64-row tiles.  One TF32
+// product a product would break the JAX tolerance of 2e-5; three (3xTF32:
+// TF32 hi and lo of each operand, lo*hi + hi*lo + hi*hi), as K4's f32 body
+// (`attention.cu`) takes its products, hold it, and this body does not take
+// them yet.  The parent's body (two shared-memory
 // buffers of every operand, 134 KB at D = 64: one block an SM) lost most of
 // its time to its grid's second wave; loading each chunk's weights into
 // registers an item ahead cost more than it hid (spills at three blocks an

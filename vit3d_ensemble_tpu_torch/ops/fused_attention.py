@@ -22,11 +22,18 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     (k, v) chunks of 64 keys by TMA, and two consumer warpgroups of 64 rows
     run both products on `wgmma` (the probabilities stay in registers,
     rounded to bf16 unnormalised; a last chunk of at most 16 live keys runs
-    16 wide).  f32 runs a block per 64 query rows on CUDA cores.  It reads
-    q, k, v through their strides (unit stride along head_dim; in bf16 a
-    16-byte aligned address and strides that are multiples of 16 bytes,
-    TMA's rule), as the model's `lin(x).view(B, T, H, hd).transpose(1, 2)`
-    and K3's views into its QKV buffer give them, and writes the context
+    16 wide).  In f32 a block of 4 warps takes one (volume, head) and 64
+    query rows, 16 a warp, and runs both products on the tensor cores in
+    3xTF32 (`mma.sync` m16n8k8: each operand split into TF32 hi and lo, each
+    product lo*hi + hi*lo + hi*hi in f32, which holds the JAX tolerance where
+    one TF32 product does not), with (k, v) stages of 32 keys coming by
+    cp.async and the scores and softmax in registers.  It reads q, k, v
+    through their strides (unit stride along head_dim; in bf16 a 16-byte
+    aligned address and strides that are multiples of 16 bytes, TMA's rule;
+    in f32 any, with 16-byte copies where the views allow them:
+    `k4_body_launched`), as the model's
+    `lin(x).view(B, T, H, hd).transpose(1, 2)` and K3's views into its QKV
+    buffer give them, and writes the context
     (B, S, H, hd), returned as its (B, H, S, hd) view, so that the model's
     merge of the heads copies nothing (K2 likewise, from the model's views
     into its (B, T, 3, H, hd) QKV product).  K3's core at these head dims
@@ -61,8 +68,8 @@ TINY_HD = 16
 TC_HD = 8
 #: head dims K4 is instantiated for.
 HEAD_DIMS_K4 = (32, 64, 128)
-#: most tokens K4 takes: 65,535 tiles of 64 query rows (the f32 body's;
-#: the bf16 body's tiles are 128 rows).
+#: most tokens K4 takes: the grid's second axis holds 65,535 row blocks, of
+#: 64 query rows in f32 (4 warps of 16) and 128 in bf16.
 MAX_TOKENS_K4 = 65535 * 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -133,7 +140,7 @@ def _check(q, k, v) -> None:
                     f"fused_attention: {name} has stride {t.stride(-1)} "
                     "along head_dim, K4 needs 1")
             # the bf16 body loads by TMA (16-byte aligned base and strides);
-            # f32 reads scalars
+            # f32 by cp.async, 4 bytes at a time where 16 are not aligned
             if t.dtype == torch.bfloat16 and (
                     t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
                 raise ValueError(
@@ -141,7 +148,7 @@ def _check(q, k, v) -> None:
                     f"with strides {t.stride()}: in bfloat16 K4 needs a "
                     "16-byte aligned address and strides that are multiples "
                     "of 8")
-        # the grid's second axis holds 65,535 row tiles: 64 rows in f32
+        # the grid's second axis holds 65,535 row blocks: 64 rows in f32
         if q.shape[-2] > MAX_TOKENS_K4:
             raise ValueError(f"fused_attention: {q.shape[-2]} tokens, K4 "
                              f"takes {MAX_TOKENS_K4}")
@@ -266,6 +273,22 @@ def k4_into(q, k, v, out) -> None:
              *v.stride()[:3], 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
              _stream(q.device))
     _build.check("attention", err)
+
+
+#: the bodies of `csrc/attention.cu`, by the code its dispatch reports: bf16
+#: on `wgmma`, f32 in 3xTF32 with 16-byte copies, and with 4-byte copies
+#: (a view whose base or strides are not multiples of 16 bytes)
+K4_BODIES = ("bf16_wgmma", "f32_tf32x3", "f32_tf32x3_4byte")
+
+
+def k4_body_launched() -> str:
+    """The body of `csrc/attention.cu` that this process's last K4 launch
+    (K3's at head_dim 32-128 included) took, as the kernel's dispatch
+    reports it (one of K4_BODIES)."""
+    body = _build.entry("attention", [], "attention_last_body")()
+    if body < 0:
+        raise RuntimeError("fused_attention: K4 has not been launched")
+    return K4_BODIES[body]
 
 
 def _launch_k4(q, k, v):
