@@ -245,7 +245,8 @@ def smi(query: str) -> str:
 def ptxas_summary(log: str) -> dict:
     """Each library's entries, most registers, spilled bytes, the (mangled)
     entries that spill, and ptxas's notes that it serialised wgmmas
-    (C7515) or waited on one itself (C7517)."""
+    (C7515; C7518: for a wait it put in a divergent path) or waited on one
+    itself (C7517)."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     entries = re.findall(r"Function properties for (\S+)\n\s+\d+ bytes stack "
                          r"frame, (\d+) bytes spill stores", log)
@@ -253,6 +254,7 @@ def ptxas_summary(log: str) -> dict:
             "spill_store_bytes": sum(int(n) for _, n in entries),
             "spilling_entries": [name for name, n in entries if int(n)],
             "wgmma_serialized": log.count("(C7515)"),
+            "wgmma_serialized_divergent": log.count("(C7518)"),
             "wgmma_wait_injected": log.count("(C7517)")}
 
 
@@ -418,7 +420,9 @@ def phase_build() -> None:
     sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
     tf32 = k4_f32_sass()
+    k1_tf32 = k1_f32_sass()
     attention_ptxas = ptxas_summary(logs["attention"])
+    mlp_ptxas = ptxas_summary(logs["fused_mlp"])
     gelu = gelu_probe(probe)
     mma = mma_tf32_probe()
     # each GELU's FP32 instructions at the FP32 pipes' issue rate, its
@@ -431,6 +435,8 @@ def phase_build() -> None:
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
           **sass, "attention_f32_sass_hmma_tf32": tf32,
+          "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
+          "k1_f32_plan": [k1_f32_plan(*case) for case in K1_F32_PLAN_CASES],
           "k4_plan": [k4_plan(*shape, dtype) for dtype in (torch.bfloat16, torch.float32)
                       for shape in K4_PLAN_SHAPES],
           "k1c_plan": [k1c_plan(*case) for case in K1C_PLAN_CASES],
@@ -445,6 +451,13 @@ def phase_build() -> None:
           f"mma.sync TF32 probe: {mma}")
     check(not any("tf32x3" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's f32 body spills: {attention_ptxas['spilling_entries']}")
+    check(len(k1_tf32) == 3 and all(n > 0 for n in k1_tf32.values()),
+          f"K1's wide f32 instantiations' TF32 HGMMAs: {k1_tf32}")
+    check(not any("tf32x3" in e or "split_sum" in e
+                  for e in mlp_ptxas["spilling_entries"]),
+          f"K1's wide f32 body spills: {mlp_ptxas['spilling_entries']}")
+    check(mlp_ptxas["wgmma_serialized"] == mlp_ptxas["wgmma_serialized_divergent"] == 0,
+          "ptxas serialised K1's wgmmas")
     for form, g in gelu.items():
         check(g["fp32"] > 0 and g["launch_error"] == 0
               and g["max_abs_err_vs_plain"] <= GELU_PROBE_ATOL,
@@ -470,6 +483,26 @@ def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
     check(plan["blocks"] <= plan["slots"], f"K1c plan {plan} exceeds the slots")
     return {"dtype": str(dtype).split(".")[1], "D": D, "n": n, "models": models,
             **shape, **plan}
+
+
+def k1_f32_sass() -> dict:
+    """Lines of TF32 HGMMA in each instantiation of K1's wide f32 body (its
+    three epilogues), by its mangled name in the library's SASS."""
+    return {fn.split()[0]: sum("HGMMA" in line and "TF32" in line
+                               for line in fn.splitlines())
+            for fn in sass_of(_build.library_path("fused_mlp")).split("Function : ")[1:]
+            if "wide_tf32x3_kernel" in fn.split()[0]}
+
+
+# K1's wide f32 grids at the K1 phase's stretch shapes (D = 768, M = 3,072).
+K1_F32_PLAN_CASES = tuple((N, 768, 3072, active) for N in (STRETCH_B * 513, 513, 70)
+                          for active in (3072, 2072))
+
+
+def k1_f32_plan(N: int, D: int, M: int, active: int) -> dict:
+    """`fused_mlp.wide_f32_plan` at one shape on this card."""
+    return fused_mlp.wide_f32_plan(N, D, M, active,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def k4_f32_sass() -> dict:
@@ -624,6 +657,7 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
         body = fused_mlp.k1_body_launched() if variant == "seq" else None
         ref = plain(x, w1, b1, w2, b2, widths)
         err, ok, atol, rtol = compare(out, ref, dtype)
+        over_gate_ratio = over_gate(out, ref, (atol, rtol))[1]
         ms = time_ms(call, 20)
         call_host_ms = host_ms(call)
         plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, widths), 5)
@@ -636,17 +670,28 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
                 lambda: [library() for _ in range(10)], host_ops=False)[0] / 10
     elt = x.element_size()
     P = max(models, 1)
-    bound_ms, bound_by = bound(
-        4.0 * N * D * live,
-        elt * (2 * P * N * D + 2 * D * live + live + P * D)
-        + (4 * P if models else 0), dtype, gelus=N * live)
+    flops = 4.0 * N * D * live
+    nbytes = (elt * (2 * P * N * D + 2 * D * live + live + P * D)
+              + (4 * P if models else 0))
+    bound_ms, bound_by = bound(flops, nbytes, dtype, gelus=N * live)
+    tf32 = {}
+    if body == "wide_tf32x3":
+        # the products in 3xTF32: three times the operations at the TF32
+        # peak, beside the same products on CUDA cores at the FP32 peak and
+        # the three at the rate `mma.sync` reaches in TF32 on this card
+        bound_ms, bound_by = bound(3 * flops, nbytes, dtype, gelus=N * live,
+                                   peak=PEAK_TF32)
+        tf32 = {"bound_ms_cuda_cores": bound(flops, nbytes, dtype, gelus=N * live)[0],
+                "bound_ms_mma_sync": bound(3 * flops, nbytes, dtype, gelus=N * live,
+                                           peak=mma_tf32_rate)[0]}
     case = {"phase": VARIANT_KERNELS[variant], "card": card, "path": path,
             "dtype": str(dtype).split(".")[1], "N": N, "D": D, "M": M,
             "active": active, "models": models, "body": body,
             "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+            "max_err_over_gate": over_gate_ratio,
             "ms": ms, "host_ms": call_host_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_gelu": "erf",
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **tf32,
             # the bound's terms: the products at the peak for their type,
             # the GELUs of the kernels' form (`GELU_OF`) at their rate
             "products_ms": 4.0 * N * D * live / PEAK_FLOPS[dtype] * 1e3,
@@ -691,18 +736,56 @@ def phase_k1(gen) -> tuple:
     for N in TRAIN_ROWS:
         for D, M in K1_TRAIN_WIDTHS:
             k1_case(gen, torch.float32, N, D, M, M, "train")
-    wide = None
+    wide, wide_f32 = None, []
     for dtype in (torch.bfloat16, torch.float32):
         for N in STRETCH_ROWS:
             for active in (3072, 2072):
-                # device time too at B=8, and in bf16 at B=1, where the
-                # events' ms is the host's cost of a call
+                # device time too at B=8 and B=1, where the events' ms is the
+                # host's cost of a call
                 case = k1_case(gen, dtype, N, 768, 3072, active, "stretch",
-                               device=N == STRETCH_ROWS[0] or
-                               (dtype, N) == (torch.bfloat16, STRETCH_ROWS[1]))
+                               device=N in STRETCH_ROWS[:2])
                 if (dtype, N, active) == (torch.bfloat16, STRETCH_ROWS[0], 3072):
                     wide = case
-    return main, wide, small
+                if dtype == torch.float32:
+                    check(case["body"] == "wide_tf32x3", f"K1 f32 wide body {case}")
+                    if N in STRETCH_ROWS[:2] and active == 3072:
+                        wide_f32.append(case)
+    return main, wide, small, wide_f32
+
+
+def phase_k1_f32_scaled() -> dict:
+    """K1's wide f32 body at the stretch path's B=1 shape with x four times
+    larger, where the 3xTF32 products' truncation inside the tensor cores
+    weighs most, held to the exact (f64) MLP at the f32 tolerance; the f32
+    plain version's own distance from it is printed beside."""
+    # a generator of its own, so the phases that follow draw what they drew
+    own = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    N, D, M = STRETCH_ROWS[1], 768, 3072
+    x = torch.randn(N, D, generator=own, device="cuda") * 4
+    w1, b1, w2, b2 = mlp_weights(own, torch.float32, D, M)
+    with torch.no_grad():
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, M)
+        body = fused_mlp.k1_body_launched()
+        ref = exact_mlp(x, w1, b1, w2, b2)
+        over, ratio = over_gate(out, ref, TOL[torch.float32])
+        plain_over, plain_ratio = over_gate(
+            fused_mlp._plain_mlp(x, w1, b1, w2, b2, M), ref, TOL[torch.float32])
+    case = {"phase": "K1_f32_scaled", "shape": [N, D, M], "x_scale": 4.0,
+            "body": body, "reference": "f64", "over_gate": over,
+            "max_err_over_gate": ratio, "plain_over_gate": plain_over,
+            "plain_max_err_over_gate": plain_ratio,
+            "ok": over == 0 and body == "wide_tf32x3"}
+    emit(case)
+    check(case["ok"], f"K1 f32 scaled {case}")
+    return case
+
+
+def exact_mlp(x, w1, b1, w2, b2):
+    """K1's function at full width in f64 from the inputs as they are (exact
+    erf GELU): the exact result, against which an f32 plain version and
+    the f32 kernel are both approximations."""
+    x, w1, b1, w2, b2 = (t.double() for t in (x, w1, b1, w2, b2))
+    return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
 
 
 # (H, hd) of the trained configs: conf 9 (16, 1), conf 5 and 11 (8, 4).
@@ -1335,7 +1418,8 @@ def phase_main_path(gen) -> dict:
 # `pipelined_wgmma_kernel` is K1's bf16 body at D 16-64 and K1c's: every
 # path but the `variants` phase's K1c turns launches it as K1, so it is
 # K1's group.
-KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1b", "chunked_"),
+KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1", "wide_tf32x3"),
+                 ("K1", "split_sum"), ("K1b", "chunked_"),
                  ("K1", "pipelined_wgmma"), ("K1c", "pipelined_core"),
                  # every kernel of `attention.cu` (its bf16 and f32 bodies,
                  # and an older checkout's, as `chip_turns.py` times them)
@@ -1558,7 +1642,8 @@ def phase_stretch(gen) -> dict:
                 out = model(x[:1])
                 counts = launches()
                 # a pass's device time; K4's body (`attention_tf32x3`) is
-                # K4's under `auto` and K3's core under `layer`
+                # K4's under `auto` and K3's core under `layer`, K1's wide
+                # f32 body (`wide_tf32x3`) K1's under both
                 busy, groups, _, _ = device_time(lambda: model(x[:1]))
             finally:
                 set_impls("auto")
@@ -1568,12 +1653,15 @@ def phase_stretch(gen) -> dict:
             emit({"phase": "stretch_f32", "impl": impl, "B": 1,
                   "max_abs_err": err, "atol": TOKENS_F32_ATOL,
                   "launches": counts, "expected_launches": expect[impl],
-                  "device_busy_ms": busy, "k4_body_ms": groups.get("K4", 0.0),
+                  "device_busy_ms": busy, "k1_ms": groups.get("K1", 0.0),
+                  "k1_share": groups.get("K1", 0.0) / busy if busy else None,
+                  "k4_body_ms": groups.get("K4", 0.0),
                   "k4_body_share": groups.get("K4", 0.0) / busy if busy else None,
                   "by_group_ms": groups, "ok": ok})
             check(ok, f"stretch f32 {impl}: max abs err {err}, launched "
                       f"{counts}, busy {busy}")
             result[f"f32_{impl}"] = {"launches": counts, "device_busy_ms": busy,
+                                     "k1_ms": groups.get("K1", 0.0),
                                      "k4_body_ms": groups.get("K4", 0.0)}
 
         model.to(torch.bfloat16)
@@ -2024,7 +2112,8 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1, k1_wide, k1_latency = phase_k1(gen)
+    k1, k1_wide, k1_latency, k1_wide_f32 = phase_k1(gen)
+    k1_scaled = phase_k1_f32_scaled()
     # the phases of the fused-FFN variants and the model axis draw from a
     # generator of their own, so the phases that follow draw what they drew
     own = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -2107,6 +2196,15 @@ def main() -> int:
             # the same kernel's wide body at the stretch path's shape, and
             # its model axis at the sweep's evaluation shape (f32)
             stretch_case=case_of(k1_wide),
+            # its wide f32 body (3xTF32 on wgmma) at the stretch path's B=8
+            # and B=1 shapes, with its launches on the f32 stretch pass, and
+            # with x four times larger against the f64 MLP
+            stretch_f32_cases=[{**case_of(c, "stretch_f32"), "body": c["body"],
+                                "max_err_over_gate": c["max_err_over_gate"],
+                                "bound_ms_cuda_cores": c["bound_ms_cuda_cores"],
+                                "bound_ms_mma_sync": c["bound_ms_mma_sync"]}
+                               for c in k1_wide_f32],
+            f32_scaled_max_err_over_gate=k1_scaled["max_err_over_gate"],
             model_axis_case=case_of(k1_models, "sweep")),
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],

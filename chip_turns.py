@@ -14,6 +14,12 @@ timed alike:
     tokens at conf 9's (D, M) = (16, 2,048)) and at the serving pass's
     (33,280 rows, M = 3,072, D = 16, 32 and 64): ms by CUDA events, device
     ms under the profiler (10 calls), host ms to make a call;
+  * K1 in f32 at the stretch path's wide shapes, (4,104, 513 and 70 rows,
+    768, 3,072) at full width and masked to 2,072, and at the other wide
+    shapes of the card tests (`tests/test_torch_kernels.py`,
+    `WIDE_K1_CASES`): the same, with the device ms of the f32 chain
+    F.linear -> F.gelu -> F.linear (width-masked) beside, and the largest
+    error over the f32 gate against ROOT's plain version;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
@@ -41,6 +47,13 @@ import sys
 
 K1_SHAPES = ((65, 16, 2048), (260, 16, 2048), (520, 16, 2048),
              (33280, 16, 3072), (33280, 32, 3072), (33280, 64, 3072))
+# (N, D, M, active)
+K1_F32_SHAPES = ((4104, 768, 3072, 3072), (4104, 768, 3072, 2072),
+                 (513, 768, 3072, 3072), (513, 768, 3072, 2072),
+                 (70, 768, 3072, 3072), (70, 768, 3072, 2072),
+                 (70, 768, 256, 200), (70, 128, 512, 512), (33, 1024, 96, 96),
+                 (50, 192, 100, 77), (40, 256, 2204, 2000), (40, 768, 64, 0),
+                 (128, 128, 128, 77), (1, 768, 3072, 3072), (300, 128, 3072, 3072))
 BUILD = ["fused_mlp", "mlp_chunked", "mlp_pipelined", "tiny_attention",
          "attention"]
 
@@ -66,6 +79,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("chip_turns: no CUDA device is available", file=sys.stderr)
         return 1
@@ -99,6 +113,28 @@ def main() -> int:
             emit({"phase": "k1", "N": N, "D": D, "M": M, "body": body,
                   "ms": cs.time_ms(call, 20), "device_ms": cs.mlp_device_ms(call),
                   "host_ms": cs.host_ms(call)})
+        for N, D, M, active in K1_F32_SHAPES:
+            x = torch.randn(N, D, generator=gen, device="cuda")
+            weights = cs.mlp_weights(gen, torch.float32, D, M)
+            w1, b1, w2, b2 = weights
+            w1a, b1a, w2a = w1[:active], b1[:active], w2[:, :active].contiguous()
+
+            def call():
+                return fused_mlp.fused_mlp(x, *weights, active)
+
+            def chain():
+                return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
+
+            over = cs.over_gate(call(), fused_mlp._plain_mlp(x, *weights, active),
+                                cs.TOL[torch.float32])[1]
+            chain()
+            body = getattr(fused_mlp, "k1_body_launched", lambda: None)()
+            chain_ms = cs.device_time(lambda: [chain() for _ in range(10)],
+                                      host_ops=False)[0] / 10
+            emit({"phase": "k1_f32", "N": N, "D": D, "M": M, "active": active,
+                  "body": body, "max_err_over_gate": over, "ms": cs.time_ms(call, 10),
+                  "device_ms": cs.mlp_device_ms(call),
+                  "host_ms": cs.host_ms(call, iters=10), "chain_device_ms": chain_ms})
 
         x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,
                         device="cuda").to(bf16)

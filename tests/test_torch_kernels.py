@@ -550,21 +550,100 @@ WIDE_K1_CASES = [(4104, 768, 3072, 3072), (4104, 768, 3072, 2072),
                  (1, 768, 3072, 3072), (300, 128, 3072, 3072)]
 
 
+def _wide_inputs(gen, N, D, M, dtype=torch.float32):
+    bound = (6.0 / (D + M)) ** 0.5          # the model's xavier init
+    x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
+    w1, w2 = (((torch.rand(*s, generator=gen, device="cuda") * 2 - 1) * bound)
+              .to(dtype) for s in ((M, D), (D, M)))
+    b1 = (torch.randn(M, generator=gen, device="cuda") * 0.1).to(dtype)
+    b2 = (torch.randn(D, generator=gen, device="cuda") * 0.1).to(dtype)
+    return x, w1, b1, w2, b2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,M,active", WIDE_K1_CASES)
 def test_wide_fused_mlp_kernel_matches_plain(cuda, dtype, N, D, M, active):
-    bound = (6.0 / (D + M)) ** 0.5          # the model's xavier init
-    x = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
-    w1, w2 = (((torch.rand(*s, generator=cuda, device="cuda") * 2 - 1) * bound)
-              .to(dtype) for s in ((M, D), (D, M)))
-    b1 = (torch.randn(M, generator=cuda, device="cuda") * 0.1).to(dtype)
-    b2 = (torch.randn(D, generator=cuda, device="cuda") * 0.1).to(dtype)
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M, dtype)
     before = fused_mlp.launches
     out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
     torch.cuda.synchronize()
     assert fused_mlp.launches == before + 1
+    assert fused_mlp.k1_body_launched() == (
+        "wide_tf32x3" if dtype == torch.float32 else "wide_wgmma")
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active), dtype)
+
+
+def _f64_mlp(x, w1, b1, w2, b2, active):
+    """K1's function in f64 from the f32 inputs: the exact result."""
+    x, w1, b1, w2, b2 = (t.double() for t in (x, w1, b1, w2, b2))
+    h = x @ w1.T + b1
+    h = 0.5 * h * (1 + torch.erf(h / math.sqrt(2)))
+    h[:, active:] = 0
+    return h @ w2.T + b2
+
+
+def test_wide_f32_kernel_with_x_four_times_larger(cuda):
+    """f32 at the stretch path's B=1 shape with x four times larger: the
+    hidden activations and fc2's sums are larger, where the 3xTF32 products'
+    truncation inside the tensor cores weighs most.  Held to the unchanged
+    f32 tolerance of the exact (f64) MLP: the f32 plain version's own
+    rounding moves it by about half the tolerance here (`chip_smoke.py`,
+    phase `K1_f32_scaled`, prints both)."""
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, 513, 768, 3072)
+    x = x * 4
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, 3072)
+    torch.cuda.synchronize()
+    assert fused_mlp.k1_body_launched() == "wide_tf32x3"
+    _close(out, _f64_mlp(x, w1, b1, w2, b2, 3072), torch.float32)
+
+
+@pytest.mark.parametrize("N,D,M,active", [(513, 768, 3072, 3072),
+                                          (70, 768, 256, 200),
+                                          (1, 768, 3072, 3072)])
+def test_wide_f32_kernel_gives_the_same_bits_twice(cuda, N, D, M, active):
+    """Two calls on the same inputs give equal bits: K splits (fc2's at N =
+    513, fc1's at 70 rows, both phases' at 1 row) are summed in a fixed
+    order."""
+    args = _wide_inputs(cuda, N, D, M)
+    plan = fused_mlp.wide_f32_plan(N, D, M, active, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert max(plan["fc1"]["splits"], plan["fc2"]["splits"]) > 1
+    first = fused_mlp.fused_mlp(*args, active)
+    second = fused_mlp.fused_mlp(*args, active)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_wide_f32_body_counts_one_and_raises(cuda):
+    """An f32 wide call is one step of `fused_mlp.launches` and of
+    `launches_own` whatever its grid launches; the entry point refuses (no
+    plain fallback) a base that TMA cannot read and a plan it does not
+    take."""
+    N, D, M = 70, 768, 256
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M)
+    before = (fused_mlp.launches, fused_mlp.launches_own)
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, 200)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp.launches_own) == (before[0] + 1,
+                                                            before[1] + 1)
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, 200), torch.float32)
+    odd = torch.empty(N * D + 1, device="cuda")[1:].view(N, D)
+    odd.copy_(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="fused_mlp launch failed"):
+        fused_mlp._build.check("fused_mlp", fused_mlp._launch_wide_f32(
+            odd, w1, b1, w2, b2, torch.empty_like(x), N, 200, stream))
+    fn = fused_mlp._build.entry("fused_mlp", fused_mlp._WIDE_F32_ARGTYPES,
+                                "fused_mlp_wide_f32_launch")
+    h = torch.empty(N, M, device="cuda")
+    # two K splits of fc2 and no partial-sum scratch
+    err = fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+             w2.data_ptr(), M, b2.data_ptr(), h.data_ptr(), M, None,
+             out.data_ptr(), N, D, M, 200, 1, 1, 2, 1, stream)
+    with pytest.raises(RuntimeError, match="fused_mlp launch failed"):
+        fused_mlp._build.check("fused_mlp", err)
+    assert fused_mlp.launches == before[0] + 1
 
 
 def test_wide_bf16_body_counts_one_and_raises(cuda):

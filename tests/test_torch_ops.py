@@ -158,17 +158,71 @@ def test_fused_mlp_bf16_gradients_are_the_exact_references():
 
 
 def test_k1_routes_each_call_to_one_body():
-    """The body a K1 call takes, by type and hidden size: f32 and bf16 at
-    D = 8 on the CUDA cores, bf16 at a wide D on the `wgmma` GEMMs, and bf16
-    at D 16-64 on K1c's pipeline."""
+    """The body a K1 call takes, by type and hidden size: f32 at D <= 64 and
+    bf16 at D = 8 on the CUDA cores, bf16 at a wide D on the `wgmma` GEMMs,
+    f32 at a wide D on their 3xTF32 form, and bf16 at D 16-64 on K1c's
+    pipeline."""
     assert fmlp._k1_body(torch.float32, 64) == "cuda_cores"
-    assert fmlp._k1_body(torch.float32, 768) == "cuda_cores"
+    for D in (128, 768, 1024):
+        assert fmlp._k1_body(torch.float32, D) == "wide_tf32x3"
     assert fmlp._k1_body(torch.bfloat16, 8) == "cuda_cores"
     assert fmlp._k1_body(torch.bfloat16, 768) == "wide_wgmma"
     for D in (16, 32, 64):
         assert fmlp._k1_body(torch.bfloat16, D) == "wgmma_pipeline"
     assert set(fmlp.K1_BODIES) == {"wgmma_pipeline", "cuda_cores",
-                                   "wide_wgmma"}
+                                   "wide_wgmma", "wide_tf32x3"}
+
+
+@pytest.mark.parametrize("n,D,M,active", [
+    (513, 768, 3072, 3072), (4104, 768, 3072, 3072), (513, 768, 3072, 2072),
+    (4104, 768, 3072, 2072), (70, 768, 256, 200), (1, 768, 3072, 3072),
+    (33, 1024, 96, 96), (40, 768, 64, 0),
+])
+def test_wide_f32_plan_covers_every_output_once(n, D, M, active):
+    """K1's wide f32 grids on an H100's 132 SMs: every block takes a unit,
+    each phase's units cover every (row, column) tile of its output once in
+    each of its K splits, and the splits cover its K stages once, in order.
+    At the stretch shapes the plan fills the waves: fc1 at N = 513 in 240
+    tiles (1.8 waves), fc2 there in two K splits (120 units, one wave), and
+    at N = 4,104 12 and 3 whole waves."""
+    sms = 132
+    plan = fmlp.wide_f32_plan(n, D, M, active, sms)
+    bm, bn = fmlp.WIDE_F32_TILE
+    phases = [("fc1", plan["fc1"], -(-active // bn) * bn,
+               D // fmlp.WIDE_F32_STAGE_K),
+              ("fc2", plan["fc2"], D, -(-active // fmlp.WIDE_F32_STAGE_K))]
+    assert (plan["fc1"] is None) == (active == 0)
+    for name, phase, width, k_stages in phases:
+        if phase is None:
+            continue
+        assert phase["k_stages"] == k_stages
+        assert 1 <= phase["blocks"] <= min(sms, phase["units"])
+        taken = [u for b in range(phase["blocks"])
+                 for u in range(b, phase["units"], phase["blocks"])]
+        assert sorted(taken) == list(range(phase["units"]))  # once each
+        assert all(b < phase["units"] for b in range(phase["blocks"]))
+        cover = {}
+        for u in range(phase["units"]):
+            row0, col0, k0, k1 = fmlp.wide_f32_unit(phase, u)
+            assert row0 < n and col0 < width
+            assert k1 - k0 >= min(k_stages, fmlp.WIDE_F32_PROMOTE_K
+                                  // fmlp.WIDE_F32_STAGE_K)
+            cover.setdefault((row0, col0), []).append((k0, k1))
+        assert len(cover) == -(-n // bm) * (width // bn)
+        for spans in cover.values():
+            spans.sort()
+            assert spans[0][0] == 0 and spans[-1][1] == k_stages
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        if phase["splits"] > 1:
+            assert phase["tiles"] < sms // 2 + 1
+            assert phase["units"] <= sms        # one wave, none left idle
+    if (n, active) == (513, 3072):
+        assert plan["fc1"]["tiles"] == 240 and plan["fc1"]["splits"] == 1
+        assert (plan["fc2"]["tiles"], plan["fc2"]["splits"],
+                plan["fc2"]["units"]) == (60, 2, 120)
+    if (n, active) == (4104, 3072):
+        assert plan["fc1"]["waves"] == 12 and plan["fc2"]["waves"] == 3
+        assert plan["fc1"]["splits"] == plan["fc2"]["splits"] == 1
 
 
 def test_fused_mlp_accepts_tensor_width():

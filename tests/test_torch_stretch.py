@@ -1,6 +1,7 @@
 """The port's stretch slice against the JAX package's, on the CPU: K4's and
-wide K1's plain versions, a scaled-down `vit_b16_128cubed` as a whole, and
-the weight conversion at the full config's shapes.
+wide K1's plain versions and the 3xTF32 arithmetic of their f32 bodies, a
+scaled-down `vit_b16_128cubed` as a whole, and the weight conversion at the
+full config's shapes.
 
 Inputs and weights are made with numpy from a seed and handed to both
 frameworks.  The JAX Pallas kernels run in interpret mode, as the JAX
@@ -201,6 +202,109 @@ def test_plain_mlp_matches_jax_fused_mlp_at_wide_d(N, D, M, active):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
                                rtol=1e-4)
     fmlp._check(t(x), t(w1.T), t(b1), t(w2.T), t(b2))   # a width K1 takes
+
+
+def _rz(x):
+    """f64 values rounded toward zero to f32 (kept as f64)."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y).double()
+
+
+def _k1_tf32x3(a, b, promote_k=fmlp.WIDE_F32_PROMOTE_K):
+    """a @ b^T as K1's wide f32 body takes it on the tensor cores: each
+    operand split into TF32 hi and lo; per k-step of 8, lo_a hi_b and hi_a
+    lo_b added into `small` and hi_a hi_b into `big`, each accumulator's sum
+    rounded toward zero to f32 (a mild model of the tensor cores'
+    truncation); both from 0 for every `promote_k` of K, then added into an
+    f32 sum."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    ah, bh, al, bl = (t.double() for t in (ah, bh, al, bl))
+    K = a.shape[-1]
+    total = torch.zeros(a.shape[0], b.shape[0])
+    for k0 in range(0, K, promote_k):
+        big = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float64)
+        small = torch.zeros_like(big)
+        for k in range(k0, min(k0 + promote_k, K), 8):
+            s = slice(k, k + 8)
+            small = _rz(small + al[:, s] @ bh[:, s].T)
+            small = _rz(small + ah[:, s] @ bl[:, s].T)
+            big = _rz(big + ah[:, s] @ bh[:, s].T)
+        total = total + (big.float() + small.float())
+    return total
+
+
+def _emulated_k1_f32(x, w1, b1, w2, b2, active, product):
+    """K1's f32 function (nn.Linear layout) with both products taken by
+    `product(a, b)` = a @ b^T: h = gelu(x w1^T + b1) with exact erf, columns
+    at or past `active` zeroed, h unrounded (f32 is the input type), then
+    h w2^T + b2."""
+    h = F.gelu(product(x, w1) + b1)
+    h[:, active:] = 0
+    return product(h, w2) + b2
+
+
+def _f64_mlp(x, w1, b1, w2, b2, active):
+    """K1's function in f64 from the f32 inputs: the exact result."""
+    x, w1, b1, w2, b2 = (t.double() for t in (x, w1, b1, w2, b2))
+    h = x @ w1.T + b1
+    h = 0.5 * h * (1 + torch.erf(h / math.sqrt(2)))
+    h[:, active:] = 0
+    return h @ w2.T + b2
+
+
+def _wide_mlp_inputs(N, D, M, x_scale=1.0):
+    """The test's inputs as numpy (JAX layout) and as the port's tensors
+    (nn.Linear layout)."""
+    x, w1, b1, w2, b2 = _mlp_data(4, N, D, M)
+    x = x * np.float32(x_scale)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (x, w1, b1, w2, b2), (t(x), t(w1.T), t(b1), t(w2.T), t(b2))
+
+
+@pytest.mark.parametrize("N,D,M,active", [(18, 768, 256, 200),
+                                          (18, 768, 3072, 3072)])
+def test_k1_wide_tf32x3_emulation_matches_jax_fused_mlp(N, D, M, active):
+    """Both products of K1's wide f32 body in 3xTF32 with its promotion
+    interval, emulated to the bit of the operand splits, hold the JAX
+    tolerance against JAX's f32 kernel, at a masked width and at the
+    stretch model's full width."""
+    (xn, *wn), args = _wide_mlp_inputs(N, D, M)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_fused_mlp(*(jnp.asarray(a) for a in (xn, *wn)), active)
+    np.testing.assert_allclose(
+        _emulated_k1_f32(*args, active, _k1_tf32x3).numpy(), np.asarray(ref),
+        atol=2e-5, rtol=1e-4)
+
+
+def test_k1_wide_tf32x3_with_x_four_times_larger():
+    """x four times larger at the full width: the emulated body holds the
+    f32 tolerance against the exact (f64) MLP.  One accumulator over all of
+    K (no promotion) misses it: fc2's K = 3,072 is where the truncation
+    adds up."""
+    _, args = _wide_mlp_inputs(18, 768, 3072, x_scale=4.0)
+    ref = _f64_mlp(*args, 3072).numpy()
+    np.testing.assert_allclose(
+        _emulated_k1_f32(*args, 3072, _k1_tf32x3).numpy(), ref, atol=2e-5,
+        rtol=1e-4)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(
+            _emulated_k1_f32(*args, 3072, lambda a, b: _k1_tf32x3(a, b, 3072))
+            .numpy(), ref, atol=2e-5, rtol=1e-4)
+
+
+def test_one_tf32_product_misses_the_jax_tolerance_in_k1():
+    """K1's wide f32 function with one TF32 product a product fails the
+    JAX tolerance against JAX's f32 kernel: the tolerance tells 3xTF32 from
+    TF32."""
+    (xn, *wn), args = _wide_mlp_inputs(18, 768, 256)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_fused_mlp(*(jnp.asarray(a) for a in (xn, *wn)), 200)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(
+            _emulated_k1_f32(*args, 200, lambda a, b: _tf32x1(a, b.T)).numpy(),
+            np.asarray(ref), atol=2e-5, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

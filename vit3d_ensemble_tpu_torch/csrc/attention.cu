@@ -131,10 +131,12 @@
 #include <vector>
 
 #include "sm90_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace sm90;
+using namespace tf32x3;
 
 constexpr int ROWS = 64;  // query rows of a tile (wgmma's M)
 constexpr int KEYS = 64;  // keys per chunk
@@ -418,46 +420,6 @@ struct F32Tile {
   static constexpr int KV_FLOATS = F_KEYS * LD;     // one operand of a stage
   static constexpr size_t SMEM = sizeof(float) * (size_t)(Q_FLOATS + 2 * STAGES * KV_FLOATS);
 };
-
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
-// f32 bits: what cvt.rna.tf32.f32 gives for finite x, in 2 instructions
-// where ptxas makes cvt.rna 4 (it guards against infinities and NaNs; these
-// operands are finite, a masked score's probability being 0).  Half a TF32
-// ulp added to the magnitude's bits carries into the kept ones at or past a
-// tie.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo TF32: the operands of 3xTF32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a * b for one 16x8x8 tile, TF32 in, f32 accumulate (A row-major,
-// B column-major).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x4 f32 tiles from shared memory, one a register: lanes 8i .. 8i + 7
-// give the rows of tile i, and a thread gets row lane / 4, column lane % 4
-// of each (ldmatrix's 8x8 b16 tiles, a column pair taken as one f32).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-// The same for f32 bits, as ldmatrix gives them.
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  split_tf32(__uint_as_float(x), hi, lo);
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),

@@ -73,10 +73,53 @@
 //     w2's row stride is then not a multiple of 16 bytes, which TMA refuses,
 //     so the wrapper hands the kernel a zero-padded (D, M8) copy of w2, made
 //     only for such M (no registry config has one).
-//   * f32: a tile of 16 rows, 256 threads, chunks of 16 hidden columns, CUDA
-//     cores with 16-byte shared-memory reads; a thread owns one h entry in
-//     fc1 and one row by D / 16 columns in fc2.  The chunks are staged with
-//     cp.async too, but not ahead of their use.
+//   * f32 (`wide_tf32x3_kernel`): the same two phases with h through L2,
+//     f32 this time (the rounding point of pallas_mlp.py:93 is the input
+//     type): an (N, M4) scratch, M rounded up to 4, 6.3 MB at N = 513 and
+//     50.4 MB at N = 4,104, the whole L2, so there part of h goes to device
+//     memory and back (~0.03 ms of bytes at most, beside ~0.25 ms of
+//     products).  Both products run on the tensor cores in 3xTF32
+//     (`tf32x3.cuh`): 4.84 GFLOP of f32 products at (513, 768, 3,072) take
+//     72 us on CUDA cores at the 67 TFLOP/s FP32 peak and 29 us as three
+//     TF32 products at the 495 TFLOP/s TF32 peak.  Both GEMMs have both
+//     operands K-major in the nn.Linear layout (x and w1 along D, h and w2
+//     along M), so `wgmma` m64n64k8 in TF32 is legal, with B (the weights)
+//     from shared memory and A from registers.  Why `wgmma` and not K4's
+//     `mma.sync` m16n8k8: `mma.sync` reaches 64 % of the TF32 peak on an
+//     H100 (`chip_smoke.py`'s `mma_sync_tf32` probe), which would bound the
+//     call at 0.046 ms at (513, 768, 3,072), and every operand element of
+//     its fragments is split in registers by each warp that loads it; with
+//     `wgmma` B is split once a stage for both consumer warpgroups and only
+//     A in registers.  The `mma.sync` form was not built to compare.
+//     A stage loads an A tile
+//     (128 x 32) and a B tile (64 x 32) by TMA; three warps of the
+//     producer's warpgroup split the B tile into TF32 hi and lo tiles of
+//     the same 128-byte-swizzled layout; each consumer warpgroup splits its
+//     A fragments as it loads them (ldmatrix) and runs lo_A hi_B and hi_A
+//     lo_B into one accumulator and hi_A hi_B into another, both from 0 for
+//     every 128 of K and then added into an f32 sum in registers (the
+//     promotion of Hopper's FP8 GEMMs).  The tensor cores truncate inside a
+//     wgmma; with x four times larger, one accumulator over all of fc2's
+//     K = 3,072 missed the f32 tolerance in a CPU model of that truncation
+//     (`tests/test_torch_stretch.py`), and the weights are never split in a
+//     pass of their own (~57 MB of bytes a call) nor kept split across
+//     calls.  Tiles of 128 x 64 (three accumulators of m64n64 and two
+//     buffers of A fragments fit a consumer's 232 registers; m64n128 would
+//     not).  Filling the SMs (`fused_mlp.wide_f32_plan`): fc1 at N = 513
+//     has 5 x 48 = 240 tiles, 1.8 waves on 132 SMs, and N = 4,104 1,584, 12
+//     waves; fc2's (N, 768) output has 60 tiles at N = 513, so the plan
+//     splits its K in two (120 units, one wave), and 396 at N = 4,104 (3
+//     waves).  A phase with fewer tiles than half the SMs splits its K,
+//     fc1's too, up to 8 ways and never below 128 of K a split; the splits'
+//     partial sums go to a scratch and a second launch adds them in split
+//     order (then the bias, and for fc1 the GELU and the mask): no float
+//     atomics, so a call gives the same bits every run.  M % 4 != 0: the
+//     wrapper hands the kernel a zero-padded (D, M4) copy of w2.  On an
+//     H100 this body took less device time than the CUDA-core body it
+//     replaced (16-row tiles streaming both weight matrices from L2 for
+//     every block) at every wide f32 shape of the card tests and the
+//     stretch path, from 1 to 4,104 rows (`chip_turns.py`, PERF.md), so
+//     that body is gone.
 //
 // Layouts follow torch.nn.Linear: x (n, D), w1 (m, D), b1 (m), w2 (D, m),
 // b2 (D), out (n, D), all contiguous.  f32 or bf16, f32 accumulation.
@@ -93,14 +136,17 @@
 
 #include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include "mlp_common.cuh"
 #include "sm90_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace mlp;
 using namespace sm90;
+using namespace tf32x3;
 
 constexpr int TILE_N = 64;    // token rows per block
 constexpr int CHUNK = 64;     // hidden columns per step
@@ -409,107 +455,293 @@ cudaError_t launch_gemm(int device, const void* a, int a_cols, int a_ld, const v
   return cudaGetLastError();
 }
 
-constexpr int F_ROWS = 16;   // token rows per block
-constexpr int F_CHUNK = 16;  // hidden columns per step
-constexpr int F_CP = F_CHUNK + 4;  // w2 and h rows: 16 bytes of pad
+// ---------------------------------------------------------------------------
+// The wide regime in f32: two GEMM phases in 3xTF32 on wgmma, fed by TMA.
+// ---------------------------------------------------------------------------
 
-constexpr size_t wide_f32_smem_bytes(int d) {
-  return sizeof(float) * (size_t)((F_ROWS + F_CHUNK) * (d + 4) + d * F_CP + F_ROWS * F_CP);
+constexpr int T_BK = 32;        // k of a stage: 32 f32 = one 128-byte swizzle row
+constexpr int T_BM = 128;       // rows of a tile: 64 for each consumer warpgroup
+constexpr int T_BN = 64;        // columns of a tile: wgmma's N
+constexpr int T_STAGES = 5;
+constexpr int T_PROMOTE = 4;    // stages between promotions: 128 of k
+constexpr int T_THREADS = 384;  // warpgroup 0: loads (warp 0) and splits; 1 and 2 consume
+constexpr int T_SPLITTERS = 96; // warps 1-3
+constexpr int T_A_BYTES = T_BM * T_BK * 4;
+constexpr int T_B_BYTES = T_BN * T_BK * 4;
+// a stage: A as loaded, B as loaded, and B's TF32 hi and lo
+constexpr int T_STAGE_BYTES = T_A_BYTES + 3 * T_B_BYTES;
+constexpr size_t T_SMEM = 1024 + (size_t)T_STAGES * T_STAGE_BYTES + 3 * T_STAGES * sizeof(uint64_t);
+static_assert(T_A_BYTES % 1024 == 0 && T_B_BYTES % 1024 == 0,
+              "every tile starts on a 1,024-byte swizzle atom");
+
+// What a unit's epilogue does with its (128, 64) tile of sums: fc1's GELU
+// (+ bias, the exact-erf GELU, columns at or past `cols` written as 0),
+// fc2's bias, or a K split's partial sums as they are.
+enum Epilogue { T_GELU = 0, T_BIAS = 1, T_PART = 2 };
+
+struct Unit {
+  int row0, col0, k0, k1, split;
+};
+
+// Unit u of a phase: tile t = u % tiles, at row tile t / col_tiles and
+// column tile t % col_tiles, and K split s = u / tiles, which takes the
+// stages [s K / S, (s + 1) K / S) of the K stages (`fused_mlp.wide_f32_plan`).
+__device__ __forceinline__ Unit unit_of(int u, int tiles, int col_tiles, int splits,
+                                        int k_stages) {
+  const int t = u % tiles, s = u / tiles;
+  return {(t / col_tiles) * T_BM, (t % col_tiles) * T_BN,
+          (int)((long long)s * k_stages / splits), (int)((long long)(s + 1) * k_stages / splits),
+          s};
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
+// out = epilogue(A @ B^T) over (128, 64) tiles, both operands f32 and
+// K-major behind TMA maps (boxes of 32 columns, 128-byte swizzle), on a
+// persistent grid: block b takes units b, b + gridDim.x, ...
+//
+// Warpgroup 0 gives up registers.  Its thread 0 keeps a ring of T_STAGES
+// stages loading by TMA, each an A tile (128 x 32) and a B tile (64 x 32),
+// on a `full` mbarrier; warps 1-3 split each landed B tile into TF32 hi
+// and lo tiles of the same swizzled layout (`split_tf32`) and arrive on the
+// stage's `ready` mbarrier.  Consumer warpgroup c takes rows 64c .. 64c + 63
+// of the tile: per stage, for each k-step of 8 it loads its A fragment from
+// the landed tile by ldmatrix, splits it in registers, and issues three
+// wgmma m64n64k8 with A from registers: lo_A hi_B and hi_A lo_B into
+// `small`, hi_A hi_B into `big`.  Both start from 0 every T_PROMOTE stages
+// (the first k-step's wgmmas do not read them) and are then added into the
+// f32 sum `total` in registers, so no small term meets a long sum inside
+// the tensor cores, which truncate there.  The A fragments are double-
+// buffered by stage parity: one stage's wgmmas stay in flight while the
+// next stage's fragments load.  A stage goes back to the producer once the
+// wgmmas that read it have retired.  The epilogue writes f32 pairs straight
+// from the accumulator registers (row < n, column < out_cols).
+template <int EPI>
+__global__ void __launch_bounds__(T_THREADS, 1)
+wide_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, const float* __restrict__ bias,
+                   float* __restrict__ out, int ld_out, int n, int out_cols, int cols,
+                   int k_stages, int tiles, int col_tiles, int splits) {
+  extern __shared__ __align__(16) unsigned char tf32_smem[];
+  // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
+  unsigned char* smem = tf32_smem + ((1024 - (smem_u32(tf32_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T_STAGES * T_STAGE_BYTES);
+  uint64_t* ready = full + T_STAGES;
+  uint64_t* empty = ready + T_STAGES;
+  const int units = tiles * splits;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], T_SPLITTERS);
+      mbar_init(&empty[s], 2);  // one arrival from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    int it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = unit_of(u, tiles, col_tiles, splits, k_stages);
+      for (int kt = w.k0; kt < w.k1; ++kt, ++it) {
+        const int s = it % T_STAGES;
+        unsigned char* st = smem + s * T_STAGE_BYTES;
+        if (tid == 0) {  // the loads
+          mbar_wait(&empty[s], ((it / T_STAGES) & 1) ^ 1);  // at once on the first lap
+          mbar_expect_tx(&full[s], T_A_BYTES + T_B_BYTES);
+          tma_load_3d(st, &map_a, &full[s], kt * T_BK, w.row0, 0);
+          tma_load_3d(st + T_A_BYTES, &map_b, &full[s], kt * T_BK, w.col0, 0);
+        } else if (tid >= 32) {  // the splits of B, 16 bytes a thread at a time
+          mbar_wait(&full[s], (it / T_STAGES) & 1);
+          const float4* raw = reinterpret_cast<const float4*>(st + T_A_BYTES);
+          uint4* hi = reinterpret_cast<uint4*>(st + T_A_BYTES + T_B_BYTES);
+          uint4* lo = hi + T_B_BYTES / 16;
+          for (int i = tid - 32; i < T_B_BYTES / 16; i += T_SPLITTERS) {
+            const float4 v = raw[i];
+            uint4 h, l;
+            split_tf32(v.x, h.x, l.x);
+            split_tf32(v.y, h.y, l.y);
+            split_tf32(v.z, h.z, l.z);
+            split_tf32(v.w, h.w, l.w);
+            hi[i] = h;
+            lo[i] = l;
+          }
+          // these generic-proxy writes, visible to the consumers' wgmmas
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(&ready[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1, warp = tid / 32, lane = tid % 32;
+  // this lane's ldmatrix row of the A tile (rows 0-7 and 8-15 of the warp's
+  // 16 for tiles 0, 2 and 1, 3) and its column chunk's offset (columns 0-3
+  // and 4-7 of a k-step for tiles 0, 1 and 2, 3), before the swizzle
+  const int a_row = 64 * c + 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_chunk = lane >> 4;
+  float total[32], big[32], small[32];
+  uint32_t a[2][4][8];  // [stage parity][k-step][hi 0-3, lo 4-7]
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit w = unit_of(u, tiles, col_tiles, splits, k_stages);
+    const int nst = w.k1 - w.k0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) total[i] = 0.f;
+
+    // Stage j of a promotion interval, its A fragments in a[P]: its
+    // wgmmas are issued behind the previous stage's, which then retire,
+    // and that stage goes back to the producer.
+    auto stage = [&](auto parity, int j) {
+      constexpr int P = decltype(parity)::value;
+      const int s = it % T_STAGES;
+      const uint32_t phase = (it / T_STAGES) & 1;
+      mbar_wait(&full[s], phase);
+      mbar_wait(&ready[s], phase);
+      const unsigned char* st = smem + s * T_STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // the 128-byte swizzle: 16-byte chunk q of row r lies at q ^ (r % 8)
+        uint32_t raw[4];
+        ldmatrix_x4(raw, st + a_row * 128 + (((2 * kk + a_chunk) ^ (lane & 7)) << 4));
+#pragma unroll
+        for (int r = 0; r < 4; ++r) split_tf32(raw[r], a[P][kk][r], a[P][kk][4 + r]);
+      }
+      const uint64_t dh = smem_desc(st + T_A_BYTES + T_B_BYTES, 16, 1024, 1);
+      const uint64_t dl = smem_desc(st + T_A_BYTES + 2 * T_B_BYTES, 16, 1024, 1);
+      fence_regs(big);
+      fence_regs(small);
+      fence_regs(a[P]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t* f = a[P][kk];
+        const int acc = j > 0 || kk > 0;  // the interval's first k-step starts from 0
+        wgmma_tf32_n64(small, f[4], f[5], f[6], f[7], dh + 2 * kk, acc);
+        wgmma_tf32_n64(small, f[0], f[1], f[2], f[3], dl + 2 * kk, 1);
+        wgmma_tf32_n64(big, f[0], f[1], f[2], f[3], dh + 2 * kk, acc);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the stage before this one has been read
+      fence_regs(big);
+      fence_regs(small);
+      if (j > 0 && tid == 0) mbar_arrive(&empty[(it - 1) % T_STAGES]);
+      ++it;
+    };
+    // Every consumer runs every stage, also one whose rows all lie past n
+    // (TMA zero-fills them): a branch around the wgmmas that the compiler
+    // cannot prove uniform makes ptxas serialise them (C7518).
+    for (int i0 = 0; i0 < nst; i0 += T_PROMOTE) {
+      const int span = min(T_PROMOTE, nst - i0);
+      for (int j = 0; j < span; j += 2) {
+        stage(std::integral_constant<int, 0>(), j);
+        if (j + 1 < span) stage(std::integral_constant<int, 1>(), j + 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(big);
+      fence_regs(small);
+      if (tid == 0) mbar_arrive(&empty[(it - 1) % T_STAGES]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) total[i] += big[i] + small[i];
+    }
+
+    if (w.row0 + 64 * c >= n) continue;  // no live row
+    // Accumulator register 4jj + 2i + e holds row 16 * warp + lane / 4 + 8i
+    // of this warpgroup's 64, column 8jj + 2 (lane % 4) + e.
+    const int row = w.row0 + 64 * c + 16 * warp + lane / 4;
+    float* dst = out + (EPI == T_PART ? (size_t)w.split * n * ld_out : 0);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = w.col0 + 8 * jj + 2 * (lane % 4);
+      if (col >= out_cols) continue;  // out_cols is even, so col + 1 < out_cols too
+      float b0 = 0.f, b1 = 0.f;
+      if constexpr (EPI != T_PART) {
+        b0 = col < cols ? bias[col] : 0.f;
+        b1 = col + 1 < cols ? bias[col + 1] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (row + 8 * i >= n) continue;
+        float v0 = total[4 * jj + 2 * i] + b0, v1 = total[4 * jj + 2 * i + 1] + b1;
+        if constexpr (EPI == T_GELU) {
+          v0 = col < cols ? gelu_erf(v0) : 0.f;
+          v1 = col + 1 < cols ? gelu_erf(v1) : 0.f;
+        }
+        *reinterpret_cast<float2*>(dst + (size_t)(row + 8 * i) * ld_out + col) =
+            make_float2(v0, v1);
+      }
+    }
+  }
 }
 
-// JMAX: the output columns a thread may own, so D <= 16 * JMAX.
-template <int JMAX>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_wide_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                          const float* __restrict__ b1, const float* __restrict__ w2,
-                          const float* __restrict__ b2, float* __restrict__ out, int n, int d,
-                          int m, int active) {
-  const int xp = d + 4;  // rows stay 16-byte aligned and start 4 banks apart
-  extern __shared__ __align__(16) float wide_smem[];
-  float* xs = wide_smem;          // [F_ROWS][xp]
-  float* w1s = xs + F_ROWS * xp;  // [F_CHUNK][xp]
-  float* w2s = w1s + F_CHUNK * xp;  // [d][F_CP]
-  float* hs = w2s + d * F_CP;     // [F_ROWS][F_CP]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // row ty; h column tx, output columns tx + 16*j
-  const int row0 = blockIdx.x * F_ROWS;
-  const int nj = d / 16;
-
-  // the x tile, zero past the last row; it lands with the first weight chunks
-  for (int i = tid; i < F_ROWS * (d / 4); i += THREADS) {
-    const int r = i / (d / 4), p = i % (d / 4);
-    const bool live = row0 + r < n;
-    cp_async16(xs + r * xp + p * 4, live ? x + (size_t)(row0 + r) * d + p * 4 : x,
-               live ? 16 : 0);
-  }
-
-  float acc[JMAX];
-#pragma unroll
-  for (int j = 0; j < JMAX; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < active; c0 += F_CHUNK) {
-    __syncthreads();  // the previous chunk's reads of w1s, hs and w2s are done
-    // both weight chunks by 16-byte copies, zero past `active`; w2's rows by
-    // element when m % 4 != 0 (its pieces are then not 16-byte aligned)
-    for (int i = tid; i < F_CHUNK * (d / 4); i += THREADS) {
-      const int c = i / (d / 4), p = i % (d / 4);
-      const bool live = c0 + c < active;
-      cp_async16(w1s + c * xp + p * 4, live ? w1 + (size_t)(c0 + c) * d + p * 4 : w1,
-                 live ? 16 : 0);
+// A split phase's result: out[r, col] = epilogue(part[0] + part[1] + ...
+// + part[splits - 1]) for rows r < n and columns col < width (a multiple of
+// 4), summed in that order, then + bias[col] (zero at and past `cols`), and
+// with GELU the exact-erf GELU, columns at or past `cols` written as 0.
+// part is (splits, n, ld) f32, out (n, ld).
+template <bool GELU>
+__global__ void split_sum_kernel(const float* __restrict__ part, const float* __restrict__ bias,
+                                 float* __restrict__ out, int n, int ld, int width, int cols,
+                                 int splits) {
+  const long long quads = (long long)n * (width / 4);
+  for (long long q = blockIdx.x * (long long)blockDim.x + threadIdx.x; q < quads;
+       q += (long long)gridDim.x * blockDim.x) {
+    const long long r = q / (width / 4);
+    const int col = (int)(q % (width / 4)) * 4;
+    const long long at = r * ld + col;
+    float4 v = *reinterpret_cast<const float4*>(part + at);
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(part + (long long)s * n * ld + at);
+      v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
     }
-    if (m % 4 == 0) {
-      for (int i = tid; i < d * (F_CHUNK / 4); i += THREADS) {
-        const int o = i / (F_CHUNK / 4), col = c0 + (i % (F_CHUNK / 4)) * 4;
-        const int live = min(max(active - col, 0), 4);
-        cp_async16(w2s + o * F_CP + col - c0, live ? w2 + (size_t)o * m + col : w2, 4 * live);
-      }
-    } else {
-      for (int i = tid; i < d * F_CHUNK; i += THREADS) {
-        const int o = i / F_CHUNK, c = i % F_CHUNK;
-        w2s[o * F_CP + c] = c0 + c < active ? w2[(size_t)o * m + c0 + c] : 0.f;
-      }
+    float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool keep = col + k < cols;
+      e[k] += keep ? bias[col + k] : 0.f;
+      if (GELU) e[k] = keep ? gelu_erf(e[k]) : 0.f;
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-
-    float h = 0.f;
-    const float4* xr = reinterpret_cast<const float4*>(xs + ty * xp);
-    const float4* wr = reinterpret_cast<const float4*>(w1s + tx * xp);
-#pragma unroll 4
-    for (int k = 0; k < d / 4; ++k) h = dot4(xr[k], wr[k], h);
-    const int col = c0 + tx;
-    hs[ty * F_CP + tx] = col < active ? gelu_erf(h + b1[col]) : 0.f;
-    __syncthreads();
-
-    const float4* hr = reinterpret_cast<const float4*>(hs + ty * F_CP);
-#pragma unroll
-    for (int c = 0; c < F_CHUNK / 4; ++c) {
-      const float4 hv = hr[c];
-#pragma unroll
-      for (int j = 0; j < JMAX; ++j) {
-        if (j < nj)
-          acc[j] = dot4(hv, *reinterpret_cast<const float4*>(w2s + (tx + 16 * j) * F_CP + 4 * c),
-                        acc[j]);
-      }
-    }
+    *reinterpret_cast<float4*>(out + at) = make_float4(e[0], e[1], e[2], e[3]);
   }
+}
 
-  asm volatile("cp.async.wait_all;\n" ::);  // the x tile, when no chunk ran
-  const int r = row0 + ty;
-  if (r >= n) return;
-#pragma unroll
-  for (int j = 0; j < JMAX; ++j) {
-    if (j < nj) out[(size_t)r * d + tx + 16 * j] = acc[j] + b2[tx + 16 * j];
-  }
+constexpr int SUM_THREADS = 256;
+
+// One phase on `blocks` persistent blocks: A (rows, k) @ B (b_rows, k)^T
+// over k_stages stages of 32, into (rows, ld_out) tiles of col_tiles x 64
+// columns; with splits > 1, partial sums into part (splits, rows, ld_out)
+// and their sum into out.  `cols`: the bias's (and the GELU's mask's) bound.
+template <bool GELU>
+cudaError_t launch_tf32x3(int device, const CUtensorMap& map_a, const CUtensorMap& map_b,
+                          const float* bias, float* part, float* out, int ld_out, int rows,
+                          int cols, int k_stages, int col_tiles, int splits, int blocks,
+                          int sms, cudaStream_t stream) {
+  constexpr int EPI = GELU ? T_GELU : T_BIAS;
+  const int tiles = ((rows + T_BM - 1) / T_BM) * col_tiles;
+  // columns a tile writes, and a split's sum reads: ld_out is a multiple of
+  // 4, col_tiles * 64 of 64
+  const int width = std::min(ld_out, col_tiles * T_BN);
+  static std::atomic<unsigned long long> smem_set[2]{};  // one bit a device
+  auto* direct = wide_tf32x3_kernel<EPI>;
+  auto* split = wide_tf32x3_kernel<T_PART>;
+  auto* kernel = splits == 1 ? direct : split;
+  cudaError_t err =
+      raise_smem_limit_once((const void*)kernel, (int)T_SMEM, device, smem_set[splits > 1]);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, T_THREADS, T_SMEM, stream>>>(map_a, map_b, bias, splits == 1 ? out : part,
+                                                ld_out, rows, width, cols, k_stages, tiles,
+                                                col_tiles, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long quads = (long long)rows * (width / 4);
+  const int grid = (int)std::min<long long>((quads + SUM_THREADS - 1) / SUM_THREADS, 8LL * sms);
+  split_sum_kernel<GELU><<<grid, SUM_THREADS, 0, stream>>>(part, bias, out, rows, ld_out, width,
+                                                           cols, splits);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool AXIS>
@@ -541,37 +773,7 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
                                         models, stream);
 }
 
-template <int JMAX>
-cudaError_t launch_wide_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                            const void* b2, void* out, int n, int d, int m, int active,
-                            cudaStream_t stream) {
-  const size_t smem = wide_f32_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_wide_f32_kernel<JMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + F_ROWS - 1) / F_ROWS);
-  fused_mlp_wide_f32_kernel<JMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(out), n,
-      d, m, active);
-  return cudaGetLastError();
-}
-
-// The f32 wide kernel is instantiated per quarter of its range: the
-// accumulators of a thread are sized for D up to 256, 512, 768 and 1024.
 bool is_wide(int d) { return d > 64 && d <= 1024 && d % 64 == 0; }
-
-cudaError_t dispatch_wide_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                              const void* b2, void* out, int n, int d, int m, int active,
-                              cudaStream_t stream) {
-#define CASE(Q) \
-  case Q: return launch_wide_f32<16 * Q>(x, w1, b1, w2, b2, out, n, d, m, active, stream);
-  switch ((d + 255) / 256) {
-    CASE(1) CASE(2) CASE(3) CASE(4)
-    default: return cudaErrorInvalidValue;
-  }
-#undef CASE
-}
 
 #define MLP_ARGS x, w1, b1, w2, b2, out, n, m, active_p, active, models, stream
 
@@ -593,7 +795,8 @@ cudaError_t dispatch_f32(int d, const void* x, const void* w1, const void* b1,
 // width mask of each model on the device, or null for `active` in all; the
 // wide regime takes one model and a host width only.  dtype: 0 = float32,
 // 1 = bfloat16 (D = 8 only: `mlp_pipelined_launch` takes bf16 at D 16-64,
-// `fused_mlp_wide_launch` the wide regime).  Returns cudaGetLastError() after the launch (0 on
+// `fused_mlp_wide_launch` and `fused_mlp_wide_f32_launch` the wide
+// regime).  Returns cudaGetLastError() after the launch (0 on
 // success).  n == 0 launches nothing.
 extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
@@ -604,10 +807,8 @@ extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
   if (err != cudaSuccess) return (int)err;
   if (n == 0 || models == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (is_wide(d)) {  // bf16 takes fused_mlp_wide_launch
-    if (dtype != 0 || models != 1 || active_p != nullptr) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_wide_f32(x, w1, b1, w2, b2, out, n, d, m, active, stream);
-  }
+  // the wide regime takes fused_mlp_wide_launch (bf16) and
+  // fused_mlp_wide_f32_launch
   if (dtype == 0) return (int)dispatch_f32(d, MLP_ARGS);
   // bf16 at D 16-64 runs on K1c's pipeline (`mlp_pipelined_launch`)
   if (dtype == 1 && d == 8) return (int)launch<__nv_bfloat16, 8>(MLP_ARGS);
@@ -651,6 +852,65 @@ extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, 
   return (int)launch_gemm<FC2_BN_NARROW, false>(device, h, ld_h, ld_h, w2, d, m, ld_w2, out, d,
                                                 d, b2, d, n, k_tiles, d / FC2_BN_NARROW, sms,
                                                 stream);
+}
+
+// The f32 wide regime: one model, a host width.  x (n, d), w1 (m, d), b1
+// (m), w2 (d, m) with row stride ld_w2 (m, or m rounded up to 4 for a
+// zero-padded copy: TMA needs 16-byte row strides), b2 (d), h (n, ld_h)
+// the scratch for gelu(fc1) with ld_h = m rounded up to 4, part the
+// scratch of the split phases' partial sums (max(splits1 * ld_h, splits2 *
+// d) * n floats; unused, and may be null, when both are 1), out (n, d);
+// every base 16-byte aligned.  fc1 + GELU into h over the first
+// ceil(active / 64) column tiles on blocks1 blocks in splits1 K splits, then
+// fc2 + b2 over ceil(active / 32) k-stages of h on blocks2 blocks in
+// splits2 K splits (`fused_mlp.wide_f32_plan` lays both out); a split phase
+// is a second launch that sums its splits in order.  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
+// shape, layout or plan it does not take (nothing launched).  n == 0
+// launches nothing.
+extern "C" int fused_mlp_wide_f32_launch(int device, const void* x, const void* w1,
+                                         const void* b1, const void* w2, int ld_w2,
+                                         const void* b2, void* h, int ld_h, void* part,
+                                         void* out, int n, int d, int m, int active,
+                                         int splits1, int blocks1, int splits2, int blocks2,
+                                         void* stream_) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!is_wide(d) || m < 1 || ld_w2 < m || ld_w2 % 4 != 0 || ld_h < m || ld_h % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  int sms = 0;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return (int)err;
+  active = std::min(std::max(active, 0), m);
+  const int row_tiles = (n + T_BM - 1) / T_BM;
+  const int cols1 = (active + T_BN - 1) / T_BN, k1 = d / T_BK;
+  const int cols2 = d / T_BN, k2 = (active + T_BK - 1) / T_BK;
+  // a plan the kernels take: every split holds a stage, every block a unit
+  const auto bad = [](int splits, int blocks, int tiles, int k) {
+    return splits < 1 || splits > std::max(k, 1) || blocks < 1 || blocks > tiles * splits;
+  };
+  if ((active > 0 && bad(splits1, blocks1, row_tiles * cols1, k1)) ||
+      bad(splits2, blocks2, row_tiles * cols2, k2) ||
+      (((active > 0 && splits1 > 1) || splits2 > 1) && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_x, map_w1, map_h, map_w2;
+  if (!encode_map_3d(&map_x, x, 1, n, d, d, T_BK, T_BM, 128, 4) ||
+      !encode_map_3d(&map_w1, w1, 1, m, d, d, T_BK, T_BN, 128, 4) ||
+      !encode_map_3d(&map_h, h, 1, n, ld_h, ld_h, T_BK, T_BM, 128, 4) ||
+      !encode_map_3d(&map_w2, w2, 1, d, ld_w2, ld_w2, T_BK, T_BN, 128, 4))
+    return (int)cudaErrorInvalidValue;
+  float* scratch = static_cast<float*>(part);
+  if (active > 0) {
+    err = launch_tf32x3<true>(device, map_x, map_w1, static_cast<const float*>(b1), scratch,
+                              static_cast<float*>(h), ld_h, n, active, k1, cols1, splits1,
+                              blocks1, sms, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_tf32x3<false>(device, map_h, map_w2, static_cast<const float*>(b2), scratch,
+                                   static_cast<float*>(out), d, n, d, k2, cols2, splits2, blocks2,
+                                   sms, stream);
 }
 
 extern "C" const char* fused_mlp_error_string(int err) {

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by K1's wide body (`fused_mlp.cu`),
+// Hopper (sm_90a) building blocks shared by K1's wide bodies (`fused_mlp.cu`),
 // K1c's bf16 body (`mlp_pipelined.cu`) and K4 (`attention.cu`): shared-memory addresses, mbarriers, TMA loads and
 // stores, wgmma descriptors and instructions, and on the host the
 // tensor-map encoder, the SM count and the shared-memory limit, each asked
@@ -470,12 +470,12 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of a bf16 tensor (depth, rows, cols), rows `ld` elements apart
-// and matrices rows * ld apart, read in boxes of (box_cols, box_rows, 1)
-// with the swizzle of `swizzle` bytes (32, 64 or 128: box_cols * 2 at
-// most; 0: none); out-of-range elements load as zero.  A box never crosses from one
-// matrix into the next.  TMA needs a 16-byte aligned base and a row stride
-// that is a multiple of 16 bytes.
+// The map of a bf16 tensor (depth, rows, cols), or an f32 one with `elt` 4,
+// rows `ld` elements apart and matrices rows * ld apart, read in boxes of
+// (box_cols, box_rows, 1) with the swizzle of `swizzle` bytes (32, 64 or
+// 128: box_cols * elt at most; 0: none); out-of-range elements load as
+// zero.  A box never crosses from one matrix into the next.  TMA needs a
+// 16-byte aligned base and a row stride that is a multiple of 16 bytes.
 //
 // A map is a function of these arguments alone, so the map encoded for the
 // same arguments before is the same map, whatever tensor now lies at that
@@ -486,15 +486,15 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, i
 // the arguments; a collision costs one encode.
 struct Map3dKey {
   const void* base;
-  int depth, rows, cols, ld, box_cols, box_rows, swizzle;
+  int depth, rows, cols, ld, box_cols, box_rows, swizzle, elt;
   bool operator==(const Map3dKey& o) const {
     return base == o.base && depth == o.depth && rows == o.rows && cols == o.cols &&
            ld == o.ld && box_cols == o.box_cols && box_rows == o.box_rows &&
-           swizzle == o.swizzle;
+           swizzle == o.swizzle && elt == o.elt;
   }
   size_t slot(size_t slots) const {
     uint64_t h = reinterpret_cast<uintptr_t>(base);
-    for (const int v : {depth, rows, cols, ld, box_cols, box_rows, swizzle})
+    for (const int v : {depth, rows, cols, ld, box_cols, box_rows, swizzle, elt})
       h = (h ^ (uint32_t)v) * 0x100000001b3ull;  // FNV-1a's multiplier
     return (size_t)((h ^ (h >> 29)) % slots);
   }
@@ -517,11 +517,12 @@ inline Map3dCache& map_3d_cache() {
 }
 
 inline bool encode_map_3d(CUtensorMap* map, const void* base, int depth, int rows, int cols,
-                          int ld, int box_cols, int box_rows, int swizzle) {
+                          int ld, int box_cols, int box_rows, int swizzle, int elt = 2) {
   const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0)
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || (elt != 2 && elt != 4) ||
+      (ld * elt) % 16 != 0)
     return false;
-  const Map3dKey key{base, depth, rows, cols, ld, box_cols, box_rows, swizzle};
+  const Map3dKey key{base, depth, rows, cols, ld, box_cols, box_rows, swizzle, elt};
   Map3dCache& cache = map_3d_cache();
   Map3dCache::Slot& slot = cache.slots[key.slot(Map3dCache::SLOTS)];
   std::lock_guard<std::mutex> hold(cache.lock);
@@ -530,14 +531,16 @@ inline bool encode_map_3d(CUtensorMap* map, const void* base, int depth, int row
     return true;
   }
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * elt, (cuuint64_t)ld * elt * rows};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   const CUtensorMapSwizzle sw = swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                 : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+  const CUtensorMapDataType type =
+      elt == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (encode(map, type, 3, const_cast<void*>(base), dims, strides,
              box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;

@@ -32,6 +32,11 @@ The GELU follows the JAX kernels' rule (`pallas_mlp.py:179`): exact erf
 in f32, and in bf16 their clamped odd polynomial (`poly_gelu`, at most
 5.73e-4 from exact GELU), in the kernels and in the plain versions alike.
 
+K1's wide calls (D a multiple of 64 from 128 to 1,024) run on two GEMM
+phases on `wgmma` fed by TMA, h through an L2-resident scratch, in f32
+with both products in 3xTF32 on the tensor cores (`wide_f32_plan` lays
+out those grids).
+
 K1's narrow bf16 calls at D >= 16 run on K1c's warp-specialised `wgmma`
 pipeline (`csrc/mlp_pipelined.cu`), whatever their token rows: on an H100
 it took less device time than the `mma.sync` body of 64-row blocks that
@@ -84,7 +89,14 @@ WIDTHS = (8, 16, 32, 64)
 #: (the stretch model's D = 768), on K1's wide bodies.
 WIDE_STEP, WIDE_MAX = 64, 1024
 #: K1's bodies, as `k1_body_launched` names them.
-K1_BODIES = ("wgmma_pipeline", "cuda_cores", "wide_wgmma")
+K1_BODIES = ("wgmma_pipeline", "cuda_cores", "wide_wgmma", "wide_tf32x3")
+#: K1's wide f32 body (`wide_tf32x3_kernel`): (rows, columns) of an output
+#: tile, k of a pipeline stage, k between the promotions of its 3xTF32
+#: accumulators into an f32 sum, and the most K splits of a phase.
+WIDE_F32_TILE = (128, 64)
+WIDE_F32_STAGE_K = 32
+WIDE_F32_PROMOTE_K = 128
+WIDE_F32_MAX_SPLITS = 8
 _last_body = None
 
 #: The TPU kernels' bf16 GELU (`pallas_mlp.py:_BF16_GELU_A`,
@@ -264,6 +276,84 @@ def _launch_wide_bf16(x, w1, b1, w2, b2, out, n: int, active: int,
               out.data_ptr(), n, D, M, active, stream)
 
 
+def _wide_f32_phase(rows: int, col_tiles: int, k_stages: int, sms: int) -> dict:
+    """One phase of `wide_f32_plan`."""
+    tiles = rows * col_tiles
+    splits = max(1, min(WIDE_F32_MAX_SPLITS, sms // max(tiles, 1),
+                        k_stages * WIDE_F32_STAGE_K // WIDE_F32_PROMOTE_K))
+    units = tiles * splits
+    blocks = min(units, sms)
+    return {"tiles": tiles, "col_tiles": col_tiles, "k_stages": k_stages,
+            "splits": splits, "units": units, "blocks": blocks,
+            "waves": units / sms}
+
+
+def wide_f32_plan(n: int, D: int, M: int, active: int, sms: int) -> dict:
+    """The grids of K1's wide f32 body on a card of `sms` SMs: fc1 over
+    (n, active) in tiles of `WIDE_F32_TILE` (active rounded up to 64), K = D;
+    fc2 over (n, D), K = active.  Each phase is `units` units on `blocks`
+    persistent blocks, at most one an SM: block b takes units b, b + blocks,
+    ...  A phase whose tiles fill fewer than half the SMs splits its K into
+    `splits` runs of stages (`wide_f32_unit`), at most
+    `WIDE_F32_MAX_SPLITS` and never below `WIDE_F32_PROMOTE_K` of K each,
+    whose partial sums a second launch adds in split order."""
+    bm, bn = WIDE_F32_TILE
+    rows = -(-n // bm)
+    active = min(max(active, 0), M)
+    fc1 = (_wide_f32_phase(rows, -(-active // bn), D // WIDE_F32_STAGE_K, sms)
+           if active else None)
+    fc2 = _wide_f32_phase(rows, D // bn, -(-active // WIDE_F32_STAGE_K), sms)
+    return {"n": n, "D": D, "M": M, "active": active, "sms": sms,
+            "row_tiles": rows, "fc1": fc1, "fc2": fc2}
+
+
+def wide_f32_unit(phase: dict, u: int) -> tuple:
+    """Unit u of a phase of `wide_f32_plan`, as the kernel takes it
+    (`unit_of`): (first row, first column, first stage, stage past the
+    last) of tile u % tiles and K split u // tiles."""
+    t, s = u % phase["tiles"], u // phase["tiles"]
+    k, splits = phase["k_stages"], phase["splits"]
+    bm, bn = WIDE_F32_TILE
+    return ((t // phase["col_tiles"]) * bm, (t % phase["col_tiles"]) * bn,
+            s * k // splits, (s + 1) * k // splits)
+
+
+#: `fused_mlp_wide_f32_launch`'s arguments, as ctypes types.
+_WIDE_F32_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                      + [ctypes.c_void_p])
+
+
+def _launch_wide_f32(x, w1, b1, w2, b2, out, n: int, active: int,
+                     stream) -> int:
+    """K1's f32 wide body (`fused_mlp_wide_f32_launch`) on
+    `wide_f32_plan`'s grids: fc1 + GELU into an (n, M4) scratch, M rounded
+    up to 4, then fc2 from it; a split phase's partial sums through a
+    second scratch.  Returns the entry point's CUDA error code."""
+    D, M = x.shape[-1], w1.shape[0]
+    m4 = -(-M // 4) * 4
+    if m4 != M:
+        # TMA reads rows whose stride is a multiple of 16 bytes: w2's rows
+        # of M values are not, so the kernel reads a zero-padded copy
+        w2 = F.pad(w2, (0, m4 - M))
+    plan = wide_f32_plan(n, D, M, active, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    fc1, fc2 = plan["fc1"] or {"splits": 1, "blocks": 0}, plan["fc2"]
+    h = torch.empty(n, m4, dtype=x.dtype, device=x.device)
+    # the split phases' partial sums, one after the other in one scratch
+    width = max(fc1["splits"] * m4 if fc1["splits"] > 1 else 0,
+                fc2["splits"] * D if fc2["splits"] > 1 else 0)
+    part = torch.empty(n, width, dtype=x.dtype, device=x.device) if width else None
+    fn = _build.entry("fused_mlp", _WIDE_F32_ARGTYPES,
+                      symbol="fused_mlp_wide_f32_launch")
+    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              w2.data_ptr(), w2.shape[1], b2.data_ptr(), h.data_ptr(), m4,
+              None if part is None else part.data_ptr(), out.data_ptr(), n, D,
+              M, active, fc1["splits"], fc1["blocks"], fc2["splits"],
+              fc2["blocks"], stream)
+
+
 #: K1c's body at (device, D, dtype): its `mlp_pipelined_shape`, asked once.
 _K1C_SHAPES: dict = {}
 K1C_SHAPE_KEYS = ("tile_rows", "threads_a_block", "smem_bytes_a_block",
@@ -335,12 +425,15 @@ def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
 
 
 def _k1_body(dtype, D: int) -> str:
-    """The body a K1 call takes: in bf16, K1c's pipeline at D 16-64 and
-    the `wgmma` GEMMs at a wide D; in f32, and in bf16 at D = 8, the CUDA
-    cores (`fused_mlp_launch`'s own dispatch)."""
+    """The body a K1 call takes: at a wide D, the `wgmma` GEMMs (in f32
+    their 3xTF32 form); in bf16 at D 16-64, K1c's pipeline; in f32 at D <=
+    64, and in bf16 at D = 8, the CUDA cores (`fused_mlp_launch`'s own
+    dispatch)."""
+    if D not in WIDTHS:
+        return "wide_wgmma" if dtype == torch.bfloat16 else "wide_tf32x3"
     if dtype != torch.bfloat16 or D == 8:
         return "cuda_cores"
-    return "wgmma_pipeline" if D in WIDTHS else "wide_wgmma"
+    return "wgmma_pipeline"
 
 
 def k1_body_launched() -> str:
@@ -373,6 +466,8 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     body = _k1_body(x.dtype, D) if variant == "seq" else None
     if body == "wide_wgmma":
         err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
+    elif body == "wide_tf32x3":
+        err = _launch_wide_f32(x, w1, b1, w2, b2, out, n, active, stream)
     elif variant == "pipelined2" or body == "wgmma_pipeline":
         # K1c's library; on K1's routed calls, counted as K1's launch
         err = _launch_k1c(x, w1, b1, w2, b2, out, n, active, per_model,
