@@ -319,6 +319,33 @@ extern "C" int mma_tf32_probe_launch(float* out, int blocks, int iters, void* st
   mma_tf32_probe<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
   return (int)cudaGetLastError();
 }
+// whether mma.sync in TF32 overlaps FP32 work: each warp runs `iters` rounds
+// of MMA products (8 independent accumulators) and FMA rounds of 8
+// independent FFMAs; `which` 0 the products alone, 1 the FFMAs alone, 2 both
+template <int MMA, int FMA>
+__global__ void overlap_probe(float* out, int iters) {
+  float c[8][4] = {};
+  float f[8];
+  for (int j = 0; j < 8; ++j) f[j] = threadIdx.x * 0.001f + j;
+  const uint32_t a = threadIdx.x, b = 3 * threadIdx.x;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < MMA; ++k) mma_tf32(c[k % 8], a, b + k);
+#pragma unroll
+    for (int k = 0; k < FMA; ++k)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = fmaf(f[j], 1.0001f, 0.5f);
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += f[j] + c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int overlap_probe_launch(int which, float* out, int blocks, int iters, void* stream) {
+  auto* k = which == 0 ? overlap_probe<16, 0> : which == 1 ? overlap_probe<0, 64>
+                                                            : overlap_probe<16, 64>;
+  k<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
+  return (int)cudaGetLastError();
+}
 """
 SASS_LINE = re.compile(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 GELU_PROBE_LIB = "libgelu_probe.so"
@@ -362,6 +389,30 @@ def mma_tf32_probe() -> dict:
                                               MMA_PROBE_ITERS, stream)), 5)
     mma_tf32_rate = blocks * 4 * MMA_PROBE_ITERS * 8 * 2048 / (ms * 1e-3)
     return {"tflops": mma_tf32_rate / 1e12, "ms": ms, "blocks": blocks,
+            "launch_errors": sum(e != 0 for e in errors)}
+
+
+OVERLAP_PROBE_ITERS = 4096
+
+
+def overlap_probe() -> dict:
+    """ms of the probe library's `overlap_probe` on one block of 4 warps an
+    SM (a warp an SM sub-partition), by CUDA events: 16 `mma.sync` m16n8k8
+    TF32 products a round alone, 512 FFMAs a round alone, and both in one
+    round, with the share of the two alone that both take (1: no overlap)."""
+    launch = ctypes.CDLL(str(_build.BUILD_DIR / "gelu_probe" / GELU_PROBE_LIB)
+                         ).overlap_probe_launch
+    launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 128, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    errors = []
+    ms = [time_ms(lambda: errors.append(launch(which, out.data_ptr(), blocks,
+                                               OVERLAP_PROBE_ITERS, stream)), 3)
+          for which in range(3)]
+    return {"mma_ms": ms[0], "ffma_ms": ms[1], "both_ms": ms[2],
+            "both_over_sum": ms[2] / (ms[0] + ms[1]),
             "launch_errors": sum(e != 0 for e in errors)}
 
 
@@ -421,10 +472,13 @@ def phase_build() -> None:
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
     tf32 = k4_f32_sass()
     k1_tf32 = k1_f32_sass()
+    k1b_tf32 = k1b_f32_sass()
+    k1b_ptxas = ptxas_summary(logs["mlp_chunked"])
     attention_ptxas = ptxas_summary(logs["attention"])
     mlp_ptxas = ptxas_summary(logs["fused_mlp"])
     gelu = gelu_probe(probe)
     mma = mma_tf32_probe()
+    overlap = overlap_probe()
     # each GELU's FP32 instructions at the FP32 pipes' issue rate, its
     # exponentials (one a GELU at most) at the exponential unit's
     for dtype, form in GELU_OF.items():
@@ -436,12 +490,15 @@ def phase_build() -> None:
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
           **sass, "attention_f32_sass_hmma_tf32": tf32,
           "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
+          "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "k1_f32_plan": [k1_f32_plan(*case) for case in K1_F32_PLAN_CASES],
+          "k1b_f32_plan": [fused_mlp.k1b_f32_plan(*case) for case in K1B_F32_PLAN_CASES],
           "k4_plan": [k4_plan(*shape, dtype) for dtype in (torch.bfloat16, torch.float32)
                       for shape in K4_PLAN_SHAPES],
           "k1c_plan": [k1c_plan(*case) for case in K1C_PLAN_CASES],
           "gelu_instructions": gelu, "gelu_probe_points": GELU_PROBE_POINTS,
           "gelu_probe_atol": GELU_PROBE_ATOL, "mma_sync_tf32": mma,
+          "mma_sync_tf32_ffma_overlap": overlap,
           "gelus_per_s": {GELU_OF[d]: r for d, r in gelu_rate.items()}})
     for name, n in sass.items():
         check(n > 0, f"{name}: the library holds no such instruction")
@@ -449,6 +506,8 @@ def phase_build() -> None:
           f"K4's f32 instantiations' TF32 HMMAs: {tf32}")
     check(mma["launch_errors"] == 0 and mma["tflops"] > 0,
           f"mma.sync TF32 probe: {mma}")
+    check(overlap["launch_errors"] == 0 and overlap["both_ms"] > 0,
+          f"mma.sync / FFMA overlap probe: {overlap}")
     check(not any("tf32x3" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's f32 body spills: {attention_ptxas['spilling_entries']}")
     check(len(k1_tf32) == 3 and all(n > 0 for n in k1_tf32.values()),
@@ -458,6 +517,10 @@ def phase_build() -> None:
           f"K1's wide f32 body spills: {mlp_ptxas['spilling_entries']}")
     check(mlp_ptxas["wgmma_serialized"] == mlp_ptxas["wgmma_serialized_divergent"] == 0,
           "ptxas serialised K1's wgmmas")
+    check(len(k1b_tf32) == len(fused_mlp.WIDTHS) and all(n > 0 for n in k1b_tf32.values()),
+          f"K1b's f32 instantiations' TF32 HMMAs: {k1b_tf32}")
+    check(not any("tf32x3" in e for e in k1b_ptxas["spilling_entries"]),
+          f"K1b's f32 body spills: {k1b_ptxas['spilling_entries']}")
     for form, g in gelu.items():
         check(g["fp32"] > 0 and g["launch_error"] == 0
               and g["max_abs_err_vs_plain"] <= GELU_PROBE_ATOL,
@@ -483,6 +546,20 @@ def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
     check(plan["blocks"] <= plan["slots"], f"K1c plan {plan} exceeds the slots")
     return {"dtype": str(dtype).split(".")[1], "D": D, "n": n, "models": models,
             **shape, **plan}
+
+
+def k1b_f32_sass() -> dict:
+    """Lines of TF32 HMMA in each instantiation of K1b's f32 body (one a D),
+    by its mangled name in the library's SASS."""
+    return {fn.split()[0]: sum("HMMA" in line and "TF32" in line
+                               for line in fn.splitlines())
+            for fn in sass_of(_build.library_path("mlp_chunked")).split("Function : ")[1:]
+            if "chunked_tf32x3_kernel" in fn.split()[0]}
+
+
+# K1b's f32 grids at its timed shapes: the model axis (30 models of 1,560
+# rows) and the serving shape.
+K1B_F32_PLAN_CASES = ((24 * 65, 30), (B * 65, 1))
 
 
 def k1_f32_sass() -> dict:
@@ -675,7 +752,7 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
               + (4 * P if models else 0))
     bound_ms, bound_by = bound(flops, nbytes, dtype, gelus=N * live)
     tf32 = {}
-    if body == "wide_tf32x3":
+    if body == "wide_tf32x3" or (variant == "chunked" and dtype == torch.float32):
         # the products in 3xTF32: three times the operations at the TF32
         # peak, beside the same products on CUDA cores at the FP32 peak and
         # the three at the rate `mma.sync` reaches in TF32 on this card
@@ -753,30 +830,34 @@ def phase_k1(gen) -> tuple:
     return main, wide, small, wide_f32
 
 
-def phase_k1_f32_scaled() -> dict:
-    """K1's wide f32 body at the stretch path's B=1 shape with x four times
-    larger, where the 3xTF32 products' truncation inside the tensor cores
-    weighs most, held to the exact (f64) MLP at the f32 tolerance; the f32
-    plain version's own distance from it is printed beside."""
-    # a generator of its own, so the phases that follow draw what they drew
-    own = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    N, D, M = STRETCH_ROWS[1], 768, 3072
+def phase_f32_scaled(variant: str, N: int, D: int, seed: int) -> dict:
+    """K1's wide f32 body (variant "seq", D = 768) or K1b's f32 body
+    ("chunked") with x four times larger, where the 3xTF32 products'
+    truncation inside the tensor cores weighs most, held to the exact (f64)
+    MLP at the f32 tolerance at M = 3,072; the f32 plain version's own
+    distance from it is printed beside.  Its inputs come from a generator
+    of its own (`seed`), so the phases that follow draw what they drew."""
+    own = torch.Generator(device="cuda").manual_seed(seed)
+    M, kernel = 3072, VARIANT_KERNELS[variant]
     x = torch.randn(N, D, generator=own, device="cuda") * 4
     w1, b1, w2, b2 = mlp_weights(own, torch.float32, D, M)
-    with torch.no_grad():
+    plain = fused_mlp._plain_mlp_chunked if variant == "chunked" else fused_mlp._plain_mlp
+    with torch.no_grad(), mlp_variant(variant):
+        before = launches()[kernel]
         out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, M)
-        body = fused_mlp.k1_body_launched()
+        launched = launches()[kernel] - before
+        body = fused_mlp.k1_body_launched() if variant == "seq" else None
         ref = exact_mlp(x, w1, b1, w2, b2)
         over, ratio = over_gate(out, ref, TOL[torch.float32])
-        plain_over, plain_ratio = over_gate(
-            fused_mlp._plain_mlp(x, w1, b1, w2, b2, M), ref, TOL[torch.float32])
-    case = {"phase": "K1_f32_scaled", "shape": [N, D, M], "x_scale": 4.0,
-            "body": body, "reference": "f64", "over_gate": over,
-            "max_err_over_gate": ratio, "plain_over_gate": plain_over,
+        plain_over, plain_ratio = over_gate(plain(x, w1, b1, w2, b2, M), ref,
+                                            TOL[torch.float32])
+    case = {"phase": f"{kernel}_f32_scaled", "shape": [N, D, M], "x_scale": 4.0,
+            "body": body, "launches": launched, "reference": "f64",
+            "over_gate": over, "max_err_over_gate": ratio, "plain_over_gate": plain_over,
             "plain_max_err_over_gate": plain_ratio,
-            "ok": over == 0 and body == "wide_tf32x3"}
+            "ok": over == 0 and launched == 1 and body in (None, "wide_tf32x3")}
     emit(case)
-    check(case["ok"], f"K1 f32 scaled {case}")
+    check(case["ok"], f"{kernel} f32 scaled {case}")
     return case
 
 
@@ -1883,26 +1964,31 @@ def phase_model_axis(gen) -> dict:
 
 def phase_mlp_variants(gen) -> dict:
     """K1b and K1c against their plain versions at K1's narrow serving
-    shapes, masked and unmasked, and at the model-axis shape; K1c's serving
-    case at (bf16, D=64, M=3072) and its model-axis case in f32 also by
-    device time beside the library chain's.  Returns each variant's serving
-    case at (bf16, D=64, M=3072) and its model-axis case in f32."""
+    shapes, masked and unmasked, and at the model-axis shape; by device time
+    beside the library chain's: K1c's serving case at (bf16, D=64, M=3072),
+    K1b's f32 serving case at (D=64, M=3072) (its 3xTF32 body) and both
+    variants' model-axis cases in f32.  Returns each variant's serving case
+    at (bf16, D=64, M=3072) and its model-axis case in f32, and K1b's f32
+    serving case."""
     out = {}
     for variant in ("chunked", "pipelined2"):
-        timed = variant == "pipelined2"   # K1c's device time beside the chain's
         for dtype in (torch.bfloat16, torch.float32):
             for D in (16, 32, 64):
                 for M in (2048, 3072):
                     for active in (M, M - 1000):
                         main = (dtype, D, M, active) == (torch.bfloat16, 64, 3072, 3072)
-                        case = k1_case(gen, dtype, B * 65, D, M, active,
-                                       "serve", variant, device=timed and main)
+                        f32_main = (variant, dtype, D, M, active) == (
+                            "chunked", torch.float32, 64, 3072, 3072)
+                        case = k1_case(gen, dtype, B * 65, D, M, active, "serve", variant,
+                                       device=(main and variant == "pipelined2") or f32_main)
                         if main:
                             out[variant] = case
+                        if f32_main:
+                            out["chunked_f32"] = case
             case = k1_case(gen, dtype, MODEL_AXIS_ROWS, 64, 3072,
                            MODEL_AXIS_WIDTHS, "sweep_eval", variant,
                            models=len(MODEL_AXIS_WIDTHS),
-                           device=timed and dtype == torch.float32)
+                           device=dtype == torch.float32)
             if dtype == torch.float32:
                 out[f"{variant}_model_axis"] = case
     return out
@@ -2113,12 +2199,13 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k1, k1_wide, k1_latency, k1_wide_f32 = phase_k1(gen)
-    k1_scaled = phase_k1_f32_scaled()
+    k1_scaled = phase_f32_scaled("seq", STRETCH_ROWS[1], 768, SEED + 3)
     # the phases of the fused-FFN variants and the model axis draw from a
     # generator of their own, so the phases that follow draw what they drew
     own = torch.Generator(device="cuda").manual_seed(SEED + 1)
     k1_models = phase_model_axis(own)
     k1_variants = phase_mlp_variants(own)
+    k1b_scaled = phase_f32_scaled("chunked", MODEL_AXIS_ROWS, 64, SEED + 4)
     k2 = phase_k2(gen)
     k3, k3_stretch, k3_serve = phase_k3(gen)
     k4 = phase_k4(gen)
@@ -2180,6 +2267,12 @@ def main() -> int:
         out = {k: case[k] for k in case if k in shape_keys + number_keys}
         return {**out, "launches": by_path[VARIANT_KERNELS["seq"]][path]} if path else out
 
+    def k1b_f32_case(case):
+        """A K1b f32 case with its error over the gate and its other bounds."""
+        return {**case_of(case), "max_err_over_gate": case["max_err_over_gate"],
+                "bound_ms_cuda_cores": case["bound_ms_cuda_cores"],
+                "bound_ms_mma_sync": case["bound_ms_mma_sync"]}
+
     emit({"kernels": [
         # K1's serving calls run on K1c's wgmma pipeline (bf16, D 16-64),
         # f32 and the wide regime on its own bodies
@@ -2209,7 +2302,12 @@ def main() -> int:
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
             "variants_chunked",
-            model_axis_case=case_of(k1_variants["chunked_model_axis"])),
+            # its f32 body (3xTF32 on mma.sync) at the model axis and at the
+            # serving shape, with the three bounds, and with x four times
+            # larger against the f64 MLP
+            model_axis_case=k1b_f32_case(k1_variants["chunked_model_axis"]),
+            f32_case=k1b_f32_case(k1_variants["chunked_f32"]),
+            f32_scaled_max_err_over_gate=k1b_scaled["max_err_over_gate"]),
         row("K1c", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:142", k1_variants["pipelined2"],
             "variants_pipelined2",

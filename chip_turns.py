@@ -20,6 +20,14 @@ timed alike:
     `WIDE_K1_CASES`): the same, with the device ms of the f32 chain
     F.linear -> F.gelu -> F.linear (width-masked) beside, and the largest
     error over the f32 gate against ROOT's plain version;
+  * K1b in f32 (variant "chunked") at the sweep's model-axis shape (30
+    models of 1,560 rows, D = 64, widths 2,048 and 3,072), the serving
+    shape (33,280, 64, 3,072) and the f32 shapes of the card tests
+    (`tests/test_torch_kernels.py`): device ms under the profiler (10
+    calls), ms by CUDA events, the device ms of the library chain (F.linear
+    -> F.gelu -> F.linear, or `baddbmm` -> F.gelu -> `baddbmm` with the
+    widths folded into w2, as `chip_smoke.k1_case` times it) and the largest
+    error over the f32 gate against ROOT's `_plain_mlp_chunked`;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
@@ -54,6 +62,19 @@ K1_F32_SHAPES = ((4104, 768, 3072, 3072), (4104, 768, 3072, 2072),
                  (70, 768, 256, 200), (70, 128, 512, 512), (33, 1024, 96, 96),
                  (50, 192, 100, 77), (40, 256, 2204, 2000), (40, 768, 64, 0),
                  (128, 128, 128, 77), (1, 768, 3072, 3072), (300, 128, 3072, 3072))
+# K1b's f32 cases: (N, D, M, width, models), the width a list of one a
+# model with the model axis
+K1B_F32_CASES = ((1560, 64, 3072, [2048] * 15 + [3072] * 15, 30),
+                 (33280, 64, 3072, 3072, 0), (33280, 64, 3072, 2072, 0),
+                 (202, 8, 2204, 2204, 0), (202, 16, 2048, 2048, 0),
+                 (202, 32, 3072, 1000, 0), (202, 64, 1100, 1100, 0),
+                 (202, 64, 3072, 0, 0), (202, 16, 2204, 2000, 0),
+                 (40000, 16, 600, 513, 0), (1560, 64, 3072, 3072, 0),
+                 (1560, 8, 2204, [2204, 1504, 0, 513], 4),
+                 (1560, 16, 1100, [1100, 400, 0, 513], 4),
+                 (1560, 32, 2048, [2048, 1348, 0, 513], 4),
+                 (1560, 64, 3072, [3072, 2372, 0, 513], 4),
+                 (300, 64, 1100, [0, 1030, 1100], 3))
 BUILD = ["fused_mlp", "mlp_chunked", "mlp_pipelined", "tiny_attention",
          "attention"]
 
@@ -135,6 +156,42 @@ def main() -> int:
                   "body": body, "max_err_over_gate": over, "ms": cs.time_ms(call, 10),
                   "device_ms": cs.mlp_device_ms(call),
                   "host_ms": cs.host_ms(call, iters=10), "chain_device_ms": chain_ms})
+
+        # a generator of their own, so the phases after draw what they drew
+        own = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+        for N, D, M, width, P in K1B_F32_CASES:
+            lead = (P,) if P else ()
+            x = torch.randn(*lead, N, D, generator=own, device="cuda")
+            w1, b1, w2, b2 = cs.mlp_weights(own, torch.float32, D, M, lead)
+            if P:
+                widths = torch.tensor(width, dtype=torch.int32, device="cuda")
+                w2m = w2 * (torch.arange(M, device="cuda") < widths[:, None, None])
+                b1u, b2u = b1.unsqueeze(1), b2.unsqueeze(1)
+                w1t, w2t = w1.transpose(1, 2), w2m.transpose(1, 2)
+
+                def chain():
+                    return torch.baddbmm(b2u, F.gelu(torch.baddbmm(b1u, x, w1t)), w2t)
+            else:
+                widths = width
+                w1a, b1a, w2a = w1[:width], b1[:width], w2[:, :width].contiguous()
+
+                def chain():
+                    return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
+
+            def call():
+                return fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+
+            with cs.mlp_variant("chunked"):
+                over = cs.over_gate(call(), fused_mlp._plain_mlp_chunked(
+                    x, w1, b1, w2, b2, widths), cs.TOL[torch.float32])[1]
+                line = {"phase": "k1b_f32", "N": N, "D": D, "M": M, "width": width,
+                        "models": P, "max_err_over_gate": over,
+                        "ms": cs.time_ms(call, 10), "device_ms": cs.mlp_device_ms(call)}
+            chain()
+            line["chain_device_ms"] = cs.device_time(
+                lambda: [chain() for _ in range(10)], host_ops=False)[0] / 10
+            emit(line)
+        del x, w1, b1, w2, b2
 
         x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,
                         device="cuda").to(bf16)

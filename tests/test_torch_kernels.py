@@ -10,6 +10,7 @@ Tolerances are the JAX package's own for its kernels
 version accumulate in f32 and round at the same points.
 """
 
+import ctypes
 import math
 
 import pytest
@@ -958,6 +959,87 @@ def test_variants_raise_on_what_they_do_not_take(cuda, monkeypatch):
     monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "fused")
     with pytest.raises(ValueError, match="unknown fused_mlp variant"):
         fused_mlp.fused_mlp(torch.zeros(2, 65, 16, device="cuda"), w1, b1, w2, b2)
+
+
+# --- K1b's f32 body: 3xTF32 on `mma.sync` ---------------------------------
+
+
+def test_k1b_f32_with_x_four_times_larger(cuda, monkeypatch):
+    """K1b in f32 at the model axis's widths (D = 64, M = 3,072) with x four
+    times larger, where the 3xTF32 products' truncation inside the tensor
+    cores weighs most: held to the exact (f64) MLP at the f32 tolerance."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    x = torch.randn(1560, 64, generator=cuda, device="cuda") * 4
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, 64, 3072)
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, 3072)
+    torch.cuda.synchronize()
+    _close(out, _f64_mlp(x, w1, b1, w2, b2, 3072), torch.float32)
+
+
+def test_k1b_f32_model_axis_gives_the_same_bits_twice(cuda, monkeypatch):
+    """The model axis at the sweep's evaluation shape (30 models of 1,560
+    rows, D = 64, widths 2,048 and 3,072): two calls give equal bits, and
+    the result holds the plain version."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    P, N, D, M = 30, 1560, 64, 3072
+    x = torch.randn(P, N, D, generator=cuda, device="cuda")
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, D, M, (P,))
+    widths = torch.tensor([2048] * 15 + [3072] * 15, dtype=torch.int32, device="cuda")
+    first = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+    second = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _close(first, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, widths), torch.float32)
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+def test_k1b_f32_model_axis_widths(cuda, monkeypatch, D):
+    """Three models in one launch with widths 0, 1,030 and M = 1,100 (two
+    whole 512-column chunks and a partial one, its last sub-chunk cut by the
+    mask), 300 rows each (a partial row tile): against the plain version and
+    each model launched alone, one K1b launch a call and no other."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    P, N, M = 3, 300, 1100
+    x = torch.randn(P, N, D, generator=cuda, device="cuda")
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, D, M, (P,))
+    widths = torch.tensor([0, 1030, M], dtype=torch.int32, device="cuda")
+    counts = {c: getattr(fused_mlp, c) for c in VARIANTS.values()}
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+    torch.cuda.synchronize()
+    for c, n in counts.items():
+        assert getattr(fused_mlp, c) == n + (c == "launches_k1b")
+    _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, widths), torch.float32)
+    torch.testing.assert_close(out[0], b2[0].expand(N, D), atol=0, rtol=0)
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p], int(widths[p]))
+        assert torch.equal(out[p], alone)
+
+
+def test_k1b_f32_entry_refuses_what_it_does_not_take(cuda):
+    """The f32 entry point launches its body or refuses (no plain fallback):
+    a grid of no row tile or of more row tiles than the rows fill, a D it
+    has no body for; the other entry takes bf16 alone."""
+    N, D, M = 70, 64, 1100
+    x = torch.randn(N, D, generator=cuda, device="cuda")
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, D, M)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    f32 = fused_mlp._build.entry("mlp_chunked", fused_mlp._K1B_F32_ARGTYPES,
+                                 "mlp_chunked_f32_launch")
+    ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, out)]
+    for d, tiles in ((D, 0), (D, 2), (48, 1)):
+        with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
+            fused_mlp._build.check("mlp_chunked", f32(0, *ptrs, N, d, M, M, None, 1,
+                                                      tiles, stream))
+    fused_mlp._build.check("mlp_chunked", f32(0, *ptrs, N, D, M, M, None, 1, 1, stream))
+    torch.cuda.synchronize()
+    _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, M), torch.float32)
+    bf16 = fused_mlp._build.entry("mlp_chunked", [ctypes.c_int] + [ctypes.c_void_p] * 6
+                                  + [ctypes.c_int] * 4
+                                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p])
+    with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
+        fused_mlp._build.check("mlp_chunked", bf16(0, *ptrs, N, D, M, M, None, 1, 0, stream))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

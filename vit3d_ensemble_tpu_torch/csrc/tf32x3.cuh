@@ -1,5 +1,6 @@
 // 3xTF32 on Hopper's tensor cores, shared by K4's f32 body (`attention.cu`,
-// `mma.sync`) and K1's wide f32 body (`fused_mlp.cu`, `wgmma`).
+// `mma.sync`), K1's wide f32 body (`fused_mlp.cu`, `wgmma`) and K1b's f32
+// body (`mlp_chunked.cu`, `mma.sync`: `mma_tf32x3` and `promote` below).
 //
 // One TF32 product (10 mantissa bits) misses the JAX tolerance of 2e-5 +
 // 1e-4 |ref| (`tests/test_torch_stretch.py` emulates both kernels); three
@@ -47,6 +48,28 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of a 3xTF32 product on m16n8k8 tiles: lo_a hi_b and hi_a lo_b
+// into `small`, hi_a hi_b into `big`, the two accumulators of the rule
+// above.  a: the A fragment split into TF32 hi and lo; b: the B fragment's
+// two registers, each split.
+__device__ __forceinline__ void mma_tf32x3(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                           uint32_t b_hi0, uint32_t b_hi1, uint32_t b_lo0,
+                                           uint32_t b_lo1) {
+  mma_tf32(small, a_lo, b_hi0, b_hi1);
+  mma_tf32(small, a_hi, b_lo0, b_lo1);
+  mma_tf32(big, a_hi, b_hi0, b_hi1);
+}
+
+// The promotion of one tile's two accumulators: sum += big + small in f32,
+// both accumulators back to 0 for the next interval of k-steps.
+__device__ __forceinline__ void promote(float4& sum, float (&big)[4], float (&small)[4]) {
+  sum = make_float4(sum.x + (big[0] + small[0]), sum.y + (big[1] + small[1]),
+                    sum.z + (big[2] + small[2]), sum.w + (big[3] + small[3]));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) big[e] = small[e] = 0.f;
 }
 
 // Four 8x4 f32 tiles from shared memory, one a register: lanes 8i .. 8i + 7

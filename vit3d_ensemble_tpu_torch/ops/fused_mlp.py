@@ -8,7 +8,8 @@ bounds it on the H100 and how it is laid out:
   * K1, `csrc/fused_mlp.cu` (`_mlp_kernel`, variant "seq");
   * K1b, `csrc/mlp_chunked.cu` (`_chunked_mlp_kernel`, "chunked"): fc2
     summed in f32 over chunks of `_CHUNK_M` hidden columns, on producer and
-    consumer warps;
+    consumer warps (in f32 both products in 3xTF32 on `mma.sync`, on the
+    grid `k1b_f32_plan` lays out);
   * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
     K1's function, software-pipelined in a persistent block (in bf16 at D
     >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
@@ -98,6 +99,9 @@ WIDE_F32_STAGE_K = 32
 WIDE_F32_PROMOTE_K = 128
 WIDE_F32_MAX_SPLITS = 8
 _last_body = None
+#: K1b's f32 body (`chunked_tf32x3_kernel`): token rows of a block's unit
+#: (one model's row tile, `k1b_f32_plan`).
+K1B_F32_TILE_ROWS = 128
 
 #: The TPU kernels' bf16 GELU (`pallas_mlp.py:_BF16_GELU_A`,
 #: `_BF16_GELU_COEFS`): h * (0.5 + y * Q(y^2)), y = clamp(h, -A, A), Q's
@@ -424,6 +428,33 @@ def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
               models, blocks, _DTYPES[x.dtype], stream)
 
 
+def k1b_f32_plan(n: int, models: int) -> dict:
+    """K1b's f32 grid: one block a unit (row tile of `K1B_F32_TILE_ROWS`,
+    model), grid x the row tiles, grid y the models."""
+    tiles = -(-n // K1B_F32_TILE_ROWS)
+    return {"tile_rows": K1B_F32_TILE_ROWS, "grid": (tiles, models),
+            "units": tiles * models}
+
+
+#: `mlp_chunked_f32_launch`'s arguments, as ctypes types.
+_K1B_F32_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                     + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def _launch_k1b_f32(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
+                    models: int, stream) -> int:
+    """K1b's f32 body (`mlp_chunked_f32_launch`, on `k1b_f32_plan`'s grid).
+    Returns the entry point's CUDA error code."""
+    D, M = x.shape[-1], w1.shape[-2]
+    tiles, _ = k1b_f32_plan(n, models)["grid"]
+    fn = _build.entry("mlp_chunked", _K1B_F32_ARGTYPES, "mlp_chunked_f32_launch")
+    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M, active,
+              None if per_model is None else per_model.data_ptr(), models, tiles,
+              stream)
+
+
 def _k1_body(dtype, D: int) -> str:
     """The body a K1 call takes: at a wide D, the `wgmma` GEMMs (in f32
     their 3xTF32 form); in bf16 at D 16-64, K1c's pipeline; in f32 at D <=
@@ -468,6 +499,9 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
         err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
     elif body == "wide_tf32x3":
         err = _launch_wide_f32(x, w1, b1, w2, b2, out, n, active, stream)
+    elif variant == "chunked" and x.dtype == torch.float32:
+        err = _launch_k1b_f32(x, w1, b1, w2, b2, out, n, active, per_model,
+                              models, stream)
     elif variant == "pipelined2" or body == "wgmma_pipeline":
         # K1c's library; on K1's routed calls, counted as K1's launch
         err = _launch_k1c(x, w1, b1, w2, b2, out, n, active, per_model,
