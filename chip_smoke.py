@@ -24,7 +24,11 @@ read just after:
     K4's body: counter `K3_on_K4`);
   * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
     K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
-  * the sweep engine (`run_group`) on the three groups of conf 1-18.
+  * the sweep engine (`run_group`) on the three groups of conf 1-18;
+  * the baseline drivers (`cli/train_baseline_cv`,
+    `cli/train_baseline_whole_dataset`), conf 9 and all 18 configs, from a
+    synthetic 99-patient dataset of PNGs and CSVs that the script writes
+    (K1 in evaluation, K2).
 
 Every line it prints is a JSON object.  The last is
 `{"ok": true, "device": {...}}`; it is printed only when every check
@@ -36,16 +40,21 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import csv
 import ctypes
 import dataclasses
 import json
+import logging
 import math
 import pathlib
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -57,8 +66,11 @@ from vit3d_ensemble_tpu_torch.configs import (
     ViTConfig,
     vit_b16_128cubed,
 )
-from vit3d_ensemble_tpu_torch.data import SplitArrays
+from vit3d_ensemble_tpu_torch.cli import train_baseline_cv, train_baseline_whole_dataset
+from vit3d_ensemble_tpu_torch.data import SplitArrays, native_loader
+from vit3d_ensemble_tpu_torch.data import pool as data_pool
 from vit3d_ensemble_tpu_torch.models import TransformerEnsemble, VisionTransformer3D
+from vit3d_ensemble_tpu_torch.models import vit3d as vit3d_module
 from vit3d_ensemble_tpu_torch.ops import (
     _build,
     attention,
@@ -68,6 +80,7 @@ from vit3d_ensemble_tpu_torch.ops import (
 )
 from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
 from vit3d_ensemble_tpu_torch.sweep import engine, stack
+from vit3d_ensemble_tpu_torch.sweep import stacked as stacked_module
 from vit3d_ensemble_tpu_torch.train.ensemble_trainer import train_ensemble
 from vit3d_ensemble_tpu_torch.train.trainer import init_baseline, train_baseline
 
@@ -452,7 +465,39 @@ def gelu_probe(proc) -> dict:
     return out
 
 
+def host_libraries() -> dict:
+    """Which of PIL, pandas, sklearn and cv2 the host's Python could
+    import (neither the port nor this script imports them), with their
+    versions, and the libpng shared objects there: the one the dynamic
+    loader finds and those Pillow bundles (no header comes with them)."""
+    import ctypes.util
+    import importlib.metadata
+    import importlib.util
+    out = {}
+    for module, dist in (("PIL", "pillow"), ("pandas", "pandas"),
+                         ("sklearn", "scikit-learn"), ("cv2", None)):
+        spec = importlib.util.find_spec(module)
+        try:
+            version = importlib.metadata.version(dist) if dist and spec else None
+        except importlib.metadata.PackageNotFoundError:
+            version = None
+        out[module] = {"importable": spec is not None, "version": version}
+        if module == "PIL" and spec is not None and spec.origin:
+            libs = pathlib.Path(spec.origin).parent.parent / "pillow.libs"
+            out["pillow_bundled_libpng"] = sorted(p.name for p in libs.glob("libpng*"))
+    out["libpng_loader_finds"] = (ctypes.util.find_library("png16")
+                                  or ctypes.util.find_library("png"))
+    return out
+
+
 def phase_build() -> None:
+    # the PNG decoder of the `cli` phase: `native/volume_loader.cpp` built
+    # with g++ against libpng, or the stdlib fallback where that fails
+    t0 = time.perf_counter()
+    decoder = native_loader.status()
+    emit({"phase": "build_native_decoder", "seconds": time.perf_counter() - t0,
+          "libpng_linked": decoder["decoder"] == "native", **decoder,
+          "host_libraries": host_libraries()})
     t0 = time.perf_counter()
     probe = start_gelu_probe()
     logs = _build.build(["fused_mlp", "mlp_chunked", "mlp_pipelined",
@@ -1527,31 +1572,41 @@ def device_time(fn, host_ops: bool = True) -> tuple:
     number of kernels, the most any held, up to PROFILE_TRIES times (twice
     that while every trace is empty), and the trace with the most is taken;
     `fn` runs once a try."""
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.insert(0, ProfilerActivity.CPU)
     best = None
     for i in range(2 * PROFILE_TRIES):
         if i >= PROFILE_TRIES and best[2]:
             break
-        with profile(activities=activities) as prof:
-            fn()
-            torch.cuda.synchronize()
-        groups: dict = {}
-        counts: dict = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            group = next((g for g, pat in KERNEL_GROUPS if pat in e.key), "other")
-            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-            counts[group] = counts.get(group, 0) + e.count
-        kernels = sum(counts.values())
+        busy, groups, kernels, counts, _ = traced(fn, host_ops)
         if best is not None and kernels and kernels == best[2]:
             break
         if best is None or kernels > best[2]:
-            best = (sum(groups.values()), groups, kernels, counts)
+            best = (busy, groups, kernels, counts)
     return best
+
+
+def traced(fn, host_ops: bool = False) -> tuple:
+    """One call of `fn` under torch.profiler: the device's busy ms, by
+    group, its kernels, by group, and the host ms of the call inside the
+    trace (from before `fn` to the end of a synchronize after it)."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    counts: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = next((g for g, pat in KERNEL_GROUPS if pat in e.key), "other")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+        counts[group] = counts.get(group, 0) + e.count
+    return sum(groups.values()), groups, sum(counts.values()), counts, wall_ms
 
 
 def phase_profile(main_path: dict, gen) -> float:
@@ -2177,6 +2232,438 @@ def phase_sweep_parity(pool, folds, data, hyper) -> None:
 
 
 
+# --- the `cli` phase: the baseline drivers from CSVs and PNGs on disk -------
+# A synthetic dataset at the real one's scale (SURVEY.md:321,439): 99
+# patients (one of them ProstateX-0179, whose slices are not reversed) of
+# 18-25 slices, 128 x 128 uint8 PNGs in the four folders, 112 lesion rows
+# (about a third HG), the CV manifests (72 / 18 x 5, a 22-row test.csv)
+# and the fixed split (81 / 9 / 22).  The script imports no PIL, as the
+# port does not, so the PNGs are written here with zlib, each row filtered
+# by one of the five PNG filter types in turn.
+CLI_PATIENTS, CLI_ROWS, CLI_TEST, CLI_FOLDS, CLI_FIXED_VAL = 99, 112, 22, 5, 9
+CLI_SLICES = (18, 25)
+CLI_STEPS, CLI_EVAL_EVERY = 24, 12
+# Rotated pool rows, card against the CPU: at most this share of a row's
+# pixels may differ (a source coordinate at an exact .5 can round the other
+# way when cos, sin or an FMA differ by an ulp), the bound of
+# `tests/test_torch_data.py`.
+CLI_ROTATION_MAX_SHARE = 1e-3
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path, img: np.ndarray, filters=None, interlace: int = 0) -> None:
+    """An (H, W) uint8 image as an 8-bit grayscale PNG, row y filtered by
+    `filters[y]` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth; by default the
+    five in turn)."""
+    H, W = img.shape
+    filters = np.arange(H) % 5 if filters is None else np.asarray(filters)
+    x = np.zeros((H + 1, W + 1), np.int16)      # a zero row above, column left
+    x[1:, 1:] = img
+    rows = np.empty((H, W + 1), np.uint8)
+    rows[:, 0] = filters
+    for f in range(5):
+        y = np.flatnonzero(filters == f) + 1
+        cur, left, up, up_left = x[y, 1:], x[y, :-1], x[y - 1, 1:], x[y - 1, :-1]
+        if f == 4:
+            p = left + up - up_left
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, up_left))
+        else:
+            pred = (0, left, up, (left + up) // 2)[f]
+        rows[y - 1, 1:] = (cur - pred) & 0xFF
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE
+                + png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0,
+                                                 interlace))
+                + png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + png_chunk(b"IEND", b""))
+
+
+def rotate_nearest(stack: np.ndarray, angle_deg: float) -> np.ndarray:
+    """Every slice of an (n, H, W) stack rotated about its centre, nearest
+    neighbour, 0 outside: the dataset's 'rotation' folder."""
+    _, H, W = stack.shape
+    t = math.radians(angle_deg)
+    yy, xx = np.mgrid[:H, :W].astype(np.float64)
+    yy, xx = yy - (H - 1) / 2, xx - (W - 1) / 2
+    sy = np.rint(math.cos(t) * yy - math.sin(t) * xx + (H - 1) / 2).astype(int)
+    sx = np.rint(math.sin(t) * yy + math.cos(t) * xx + (W - 1) / 2).astype(int)
+    ok = (sy >= 0) & (sy < H) & (sx >= 0) & (sx < W)
+    return np.where(ok, stack[:, sy.clip(0, H - 1), sx.clip(0, W - 1)], 0).astype(np.uint8)
+
+
+def write_manifest(path, rows) -> None:
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(("Patient", "Label", "Zone", "GG", "z0", "Lesion"))
+        out.writerows(rows)
+
+
+def synth_dataset(root, img: int = 128, patients: int = CLI_PATIENTS,
+                  rows: int = CLI_ROWS, test: int = CLI_TEST,
+                  folds: int = CLI_FOLDS, fixed_val: int = CLI_FIXED_VAL,
+                  seed: int = SEED) -> dict:
+    """Write the dataset under `root` in the reference layout
+    (`dataset/<patient>/<folder>/1-%02d.png`, `csv_files/cross_validation/`,
+    `csv_files/fixed_split/`); return its paths and sizes.  Lesion rows are
+    stratified over the folds, so every validation fold holds both classes;
+    a seventh of them sit at z0 = 1 and another at the last slice, where the
+    window runs off either end of the stack."""
+    root = pathlib.Path(root)
+    rng = np.random.default_rng(seed)
+    ids = [i for i in range(204) if i != 179]
+    names = [f"ProstateX-{i:04d}" for i in sorted(
+        [179, *rng.choice(ids, patients - 1, replace=False)])]
+    unreversed = "ProstateX-0179"
+    n_slices = {}
+    grid = np.add.outer(np.arange(img), np.arange(img)) * (96.0 / img)
+    for p, name in enumerate(names):
+        n = int(rng.integers(CLI_SLICES[0], CLI_SLICES[1] + 1))
+        n_slices[name] = n
+        base = (grid[None] + 40 * np.sin(np.arange(n)[:, None, None] + p)
+                + rng.integers(0, 90, size=(n, img, img)))
+        base = np.clip(base, 0, 255).astype(np.uint8)
+        folders = {"original": base, "vertical_flip": base[:, ::-1],
+                   "horizontal_flip": base[:, :, ::-1],
+                   "rotation": rotate_nearest(base, float(rng.uniform(-30, 30)))}
+        for folder, stack_ in folders.items():
+            d = root / "dataset" / name / folder
+            d.mkdir(parents=True)
+            for j in range(n):
+                write_png(d / f"1-{j + 1:02d}.png", np.ascontiguousarray(stack_[j]))
+    # every patient has a lesion; ProstateX-0179 three, at both ends
+    owners = (names + [str(n) for n in rng.choice(names, rows - patients - 2)]
+              + [unreversed] * 2)
+    lesions = collections.Counter()
+    table = []
+    hg = set(rng.choice(rows, rows // 3, replace=False).tolist())
+    for r, name in enumerate(owners):
+        n = n_slices[name]
+        lesions[name] += 1
+        end = name == unreversed and lesions[name] > 1
+        z0 = (1 if r % 7 == 0 or (end and lesions[name] == 2)
+              else n if r % 7 == 1 or end
+              else int(rng.integers(1, n + 1)))
+        gg = int(rng.integers(2, 6)) if r in hg else 1
+        table.append((name, "HG" if gg > 1 else "LG",
+                      ("PZ", "TZ", "AS")[int(rng.integers(3))], gg, z0,
+                      lesions[name]))
+    # stratified: each class shuffled, then dealt to test, folds, in turns
+    order = [i for cls in ("HG", "LG")
+             for i in rng.permutation([i for i, t in enumerate(table) if t[1] == cls])]
+    test_rows = order[::len(order) // test][:test]
+    rest = [i for i in order if i not in set(test_rows)]
+    cv_dir = root / "csv_files" / "cross_validation"
+    fixed_dir = root / "csv_files" / "fixed_split"
+    cv_dir.mkdir(parents=True)
+    fixed_dir.mkdir(parents=True)
+    val_of = [rest[k::folds] for k in range(folds)]
+    for k in range(folds):
+        val = set(val_of[k])
+        write_manifest(cv_dir / f"training_cv{k + 1}.csv",
+                       [table[i] for i in rest if i not in val])
+        write_manifest(cv_dir / f"validation_cv{k + 1}.csv",
+                       [table[i] for i in sorted(val)])
+    fixed_val_rows = set(rest[::len(rest) // fixed_val][:fixed_val])
+    write_manifest(fixed_dir / "training.csv",
+                   [table[i] for i in rest if i not in fixed_val_rows])
+    write_manifest(fixed_dir / "validation.csv",
+                   [table[i] for i in sorted(fixed_val_rows)])
+    for d in (cv_dir, fixed_dir):
+        write_manifest(d / "test.csv", [table[i] for i in sorted(test_rows)])
+    return {"data_root": str(root / "dataset"), "cv_csv": str(cv_dir),
+            "fixed_csv": str(fixed_dir), "patients": len(names),
+            "slices": sum(n_slices.values()), "rows": len(table),
+            "hg_rows": len(hg), "pngs": 4 * sum(n_slices.values())}
+
+
+def pool_rotation_check(ds: dict) -> dict:
+    """The 'device' augmentation's pool built on the card and on the CPU:
+    every row equal but the rotated ones, each of those within
+    CLI_ROTATION_MAX_SHARE differing pixels."""
+    pools = {dev: data_pool.build_pooled_cv(ds["cv_csv"], ds["data_root"], CLI_FOLDS,
+                                       aug_mode="device", device=dev)
+             for dev in ("cuda", "cpu")}
+    (gpu, gpu_folds), (cpu, cpu_folds) = pools["cuda"], pools["cpu"]
+    rot = sorted(r for k, r in gpu.key_to_row.items() if k[3] == "device_rotation")
+    other = np.setdiff1d(np.arange(len(gpu)), rot)
+    same_rest = bool(np.array_equal(gpu.volumes[other], cpu.volumes[other]))
+    shares = [float((gpu.volumes[r] != cpu.volumes[r]).mean()) for r in rot]
+    means = [abs(a.mean - b.mean) for (a, _), (b, _) in zip(gpu_folds, cpu_folds)]
+    ok = (gpu.key_to_row == cpu.key_to_row and same_rest and len(rot) > 0
+          and max(shares) <= CLI_ROTATION_MAX_SHARE)
+    line = {"phase": "cli_rotation", "card": card, "rows": len(gpu),
+            "rotation_rows": len(rot), "other_rows_equal": same_rest,
+            "max_differing_share": max(shares, default=0.0),
+            "rows_with_differences": sum(s > 0 for s in shares),
+            "bound_share": CLI_ROTATION_MAX_SHARE,
+            "max_fold_mean_diff": max(means), "ok": ok}
+    emit(line)
+    check(ok, f"cli: device rotation rows on the card against the CPU: {line}")
+    return line
+
+
+def checkpoint_layout(out: pathlib.Path, kind: str, confs, tags_of) -> dict:
+    """Every (conf, tag) checkpoint at `out/<kind>_models/conf<c>/<tag>.bin`
+    with exactly the member's state_dict names and shapes."""
+    missing, wrong = [], []
+    for conf in confs:
+        want = {k: tuple(v.shape) for k, v in VisionTransformer3D(
+            ViTConfig.from_conf(conf), device="cpu").state_dict().items()}
+        for tag in tags_of(conf):
+            path = out / f"{kind}_models" / f"conf{conf}" / f"{tag}.bin"
+            if not path.exists():
+                missing.append(str(path.relative_to(out)))
+                continue
+            got = {k: tuple(v.shape) for k, v in torch.load(
+                path, map_location="cpu", weights_only=True).items()}
+            if got != want:
+                wrong.append(str(path.relative_to(out)))
+    return {"files": sum(len(tags_of(c)) for c in confs), "missing": missing,
+            "wrong_shapes": wrong}
+
+
+@contextlib.contextmanager
+def kernel_calls(into: dict):
+    """Record in `into` every call the models make to K1's wrapper (one
+    model, `models/vit3d.py`; the model axis, `sweep/stacked.py`) and to the
+    attention wrapper (`ops/attention.py`) inside the block: K1's as
+    (dtype, N, D, M, models) with its widths, the attention's as (dtype,
+    (B, H, S, hd)) and whether q, k, v are views into one (B, S, 3, H, hd)
+    QKV product, as `k2_views` makes them.  The calls go through unchanged."""
+    sites = ((vit3d_module, "fused_mlp"), (stacked_module, "fused_mlp"),
+             (attention, "fused_attention"))
+    before = [getattr(module, name) for module, name in sites]
+
+    def mlp(x, w1, b1, w2, b2, mlp_active=None):
+        M, D = w1.shape[-2:]
+        models = w1.shape[0] if w1.dim() == 3 else 0
+        active = M if mlp_active is None else mlp_active
+        into.setdefault("K1", []).append(
+            (x.dtype, x.numel() // (D * max(models, 1)), D, M, models,
+             active.detach().clone() if torch.is_tensor(active) else active))
+        return fused_mlp.fused_mlp(x, w1, b1, w2, b2, mlp_active)
+
+    def attend(q, k, v):
+        nb, H, S, hd = q.shape
+        step = H * hd * q.element_size()
+        qkv = (q.stride() == (S * 3 * H * hd, hd, 3 * H * hd, 1)
+               and k.stride() == v.stride() == q.stride()
+               and k.data_ptr() - q.data_ptr() == step
+               and v.data_ptr() - k.data_ptr() == step)
+        into.setdefault("K2", []).append((q.dtype, (nb, H, S, hd), qkv))
+        return fused_attention.fused_attention(q, k, v)
+
+    for (module, name), wrapper in zip(sites, (mlp, mlp, attend)):
+        setattr(module, name, wrapper)
+    try:
+        yield into
+    finally:
+        for (module, name), fn in zip(sites, before):
+            setattr(module, name, fn)
+
+
+def cli_kernel_cases(calls: dict) -> dict:
+    """K1 and K2 against their plain versions at every shape the `cli` runs
+    gave them (`kernel_calls`), each shape once, on inputs from a generator
+    of their own: K1's model axis with the widths of that call."""
+    own = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    k1_shapes = {}
+    for dtype, N, D, M, models, active in calls.get("K1", []):
+        widths = torch.as_tensor(active).reshape(-1).tolist()
+        widths = tuple(widths * models if len(widths) == 1 else widths) if models \
+            else int(widths[0])
+        k1_shapes.setdefault((dtype, N, D, M, models, widths), None)
+    k2_shapes = sorted({(dtype, shape) for dtype, shape, _ in calls.get("K2", [])},
+                       key=lambda s: (str(s[0]), s[1]))
+    layouts = {qkv for _, _, qkv in calls.get("K2", [])}
+    check(layouts == {True}, "cli: the attention was called on q, k, v that are "
+                             "not views into one QKV product, as no K2 case makes them")
+    k1_cases = [k1_case(own, dtype, N, D, M, list(w) if models else w, "cli",
+                        models=models)
+                for dtype, N, D, M, models, w in sorted(
+                    k1_shapes, key=lambda s: (str(s[0]), s[1:5]))]
+    k2_cases = [k2_case(own, dtype, shape, "cli", device=False)
+                for dtype, shape in k2_shapes if shape[-1] <= 16]
+    return {"K1": k1_cases, "K2": k2_cases}
+
+
+def cli_idle(fn) -> dict:
+    """The device idle share of one call of `fn`: its busy time and its
+    wall time from one trace.  A trace can lack device events (see
+    `device_time`), so the call is traced again, up to PROFILE_TRIES times,
+    until the trace holds every K1 and K2 launch their counters saw in it."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = launches()
+        busy, groups, kernels, counts, wall_ms = traced(fn)
+        after = launches()
+        complete = all(counts.get(k, 0) >= after[k] - before[k] for k in ("K1", "K2"))
+        if complete and kernels:
+            break
+    return {"short_run_wall_ms_traced": wall_ms, "short_run_device_busy_ms": busy,
+            "short_run_kernels": kernels, "short_run_traces": tries,
+            "short_run_trace_complete": complete,
+            "device_idle_share": 1.0 - busy / wall_ms, "by_group_ms": groups}
+
+
+def phase_cli() -> dict:
+    """The baseline drivers, through `main(argv)`, from CSVs and PNGs that
+    this phase writes: `train_baseline_cv` (conf 9, 5 folds; --all_configs,
+    the 18 x 5 sweep in three groups of 30 cells; the same with --resume,
+    which must return the same dict and launch nothing; --all_configs with
+    --aug_mode device) and `train_baseline_whole_dataset` (conf 9;
+    --all_configs), 24 steps each, dropout on, on the card.  Each run's
+    seconds, ms a step and K1/K2 launches (counted, and each launch's shape
+    recorded by `kernel_calls`), its device idle share (busy time over
+    wall time of one traced short run of the same driver: 12 steps, one
+    fold where the folds run in turn; `cli_idle`), its results (finite,
+    for every conf and fold) and its checkpoints (the reference layout,
+    the members' shapes).  Then K1 and K2 against their plain versions at
+    every shape the runs gave them (`cli_kernel_cases`)."""
+    # the drivers log at INFO through `setup_logging`; keep stderr short
+    logging.basicConfig(level=logging.WARNING)
+    work = pathlib.Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        return _phase_cli(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_cli(work: pathlib.Path) -> dict:
+    t0 = time.perf_counter()
+    ds = synth_dataset(work / "data")
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold_pool, cold_folds = data_pool.build_pooled_cv(ds["cv_csv"], ds["data_root"],
+                                                 CLI_FOLDS, device="cuda")
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data_pool.build_pooled_cv(ds["cv_csv"], ds["data_root"], CLI_FOLDS, device="cuda")
+    warm_s = time.perf_counter() - t0
+    emit({"phase": "cli_data", "card": card, **ds, "write_seconds": written,
+          "decoder": native_loader.decoder(), "decoder_status": native_loader.status(),
+          "pool_build_seconds_cold": pool_s, "pool_build_seconds_warm": warm_s,
+          "pool_unique_volumes": len(cold_pool),
+          "pool_bytes": int(cold_pool.volumes.nbytes),
+          "fold_train_rows": [len(t.row_idx) for t, _ in cold_folds],
+          "fold_val_rows": [len(v.row_idx) for _, v in cold_folds]})
+    check(ds["rows"] == CLI_ROWS and len(cold_folds) == CLI_FOLDS
+          and all(len(v.row_idx) == 18 for _, v in cold_folds),
+          f"cli: the synthetic dataset's manifests: {ds}")
+    pool_rotation_check(ds)
+
+    cv = ["--csv_path", ds["cv_csv"], "--data_root", ds["data_root"],
+          "--num_steps", str(CLI_STEPS), "--eval_every", str(CLI_EVAL_EVERY),
+          "--num_cv", str(CLI_FOLDS)]
+    whole = ["--csv_path", ds["fixed_csv"], "--data_root", ds["data_root"],
+             "--num_steps", str(CLI_STEPS)]
+    L = ViTConfig.from_conf(9).num_layers            # every group's depth too
+    groups = len(stack.group_configs(BASELINE_CONFS))
+    cv_evals = CLI_STEPS // CLI_EVAL_EVERY + 1       # + the closing evaluation
+    whole_evals = CLI_STEPS // 31 + 1                # --eval_every 31 (default)
+    # dropout on: K1 serves the evaluations, K2 every forward
+    runs = [  # name, driver, argv, steps, expected K1, K2
+        ("cv_single", train_baseline_cv, ["--config", "9", *cv],
+         CLI_FOLDS * CLI_STEPS, CLI_FOLDS * L * cv_evals,
+         CLI_FOLDS * L * (CLI_STEPS + cv_evals)),
+        ("cv_all", train_baseline_cv, ["--all_configs", *cv], groups * CLI_STEPS,
+         groups * L * cv_evals, groups * L * (CLI_STEPS + cv_evals)),
+        ("cv_all_resume", train_baseline_cv, ["--all_configs", "--resume", *cv],
+         0, 0, 0),
+        ("cv_all_device_aug", train_baseline_cv,
+         ["--all_configs", "--aug_mode", "device", *cv], groups * CLI_STEPS,
+         groups * L * cv_evals, groups * L * (CLI_STEPS + cv_evals)),
+        ("whole_single", train_baseline_whole_dataset, ["--config", "9", *whole],
+         CLI_STEPS, L * whole_evals, L * (CLI_STEPS + whole_evals)),
+        ("whole_all", train_baseline_whole_dataset, ["--all_configs", *whole],
+         groups * CLI_STEPS, groups * L * whole_evals,
+         groups * L * (CLI_STEPS + whole_evals)),
+    ]
+    results, totals, summary, calls = {}, counts_of(), {}, {}
+    for name, driver, argv, steps, k1, k2 in runs:
+        out = work / ("cv_all" if name == "cv_all_resume" else name)
+        run = lambda o=out: driver.main([*argv, "--output_dir", str(o)])  # noqa: E731
+        reset_launches()
+        got, seen = [], {}
+        with kernel_calls(seen):
+            seconds = wall_time_ms(lambda: got.append(run())) / 1e3
+        counts = launches()
+        for kernel, recorded in seen.items():
+            calls.setdefault(kernel, []).extend(recorded)
+        res = results[name] = got[0]
+        want = counts_of(K1=k1, K1_own=k1, K2=k2)
+        line = {"phase": "cli", "card": card, "run": name,
+                "driver": driver.__name__.rsplit(".", 1)[1], "argv": argv,
+                "seconds": seconds, "steps": steps,
+                "ms_per_step": seconds * 1e3 / steps if steps else None,
+                "launches": counts, "expected_launches": want,
+                "k1_launches": counts["K1"], "k2_launches": counts["K2"],
+                # every launch went through a call `kernel_calls` recorded
+                "recorded_calls": {k: len(seen.get(k, [])) for k in ("K1", "K2")}}
+        ok = counts == want and all(len(seen.get(k, [])) == counts[k]
+                                    for k in ("K1", "K2"))
+        if name == "cv_all_resume":
+            ok = ok and res == results["cv_all"]
+            line["same_results_as_cv_all"] = res == results["cv_all"]
+        elif name == "cv_all_device_aug":
+            # the same engine on the same shapes as cv_all: its busy share
+            # is cv_all's (the pool's rotation rows are one batched call)
+            line["device_idle_share"] = None
+        else:
+            # the busy share on a short run of the same driver (its first
+            # evaluation period, one fold where the folds run in turn), in
+            # a fresh directory: the profiler's cost grows with the events
+            # it records.  Its wall time is the traced run's
+            short_argv = [*argv, "--num_steps", str(CLI_EVAL_EVERY),
+                          *(["--num_cv", "1"] if name == "cv_single" else [])]
+            idle = cli_idle(lambda: driver.main(
+                [*short_argv, "--output_dir", str(work / "short")]))
+            shutil.rmtree(work / "short", ignore_errors=True)
+            line.update(short_run_argv=short_argv[len(argv):], **idle)
+            ok = ok and idle["short_run_device_busy_ms"] > 0
+        # results: {'CV f': metrics} (cv_single), {conf: {'CV f': metrics}}
+        # (cv_all*), {conf: metrics} (whole_*)
+        folds = [f"CV {f + 1}" for f in range(CLI_FOLDS)]
+        confs = [9] if "single" in name else list(BASELINE_CONFS)
+        if name == "cv_single":
+            cells = [res[f] for f in folds]
+        elif name.startswith("cv"):
+            cells = [res[c][f] for c in confs for f in folds]
+        else:
+            cells = [res[c] for c in confs]
+        finite = (len(cells) == len(confs) * (CLI_FOLDS if name.startswith("cv") else 1)
+                  and all(math.isfinite(v) for m in cells for v in m.values()))
+        line.update(cells=len(cells), finite_metrics=finite,
+                    median_auroc=float(np.median([m["AUROC"] for m in cells])))
+        ok = ok and finite
+        if name != "cv_all_resume":
+            kind = "cv_baseline" if name.startswith("cv") else "baseline"
+            tags = ((lambda c: [f"cv{f + 1}" for f in range(CLI_FOLDS)])
+                    if kind == "cv_baseline" else (lambda c: [f"conf{c}"]))
+            layout = checkpoint_layout(out, kind, confs, tags)
+            line["checkpoints"] = layout
+            ok = ok and not layout["missing"] and not layout["wrong_shapes"]
+        line["ok"] = ok
+        emit(line)
+        check(ok, f"cli {name}: {line}")
+        summary[name] = {k: line.get(k) for k in (
+            "seconds", "ms_per_step", "device_idle_share", "k1_launches",
+            "k2_launches")}
+        for k, n in counts.items():
+            totals[k] += n
+    # the kernels at the shapes these runs gave them (launches not counted)
+    cases = cli_kernel_cases(calls)
+    return {"launches": totals, "runs": summary, "cases": cases}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2220,6 +2707,7 @@ def main() -> int:
     train = phase_train()
     train_ens = phase_train_ensemble()
     sweep = phase_sweep()
+    cli = phase_cli()
     by_path = {name: {"serve": main_path["launches"][name],
                       "serve_layer": layer_pass["launches"][name],
                       "variants_chunked": variants["chunked"]["launches"][name],
@@ -2232,7 +2720,8 @@ def main() -> int:
                       "stretch_f32": stretch["f32_auto"]["launches"][name],
                       "stretch_f32_layer":
                           stretch["f32_layer"]["launches"][name],
-                      "sweep": sweep["launches"][name]}
+                      "sweep": sweep["launches"][name],
+                      "cli": cli["launches"][name]}
                for name in KERNELS}
     shape_keys = ("dtype", "N", "D", "M", "active", "models", "B", "H", "S",
                   "T", "hd", "path", "offset_elements")
@@ -2298,7 +2787,9 @@ def main() -> int:
                                 "bound_ms_mma_sync": c["bound_ms_mma_sync"]}
                                for c in k1_wide_f32],
             f32_scaled_max_err_over_gate=k1_scaled["max_err_over_gate"],
-            model_axis_case=case_of(k1_models, "sweep")),
+            model_axis_case=case_of(k1_models, "sweep"),
+            # f32 at every shape the baseline drivers gave it
+            cli_cases=[case_of(c) for c in cli["cases"]["K1"]]),
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
             "variants_chunked",
@@ -2324,7 +2815,9 @@ def main() -> int:
             # 19-22's T=257, and the training path's f32 shapes
             other_cases=[case_of(c) for c in
                          [k2[4], k2[1], k2["unaligned"], *k2["t257"],
-                          *k2["train"]]]),
+                          *k2["train"]]],
+            # f32 at every shape the baseline drivers gave it
+            cli_cases=[case_of(c) for c in cli["cases"]["K2"]]),
         # K3's core runs on K2's body at head_dim <= 16 (the training
         # path's conf 9: head_dim 1) and on K4's at 32-128
         row("K3", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
@@ -2374,6 +2867,7 @@ def main() -> int:
         "training": {"train": train["timing"],
                      "train_ensemble": train_ens["timing"]},
         "sweep": sweep["groups"],
+        "cli": cli["runs"],
         "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
                     for impl, res in stretch.items()},
         "seconds": time.perf_counter() - t_start})

@@ -36,11 +36,16 @@ from vit3d_ensemble_tpu_torch.configs import ViTConfig
 def save_state_dict(path: str, state: Mapping[str, torch.Tensor]) -> None:
     """`torch.save` of CPU copies of `state` through a temporary file and a
     rename, so a preempted write never leaves a truncated checkpoint (the
-    contract of the JAX package's `save_pytree`, `checkpoint.py:37-47`)."""
+    contract of the JAX package's `save_pytree`, `checkpoint.py:37-47`).
+
+    Each tensor is copied into storage of its own: `torch.save` writes a
+    view's whole storage, so a sweep member's slice of its group's stacked
+    parameters would otherwise carry every cell of the group."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save({k: v.detach().cpu() for k, v in state.items()}, tmp)
+    torch.save({k: v.detach().to("cpu", copy=True) for k, v in state.items()},
+               tmp)
     os.replace(tmp, path)
 
 

@@ -19,10 +19,12 @@ expressions: the loop never waits for the device until the run ends.
     the 11 metrics and the selection rule run per cell with a leading (P,)
     axis on the device, with no per-cell host loop.
 
-Not ported yet: the mesh path (`parallel/mesh.py`, ROADMAP queue 1 item
-17), `remat`, and `run_cv_sweep`, which needs the pooled loader
-(`data/pool.py`, item 8); `run_grouped_baselines` takes a `FoldData` built
-by its caller.
+`run_cv_sweep` is the north-star workload, the 18-config x num_cv CV
+sweep from the CSVs and PNGs on disk: the pooled folds of `data/pool.py`,
+stacked by `stack_folds`, trained by `run_grouped_baselines`.
+
+Not ported yet: the mesh path (ROADMAP.md, queue 1, "`parallel/mesh.py`")
+and `remat` (ROADMAP.md, "Left inside ported modules").
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 
 from vit3d_ensemble_tpu_torch.checkpoint import baseline_ckpt_path, save_state_dict
 from vit3d_ensemble_tpu_torch.data import EpochBatcher
+from vit3d_ensemble_tpu_torch.data.pool import build_pooled_cv
 from vit3d_ensemble_tpu_torch.metrics import (
     METRIC_KEYS,
     compute_eval_metrics,
@@ -117,9 +120,9 @@ def stack_folds(pool, folds, hyper: SweepHyper) -> FoldData:
     schedules (`engine.py:116-152`).
 
     pool: an array of volumes, or any object with a `volumes` array; folds:
-    [(train, val), ...], each with `row_idx`, `labels` and `mean` (the JAX
-    package's `PooledSplit` fields).  The batch order is per fold, shared
-    across the configs of a group.
+    [(train, val), ...], each with `row_idx`, `labels` and `mean` (the
+    fields of `data/pool.py`'s `PooledSplit`).  The batch order is per
+    fold, shared across the configs of a group.
     """
     F = len(folds)
     n_max = max(len(t.row_idx) for t, _ in folds)
@@ -209,13 +212,13 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "run_group: the mesh path is not ported yet (ROADMAP.md, queue 1 "
-            "item 17)")
+            "run_group: the mesh path is not ported yet (ROADMAP.md, queue 1, "
+            "'parallel/mesh.py')")
     if hyper.remat:
         raise NotImplementedError(
             "run_group: remat is not ported: torch.utils.checkpoint does not "
             "replay dropout drawn from an explicit generator (ROADMAP.md, "
-            "queue 1 item 2)")
+            "'Left inside ported modules': remat)")
     del fold_ids, n_folds_total
     device = resolve_device(device)
     G, F = len(group.confs), data.n_folds
@@ -372,6 +375,14 @@ def sweep_hyper_from_args(args, balanced_weights: bool = True) -> SweepHyper:
         remat=getattr(args, "remat", False))
 
 
+def sweep_aug_mode(args) -> str:
+    """All three aug modes run through the pooled sweeps: 'disk' reads the
+    precomputed folders, 'device' computes the same three variants on the
+    device at pool-build time (`PoolBuilder.device_aug_row`; no aug folders
+    needed on disk), 'none' skips augmentation."""
+    return args.aug_mode
+
+
 def sweep_marker_path(state_dir: str, marker_prefix: str,
                       group: ConfigGroup, n_folds: int,
                       hyper: SweepHyper) -> str:
@@ -445,3 +456,23 @@ def run_grouped_baselines(args, data: FoldData, hyper: SweepHyper,
                 json.dump(group_results, f)
             results.update(group_results)
     return results
+
+
+def run_cv_sweep(args, device=None) -> Dict[int, Dict[str, Dict[str, float]]]:
+    """The full 18-config x num_cv CV sweep (the north-star workload) on
+    `device` (CUDA unless the caller names another).
+
+    Drop-in for looping `train_baseline_cv.py` over all --config values.
+    Returns {conf: {'CV 1': {metric: value}, ...}} and writes checkpoints
+    in the reference layout.
+    """
+    hyper = sweep_hyper_from_args(args)
+    pool, folds = build_pooled_cv(args.csv_path, args.data_root, args.num_cv,
+                                  size=args.img_size,
+                                  aug_mode=sweep_aug_mode(args), device=device)
+    data = stack_folds(pool, folds, hyper)
+    return run_grouped_baselines(
+        args, data, hyper, ckpt_kind="cv_baseline",
+        fold_label=lambda f: f"CV {f + 1}",
+        fold_tag=lambda conf, f: f"cv{f + 1}",
+        marker_prefix="cv", device=device)
