@@ -66,7 +66,14 @@ from vit3d_ensemble_tpu_torch.configs import (
     ViTConfig,
     vit_b16_128cubed,
 )
-from vit3d_ensemble_tpu_torch.cli import train_baseline_cv, train_baseline_whole_dataset
+from vit3d_ensemble_tpu_torch.cli import (
+    train_baseline_bootstrap,
+    train_baseline_cv,
+    train_baseline_whole_dataset,
+    train_ensemble_bootstrap,
+    train_ensemble_cv,
+    train_ensemble_whole_dataset,
+)
 from vit3d_ensemble_tpu_torch.data import SplitArrays, native_loader
 from vit3d_ensemble_tpu_torch.data import pool as data_pool
 from vit3d_ensemble_tpu_torch.models import TransformerEnsemble, VisionTransformer3D
@@ -2105,6 +2112,9 @@ SWEEP_HYPER = dict(num_steps=20, eval_every=10, train_batch_size=4,
 # `F.linear`'s; 20 SGD steps carry that into the parameters.
 SWEEP_LOSS_ATOL = 1e-5
 SWEEP_PARAM_ATOL = 1e-4
+# The grouped step's launches a dropout site, per-cell streams over one
+# generator: at most this many more.
+SWEEP_DROPOUT_EXTRA_PER_SITE = 8
 PooledSplit = collections.namedtuple("PooledSplit", "row_idx labels mean")
 
 
@@ -2194,7 +2204,62 @@ def phase_sweep() -> dict:
         for k, n in counts.items():
             result["launches"][k] += n
     phase_sweep_parity(pool, folds, data, hyper)
+    result["dropout"] = phase_sweep_dropout(data, hyper)
     return result
+
+
+def phase_sweep_dropout(data, hyper) -> dict:
+    """Kernels of one grouped training step's forward and backward on the
+    (16, 16) group (30 cells), with the dropout masks drawn as `run_group`
+    drew them before each cell had a stream of its own (one
+    `torch.Generator`, one mask a site for the whole stack) and from the
+    cells' streams (`attention.CellDropout`, as `run_group` draws them
+    now), and the difference a dropout site.  The rest of a step (the loss,
+    the optimizer) does not depend on where the masks come from."""
+    group = next(g for g in stack.group_configs(BASELINE_CONFS)
+                 if g.hidden_size == 16)
+    G, F = len(group.confs), data.n_folds
+    P, config = G * F, group.template_config()
+    params = {k: v.reshape(P, *v.shape[2:]).requires_grad_()
+              for k, v in stack.init_group_params(group, F, hyper.seed,
+                                                  device="cuda").items()}
+    mlp_active = torch.tensor(group.mlp_dims, dtype=torch.int32,
+                              device="cuda").repeat_interleave(F)
+    layers_active = torch.tensor(group.num_layers, dtype=torch.int32,
+                                 device="cuda").repeat_interleave(F)
+    pool = torch.as_tensor(data.pool, device="cuda")
+    rows = torch.as_tensor(data.row_idx[:, :hyper.train_batch_size], device="cuda",
+                           dtype=torch.long)
+    volumes = pool[rows] - torch.as_tensor(data.mean, device="cuda").reshape(
+        F, 1, 1, 1, 1, 1)
+
+    def step(masks):
+        stacked_module.stacked_forward(
+            params, config, volumes, layers_active=layers_active,
+            mlp_active=mlp_active, deterministic=False, generator=masks).sum().backward()
+
+    sources = {"one_generator": torch.Generator(device="cuda").manual_seed(hyper.seed),
+               "cell_streams": attention.CellDropout(hyper.seed, range(P), "cuda")}
+    kernels = {}
+    for name, masks in sources.items():
+        step(masks)                 # the streams' keys and index hashes, once
+        kernels[name] = device_time(lambda m=masks: step(m), host_ops=False)[2]
+    streams = sources["cell_streams"]
+    before = streams.site
+    step(streams)
+    sites = streams.site - before
+    extra = (kernels["cell_streams"] - kernels["one_generator"]) / sites
+    line = {"phase": "sweep_dropout", "card": card,
+            "group": f"{group.hidden_size}x{group.num_heads}", "cells": P,
+            "dropout_sites_per_step": sites,
+            "kernels_forward_backward": kernels,
+            "extra_kernels_per_site": extra,
+            "limit_per_site": SWEEP_DROPOUT_EXTRA_PER_SITE,
+            "ok": 0 <= extra <= SWEEP_DROPOUT_EXTRA_PER_SITE}
+    emit(line)
+    check(line["ok"], f"sweep dropout: {line}")
+    return {k: line[k] for k in ("dropout_sites_per_step", "kernels_forward_backward",
+                                 "extra_kernels_per_site")}
 
 
 def phase_sweep_parity(pool, folds, data, hyper) -> None:
@@ -2243,6 +2308,12 @@ def phase_sweep_parity(pool, folds, data, hyper) -> None:
 CLI_PATIENTS, CLI_ROWS, CLI_TEST, CLI_FOLDS, CLI_FIXED_VAL = 99, 112, 22, 5, 9
 CLI_SLICES = (18, 25)
 CLI_STEPS, CLI_EVAL_EVERY = 24, 12
+# The ensembles' epochs; the bootstrap runs' replicates (conf 9, in chunks
+# of 2 and 4) and combinations (--max_configs 4: confs 1-3); the metrics of
+# the two chunkings must agree within the JAX driver's bound
+# (`tests/test_cli.py:127`).
+CLI_EPOCHS, CLI_BOOT_REPS, CLI_BOOT_MAX_CONFIGS = 2, 4, 4
+CLI_BOOT_CHUNK_ATOL = 1e-6
 # Rotated pool rows, card against the CPU: at most this share of a row's
 # pixels may differ (a source coordinate at an exact .5 can round the other
 # way when cos, sin or an FMA differ by an ulp), the bound of
@@ -2429,6 +2500,40 @@ def checkpoint_layout(out: pathlib.Path, kind: str, confs, tags_of) -> dict:
             "wrong_shapes": wrong}
 
 
+def ensemble_layout(out: pathlib.Path, kind: str, confs, tags) -> dict:
+    """Every ensemble checkpoint at
+    `out/<kind>_models/ensemble_<name>/<tag>.bin` with exactly the names
+    and shapes of the `confs` ensemble's state_dict."""
+    name = "_".join(str(c) for c in confs)
+    want = {k: tuple(v.shape) for k, v in TransformerEnsemble(
+        [ViTConfig.from_conf(c) for c in confs], device="cpu").state_dict().items()}
+    missing, wrong = [], []
+    for tag in tags:
+        path = out / f"{kind}_models" / f"ensemble_{name}" / f"{tag}.bin"
+        if not path.exists():
+            missing.append(str(path.relative_to(out)))
+            continue
+        got = {k: tuple(v.shape) for k, v in torch.load(
+            path, map_location="cpu", weights_only=True).items()}
+        if got != want:
+            wrong.append(str(path.relative_to(out)))
+    return {"files": len(tags), "missing": missing, "wrong_shapes": wrong}
+
+
+def cli_run(name, driver, argv, steps, k1, k2, *, cells, layout=None, out=None,
+            short=None, same_as=None, prep=None) -> dict:
+    """One run of the `cli` phase: `driver.main(argv)` with --output_dir
+    `out` (its name by default), its optimizer steps (grouped steps of the
+    sweeps), its exact K1 and K2 launches, `cells(result)` the metric dicts
+    that must be finite, `layout(out)` its checkpoints' check, `short` the
+    arguments that cut it to the traced run of `cli_idle` (None: no trace),
+    `same_as` the run whose result it must return, `prep(out)` what its
+    directory needs first."""
+    return dict(name=name, driver=driver, argv=argv, steps=steps, k1=k1, k2=k2,
+                cells=cells, layout=layout, out=out, short=short, same_as=same_as,
+                prep=prep)
+
+
 @contextlib.contextmanager
 def kernel_calls(into: dict):
     """Record in `into` every call the models make to K1's wrapper (one
@@ -2565,41 +2670,147 @@ def _phase_cli(work: pathlib.Path) -> dict:
           "--num_cv", str(CLI_FOLDS)]
     whole = ["--csv_path", ds["fixed_csv"], "--data_root", ds["data_root"],
              "--num_steps", str(CLI_STEPS)]
+    boot = ["--csv_path", ds["fixed_csv"], "--data_root", ds["data_root"],
+            "--num_steps", str(CLI_STEPS), "--eval_every", str(CLI_EVAL_EVERY)]
+    epochs = ["--num_epochs", str(CLI_EPOCHS)]
     L = ViTConfig.from_conf(9).num_layers            # every group's depth too
     groups = len(stack.group_configs(BASELINE_CONFS))
     cv_evals = CLI_STEPS // CLI_EVAL_EVERY + 1       # + the closing evaluation
     whole_evals = CLI_STEPS // 31 + 1                # --eval_every 31 (default)
+    folds = [f"CV {f + 1}" for f in range(CLI_FOLDS)]
+    confs = list(BASELINE_CONFS)
+    # the ensembles: an evaluation after each epoch and a closing one
+    cv_train = CLI_ROWS - CLI_TEST - (CLI_ROWS - CLI_TEST) // CLI_FOLDS
+    fixed_train = CLI_ROWS - CLI_TEST - CLI_FIXED_VAL
+    ens_evals = CLI_EPOCHS + 1
+    ens_layers = sum(ViTConfig.from_conf(c).num_layers for c in BEST_ENSEMBLE)
+    boot_confs = tuple(range(1, CLI_BOOT_MAX_CONFIGS))
+    boot_layers = sum(ViTConfig.from_conf(c).num_layers for c in boot_confs)
+    cv_steps, fixed_steps = (CLI_EPOCHS * -(-n // 4) for n in (cv_train, fixed_train))
+    best = ",".join(str(c) for c in BEST_ENSEMBLE)
+    best_name = "_".join(str(c) for c in BEST_ENSEMBLE)
+
+    def baselines(out):
+        """The whole_all run's 18 baseline checkpoints, which the ensemble
+        drivers read from `baseline_models/` under their --output_dir."""
+        shutil.copytree(work / "whole_all" / "baseline_models",
+                        out / "baseline_models", dirs_exist_ok=True)
+
+    def baseline_ckpts(kind, cs, tags):
+        return lambda o: checkpoint_layout(o, kind, cs, lambda c: tags)
+
     # dropout on: K1 serves the evaluations, K2 every forward
-    runs = [  # name, driver, argv, steps, expected K1, K2
-        ("cv_single", train_baseline_cv, ["--config", "9", *cv],
-         CLI_FOLDS * CLI_STEPS, CLI_FOLDS * L * cv_evals,
-         CLI_FOLDS * L * (CLI_STEPS + cv_evals)),
-        ("cv_all", train_baseline_cv, ["--all_configs", *cv], groups * CLI_STEPS,
-         groups * L * cv_evals, groups * L * (CLI_STEPS + cv_evals)),
-        ("cv_all_resume", train_baseline_cv, ["--all_configs", "--resume", *cv],
-         0, 0, 0),
-        ("cv_all_device_aug", train_baseline_cv,
-         ["--all_configs", "--aug_mode", "device", *cv], groups * CLI_STEPS,
-         groups * L * cv_evals, groups * L * (CLI_STEPS + cv_evals)),
-        ("whole_single", train_baseline_whole_dataset, ["--config", "9", *whole],
-         CLI_STEPS, L * whole_evals, L * (CLI_STEPS + whole_evals)),
-        ("whole_all", train_baseline_whole_dataset, ["--all_configs", *whole],
-         groups * CLI_STEPS, groups * L * whole_evals,
-         groups * L * (CLI_STEPS + whole_evals)),
+    runs = [
+        cli_run("cv_single", train_baseline_cv, ["--config", "9", *cv],
+                CLI_FOLDS * CLI_STEPS, CLI_FOLDS * L * cv_evals,
+                CLI_FOLDS * L * (CLI_STEPS + cv_evals),
+                cells=lambda r: [r[f] for f in folds],
+                layout=baseline_ckpts("cv_baseline", [9],
+                                      [f"cv{f + 1}" for f in range(CLI_FOLDS)]),
+                short=["--num_cv", "1"]),
+        cli_run("cv_all", train_baseline_cv, ["--all_configs", *cv],
+                groups * CLI_STEPS, groups * L * cv_evals,
+                groups * L * (CLI_STEPS + cv_evals),
+                cells=lambda r: [r[c][f] for c in confs for f in folds],
+                layout=baseline_ckpts("cv_baseline", confs,
+                                      [f"cv{f + 1}" for f in range(CLI_FOLDS)]),
+                short=[]),
+        cli_run("cv_all_resume", train_baseline_cv, ["--all_configs", "--resume", *cv],
+                0, 0, 0, cells=lambda r: [r[c][f] for c in confs for f in folds],
+                out="cv_all", same_as="cv_all"),
+        # the same engine on the same shapes as cv_all: its busy share is
+        # cv_all's (the pool's rotation rows are one batched call)
+        cli_run("cv_all_device_aug", train_baseline_cv,
+                ["--all_configs", "--aug_mode", "device", *cv], groups * CLI_STEPS,
+                groups * L * cv_evals, groups * L * (CLI_STEPS + cv_evals),
+                cells=lambda r: [r[c][f] for c in confs for f in folds],
+                layout=baseline_ckpts("cv_baseline", confs,
+                                      [f"cv{f + 1}" for f in range(CLI_FOLDS)])),
+        cli_run("whole_single", train_baseline_whole_dataset, ["--config", "9", *whole],
+                CLI_STEPS, L * whole_evals, L * (CLI_STEPS + whole_evals),
+                cells=lambda r: [r[9]],
+                layout=baseline_ckpts("baseline", [9], ["conf9"]), short=[]),
+        cli_run("whole_all", train_baseline_whole_dataset, ["--all_configs", *whole],
+                groups * CLI_STEPS, groups * L * whole_evals,
+                groups * L * (CLI_STEPS + whole_evals),
+                cells=lambda r: [r[c] for c in confs],
+                layout=lambda o: checkpoint_layout(o, "baseline", confs,
+                                                   lambda c: [f"conf{c}"]),
+                short=[]),
+        # the bootstrap replicates of conf 9 in chunks of 2 and in one
+        # chunk of 4, whose metrics must agree (`cli_boot_chunk`)
+        *[cli_run(f"boot_chunk{chunk}", train_baseline_bootstrap,
+                  ["--config", "9", "--num_rep", str(CLI_BOOT_REPS),
+                   "--boot_chunk", str(chunk), *boot],
+                  CLI_BOOT_REPS // chunk * CLI_STEPS,
+                  CLI_BOOT_REPS // chunk * L * cv_evals,
+                  CLI_BOOT_REPS // chunk * L * (CLI_STEPS + cv_evals),
+                  cells=lambda r: [r["conf9"][f"boot{k}"] for k in range(CLI_BOOT_REPS)],
+                  layout=baseline_ckpts("boot_baseline", [9], [
+                      f"boot{k}" for k in range(CLI_BOOT_REPS)]),
+                  short=["--num_rep", str(chunk)])
+          for chunk in (2, CLI_BOOT_REPS)],
+        cli_run("boot_all", train_baseline_bootstrap,
+                ["--all_configs", "--num_rep", "2", *boot], groups * CLI_STEPS,
+                groups * L * cv_evals, groups * L * (CLI_STEPS + cv_evals),
+                cells=lambda r: [r[f"conf{c}"][f"boot{k}"] for c in confs
+                                 for k in range(2)],
+                layout=baseline_ckpts("boot_baseline", confs, ["boot0", "boot1"]),
+                short=[]),
+        # the {5,9,11} stack from whole_all's baselines, then over the CV
+        # folds (sequential mode) and again with --resume, then the one
+        # combination of confs 1-3 over two bootstrap replicates with its
+        # held-out test evaluation (one more K1/K2 forward a replicate)
+        cli_run("ens_whole", train_ensemble_whole_dataset,
+                ["--ensemble_conf_list", best, *epochs, *whole[:4]], fixed_steps,
+                ens_layers * ens_evals, ens_layers * (fixed_steps + ens_evals),
+                cells=lambda r: [r],
+                layout=lambda o: ensemble_layout(o, "best_ensemble", BEST_ENSEMBLE,
+                                                 ["best_ensemble_model"]),
+                short=["--num_epochs", "1"], prep=baselines),
+        cli_run("ens_cv", train_ensemble_cv,
+                ["--no-padded_compile", "--ensemble_conf_list", best, *epochs, *cv[:4],
+                 "--num_cv", str(CLI_FOLDS)], CLI_FOLDS * cv_steps,
+                CLI_FOLDS * ens_layers * ens_evals,
+                CLI_FOLDS * ens_layers * (cv_steps + ens_evals),
+                cells=lambda r: [r[best_name][f] for f in folds],
+                layout=lambda o: ensemble_layout(o, "cv_ensemble", BEST_ENSEMBLE, [
+                    f"cv{f + 1}" for f in range(CLI_FOLDS)]),
+                short=["--num_epochs", "1", "--num_cv", "1"], prep=baselines),
+        cli_run("ens_cv_resume", train_ensemble_cv,
+                ["--no-padded_compile", "--ensemble_conf_list", best, *epochs, *cv[:4],
+                 "--num_cv", str(CLI_FOLDS), "--resume"], 0, 0, 0,
+                cells=lambda r: [r[best_name][f] for f in folds],
+                out="ens_cv", same_as="ens_cv"),
+        cli_run("ens_boot", train_ensemble_bootstrap,
+                ["--no-padded_compile", "--max_configs", str(CLI_BOOT_MAX_CONFIGS),
+                 "--num_rep", "2", *epochs, *whole[:4]], 2 * fixed_steps,
+                2 * boot_layers * (ens_evals + 1),
+                2 * boot_layers * (fixed_steps + ens_evals + 1),
+                cells=lambda r: [part["1_2_3"][f"boot{k}"] for part in r
+                                 for k in range(2)],
+                layout=lambda o: ensemble_layout(o, "bootstrap_ensemble", boot_confs,
+                                                 ["bootstrap_0", "bootstrap_1"]),
+                short=["--num_epochs", "1", "--num_rep", "1"], prep=baselines),
     ]
     results, totals, summary, calls = {}, counts_of(), {}, {}
-    for name, driver, argv, steps, k1, k2 in runs:
-        out = work / ("cv_all" if name == "cv_all_resume" else name)
-        run = lambda o=out: driver.main([*argv, "--output_dir", str(o)])  # noqa: E731
+    for run in runs:
+        name, driver, argv = run["name"], run["driver"], run["argv"]
+        out = work / (run["out"] or name)
+        if run["prep"]:
+            out.mkdir(parents=True, exist_ok=True)
+            run["prep"](out)
+        go = lambda o=out: driver.main([*argv, "--output_dir", str(o)])  # noqa: E731
         reset_launches()
         got, seen = [], {}
         with kernel_calls(seen):
-            seconds = wall_time_ms(lambda: got.append(run())) / 1e3
+            seconds = wall_time_ms(lambda: got.append(go())) / 1e3
         counts = launches()
         for kernel, recorded in seen.items():
             calls.setdefault(kernel, []).extend(recorded)
         res = results[name] = got[0]
-        want = counts_of(K1=k1, K1_own=k1, K2=k2)
+        want = counts_of(K1=run["k1"], K1_own=run["k1"], K2=run["k2"])
+        steps = run["steps"]
         line = {"phase": "cli", "card": card, "run": name,
                 "driver": driver.__name__.rsplit(".", 1)[1], "argv": argv,
                 "seconds": seconds, "steps": steps,
@@ -2607,49 +2818,38 @@ def _phase_cli(work: pathlib.Path) -> dict:
                 "launches": counts, "expected_launches": want,
                 "k1_launches": counts["K1"], "k2_launches": counts["K2"],
                 # every launch went through a call `kernel_calls` recorded
-                "recorded_calls": {k: len(seen.get(k, [])) for k in ("K1", "K2")}}
+                "recorded_calls": {k: len(seen.get(k, [])) for k in ("K1", "K2")},
+                "device_idle_share": None}
         ok = counts == want and all(len(seen.get(k, [])) == counts[k]
                                     for k in ("K1", "K2"))
-        if name == "cv_all_resume":
-            ok = ok and res == results["cv_all"]
-            line["same_results_as_cv_all"] = res == results["cv_all"]
-        elif name == "cv_all_device_aug":
-            # the same engine on the same shapes as cv_all: its busy share
-            # is cv_all's (the pool's rotation rows are one batched call)
-            line["device_idle_share"] = None
-        else:
+        if run["same_as"]:
+            same = res == results[run["same_as"]]
+            line[f"same_results_as_{run['same_as']}"] = same
+            ok = ok and same
+        if run["short"] is not None:
             # the busy share on a short run of the same driver (its first
-            # evaluation period, one fold where the folds run in turn), in
-            # a fresh directory: the profiler's cost grows with the events
-            # it records.  Its wall time is the traced run's
-            short_argv = [*argv, "--num_steps", str(CLI_EVAL_EVERY),
-                          *(["--num_cv", "1"] if name == "cv_single" else [])]
+            # evaluation period or epoch, one fold or replicate where they
+            # run in turn), in a fresh directory: the profiler's cost grows
+            # with the events it records.  Its wall time is the traced run's
+            short_argv = [*argv, *run["short"]]
+            if "--num_steps" in argv:
+                short_argv += ["--num_steps", str(CLI_EVAL_EVERY)]
+            short_out = work / "short"
+            if run["prep"]:
+                short_out.mkdir(parents=True, exist_ok=True)
+                run["prep"](short_out)
             idle = cli_idle(lambda: driver.main(
-                [*short_argv, "--output_dir", str(work / "short")]))
-            shutil.rmtree(work / "short", ignore_errors=True)
+                [*short_argv, "--output_dir", str(short_out)]))
+            shutil.rmtree(short_out, ignore_errors=True)
             line.update(short_run_argv=short_argv[len(argv):], **idle)
             ok = ok and idle["short_run_device_busy_ms"] > 0
-        # results: {'CV f': metrics} (cv_single), {conf: {'CV f': metrics}}
-        # (cv_all*), {conf: metrics} (whole_*)
-        folds = [f"CV {f + 1}" for f in range(CLI_FOLDS)]
-        confs = [9] if "single" in name else list(BASELINE_CONFS)
-        if name == "cv_single":
-            cells = [res[f] for f in folds]
-        elif name.startswith("cv"):
-            cells = [res[c][f] for c in confs for f in folds]
-        else:
-            cells = [res[c] for c in confs]
-        finite = (len(cells) == len(confs) * (CLI_FOLDS if name.startswith("cv") else 1)
-                  and all(math.isfinite(v) for m in cells for v in m.values()))
+        cells = run["cells"](res)
+        finite = bool(cells) and all(math.isfinite(v) for m in cells for v in m.values())
         line.update(cells=len(cells), finite_metrics=finite,
                     median_auroc=float(np.median([m["AUROC"] for m in cells])))
         ok = ok and finite
-        if name != "cv_all_resume":
-            kind = "cv_baseline" if name.startswith("cv") else "baseline"
-            tags = ((lambda c: [f"cv{f + 1}" for f in range(CLI_FOLDS)])
-                    if kind == "cv_baseline" else (lambda c: [f"conf{c}"]))
-            layout = checkpoint_layout(out, kind, confs, tags)
-            line["checkpoints"] = layout
+        if run["layout"]:
+            layout = line["checkpoints"] = run["layout"](out)
             ok = ok and not layout["missing"] and not layout["wrong_shapes"]
         line["ok"] = ok
         emit(line)
@@ -2659,6 +2859,18 @@ def _phase_cli(work: pathlib.Path) -> dict:
             "k2_launches")}
         for k, n in counts.items():
             totals[k] += n
+    # --boot_chunk changes which cells share a grouped run, not their metrics
+    chunked = [f"boot_chunk{chunk}" for chunk in (2, CLI_BOOT_REPS)]
+    cells_of = {run["name"]: run["cells"] for run in runs}
+    pairs = [(a[k], b[k]) for a, b in zip(*(cells_of[n](results[n]) for n in chunked))
+             for k in a]
+    diff = max(abs(a - b) for a, b in pairs)
+    line = {"phase": "cli_boot_chunk", "card": card, "runs": chunked,
+            "values": len(pairs), "max_abs_diff": diff,
+            "atol": CLI_BOOT_CHUNK_ATOL, "ok": diff <= CLI_BOOT_CHUNK_ATOL}
+    emit(line)
+    check(line["ok"], f"cli: --boot_chunk 2 against {CLI_BOOT_REPS}: {line}")
+    summary["boot_chunk_max_abs_diff"] = diff
     # the kernels at the shapes these runs gave them (launches not counted)
     cases = cli_kernel_cases(calls)
     return {"launches": totals, "runs": summary, "cases": cases}
@@ -2866,7 +3078,7 @@ def main() -> int:
                                   for v, r in variants.items()},
         "training": {"train": train["timing"],
                      "train_ensemble": train_ens["timing"]},
-        "sweep": sweep["groups"],
+        "sweep": {**sweep["groups"], "dropout": sweep["dropout"]},
         "cli": cli["runs"],
         "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
                     for impl, res in stretch.items()},

@@ -265,7 +265,7 @@ def test_grouped_equals_sequential_train_baseline(tiny):
 def test_snapshot_kill_and_resume(tiny, tmp_path):
     """Preemption recovery, dropout on: kill a snapshotting run mid-group,
     resume from the state file, and get exactly the uninterrupted run's
-    results (the dropout generator's state is part of the carry)."""
+    results (the dropout streams' site counter is part of the carry)."""
     pool, folds = _fold_data(5)
     # 9 steps / eval_every 2 -> 4 periods + 1 remainder step;
     # snapshot_every=2 -> 2 segments
@@ -294,6 +294,56 @@ def test_snapshot_kill_and_resume(tiny, tmp_path):
     again = engine.run_group(tiny, data, hyper, img_size=IMG, state_path=state,
                              resume=True, device="cpu")
     np.testing.assert_array_equal(again.losses, full.losses)
+
+
+def test_cell_dropout_streams_are_the_cells_own():
+    """A cell's masks depend on its id alone: the same in a stack of 6 and
+    alone, in any place, with P or P·B leading rows; they change from site
+    to site and from cell to cell, keep 1 - rate of the elements (within
+    0.005 on 2^20), and the site counter is the whole state."""
+    x = torch.ones(6, 4, 65, 16)
+    stack6 = attention.CellDropout(7, [0, 5, 2, 9, 4, 3], "cpu")
+    masks = [stack6.keep(x, 0.1) for _ in range(3)]
+    for place, cell in ((1, 5), (3, 9)):
+        alone = attention.CellDropout(7, [cell], "cpu")
+        for m in masks:
+            assert torch.equal(alone.keep(x[:1], 0.1)[0], m[place])
+    rows = attention.CellDropout(7, [0, 5, 2, 9, 4, 3], "cpu")
+    assert torch.equal(rows.keep(x.reshape(24, 65, 16), 0.1).reshape(x.shape),
+                       masks[0])
+    assert not torch.equal(masks[0], masks[1])
+    assert not torch.equal(masks[0][0], masks[0][1])
+    share = attention.CellDropout(0, [0], "cpu").keep(torch.ones(1, 1 << 20), 0.3)
+    assert abs(share.float().mean().item() - 0.7) < 5e-3
+    later = attention.CellDropout(7, [0, 5, 2, 9, 4, 3], "cpu")
+    later.site = 2
+    assert torch.equal(later.keep(x, 0.1), masks[2])
+    with pytest.raises(ValueError, match="rows for 6 cells"):
+        later.keep(torch.ones(4, 3), 0.1)
+
+
+def test_fold_slice_cell_equals_the_full_run(tiny):
+    """Dropout on: a group trained on fold 1 alone, as the chunked
+    bootstrap trains a slice of its replicates (`fold_ids=[1]`,
+    `n_folds_total=2`), gives fold 1's cells of the two-fold run: losses
+    and best parameters within 1e-6."""
+    pool, folds = _fold_data(8)
+    hyper = engine.SweepHyper(num_steps=5, eval_every=2, train_batch_size=4,
+                              learning_rate=0.05, warmup_steps=2, seed=1)
+    full = engine.run_group(tiny, engine.stack_folds(pool, folds, hyper), hyper,
+                            img_size=IMG, device="cpu")
+    part = engine.run_group(tiny, engine.stack_folds(pool, folds[1:], hyper),
+                            hyper, img_size=IMG, fold_ids=[1], n_folds_total=2,
+                            device="cpu")
+    np.testing.assert_allclose(part.losses[:, :, 0], full.losses[:, :, 1],
+                               atol=1e-6, rtol=0)
+    for k, v in full.best_params.items():
+        np.testing.assert_allclose(part.best_params[k][:, 0].numpy(),
+                                   v[:, 1].numpy(), atol=1e-6, rtol=0, err_msg=k)
+    # the slice's other fold id draws other masks
+    other = engine.run_group(tiny, engine.stack_folds(pool, folds[1:], hyper),
+                             hyper, img_size=IMG, device="cpu")
+    assert not np.allclose(other.losses[:, :, 0], full.losses[:, :, 1], atol=1e-6)
 
 
 def test_run_grouped_baselines_writes_checkpoints_and_markers(tiny, tmp_path,

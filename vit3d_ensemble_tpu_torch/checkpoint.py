@@ -16,21 +16,29 @@ torch names.
     -> `transformers.{i}.`, and `meta/classifier` -> `classifier.*`.
 
   * `save_state_dict` writes a `state_dict` with `torch.save`, atomically,
-    as the trainers' `save_path` does; `baseline_ckpt_path` names the
-    per-(conf, fold) files of the sweep in the reference's layout.
+    as the trainers' `save_path` does; `baseline_ckpt_path` and
+    `ensemble_ckpt_path` name the files in the reference's layout, with its
+    `.bin` extension; `load_baseline_params` reads a baseline's `.bin` back
+    as an ensemble member's parameters.
+  * `save_train_state` / `restore_train_state` keep a whole train state
+    (parameters, optimizer state, step, run metadata), as the JAX
+    package's do (`checkpoint.py:73-100`).
 
-Reading the JAX package's msgpack checkpoints is not ported yet.
+Reading the JAX package's msgpack checkpoints is not ported: the port
+writes and reads `.bin` state dicts, which the JAX package also reads
+(`checkpoint.load_baseline_params`, `checkpoint.py:109-110`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
+from vit3d_ensemble_tpu_torch.models.vit3d import VisionTransformer3D
 
 
 def save_state_dict(path: str, state: Mapping[str, torch.Tensor]) -> None:
@@ -59,6 +67,89 @@ def baseline_ckpt_path(output_dir: str, kind: str, conf: int, tag: str) -> str:
     """
     return os.path.join(output_dir, f"{kind}_models", f"conf{conf}",
                         f"{tag}.bin")
+
+
+def ensemble_ckpt_path(output_dir: str, kind: str, name: str, tag: str) -> str:
+    """The ensembles' layout (`checkpoint.ensemble_ckpt_path`,
+    `checkpoint.py:66-70`), with the `.bin` extension.
+
+    kind: 'cv_ensemble' | 'bootstrap_ensemble' | 'best_ensemble'
+    name: the members' confs joined by '_', e.g. '5_9_11'
+    """
+    return os.path.join(output_dir, f"{kind}_models", f"ensemble_{name}",
+                        f"{tag}.bin")
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A `torch.save`d state_dict, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_baseline_params(path: str, config: ViTConfig) -> Dict[str, torch.Tensor]:
+    """A baseline's `.bin` checkpoint (the reference's torch names, as the
+    port's drivers and the reference write it) as the parameters of a
+    member of `config`: exactly that model's names and shapes, or a
+    ValueError."""
+    if not path.endswith(".bin"):
+        raise ValueError(f"{path}: the port reads .bin state dicts only; the "
+                         "JAX package's msgpack checkpoints are not ported")
+    state = load_state_dict(path)
+    with torch.device("meta"):
+        want = {k: v.shape for k, v in VisionTransformer3D(
+            config, device="meta").state_dict().items()}
+    got = {k: v.shape for k, v in state.items()}
+    if got != want:
+        raise ValueError(
+            f"{path}: not a checkpoint of this config: missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}, other shapes "
+            f"{sorted(k for k in set(got) & set(want) if got[k] != want[k])}")
+    return state
+
+
+def _on_cpu(tree):
+    """A copy of a nested state (dicts, lists, tuples of tensors and
+    numbers) with every tensor in CPU storage of its own."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on_cpu(v) for v in tree)
+    return tree
+
+
+def save_train_state(path: str, params: Mapping[str, torch.Tensor],
+                     opt_state: Mapping[str, Any], step: int,
+                     meta: Optional[Mapping[str, Any]] = None) -> None:
+    """A whole train state (`checkpoint.save_train_state`,
+    `checkpoint.py:73-87`): the parameters (a state_dict), the optimizer's
+    `state_dict()`, the step and run metadata, by `torch.save` through a
+    temporary file and a rename."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"params": _on_cpu(dict(params)), "opt_state": _on_cpu(dict(opt_state)),
+                "step": int(step), "meta": dict(meta or {})}, tmp)
+    os.replace(tmp, path)
+
+
+def restore_train_state(path: str, params_target: Mapping[str, torch.Tensor],
+                        opt_state_target: Mapping[str, Any]):
+    """Restore a `save_train_state` snapshot (`checkpoint.py:90-99`) as
+    (params, opt_state, step, meta).  The targets (a fresh model's and
+    optimizer's state_dicts) give the names and shapes the snapshot must
+    have; a snapshot of another model or optimizer raises ValueError."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    params, opt_state = raw["params"], raw["opt_state"]
+    if ({k: v.shape for k, v in params.items()}
+            != {k: v.shape for k, v in params_target.items()}):
+        raise ValueError(f"{path}: the parameters are not the target's")
+    if (len(opt_state.get("param_groups", ())) != len(opt_state_target.get(
+            "param_groups", ())) or [len(g["params"]) for g in opt_state["param_groups"]]
+            != [len(g["params"]) for g in opt_state_target["param_groups"]]):
+        raise ValueError(f"{path}: the optimizer state is not the target's")
+    return params, opt_state, int(raw["step"]), raw.get("meta", {})
 
 
 def _t(a) -> torch.Tensor:

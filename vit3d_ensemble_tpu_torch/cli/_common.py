@@ -15,7 +15,11 @@ flag names and defaults (`train_baseline_cv.py:222-263`,
     fused FFN kernel on the card, where the JAX default is its XLA path;
   * `--quant_impl` other than none, `--mesh` and `--remat` raise
     NotImplementedError naming the ROADMAP.md item that ports them;
-  * `setup_logging` keeps no compilation cache (there is no XLA).
+  * `setup_logging` keeps no compilation cache (there is no XLA);
+  * the ensemble drivers' grid and frozen modes (`--padded_compile`, the
+    default, and `--frozen`) raise NotImplementedError naming their
+    ROADMAP.md items: pass `--no-padded_compile` for the sequential
+    end-to-end mode.
 """
 
 from __future__ import annotations
@@ -185,3 +189,8 @@ def add_baseline_flags(parser: argparse.ArgumentParser,
                         help="Number of update steps to accumulate before "
                              "an update pass.")
 
+
+def parse_conf_list(s: str):
+    """--ensemble_conf_list '5,9,11' -> (5, 9, 11)
+    (`train_ensemble_whole_dataset.py:191-200`)."""
+    return tuple(int(tok) for tok in str(s).split(",") if tok.strip())

@@ -27,7 +27,7 @@ TPU unit and has no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -49,14 +49,91 @@ def get_default_attention_impl() -> str:
     return _DEFAULT_IMPL
 
 
+_M32 = 0xFFFFFFFF
+#: The multiplier of the 32-bit integer hash (`_mix32`).  Below 2^27, so a
+#: product with a 32-bit value stays inside int64.
+_MUL = 0x45D9F3B
+_SITES_A_BLOCK = 1024
+
+
+def _round32(x: torch.Tensor) -> torch.Tensor:
+    """One xorshift-multiply round on 32-bit values held in int64, in place."""
+    x ^= x >> 16
+    x *= _MUL
+    x &= _M32
+    return x
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (two rounds and a final xorshift) of values in
+    [0, 2^32) held in int64: no product leaves int64, so the CPU and the
+    card compute the same bits."""
+    x = _round32(_round32(x & _M32))
+    return x ^ (x >> 16)
+
+
+class CellDropout:
+    """Dropout masks for a stacked model, a stream for each cell.
+
+    The counterpart of the JAX sweep engine's per-cell dropout keys
+    (`vit3d_ensemble_tpu/sweep/engine.py:369-386`).  Element e of cell c at
+    dropout site s is kept when a counter-based hash of (seed, the cell's
+    id, s, e) is at least rate·2^32, so a cell's masks depend on its id
+    alone: not on how many cells share the stack, nor on where it sits.
+    The site counter lives on the host and is the stream's whole state.
+
+    A site costs six elementwise launches on the (P, n) mask (one round of
+    `_mix32` and the comparison): each cell's keys for a block of sites and
+    the hash of every element index are computed once and kept.
+    """
+
+    def __init__(self, seed: int, cell_ids, device):
+        self.site = 0
+        ids = torch.as_tensor(list(cell_ids), dtype=torch.int64, device=device)
+        self.cells = len(ids)
+        self._cell_key = _mix32(_mix32(ids + 0x9E3779B9) ^ (seed & _M32))
+        self._block = (-1, None)             # (block number, (sites, P) keys)
+        self._elements = {}                  # n -> (1, n) hashed indices
+
+    def _site_keys(self, site: int) -> torch.Tensor:
+        number, keys = self._block
+        if number != site // _SITES_A_BLOCK:
+            number = site // _SITES_A_BLOCK
+            sites = torch.arange(number * _SITES_A_BLOCK,
+                                 (number + 1) * _SITES_A_BLOCK,
+                                 device=self._cell_key.device)
+            keys = _mix32(_mix32(sites + 0x7F4A7C15)[:, None]
+                          ^ self._cell_key[None, :])
+            self._block = (number, keys)
+        return keys[site % _SITES_A_BLOCK][:, None]
+
+    def keep(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """The mask of the next site for x, whose leading axis is the cells'
+        (P) or P·B with each cell's rows together."""
+        if x.shape[0] % self.cells:
+            raise ValueError(f"dropout: {x.shape[0]} rows for {self.cells} cells")
+        n = x.numel() // self.cells
+        elements = self._elements.get(n)
+        if elements is None:
+            elements = self._elements[n] = _mix32(
+                torch.arange(n, device=x.device) + 0x632BE5AB)[None, :]
+        bits = _round32(elements ^ self._site_keys(self.site))
+        self.site += 1
+        return (bits >= math.ceil(rate * 2.0 ** 32)).reshape(x.shape)
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[Union[torch.Generator, CellDropout]] = None
+            ) -> torch.Tensor:
     """Inverted dropout as flax's nn.Dropout: keep with probability
-    1 - rate and scale by 1 / (1 - rate).  The generator must live on x's
-    device."""
+    1 - rate and scale by 1 / (1 - rate).  The masks come from `generator`,
+    a `torch.Generator` on x's device, or a stacked model's `CellDropout`."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, CellDropout):
+        keep = generator.keep(x, rate)
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -77,7 +154,7 @@ def dot_product_attention(
     v: torch.Tensor,
     *,
     dropout_p: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[Union[torch.Generator, CellDropout]] = None,
     deterministic: bool = True,
     return_probs: bool = False,
     impl: Optional[str] = None,

@@ -48,6 +48,7 @@ from vit3d_ensemble_tpu_torch.metrics import (
     metrics_vector,
 )
 from vit3d_ensemble_tpu_torch.models.vit3d import resolve_device
+from vit3d_ensemble_tpu_torch.ops.attention import CellDropout
 from vit3d_ensemble_tpu_torch.sweep.stack import (
     ConfigGroup,
     group_configs,
@@ -79,9 +80,9 @@ class SweepHyper:
     decay_type: str = "cosine"
     balanced_weights: bool = True
     seed: int = 42
-    #: Snapshot the full train state (params + optimizer + dropout generator
-    #: + best-metric state) every this many eval periods, so a preempted
-    #: group resumes mid-run instead of restarting.  0 = off.
+    #: Snapshot the full train state (params + optimizer + dropout site
+    #: counter + best-metric state) every this many eval periods, so a
+    #: preempted group resumes mid-run instead of restarting.  0 = off.
     snapshot_every: int = 0
     #: Rematerialize encoder blocks in the backward pass: not ported (it
     #: raises), see `run_group`.
@@ -197,18 +198,21 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
     """Train one group on `device` (CUDA unless the caller names another).
 
     With hyper.snapshot_every > 0 and a `state_path`, the carry (params, SGD
-    momentum and schedule step, the dropout generator's state, the best
-    state, the losses so far) is saved with `torch.save` every
-    snapshot_every eval periods; `resume=True` picks up from the last
-    snapshot after preemption, and gives exactly the uninterrupted run.
+    momentum and schedule step, the dropout site counter, the best state,
+    the losses so far) is saved with `torch.save` every snapshot_every eval
+    periods; `resume=True` picks up from the last snapshot after
+    preemption, and gives exactly the uninterrupted run.
     `_abort_after_segments` is a test-only hook that simulates preemption by
     raising after N segments.
 
-    Dropout draws from one generator on `device`, seeded with hyper.seed,
-    one mask a site for all cells (`sweep/stacked.py`): a cell's stream
-    depends on the group's shape, and `fold_ids` / `n_folds_total`, which
-    the JAX engine uses to give a chunked run the unchunked run's per-cell
-    keys, change nothing here (ROADMAP.md §3).
+    Each cell draws its dropout masks from a stream of its own
+    (`ops/attention.CellDropout`, seeded with hyper.seed), keyed on its
+    index in the true (config, fold) grid, `g * F_total + fold_ids[f]`
+    with `F_total = n_folds_total or F` and `fold_ids` `range(F)` by
+    default, as the JAX engine keys it (`engine.py:369-386`).  So a caller
+    that trains a slice of a larger fold axis (the chunked bootstrap:
+    replicates s..s+w-1 of num_rep) gives each cell the masks of the
+    unchunked run, whatever the chunk and the cell's place in it.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -219,10 +223,13 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
             "run_group: remat is not ported: torch.utils.checkpoint does not "
             "replay dropout drawn from an explicit generator (ROADMAP.md, "
             "'Left inside ported modules': remat)")
-    del fold_ids, n_folds_total
     device = resolve_device(device)
     G, F = len(group.confs), data.n_folds
     P = G * F
+    F_total = F if n_folds_total is None else int(n_folds_total)
+    fold_ids = list(range(F) if fold_ids is None else fold_ids)
+    if len(fold_ids) != F:
+        raise ValueError(f"run_group: {len(fold_ids)} fold ids for {F} folds")
     config = group.template_config(img_size)
 
     params = {k: v.reshape(P, *v.shape[2:]).requires_grad_()
@@ -237,7 +244,8 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
         params.values(), hyper.learning_rate,
         make_factor(hyper.decay_type, hyper.warmup_steps, hyper.num_steps),
         momentum=0.9, weight_decay=hyper.weight_decay)
-    gen = torch.Generator(device=device).manual_seed(hyper.seed)
+    cells = CellDropout(hyper.seed, [g * F_total + fid for g in range(G)
+                                     for fid in fold_ids], device)
 
     def on_device(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -266,7 +274,7 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
         logits = stacked_forward(params, config, bv,
                                  layers_active=layers_active,
                                  mlp_active=mlp_active, deterministic=False,
-                                 generator=gen)
+                                 generator=cells)
         losses = cell_loss(logits.reshape(P, -1), bl.repeat(G, 1),
                            bm.repeat(G, 1))
         losses.sum().backward()
@@ -308,7 +316,7 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
                     v.copy_(carry["params"][k])
             opt.load_state_dict(carry["opt"])
             sched.load_state_dict(carry["sched"])
-            gen.set_state(carry["gen"].cpu())
+            cells.site = int(carry["dropout_site"])
             best, losses = carry["best"], list(carry["losses"])
             seg_done = int(carry["segments_done"])
         except Exception as exc:  # noqa: BLE001
@@ -317,7 +325,8 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
             logger.warning("resume state %s unreadable (%s); restarting the "
                            "group from scratch", state_path, exc)
             return run_group(group, data, hyper, img_size,
-                             state_path=state_path, device=device,
+                             state_path=state_path, fold_ids=fold_ids,
+                             n_folds_total=n_folds_total, device=device,
                              _abort_after_segments=_abort_after_segments)
         logger.info("resume: group (D=%d, k=%d) continues from segment %d",
                     group.hidden_size, group.num_heads, seg_done)
@@ -331,7 +340,7 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
         if state_path and hyper.snapshot_every > 0:
             _save_carry(state_path, dict(
                 params=payload(), opt=opt.state_dict(),
-                sched=sched.state_dict(), gen=gen.get_state(), best=best,
+                sched=sched.state_dict(), dropout_site=cells.site, best=best,
                 losses=losses, segments_done=seg + 1))
         if _abort_after_segments is not None and seg + 1 >= _abort_after_segments:
             raise SimulatedPreemption(f"aborted after segment {seg + 1}")

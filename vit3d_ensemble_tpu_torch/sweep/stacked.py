@@ -29,9 +29,11 @@ hand-written `setup_context` and `vmap` rules each, and dropout drawn from an
 explicit generator does not run under `vmap`.  The explicit axis needs
 neither, and launches each kernel once for all P models.
 
-Dropout draws one mask per site for the whole (P, ...) tensor from the one
-generator it is given, so a cell's dropout stream depends on P and on its
-place in the stack (ROADMAP.md §3).
+Dropout takes its masks from the `generator` it is given: the sweep
+engine's `ops/attention.CellDropout`, a stream for each cell keyed on the
+cell's index in the true (config, fold) grid, so a cell's masks do not
+depend on P or on its place in the stack.  (A `torch.Generator` also
+serves; it draws one mask a site for the whole (P, ...) tensor.)
 """
 
 from __future__ import annotations
@@ -128,7 +130,7 @@ def _mlp(config, params, pre, h, mlp_active, *, deterministic, generator):
 def stacked_forward(params: Params, config: ViTConfig, x: torch.Tensor, *,
                     layers_active: torch.Tensor, mlp_active: torch.Tensor,
                     deterministic: bool = True,
-                    generator: torch.Generator = None) -> torch.Tensor:
+                    generator=None) -> torch.Tensor:
     """Logits (P, B, num_classes) of the P stacked models.
 
     x: (S, B, H, W, Z, C) channels-last volumes, S dividing P: model p reads
