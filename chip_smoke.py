@@ -43,6 +43,7 @@ import contextlib
 import csv
 import ctypes
 import dataclasses
+import itertools
 import json
 import logging
 import math
@@ -86,7 +87,7 @@ from vit3d_ensemble_tpu_torch.ops import (
     fused_mlp,
 )
 from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
-from vit3d_ensemble_tpu_torch.sweep import engine, stack
+from vit3d_ensemble_tpu_torch.sweep import e2e_grid, engine, stack
 from vit3d_ensemble_tpu_torch.sweep import stacked as stacked_module
 from vit3d_ensemble_tpu_torch.train.ensemble_trainer import train_ensemble
 from vit3d_ensemble_tpu_torch.train.trainer import init_baseline, train_baseline
@@ -2314,6 +2315,10 @@ CLI_STEPS, CLI_EVAL_EVERY = 24, 12
 # (`tests/test_cli.py:127`).
 CLI_EPOCHS, CLI_BOOT_REPS, CLI_BOOT_MAX_CONFIGS = 2, 4, 4
 CLI_BOOT_CHUNK_ATOL = 1e-6
+# The ensemble sweeps' padded grid: --max_configs 5 (confs 1-4, four
+# combinations in three class signatures) over the 5 folds; its metrics at
+# --e2e_chunk 1 and at the auto chunk must agree within the same bound.
+CLI_GRID_MAX_CONFIGS = 5
 # Rotated pool rows, card against the CPU: at most this share of a row's
 # pixels may differ (a source coordinate at an exact .5 can round the other
 # way when cos, sin or an FMA differ by an ulp), the bound of
@@ -2521,17 +2526,82 @@ def ensemble_layout(out: pathlib.Path, kind: str, confs, tags) -> dict:
 
 
 def cli_run(name, driver, argv, steps, k1, k2, *, cells, layout=None, out=None,
-            short=None, same_as=None, prep=None) -> dict:
+            short=None, same_as=None, prep=None, chunks=None) -> dict:
     """One run of the `cli` phase: `driver.main(argv)` with --output_dir
     `out` (its name by default), its optimizer steps (grouped steps of the
     sweeps), its exact K1 and K2 launches, `cells(result)` the metric dicts
     that must be finite, `layout(out)` its checkpoints' check, `short` the
     arguments that cut it to the traced run of `cli_idle` (None: no trace),
     `same_as` the run whose result it must return, `prep(out)` what its
-    directory needs first."""
+    directory needs first, `chunks` the combinations of each chunk its
+    padded grid must run, in order (the ensemble grids; no back-off)."""
     return dict(name=name, driver=driver, argv=argv, steps=steps, k1=k1, k2=k2,
                 cells=cells, layout=layout, out=out, short=short, same_as=same_as,
-                prep=prep)
+                prep=prep, chunks=chunks)
+
+
+@contextlib.contextmanager
+def grid_runs(into: list):
+    """Record in `into` the `GridResults` of every padded-grid run the two
+    ensemble drivers make inside the block: its chunk widths and back-offs."""
+    drivers = (train_ensemble_cv, train_ensemble_bootstrap)
+    before = [d.run_e2e_grid for d in drivers]
+
+    def run(*args, **kwargs):
+        res = e2e_grid.run_e2e_grid(*args, **kwargs)
+        into.append(res)
+        return res
+
+    for d in drivers:
+        d.run_e2e_grid = run
+    try:
+        yield into
+    finally:
+        for d, fn in zip(drivers, before):
+            d.run_e2e_grid = fn
+
+
+def ensembles_layout(out: pathlib.Path, kind: str, combos, tags) -> dict:
+    """`ensemble_layout` for every combination of `combos`."""
+    parts = [ensemble_layout(out, kind, c, tags) for c in combos]
+    return {"files": sum(p["files"] for p in parts),
+            "missing": [m for p in parts for m in p["missing"]],
+            "wrong_shapes": [w for p in parts for w in p["wrong_shapes"]]}
+
+
+def meta_heads_layout(out: pathlib.Path, kind: str, combos, folds: int) -> dict:
+    """Every combination's `<kind>_models/ensemble_<name>/meta_heads.bin`
+    with its `combo` and the (folds, k + 1) `meta_wb` of finite heads."""
+    missing, wrong = [], []
+    for comb in combos:
+        name = "_".join(str(c) for c in comb)
+        path = out / f"{kind}_models" / f"ensemble_{name}" / "meta_heads.bin"
+        if not path.exists():
+            missing.append(str(path.relative_to(out)))
+            continue
+        got = torch.load(path, map_location="cpu", weights_only=True)
+        wb = got.get("meta_wb")
+        if (sorted(got) != ["combo", "meta_wb"] or got["combo"].tolist() != list(comb)
+                or tuple(wb.shape) != (folds, len(comb) + 1)
+                or not bool(torch.isfinite(wb).all())):
+            wrong.append(str(path.relative_to(out)))
+    return {"files": len(combos), "missing": missing, "wrong_shapes": wrong}
+
+
+def markers_restored(out: pathlib.Path, names) -> dict:
+    """The grid's resume markers of `names`, as `--state_mirror` restored
+    them under `out/sweep_state/`, each with its val and test metrics."""
+    got = grid_test_metrics(out)
+    missing = [n for n in names if n not in got]
+    return {"files": len(names), "missing": missing,
+            "wrong_shapes": [n for n in names if n in got and not got[n]]}
+
+
+def grid_test_metrics(out: pathlib.Path) -> dict:
+    """{combination: its markers' held-out test metrics} of a grid run."""
+    state = out / "sweep_state"
+    return {"_".join(map(str, m["combo"])): m.get("test", {})
+            for m in (json.loads(p.read_text()) for p in sorted(state.glob("*.json")))}
 
 
 @contextlib.contextmanager
@@ -2689,6 +2759,28 @@ def _phase_cli(work: pathlib.Path) -> dict:
     cv_steps, fixed_steps = (CLI_EPOCHS * -(-n // 4) for n in (cv_train, fixed_train))
     best = ",".join(str(c) for c in BEST_ENSEMBLE)
     best_name = "_".join(str(c) for c in BEST_ENSEMBLE)
+    # the padded grid: the combinations of confs 1-4 by class signature, in
+    # the order the grid runs them, one chunk each at the auto width; every
+    # slot at the template's depth, k slots a forward; an evaluation's
+    # validation and test forwards after each epoch and once more at the end
+    grid_combos = list(itertools.combinations(range(1, CLI_GRID_MAX_CONFIGS), 3))
+    grid_names = ["_".join(map(str, c)) for c in grid_combos]
+    by_sig = {}
+    for comb in grid_combos:
+        sig = e2e_grid.signature_of(e2e_grid.plan_combo(comb))
+        by_sig[sig] = by_sig.get(sig, 0) + 1
+    grid_chunks = list(by_sig.values())
+    template_depth = max(ViTConfig.from_conf(c).num_layers for c in BASELINE_CONFS)
+    grid_slots = template_depth * 3
+    grid_k1 = grid_slots * (CLI_EPOCHS + 1) * 2
+
+    def grid_k2(steps_per_epoch):
+        return grid_slots * (CLI_EPOCHS * steps_per_epoch + (CLI_EPOCHS + 1) * 2)
+
+    cv_S, fixed_S = -(-cv_train // 4), -(-fixed_train // 4)
+    all_combos = list(itertools.combinations(BASELINE_CONFS, 3))
+    all_names = ["_".join(map(str, c)) for c in all_combos]
+    mirror = work / "mirror" / "ens_grid_cv.jsonl"
 
     def baselines(out):
         """The whole_all run's 18 baseline checkpoints, which the ensemble
@@ -2792,6 +2884,78 @@ def _phase_cli(work: pathlib.Path) -> dict:
                 layout=lambda o: ensemble_layout(o, "bootstrap_ensemble", boot_confs,
                                                  ["bootstrap_0", "bootstrap_1"]),
                 short=["--num_epochs", "1", "--num_rep", "1"], prep=baselines),
+        # the two ensemble sweeps in their default mode, the padded
+        # (combination, fold) grid: every slot a stacked model at the
+        # template's depth over P = c·F instances, K2 in every forward, K1
+        # with the model axis in each evaluation's validation and test
+        # forwards (after every epoch and once more at the end)
+        cli_run("ens_grid_cv", train_ensemble_cv,
+                ["--max_configs", str(CLI_GRID_MAX_CONFIGS), "--save_ensembles",
+                 *epochs, *cv[:4], "--num_cv", str(CLI_FOLDS)],
+                len(grid_chunks) * CLI_EPOCHS * cv_S,
+                len(grid_chunks) * grid_k1, len(grid_chunks) * grid_k2(cv_S),
+                cells=lambda r: [r[n][f] for n in grid_names for f in folds],
+                layout=lambda o: ensembles_layout(o, "cv_ensemble", grid_combos, [
+                    f"cv{f + 1}" for f in range(CLI_FOLDS)]),
+                short=["--num_epochs", "1", "--max_configs", "4"], prep=baselines,
+                chunks=grid_chunks),
+        cli_run("ens_grid_cv_chunk1", train_ensemble_cv,
+                ["--max_configs", str(CLI_GRID_MAX_CONFIGS), "--e2e_chunk", "1",
+                 *epochs, *cv[:4], "--num_cv", str(CLI_FOLDS)],
+                len(grid_combos) * CLI_EPOCHS * cv_S,
+                len(grid_combos) * grid_k1, len(grid_combos) * grid_k2(cv_S),
+                cells=lambda r: [r[n][f] for n in grid_names for f in folds],
+                prep=baselines, chunks=[1] * len(grid_combos)),
+        cli_run("ens_grid_cv_resume", train_ensemble_cv,
+                ["--max_configs", str(CLI_GRID_MAX_CONFIGS), "--save_ensembles",
+                 *epochs, *cv[:4], "--num_cv", str(CLI_FOLDS), "--resume"], 0, 0, 0,
+                cells=lambda r: [r[n][f] for n in grid_names for f in folds],
+                out="ens_grid_cv", same_as="ens_grid_cv"),
+        # --state_mirror: the first run folds the markers into the mirror,
+        # the second restores them after sweep_state/ is deleted
+        cli_run("ens_grid_cv_mirror", train_ensemble_cv,
+                ["--max_configs", str(CLI_GRID_MAX_CONFIGS), "--save_ensembles",
+                 *epochs, *cv[:4], "--num_cv", str(CLI_FOLDS), "--resume",
+                 "--state_mirror", str(mirror)], 0, 0, 0,
+                cells=lambda r: [r[n][f] for n in grid_names for f in folds],
+                out="ens_grid_cv", same_as="ens_grid_cv"),
+        cli_run("ens_grid_cv_mirror_restore", train_ensemble_cv,
+                ["--max_configs", str(CLI_GRID_MAX_CONFIGS), "--save_ensembles",
+                 *epochs, *cv[:4], "--num_cv", str(CLI_FOLDS), "--resume",
+                 "--state_mirror", str(mirror)], 0, 0, 0,
+                cells=lambda r: [r[n][f] for n in grid_names for f in folds],
+                layout=lambda o: markers_restored(o, grid_names),
+                out="ens_grid_cv", same_as="ens_grid_cv",
+                prep=lambda o: shutil.rmtree(o / "sweep_state")),
+        cli_run("ens_grid_boot", train_ensemble_bootstrap,
+                ["--max_configs", str(CLI_BOOT_MAX_CONFIGS), "--num_rep", "2",
+                 "--save_ensembles", *epochs, *whole[:4]],
+                CLI_EPOCHS * fixed_S, grid_k1, grid_k2(fixed_S),
+                cells=lambda r: [part["1_2_3"][f"boot{k}"] for part in r
+                                 for k in range(2)],
+                layout=lambda o: ensemble_layout(o, "bootstrap_ensemble", boot_confs,
+                                                 ["bootstrap_0", "bootstrap_1"]),
+                short=["--num_epochs", "1", "--num_rep", "1"], prep=baselines,
+                chunks=[1]),
+        # --frozen: the 18 baselines' logits (three groups, K1 and K2 at the
+        # group's depth) over each fold's train and val splits, or each
+        # replicate's train, val and test, then the 816 x F meta heads
+        cli_run("ens_frozen_cv", train_ensemble_cv,
+                ["--frozen", *epochs, *cv[:4], "--num_cv", str(CLI_FOLDS)],
+                CLI_EPOCHS * cv_S, groups * L * 2 * CLI_FOLDS,
+                groups * L * 2 * CLI_FOLDS,
+                cells=lambda r: [r[n][f] for n in all_names for f in folds],
+                layout=lambda o: meta_heads_layout(o, "cv_ensemble", all_combos,
+                                                   CLI_FOLDS),
+                short=["--num_epochs", "1", "--num_cv", "1"], prep=baselines),
+        cli_run("ens_frozen_boot", train_ensemble_bootstrap,
+                ["--frozen", "--num_rep", "2", *epochs, *whole[:4]],
+                CLI_EPOCHS * fixed_S, groups * L * 3 * 2, groups * L * 3 * 2,
+                cells=lambda r: [part[n][f"boot{k}"] for part in r for n in all_names
+                                 for k in range(2)],
+                layout=lambda o: meta_heads_layout(o, "bootstrap_ensemble",
+                                                   all_combos, 2),
+                short=["--num_epochs", "1", "--num_rep", "1"], prep=baselines),
     ]
     results, totals, summary, calls = {}, counts_of(), {}, {}
     for run in runs:
@@ -2802,8 +2966,8 @@ def _phase_cli(work: pathlib.Path) -> dict:
             run["prep"](out)
         go = lambda o=out: driver.main([*argv, "--output_dir", str(o)])  # noqa: E731
         reset_launches()
-        got, seen = [], {}
-        with kernel_calls(seen):
+        got, seen, grids = [], {}, []
+        with kernel_calls(seen), grid_runs(grids):
             seconds = wall_time_ms(lambda: got.append(go())) / 1e3
         counts = launches()
         for kernel, recorded in seen.items():
@@ -2822,6 +2986,13 @@ def _phase_cli(work: pathlib.Path) -> dict:
                 "device_idle_share": None}
         ok = counts == want and all(len(seen.get(k, [])) == counts[k]
                                     for k in ("K1", "K2"))
+        if run["chunks"] is not None:
+            # the grid ran each chunk at the width the launches assume, and
+            # no chunk backed off
+            widths = [w for g in grids for ws in g.chunks.values() for w in ws]
+            backoffs = sum(g.backoffs for g in grids)
+            line.update(grid_chunks=widths, grid_backoffs=backoffs)
+            ok = ok and widths == run["chunks"] and backoffs == 0
         if run["same_as"]:
             same = res == results[run["same_as"]]
             line[f"same_results_as_{run['same_as']}"] = same
@@ -2871,9 +3042,139 @@ def _phase_cli(work: pathlib.Path) -> dict:
     emit(line)
     check(line["ok"], f"cli: --boot_chunk 2 against {CLI_BOOT_REPS}: {line}")
     summary["boot_chunk_max_abs_diff"] = diff
+    # --e2e_chunk changes which combinations share a chunk, not their
+    # metrics: the val results and the markers' held-out test metrics
+    pair = ("ens_grid_cv", "ens_grid_cv_chunk1")
+    tests = [grid_test_metrics(work / name) for name in pair]
+    pairs = [(a[k], b[k]) for a, b in zip(*(cells_of[n](results[n]) for n in pair))
+             for k in a]
+    pairs += [(tests[0][n][f][k], tests[1][n][f][k]) for n in grid_names
+              for f in folds for k in tests[0][n][f]]
+    diff = max(abs(a - b) for a, b in pairs)
+    line = {"phase": "cli_grid_chunk", "card": card, "runs": list(pair),
+            "values": len(pairs), "max_abs_diff": diff,
+            "atol": CLI_BOOT_CHUNK_ATOL, "ok": diff <= CLI_BOOT_CHUNK_ATOL}
+    emit(line)
+    check(line["ok"] and len(pairs) == 2 * len(grid_names) * CLI_FOLDS * 11,
+          f"cli: --e2e_chunk 1 against the auto chunk: {line}")
+    summary["grid_chunk_max_abs_diff"] = diff
     # the kernels at the shapes these runs gave them (launches not counted)
     cases = cli_kernel_cases(calls)
     return {"launches": totals, "runs": summary, "cases": cases}
+
+
+# --- the `e2e_grid_memory` phase: the grid's chunk sizing on the card -------
+# The widest class signature, three (64, 4) members, at full width and the
+# template's depth; 72 training rows a fold (a CV fold's), 18 validation and
+# 22 test rows, B = 4, dropout on, f32.
+GRID_MEM_CHUNKS = (1, 2, 4)
+GRID_MEM_STEPS = 3
+GRID_MEM_ROWS = (72, 18, 22)
+
+
+def grid_memory_data(folds: int, steps: int) -> e2e_grid.E2EFoldData:
+    """`folds` synthetic folds of GRID_MEM_ROWS, one epoch cut to `steps`."""
+    n, v, t = GRID_MEM_ROWS
+    data = e2e_grid.stack_e2e_folds(
+        [(synthetic_split(n, SEED + f), synthetic_split(v, SEED + 10 + f),
+          synthetic_split(t, SEED + 20)) for f in range(folds)], 1, 4, SEED)
+    return dataclasses.replace(data, idx_all=data.idx_all[:, :, :steps],
+                               msk_all=data.msk_all[:, :, :steps])
+
+
+def grid_memory_run(plans, loader, data, chunk: int) -> dict:
+    """One `run_e2e_grid` call: its peak device bytes over what was
+    allocated before it, its wall time, its chunks and back-offs."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = []
+    ms = wall_time_ms(lambda: res.append(e2e_grid.run_e2e_grid(
+        plans, loader, data, num_epochs=1, seed=SEED, chunk=chunk, device="cuda")))
+    return {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "wall_ms": ms, "chunks": [w for ws in res[0].chunks.values() for w in ws],
+            "backoffs": res[0].backoffs, "results": res[0]}
+
+
+def phase_e2e_grid_memory() -> dict:
+    """The padded grid's memory on the card: the widest signature at chunks
+    of 1, 2 and 4 combinations on one fold (GRID_MEM_STEPS steps and an
+    evaluation), the bytes an instance from their slope; the auto chunk of
+    each of the 10 signatures at 5 folds; then the widest signature at its
+    auto chunk x 5 folds, which must not back off, its peak, and its ms a
+    step from a run of twice the steps (the difference, so set-up and the
+    evaluation drop out)."""
+    cls = (64, 4)
+    confs = [c for c in BASELINE_CONFS if e2e_grid._conf_class(c) == cls]
+    members = {c: (ViTConfig.from_conf(c), VisionTransformer3D(
+        ViTConfig.from_conf(c), device="cpu",
+        generator=torch.Generator().manual_seed(c)).state_dict()) for c in confs}
+    combos = list(itertools.combinations(confs, 3))
+    one_fold = grid_memory_data(1, GRID_MEM_STEPS)
+    by_chunk = {}
+    for c in GRID_MEM_CHUNKS:
+        run = grid_memory_run(combos[:c], members.__getitem__, one_fold, c)
+        by_chunk[c] = run
+        emit({"phase": "e2e_grid_memory", "card": card, "signature": [cls] * 3,
+              "folds": 1, "chunk": c, "instances": c, "steps": GRID_MEM_STEPS,
+              "peak_bytes": run["peak_bytes"], "wall_ms": run["wall_ms"],
+              "backoffs": run["backoffs"]})
+        check(run["backoffs"] == 0 and run["chunks"] == [c],
+              f"e2e_grid_memory: chunk {c} ran as {run['chunks']}")
+    lo, hi = GRID_MEM_CHUNKS[0], GRID_MEM_CHUNKS[-1]
+    per_instance = (by_chunk[hi]["peak_bytes"] - by_chunk[lo]["peak_bytes"]) / (hi - lo)
+
+    five = grid_memory_data(CLI_FOLDS, GRID_MEM_STEPS)
+    five_long = grid_memory_data(CLI_FOLDS, 2 * GRID_MEM_STEPS)
+    # as `run_e2e_grid` holds them on the device (the indices as int64)
+    data_bytes = sum(a.nbytes for a in (five.vols, five.labels, five.val_vols,
+                                        five.val_labels, five.val_mask, five.test_vols,
+                                        five.msk_all)) + 2 * five.idx_all.nbytes
+    budget = e2e_grid._chunk_budget(torch.device("cuda"), data_bytes)
+    template = {k: dataclasses.replace(ViTConfig.from_conf(c), mlp_dim=3072,
+                                       num_layers=8)
+                for c in BASELINE_CONFS for k in [e2e_grid._conf_class(c)]}
+    sigs = collections.Counter(e2e_grid.signature_of(e2e_grid.plan_combo(c))
+                               for c in itertools.combinations(BASELINE_CONFS, 3))
+    autos = {}
+    for sig, n in sigs.items():
+        inst = e2e_grid._instance_bytes([template[k] for k in sig], 4, False)
+        autos[sig] = e2e_grid._auto_chunk(inst, CLI_FOLDS, budget)
+        emit({"phase": "e2e_grid_auto_chunk", "card": card, "signature": sig,
+              "combinations": n, "instance_bytes_estimate": inst,
+              "auto_chunk": autos[sig], "chunks": -(-n // autos[sig]),
+              "budget_bytes": budget})
+    widest = (cls,) * 3
+    plans = [combos[i % len(combos)] for i in range(autos[widest])]
+    run = grid_memory_run(plans, members.__getitem__, five, 0)
+    long = grid_memory_run(plans, members.__getitem__, five_long, 0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    steps_ms = (long["wall_ms"] - run["wall_ms"]) / GRID_MEM_STEPS
+    instances = autos[widest] * CLI_FOLDS
+    line = {"phase": "e2e_grid_memory_auto", "card": card, "signature": widest,
+            "auto_chunk": autos[widest], "folds": CLI_FOLDS, "instances": instances,
+            "peak_bytes": run["peak_bytes"], "peak_bytes_long": long["peak_bytes"],
+            "device_bytes": total, "budget_bytes": budget,
+            "measured_bytes_per_instance_one_fold": per_instance,
+            "estimated_bytes_per_instance": e2e_grid._instance_bytes(
+                [template[cls]] * 3, 4, False),
+            "wall_ms": [run["wall_ms"], long["wall_ms"]],
+            "ms_per_step": steps_ms, "instance_steps_per_s": instances * 1e3 / steps_ms,
+            # an extrapolation: the 816 x 5 x 100-epoch grid (18 steps an
+            # epoch at 72 rows) at this rate, evaluations and set-up left out
+            "full_grid_hours_extrapolated": 816 * CLI_FOLDS * 100 * 18
+            / (instances * 1e3 / steps_ms) / 3600,
+            "chunks": [run["chunks"], long["chunks"]],
+            "backoffs": run["backoffs"] + long["backoffs"],
+            "finite": all(math.isfinite(v) for r in run["results"].values()
+                          for m in r.values() for v in m.values())}
+    emit(line)
+    check(line["backoffs"] == 0 and run["chunks"] == long["chunks"] == [autos[widest]]
+          and line["finite"], f"e2e_grid_memory: the auto chunk: {line}")
+    return {"per_instance_bytes": per_instance, "auto": line,
+            "auto_chunks": {"_".join(f"{h}.{k}" for h, k in sig): a
+                            for sig, a in autos.items()}}
 
 
 def main() -> int:
@@ -2920,6 +3221,7 @@ def main() -> int:
     train_ens = phase_train_ensemble()
     sweep = phase_sweep()
     cli = phase_cli()
+    grid_memory = phase_e2e_grid_memory()
     by_path = {name: {"serve": main_path["launches"][name],
                       "serve_layer": layer_pass["launches"][name],
                       "variants_chunked": variants["chunked"]["launches"][name],
@@ -3080,6 +3382,7 @@ def main() -> int:
                      "train_ensemble": train_ens["timing"]},
         "sweep": {**sweep["groups"], "dropout": sweep["dropout"]},
         "cli": cli["runs"],
+        "e2e_grid_memory": {k: v for k, v in grid_memory.items() if k != "auto"},
         "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
                     for impl, res in stretch.items()},
         "seconds": time.perf_counter() - t_start})

@@ -147,28 +147,6 @@ def test_drivers_need_a_card_unless_given_cpu(driver, monkeypatch, tmp_path):
         driver.main(["--output_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("driver,argv,item", [
-    (ens_cv_driver, [], "sweep/e2e_grid.py"),
-    (ens_cv_driver, ["--padded_compile", "--state_mirror", "m.jsonl",
-                     "--e2e_chunk", "2"], "sweep/e2e_grid.py"),
-    (ens_cv_driver, ["--frozen"], "sweep/ensemble_sweep.py"),
-    (ens_cv_driver, ["--frozen", "--no-padded_compile"], "sweep/ensemble_sweep.py"),
-    (ens_boot_driver, [], "sweep/e2e_grid.py"),
-    (ens_boot_driver, ["--save_ensembles"], "sweep/e2e_grid.py"),
-    (ens_boot_driver, ["--frozen"], "sweep/ensemble_sweep.py"),
-], ids=["cv_grid", "cv_grid_flags", "cv_frozen", "cv_frozen_sequential",
-        "boot_grid", "boot_grid_flags", "boot_frozen"])
-def test_unported_modes_raise(driver, argv, item, tmp_path):
-    """The grid (the default) and --frozen raise before reading any data,
-    naming their ROADMAP.md item and the flag of the sequential mode."""
-    with pytest.raises(NotImplementedError, match=item) as err:
-        driver.main([*argv, "--device", "cpu", "--output_dir", str(tmp_path),
-                     "--csv_path", str(tmp_path / "absent")])
-    assert "--no-padded_compile" in str(err.value)
-    if "--state_mirror" in argv:
-        assert "--state_mirror" in str(err.value) and "--e2e_chunk" in str(err.value)
-
-
 def test_frozen_and_end_to_end_exclude_each_other(tmp_path):
     with pytest.raises(SystemExit, match="mutually exclusive"):
         ens_cv_driver.main(["--frozen", "--end_to_end", "--device", "cpu",
