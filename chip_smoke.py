@@ -25,10 +25,16 @@ read just after:
   * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
     K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
   * the sweep engine (`run_group`) on the three groups of conf 1-18;
+  * the int8 route (`ops/quant.py`): `int8_dense` against the CPU's at the
+    models' shapes, conf 9 and 19 under `int8` and `int8_attn` against
+    exact, and the stretch model in bf16 under `none`, `int8_attn` and
+    `int8` (phase `quant`);
   * the baseline drivers (`cli/train_baseline_cv`,
     `cli/train_baseline_whole_dataset`), conf 9 and all 18 configs, from a
     synthetic 99-patient dataset of PNGs and CSVs that the script writes
-    (K1 in evaluation, K2).
+    (K1 in evaluation, K2), then the ensemble drivers, and `cli/test_cv`
+    on what they wrote (its baselines, every ensemble source,
+    `--all_ensembles`, `--ood`, `--quant_impl`; phase `cli_test_cv`).
 
 Every line it prints is a JSON object.  The last is
 `{"ok": true, "device": {...}}`; it is printed only when every check
@@ -68,6 +74,7 @@ from vit3d_ensemble_tpu_torch.configs import (
     vit_b16_128cubed,
 )
 from vit3d_ensemble_tpu_torch.cli import (
+    test_cv,
     train_baseline_bootstrap,
     train_baseline_cv,
     train_baseline_whole_dataset,
@@ -85,6 +92,7 @@ from vit3d_ensemble_tpu_torch.ops import (
     attention_layer,
     fused_attention,
     fused_mlp,
+    quant,
 )
 from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
 from vit3d_ensemble_tpu_torch.sweep import e2e_grid, engine, stack
@@ -475,7 +483,8 @@ def gelu_probe(proc) -> dict:
 
 def host_libraries() -> dict:
     """Which of PIL, pandas, sklearn and cv2 the host's Python could
-    import (neither the port nor this script imports them), with their
+    import (neither the port nor this script imports them), and scipy and
+    matplotlib (`metrics/stats.py` imports them in its functions), with their
     versions, and the libpng shared objects there: the one the dynamic
     loader finds and those Pillow bundles (no header comes with them)."""
     import ctypes.util
@@ -483,7 +492,8 @@ def host_libraries() -> dict:
     import importlib.util
     out = {}
     for module, dist in (("PIL", "pillow"), ("pandas", "pandas"),
-                         ("sklearn", "scikit-learn"), ("cv2", None)):
+                         ("sklearn", "scikit-learn"), ("cv2", None),
+                         ("scipy", "scipy"), ("matplotlib", "matplotlib")):
         spec = importlib.util.find_spec(module)
         try:
             version = importlib.metadata.version(dist) if dist and spec else None
@@ -1858,6 +1868,167 @@ def phase_stretch(gen) -> dict:
     return result
 
 
+# --- the `quant` phase: the int8 route (`ops/quant.py`) on the card ---------
+# int8_dense, card against the CPU on the same inputs, at the products the
+# models give it at B=8: conf 9's fused QKV (65 tokens, D 16 -> 48) and a
+# (64, 3,072) FFN both ways; conf 20's and 19's FFN at mlp_dim 2,204 (257
+# tokens, D 8 and 16), whose N (fc1) and K (fc2) are padded to multiples
+# of 8; the stretch model's projections and FFN (513 tokens, D 768) in
+# bf16.  The int32 sums are exact and every float step is the same IEEE
+# operation, so the two should be equal; the gate is 1e-6 of the largest.
+QUANT_SHAPES = ((65 * 8, 16, 48, torch.float32), (65 * 8, 64, 3072, torch.float32),
+                (65 * 8, 3072, 64, torch.float32), (257 * 8, 8, 2204, torch.float32),
+                (257 * 8, 2204, 8, torch.float32), (257 * 8, 16, 2204, torch.float32),
+                (257 * 8, 2204, 16, torch.float32),
+                (513 * 8, 768, 768, torch.bfloat16), (513 * 8, 768, 3072, torch.bfloat16),
+                (513 * 8, 3072, 768, torch.bfloat16))
+QUANT_RTOL = 1e-6
+QUANT_ITERS = 20
+# int8 logits against exact ones (`tests/test_quant.py:75`), conf 9 and 19
+# in f32 at B=8
+QUANT_LOGIT_DEV = 0.15
+QUANT_B = 8
+# int8 products a layer: the fused QKV or three projections, the out
+# projection, and under `int8` fc1 and fc2
+QUANT_PRODUCTS = {"int8": {"fused": 4, "separate": 6},
+                  "int8_attn": {"fused": 2, "separate": 4}}
+QUANT_TURNS = ("none", "int8_attn", "int8", "int8", "int8_attn", "none")
+
+
+@contextlib.contextmanager
+def quant_impl(impl: str):
+    quant.set_default_quant_impl(impl)
+    try:
+        yield
+    finally:
+        quant.set_default_quant_impl("none")
+
+
+def quant_launches(impl: str, cfg, passes: int = 1) -> dict:
+    """A forward's kernel launches under `impl`: K2 (head_dim <= 16) or K4
+    a layer, K1 a layer unless `int8` takes the FFN; f32 and the stretch
+    model's D 768 take K1's own bodies."""
+    L = cfg.num_layers * passes
+    attend = {"K2": L} if cfg.hidden_size // cfg.num_heads <= 16 else {"K4": L}
+    ffn = {} if impl == "int8" else {"K1": L, "K1_own": L}
+    return counts_of(**attend, **ffn)
+
+
+def quant_products(impl: str, cfg, passes: int = 1) -> int:
+    if impl == "none":
+        return 0
+    kind = "fused" if cfg.hidden_size <= 64 else "separate"
+    return QUANT_PRODUCTS[impl][kind] * cfg.num_layers * passes
+
+
+def phase_quant(gen) -> dict:
+    """The int8 route on the card: `int8_dense` against the CPU's at
+    QUANT_SHAPES (with its ms, `torch._int_mm`'s alone and the product in
+    the input's type); conf 9 and 19 in f32 at B=8 under `int8` and
+    `int8_attn` against the exact forward; and the stretch model in bf16
+    at B=8 under `none`, `int8_attn` and `int8` in turns: ms a batch,
+    device time, launches and the logits' deviation from `none`."""
+    out = {"dense": [], "models": {}, "stretch": {}}
+    for M, K, N, dtype in QUANT_SHAPES:
+        x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).to(dtype)
+        b = (torch.randn(N, generator=gen, device="cuda") * 0.01).to(dtype)
+        before = quant.int8_products
+        got = quant.int8_dense(x, w, b)
+        products = quant.int8_products - before
+        ref = quant.int8_dense(x.cpu(), w.cpu(), b.cpu())
+        err = float((got.cpu().float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        exact = torch.addmm(b.float(), x.float(), w.float())
+        xq, _ = quant.quantize_rowwise(x)
+        wq, _ = quant.quantize_colwise(w)
+        ok = err <= QUANT_RTOL * scale and products == 1 and got.dtype == dtype
+        line = {"phase": "quant_dense", "card": card, "M": M, "K": K, "N": N,
+                "dtype": str(dtype).split(".")[-1], "padded": bool(K % 8 or N % 8),
+                "max_abs_err_vs_cpu": err, "max_abs": scale, "rtol": QUANT_RTOL,
+                "int8_max_abs_dev_vs_exact": float((got.float() - exact).abs().max()),
+                "ms": time_ms(lambda: quant.int8_dense(x, w, b), QUANT_ITERS),
+                "int_mm_ms": time_ms(lambda: quant.int_mm_padded(xq, wq), QUANT_ITERS),
+                "library_ms": time_ms(lambda: torch.addmm(b, x, w), QUANT_ITERS),
+                "ok": ok}
+        emit(line)
+        check(ok, f"quant: int8_dense on the card against the CPU: {line}")
+        out["dense"].append(line)
+
+    with torch.no_grad():
+        for conf in (9, 19):
+            cfg = ViTConfig.from_conf(conf)
+            model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                        generator=torch.Generator().manual_seed(SEED + conf))
+            x = torch.randn(QUANT_B, 128, 128, 5, 1, generator=gen, device="cuda")
+            exact = model(x).logits
+            for impl in ("int8", "int8_attn"):
+                with quant_impl(impl):
+                    reset_launches()
+                    before = quant.int8_products
+                    got = model(x).logits
+                    counts = launches()
+                    products = quant.int8_products - before
+                dev = float((got - exact).abs().max())
+                finite = bool(torch.isfinite(got).all())
+                want = quant_launches(impl, cfg)
+                ok = (finite and 0.0 < dev < QUANT_LOGIT_DEV and counts == want
+                      and products == quant_products(impl, cfg))
+                line = {"phase": "quant_model", "card": card, "conf": conf,
+                        "impl": impl, "dtype": "float32", "B": QUANT_B,
+                        "logits_max_abs_dev_vs_exact": dev, "bound": QUANT_LOGIT_DEV,
+                        "finite": finite, "launches": counts, "expected_launches": want,
+                        "int8_products": products, "ok": ok}
+                emit(line)
+                check(ok, f"quant: conf {conf} under {impl}: {line}")
+                out["models"][f"conf{conf}_{impl}"] = dev
+
+        cfg = vit_b16_128cubed()
+        model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                    generator=torch.Generator().manual_seed(SEED))
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+        model.to(torch.bfloat16)
+        x = torch.randn(STRETCH_B, 128, 128, 128, 1, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        logits, turns = {}, {impl: [] for impl in QUANT_TURNS}
+        for impl in QUANT_TURNS:
+            with quant_impl(impl):
+                model(x)                        # warm-up
+                turns[impl].append(time_ms(lambda: model(x), STRETCH_ITERS))
+                if impl in logits:
+                    continue
+                reset_launches()
+                before = quant.int8_products
+                logits[impl] = model(x).logits.float()
+                counts = launches()
+                products = quant.int8_products - before
+                busy, groups, kernels, _ = device_time(lambda: model(x))
+            want = quant_launches(impl, cfg)
+            out["stretch"][impl] = {"launches": counts, "expected_launches": want,
+                                    "int8_products": products,
+                                    "expected_int8_products": quant_products(impl, cfg),
+                                    "device_busy_ms": busy, "kernels": kernels,
+                                    "by_group_ms": groups}
+        for impl, res in out["stretch"].items():
+            dev = float((logits[impl] - logits["none"]).abs().max())
+            finite = bool(torch.isfinite(logits[impl]).all())
+            ms = statistics.median(turns[impl])
+            ok = (finite and res["launches"] == res["expected_launches"]
+                  and res["int8_products"] == res["expected_int8_products"]
+                  and res["device_busy_ms"] > 0 and (impl == "none") == (dev == 0.0))
+            res.update(ms_per_batch=ms, ms_per_batch_turns=turns[impl],
+                       volumes_per_s=STRETCH_B / ms * 1e3,
+                       device_idle_share=1.0 - res["device_busy_ms"] / ms,
+                       logits_max_abs_dev_vs_none=dev,
+                       logits_max_abs=float(logits["none"].abs().max()), finite=finite)
+            emit({"phase": "quant_stretch", "card": card, "config": "vit_b16_128cubed",
+                  "dtype": "bfloat16", "B": STRETCH_B, "impl": impl, **res, "ok": ok})
+            check(ok, f"quant: stretch under {impl}: {res}")
+    return out
+
+
 # The training phases (`_common.py:69`'s batch of 4).  Data: synthetic
 # volumes made from the seed, balanced labels, the positives shifted by 0.5.
 TRAIN_N, VAL_N = 64, 24
@@ -2526,7 +2697,7 @@ def ensemble_layout(out: pathlib.Path, kind: str, confs, tags) -> dict:
 
 
 def cli_run(name, driver, argv, steps, k1, k2, *, cells, layout=None, out=None,
-            short=None, same_as=None, prep=None, chunks=None) -> dict:
+            short=None, same_as=None, prep=None, chunks=None, verify=None) -> dict:
     """One run of the `cli` phase: `driver.main(argv)` with --output_dir
     `out` (its name by default), its optimizer steps (grouped steps of the
     sweeps), its exact K1 and K2 launches, `cells(result)` the metric dicts
@@ -2534,10 +2705,11 @@ def cli_run(name, driver, argv, steps, k1, k2, *, cells, layout=None, out=None,
     arguments that cut it to the traced run of `cli_idle` (None: no trace),
     `same_as` the run whose result it must return, `prep(out)` what its
     directory needs first, `chunks` the combinations of each chunk its
-    padded grid must run, in order (the ensemble grids; no back-off)."""
+    padded grid must run, in order (the ensemble grids; no back-off),
+    `verify(result, out)` a dict of its own checks, `checks_ok` among them."""
     return dict(name=name, driver=driver, argv=argv, steps=steps, k1=k1, k2=k2,
                 cells=cells, layout=layout, out=out, short=short, same_as=same_as,
-                prep=prep, chunks=chunks)
+                prep=prep, chunks=chunks, verify=verify)
 
 
 @contextlib.contextmanager
@@ -2559,6 +2731,48 @@ def grid_runs(into: list):
     finally:
         for d, fn in zip(drivers, before):
             d.run_e2e_grid = fn
+
+
+@contextlib.contextmanager
+def all_ensembles_results(into: list):
+    """Record in `into` what every `test_cv --all_ensembles` inside the
+    block returns: ({combination: {fold: metrics}}, ranking)."""
+    before = test_cv.test_all_ensembles
+
+    def run(args):
+        res = before(args)
+        into.append(res)
+        return res
+
+    test_cv.test_all_ensembles = run
+    try:
+        yield into
+    finally:
+        test_cv.test_all_ensembles = before
+
+
+def report_rows(out: pathlib.Path, rows: int) -> dict:
+    """`test_cv --all_ensembles`' workbook and CSV under `out`: the CSV one
+    row a combination after its header, each cell 'mean (std)' of finite
+    numbers."""
+    path = out / "Test_All_Ensembles.csv"
+    if not path.exists() or not (out / "Test_All_Ensembles.xlsx").exists():
+        return {"files": 2, "missing": [path.name], "wrong_shapes": []}
+    with open(path, newline="") as f:
+        body = list(csv.reader(f))[1:]
+    cells = [c for row in body for c in row[1:]]
+    finite = all(math.isfinite(float(v)) for c in cells
+                 for v in c.replace("(", " ").replace(")", " ").split())
+    return {"files": 2, "missing": [], "rows": len(body),
+            "wrong_shapes": [] if len(body) == rows and finite and cells
+            else [f"{path.name}: {len(body)} rows of {rows}, finite {finite}"]}
+
+
+def stats_checks(res, out) -> dict:
+    """A `test_cv` run's statistics: the four tests present."""
+    keys = sorted((res[2] or {}).keys())
+    want = sorted(["shapiro base", "shapiro ens", "median", "mann_whitney"])
+    return {"statistics": keys, "checks_ok": keys == want}
 
 
 def ensembles_layout(out: pathlib.Path, kind: str, combos, tags) -> dict:
@@ -2687,6 +2901,46 @@ def cli_idle(fn) -> dict:
             "device_idle_share": 1.0 - busy / wall_ms, "by_group_ms": groups}
 
 
+# test_cv on the card against what the drivers recorded: the frozen
+# --all_ensembles fold metrics of the {5,9,11} heads against --ensemble
+# 5,9,11 on the same heads (other member groupings, device metrics against
+# host ones), and --ensemble on a grid combination's cv{k}.bin against the
+# held-out test metrics its markers hold (the grid's padded stacked forward
+# against the exact-shape ensemble).
+TCV_FROZEN_ATOL = 1e-6
+TCV_MARKERS_ATOL = 1e-5
+
+
+def cli_test_cv_consistency(work, results, ranked, best_name, grid_confs, folds) -> dict:
+    """The two consistency checks of test_cv's runs (`cli_test_cv`)."""
+    grid_name = "_".join(map(str, grid_confs))
+    frozen_all = ranked[0][0][best_name]
+    frozen_one = results["tcv_frozen"][1]
+    markers = grid_test_metrics(work / "ens_grid_cv")[grid_name]
+    grid_ckpt = results["tcv_grid"][1]
+
+    def max_diff(a, b):
+        keys = [k for k in a[folds[0]] if k in b[folds[0]]]
+        return (max(abs(a[f][k] - b[f][k]) for f in folds for k in keys), len(keys))
+
+    frozen_diff, frozen_keys = max_diff(frozen_all, frozen_one)
+    markers_diff, markers_keys = max_diff(grid_ckpt, markers)
+    ok = (frozen_diff <= TCV_FROZEN_ATOL and markers_diff <= TCV_MARKERS_ATOL
+          and frozen_keys == markers_keys == 11 and len(ranked) == 2
+          and len(ranked[0][0]) == 816)
+    line = {"phase": "cli_test_cv", "card": card,
+            "frozen_all_vs_ensemble": {"combination": best_name, "metrics": frozen_keys,
+                                       "max_abs_diff": frozen_diff,
+                                       "atol": TCV_FROZEN_ATOL},
+            "ckpt_vs_markers": {"combination": grid_name, "metrics": markers_keys,
+                                "max_abs_diff": markers_diff, "atol": TCV_MARKERS_ATOL},
+            "ranked_combinations": [len(r[0]) for r in ranked],
+            "best_frozen": ranked[0][1][0], "best_markers": ranked[1][1][0], "ok": ok}
+    emit(line)
+    check(ok, f"cli: test_cv's consistency checks: {line}")
+    return {"frozen_max_abs_diff": frozen_diff, "markers_max_abs_diff": markers_diff}
+
+
 def phase_cli() -> dict:
     """The baseline drivers, through `main(argv)`, from CSVs and PNGs that
     this phase writes: `train_baseline_cv` (conf 9, 5 folds; --all_configs,
@@ -2790,6 +3044,44 @@ def _phase_cli(work: pathlib.Path) -> dict:
 
     def baseline_ckpts(kind, cs, tags):
         return lambda o: checkpoint_layout(o, kind, cs, lambda c: tags)
+
+    # test_cv's runs: the folds' conf 9 baselines of cv_single, the grid's
+    # first combination (its cv{k}.bin and markers in ens_grid_cv), the
+    # frozen heads and baselines of ens_frozen_cv
+    tcv = ["--csv_path", ds["cv_csv"], "--data_root", ds["data_root"],
+           "--cv", str(CLI_FOLDS),
+           "--base_path", str(work / "cv_single" / "cv_baseline_models")]
+    grid_pick_confs = grid_combos[0]
+    grid_pick = ",".join(map(str, grid_pick_confs))
+    grid_pick_layers = sum(ViTConfig.from_conf(c).num_layers for c in grid_pick_confs)
+
+    def frozen_layers(cs):
+        """compute_member_logits' layers: a stacked forward a group."""
+        return sum(g.template_config().num_layers for g in stack.group_configs(cs))
+
+    def tcv_cells(r):
+        return [r[0][f] for f in folds] + [r[1][f] for f in folds]
+
+    def int8_checks(impl, single, frozen=()):
+        """The int8 products a test_cv run must make: each fold's forward
+        of every single model, and of the frozen members' stacked groups
+        (one product a model for each stacked projection)."""
+        products = CLI_FOLDS * (
+            sum(quant_products(impl, ViTConfig.from_conf(c)) for c in single)
+            + sum(quant_products(impl, g.template_config()) * len(g.confs)
+                  for g in stack.group_configs(frozen) if frozen))
+        before = {"n": 0}
+
+        def prep(out):
+            before["n"] = quant.int8_products
+
+        def verify(res, out):
+            made = quant.int8_products - before["n"]
+            got = stats_checks(res, out)
+            return {**got, "int8_products": made, "expected_int8_products": products,
+                    "checks_ok": got["checks_ok"] and made == products}
+
+        return {"prep": prep, "verify": verify}
 
     # dropout on: K1 serves the evaluations, K2 every forward
     runs = [
@@ -2956,8 +3248,52 @@ def _phase_cli(work: pathlib.Path) -> dict:
                 layout=lambda o: meta_heads_layout(o, "bootstrap_ensemble",
                                                    all_combos, 2),
                 short=["--num_epochs", "1", "--num_rep", "1"], prep=baselines),
+        # test_cv on what the runs above wrote: one forward a fold over the
+        # 22-row test split, each model's layers (a shape-class group's
+        # template depth for the frozen members' logits); no training
+        cli_run("tcv_baseline", test_cv, ["--baseline", "--conf", "9", *tcv],
+                0, CLI_FOLDS * L, CLI_FOLDS * L,
+                cells=lambda r: [r[0][f] for f in folds]),
+        cli_run("tcv_grid", test_cv,
+                ["--baseline", "--ensemble", "--conf", "9",
+                 "--ensemble_conf_list", grid_pick, *tcv], 0,
+                CLI_FOLDS * (L + grid_pick_layers), CLI_FOLDS * (L + grid_pick_layers),
+                cells=tcv_cells, out="ens_grid_cv", verify=stats_checks),
+        cli_run("tcv_frozen", test_cv,
+                ["--baseline", "--ensemble", "--conf", "9",
+                 "--ensemble_conf_list", best, *tcv], 0,
+                CLI_FOLDS * (L + frozen_layers(BEST_ENSEMBLE)),
+                CLI_FOLDS * (L + frozen_layers(BEST_ENSEMBLE)),
+                cells=tcv_cells, out="ens_frozen_cv", verify=stats_checks),
+        cli_run("tcv_all_frozen", test_cv, ["--all_ensembles", *tcv], 0,
+                CLI_FOLDS * frozen_layers(BASELINE_CONFS),
+                CLI_FOLDS * frozen_layers(BASELINE_CONFS),
+                cells=lambda r: [r[1][f] for f in folds],
+                layout=lambda o: report_rows(o, len(all_combos)), out="ens_frozen_cv"),
+        cli_run("tcv_all_markers", test_cv, ["--all_ensembles", *tcv], 0, 0, 0,
+                cells=lambda r: [r[1][f] for f in folds],
+                layout=lambda o: report_rows(o, len(grid_combos)), out="ens_grid_cv"),
+        cli_run("tcv_ood", test_cv,
+                ["--ensemble", "--ensemble_conf_list", grid_pick, "--ood", *tcv], 0,
+                CLI_FOLDS * grid_pick_layers, CLI_FOLDS * grid_pick_layers,
+                cells=lambda r: [r[1][f] for f in folds], out="ens_grid_cv"),
+        # int8: the FFN too (no K1), the e2e ensemble's members included;
+        # int8_attn: the projections only, the frozen members' stacked ones
+        # with each model's scales
+        cli_run("tcv_int8", test_cv,
+                ["--baseline", "--ensemble", "--conf", "9", "--ensemble_conf_list",
+                 grid_pick, "--quant_impl", "int8", *tcv], 0, 0,
+                CLI_FOLDS * (L + grid_pick_layers), cells=tcv_cells, out="ens_grid_cv",
+                **int8_checks("int8", [9, *grid_pick_confs])),
+        cli_run("tcv_int8_attn", test_cv,
+                ["--baseline", "--ensemble", "--conf", "9", "--ensemble_conf_list",
+                 best, "--quant_impl", "int8_attn", *tcv], 0,
+                CLI_FOLDS * (L + frozen_layers(BEST_ENSEMBLE)),
+                CLI_FOLDS * (L + frozen_layers(BEST_ENSEMBLE)),
+                cells=tcv_cells, out="ens_frozen_cv",
+                **int8_checks("int8_attn", [9], BEST_ENSEMBLE)),
     ]
-    results, totals, summary, calls = {}, counts_of(), {}, {}
+    results, totals, summary, calls, ranked = {}, counts_of(), {}, {}, []
     for run in runs:
         name, driver, argv = run["name"], run["driver"], run["argv"]
         out = work / (run["out"] or name)
@@ -2967,7 +3303,7 @@ def _phase_cli(work: pathlib.Path) -> dict:
         go = lambda o=out: driver.main([*argv, "--output_dir", str(o)])  # noqa: E731
         reset_launches()
         got, seen, grids = [], {}, []
-        with kernel_calls(seen), grid_runs(grids):
+        with kernel_calls(seen), grid_runs(grids), all_ensembles_results(ranked):
             seconds = wall_time_ms(lambda: got.append(go())) / 1e3
         counts = launches()
         for kernel, recorded in seen.items():
@@ -3022,6 +3358,9 @@ def _phase_cli(work: pathlib.Path) -> dict:
         if run["layout"]:
             layout = line["checkpoints"] = run["layout"](out)
             ok = ok and not layout["missing"] and not layout["wrong_shapes"]
+        if run["verify"]:
+            line.update(run["verify"](res, out))
+            ok = ok and line["checks_ok"]
         line["ok"] = ok
         emit(line)
         check(ok, f"cli {name}: {line}")
@@ -3058,6 +3397,10 @@ def _phase_cli(work: pathlib.Path) -> dict:
     check(line["ok"] and len(pairs) == 2 * len(grid_names) * CLI_FOLDS * 11,
           f"cli: --e2e_chunk 1 against the auto chunk: {line}")
     summary["grid_chunk_max_abs_diff"] = diff
+    summary["test_cv"] = cli_test_cv_consistency(work, results, ranked, best_name,
+                                                 grid_pick_confs, folds)
+    # test_cv leaves its --quant_impl set; the phases after this one run exact
+    quant.set_default_quant_impl("none")
     # the kernels at the shapes these runs gave them (launches not counted)
     cases = cli_kernel_cases(calls)
     return {"launches": totals, "runs": summary, "cases": cases}
@@ -3217,6 +3560,7 @@ def main() -> int:
     variants = phase_variants(main_path)
     phase_latency(gen)
     stretch = phase_stretch(gen)
+    quant_res = phase_quant(gen)
     train = phase_train()
     train_ens = phase_train_ensemble()
     sweep = phase_sweep()
@@ -3382,6 +3726,11 @@ def main() -> int:
                      "train_ensemble": train_ens["timing"]},
         "sweep": {**sweep["groups"], "dropout": sweep["dropout"]},
         "cli": cli["runs"],
+        "quant": {"models_logits_max_abs_dev": quant_res["models"],
+                  "stretch": {impl: {k: r[k] for k in (
+                      "ms_per_batch", "volumes_per_s", "device_busy_ms",
+                      "logits_max_abs_dev_vs_none", "int8_products")}
+                      for impl, r in quant_res["stretch"].items()}},
         "e2e_grid_memory": {k: v for k, v in grid_memory.items() if k != "auto"},
         "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
                     for impl, res in stretch.items()},

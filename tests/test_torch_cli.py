@@ -19,6 +19,7 @@ import torch
 
 import jax
 
+from vit3d_ensemble_tpu.cli import test_cv as jax_test_cv
 from vit3d_ensemble_tpu.cli import train_baseline_cv as jax_cv
 from vit3d_ensemble_tpu.cli import train_baseline_whole_dataset as jax_whole
 from vit3d_ensemble_tpu.configs import ViTConfig as JaxViTConfig
@@ -27,11 +28,12 @@ from vit3d_ensemble_tpu.sweep import stack as jax_stack
 from vit3d_ensemble_tpu.train import trainer as jax_trainer
 from vit3d_ensemble_tpu_torch.checkpoint import vit_state_from_flax
 from vit3d_ensemble_tpu_torch.cli import _common
+from vit3d_ensemble_tpu_torch.cli import test_cv as test_cv_driver
 from vit3d_ensemble_tpu_torch.cli import train_baseline_cv as cv_driver
 from vit3d_ensemble_tpu_torch.cli import train_baseline_whole_dataset as whole_driver
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.models import VisionTransformer3D
-from vit3d_ensemble_tpu_torch.ops import attention, mlp
+from vit3d_ensemble_tpu_torch.ops import attention, mlp, quant
 from vit3d_ensemble_tpu_torch.sweep import engine
 from vit3d_ensemble_tpu_torch.train import trainer
 
@@ -75,8 +77,10 @@ def _options(parser):
     return {a.option_strings[0]: a for a in parser._actions if a.option_strings}
 
 
-@pytest.mark.parametrize("ours,ref", [(cv_driver, jax_cv), (whole_driver, jax_whole)],
-                         ids=["train_baseline_cv", "train_baseline_whole_dataset"])
+@pytest.mark.parametrize("ours,ref", [(cv_driver, jax_cv), (whole_driver, jax_whole),
+                                      (test_cv_driver, jax_test_cv)],
+                         ids=["train_baseline_cv", "train_baseline_whole_dataset",
+                              "test_cv"])
 def test_parsers_take_the_jax_flags_and_defaults(ours, ref):
     """Every flag of the JAX driver, under the same names and dest, with the
     same default, type and action, but for those listed in DIFFERENT and
@@ -113,8 +117,6 @@ def test_impl_flags_take_jax_spellings(flag, value, impl):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--quant_impl", "int8"], "ops/quant.py"),
-    (["--quant_impl", "int8_attn"], "ops/quant.py"),
     (["--mesh", "2x4"], "parallel/mesh.py"),
     (["--remat"], "remat"),
 ])
@@ -122,6 +124,23 @@ def test_unported_flags_raise(argv, item):
     """Not silently ignored: each names the ROADMAP.md item that ports it."""
     with pytest.raises(NotImplementedError, match=item):
         cv_driver.main([*argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("driver", [cv_driver, test_cv_driver])
+@pytest.mark.parametrize("impl", ["int8", "int8_attn"])
+def test_quant_impl_flag_plumbing(driver, impl):
+    """--quant_impl reaches the port's selector through apply_runtime_flags,
+    and the next driver's defaults reset it to 'none' (JAX's
+    `tests/test_cli.py::test_quant_impl_flag_plumbing`)."""
+    try:
+        _common.apply_runtime_flags(driver.build_parser().parse_args(
+            ["--quant_impl", impl, "--device", "cpu"]))
+        assert quant.get_default_quant_impl() == impl
+        _common.apply_runtime_flags(driver.build_parser().parse_args(
+            ["--device", "cpu"]))
+        assert quant.get_default_quant_impl() == "none"
+    finally:
+        quant.set_default_quant_impl("none")
 
 
 @pytest.mark.parametrize("driver", [cv_driver, whole_driver])

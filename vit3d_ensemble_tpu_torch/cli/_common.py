@@ -13,8 +13,9 @@ flag names and defaults (`train_baseline_cv.py:222-263`,
   * `--mlp_impl` takes auto|plain|kernel (`ops/mlp.py`), plus xla -> plain
     and pallas -> kernel; its default is auto, so evaluation launches the
     fused FFN kernel on the card, where the JAX default is its XLA path;
-  * `--quant_impl` other than none, `--mesh` and `--remat` raise
-    NotImplementedError naming the ROADMAP.md item that ports them;
+  * `--quant_impl` sets `ops/quant.py`'s selector, as JAX's does;
+    `--mesh` and `--remat` raise NotImplementedError naming the ROADMAP.md
+    item that ports them;
   * `setup_logging` keeps no compilation cache (there is no XLA);
   * the ensemble drivers' grid and frozen modes (`--padded_compile`, the
     default, and `--frozen`) raise NotImplementedError naming their
@@ -31,6 +32,7 @@ import os
 from vit3d_ensemble_tpu_torch.models.vit3d import resolve_device
 from vit3d_ensemble_tpu_torch.ops.attention import set_default_attention_impl
 from vit3d_ensemble_tpu_torch.ops.mlp import set_default_mlp_impl
+from vit3d_ensemble_tpu_torch.ops.quant import set_default_quant_impl
 from vit3d_ensemble_tpu_torch.utils.debug import enable_nan_checking
 
 #: The JAX package's impl names, as the port's.
@@ -106,9 +108,10 @@ def add_common_flags(parser: argparse.ArgumentParser,
     parser.add_argument("--quant_impl",
                         choices=["none", "int8", "int8_attn"],
                         default="none",
-                        help="Quantized inference: only 'none' until "
-                             "ops/quant.py is ported (ROADMAP.md, queue 1); "
-                             "the others raise.")
+                        help="Quantized inference (ops/quant.py): 'int8' "
+                             "= W8A8 attention projections and MLP, "
+                             "'int8_attn' = the attention projections only; "
+                             "deterministic forwards only.")
     parser.add_argument("--profile_dir", default=None,
                         help="Write a torch.profiler trace of the sweep to "
                              "this directory.")
@@ -140,10 +143,6 @@ def apply_runtime_flags(args) -> None:
     does not run yet, rather than ignore it, and on a `--device` that is
     absent before any data is read."""
     resolve_device(args.device)
-    if getattr(args, "quant_impl", "none") != "none":
-        raise NotImplementedError(
-            f"--quant_impl {args.quant_impl}: ops/quant.py is not ported yet "
-            "(ROADMAP.md, queue 1, 'ops/quant.py')")
     if getattr(args, "mesh", None) is not None:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the multi-chip path is not ported yet "
@@ -157,6 +156,7 @@ def apply_runtime_flags(args) -> None:
     args.mlp_impl = MLP_SPELLINGS.get(args.mlp_impl, args.mlp_impl)
     set_default_attention_impl(args.attention_impl)
     set_default_mlp_impl(args.mlp_impl)
+    set_default_quant_impl(getattr(args, "quant_impl", "none"))
     if getattr(args, "debug_nans", False):
         enable_nan_checking()
 

@@ -34,6 +34,7 @@ from vit3d_ensemble_tpu_torch.ops.attention import (
 from vit3d_ensemble_tpu_torch.ops.attention_layer import fused_attention_layer
 from vit3d_ensemble_tpu_torch.ops.fused_mlp import fused_mlp
 from vit3d_ensemble_tpu_torch.ops.mlp import get_default_mlp_impl
+from vit3d_ensemble_tpu_torch.ops.quant import get_default_quant_impl, int8_dense
 
 #: Widths at or below this use one fused (D, 3D) QKV matmul (`vit3d.py:117`).
 _FUSED_QKV_MAX_D = 64
@@ -181,31 +182,43 @@ class Attention(nn.Module):
             b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
             return fused_attention_layer(x, w, b, self.out.weight,
                                          self.out.bias, H), None
+        # int8 projections (`ops/quant.py`) on deterministic forwards only
+        # (`vit3d.py:164-173`): the attention core stays in x's dtype
+        use_int8 = (get_default_quant_impl() in ("int8", "int8_attn")
+                    and deterministic)
+
+        def project(x, w, b):
+            return int8_dense(x, w.t(), b) if use_int8 else F.linear(x, w, b)
+
         if D <= _FUSED_QKV_MAX_D:
             # one (D, 3D) matmul, q|k|v along the output axis (`vit3d.py:181`)
             w = torch.cat([self.query.weight, self.key.weight,
                            self.value.weight])
             b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
-            qkv = F.linear(x, w, b).view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
+            qkv = project(x, w, b).view(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
             q, k, v = qkv[0], qkv[1], qkv[2]
         else:
             # separate projections; the kernel for this width (K4) reads the
             # (B, H, T, hd) views through their strides and hands back a
             # (B, T, H, hd) buffer, so neither transpose below copies
-            q, k, v = (lin(x).view(B, T, H, hd).transpose(1, 2)
+            q, k, v = (project(x, lin.weight, lin.bias).view(B, T, H, hd)
+                       .transpose(1, 2)
                        for lin in (self.query, self.key, self.value))
         context, probs = dot_product_attention(
             q, k, v, dropout_p=rate, generator=generator,
             deterministic=deterministic, return_probs=return_probs)
         context = context.transpose(1, 2).reshape(B, T, D)
-        out = dropout(self.out(context), rate, deterministic, generator)
-        return out, probs
+        out = project(context, self.out.weight, self.out.bias)
+        return dropout(out, rate, deterministic, generator), probs
 
 
 class Mlp(nn.Module):
     """GELU MLP with the reference's d >> D widths (`modeling.py:102-124`).
 
-    With dropout inactive and the MLP impl 'auto' on a CUDA tensor (or
+    Under the quant impl 'int8', on a deterministic forward without
+    `mlp_active`, fc1 and fc2 are int8 products around the exact-erf GELU
+    (`ops/quant.py`; `vit3d.py:284-293`), ahead of the kernel.  Otherwise,
+    with dropout inactive and the MLP impl 'auto' on a CUDA tensor (or
     'kernel'), fc1 -> GELU -> fc2 runs as the fused kernel K1, which raises
     on a hidden size it does not take.  Otherwise the plain modules run,
     with the reference's dropout between GELU and fc2.
@@ -220,6 +233,10 @@ class Mlp(nn.Module):
     def forward(self, x, *, deterministic: bool,
                 mlp_active: Optional[Active] = None, generator=None):
         cfg = self.config
+        if (get_default_quant_impl() == "int8" and deterministic
+                and mlp_active is None):
+            h = F.gelu(int8_dense(x, self.fc1.weight.t(), self.fc1.bias))
+            return int8_dense(h, self.fc2.weight.t(), self.fc2.bias)
         impl = get_default_mlp_impl()
         dropout_off = deterministic or cfg.dropout_rate == 0.0
         if dropout_off and (impl == "kernel" or (impl == "auto" and x.is_cuda)):

@@ -21,7 +21,10 @@ tensor:
     impl `auto` on a CUDA tensor or `kernel`): K1, or the variant that
     `_MLP_VARIANT` names;
   * `layers_active`, a (P,) tensor, gates each block per model
-    (`models/vit3d.py:237-275` has the scalar form).
+    (`models/vit3d.py:237-275` has the scalar form);
+  * under the quant impls `int8` and `int8_attn` a deterministic forward
+    outside `layer` takes the QKV and out projections as int8 products
+    with each model's scales (`ops/quant.int8_dense` with the model axis).
 
 Why an explicit leading axis and not `torch.func.vmap`: the kernels are
 ctypes launches inside `autograd.Function`s, which under `vmap` would need
@@ -52,6 +55,7 @@ from vit3d_ensemble_tpu_torch.ops.attention import (
 )
 from vit3d_ensemble_tpu_torch.ops.fused_mlp import fused_mlp
 from vit3d_ensemble_tpu_torch.ops.mlp import get_default_mlp_impl
+from vit3d_ensemble_tpu_torch.ops.quant import get_default_quant_impl, int8_dense
 
 Params = Mapping[str, torch.Tensor]
 
@@ -94,8 +98,18 @@ def _attention(config, params, pre, h, *, deterministic, generator):
                    for n in ("query", "key", "value")], dim=1)
     b = torch.cat([params[f"{pre}.attn.{n}.bias"]
                    for n in ("query", "key", "value")], dim=1)
-    qkv = _linear(h, w, b).reshape(P * B, T, 3 * D)
-    if get_default_attention_impl() == "layer" and (deterministic or rate == 0.0):
+    layer = get_default_attention_impl() == "layer" and (deterministic or rate == 0.0)
+    # int8 projections on deterministic forwards outside `layer`, each
+    # model with its own scales, as JAX's vmapped module takes them; the
+    # MLP stays exact, since `mlp_active` is always set here
+    use_int8 = (not layer and deterministic
+                and get_default_quant_impl() in ("int8", "int8_attn"))
+
+    def project(x, w, b):
+        return int8_dense(x, w.transpose(1, 2), b) if use_int8 else _linear(x, w, b)
+
+    qkv = project(h, w, b).reshape(P * B, T, 3 * D)
+    if layer:
         # K3's core on the (P·B, T, 3D) QKV output, read in place
         ctx = attention_layer.attention_core(*attention_layer._split(qkv), H)
     else:
@@ -104,7 +118,7 @@ def _attention(config, params, pre, h, *, deterministic, generator):
                                        generator=generator,
                                        deterministic=deterministic)
         ctx = ctx.transpose(1, 2).reshape(P * B, T, D)
-    out = _linear(ctx.reshape(P, B, T, D), params[f"{pre}.attn.out.weight"],
+    out = project(ctx.reshape(P, B, T, D), params[f"{pre}.attn.out.weight"],
                   params[f"{pre}.attn.out.bias"])
     return dropout(out, rate, deterministic, generator)
 

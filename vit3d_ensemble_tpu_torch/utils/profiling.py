@@ -4,7 +4,8 @@
 `profile_to(dir)` is a context manager around any driver section; it writes
 a Chrome trace (`chrome://tracing`, ui.perfetto.dev) of the host's ops and,
 on a card, its kernels into `dir`.  The sweep driver exposes it as
-`profile_dir`.
+`profile_dir`.  `step_annotation(name, step)` names a step's span in such a
+trace, as `jax.profiler.StepTraceAnnotation` does.
 """
 
 from __future__ import annotations
@@ -33,3 +34,13 @@ def profile_to(trace_dir: Optional[str]) -> Iterator[None]:
         yield
     prof.export_chrome_trace(os.path.join(
         trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def step_annotation(name: str, step: int):
+    """A `torch.profiler.record_function` context whose span is named
+    `name` and the step, `"{name}#{step}"`: the counterpart of
+    `jax.profiler.StepTraceAnnotation(name, step_num=step)`.  Outside a
+    profiled region it records nothing."""
+    from torch.profiler import record_function
+
+    return record_function(f"{name}#{int(step)}")
