@@ -22,6 +22,13 @@ read just after:
     plain modules, then served in bf16 at B=8 under `auto` (K4, K1's wide
     body) and under `layer` (K3's sublayer, whose head_dim-64 core runs on
     K4's body: counter `K3_on_K4`);
+  * ViT-B/16 at full width and depth at 128 x 128 x 5, two ways: loaded
+    from a Google-ViT npz that the script writes (`pretrained.py`, 65
+    tokens; phase `pretrained`) and as the R50+ViT-B/16 hybrid (the
+    ResNetV2 stem of `models/resnet_hybrid.py` on every slice, 321 tokens;
+    phase `hybrid`, with one f32 forward and backward against the plain
+    modules): f32 at B=1, then bf16 at B=8 under `auto` (K4, K1's wide
+    body) and `layer` (K3 on K4's body), and the kernels at their shapes;
   * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
     K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
   * the sweep engine (`run_group`) on the three groups of conf 1-18;
@@ -73,6 +80,7 @@ from vit3d_ensemble_tpu_torch.configs import (
     ViTConfig,
     vit_b16_128cubed,
 )
+from vit3d_ensemble_tpu_torch import pretrained
 from vit3d_ensemble_tpu_torch.cli import (
     test_cv,
     train_baseline_bootstrap,
@@ -1066,6 +1074,74 @@ K3_DEVICE_TIMED = ((torch.bfloat16, K3_CASES[0]), (torch.bfloat16, K3_CASES[1]),
                    (torch.float32, K3_TRAIN_CASES[0])) + K3_STRETCH_CASES
 
 
+def k3_case(gen, dtype, shape, timed: bool) -> dict:
+    """K3's core against its plain version at (B, T, D, H), as `phase_k3`
+    holds it; with `timed`, both device times under the profiler too."""
+    nb, T, D, H = shape
+    hd = D // H
+    on_k4 = hd in attention_layer.HEAD_DIMS_K4
+    qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda")
+    qkv[..., 2 * D:] *= math.sqrt(T / math.e)
+    qkv = qkv.to(dtype)
+    q, k, v = attention_layer._split(qkv)
+    heads = [t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (q, k, v)]
+    tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
+    with torch.no_grad():
+        before = launches()
+        out = attention_layer.attention_core(q, k, v, H)
+        counts = {name: n - before[name] for name, n in launches().items()}
+        body = (f"K4:{fused_attention.k4_body_launched()}" if on_k4
+                else f"K2:{fused_attention.k2_body_launched()}")
+        ref = attention_layer._plain_attention_core(q, k, v, H)
+        err, ok, atol, rtol = compare(out, ref, dtype, tol)
+        gate = atol + rtol * ref.float().abs()
+        short = attention_layer._plain_attention_core(q, k[:, :-1], v[:, :-1], H)
+        dropped = (short.float() - ref.float()).abs() / gate
+        gate_check = {
+            "ctx_rms": float(ref.float().square().mean().sqrt()),
+            "max_err_over_gate":
+                float(((out.float() - ref.float()).abs() / gate).max()),
+            "dropped_key_share_over_gate": float((dropped > 1).float().mean()),
+            "dropped_key_max_over_gate": float(dropped.max())}
+        gate_check["gate_rejects_dropped_key"] = (
+            T < 64 or gate_check["dropped_key_share_over_gate"] > 0)
+        ms = time_ms(lambda: attention_layer.attention_core(q, k, v, H), 50)
+        plain_ms = time_ms(
+            lambda: attention_layer._plain_attention_core(q, k, v, H), 10)
+        library_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(*heads), 50)
+        device_ms = library_device_ms = None
+        if timed:
+            # only the core's kernel runs in the call
+            device_ms = device_time(
+                lambda: [attention_layer.attention_core(q, k, v, H)
+                         for _ in range(10)], host_ops=False)[0] / 10
+            library_device_ms = device_time(
+                lambda: [F.scaled_dot_product_attention(*heads)
+                         for _ in range(10)], host_ops=False)[0] / 10
+    want = counts_of(K3=1, **{"K3_on_K4" if on_k4 else "K3_on_K2": 1})
+    if on_k4:
+        bounds = attention_bound(dtype, nb * H, T, hd, qkv.element_size())
+    else:
+        bound_ms, bound_by = bound(4.0 * nb * T * T * D,
+                                   4.0 * nb * T * D * qkv.element_size(),
+                                   dtype, exps=nb * H * T * T)
+        bounds = {"bound_ms": bound_ms, "bound_by": bound_by}
+    case = {"phase": "K3", "dtype": str(dtype).split(".")[1], "B": nb,
+            "T": T, "D": D, "H": H, "hd": hd, "body": body,
+            "launches": counts, "max_abs_err": err, "atol": atol,
+            "rtol": rtol, "ok": ok, **gate_check,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **bounds}
+    if timed:
+        case.update(device_ms=device_ms, library_device_ms=library_device_ms)
+    emit(case)
+    check(ok and counts == want and device_ms != 0.0
+          and gate_check["gate_rejects_dropped_key"],
+          f"K3 {case}, expected launches {want}")
+    return case
+
+
 def phase_k3(gen) -> tuple:
     """K3 against its plain version; SDPA on the same q, k, v views is the
     library yardstick (the port never calls it).  The core runs on the body
@@ -1084,74 +1160,14 @@ def phase_k3(gen) -> tuple:
              for shape in K3_CASES]
     cases += [(torch.float32, shape) for shape in K3_TRAIN_CASES]
     cases += K3_STRETCH_CASES
-    for dtype, (nb, T, D, H) in cases:
-        hd = D // H
-        on_k4 = hd in attention_layer.HEAD_DIMS_K4
-        qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda")
-        qkv[..., 2 * D:] *= math.sqrt(T / math.e)
-        qkv = qkv.to(dtype)
-        q, k, v = attention_layer._split(qkv)
-        heads = [t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (q, k, v)]
-        tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
-        timed = (dtype, (nb, T, D, H)) in K3_DEVICE_TIMED
-        with torch.no_grad():
-            before = launches()
-            out = attention_layer.attention_core(q, k, v, H)
-            counts = {name: n - before[name] for name, n in launches().items()}
-            body = (f"K4:{fused_attention.k4_body_launched()}" if on_k4
-                    else f"K2:{fused_attention.k2_body_launched()}")
-            ref = attention_layer._plain_attention_core(q, k, v, H)
-            err, ok, atol, rtol = compare(out, ref, dtype, tol)
-            gate = atol + rtol * ref.float().abs()
-            short = attention_layer._plain_attention_core(q, k[:, :-1], v[:, :-1], H)
-            dropped = (short.float() - ref.float()).abs() / gate
-            gate_check = {
-                "ctx_rms": float(ref.float().square().mean().sqrt()),
-                "max_err_over_gate":
-                    float(((out.float() - ref.float()).abs() / gate).max()),
-                "dropped_key_share_over_gate": float((dropped > 1).float().mean()),
-                "dropped_key_max_over_gate": float(dropped.max())}
-            gate_check["gate_rejects_dropped_key"] = (
-                T < 64 or gate_check["dropped_key_share_over_gate"] > 0)
-            ms = time_ms(lambda: attention_layer.attention_core(q, k, v, H), 50)
-            plain_ms = time_ms(
-                lambda: attention_layer._plain_attention_core(q, k, v, H), 10)
-            library_ms = time_ms(
-                lambda: F.scaled_dot_product_attention(*heads), 50)
-            device_ms = library_device_ms = None
-            if timed:
-                # only the core's kernel runs in the call
-                device_ms = device_time(
-                    lambda: [attention_layer.attention_core(q, k, v, H)
-                             for _ in range(10)], host_ops=False)[0] / 10
-                library_device_ms = device_time(
-                    lambda: [F.scaled_dot_product_attention(*heads)
-                             for _ in range(10)], host_ops=False)[0] / 10
-        want = counts_of(K3=1, **{"K3_on_K4" if on_k4 else "K3_on_K2": 1})
-        if on_k4:
-            bounds = attention_bound(dtype, nb * H, T, hd, qkv.element_size())
-        else:
-            bound_ms, bound_by = bound(4.0 * nb * T * T * D,
-                                       4.0 * nb * T * D * qkv.element_size(),
-                                       dtype, exps=nb * H * T * T)
-            bounds = {"bound_ms": bound_ms, "bound_by": bound_by}
-        case = {"phase": "K3", "dtype": str(dtype).split(".")[1], "B": nb,
-                "T": T, "D": D, "H": H, "hd": hd, "body": body,
-                "launches": counts, "max_abs_err": err, "atol": atol,
-                "rtol": rtol, "ok": ok, **gate_check,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                **bounds}
-        if timed:
-            case.update(device_ms=device_ms, library_device_ms=library_device_ms)
-        emit(case)
-        check(ok and counts == want and device_ms != 0.0
-              and gate_check["gate_rejects_dropped_key"],
-              f"K3 {case}, expected launches {want}")
-        if (dtype, (nb, T, D, H)) == (torch.float32, K3_TRAIN_CASES[0]):
+    for dtype, shape in cases:
+        timed = (dtype, shape) in K3_DEVICE_TIMED
+        case = k3_case(gen, dtype, shape, timed)
+        if (dtype, shape) == (torch.float32, K3_TRAIN_CASES[0]):
             main = case
-        if (dtype, (nb, T, D, H)) in K3_STRETCH_CASES:
+        if (dtype, shape) in K3_STRETCH_CASES:
             stretch[dtype] = case
-        if timed and (dtype, (nb, T, D, H)) not in K3_STRETCH_CASES:
+        if timed and (dtype, shape) not in K3_STRETCH_CASES:
             serve.append(case)
     return main, stretch, serve
 
@@ -1242,6 +1258,77 @@ def attention_bound(dtype, bh: int, S: int, hd: int, elt: int) -> dict:
                                        peak=mma_tf32_rate)[0]}
 
 
+def k4_case(gen, dtype, shape, views: str, device: bool) -> dict:
+    """K4 against its plain version at (B, H, S, hd) on the model's views
+    (`views` "model") or K3's ("qkv"), as `phase_k4` holds it; with
+    `device`, its and SDPA's device time under the profiler too."""
+    tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
+    nb, H, S, hd = shape
+    make = model_views if views == "model" else qkv_views
+    q, k, v = make(gen, shape, dtype)
+    with torch.no_grad():
+        out = fused_attention.fused_attention(q, k, v)
+        body = fused_attention.k4_body_launched()
+        ref = fused_attention._plain_attention_k4(q, k, v)
+        err, ok, atol, rtol = compare(out, ref, dtype, tol)
+        short = without_last_key(q, k, v)
+        gate = atol + rtol * ref.float().abs()
+        over_gate_ratio = float(((out.float() - ref.float()).abs() / gate).max())
+        dropped = (short.float() - ref.float()).abs() / gate
+        dropped_share = float((dropped > 1).float().mean())
+        gate_ok = dropped_share > 0
+        jax_err, jax_ok, _, _ = compare(
+            out, fused_attention._plain_attention(q, k, v), dtype)
+        rms = float(ref.float().square().mean().sqrt())
+        exact = {}
+        if dtype == torch.float32:
+            ref64 = exact_attention_k4(q, k, v)
+            exact = {"max_err_over_gate_exact":
+                     over_gate(out, ref64, TOL[dtype])[1],
+                     "plain_max_err_over_gate_exact":
+                     over_gate(ref, ref64, TOL[dtype])[1]}
+            del ref64
+        merged = out.transpose(1, 2).reshape(nb, S, H * hd)
+        view_ok = merged.data_ptr() == out.data_ptr()
+        ms = time_ms(lambda: fused_attention.fused_attention(q, k, v), 50)
+        plain_ms = time_ms(
+            lambda: fused_attention._plain_attention_k4(q, k, v), 10)
+        library_ms = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), 50)
+        # `ms` is no less than the host's time to make one call; the
+        # kernel's own time is its device time under the profiler
+        device_ms = library_device_ms = None
+        if device:
+            _, groups, _, _ = device_time(
+                lambda: [fused_attention.fused_attention(q, k, v)
+                         for _ in range(10)], host_ops=False)
+            device_ms = groups.get("K4", 0.0) / 10
+            library_device_ms = device_time(
+                lambda: [F.scaled_dot_product_attention(q, k, v)
+                         for _ in range(10)], host_ops=False)[0] / 10
+    case = {"phase": "K4", "dtype": str(dtype).split(".")[1], "B": nb,
+            "H": H, "S": S, "hd": hd, "views": views, "body": body,
+            "max_abs_err": err, "atol": atol,
+            "rtol": rtol, "ok": ok, "ctx_rms": rms,
+            "max_err_over_gate": over_gate_ratio, **exact,
+            "gate_rejects_dropped_key": gate_ok,
+            "dropped_key_share_over_gate": dropped_share,
+            "dropped_key_max_over_gate": float(dropped.max()),
+            "max_abs_err_normalised_rounding": jax_err,
+            "ok_normalised_rounding": jax_ok,
+            "heads_merge_as_view": view_ok,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
+            **attention_bound(dtype, nb * H, S, hd, q.element_size())}
+    emit(case)
+    body_ok = body == ("bf16_wgmma" if dtype == torch.bfloat16
+                       else "f32_tf32x3")
+    check(ok and gate_ok and jax_ok and view_ok and body_ok
+          and device_ms != 0.0, f"K4 {case}")
+    return case
+
+
 def phase_k4(gen) -> dict:
     """K4 against its plain version on the model's strided views; SDPA on
     the same views is the library yardstick (the port never calls it).  The
@@ -1253,71 +1340,8 @@ def phase_k4(gen) -> dict:
     Returns the stretch path's case in bf16 and in f32."""
     main = {}
     for dtype in (torch.bfloat16, torch.float32):
-        tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
         for shape, views in K4_CASES:
-            nb, H, S, hd = shape
-            make = model_views if views == "model" else qkv_views
-            q, k, v = make(gen, shape, dtype)
-            with torch.no_grad():
-                out = fused_attention.fused_attention(q, k, v)
-                body = fused_attention.k4_body_launched()
-                ref = fused_attention._plain_attention_k4(q, k, v)
-                err, ok, atol, rtol = compare(out, ref, dtype, tol)
-                short = without_last_key(q, k, v)
-                gate = atol + rtol * ref.float().abs()
-                over_gate_ratio = float(((out.float() - ref.float()).abs() / gate).max())
-                dropped = (short.float() - ref.float()).abs() / gate
-                dropped_share = float((dropped > 1).float().mean())
-                gate_ok = dropped_share > 0
-                jax_err, jax_ok, _, _ = compare(
-                    out, fused_attention._plain_attention(q, k, v), dtype)
-                rms = float(ref.float().square().mean().sqrt())
-                exact = {}
-                if dtype == torch.float32:
-                    ref64 = exact_attention_k4(q, k, v)
-                    exact = {"max_err_over_gate_exact":
-                             over_gate(out, ref64, TOL[dtype])[1],
-                             "plain_max_err_over_gate_exact":
-                             over_gate(ref, ref64, TOL[dtype])[1]}
-                    del ref64
-                merged = out.transpose(1, 2).reshape(nb, S, H * hd)
-                view_ok = merged.data_ptr() == out.data_ptr()
-                ms = time_ms(lambda: fused_attention.fused_attention(q, k, v), 50)
-                plain_ms = time_ms(
-                    lambda: fused_attention._plain_attention_k4(q, k, v), 10)
-                library_ms = time_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v), 50)
-                # `ms` is no less than the host's time to make one call; the
-                # kernel's own time is its device time under the profiler
-                device_ms = library_device_ms = None
-                if S == 513:
-                    _, groups, _, _ = device_time(
-                        lambda: [fused_attention.fused_attention(q, k, v)
-                                 for _ in range(10)], host_ops=False)
-                    device_ms = groups.get("K4", 0.0) / 10
-                    library_device_ms = device_time(
-                        lambda: [F.scaled_dot_product_attention(q, k, v)
-                                 for _ in range(10)], host_ops=False)[0] / 10
-            case = {"phase": "K4", "dtype": str(dtype).split(".")[1], "B": nb,
-                    "H": H, "S": S, "hd": hd, "views": views, "body": body,
-                    "max_abs_err": err, "atol": atol,
-                    "rtol": rtol, "ok": ok, "ctx_rms": rms,
-                    "max_err_over_gate": over_gate_ratio, **exact,
-                    "gate_rejects_dropped_key": gate_ok,
-                    "dropped_key_share_over_gate": dropped_share,
-                    "dropped_key_max_over_gate": float(dropped.max()),
-                    "max_abs_err_normalised_rounding": jax_err,
-                    "ok_normalised_rounding": jax_ok,
-                    "heads_merge_as_view": view_ok,
-                    "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    "library_device_ms": library_device_ms,
-                    **attention_bound(dtype, nb * H, S, hd, q.element_size())}
-            emit(case)
-            body_ok = body == ("bf16_wgmma" if dtype == torch.bfloat16
-                               else "f32_tf32x3")
-            check(ok and gate_ok and jax_ok and view_ok and body_ok
-                  and device_ms != 0.0, f"K4 {case}")
+            case = k4_case(gen, dtype, shape, views, shape[2] == 513)
             if (shape, views) == K4_CASES[0]:
                 main[dtype] = case
     # drawn from a generator of its own, so the phases that follow draw what
@@ -1568,6 +1592,15 @@ KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1", "wide_tf32x3")
                  # every kernel of `attention.cu` (its bf16 and f32 bodies,
                  # and an older checkout's, as `chip_turns.py` times them)
                  ("K2", "tiny_attention"), ("K4", "attention_"),
+                 # the hybrid stem's library kernels (cuDNN's convs, the
+                 # layout changes around them, torch's GroupNorm), ahead of
+                 # "gemm" and "elementwise", which their names also hold
+                 ("pool", "max_pool"), ("group_norm", "GroupNorm"),
+                 ("group_norm", "RowwiseMoments"),
+                 ("group_norm", "ComputeFusedParams"), ("conv", "fprop"),
+                 ("conv", "dgrad"), ("conv", "wgrad"), ("conv", "onvolve"),
+                 ("conv", "conv2d"), ("conv", "nchwToNhwc"),
+                 ("conv", "nhwcToNchw"),
                  ("layer_norm", "layer_norm"), ("cat", "CatArray"),
                  ("gemm", "nvjet"), ("gemm", "gemm"), ("gemm", "cutlass"),
                  ("optimizer", "multi_tensor"), ("softmax", "softmax"),
@@ -1866,6 +1899,351 @@ def phase_stretch(gen) -> dict:
                             "volumes_per_s": volumes / seconds,
                             "device_busy_ms": busy}
     return result
+
+
+# --- the `pretrained` and `hybrid` phases: ViT-B/16 at 65 and 321 tokens ----
+# ViT-B/16's widths (the reference's ViT-B_16) at full depth.
+VIT_B16 = dict(hidden_size=768, mlp_dim=3072, num_heads=12, num_layers=12)
+# Google's ViT-B/16 npz: 224^2 images in 16^2 patches, a 14 x 14 grid + CLS.
+NPZ_GRID = 14
+# The hybrid's f32 forward and backward: volumes, and the parameters whose
+# gradients are held (the stem's root conv, the conv2 of stage 2's first
+# unit, which has the stride, and the patch embedding over its features).
+HYBRID_GRAD_B = 2
+HYBRID_GRAD_PARAMS = ("transformer.embeddings.hybrid_model.root.conv.weight",
+                      "transformer.embeddings.hybrid_model.body.block2.unit1.conv2.weight",
+                      "transformer.embeddings.patch_embeddings.weight")
+
+
+def vit_b16_npz(path, seed: int) -> None:
+    """A ViT-B/16 npz in the `vision_transformer` repo's names and published
+    shapes (12 blocks of 12 heads of 64, MLP 3,072, a 197-token position
+    table, a 1-class head), but with a one-channel (16, 16, 1, 768)
+    embedding kernel, as `tests/test_pretrained_and_hybrid.py` builds it;
+    values from `seed` by numpy at a trained model's scale (kernels of
+    variance 1 / fan_in, norms' scales near 1)."""
+    rng = np.random.default_rng(seed)
+    D, H, M = VIT_B16["hidden_size"], VIT_B16["num_heads"], VIT_B16["mlp_dim"]
+
+    def n(*shape, std=0.02, mean=0.0):
+        return mean + rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    w = {"embedding/kernel": n(16, 16, 1, D, std=1 / 16), "embedding/bias": n(D),
+         "cls": n(1, 1, D),
+         "Transformer/posembed_input/pos_embedding": n(1, NPZ_GRID ** 2 + 1, D),
+         "Transformer/encoder_norm/scale": n(D, std=0.05, mean=1.0),
+         "Transformer/encoder_norm/bias": n(D),
+         "head/kernel": n(D, 1, std=D ** -0.5), "head/bias": n(1)}
+    for i in range(VIT_B16["num_layers"]):
+        r = f"Transformer/encoderblock_{i}"
+        for key in (pretrained.ATTENTION_Q, pretrained.ATTENTION_K,
+                    pretrained.ATTENTION_V):
+            w[f"{r}/{key}/kernel"] = n(D, H, D // H, std=D ** -0.5)
+            w[f"{r}/{key}/bias"] = n(H, D // H)
+        w[f"{r}/{pretrained.ATTENTION_OUT}/kernel"] = n(H, D // H, D, std=D ** -0.5)
+        w[f"{r}/{pretrained.ATTENTION_OUT}/bias"] = n(D)
+        w[f"{r}/{pretrained.FC_0}/kernel"] = n(D, M, std=D ** -0.5)
+        w[f"{r}/{pretrained.FC_0}/bias"] = n(M)
+        w[f"{r}/{pretrained.FC_1}/kernel"] = n(M, D, std=M ** -0.5)
+        w[f"{r}/{pretrained.FC_1}/bias"] = n(D)
+        for key in (pretrained.ATTENTION_NORM, pretrained.MLP_NORM):
+            w[f"{r}/{key}/scale"] = n(D, std=0.05, mean=1.0)
+            w[f"{r}/{key}/bias"] = n(D)
+    np.savez(path, **w)
+
+
+def top_kernels(fn, n: int = 12) -> list:
+    """The `n` kernels that took the most device time in one traced call of
+    `fn`: name (cut to 120 characters), ms, launches and group."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return [{"name": k[:120], "ms": ms, "count": c,
+             "group": next((g for g, pat in KERNEL_GROUPS if pat in k), "other")}
+            for k, ms, c in rows[:n]]
+
+
+def vit_b16_kernel_cases(gen, tokens: int, path: str) -> dict:
+    """K1's wide bodies, K4 and K3 (on K4's body) against their plain
+    versions at the shapes ViT-B/16 gives them at `tokens` tokens: bf16 at
+    B = STRETCH_B, f32 at B = 1; each with its device time, bound and
+    library time (the F.linear -> F.gelu -> F.linear chain, SDPA)."""
+    D, M, H = VIT_B16["hidden_size"], VIT_B16["mlp_dim"], VIT_B16["num_heads"]
+    cases = {"K1": [], "K4": [], "K3": []}
+    for dtype, nb in ((torch.bfloat16, STRETCH_B), (torch.float32, 1)):
+        case = k1_case(gen, dtype, nb * tokens, D, M, M, path, device=True)
+        want = "wide_wgmma" if dtype == torch.bfloat16 else "wide_tf32x3"
+        check(case["body"] == want, f"K1 {path} body {case['body']}, not {want}")
+        cases["K1"].append(case)
+        cases["K4"].append(k4_case(gen, dtype, (nb, H, tokens, D // H), "model",
+                                   True))
+    cases["K3"].append(k3_case(gen, torch.bfloat16, (STRETCH_B, tokens, D, H), True))
+    return cases
+
+
+def serve_vit_b16(name: str, model, x, expect: dict) -> dict:
+    """One ViT-B/16 model in bf16 at B = STRETCH_B against the plain modules
+    in bf16, under `auto` and `layer` in turn, as `phase_stretch` serves its
+    model: STRETCH_ITERS passes × REPEATS by the host clock (ms a batch,
+    volumes/s), launch counts of the first run held exactly, tokens within
+    TOKENS_BF16_ATOL, then one traced pass: device busy ms, kernels, both by
+    group, and the idle share.  `model` and `x` are converted in place."""
+    model.to(torch.bfloat16)
+    x = x.to(torch.bfloat16)
+
+    def passes() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STRETCH_ITERS):
+            model(x)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    result = {}
+    with torch.no_grad():
+        set_impls("plain")
+        try:
+            ref = model(x)
+        finally:
+            set_impls("auto")
+        for impl in expect:
+            set_impls(impl)
+            try:
+                model(x)                    # warm-up
+                reset_launches()
+                seconds = passes()
+                counts = launches()
+                clocks = smi("clocks.sm,power.draw,temperature.gpu")
+                repeats = [seconds] + [passes() for _ in range(REPEATS - 1)]
+                out = model(x)
+                busy, groups, kernels, by_group = device_time(lambda: model(x))
+            finally:
+                set_impls("auto")
+            want = {k: n * STRETCH_ITERS for k, n in expect[impl].items()}
+            wall = statistics.median(repeats) / STRETCH_ITERS * 1e3
+            volumes = x.shape[0] * STRETCH_ITERS
+            diff = (out.tokens.float() - ref.tokens.float()).abs()
+            T = model.transformer.embeddings.position_embeddings.shape[1]
+            shape_ok = (tuple(out.tokens.shape) == (x.shape[0], T, VIT_B16["hidden_size"])
+                        and tuple(out.logits.shape) == (x.shape[0], 1))
+            finite = bool(torch.isfinite(out.tokens).all()
+                          and torch.isfinite(out.logits).all())
+            err = float(diff.max())
+            ok = (shape_ok and finite and err <= TOKENS_BF16_ATOL
+                  and counts == want and busy > 0)
+            res = {"phase": name, "card": card, "impl": impl, "dtype": "bfloat16",
+                   "B": x.shape[0], "tokens": T, "iters": STRETCH_ITERS,
+                   "seconds": seconds, "ms_per_batch": wall,
+                   "volumes_per_s": volumes / seconds,
+                   "volumes_per_s_repeats": [volumes / r for r in repeats],
+                   "launches": counts, "expected_launches": want,
+                   "tokens_max_abs_err": err,
+                   "tokens_mean_abs_err": float(diff.mean()),
+                   "atol": TOKENS_BF16_ATOL, "shape_ok": shape_ok,
+                   "finite": finite, "device_busy_ms": busy,
+                   "device_idle_share": 1.0 - busy / wall,
+                   "kernels": kernels, "by_group_ms": groups,
+                   "kernels_by_group": by_group, "after_run": clocks, "ok": ok}
+            emit(res)
+            check(ok, f"{name} {impl}: err {err}, shape {shape_ok}, finite "
+                      f"{finite}, launched {counts} of {want}, busy {busy}")
+            result[impl] = res
+    return result
+
+
+def f32_against_plain(name: str, model, x, expect: dict) -> dict:
+    """The f32 model at B = x.shape[0] under `auto` against the plain
+    modules (TOKENS_F32_ATOL), with the launches of the pass held exactly
+    and its device time."""
+    with torch.no_grad():
+        set_impls("plain")
+        try:
+            ref = model(x)
+        finally:
+            set_impls("auto")
+        reset_launches()
+        out = model(x)
+        counts = launches()
+        busy, groups, kernels, _ = device_time(lambda: model(x))
+    err = max(float((out.tokens - ref.tokens).abs().max()),
+              float((out.logits - ref.logits).abs().max()))
+    ok = err <= TOKENS_F32_ATOL and counts == expect and busy > 0
+    res = {"phase": f"{name}_f32", "impl": "auto", "B": x.shape[0],
+           "max_abs_err": err, "atol": TOKENS_F32_ATOL, "launches": counts,
+           "expected_launches": expect, "device_busy_ms": busy,
+           "kernels": kernels, "by_group_ms": groups, "ok": ok}
+    emit(res)
+    check(ok, f"{name} f32: max abs err {err}, launched {counts}, busy {busy}")
+    return res
+
+
+def vit_b16_expect() -> dict:
+    """A pass's launches: K1 on its own (wide) bodies and K4 a layer under
+    `auto`; K1 and K3, its core on K4's body (head_dim 64), under `layer`."""
+    L = VIT_B16["num_layers"]
+    return {"auto": counts_of(K1=L, K1_own=L, K4=L),
+            "layer": counts_of(K1=L, K1_own=L, K3=L, K3_on_K4=L)}
+
+
+def phase_pretrained(gen) -> dict:
+    """ViT-B/16 initialised from a Google npz (`pretrained.load_from_npz`):
+    a synthetic npz (`vit_b16_npz`) written to `build/pretrained_smoke/`,
+    read back with `np.load` into a 128 x 128 x 5 model with patches of
+    (16, 16, 5): 65 tokens.  The loaded tensors against the npz; f32 at B=1
+    under `auto` against the plain modules; bf16 at B = STRETCH_B under
+    `auto` and `layer` (`serve_vit_b16`); K1, K4 and K3 at its shapes."""
+    cfg = ViTConfig(patch_size=(16, 16, 5), **VIT_B16)
+    work = pathlib.Path(__file__).resolve().parent / "build" / "pretrained_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        vit_b16_npz(work / "ViT-B_16.npz", SEED)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with np.load(work / "ViT-B_16.npz") as npz:
+            weights = {k: npz[k] for k in npz.files}
+        state = pretrained.load_from_npz(weights, cfg, zero_head=False)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emb = "transformer.embeddings"
+    pos, patch = state[f"{emb}.position_embeddings"], state[f"{emb}.patch_embeddings.weight"]
+    D = VIT_B16["hidden_size"]
+    q0 = weights[f"Transformer/encoderblock_0/{pretrained.ATTENTION_Q}/kernel"]
+    out0 = weights[f"Transformer/encoderblock_0/{pretrained.ATTENTION_OUT}/kernel"]
+    loaded = {
+        "pos_shape": list(pos.shape),
+        "pos_cls_kept": bool(torch.equal(pos[:, 0], torch.from_numpy(
+            weights["Transformer/posembed_input/pos_embedding"][:, 0]))),
+        "patch_only_at_z2": bool(torch.all(patch[..., [0, 1, 3, 4]] == 0)
+                                 and torch.equal(patch[..., 2], torch.from_numpy(
+                                     weights["embedding/kernel"].transpose(3, 2, 0, 1)))),
+        "query_0": bool(torch.equal(state["transformer.encoder.layer.0.attn.query.weight"],
+                                    torch.from_numpy(q0.reshape(D, D).T.copy()))),
+        "out_0": bool(torch.equal(state["transformer.encoder.layer.0.attn.out.weight"],
+                                  torch.from_numpy(out0.reshape(D, D).T.copy()))),
+        "head": bool(torch.equal(state["head.weight"], torch.from_numpy(
+            weights["head/kernel"].T.copy())))}
+    ok = loaded["pos_shape"] == [1, 65, D] and all(
+        v for k, v in loaded.items() if k != "pos_shape")
+    emit({"phase": "pretrained_load", "npz_tensors": len(weights),
+          "npz_parameters": int(sum(a.size for a in weights.values())),
+          "npz_write_s": write_s, "npz_load_s": load_s, **loaded, "ok": ok})
+    check(ok, f"pretrained load {loaded}")
+
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                generator=torch.Generator().manual_seed(SEED))
+    model.load_state_dict(state)
+    model.eval()
+    del weights, state
+    x = torch.randn(STRETCH_B, 128, 128, 5, 1, generator=gen, device="cuda")
+    expect = vit_b16_expect()
+    f32 = f32_against_plain("pretrained", model, x[:1], expect["auto"])
+    served = serve_vit_b16("pretrained", model, x, expect)
+    cases = vit_b16_kernel_cases(gen, 65, "pretrained")
+    return {"f32": f32, **served, "cases": cases}
+
+
+def phase_hybrid(gen) -> dict:
+    """The R50+ViT-B/16 hybrid (the JAX defaults' ResNetV2 stem: units
+    (3, 4, 9), width factor 1, under ViT-B/16, grid (8, 8)) at 128 x 128 x 5:
+    8 x 8 x 5 features of 1,024 channels, 321 tokens.  f32 at B=1 under
+    `auto` against the plain modules; one f32 forward and backward at
+    B = HYBRID_GRAD_B of the BCE loss, the gradients of HYBRID_GRAD_PARAMS
+    held to GRAD_RTOL of each one's largest entry; bf16 at B = STRETCH_B
+    under `auto` and `layer` (`serve_vit_b16`), with the stem's own device
+    time and the kernels that take the most; K1, K4 and K3 at its shapes."""
+    cfg = ViTConfig(hybrid_grid=(8, 8), **VIT_B16)
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                generator=torch.Generator().manual_seed(SEED))
+    model.eval()
+    emb = model.transformer.embeddings
+    with torch.no_grad():
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+    stem_params = sum(p.numel() for p in emb.hybrid_model.parameters())
+    convs = sum(isinstance(m, torch.nn.Conv2d) for m in emb.hybrid_model.modules())
+    # the stem's conv operations a 128^2 slice, 2 * out * in * kh * kw each,
+    # from the shapes one slice gives them; the encoder's at 321 tokens
+    conv_flops = []
+    hooks = [m.register_forward_hook(lambda m, i, o: conv_flops.append(
+        2 * o.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1]))
+        for m in emb.hybrid_model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        emb.hybrid_model(torch.zeros(1, 128, 128, 1, 1, device="cuda"))
+    for h in hooks:
+        h.remove()
+    T, D, M = 321, VIT_B16["hidden_size"], VIT_B16["mlp_dim"]
+    encoder_flops = VIT_B16["num_layers"] * (8 * T * D * D + 4 * T * T * D
+                                             + 4 * T * D * M)
+    norms = sum(isinstance(m, torch.nn.GroupNorm) for m in emb.hybrid_model.modules())
+    geometry_ok = (tuple(emb.position_embeddings.shape) == (1, 321, D)
+                   and tuple(emb.patch_embeddings.weight.shape) == (D, 1024, 1, 1, 1))
+    emit({"phase": "hybrid_model", "stem_parameters": stem_params,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "stem_convs": convs, "stem_group_norms": norms,
+          "stem_gflop_a_slice": sum(conv_flops) / 1e9,
+          "stem_gflop_a_batch": sum(conv_flops) * 5 * STRETCH_B / 1e9,
+          "encoder_gflop_a_batch": encoder_flops * STRETCH_B / 1e9,
+          "position_table": list(emb.position_embeddings.shape),
+          "patch_weight": list(emb.patch_embeddings.weight.shape),
+          "ok": geometry_ok})
+    check(geometry_ok and convs == 52 and norms == 52,
+          f"hybrid geometry: {convs} convs, {norms} norms")
+    x = torch.randn(STRETCH_B, 128, 128, 5, 1, generator=gen, device="cuda")
+    expect = vit_b16_expect()
+    f32 = f32_against_plain("hybrid", model, x[:1], expect["auto"])
+
+    # the f32 forward and backward under `auto` (K1, K4; their backwards
+    # recompute through the plain versions) and under `plain`
+    xg = x[:HYBRID_GRAD_B]
+    y = torch.tensor([[1.0], [0.0]], device="cuda")
+    params = dict(model.named_parameters())
+    grads, counts = {}, None
+    for impl in ("auto", "plain"):
+        set_impls(impl)
+        model.zero_grad(set_to_none=True)
+        try:
+            reset_launches()
+            logits = model(xg).logits
+            F.binary_cross_entropy_with_logits(logits, y).backward()
+            if impl == "auto":
+                counts = launches()
+        finally:
+            set_impls("auto")
+        grads[impl] = {k: params[k].grad.detach().clone() for k in HYBRID_GRAD_PARAMS}
+    model.zero_grad(set_to_none=True)
+    rel = {k: float((grads["auto"][k] - grads["plain"][k]).abs().max()
+                    / grads["plain"][k].abs().max()) for k in HYBRID_GRAD_PARAMS}
+    ok = all(r <= GRAD_RTOL for r in rel.values()) and counts == expect["auto"]
+    emit({"phase": "hybrid_gradients", "B": HYBRID_GRAD_B, "dtype": "float32",
+          "loss": "bce", "max_err_over_scale": rel, "rtol_of_scale": GRAD_RTOL,
+          "launches": counts, "expected_launches": expect["auto"], "ok": ok})
+    check(ok, f"hybrid gradients {rel}, launched {counts}")
+    grad_launches = counts
+
+    served = serve_vit_b16("hybrid", model, x, expect)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        stem_busy, stem_groups, stem_kernels, _ = device_time(
+            lambda: emb.hybrid_model(xb))
+        top = top_kernels(lambda: model(xb))
+    busy = served["auto"]["device_busy_ms"]
+    emit({"phase": "hybrid_stem", "card": card, "B": STRETCH_B,
+          "dtype": "bfloat16", "stem_device_busy_ms": stem_busy,
+          "stem_share_of_auto_pass": stem_busy / busy if busy else None,
+          "stem_kernels": stem_kernels, "stem_by_group_ms": stem_groups,
+          "top_kernels_auto_pass": top})
+    check(stem_busy > 0, "hybrid stem: no device time")
+    cases = vit_b16_kernel_cases(gen, 321, "hybrid")
+    return {"f32": f32, **served, "grad_launches": grad_launches,
+            "stem_device_busy_ms": stem_busy, "cases": cases}
 
 
 # --- the `quant` phase: the int8 route (`ops/quant.py`) on the card ---------
@@ -3560,6 +3938,10 @@ def main() -> int:
     variants = phase_variants(main_path)
     phase_latency(gen)
     stretch = phase_stretch(gen)
+    # each from a generator of its own, so the phases that follow draw what
+    # they drew before these
+    vit_pre = phase_pretrained(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    hybrid = phase_hybrid(torch.Generator(device="cuda").manual_seed(SEED + 6))
     quant_res = phase_quant(gen)
     train = phase_train()
     train_ens = phase_train_ensemble()
@@ -3578,6 +3960,13 @@ def main() -> int:
                       "stretch_f32": stretch["f32_auto"]["launches"][name],
                       "stretch_f32_layer":
                           stretch["f32_layer"]["launches"][name],
+                      "pretrained": vit_pre["auto"]["launches"][name],
+                      "pretrained_layer": vit_pre["layer"]["launches"][name],
+                      "pretrained_f32": vit_pre["f32"]["launches"][name],
+                      "hybrid": hybrid["auto"]["launches"][name],
+                      "hybrid_layer": hybrid["layer"]["launches"][name],
+                      "hybrid_f32": hybrid["f32"]["launches"][name],
+                      "hybrid_f32_backward": hybrid["grad_launches"][name],
                       "sweep": sweep["launches"][name],
                       "cli": cli["launches"][name]}
                for name in KERNELS}
@@ -3614,6 +4003,14 @@ def main() -> int:
         out = {k: case[k] for k in case if k in shape_keys + number_keys}
         return {**out, "launches": by_path[VARIANT_KERNELS["seq"]][path]} if path else out
 
+    def vit_b16_case(case, path, name="K1"):
+        """A case at ViT-B/16's shapes, with the launches of its model's
+        bf16 path (f32: the B=1 forward's) and the body it ran on."""
+        if case["dtype"] == "float32":
+            path = path.split("_")[0] + "_f32"
+        return {**case_of(case), "body": case["body"],
+                "launches": by_path[name][path], "launches_path": path}
+
     def k1b_f32_case(case):
         """A K1b f32 case with its error over the gate and its other bounds."""
         return {**case_of(case), "max_err_over_gate": case["max_err_over_gate"],
@@ -3647,7 +4044,11 @@ def main() -> int:
             f32_scaled_max_err_over_gate=k1_scaled["max_err_over_gate"],
             model_axis_case=case_of(k1_models, "sweep"),
             # f32 at every shape the baseline drivers gave it
-            cli_cases=[case_of(c) for c in cli["cases"]["K1"]]),
+            cli_cases=[case_of(c) for c in cli["cases"]["K1"]],
+            # its wide bodies at ViT-B/16's 65 tokens (the npz-initialised
+            # model) and 321 (the R50 hybrid): bf16 at B=8, f32 at B=1
+            pretrained_cases=[vit_b16_case(c, "pretrained") for c in vit_pre["cases"]["K1"]],
+            hybrid_cases=[vit_b16_case(c, "hybrid") for c in hybrid["cases"]["K1"]]),
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
             "variants_chunked",
@@ -3705,7 +4106,12 @@ def main() -> int:
                                   k3_stretch[torch.float32]["bound_ms_mma_sync"],
                               "launches": by_path["K3"]["stretch_f32_layer"],
                               "launches_on_k4_body":
-                                  by_path["K3_on_K4"]["stretch_f32_layer"]}),
+                                  by_path["K3_on_K4"]["stretch_f32_layer"]},
+            # bf16 at B=8 at ViT-B/16's 65 and 321 tokens, on K4's body
+            pretrained_cases=[vit_b16_case(c, "pretrained_layer", "K3")
+                              for c in vit_pre["cases"]["K3"]],
+            hybrid_cases=[vit_b16_case(c, "hybrid_layer", "K3")
+                          for c in hybrid["cases"]["K3"]]),
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:118",
             k4[torch.bfloat16], "stretch",
@@ -3719,7 +4125,12 @@ def main() -> int:
                       "bound_ms_mma_sync": k4[torch.float32]["bound_ms_mma_sync"],
                       "launches": by_path["K4"]["stretch_f32"],
                       "launches_k3_on_k4_body_layer":
-                          by_path["K3_on_K4"]["stretch_f32_layer"]}),
+                          by_path["K3_on_K4"]["stretch_f32_layer"]},
+            # at ViT-B/16's 65 and 321 tokens: bf16 at B=8, f32 at B=1
+            pretrained_cases=[vit_b16_case(c, "pretrained", "K4")
+                              for c in vit_pre["cases"]["K4"]],
+            hybrid_cases=[vit_b16_case(c, "hybrid", "K4")
+                          for c in hybrid["cases"]["K4"]]),
     ], "variants_volumes_per_s": {v: r["volumes_per_s"]
                                   for v, r in variants.items()},
         "training": {"train": train["timing"],
@@ -3734,6 +4145,11 @@ def main() -> int:
         "e2e_grid_memory": {k: v for k, v in grid_memory.items() if k != "auto"},
         "stretch": {impl: {k: v for k, v in res.items() if k != "launches"}
                     for impl, res in stretch.items()},
+        "vit_b16": {model: {impl: {k: res[impl][k] for k in (
+            "ms_per_batch", "volumes_per_s", "device_busy_ms", "device_idle_share",
+            "kernels")} for impl in ("auto", "layer")}
+            for model, res in (("pretrained", vit_pre), ("hybrid", hybrid))},
+        "hybrid_stem_device_busy_ms": hybrid["stem_device_busy_ms"],
         "seconds": time.perf_counter() - t_start})
     if failures:
         for what in failures:

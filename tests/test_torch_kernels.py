@@ -407,11 +407,14 @@ def test_model_under_layer_matches_plain_modules(cuda, conf):
 # where the bf16 body's tiling is most likely to break: S = 64 and 128 (no
 # tail), S = 1 and 15 (fewer keys than the narrowest chunk of 16), S = 200
 # at hd 32 and 128 (a tail of 8 keys, the 64-byte swizzle and two boxes of
-# hd).  Each runs on the model's views; the stretch shape at B=2 also on K3's
-# views into the (B, T, 3D) QKV buffer.
+# hd); last, ViT-B/16's token counts: 65 (8 x 8 patches of a 128^2 slice,
+# the npz-initialised model) and 321 (the R50 hybrid's 8 x 8 x 5 features),
+# neither a multiple of a tile.  Each runs on the model's views; the stretch
+# shape at B=2 also on K3's views into the (B, T, 3D) QKV buffer.
 K4_SHAPES = [(8, 12, 513, 64), (2, 12, 513, 64), (3, 2, 70, 32), (2, 3, 40, 64),
              (1, 2, 65, 128), (2, 2, 200, 32), (2, 12, 64, 64), (2, 12, 128, 64),
-             (2, 12, 1, 64), (2, 12, 15, 64), (2, 4, 200, 32), (2, 4, 200, 128)]
+             (2, 12, 1, 64), (2, 12, 15, 64), (2, 4, 200, 32), (2, 4, 200, 128),
+             (2, 12, 65, 64), (2, 12, 321, 64)]
 K4_CASES = [(shape, "model") for shape in K4_SHAPES] + [((2, 12, 513, 64), "qkv")]
 
 
@@ -542,13 +545,15 @@ def test_attention_kernel_f32_copies_by_alignment(cuda, offset):
 # and masked, a partial row tile, a narrower wide D, the top of the range,
 # a width the chunks do not divide, M % 8 != 0 (bf16: w2 read through a
 # zero-padded copy), no active column (the output is b2), one output tile
-# with the width mask inside it, one row, and D = 128 with M = 3072 (many
-# column tiles over a thin k).
+# with the width mask inside it, one row, D = 128 with M = 3072 (many
+# column tiles over a thin k), and ViT-B/16's rows at B=2 for 65 and 321
+# tokens (the npz-initialised model and the R50 hybrid).
 WIDE_K1_CASES = [(4104, 768, 3072, 3072), (4104, 768, 3072, 2072),
                  (513, 768, 3072, 3072), (70, 768, 256, 200),
                  (70, 128, 512, 512), (33, 1024, 96, 96), (50, 192, 100, 77),
                  (40, 256, 2204, 2000), (40, 768, 64, 0), (128, 128, 128, 77),
-                 (1, 768, 3072, 3072), (300, 128, 3072, 3072)]
+                 (1, 768, 3072, 3072), (300, 128, 3072, 3072),
+                 (130, 768, 3072, 3072), (642, 768, 3072, 3072)]
 
 
 def _wide_inputs(gen, N, D, M, dtype=torch.float32):
@@ -728,6 +733,39 @@ def test_small_stretch_model_matches_plain_modules(cuda, impl, counts):
     finally:
         mlp_select.set_default_mlp_impl("auto")
         attention.set_default_attention_impl("auto")
+    torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl,counts", [("auto", (2, 0, 0, 2, 0)),
+                                         ("layer", (2, 0, 2, 0, 2))])
+def test_small_hybrid_model_matches_plain_modules(cuda, impl, counts):
+    """f32: the ResNetV2 stem (one unit a stage, 64^2 slices: 4 x 4 x 5
+    features of 1,024 channels, patches of 2 x 2 x 1, 21 tokens) under
+    K1's wide body and K4 (or K3 on K4's body), against the plain modules;
+    launches as (K1, K2, K3, K4, K3 on K4's body)."""
+    cfg = ViTConfig(hidden_size=128, num_heads=2, mlp_dim=256, num_layers=2,
+                    img_size=64, hybrid_grid=(2, 2), resnet_block_units=(1, 1, 1))
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False)
+    x = torch.randn(2, 64, 64, 5, 1, generator=cuda, device="cuda")
+    attention.set_default_attention_impl(impl)
+    try:
+        with torch.no_grad():
+            before = (fused_mlp.launches, fused_attention.launches,
+                      attention_layer.launches, fused_attention.launches_k4,
+                      attention_layer.launches_k4)
+            out = model(x)
+            after = (fused_mlp.launches, fused_attention.launches,
+                     attention_layer.launches, fused_attention.launches_k4,
+                     attention_layer.launches_k4)
+            assert tuple(b - a for a, b in zip(before, after)) == counts
+            attention.set_default_attention_impl("plain")
+            mlp_select.set_default_mlp_impl("plain")
+            ref = model(x)
+    finally:
+        mlp_select.set_default_mlp_impl("auto")
+        attention.set_default_attention_impl("auto")
+    assert out.tokens.shape == (2, 21, 128)
     torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)
 

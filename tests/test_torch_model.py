@@ -229,12 +229,6 @@ def test_init_follows_torch_defaults_and_seed():
     assert torch.all(a.transformer.embeddings.position_embeddings == 0)
 
 
-def test_hybrid_config_is_not_ported():
-    cfg = ViTConfig(hybrid_grid=(8, 8))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        VisionTransformer3D(cfg, device="cpu")
-
-
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ViTConfig.from_conf(3)

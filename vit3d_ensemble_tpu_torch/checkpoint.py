@@ -10,7 +10,11 @@ torch names.
     layer axis is split per layer, (D, H, hd) QKV kernels become (D, D)
     torch weights, (in, out) dense kernels are transposed, and the
     (kh, kw, kz, C, D) patch kernel becomes the (D, C, kh, kw, kz) Conv3d
-    weight.
+    weight.  A hybrid model's ResNetV2 stem
+    (`embeddings/hybrid_model/resnet/...`) goes to the reference's names,
+    `transformer.embeddings.hybrid_model.root.{conv,gn}` and
+    `...hybrid_model.body.block{s}.unit{u}.{conv1,gn1,conv2,gn2,conv3,gn3,
+    downsample,gn_proj}` (`models/resnet_hybrid.py`).
   * `ensemble_state_from_flax` inverts the prefixing of
     `torch_ensemble_to_flax` (`checkpoint.py:219-234`): `transformer_{i}`
     -> `transformers.{i}.`, and `meta/classifier` -> `classifier.*`.
@@ -156,6 +160,34 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _resnet_state_from_flax(params: Mapping[str, Any],
+                            prefix: str) -> Dict[str, torch.Tensor]:
+    """The JAX package's ResNetV2 params -> the reference's torch names
+    (`models/resnet_hybrid.py`): `root_conv` -> `root.conv`, `root_gn` ->
+    `root.gn`, `block{s}_unit{u}/{conv1,gn1,...,gn_proj}` ->
+    `body.block{s}.unit{u}.{conv1,gn1,...,gn_proj}`; (kh, kw, in, out)
+    conv kernels become (out, in, kh, kw) weights and GroupNorm's
+    `scale`/`bias` its `weight`/`bias`."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def module(name, p):
+        if "kernel" in p:
+            out[f"{prefix}{name}.weight"] = _t(
+                np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        else:
+            out[f"{prefix}{name}.weight"] = _t(p["scale"])
+            out[f"{prefix}{name}.bias"] = _t(p["bias"])
+
+    for key, p in params.items():
+        if key in ("root_conv", "root_gn"):
+            module(key.replace("_", "."), p)
+        else:
+            block, unit = key.split("_")
+            for name, q in p.items():
+                module(f"body.{block}.{unit}.{name}", q)
+    return out
+
+
 def vit_state_from_flax(params: Mapping[str, Any], config: ViTConfig,
                         prefix: str = "") -> Dict[str, torch.Tensor]:
     """JAX `VisionTransformer3D` params -> this port's `state_dict`."""
@@ -168,6 +200,9 @@ def vit_state_from_flax(params: Mapping[str, Any], config: ViTConfig,
     out[f"{root}.patch_embeddings.bias"] = _t(emb["patch_embeddings"]["bias"])
     out[f"{root}.cls_token"] = _t(emb["cls_token"])
     out[f"{root}.position_embeddings"] = _t(emb["position_embeddings"])
+    if "hybrid_model" in emb:
+        out.update(_resnet_state_from_flax(emb["hybrid_model"]["resnet"],
+                                           f"{root}.hybrid_model."))
     blk = params["encoder"]["layers"]["block"]
 
     def layer(tree, i):

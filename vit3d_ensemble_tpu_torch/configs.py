@@ -82,9 +82,9 @@ class ViTConfig:
     z_size: int = 5          # volume depth (modeling.py:134 hard-codes 5)
     in_channels: int = 1
     num_classes: int = 1
-    # hybrid ResNetV2 stem (reference `config.patches.grid` branch).  None =
-    # pure patchify (all README configs); the port does not build the stem
-    # yet and raises on a hybrid config.
+    # hybrid ResNetV2 stem (reference `config.patches.grid` branch,
+    # models/resnet_hybrid.py): the grid of tokens over the stem's features
+    # a slice.  None = pure patchify (all README configs).
     hybrid_grid: Tuple[int, int] = None
     resnet_block_units: Tuple[int, ...] = (3, 4, 9)
     resnet_width_factor: int = 1

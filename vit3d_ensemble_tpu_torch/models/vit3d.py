@@ -26,6 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
+from vit3d_ensemble_tpu_torch.models.resnet_hybrid import (
+    HybridBackbone3D,
+    feature_shape,
+)
 from vit3d_ensemble_tpu_torch.ops.attention import (
     dot_product_attention,
     dropout,
@@ -130,23 +134,46 @@ class PatchEmbed(nn.Module):
         return out.flatten(2).transpose(1, 2)
 
 
+def hybrid_patch_config(config: ViTConfig) -> ViTConfig:
+    """The patchify config behind the hybrid stem (`vit3d.py:366-379`):
+    patches of (H' // gh, W' // gw, 1) over the backbone's (H', W', Z, C')
+    features."""
+    h, w, c = feature_shape(config.img_size, config.resnet_block_units,
+                            config.resnet_width_factor)
+    gh, gw = config.hybrid_grid
+    return dataclasses.replace(
+        config, patch_size=(max(1, h // gh), max(1, w // gw), 1),
+        in_channels=c, img_size=h)
+
+
 class Embeddings(nn.Module):
-    """Patchify + CLS + learned position embeddings (`modeling.py:127-175`)."""
+    """Patchify + CLS + learned position embeddings (`modeling.py:127-175`).
+
+    With `config.hybrid_grid` set, the ResNetV2 stem runs on every z-slice
+    first (`hybrid_model`) and the patchify runs over its features; the
+    position table then has the features' token count, not
+    `config.seq_len`'s (`vit3d.py:388-392`)."""
 
     def __init__(self, config: ViTConfig):
         super().__init__()
-        if config.hybrid_grid is not None:
-            raise NotImplementedError(
-                "the hybrid ResNetV2 stem is not ported yet (ROADMAP.md, "
-                "modules still to port: pretrained.py and resnet_hybrid.py)")
         self.config = config
         D = config.hidden_size
-        self.patch_embeddings = PatchEmbed(config)
+        if config.hybrid_grid is not None:
+            self.hybrid_model = HybridBackbone3D(
+                config.resnet_block_units, config.resnet_width_factor,
+                config.in_channels)
+            patch_config = hybrid_patch_config(config)
+        else:
+            self.hybrid_model = None
+            patch_config = config
+        self.patch_embeddings = PatchEmbed(patch_config)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.position_embeddings = nn.Parameter(
-            torch.zeros(1, config.seq_len, D))
+            torch.zeros(1, patch_config.seq_len, D))
 
     def forward(self, x, *, deterministic: bool, generator=None):
+        if self.hybrid_model is not None:
+            x = self.hybrid_model(x)
         x = self.patch_embeddings(x)
         cls = self.cls_token.expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.position_embeddings
@@ -352,6 +379,8 @@ class VisionTransformer3D(nn.Module):
                          generator: Optional[torch.Generator] = None) -> None:
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         emb = self.transformer.embeddings
+        if emb.hybrid_model is not None:
+            emb.hybrid_model.reset_parameters(g)
         emb.patch_embeddings.reset_parameters(g)
         emb.cls_token.zero_()
         emb.position_embeddings.zero_()
