@@ -31,7 +31,9 @@ read just after:
     body) and `layer` (K3 on K4's body), and the kernels at their shapes;
   * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
     K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
-  * the sweep engine (`run_group`) on the three groups of conf 1-18;
+  * the sweep engine (`run_group`) on the three groups of conf 1-18, and
+    on the widest with and without remat (phase `remat`: equal results,
+    each run's peak bytes and ms a step; K2 twice a training block);
   * the int8 route (`ops/quant.py`): `int8_dense` against the CPU's at the
     models' shapes, conf 9 and 19 under `int8` and `int8_attn` against
     exact, and the stretch model in bf16 under `none`, `int8_attn` and
@@ -41,7 +43,13 @@ read just after:
     synthetic 99-patient dataset of PNGs and CSVs that the script writes
     (K1 in evaluation, K2), then the ensemble drivers, and `cli/test_cv`
     on what they wrote (its baselines, every ensemble source,
-    `--all_ensembles`, `--ood`, `--quant_impl`; phase `cli_test_cv`).
+    `--all_ensembles`, `--ood`, `--quant_impl`; phase `cli_test_cv`);
+  * the mesh path (`parallel/mesh.py`, phase `mesh`): two ranks on the one
+    card over gloo, spawned by the script, each on cuda:0, run
+    `train_baseline_cv --all_configs --mesh 1x2`, the bootstrap grid under
+    `--mesh 2x1` and `train_ensemble_cv --frozen --mesh 1x2` against the
+    `cli` phase's one-process runs, and `make_dp_train_step` on conf 9
+    against one process; each rank's launches are gathered to rank 0.
 
 Every line it prints is a JSON object.  The last is
 `{"ok": true, "device": {...}}`; it is printed only when every check
@@ -106,6 +114,11 @@ from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
 from vit3d_ensemble_tpu_torch.sweep import e2e_grid, engine, stack
 from vit3d_ensemble_tpu_torch.sweep import stacked as stacked_module
 from vit3d_ensemble_tpu_torch.train.ensemble_trainer import train_ensemble
+from vit3d_ensemble_tpu_torch.train.optim import sgd_momentum
+from vit3d_ensemble_tpu_torch.train.steps import (
+    masked_balanced_pos_weight,
+    masked_bce_with_logits,
+)
 from vit3d_ensemble_tpu_torch.train.trainer import init_baseline, train_baseline
 
 SEED = 0
@@ -3407,7 +3420,10 @@ def _phase_cli(work: pathlib.Path) -> dict:
     grid_k1 = grid_slots * (CLI_EPOCHS + 1) * 2
 
     def grid_k2(steps_per_epoch):
-        return grid_slots * (CLI_EPOCHS * steps_per_epoch + (CLI_EPOCHS + 1) * 2)
+        """A training step's forward and, under the grid's remat, its
+        recompute in the backward pass; two evaluations' forwards an epoch
+        and at the end."""
+        return grid_slots * (2 * CLI_EPOCHS * steps_per_epoch + (CLI_EPOCHS + 1) * 2)
 
     cv_S, fixed_S = -(-cv_train // 4), -(-fixed_train // 4)
     all_combos = list(itertools.combinations(BASELINE_CONFS, 3))
@@ -3781,7 +3797,290 @@ def _phase_cli(work: pathlib.Path) -> dict:
     quant.set_default_quant_impl("none")
     # the kernels at the shapes these runs gave them (launches not counted)
     cases = cli_kernel_cases(calls)
-    return {"launches": totals, "runs": summary, "cases": cases}
+    mesh = phase_mesh(work, {run["name"]: run for run in runs}, results, baselines)
+    return {"launches": totals, "runs": summary, "cases": cases, "mesh": mesh}
+
+
+# --- the `mesh` phase: the sweeps and data-parallel training over ranks --------
+# Two ranks on the one card, over gloo by `parallel/mesh.choose_backend`'s
+# rule (NCCL refuses two ranks on one card), each holding its device:
+# cuda:0.  They run three of phase `cli`'s runs again with a mesh (5 folds
+# padded to 6 on a data axis of 2; one combination padded to 2 on a model
+# axis of 2), held to those runs' one-process results at the JAX package's
+# mesh tolerances (`tests/test_parallel.py:93-94,148-152,176-177`): the
+# ranks' blocks run other batched-GEMM shapes than one process, so f32 sums
+# may round apart; then `make_dp_train_step` on conf 9.
+MESH_RANKS = 2
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+MESH_RUNS = (("mesh_cv_all", "cv_all", "1x2"),
+             ("mesh_grid_boot", "ens_grid_boot", "2x1"),
+             ("mesh_frozen_cv", "ens_frozen_cv", "1x2"))
+#: the data-parallel step: conf 9 at full width, f32, dropout 0, a global
+#: batch of 8 (4 rows a rank), 3 SGD-momentum steps at lr 1e-2
+DP_CONF, DP_BATCH, DP_STEPS, DP_LR = 9, 8, 3, 1e-2
+#: the ranks' whole run, their start included
+MESH_TIMEOUT_S = 600
+
+
+def dp_model():
+    config = dataclasses.replace(ViTConfig.from_conf(DP_CONF), dropout_rate=0.0)
+    model = VisionTransformer3D(config, vis=False, zero_head=False, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+    opt, sched = sgd_momentum(model.parameters(), DP_LR, lambda step: 1.0)
+    return model, opt, sched
+
+
+def dp_batch():
+    """A global batch whose two halves differ in label balance and masked
+    rows, so an average of the ranks' own losses is not the batch's."""
+    rng = np.random.default_rng(SEED + 7)
+    vols = rng.normal(size=(DP_BATCH, 128, 128, 5, 1)).astype(np.float32)
+    labels = np.array([1, 1, 1, 0, 0, 1, 0, 0], np.float32)
+    mask = np.array([1, 1, 1, 1, 1, 0, 1, 0], np.float32)
+    return [torch.as_tensor(a, device="cuda") for a in (vols, labels, mask)]
+
+
+def _mesh_rank(rank: int, world: int, root: str, jobs: list) -> None:
+    """One rank of phase `mesh`: join the gloo group, run each job with the
+    launch counters set to 0 just before and read just after, and gather
+    every rank's results to rank 0, which saves them under `root`."""
+    import os
+
+    import torch.distributed as dist
+
+    from vit3d_ensemble_tpu_torch.parallel import make_dp_train_step, make_mesh
+    from vit3d_ensemble_tpu_torch.parallel.mesh import choose_backend, rank_device
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    logging.basicConfig(level=logging.WARNING)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = choose_backend(torch.device("cuda"), world)
+    dist.init_process_group(backend, init_method=f"file://{root}/store", rank=rank,
+                            world_size=world)
+    try:
+        out = {"backend": backend, "device": str(rank_device("cuda")),
+               "current_device": torch.cuda.current_device(), "runs": {}}
+        drivers = {d.__name__.rsplit(".", 1)[1]: d
+                   for d in (train_baseline_cv, train_ensemble_bootstrap, train_ensemble_cv)}
+        for name, driver, argv in jobs:
+            dist.barrier()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            if driver is None:              # make_dp_train_step on conf 9
+                model, opt, sched = dp_model()
+                mesh = make_mesh(1, world, device="cuda")
+                step, shard = make_dp_train_step(model, opt, mesh, scheduler=sched)
+                vols, labels, mask = (shard(a) for a in dp_batch())
+                losses = [float(step(vols, labels, mask)) for _ in range(DP_STEPS)]
+                result = {"losses": losses, "rows": len(vols),
+                          "params": {k: v.detach().cpu() for k, v in
+                                     model.state_dict().items()},
+                          "mesh_device": str(mesh.device), "mesh_backend": mesh.backend}
+            else:
+                result = drivers[driver].main(argv)
+            torch.cuda.synchronize()
+            out["runs"][name] = {"result": result, "launches": launches(),
+                                 "seconds": time.perf_counter() - t0}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, out)
+        if rank == 0:
+            torch.save(gathered, pathlib.Path(root) / "ranks.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def nested_close(a, b, rtol: float, atol: float) -> tuple:
+    """(largest |a - b|, every value within atol + rtol·|b|) over nested
+    dicts, lists and tuples of numbers with the same keys."""
+    if isinstance(b, dict):
+        if list(a) != list(b):
+            return math.inf, False
+        parts = [nested_close(a[k], b[k], rtol, atol) for k in b]
+    elif isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return math.inf, False
+        parts = [nested_close(x, y, rtol, atol) for x, y in zip(a, b)]
+    else:
+        d = abs(float(a) - float(b))
+        return d, d <= atol + rtol * abs(float(b))
+    return max((p[0] for p in parts), default=0.0), all(p[1] for p in parts)
+
+
+def phase_mesh(work: pathlib.Path, runs: dict, results: dict, baselines) -> dict:
+    """Phase `cli`'s `train_baseline_cv --all_configs` under --mesh 1x2,
+    `train_ensemble_bootstrap`'s grid under --mesh 2x1 and
+    `train_ensemble_cv --frozen` under --mesh 1x2, then `make_dp_train_step`
+    on conf 9, in MESH_RANKS ranks on the card (`_mesh_rank`, processes
+    started by spawn).  Each run: every rank on cuda:0 over gloo, the
+    results equal on both ranks and within the mesh tolerances of the
+    one-process run's, each rank's exact K1/K2 launches, its seconds; the
+    data-parallel step's replicas equal bit for bit and within the
+    tolerances of one process's steps on the whole batch."""
+    import torch.multiprocessing as mp
+
+    L = ViTConfig.from_conf(DP_CONF).num_layers
+    root = work / "mesh"
+    root.mkdir(parents=True, exist_ok=True)
+    jobs, want = [], {}
+    for name, base, spec in MESH_RUNS:
+        run = runs[base]
+        out = work / name
+        if run["prep"]:
+            out.mkdir(parents=True, exist_ok=True)
+            run["prep"](out)
+        driver = run["driver"].__name__.rsplit(".", 1)[1]
+        jobs.append((name, driver, [*run["argv"], "--mesh", spec, "--output_dir", str(out)]))
+        # every rank runs every step and evaluation of its block: the
+        # one-process run's launches, each on fewer models
+        want[name] = counts_of(K1=run["k1"], K1_own=run["k1"], K2=run["k2"])
+    jobs.append(("mesh_dp", None, None))
+    want["mesh_dp"] = counts_of(K2=L * DP_STEPS, **k1_split(L * DP_STEPS, torch.float32,
+                                                            ViTConfig.from_conf(DP_CONF).hidden_size))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.start_processes(_mesh_rank, args=(MESH_RANKS, str(root), jobs),
+                                 nprocs=MESH_RANKS, join=False, start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"the ranks ran over {MESH_TIMEOUT_S} s")
+        ranks = torch.load(root / "ranks.pt", weights_only=False)
+    except Exception as exc:  # noqa: BLE001 - a rank that fails fails the run
+        emit({"phase": "mesh", "card": card, "error": repr(exc), "ok": False})
+        check(False, f"mesh: the ranks failed: {exc!r}")
+        return {"launches": counts_of(), "runs": {}}
+    seconds = time.perf_counter() - t0
+    totals = counts_of()
+    summary = {"backend": ranks[0]["backend"], "ranks": MESH_RANKS,
+               "seconds_with_start": seconds, "runs": {}}
+    on_card = all(r["device"] == "cuda:0" and r["current_device"] == 0 for r in ranks)
+    for name, _, argv in jobs:
+        got = [r["runs"][name] for r in ranks]
+        counts = [g["launches"] for g in got]
+        for c in counts:
+            for k, n in c.items():
+                totals[k] += n
+        line = {"phase": "mesh", "card": card, "run": name,
+                "argv": argv and argv[argv.index("--mesh"):argv.index("--mesh") + 2],
+                "backend": ranks[0]["backend"],
+                "devices": [r["device"] for r in ranks],
+                "seconds_by_rank": [g["seconds"] for g in got],
+                "launches_by_rank": counts, "expected_launches_each": want[name]}
+        ok = on_card and all(c == want[name] for c in counts)
+        if name == "mesh_dp":
+            res = got[0]["result"]
+            same = all(g["result"]["losses"] == res["losses"] and all(
+                torch.equal(g["result"]["params"][k], v) for k, v in res["params"].items())
+                for g in got)
+            model, opt, _ = dp_model()
+            vols, labels, mask = dp_batch()
+            losses = []
+            for _ in range(DP_STEPS):
+                logits = model(vols, deterministic=False).logits
+                loss = masked_bce_with_logits(logits, labels, mask,
+                                              masked_balanced_pos_weight(labels, mask))
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+            loss_diff, loss_ok = nested_close(res["losses"], losses, MESH_RTOL, MESH_ATOL)
+            one = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            param_diff = max(float((res["params"][k] - v).abs().max()) for k, v in one.items())
+            param_ok = list(res["params"]) == list(one) and all(
+                torch.allclose(res["params"][k], v, rtol=MESH_RTOL, atol=MESH_ATOL)
+                for k, v in one.items())
+            line.update(rows_per_rank=res["rows"], mesh_device=res["mesh_device"],
+                        losses=res["losses"], one_process_losses=losses,
+                        loss_max_abs_diff=loss_diff, param_max_abs_diff=param_diff,
+                        replicas_bitwise_equal=same,
+                        ms_per_step=[g["seconds"] * 1e3 / DP_STEPS for g in got])
+            ok = ok and same and loss_ok and param_ok and res["mesh_device"] == "cuda:0"
+        else:
+            base = dict((n, b) for n, b, _ in MESH_RUNS)[name]
+            res = got[0]["result"]
+            same = all(g["result"] == res for g in got)
+            diff, close = nested_close(res, results[base], MESH_RTOL, MESH_ATOL)
+            cells = runs[base]["cells"](res)
+            finite = bool(cells) and all(math.isfinite(v) for m in cells for v in m.values())
+            steps = runs[base]["steps"]
+            line.update(one_process_run=base, ranks_equal=same,
+                        max_abs_diff_vs_one_process=diff, within_tolerance=close,
+                        rtol=MESH_RTOL, atol=MESH_ATOL, cells=len(cells),
+                        finite_metrics=finite,
+                        ms_per_step=[g["seconds"] * 1e3 / steps for g in got])
+            ok = ok and same and close and finite
+            if runs[base]["layout"]:
+                layout = line["checkpoints"] = runs[base]["layout"](work / name)
+                ok = ok and not layout["missing"] and not layout["wrong_shapes"]
+        line["ok"] = ok
+        emit(line)
+        check(ok, f"mesh {name}: {line}")
+        summary["runs"][name] = {k: line.get(k) for k in (
+            "seconds_by_rank", "ms_per_step", "launches_by_rank",
+            "max_abs_diff_vs_one_process", "param_max_abs_diff")}
+    emit({"phase": "mesh_summary", "card": card, **summary, "launches": totals})
+    return {"launches": totals, **summary}
+
+
+# --- the `remat` phase ----------------------------------------------------------
+
+
+def phase_remat() -> dict:
+    """`run_group` on the widest group ((64, 4): M 3,072, 8 layers, 6
+    configs x 5 folds) with and without `SweepHyper.remat`, dropout on:
+    equal results (each block recomputed with its cells' masks replayed),
+    both runs' peak device bytes and ms a step, and the remat run's exact
+    launches (K2 twice a training step's block: the forward and its
+    recompute).  The grid's instance bytes and auto chunk under remat are
+    phase `e2e_grid_memory`'s."""
+    hyper = engine.SweepHyper(**SWEEP_HYPER)
+    _, _, data = sweep_data(hyper)
+    group = max(stack.group_configs(BASELINE_CONFS), key=lambda g: g.hidden_size)
+    L, steps = group.max_layers, hyper.num_steps
+    evals = steps // hyper.eval_every
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got = []
+        wall = wall_time_ms(lambda: got.append(engine.run_group(
+            group, data, dataclasses.replace(hyper, remat=remat))))
+        runs[remat] = {"result": got[0], "wall_ms": wall, "launches": launches(),
+                       "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    off, on = runs[False]["result"], runs[True]["result"]
+    diffs = {k: float(np.abs(getattr(on, k) - getattr(off, k)).max())
+             for k in ("losses", "best_metrics", "best_probs")}
+    diffs["best_params"] = max(float((on.best_params[k] - v).abs().max())
+                               for k, v in off.best_params.items())
+    bitwise = (all(d == 0.0 for d in diffs.values()))
+    want = counts_of(K1=L * (evals + 1), K1_own=L * (evals + 1),
+                     K2=L * (2 * steps + evals + 1))
+    line = {"phase": "remat", "card": card,
+            "group": f"{group.hidden_size}x{group.num_heads}",
+            "cells": len(group.confs) * SWEEP_FOLDS, "steps": steps,
+            "peak_bytes": {"no_remat": runs[False]["peak_bytes"],
+                           "remat": runs[True]["peak_bytes"]},
+            "ms_per_step": {"no_remat": runs[False]["wall_ms"] / steps,
+                            "remat": runs[True]["wall_ms"] / steps},
+            "max_abs_diff": diffs, "bitwise_equal": bitwise,
+            "atol": SWEEP_LOSS_ATOL, "launches": runs[True]["launches"],
+            "expected_launches": want,
+            "launches_no_remat": runs[False]["launches"]}
+    line["ok"] = (runs[True]["launches"] == want
+                  and all(d <= SWEEP_LOSS_ATOL for d in diffs.values()))
+    emit(line)
+    check(line["ok"], f"remat: {line}")
+    return {"launches": runs[True]["launches"],
+            **{k: line[k] for k in ("peak_bytes", "ms_per_step", "max_abs_diff",
+                                    "bitwise_equal")}}
 
 
 # --- the `e2e_grid_memory` phase: the grid's chunk sizing on the card -------
@@ -3946,6 +4245,7 @@ def main() -> int:
     train = phase_train()
     train_ens = phase_train_ensemble()
     sweep = phase_sweep()
+    remat = phase_remat()
     cli = phase_cli()
     grid_memory = phase_e2e_grid_memory()
     by_path = {name: {"serve": main_path["launches"][name],
@@ -3968,7 +4268,10 @@ def main() -> int:
                       "hybrid_f32": hybrid["f32"]["launches"][name],
                       "hybrid_f32_backward": hybrid["grad_launches"][name],
                       "sweep": sweep["launches"][name],
-                      "cli": cli["launches"][name]}
+                      "remat": remat["launches"][name],
+                      "cli": cli["launches"][name],
+                      # every rank's, summed (`mesh_launches_by_rank` below)
+                      "mesh": cli["mesh"]["launches"][name]}
                for name in KERNELS}
     shape_keys = ("dtype", "N", "D", "M", "active", "models", "B", "H", "S",
                   "T", "hd", "path", "offset_elements")
@@ -4136,7 +4439,9 @@ def main() -> int:
         "training": {"train": train["timing"],
                      "train_ensemble": train_ens["timing"]},
         "sweep": {**sweep["groups"], "dropout": sweep["dropout"]},
+        "remat": {k: v for k, v in remat.items() if k != "launches"},
         "cli": cli["runs"],
+        "mesh": {k: v for k, v in cli["mesh"].items() if k != "launches"},
         "quant": {"models_logits_max_abs_dev": quant_res["models"],
                   "stretch": {impl: {k: r[k] for k in (
                       "ms_per_batch", "volumes_per_s", "device_busy_ms",

@@ -120,10 +120,29 @@ def test_impl_flags_take_jax_spellings(flag, value, impl):
     (["--mesh", "2x4"], "parallel/mesh.py"),
     (["--remat"], "remat"),
 ])
-def test_unported_flags_raise(argv, item):
-    """Not silently ignored: each names the ROADMAP.md item that ports it."""
-    with pytest.raises(NotImplementedError, match=item):
-        cv_driver.main([*argv, "--device", "cpu"])
+def test_unported_flags_raise(argv, item, synth_root, tmp_path):
+    """Both flags run since their ROADMAP.md items were ported: `--mesh 2x4`
+    in a process alone raises the ValueError that names the torchrun
+    command it needs (`parallel/mesh.py`; tests/test_torch_parallel.py
+    runs the mesh), and `--remat` gives the grouped sweep's results without
+    it, dropout on."""
+    common = ["--all_configs", "--num_cv", "2", *HYPER, "--device", "cpu"]
+    if item == "parallel/mesh.py":
+        with pytest.raises(ValueError, match="torchrun --standalone --nproc_per_node=8"):
+            cv_driver.main([*argv, *common, *_paths(synth_root, tmp_path, "cross_validation")])
+        return
+    # one intra-op thread: the stacked runs' many small ops slow down far
+    # more than they gain under xdist's workers with every core each
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        on = cv_driver.main([*argv, *common, *_paths(synth_root, tmp_path / "on",
+                                                     "cross_validation")])
+        off = cv_driver.main([*common, *_paths(synth_root, tmp_path / "off",
+                                               "cross_validation")])
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(on) == list(range(1, 19)) and on == off
 
 
 @pytest.mark.parametrize("driver", [cv_driver, test_cv_driver])

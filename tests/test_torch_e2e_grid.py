@@ -18,6 +18,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ import vit3d_ensemble_tpu_torch.configs as configs
 from vit3d_ensemble_tpu_torch.checkpoint import save_state_dict
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.models import TransformerEnsemble, VisionTransformer3D
+from vit3d_ensemble_tpu_torch.parallel import make_mesh
 from vit3d_ensemble_tpu_torch.sweep import e2e_grid, ensemble_sweep, state_mirror
 from vit3d_ensemble_tpu_torch.train.ensemble_trainer import (
     pad_members_to_templates,
@@ -48,6 +50,10 @@ PROBS_ATOL = 2e-5
 CHUNK_ATOL = 1e-6
 ADAM_ATOL = 1e-7
 META_ATOL = 1e-5
+#: Device bytes an instance of the widest grid signature took under remat
+#: on an H100 (`chip_smoke.py`, phase `e2e_grid_memory`, the slope of
+#: chunks 1-4 at one fold).
+GRID_INSTANCE_BYTES = 205_650_944
 COMBOS = [(1, 2), (2, 4), (3, 4)]
 
 
@@ -350,30 +356,55 @@ def test_grid_backs_off_on_out_of_memory(bank, monkeypatch):
 def test_auto_chunk_fits_the_budget():
     """The widest signature's instance at the real shapes, and the chunk the
     budget of an 80 GB card gives it, stay within that budget; the estimate
-    is not below the 0.331 GB an instance `chip_smoke.py`'s
-    `e2e_grid_memory` measured on an H100."""
+    under remat is not below the GRID_INSTANCE_BYTES an instance
+    `chip_smoke.py`'s `e2e_grid_memory` measured on an H100, and a card
+    that two ranks share gives each half its memory."""
     cfgs = [dataclasses.replace(ViTConfig.from_conf(1), mlp_dim=3072, num_layers=8)] * 3
     inst = e2e_grid._instance_bytes(cfgs, 4, False)
-    assert inst >= 331_000_000
+    assert inst >= GRID_INSTANCE_BYTES
     assert e2e_grid._instance_bytes(cfgs, 4, True) > inst
     budget = 80 * 2**30 - 8 * 2**30 - 2**30
     c = e2e_grid._auto_chunk(inst, 5, budget)
     assert c >= 1 and c * 5 * inst <= budget < (c + 1) * 5 * inst
     assert e2e_grid._auto_chunk(inst, 5, inst) == 1
+    card = torch.device("cuda")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(e2e_grid, "_device_memory", lambda device: 80 * 2**30)
+        assert e2e_grid._chunk_budget(card, 2**30) == budget
+        assert e2e_grid._chunk_budget(card, 2**30, sharing=2) == 40 * 2**30 - 8 * 2**30 - 2**30
 
 
 @pytest.mark.parametrize("which", ["run_e2e_grid", "train_meta_sweep"])
-def test_mesh_raises(bank, which):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+def test_mesh_raises(bank, which, tmp_path):
+    """The mesh path (`parallel/mesh.py`, ported): in a process group of one
+    rank a 2 x 2 mesh raises ValueError, and a 1 x 1 mesh gives the run
+    without one, exactly (tests/test_torch_parallel.py runs 4 ranks)."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            make_mesh(2, 2, device="cpu")
+        mesh = make_mesh(1, 1, device="cpu")
         if which == "run_e2e_grid":
             _, _, cfgs, members, folds = bank
-            _grid(cfgs, members, e2e_grid.stack_e2e_folds(folds, EPOCHS, 4, SEED),
-                  mesh=object())
+            data = e2e_grid.stack_e2e_folds(folds, EPOCHS, 4, SEED)
+            combos = COMBOS[:2]
+            assert (_grid(cfgs, members, data, combos=combos, mesh=mesh)
+                    == _grid(cfgs, members, data, combos=combos))
         else:
-            z = np.zeros((1, 3, 4), np.float32)
-            ensemble_sweep.train_meta_sweep(
-                np.array([[1, 2, 3]]), z, z[:, 0], z[:, 0], z, z[:, 0], z[:, 0],
-                {1: 0, 2: 1, 3: 2}, mesh=object(), device="cpu")
+            rng = np.random.default_rng(3)
+            TL = rng.normal(size=(2, 4, 6)).astype(np.float32)
+            TY = np.tile([0.0, 1.0], 6).reshape(2, 6).astype(np.float32)
+            VL = rng.normal(size=(2, 4, 4)).astype(np.float32)
+            VY = np.tile([0.0, 1.0], 4).reshape(2, 4).astype(np.float32)
+            args = (ensemble_sweep.all_combinations(5), TL, TY, np.ones_like(TY),
+                    VL, VY, np.ones_like(VY), {c: c - 1 for c in range(1, 5)},
+                    ensemble_sweep.MetaHyper(num_epochs=2, learning_rate=0.05))
+            for a, b in zip(ensemble_sweep.train_meta_sweep(*args, mesh=mesh),
+                            ensemble_sweep.train_meta_sweep(*args, device="cpu")):
+                np.testing.assert_array_equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 # --- the state mirror -----------------------------------------------------------

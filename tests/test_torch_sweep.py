@@ -392,9 +392,13 @@ def test_run_group_needs_a_card_unless_asked_for_cpu(tiny, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.run_group(tiny, data, hyper, img_size=IMG)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        engine.run_group(tiny, data, hyper, img_size=IMG, mesh=object())
-    with pytest.raises(NotImplementedError, match="remat"):
+    # a mesh's ranks need their process group first; remat runs on the card
+    with pytest.raises(ValueError, match="torchrun"):
+        engine.run_grouped_baselines(
+            types.SimpleNamespace(mesh="2x2", output_dir="unused", img_size=IMG),
+            data, hyper, ckpt_kind="cv_baseline", fold_label=str, fold_tag=str,
+            marker_prefix="cv", confs=(101, 102))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.run_group(tiny, data, dataclasses.replace(hyper, remat=True),
                          img_size=IMG)
 

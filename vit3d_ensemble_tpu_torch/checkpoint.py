@@ -43,6 +43,7 @@ import torch
 
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.models.vit3d import VisionTransformer3D
+from vit3d_ensemble_tpu_torch.parallel.mesh import is_writer
 
 
 def save_state_dict(path: str, state: Mapping[str, torch.Tensor]) -> None:
@@ -52,7 +53,10 @@ def save_state_dict(path: str, state: Mapping[str, torch.Tensor]) -> None:
 
     Each tensor is copied into storage of its own: `torch.save` writes a
     view's whole storage, so a sweep member's slice of its group's stacked
-    parameters would otherwise carry every cell of the group."""
+    parameters would otherwise carry every cell of the group.  In a process
+    group only rank 0 writes (`parallel/mesh.is_writer`)."""
+    if not is_writer():
+        return
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"

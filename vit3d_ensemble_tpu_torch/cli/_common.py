@@ -14,13 +14,14 @@ flag names and defaults (`train_baseline_cv.py:222-263`,
     and pallas -> kernel; its default is auto, so evaluation launches the
     fused FFN kernel on the card, where the JAX default is its XLA path;
   * `--quant_impl` sets `ops/quant.py`'s selector, as JAX's does;
-    `--mesh` and `--remat` raise NotImplementedError naming the ROADMAP.md
-    item that ports them;
-  * `setup_logging` keeps no compilation cache (there is no XLA);
-  * the ensemble drivers' grid and frozen modes (`--padded_compile`, the
-    default, and `--frozen`) raise NotImplementedError naming their
-    ROADMAP.md items: pass `--no-padded_compile` for the sequential
-    end-to-end mode.
+  * `--mesh MxN` runs the sweeps over M·N torch.distributed ranks
+    (`parallel/mesh.py`): start the driver under torchrun, e.g.
+    `torchrun --standalone --nproc_per_node=2 -m
+    vit3d_ensemble_tpu_torch.cli.train_baseline_cv --all_configs --mesh
+    1x2`; `main(argv)` also runs in a process group that is already
+    initialised.  Every rank returns the whole results, and rank 0 alone
+    writes;
+  * `setup_logging` keeps no compilation cache (there is no XLA).
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ import argparse
 import logging
 import os
 
-from vit3d_ensemble_tpu_torch.models.vit3d import resolve_device
 from vit3d_ensemble_tpu_torch.ops.attention import set_default_attention_impl
 from vit3d_ensemble_tpu_torch.ops.mlp import set_default_mlp_impl
 from vit3d_ensemble_tpu_torch.ops.quant import set_default_quant_impl
+from vit3d_ensemble_tpu_torch.parallel.mesh import init_distributed, rank_device
 from vit3d_ensemble_tpu_torch.utils.debug import enable_nan_checking
 
 #: The JAX package's impl names, as the port's.
@@ -119,9 +120,10 @@ def add_common_flags(parser: argparse.ArgumentParser,
                         help="Raise on a NaN made in any backward op "
                              "(autograd anomaly detection).")
     parser.add_argument("--mesh", default=None,
-                        help="Multi-chip mesh 'MODELxDATA': not ported yet "
-                             "(ROADMAP.md, queue 1, 'parallel/mesh.py'); "
-                             "raises.")
+                        help="Multi-chip mesh 'MODELxDATA' (e.g. 2x4 on a "
+                             "v4-8) or 'auto' (all visible devices). The "
+                             "sweep shards (config, fold) work across chips;"
+                             " default is single-chip.")
     parser.add_argument("--resume", action="store_true",
                         help="Resume a preempted sweep: skip groups whose "
                              "results are recorded under output_dir/"
@@ -134,23 +136,18 @@ def add_common_flags(parser: argparse.ArgumentParser,
     parser.add_argument("--remat",
                         action=argparse.BooleanOptionalAction, default=False,
                         help="Rematerialize encoder blocks in the backward "
-                             "pass: not ported (ROADMAP.md, 'Left inside "
-                             "ported modules'); raises.")
+                             "pass of the grouped sweep (the dropout masks "
+                             "replayed: the same results, one block's "
+                             "activations held at a time).")
 
 
 def apply_runtime_flags(args) -> None:
-    """Set the process-wide impls from the flags; raise on what the port
-    does not run yet, rather than ignore it, and on a `--device` that is
-    absent before any data is read."""
-    resolve_device(args.device)
-    if getattr(args, "mesh", None) is not None:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the multi-chip path is not ported yet "
-            "(ROADMAP.md, queue 1, 'parallel/mesh.py')")
-    if getattr(args, "remat", False):
-        raise NotImplementedError(
-            "--remat is not ported (ROADMAP.md, 'Left inside ported "
-            "modules': remat)")
+    """Set the process-wide impls from the flags; raise on a `--device`
+    that is absent before any data is read.  Under torchrun, join its
+    process group (`parallel/mesh.init_distributed`) and take this rank's
+    card (`rank_device`: `cuda` becomes `cuda:(LOCAL_RANK % cards)`)."""
+    init_distributed(args.device)
+    args.device = str(rank_device(args.device))
     args.attention_impl = ATTENTION_SPELLINGS.get(args.attention_impl,
                                                   args.attention_impl)
     args.mlp_impl = MLP_SPELLINGS.get(args.mlp_impl, args.mlp_impl)

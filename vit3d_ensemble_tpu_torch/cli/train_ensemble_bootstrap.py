@@ -25,6 +25,11 @@ Three modes, as `train_ensemble_cv`'s:
     evaluated on the held-out test split; the heads go to
     `bootstrap_ensemble_models/ensemble_{name}/meta_heads.bin`.
 
+`--mesh MxN` shards the grid's and the frozen sweep's (combination,
+replicate) work over M·N ranks (`parallel/mesh.py`, under torchrun, as
+`train_ensemble_cv`'s): every rank returns the results, rank 0 alone
+writes.
+
 NOTE: the reference's --csv_path default points at the cross_validation
 folder which lacks training.csv (the script cannot run as shipped); this
 driver defaults to fixed_split, where training/validation/test.csv exist.
@@ -68,6 +73,7 @@ from vit3d_ensemble_tpu_torch.metrics import (
 )
 from vit3d_ensemble_tpu_torch.models import TransformerEnsemble
 from vit3d_ensemble_tpu_torch.models.vit3d import resolve_device
+from vit3d_ensemble_tpu_torch.parallel.mesh import barrier, mesh_from_spec
 from vit3d_ensemble_tpu_torch.reporting import write_sweep_report
 from vit3d_ensemble_tpu_torch.sweep.e2e_grid import run_e2e_grid, stack_e2e_folds
 from vit3d_ensemble_tpu_torch.sweep.ensemble_sweep import (
@@ -166,9 +172,11 @@ def run_frozen(args):
     combos = all_combinations(args.max_configs, args.combinations)
     conf_index = {c: i for i, c in enumerate(confs)}
     R = args.num_rep
-    logger.info("frozen bootstrap sweep: %d combos x %d reps", len(combos), R)
+    mesh = mesh_from_spec(getattr(args, "mesh", None), args.device)
+    logger.info("frozen bootstrap sweep: %d combos x %d reps%s", len(combos), R,
+                "" if mesh is None else f" on mesh {mesh.shape}")
     metrics, meta = train_meta_sweep(combos, TL, TY, TM, VL, VY, VM,
-                                     conf_index, hyper, device=args.device)
+                                     conf_index, hyper, mesh=mesh, device=args.device)
 
     # the held-out test metrics of each best head
     device = resolve_device(args.device)
@@ -239,7 +247,7 @@ def run_end_to_end_grid(args):
         test_results[plan.name] = {
             f"boot{r}": held_out_metrics(reps[r][2].labels, extras["test_probs"][r])
             for r in range(args.num_rep)}
-        if save:
+        if extras["params"] is not None:        # under --save_ensembles, on rank 0
             for r, params in enumerate(extras["params"]):
                 save_state_dict(ensemble_ckpt_path(
                     args.output_dir, "bootstrap_ensemble", plan.name,
@@ -250,7 +258,9 @@ def run_end_to_end_grid(args):
 
     run_e2e_grid(todo, lambda c: _load_member(args, c), data,
                  num_epochs=args.num_epochs, learning_rate=args.learning_rate,
-                 seed=args.seed, chunk=getattr(args, "e2e_chunk", 0),
+                 seed=args.seed,
+                 mesh=mesh_from_spec(getattr(args, "mesh", None), args.device),
+                 chunk=getattr(args, "e2e_chunk", 0),
                  keep_payload=save, fold_label=lambda r: f"boot{r}",
                  on_result=on_result, device=args.device)
     return val_results, test_results
@@ -301,6 +311,7 @@ def main(argv=None):
     write_sweep_report(base, val_results)
     write_sweep_report(base + "_test", test_results)
     logger.info("reports written to %s{,_test}.xlsx / .csv", base)
+    barrier()
     return val_results, test_results
 
 

@@ -28,6 +28,12 @@ under --output_dir.  Three modes:
     combination rankings do not track the end-to-end mode's (the JAX
     package's measurement, `docs/RESULTS.md`): use it for screening.
 
+`--mesh MxN` shards the grid's and the frozen sweep's (combination, fold)
+work over M·N ranks (`parallel/mesh.py`; under torchrun, e.g.
+`torchrun --standalone --nproc_per_node=2 -m
+vit3d_ensemble_tpu_torch.cli.train_ensemble_cv --frozen --mesh 1x2 ...`):
+every rank returns the results, rank 0 alone writes.
+
 Output: workbook + CSV with 'mean (std)' cells per metric over folds
 (`train_ensemble_cv.py:36-49,221-230`), named 'Ensemble_CV' unless
 overridden with --workbook, and the grid's held-out test report
@@ -61,6 +67,7 @@ from vit3d_ensemble_tpu_torch.cli.train_ensemble_whole_dataset import (
 )
 from vit3d_ensemble_tpu_torch.data import build_train_val, load_split
 from vit3d_ensemble_tpu_torch.metrics import METRIC_KEYS, eleven_metrics
+from vit3d_ensemble_tpu_torch.parallel.mesh import barrier, is_writer, mesh_from_spec
 from vit3d_ensemble_tpu_torch.reporting import write_sweep_report
 from vit3d_ensemble_tpu_torch.sweep import state_mirror
 from vit3d_ensemble_tpu_torch.sweep.e2e_grid import run_e2e_grid, stack_e2e_folds
@@ -227,11 +234,12 @@ def run_frozen(args) -> Dict[str, Dict[str, Dict[str, float]]]:
     VL, VY, VM = stack_member_logits(val, confs)
     combos = np.asarray(_selected_combos(
         args, all_combinations(args.max_configs, args.combinations)))
-    logger.info("frozen-backbone sweep: %d combos x %d folds", len(combos),
-                args.num_cv)
+    mesh = mesh_from_spec(getattr(args, "mesh", None), args.device)
+    logger.info("frozen-backbone sweep: %d combos x %d folds%s", len(combos),
+                args.num_cv, "" if mesh is None else f" on mesh {mesh.shape}")
     metrics, meta = train_meta_sweep(combos, TL, TY, TM, VL, VY, VM,
                                      {c: i for i, c in enumerate(confs)}, hyper,
-                                     device=args.device)
+                                     mesh=mesh, device=args.device)
     results: Dict[str, Dict[str, Dict[str, float]]] = {}
     for ci, comb in enumerate(combos):
         name = "_".join(str(c) for c in comb)
@@ -245,17 +253,23 @@ def run_frozen(args) -> Dict[str, Dict[str, Dict[str, float]]]:
 def start_mirror(args, state_dir: str):
     """--state_mirror's two-way start-up sync: restore the markers a reset
     destroyed (under --resume), then fold the directory's markers into the
-    mirror.  Returns the mirror's path, or None."""
+    mirror (rank 0; the others wait for it).  Returns the mirror's path, or
+    None."""
     mirror = getattr(args, "state_mirror", None)
     if mirror:
-        if getattr(args, "resume", False):
-            state_mirror.restore(mirror, state_dir)
-        state_mirror.snapshot(state_dir, mirror)
+        if is_writer():
+            if getattr(args, "resume", False):
+                state_mirror.restore(mirror, state_dir)
+            state_mirror.snapshot(state_dir, mirror)
+        barrier()
     return mirror
 
 
 def write_marker(path: str, marker: dict, mirror) -> None:
-    """A resume marker, written atomically, and appended to the mirror."""
+    """A resume marker, written atomically, and appended to the mirror (in a
+    process group, by rank 0 alone)."""
+    if not is_writer():
+        return
     tmp = path + ".tmp"
     with open(tmp, "w") as fh:
         json.dump(marker, fh)
@@ -338,7 +352,7 @@ def run_end_to_end_grid(args):
     save = getattr(args, "save_ensembles", False)
 
     def on_result(plan, res, extras):
-        if save:
+        if extras["params"] is not None:        # under --save_ensembles, on rank 0
             for f, params in enumerate(extras["params"]):
                 save_state_dict(ensemble_ckpt_path(
                     args.output_dir, "cv_ensemble", plan.name, f"cv{f + 1}"), params)
@@ -353,7 +367,8 @@ def run_end_to_end_grid(args):
     results.update(run_e2e_grid(
         todo, lambda c: _load_member(args, c), data,
         num_epochs=args.num_epochs, learning_rate=args.learning_rate,
-        seed=args.seed, chunk=getattr(args, "e2e_chunk", 0), keep_payload=save,
+        seed=args.seed, mesh=mesh_from_spec(getattr(args, "mesh", None), args.device),
+        chunk=getattr(args, "e2e_chunk", 0), keep_payload=save,
         on_result=on_result, device=args.device))
     return results, test_results
 
@@ -401,10 +416,11 @@ def run_end_to_end(args):
             results[name][f"CV {cv + 1}"] = dict(res.metrics)
             logger.info("ensemble %s cv%d AUROC %.4f", name, cv + 1,
                         res.metrics["AUROC"])
-        tmp = marker + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(results[name], f)
-        os.replace(tmp, marker)
+        if is_writer():
+            tmp = marker + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(results[name], f)
+            os.replace(tmp, marker)
     return results
 
 
@@ -428,6 +444,7 @@ def main(argv=None):
         write_sweep_report(report + "_test", test_results)
         logger.info("held-out test report written to %s_test.xlsx / .csv "
                     "(%d combinations)", report, len(test_results))
+    barrier()
     return results
 
 

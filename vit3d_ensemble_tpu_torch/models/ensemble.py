@@ -52,18 +52,20 @@ class TransformerEnsemble(nn.Module):
     member) runs each member as a padded template with runtime depth and
     width masks, as the JAX sweep does.  Members and the head draw their
     parameters from one `generator` in order; the ensemble lives on
-    `device`, CUDA unless the caller names another.
+    `device`, CUDA unless the caller names another.  `remat` recomputes the
+    members' encoder blocks in the backward pass (`ensemble.py:71,82`).
     """
 
     def __init__(self, configs: Sequence[ViTConfig], *, zero_head: bool = True,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.configs: Tuple[ViTConfig, ...] = tuple(configs)
         self.transformers = nn.ModuleList(
             VisionTransformer3D(cfg, zero_head=zero_head, vis=False,
-                                device="cpu", generator=g)
+                                device="cpu", generator=g, remat=remat)
             for cfg in self.configs)
         self.classifier = MetaHead(len(self.configs),
                                    self.configs[0].num_classes, generator=g)

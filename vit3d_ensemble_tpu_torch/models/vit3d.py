@@ -18,6 +18,7 @@ Linear(D, num_classes) on CLS.  Depth and MLP width are runtime capacities:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Union
 
@@ -31,6 +32,7 @@ from vit3d_ensemble_tpu_torch.models.resnet_hybrid import (
     feature_shape,
 )
 from vit3d_ensemble_tpu_torch.ops.attention import (
+    checkpoint_block,
     dot_product_attention,
     dropout,
     get_default_attention_impl,
@@ -320,10 +322,16 @@ def _layer_gate(num_layers_active: Optional[Active], i: int, like):
 
 class Encoder(nn.Module):
     """L pre-LN blocks and the final LayerNorm (`modeling.py:237-254`).
-    `num_layers_active` gates trailing layers to identity at run time."""
+    `num_layers_active` gates trailing layers to identity at run time.
 
-    def __init__(self, config: ViTConfig):
+    `remat` recomputes each block's activations in the backward pass
+    (`ops/attention.checkpoint_block`, JAX's `nn.remat`, `vit3d.py:443,
+    468-469`): the same results, one block's activations held at a time
+    instead of every layer's."""
+
+    def __init__(self, config: ViTConfig, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layer = nn.ModuleList(Block(config)
                                    for _ in range(config.num_layers))
         self.encoder_norm = nn.LayerNorm(config.hidden_size, eps=1e-6)
@@ -332,11 +340,13 @@ class Encoder(nn.Module):
                 num_layers_active: Optional[Active] = None,
                 mlp_active: Optional[Active] = None, generator=None):
         probs: List[torch.Tensor] = []
+        remat = self.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.layer):
-            x, p = block(x, deterministic=deterministic,
-                         return_probs=return_probs,
-                         layer_gate=_layer_gate(num_layers_active, i, x),
-                         mlp_active=mlp_active, generator=generator)
+            run = functools.partial(
+                block, deterministic=deterministic, return_probs=return_probs,
+                layer_gate=_layer_gate(num_layers_active, i, x),
+                mlp_active=mlp_active, generator=generator)
+            x, p = checkpoint_block(run, generator, x) if remat else run(x)
             if return_probs:
                 probs.append(p)
         x = self.encoder_norm(x)
@@ -346,10 +356,10 @@ class Encoder(nn.Module):
 class Transformer(nn.Module):
     """Embeddings + encoder: the reference's `transformer` submodule."""
 
-    def __init__(self, config: ViTConfig):
+    def __init__(self, config: ViTConfig, remat: bool = False):
         super().__init__()
         self.embeddings = Embeddings(config)
-        self.encoder = Encoder(config)
+        self.encoder = Encoder(config, remat=remat)
 
 
 class VisionTransformer3D(nn.Module):
@@ -360,16 +370,18 @@ class VisionTransformer3D(nn.Module):
     moved to `device`: CUDA unless the caller names another.
     `zero_head=True`, the reference trainers' setting, zeroes the head, so
     logits start identically 0.  `vis=True` returns the attention maps.
+    `remat` recomputes the encoder blocks in the backward pass (`Encoder`).
     """
 
     def __init__(self, config: ViTConfig, *, zero_head: bool = True,
                  vis: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.config = config
         self.vis = vis
-        self.transformer = Transformer(config)
+        self.transformer = Transformer(config, remat=remat)
         self.head = nn.Linear(config.hidden_size, config.num_classes)
         self.reset_parameters(zero_head, generator)
         self.to(device)

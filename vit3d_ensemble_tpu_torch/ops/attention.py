@@ -137,6 +137,50 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def _stream_state(generator):
+    if isinstance(generator, CellDropout):
+        return generator.site
+    if isinstance(generator, torch.Generator):
+        return generator.get_state()
+    return None
+
+
+def _set_stream_state(generator, state) -> None:
+    if isinstance(generator, CellDropout):
+        generator.site = state
+    elif isinstance(generator, torch.Generator):
+        generator.set_state(state)
+
+
+def checkpoint_block(fn, generator, *args):
+    """fn(*args) with its activations recomputed in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant): the counterpart of JAX's
+    `nn.remat` of an encoder block (`vit3d.py:468-469`).
+
+    The checkpoint restores the global RNGs for the recompute, not an
+    explicit dropout stream.  So the stream's state at the forward (a
+    `CellDropout`'s site counter, a `torch.Generator`'s state) is kept
+    here and restored for the recompute, and the state the forward left is
+    put back after it: the recompute draws the forward's masks, and the
+    draws after the backward continue where the forward's ended."""
+    from torch.utils.checkpoint import checkpoint
+
+    start, ran = _stream_state(generator), []
+
+    def run(*inputs):
+        if not ran:
+            ran.append(True)
+            return fn(*inputs)
+        end = _stream_state(generator)
+        _set_stream_state(generator, start)
+        try:
+            return fn(*inputs)
+        finally:
+            _set_stream_state(generator, end)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def _plain_attention(q, k, v, dropout_rate, deterministic, generator):
     """Einsum path (`_xla_attention`, `attention.py:75-104`).
     q, k, v: (..., heads, seq, head_dim)."""

@@ -18,6 +18,8 @@ from xml.sax.saxutils import escape
 
 import numpy as np
 
+from vit3d_ensemble_tpu_torch.parallel.mesh import is_writer
+
 #: Reference workbook metric column order (`train_ensemble_cv.py:45`).
 REPORT_METRICS = ("Specificity", "Sensitivity", "Balanced Accuracy", "AUROC",
                   "AUPRC", "F2-score", "CSP", "CSE", "BSNC", "BSPC", "BS")
@@ -119,7 +121,10 @@ def ensemble_sweep_rows(
 def write_sweep_report(path_base: str,
                        results: Mapping[str, Mapping[str, Mapping[str, float]]]
                        ) -> None:
-    """Write <base>.xlsx + <base>.csv for an ensemble/baseline sweep."""
+    """Write <base>.xlsx + <base>.csv for an ensemble/baseline sweep (in a
+    process group, rank 0 alone)."""
+    if not is_writer():
+        return
     rows = ensemble_sweep_rows(results)
     write_xlsx(path_base + ".xlsx", rows)
     with open(path_base + ".csv", "w", newline="") as f:

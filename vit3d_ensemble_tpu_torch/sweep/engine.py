@@ -23,8 +23,10 @@ expressions: the loop never waits for the device until the run ends.
 sweep from the CSVs and PNGs on disk: the pooled folds of `data/pool.py`,
 stacked by `stack_folds`, trained by `run_grouped_baselines`.
 
-Not ported yet: the mesh path (ROADMAP.md, queue 1, "`parallel/mesh.py`")
-and `remat` (ROADMAP.md, "Left inside ported modules").
+With a mesh (`parallel/mesh.py`) each rank trains its (config, fold) block
+of the padded grid through the same loop and the blocks are gathered
+(`run_group`); `SweepHyper.remat` recomputes the encoder blocks in the
+backward pass (`ops/attention.checkpoint_block`), with the same results.
 """
 
 from __future__ import annotations
@@ -84,8 +86,9 @@ class SweepHyper:
     #: counter + best-metric state) every this many eval periods, so a
     #: preempted group resumes mid-run instead of restarting.  0 = off.
     snapshot_every: int = 0
-    #: Rematerialize encoder blocks in the backward pass: not ported (it
-    #: raises), see `run_group`.
+    #: Rematerialize encoder blocks in the backward pass (the cells'
+    #: dropout masks replayed: the same results, one block's activations
+    #: held at a time; `stacked.stacked_forward`).
     remat: bool = False
 
 
@@ -191,74 +194,113 @@ def _save_carry(path: str, carry: dict) -> None:
     os.replace(tmp, path)
 
 
+def _rank_state_path(state_path, mesh):
+    """Each rank snapshots its own block: rank r's file is state_path with
+    `_r{r}` before its extension."""
+    if state_path is None or mesh is None:
+        return state_path
+    root, ext = os.path.splitext(state_path)
+    return f"{root}_r{mesh.rank}{ext}"
+
+
 def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
               img_size: int = 128, mesh=None, state_path=None,
               resume: bool = False, fold_ids=None, n_folds_total=None,
               _abort_after_segments=None, device=None) -> GroupResult:
     """Train one group on `device` (CUDA unless the caller names another).
 
+    With `mesh` (`parallel/mesh.Mesh`, M x N ranks) the (G, F) grid is
+    padded to multiples of (M, N) by repeating config 0 and fold 0
+    (`mesh.rep_pad`), and each rank trains its (model, data) block
+    (`mesh.shard_group_inputs`) on the mesh's device: its configs keep the
+    whole group's template widths and depth and their own `mlp_active` and
+    `layers_active`, its folds their data, the pool is whole.  The blocks'
+    results are gathered and the padding cropped, so every rank returns
+    the whole (G, F) result (JAX `engine.py:332-430`).
+
     With hyper.snapshot_every > 0 and a `state_path`, the carry (params, SGD
     momentum and schedule step, the dropout site counter, the best state,
     the losses so far) is saved with `torch.save` every snapshot_every eval
-    periods; `resume=True` picks up from the last snapshot after
-    preemption, and gives exactly the uninterrupted run.
-    `_abort_after_segments` is a test-only hook that simulates preemption by
-    raising after N segments.
+    periods, by each rank for its block (`_rank_state_path`);
+    `resume=True` picks up from the last snapshot after preemption, and
+    gives exactly the uninterrupted run.  The ranks agree first: all resume
+    from the same segment, or all restart.  `_abort_after_segments` is a
+    test-only hook that simulates preemption by raising after N segments.
 
     Each cell draws its dropout masks from a stream of its own
     (`ops/attention.CellDropout`, seeded with hyper.seed), keyed on its
     index in the true (config, fold) grid, `g * F_total + fold_ids[f]`
     with `F_total = n_folds_total or F` and `fold_ids` `range(F)` by
-    default, as the JAX engine keys it (`engine.py:369-386`).  So a caller
-    that trains a slice of a larger fold axis (the chunked bootstrap:
-    replicates s..s+w-1 of num_rep) gives each cell the masks of the
-    unchunked run, whatever the chunk and the cell's place in it.
+    default, as the JAX engine keys it (`engine.py:369-386`); padding cells
+    repeat the ids of config 0 and fold 0.  So a caller that trains a slice
+    of a larger fold axis (the chunked bootstrap: replicates s..s+w-1 of
+    num_rep), and a rank that trains a block, give each cell the masks of
+    the unchunked, unsharded run.  `hyper.remat` recomputes each encoder
+    block in the backward pass, with the same masks and results.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_group: the mesh path is not ported yet (ROADMAP.md, queue 1, "
-            "'parallel/mesh.py')")
-    if hyper.remat:
-        raise NotImplementedError(
-            "run_group: remat is not ported: torch.utils.checkpoint does not "
-            "replay dropout drawn from an explicit generator (ROADMAP.md, "
-            "'Left inside ported modules': remat)")
-    device = resolve_device(device)
+    from vit3d_ensemble_tpu_torch.parallel.mesh import (
+        all_min,
+        block,
+        gather_grid,
+        padded,
+        rep_pad,
+        shard_group_inputs,
+    )
+
+    device = mesh.device if mesh is not None else resolve_device(device)
     G, F = len(group.confs), data.n_folds
-    P = G * F
     F_total = F if n_folds_total is None else int(n_folds_total)
     fold_ids = list(range(F) if fold_ids is None else fold_ids)
     if len(fold_ids) != F:
         raise ValueError(f"run_group: {len(fold_ids)} fold ids for {F} folds")
     config = group.template_config(img_size)
 
-    params = {k: v.reshape(P, *v.shape[2:]).requires_grad_()
-              for k, v in init_group_params(group, F, hyper.seed, img_size,
-                                            device).items()}
-    # cell p = g * F + f: config g on fold f
-    mlp_active = torch.tensor(group.mlp_dims, dtype=torch.int32,
-                              device=device).repeat_interleave(F)
-    layers_active = torch.tensor(group.num_layers, dtype=torch.int32,
-                                 device=device).repeat_interleave(F)
+    ids = np.arange(G * F_total).reshape(G, F_total)[:, fold_ids]
+    confs = np.arange(G)                         # the configs of this block
+    params = init_group_params(group, F, hyper.seed, img_size, device)
+    arrays = dict(pool=data.pool, row_idx=data.row_idx,
+                  train_labels=data.train_labels, mean=data.mean,
+                  batch_idx=data.batch_idx, batch_mask=data.batch_mask,
+                  val_idx=data.val_idx, val_labels=data.val_labels,
+                  val_mask=data.val_mask)
+    if mesh is not None:
+        G_pad, F_pad = padded(G, mesh.n_model), padded(F, mesh.n_data)
+
+        def pad_grid(a):
+            return rep_pad(rep_pad(a, G_pad), F_pad, axis=1)
+
+        params, ids, arrays = shard_group_inputs(
+            mesh, {k: pad_grid(v) for k, v in params.items()}, pad_grid(ids),
+            {k: (v if k == "pool" else rep_pad(v, F_pad)) for k, v in arrays.items()})
+        confs = rep_pad(confs, G_pad)[block(G_pad, mesh.n_model, mesh.coords[0])]
+    rank_path = _rank_state_path(state_path, mesh)
+    Gb, Fb = ids.shape                                    # this rank's block
+    P = Gb * Fb
+    params = {k: v.reshape(P, *v.shape[2:]).contiguous().requires_grad_()
+              for k, v in params.items()}
+    # cell p = g * Fb + f: config confs[g] on fold f of the block
+    mlp_active = torch.tensor(np.asarray(group.mlp_dims)[confs], dtype=torch.int32,
+                              device=device).repeat_interleave(Fb)
+    layers_active = torch.tensor(np.asarray(group.num_layers)[confs],
+                                 dtype=torch.int32, device=device).repeat_interleave(Fb)
     opt, sched = sgd_momentum(
         params.values(), hyper.learning_rate,
         make_factor(hyper.decay_type, hyper.warmup_steps, hyper.num_steps),
         momentum=0.9, weight_decay=hyper.weight_decay)
-    cells = CellDropout(hyper.seed, [g * F_total + fid for g in range(G)
-                                     for fid in fold_ids], device)
+    cells = CellDropout(hyper.seed, ids.reshape(-1).tolist(), device)
 
     def on_device(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
-    pool = on_device(data.pool)
-    row_idx = on_device(data.row_idx, torch.long)
-    train_labels = on_device(data.train_labels)
-    mean = on_device(data.mean).reshape(F, 1, 1, 1, 1, 1)
-    batch_idx = on_device(data.batch_idx, torch.long)
-    batch_mask = on_device(data.batch_mask)
-    val_vols = pool[on_device(data.val_idx, torch.long)] - mean
-    val_labels = on_device(data.val_labels).repeat(G, 1)
-    val_mask = on_device(data.val_mask).repeat(G, 1)
+    pool = on_device(arrays["pool"])
+    row_idx = on_device(arrays["row_idx"], torch.long)
+    train_labels = on_device(arrays["train_labels"])
+    mean = on_device(arrays["mean"]).reshape(Fb, 1, 1, 1, 1, 1)
+    batch_idx = on_device(arrays["batch_idx"], torch.long)
+    batch_mask = on_device(arrays["batch_mask"])
+    val_vols = pool[on_device(arrays["val_idx"], torch.long)] - mean
+    val_labels = on_device(arrays["val_labels"]).repeat(Gb, 1)
+    val_mask = on_device(arrays["val_mask"]).repeat(Gb, 1)
     V = val_labels.shape[1]
 
     cell_loss = torch.vmap(lambda lg, y, m: _cell_loss(
@@ -268,15 +310,15 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
     take_if = torch.vmap(device_take_if)
 
     def step(s: int) -> torch.Tensor:
-        idx, bm = batch_idx[:, s], batch_mask[:, s]            # (F, B)
-        bv = pool[torch.gather(row_idx, 1, idx)] - mean        # (F, B, ...)
+        idx, bm = batch_idx[:, s], batch_mask[:, s]            # (Fb, B)
+        bv = pool[torch.gather(row_idx, 1, idx)] - mean        # (Fb, B, ...)
         bl = torch.gather(train_labels, 1, idx)
         logits = stacked_forward(params, config, bv,
                                  layers_active=layers_active,
                                  mlp_active=mlp_active, deterministic=False,
-                                 generator=cells)
-        losses = cell_loss(logits.reshape(P, -1), bl.repeat(G, 1),
-                           bm.repeat(G, 1))
+                                 generator=cells, remat=hyper.remat)
+        losses = cell_loss(logits.reshape(P, -1), bl.repeat(Gb, 1),
+                           bm.repeat(Gb, 1))
         losses.sum().backward()
         opt.step()
         opt.zero_grad()
@@ -307,9 +349,11 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
     sp = hyper.snapshot_every if hyper.snapshot_every > 0 else max(periods, 1)
     bounds = list(range(0, periods, sp)) + [periods] if periods else [0, 0]
     seg_done = 0
-    if resume and state_path and os.path.exists(state_path):
+    # 1: this rank read its snapshot, 0: it has none, -1: it could not read it
+    loaded = 0
+    if resume and rank_path and os.path.exists(rank_path):
         try:
-            carry = torch.load(state_path, map_location=device,
+            carry = torch.load(rank_path, map_location=device,
                                weights_only=True)
             with torch.no_grad():
                 for k, v in params.items():
@@ -318,16 +362,28 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
             sched.load_state_dict(carry["sched"])
             cells.site = int(carry["dropout_site"])
             best, losses = carry["best"], list(carry["losses"])
-            seg_done = int(carry["segments_done"])
+            seg_done, loaded = int(carry["segments_done"]), 1
         except Exception as exc:  # noqa: BLE001
             # a truncated or mismatched state, whatever the unpickler or the
             # copies raise on it: restart the group, as the JAX engine does
             logger.warning("resume state %s unreadable (%s); restarting the "
-                           "group from scratch", state_path, exc)
-            return run_group(group, data, hyper, img_size,
-                             state_path=state_path, fold_ids=fold_ids,
-                             n_folds_total=n_folds_total, device=device,
-                             _abort_after_segments=_abort_after_segments)
+                           "group from scratch", rank_path, exc)
+            loaded = -1
+    low, neg_high, seg_low, neg_seg_high = all_min(
+        mesh, [loaded, -loaded, seg_done, -seg_done])
+    if (low, -neg_high) != (0, 0) and not (
+            low == -neg_high == 1 and seg_low == -neg_seg_high):
+        # some rank could not resume, or the ranks stand at different
+        # segments: every rank restarts, none resumes alone
+        if mesh is not None and loaded == 1:
+            logger.warning("resume: another rank cannot continue from segment "
+                           "%d; restarting the group", seg_done)
+        return run_group(group, data, hyper, img_size, mesh=mesh,
+                         state_path=state_path,
+                         fold_ids=fold_ids, n_folds_total=n_folds_total,
+                         device=device,
+                         _abort_after_segments=_abort_after_segments)
+    if loaded == 1:
         logger.info("resume: group (D=%d, k=%d) continues from segment %d",
                     group.hidden_size, group.num_heads, seg_done)
 
@@ -337,8 +393,8 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
                 losses.append(step(s))
             mvec, probs = evaluate()
             best = consider(best, mvec, probs, payload(), False)
-        if state_path and hyper.snapshot_every > 0:
-            _save_carry(state_path, dict(
+        if rank_path and hyper.snapshot_every > 0:
+            _save_carry(rank_path, dict(
                 params=payload(), opt=opt.state_dict(),
                 sched=sched.state_dict(), dropout_site=cells.site, best=best,
                 losses=losses, segments_done=seg + 1))
@@ -351,18 +407,22 @@ def run_group(group: ConfigGroup, data: FoldData, hyper: SweepHyper,
     # == 0), take a final eval so results are always defined.
     mvec, probs = evaluate()
     best = take_if(best, mvec, probs, payload(), ~best["found"])
-    if state_path and os.path.exists(state_path):
-        os.remove(state_path)
+    if rank_path and os.path.exists(rank_path):
+        os.remove(rank_path)
+
+    def grid(t: torch.Tensor) -> torch.Tensor:
+        """A (P, ...) result as the whole (G, F, ...) grid."""
+        t = t.reshape(Gb, Fb, *t.shape[1:])
+        return t if mesh is None else gather_grid(mesh, t)[:G, :F]
 
     steps = (torch.stack(losses) if losses
              else torch.zeros(0, P, device=device))
-    steps = steps.reshape(-1, G, F).cpu().numpy()
+    steps = grid(steps.transpose(0, 1)).permute(2, 0, 1).cpu().numpy()
     return GroupResult(
         group=group,
-        best_metrics=best["metrics"].reshape(G, F, -1).cpu().numpy(),
-        best_probs=best["probs"].reshape(G, F, V).cpu().numpy(),
-        best_params={k: v.reshape(G, F, *v.shape[1:])
-                     for k, v in best["payload"].items()},
+        best_metrics=grid(best["metrics"]).cpu().numpy(),
+        best_probs=grid(best["probs"]).cpu().numpy(),
+        best_params={k: grid(v) for k, v in best["payload"].items()},
         final_loss=steps[-1] if len(steps) else np.zeros((G, F), np.float32),
         losses=steps,
     )
@@ -418,8 +478,19 @@ def run_grouped_baselines(args, data: FoldData, hyper: SweepHyper,
     class as one stacked model, write per-(conf, fold) checkpoints in the
     reference layout, persist per-group result markers (`args.resume`
     skips completed groups after preemption), honor `args.profile_dir`, and
-    append per-conf events to the JSON-lines metrics log."""
-    mesh = getattr(args, "mesh", None)
+    append per-conf events to the JSON-lines metrics log.
+
+    `args.mesh` ('MxN', 'auto' or a `parallel/mesh.Mesh`) shards each
+    group over a mesh of ranks (`run_group`); the snapshots are named for
+    its shape (`_m{M}x{N}`).  Every rank returns the whole results; rank 0
+    alone writes, and the others wait for it at the end of each group."""
+    from vit3d_ensemble_tpu_torch.parallel.mesh import barrier, is_writer, mesh_from_spec
+
+    mesh = mesh_from_spec(getattr(args, "mesh", None), device)
+    if mesh is not None:
+        logger.info("multi-rank sweep: mesh model=%d x data=%d on %s (%s)",
+                    mesh.n_model, mesh.n_data, mesh.device, mesh.backend)
+    mesh_tag = "1x1" if mesh is None else f"{mesh.n_model}x{mesh.n_data}"
     state_dir = os.path.join(args.output_dir, "sweep_state")
     os.makedirs(state_dir, exist_ok=True)
     mlog = default_logger(args.output_dir)
@@ -440,10 +511,10 @@ def run_grouped_baselines(args, data: FoldData, hyper: SweepHyper,
                 continue
             logger.info("training group (D=%d, k=%d): confs %s",
                         group.hidden_size, group.num_heads, group.confs)
-            # mid-group state is keyed by the snapshot cadence: segment
-            # bounds differ across cadences
+            # mid-group state is keyed by the snapshot cadence and the mesh:
+            # segment bounds and blocks differ across them
             state_path = (marker[:-len(".json")]
-                          + f"_state_s{hyper.snapshot_every}_m1x1.pt")
+                          + f"_state_s{hyper.snapshot_every}_m{mesh_tag}.pt")
             res = run_group(group, data, hyper, args.img_size, mesh=mesh,
                             state_path=state_path, resume=resume,
                             fold_ids=fold_ids, n_folds_total=n_folds_total,
@@ -461,8 +532,10 @@ def run_grouped_baselines(args, data: FoldData, hyper: SweepHyper,
                     mlog.log("sweep_eval", conf=conf, fold=fold_label(f), **m)
                 logger.info("conf %d median AUROC over folds: %.4f", conf,
                             float(np.median(res.best_metrics[g, :, 3])))
-            with open(marker, "w") as f:
-                json.dump(group_results, f)
+            if is_writer():
+                with open(marker, "w") as f:
+                    json.dump(group_results, f)
+            barrier()
             results.update(group_results)
     return results
 

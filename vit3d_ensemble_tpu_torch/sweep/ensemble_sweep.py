@@ -18,8 +18,10 @@ compiles nothing and runs the last chunk at its true size.
 The meta heads' initial draw comes from `init_meta_heads`, a
 `torch.Generator` seeded with the sweep's seed: JAX draws them from
 `jax.random` (`ensemble_sweep.py:224-231`), which PyTorch cannot reproduce
-(ROADMAP.md §3, "Known differences").  Not ported yet: the mesh path
-(ROADMAP.md, queue 1, "`parallel/mesh.py`").
+(ROADMAP.md §3, "Known differences").  With a mesh (`parallel/mesh.py`)
+the (combination, fold) grid of heads is padded and split over the ranks,
+each rank trains its block, and the blocks are gathered
+(`train_meta_sweep`).
 """
 
 from __future__ import annotations
@@ -150,33 +152,70 @@ def train_meta_sweep(
     for each (`train/optim.StackedAdam`, whose guard holds a fold's heads
     through its fully masked padding batches), evaluation and the selection
     rule after every epoch, and the closing evaluation taken only where no
-    epoch was accepted (`ensemble_sweep.py:216-221`)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_meta_sweep: the mesh path is not ported yet (ROADMAP.md, "
-            "queue 1, 'parallel/mesh.py')")
-    device = resolve_device(device)
+    epoch was accepted (`ensemble_sweep.py:216-221`).
+
+    With `mesh` (`parallel/mesh.Mesh`) the initial heads are drawn over the
+    true (C, F), then C and F are padded to multiples of (M, N) by
+    repeating entry 0 and each rank trains its (model, data) block on the
+    mesh's device; the blocks are gathered and cropped on every rank (JAX
+    `ensemble_sweep.py:228-262`)."""
+    from vit3d_ensemble_tpu_torch.parallel.mesh import (
+        block,
+        gather_grid,
+        padded,
+        rep_pad,
+        sweep_shardings,
+    )
+
+    device = mesh.device if mesh is not None else resolve_device(device)
     combos = np.asarray(combos)
     C, k = combos.shape
     F = train_logits.shape[0]
     E, B = hyper.num_epochs, hyper.train_batch_size
+    batch_idx, batch_msk = _batch_schedule(np.asarray(train_mask), B, E, hyper.seed)
+    w0, b0 = init_meta_heads(C, F, k, hyper.seed)
+    rows = np.vectorize(conf_index.__getitem__)(combos)              # (C, k)
+    folds = dict(train_logits=train_logits, train_labels=train_labels,
+                 val_logits=val_logits, val_labels=val_labels, val_mask=val_mask,
+                 batch_idx=batch_idx, batch_msk=batch_msk)
+    if mesh is not None:
+        C_pad, F_pad = padded(C, mesh.n_model), padded(F, mesh.n_data)
+        grid, fold, _ = sweep_shardings(mesh)
+        w0, b0 = (grid(rep_pad(rep_pad(a, C_pad), F_pad, axis=1)) for a in (w0, b0))
+        rows = rep_pad(rows, C_pad)[block(C_pad, mesh.n_model, mesh.coords[0])]
+        folds = {n: fold(rep_pad(a, F_pad)) for n, a in folds.items()}
+    metrics, meta = _train_meta_block(rows, w0, b0, folds, hyper, device)
+    if mesh is not None:
+        metrics, meta = (gather_grid(mesh, t)[:C, :F] for t in (metrics, meta))
+    return metrics.cpu().numpy(), meta.cpu().numpy()
+
+
+def _train_meta_block(rows: np.ndarray, w0: np.ndarray, b0: np.ndarray,
+                      folds: Mapping[str, np.ndarray], hyper: MetaHyper,
+                      device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`train_meta_sweep`'s loop over a (C, F) block of heads: rows (C, k)
+    into the logits' member axis, the heads' initial (C, F, k) weights and
+    (C, F) biases, the folds' arrays.  Returns the best metrics (C, F, 11)
+    and heads (C, F, k + 1) on the device."""
+    C, k = rows.shape
+    F = w0.shape[1]
+    E = hyper.num_epochs
 
     def on_device(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
-    rows = on_device(np.vectorize(conf_index.__getitem__)(combos), torch.long)
-    folds = torch.arange(F, device=device).reshape(1, F, 1)
+    rows = on_device(rows, torch.long)
+    fold_ids = torch.arange(F, device=device).reshape(1, F, 1)
     # each head's member columns: (C, F, k, N) and (C, F, k, V)
-    sel_t = on_device(train_logits)[folds, rows.unsqueeze(1)]
-    sel_v = on_device(val_logits)[folds, rows.unsqueeze(1)]
-    ty = on_device(train_labels)
-    vy = on_device(val_labels).repeat(C, 1)
-    vmask = on_device(val_mask).repeat(C, 1)
-    batch_idx, batch_msk = _batch_schedule(np.asarray(train_mask), B, E, hyper.seed)
-    batch_idx = on_device(batch_idx, torch.long)
-    batch_msk = on_device(batch_msk)
+    sel_t = on_device(folds["train_logits"])[fold_ids, rows.unsqueeze(1)]
+    sel_v = on_device(folds["val_logits"])[fold_ids, rows.unsqueeze(1)]
+    ty = on_device(folds["train_labels"])
+    vy = on_device(folds["val_labels"]).repeat(C, 1)
+    vmask = on_device(folds["val_mask"]).repeat(C, 1)
+    batch_idx = on_device(folds["batch_idx"], torch.long)
+    batch_msk = on_device(folds["batch_msk"])
+    B = batch_idx.shape[-1]
 
-    w0, b0 = init_meta_heads(C, F, k, hyper.seed)
     w = on_device(w0).requires_grad_()
     b = on_device(b0).requires_grad_()
     opt = StackedAdam([w, b], hyper.learning_rate, (C, F))
@@ -221,5 +260,4 @@ def train_meta_sweep(
     best = take_if(best, mvec, probs, payload(), ~best["found"])
     meta = torch.cat([best["payload"]["w"], best["payload"]["b"].unsqueeze(-1)],
                      dim=-1)
-    return (best["metrics"].reshape(C, F, -1).cpu().numpy(),
-            meta.reshape(C, F, k + 1).cpu().numpy())
+    return best["metrics"].reshape(C, F, -1), meta.reshape(C, F, k + 1)

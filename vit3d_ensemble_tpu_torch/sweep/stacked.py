@@ -41,6 +41,7 @@ serves; it draws one mask a site for the whole (P, ...) tensor.)
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import torch
@@ -49,6 +50,7 @@ import torch.nn.functional as F
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.ops import attention_layer
 from vit3d_ensemble_tpu_torch.ops.attention import (
+    checkpoint_block,
     dot_product_attention,
     dropout,
     get_default_attention_impl,
@@ -141,17 +143,32 @@ def _mlp(config, params, pre, h, mlp_active, *, deterministic, generator):
     return dropout(_linear(a, w2, b2), rate, deterministic, generator)
 
 
+def _block(h, config, params, pre, gate, mlp_active, deterministic, generator):
+    """Block `pre` of every model: the gated attention and FFN residuals."""
+    a = _attention(config, params, pre,
+                   _layer_norm(h, params[f"{pre}.attention_norm.weight"],
+                               params[f"{pre}.attention_norm.bias"]),
+                   deterministic=deterministic, generator=generator)
+    h = h + a * gate
+    a = _mlp(config, params, pre,
+             _layer_norm(h, params[f"{pre}.ffn_norm.weight"],
+                         params[f"{pre}.ffn_norm.bias"]),
+             mlp_active, deterministic=deterministic, generator=generator)
+    return h + a * gate
+
+
 def stacked_forward(params: Params, config: ViTConfig, x: torch.Tensor, *,
                     layers_active: torch.Tensor, mlp_active: torch.Tensor,
                     deterministic: bool = True,
-                    generator=None) -> torch.Tensor:
+                    generator=None, remat: bool = False) -> torch.Tensor:
     """Logits (P, B, num_classes) of the P stacked models.
 
     x: (S, B, H, W, Z, C) channels-last volumes, S dividing P: model p reads
     x[p % S], so the sweep's per-fold batches (S = F) serve every config of
     the group.  `layers_active`, `mlp_active`: (P,) int tensors on x's device.
     `config` is the group's template (its depth and widths are the padded
-    ones).
+    ones).  `remat` recomputes each block in the backward pass
+    (`ops/attention.checkpoint_block`; the generator's masks replayed).
     """
     P = params["head.weight"].shape[0]
     S, B = x.shape[:2]
@@ -171,19 +188,14 @@ def stacked_forward(params: Params, config: ViTConfig, x: torch.Tensor, *,
     h = torch.cat([cls, tokens], dim=2) + pos
     h = dropout(h, config.dropout_rate, deterministic, generator)
 
+    remat = remat and torch.is_grad_enabled()
     for i in range(config.num_layers):
-        pre = f"transformer.encoder.layer.{i}"
         gate = (layers_active > i).to(h.dtype).reshape(P, 1, 1, 1)
-        a = _attention(config, params, pre,
-                       _layer_norm(h, params[f"{pre}.attention_norm.weight"],
-                                   params[f"{pre}.attention_norm.bias"]),
-                       deterministic=deterministic, generator=generator)
-        h = h + a * gate
-        a = _mlp(config, params, pre,
-                 _layer_norm(h, params[f"{pre}.ffn_norm.weight"],
-                             params[f"{pre}.ffn_norm.bias"]),
-                 mlp_active, deterministic=deterministic, generator=generator)
-        h = h + a * gate
+        run = functools.partial(_block, config=config, params=params,
+                                pre=f"transformer.encoder.layer.{i}", gate=gate,
+                                mlp_active=mlp_active, deterministic=deterministic,
+                                generator=generator)
+        h = checkpoint_block(run, generator, h) if remat else run(h)
     h = _layer_norm(h, params["transformer.encoder.encoder_norm.weight"],
                     params["transformer.encoder.encoder_norm.bias"])
     return _linear(h[:, :, 0], params["head.weight"], params["head.bias"])

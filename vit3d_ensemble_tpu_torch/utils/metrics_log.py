@@ -13,6 +13,8 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+from vit3d_ensemble_tpu_torch.parallel.mesh import is_writer
+
 
 class MetricsLogger:
     def __init__(self, path: Optional[str]):
@@ -22,7 +24,8 @@ class MetricsLogger:
                         exist_ok=True)
 
     def log(self, event: str, **fields: Any) -> None:
-        if not self.path:
+        """Append one event (in a process group, rank 0 alone)."""
+        if not self.path or not is_writer():
             return
         record: Dict[str, Any] = {"ts": time.time(), "event": event}
         record.update(fields)

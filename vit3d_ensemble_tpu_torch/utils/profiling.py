@@ -20,8 +20,11 @@ import torch
 
 @contextlib.contextmanager
 def profile_to(trace_dir: Optional[str]) -> Iterator[None]:
-    """Capture a trace into trace_dir (no-op when None)."""
-    if not trace_dir:
+    """Capture a trace into trace_dir (no-op when None, and in a process
+    group on every rank but 0)."""
+    from vit3d_ensemble_tpu_torch.parallel.mesh import is_writer
+
+    if not trace_dir or not is_writer():
         yield
         return
     from torch.profiler import ProfilerActivity, profile
