@@ -29,6 +29,13 @@ read just after:
     phase `hybrid`, with one f32 forward and backward against the plain
     modules): f32 at B=1, then bf16 at B=8 under `auto` (K4, K1's wide
     body) and `layer` (K3 on K4's body), and the kernels at their shapes;
+  * a model of ViT-H's widths at full width and depth (32 layers, D
+    1,280, MLP 5,120, 16 heads of 80) on 128^3 volumes in (16, 16, 16)
+    patches, 513 tokens (phase `vit_h`): f32 at B=1 against the plain
+    modules, bf16 at B=8 under `auto` (K4 at head_dim 80, K1's wide body at
+    D 1,280) and `layer` (K3 on K4's body), the kernels at its shapes, and a
+    sweep of K1 over hidden sizes from 24 to 8,192 and of K4 and K3 over
+    head dims from 20 to 256 against their plain versions (phase `widths`);
   * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
     K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
   * the sweep engine (`run_group`) on the three groups of conf 1-18, and
@@ -197,7 +204,7 @@ KERNELS = {"K1": (fused_mlp, "launches"),
            "K2": (fused_attention, "launches"),
            "K3": (attention_layer, "launches"),
            # K3's core launches that took K2's body (head_dim <= 16) and
-           # K4's (head_dim 32/64/128)
+           # K4's (head_dim 17-256)
            "K3_on_K2": (attention_layer, "launches_k2"),
            "K3_on_K4": (attention_layer, "launches_k4"),
            "K4": (fused_attention, "launches_k4"),
@@ -586,7 +593,8 @@ def phase_build() -> None:
           "gelus_per_s": {GELU_OF[d]: r for d, r in gelu_rate.items()}})
     for name, n in sass.items():
         check(n > 0, f"{name}: the library holds no such instruction")
-    check(len(tf32) == 6 and all(n > 0 for n in tf32.values()),
+    check(len(tf32) == 2 * len(fused_attention.K4_BODY_HDS)
+          and all(n > 0 for n in tf32.values()),
           f"K4's f32 instantiations' TF32 HMMAs: {tf32}")
     check(mma["launch_errors"] == 0 and mma["tflops"] > 0,
           f"mma.sync TF32 probe: {mma}")
@@ -676,8 +684,10 @@ def k4_f32_sass() -> dict:
 
 
 # K4's bodies at the stretch path's shape (and K3's on them, the same), and
-# at head_dim 128 and 32 on the card tests' S = 200.
-K4_PLAN_SHAPES = ((STRETCH_B, 12, 513, 64), (2, 4, 200, 128), (2, 4, 200, 32))
+# at head_dim 128 and 32 on the card tests' S = 200; then at ViT-H's head_dim
+# 80 at B=8 (phase `vit_h`).
+K4_PLAN_SHAPES = ((STRETCH_B, 12, 513, 64), (2, 4, 200, 128), (2, 4, 200, 32),
+                  (STRETCH_B, 16, 513, 80))
 # `attention_plan`'s report: in bf16 the query tiles are a consumer
 # warpgroup's 64 rows and a key step 16 keys, the registers those at entry
 # (before setmaxnreg); in f32 a warp's 16 rows and 8 keys
@@ -1456,15 +1466,30 @@ def phase_gradients(gen) -> None:
             lambda *a: attention_layer.fused_attention_layer(*a, 2),
             lambda *a: attention_layer._plain_attention_layer(*a, 2), layer64),
     })
+    # the cases above drew their cotangents from `gen`, or from `own`
+    cotangent_gens = {name: own for name in ("K1 model axis", "K1b", "K1c",
+                                             "K3 on K4's body")}
+    # K1's wide body at ViT-H's D 1,280 (M 5,120) and K4 at its head_dim 80,
+    # from a generator of their own, so every draw above stays as it was
+    vit_h = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cases.update({
+        "K1 at D 1,280": (lambda *a: fused_mlp.fused_mlp(*a, 4600),
+                          lambda *a: fused_mlp._plain_mlp(*a, 4600),
+                          [torch.randn(2, 9, 1280, generator=vit_h, device="cuda"),
+                           *mlp_weights(vit_h, torch.float32, 1280, 5120)]),
+        "K4 at head_dim 80": (fused_attention.fused_attention,
+                              fused_attention._plain_attention_k4,
+                              model_views(vit_h, (2, 2, 70, 80), torch.float32)),
+    })
+    cotangent_gens.update({"K1 at D 1,280": vit_h, "K4 at head_dim 80": vit_h})
     for name, (kernel, plain, args) in cases.items():
         grads, cotangent = [], None
         for fn in (kernel, plain):
             leaves = [a.detach().clone().requires_grad_() for a in args]
             out = fn(*leaves)
             if cotangent is None:
-                mine = args is stacked or args is layer64
                 cotangent = torch.randn(out.shape, device="cuda",
-                                        generator=own if mine else gen)
+                                        generator=cotangent_gens.get(name, gen))
             out.backward(cotangent)
             grads.append([t.grad for t in leaves])
         err = max(float((a - b).abs().max()) for a, b in zip(*grads))
@@ -1981,12 +2006,14 @@ def top_kernels(fn, n: int = 12) -> list:
             for k, ms, c in rows[:n]]
 
 
-def vit_b16_kernel_cases(gen, tokens: int, path: str) -> dict:
+def vit_b16_kernel_cases(gen, tokens: int, path: str, widths=None) -> dict:
     """K1's wide bodies, K4 and K3 (on K4's body) against their plain
-    versions at the shapes ViT-B/16 gives them at `tokens` tokens: bf16 at
-    B = STRETCH_B, f32 at B = 1; each with its device time, bound and
-    library time (the F.linear -> F.gelu -> F.linear chain, SDPA)."""
-    D, M, H = VIT_B16["hidden_size"], VIT_B16["mlp_dim"], VIT_B16["num_heads"]
+    versions at the shapes ViT-B/16 (or the model of `widths`) gives them at
+    `tokens` tokens: bf16 at B = STRETCH_B, f32 at B = 1; each with its
+    device time, bound and library time (the F.linear -> F.gelu -> F.linear
+    chain, SDPA)."""
+    widths = widths or VIT_B16
+    D, M, H = widths["hidden_size"], widths["mlp_dim"], widths["num_heads"]
     cases = {"K1": [], "K4": [], "K3": []}
     for dtype, nb in ((torch.bfloat16, STRETCH_B), (torch.float32, 1)):
         case = k1_case(gen, dtype, nb * tokens, D, M, M, path, device=True)
@@ -2042,7 +2069,7 @@ def serve_vit_b16(name: str, model, x, expect: dict) -> dict:
             volumes = x.shape[0] * STRETCH_ITERS
             diff = (out.tokens.float() - ref.tokens.float()).abs()
             T = model.transformer.embeddings.position_embeddings.shape[1]
-            shape_ok = (tuple(out.tokens.shape) == (x.shape[0], T, VIT_B16["hidden_size"])
+            shape_ok = (tuple(out.tokens.shape) == (x.shape[0], T, model.config.hidden_size)
                         and tuple(out.logits.shape) == (x.shape[0], 1))
             finite = bool(torch.isfinite(out.tokens).all()
                           and torch.isfinite(out.logits).all())
@@ -2095,10 +2122,11 @@ def f32_against_plain(name: str, model, x, expect: dict) -> dict:
     return res
 
 
-def vit_b16_expect() -> dict:
+def vit_b16_expect(layers: int = VIT_B16["num_layers"]) -> dict:
     """A pass's launches: K1 on its own (wide) bodies and K4 a layer under
-    `auto`; K1 and K3, its core on K4's body (head_dim 64), under `layer`."""
-    L = VIT_B16["num_layers"]
+    `auto`; K1 and K3, its core on K4's body (head_dim 64; ViT-H's 80),
+    under `layer`."""
+    L = layers
     return {"auto": counts_of(K1=L, K1_own=L, K4=L),
             "layer": counts_of(K1=L, K1_own=L, K3=L, K3_on_K4=L)}
 
@@ -2257,6 +2285,155 @@ def phase_hybrid(gen) -> dict:
     cases = vit_b16_kernel_cases(gen, 321, "hybrid")
     return {"f32": f32, **served, "grad_launches": grad_launches,
             "stem_device_busy_ms": stem_busy, "cases": cases}
+
+
+# --- the `vit_h` phase: ViT-H's widths at full width and depth --------------
+# ViT-Huge (Dosovitskiy et al., "An Image is Worth 16x16 Words", ICLR 2021,
+# Table 1): 32 layers, hidden 1,280, MLP 5,120, 16 heads (head_dim 80), the
+# widths and depth that K1 (D above 1,024) and K4 (head_dim 80) took no
+# body for before.  A 14-voxel patch does not tile 128, so the patch is the
+# stretch model's (16, 16, 16) on 128^3 volumes (`vit_b16_128cubed`): 512
+# patches and CLS, 513 tokens; the only change from the published model.
+VIT_H = dict(hidden_size=1280, mlp_dim=5120, num_heads=16, num_layers=32)
+VIT_H_TOKENS = 513
+
+
+def phase_vit_h(gen) -> dict:
+    """The ViT-H-width model on seeded weights: f32 at B=1 under `auto`
+    against the plain modules (`f32_against_plain`, the stretch phase's f32
+    gate), bf16 at B = STRETCH_B under `auto` (K4 at head_dim 80, K1's wide
+    body at D 1,280) and `layer` (K3 on K4's body), STRETCH_ITERS passes x
+    REPEATS (`serve_vit_b16`), launches exact; then K1, K4 and K3 at its
+    shapes against their plain versions, timed with bounds and library
+    times (`vit_b16_kernel_cases`)."""
+    cfg = ViTConfig(patch_size=(16, 16, 16), img_size=128, z_size=128, **VIT_H)
+    t0 = time.perf_counter()
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                generator=torch.Generator().manual_seed(SEED))
+    model.eval()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(STRETCH_B, 128, 128, 128, 1, generator=gen, device="cuda")
+    ok = cfg.seq_len == VIT_H_TOKENS and cfg.hidden_size // cfg.num_heads == 80
+    emit({"phase": "vit_h_model", "source": "Dosovitskiy et al., ICLR 2021, "
+          "Table 1, ViT-Huge; patch (16, 16, 16) on 128^3 in place of 14^2",
+          **VIT_H, "head_dim": cfg.hidden_size // cfg.num_heads,
+          "patch_size": list(cfg.patch_size), "tokens": cfg.seq_len,
+          "parameters": params, "init_s": init_s, "ok": ok})
+    check(ok, f"vit_h config {cfg}")
+    expect = vit_b16_expect(cfg.num_layers)
+    f32 = f32_against_plain("vit_h", model, x[:1], expect["auto"])
+    served = serve_vit_b16("vit_h", model, x, expect)
+    del model
+    cases = vit_b16_kernel_cases(gen, VIT_H_TOKENS, "vit_h", VIT_H)
+    return {"f32": f32, **served, "cases": cases, "parameters": params}
+
+
+# The width sweep (phase `widths`), gates only: K1 at hidden sizes between
+# and beyond the bodies' (M = 4 D, 2,048 at D = 8,192; a width mask below
+# M), at 65 and 513 rows, 1,290 a wide D that 8 does not divide (its
+# operands zero-padded); K4 and K3 at head dims from 20 to 256 at 65 and
+# 513 tokens, each body of `fused_attention.K4_BODY_HDS` but 64 and 128
+# (phases K4, K3 and stretch) padded from below, and 80 and 256 exact, on
+# contiguous tensors and on the model's views (K3: the views of its
+# (B, T, 3D) QKV buffer and contiguous (B, T, D) tensors), two volumes of
+# three heads.
+WIDTH_SWEEP_D = (24, 48, 96, 200, 1288, 1290, 2048, 8192)
+WIDTH_SWEEP_ROWS = (65, 513)
+WIDTH_SWEEP_HD = (20, 24, 48, 72, 80, 96, 160, 200, 256)
+WIDTH_SWEEP_S = (65, 513)
+
+
+def sweep_gate(out, ref, dtype, tol, dropped=None) -> dict:
+    """One sweep case against its plain version: its largest error, its
+    error over the gate, and whether the gate rejects the plain version
+    without the last key (attention)."""
+    err, ok, atol, rtol = compare(out, ref, dtype, tol)
+    res = {"max_abs_err": err, "max_err_over_gate": over_gate(out, ref, (atol, rtol))[1],
+           "ok": ok}
+    if dropped is not None:
+        res["gate_rejects_dropped_key"] = not compare(dropped, ref, dtype, tol)[1]
+        res["ok"] = ok and res["gate_rejects_dropped_key"]
+    return res
+
+
+def phase_widths(gen) -> dict:
+    """K1, K4 and K3 over the widths of `WIDTH_SWEEP_*`, each launch counted
+    (one launch a call, on the body the wrapper names) and held to its plain
+    version: K1 at the JAX tolerances, K4 and K3 at K4's gate in bf16 on a
+    context of rms 1 (`model_views`) with the dropped-key check, f32 at
+    the JAX tolerance.  Prints one line a kernel and fails on any case."""
+    cases = {"K1": [], "K4": [], "K3": []}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            for D in WIDTH_SWEEP_D:
+                M = 2048 if D == 8192 else 4 * D
+                active = M - M // 8
+                w1, b1, w2, b2 = mlp_weights(gen, dtype, D, M)
+                for N in WIDTH_SWEEP_ROWS:
+                    x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
+                    before = launches()
+                    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+                    counts = {k: n - before[k] for k, n in launches().items()}
+                    body = fused_mlp.k1_body_launched()
+                    res = sweep_gate(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active),
+                                     dtype, None)
+                    res["ok"] = (res["ok"] and body == fused_mlp._k1_body(dtype, D)
+                                 and counts == counts_of(**k1_split(1, dtype, D)))
+                    cases["K1"].append({"dtype": name, "N": N, "D": D, "M": M,
+                                        "active": active, "body": body, **res})
+            tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
+            for hd in WIDTH_SWEEP_HD:
+                for S in WIDTH_SWEEP_S:
+                    for views in ("model", "contiguous"):
+                        q, k, v = model_views(gen, (2, 3, S, hd), dtype)
+                        if views == "contiguous":
+                            q, k, v = (t.contiguous() for t in (q, k, v))
+                        before = launches()
+                        out = fused_attention.fused_attention(q, k, v)
+                        counts = {k_: n - before[k_] for k_, n in launches().items()}
+                        body = fused_attention.k4_body_launched()
+                        res = sweep_gate(out, fused_attention._plain_attention_k4(q, k, v),
+                                         dtype, tol, without_last_key(q, k, v))
+                        res["ok"] = res["ok"] and counts == counts_of(K4=1)
+                        cases["K4"].append({"dtype": name, "B": 2, "H": 3, "S": S,
+                                            "hd": hd, "views": views, "body": body,
+                                            "body_hd": fused_attention.k4_body_hd(hd),
+                                            **res})
+                    for views in ("qkv", "contiguous"):
+                        H = 3
+                        qkv = torch.randn(2, S, 3 * H * hd, generator=gen, device="cuda")
+                        qkv[..., 2 * H * hd:] *= math.sqrt(S / math.e)
+                        q, k, v = attention_layer._split(qkv.to(dtype))
+                        if views == "contiguous":
+                            q, k, v = (t.contiguous() for t in (q, k, v))
+                        before = launches()
+                        out = attention_layer.attention_core(q, k, v, H)
+                        counts = {k_: n - before[k_] for k_, n in launches().items()}
+                        body = fused_attention.k4_body_launched()
+                        ref = attention_layer._plain_attention_core(q, k, v, H)
+                        short = attention_layer._plain_attention_core(q, k[:, :-1], v[:, :-1], H)
+                        res = sweep_gate(out, ref, dtype, tol, short)
+                        res["ok"] = res["ok"] and counts == counts_of(K3=1, K3_on_K4=1)
+                        cases["K3"].append({"dtype": name, "B": 2, "T": S, "H": H,
+                                            "hd": hd, "views": views, "body": body, **res})
+    result = {}
+    for kernel, rows in cases.items():
+        bad = [c for c in rows if not c["ok"]]
+        summary = {"phase": "widths", "kernel": kernel, "cases": len(rows),
+                   "failed": len(bad),
+                   "max_err_over_gate": max(c["max_err_over_gate"] for c in rows),
+                   "bodies": sorted({c["body"] for c in rows}), "rows": rows,
+                   "ok": not bad}
+        emit(summary)
+        check(not bad, f"widths {kernel}: {len(bad)} cases off their gate: {bad[:4]}")
+        result[kernel] = {k: v for k, v in summary.items() if k not in ("phase", "rows")}
+    return result
 
 
 # --- the `quant` phase: the int8 route (`ops/quant.py`) on the card ---------
@@ -4241,6 +4418,8 @@ def main() -> int:
     # they drew before these
     vit_pre = phase_pretrained(torch.Generator(device="cuda").manual_seed(SEED + 5))
     hybrid = phase_hybrid(torch.Generator(device="cuda").manual_seed(SEED + 6))
+    vit_h = phase_vit_h(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    widths = phase_widths(torch.Generator(device="cuda").manual_seed(SEED + 9))
     quant_res = phase_quant(gen)
     train = phase_train()
     train_ens = phase_train_ensemble()
@@ -4267,6 +4446,9 @@ def main() -> int:
                       "hybrid_layer": hybrid["layer"]["launches"][name],
                       "hybrid_f32": hybrid["f32"]["launches"][name],
                       "hybrid_f32_backward": hybrid["grad_launches"][name],
+                      "vit_h": vit_h["auto"]["launches"][name],
+                      "vit_h_layer": vit_h["layer"]["launches"][name],
+                      "vit_h_f32": vit_h["f32"]["launches"][name],
                       "sweep": sweep["launches"][name],
                       "remat": remat["launches"][name],
                       "cli": cli["launches"][name],
@@ -4307,10 +4489,10 @@ def main() -> int:
         return {**out, "launches": by_path[VARIANT_KERNELS["seq"]][path]} if path else out
 
     def vit_b16_case(case, path, name="K1"):
-        """A case at ViT-B/16's shapes, with the launches of its model's
-        bf16 path (f32: the B=1 forward's) and the body it ran on."""
+        """A case at ViT-B/16's (or ViT-H's) shapes, with the launches of its
+        model's bf16 path (f32: the B=1 forward's) and the body it ran on."""
         if case["dtype"] == "float32":
-            path = path.split("_")[0] + "_f32"
+            path = path.removesuffix("_layer") + "_f32"
         return {**case_of(case), "body": case["body"],
                 "launches": by_path[name][path], "launches_path": path}
 
@@ -4351,7 +4533,11 @@ def main() -> int:
             # its wide bodies at ViT-B/16's 65 tokens (the npz-initialised
             # model) and 321 (the R50 hybrid): bf16 at B=8, f32 at B=1
             pretrained_cases=[vit_b16_case(c, "pretrained") for c in vit_pre["cases"]["K1"]],
-            hybrid_cases=[vit_b16_case(c, "hybrid") for c in hybrid["cases"]["K1"]]),
+            hybrid_cases=[vit_b16_case(c, "hybrid") for c in hybrid["cases"]["K1"]],
+            # its wide bodies at ViT-H's D 1,280, M 5,120, 513 tokens: bf16
+            # at B=8, f32 at B=1; and the sweep over hidden sizes 24-8,192
+            vit_h_cases=[vit_b16_case(c, "vit_h") for c in vit_h["cases"]["K1"]],
+            width_sweep=widths["K1"]),
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
             "variants_chunked",
@@ -4381,12 +4567,12 @@ def main() -> int:
             # f32 at every shape the baseline drivers gave it
             cli_cases=[case_of(c) for c in cli["cases"]["K2"]]),
         # K3's core runs on K2's body at head_dim <= 16 (the training
-        # path's conf 9: head_dim 1) and on K4's at 32-128
+        # path's conf 9: head_dim 1) and on K4's at 17-256
         row("K3", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
             "train_layer",
             sources={"head_dim <= 16": "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
-                     "head_dim >= 32": "vit3d_ensemble_tpu_torch/csrc/attention.cu"},
+                     "head_dim 17-256": "vit3d_ensemble_tpu_torch/csrc/attention.cu"},
             body=k3["body"],
             launches_on_k2_body=by_path["K3_on_K2"]["train_layer"],
             # bf16 at the serving pass's three classes and conf 19-22's
@@ -4414,7 +4600,12 @@ def main() -> int:
             pretrained_cases=[vit_b16_case(c, "pretrained_layer", "K3")
                               for c in vit_pre["cases"]["K3"]],
             hybrid_cases=[vit_b16_case(c, "hybrid_layer", "K3")
-                          for c in hybrid["cases"]["K3"]]),
+                          for c in hybrid["cases"]["K3"]],
+            # bf16 at B=8 at ViT-H's head_dim 80 on K4's body; the sweep
+            # over head dims 20-256
+            vit_h_cases=[vit_b16_case(c, "vit_h_layer", "K3")
+                         for c in vit_h["cases"]["K3"]],
+            width_sweep=widths["K3"]),
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:118",
             k4[torch.bfloat16], "stretch",
@@ -4433,7 +4624,12 @@ def main() -> int:
             pretrained_cases=[vit_b16_case(c, "pretrained", "K4")
                               for c in vit_pre["cases"]["K4"]],
             hybrid_cases=[vit_b16_case(c, "hybrid", "K4")
-                          for c in hybrid["cases"]["K4"]]),
+                          for c in hybrid["cases"]["K4"]],
+            # at ViT-H's head_dim 80, 513 tokens: bf16 at B=8, f32 at B=1;
+            # the sweep over head dims 20-256
+            vit_h_cases=[vit_b16_case(c, "vit_h", "K4")
+                         for c in vit_h["cases"]["K4"]],
+            width_sweep=widths["K4"]),
     ], "variants_volumes_per_s": {v: r["volumes_per_s"]
                                   for v, r in variants.items()},
         "training": {"train": train["timing"],
@@ -4454,6 +4650,12 @@ def main() -> int:
             "ms_per_batch", "volumes_per_s", "device_busy_ms", "device_idle_share",
             "kernels")} for impl in ("auto", "layer")}
             for model, res in (("pretrained", vit_pre), ("hybrid", hybrid))},
+        "vit_h": {"parameters": vit_h["parameters"],
+                  "f32_device_busy_ms": vit_h["f32"]["device_busy_ms"],
+                  **{impl: {k: vit_h[impl][k] for k in (
+                      "ms_per_batch", "volumes_per_s", "device_busy_ms",
+                      "device_idle_share", "kernels", "tokens_max_abs_err")}
+                     for impl in ("auto", "layer")}},
         "hybrid_stem_device_busy_ms": hybrid["stem_device_busy_ms"],
         "seconds": time.perf_counter() - t_start})
     if failures:

@@ -25,7 +25,7 @@ from vit3d_ensemble_tpu.ops.pallas_attention_layer import (
 from vit3d_ensemble_tpu_torch.checkpoint import vit_state_from_flax
 from vit3d_ensemble_tpu_torch.configs import ViTConfig
 from vit3d_ensemble_tpu_torch.models import VisionTransformer3D
-from vit3d_ensemble_tpu_torch.ops import attention, attention_layer
+from vit3d_ensemble_tpu_torch.ops import attention, attention_layer, fused_attention
 
 SHAPES = [
     (3, 65, 64, 4),      # conf 1-3 class (hd 16)
@@ -92,11 +92,12 @@ def test_plain_attention_layer_matches_jax_at_head_dim_64(dtype, atol):
 
 
 @pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
-                                   (24, False), (48, False), (256, False)])
+                                   (24, True), (48, True), (256, True),
+                                   (257, False)])
 def test_check_takes_k4_head_dims(hd, ok):
-    """Head dims 32, 64 and 128 pass `_check` on K4's route (the QKV
-    buffer's views pass K4's stride checks); other head dims above 16 are
-    refused."""
+    """Every head_dim from 17 to 256 passes `_check` on K4's route (the
+    QKV buffer's views pass K4's checks); above 256 it is refused, naming
+    its ROADMAP item."""
     H = 2
     q, k, v = attention_layer._split(torch.zeros(2, 65, 3 * H * hd,
                                                  dtype=torch.bfloat16))
@@ -167,11 +168,19 @@ def test_plain_attention_layer_matches_jax_at_head_dims_2_and_8(dtype, atol,
 
 
 def test_check_refuses_misaligned_bf16_views_on_k4_route():
-    """K4 reads bf16 rows 16 bytes at a time: a QKV buffer whose views are
-    not 16-byte aligned raises, as `fused_attention._check` does."""
-    buf = torch.zeros(2, 65, 3 * 128 + 1, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        attention_layer._check(*attention_layer._split(buf[..., 1:]), 2)
+    """K4 reads bf16 rows by TMA, 16-byte aligned: a QKV buffer whose views
+    are not (here one element in; likewise any head_dim that 8 does not
+    divide) passes `_check`, and the launch copies the views into buffers
+    whose rows are (`fused_attention._k4_views`) instead of refusing them."""
+    buf = torch.arange(2 * 65 * (3 * 128 + 1), dtype=torch.float32)
+    buf = buf.view(2, 65, 3 * 128 + 1).bfloat16()
+    q, k, v = attention_layer._split(buf[..., 1:])
+    attention_layer._check(q, k, v, 2)
+    heads = [attention_layer._heads(t, 2) for t in (q, k, v)]
+    assert not any(fused_attention._tma_rows(t) for t in heads)
+    copied = fused_attention._k4_views(*heads)
+    assert all(fused_attention._tma_rows(t) and torch.equal(t, h)
+               for t, h in zip(copied, heads))
 
 
 def test_attention_layer_gradients_match_jax_vjp():
@@ -314,9 +323,11 @@ def test_checks_reject_what_the_kernel_does_not_take():
     q, k, v = attention_layer._split(qkv)
     attention_layer._check(q, k, v, 8)          # accepted: strided views
     attention_layer._check(q, k, v, 32)         # hd 1 accepted
-    with pytest.raises(ValueError, match="head_dim 20"):
-        wide = torch.zeros(2, 65, 240)
-        attention_layer._check(*attention_layer._split(wide), 4)
+    wide = torch.zeros(2, 65, 240)              # hd 20 accepted: K4's body
+    attention_layer._check(*attention_layer._split(wide), 4)
+    with pytest.raises(ValueError, match="head_dim 257 .*What is left to port"):
+        widest = torch.zeros(2, 65, 3 * 257)
+        attention_layer._check(*attention_layer._split(widest), 1)
     with pytest.raises(ValueError, match="do not divide"):
         attention_layer._check(q, k, v, 5)
     with pytest.raises(TypeError):

@@ -171,23 +171,35 @@ def test_fused_mlp_takes_unaligned_views(cuda, dtype):
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
-    odd = torch.zeros(1, 12, 65, 48, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 48"):
+    """What stays refused, naming its ROADMAP item: head_dim above 256,
+    hidden size above 8,192 and the wide model axis; head_dim 48 and hidden
+    sizes 48, 96 and 1,088, refused before, launch."""
+    odd = torch.zeros(1, 12, 65, 257, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 257"):
         fused_attention.fused_attention(odd, odd, odd)
+    before = fused_attention.launches_k4
+    hd48 = torch.zeros(1, 12, 65, 48, device="cuda")
+    fused_attention.fused_attention(hd48, hd48, hd48)
+    assert fused_attention.launches_k4 == before + 1
     strided = torch.zeros(1, 12, 64, 65, device="cuda").transpose(2, 3)
     with pytest.raises(ValueError, match="along head_dim"):
         fused_attention.fused_attention(strided, strided, strided)
-    for D in (48, 96, 1088):
+    for D in (48, 96, 1088, 8193):
         x = torch.zeros(65, D, device="cuda")
         w1, w2 = torch.zeros(128, D, device="cuda"), torch.zeros(D, 128, device="cuda")
-        with pytest.raises(ValueError, match="hidden size"):
-            fused_mlp.fused_mlp(x, w1, torch.zeros(128, device="cuda"), w2,
-                                torch.zeros(D, device="cuda"))
-    x = torch.zeros(65, 48, device="cuda")
-    w1, w2 = torch.zeros(128, 48, device="cuda"), torch.zeros(48, 128, device="cuda")
-    with pytest.raises(ValueError, match="hidden size"):
-        fused_mlp.fused_mlp(x, w1, torch.zeros(128, device="cuda"), w2,
-                            torch.zeros(48, device="cuda"))
+        args = (x, w1, torch.zeros(128, device="cuda"), w2, torch.zeros(D, device="cuda"))
+        if D > fused_mlp.MAX_WIDTH:
+            with pytest.raises(ValueError, match="hidden size 8193"):
+                fused_mlp.fused_mlp(*args)
+        else:
+            before = fused_mlp.launches
+            fused_mlp.fused_mlp(*args)
+            assert fused_mlp.launches == before + 1
+    x = torch.zeros(2, 65, 96, device="cuda")
+    w1, w2 = torch.zeros(2, 128, 96, device="cuda"), torch.zeros(2, 96, 128, device="cuda")
+    with pytest.raises(ValueError, match="wide bodies with a model axis"):
+        fused_mlp.fused_mlp(x, w1, torch.zeros(2, 128, device="cuda"), w2,
+                            torch.zeros(2, 96, device="cuda"))
     x = torch.zeros(65, 16, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         fused_mlp.fused_mlp(x, *(torch.zeros(s, device="cuda",
@@ -349,9 +361,9 @@ def test_attention_layer_reads_strided_views(cuda):
 
 
 def test_attention_layer_raises_on_what_it_does_not_take(cuda):
-    q, k, v = attention_layer._split(torch.zeros(2, 65, 240, device="cuda"))
-    with pytest.raises(ValueError, match="head_dim 20"):
-        attention_layer.attention_core(q, k, v, 4)
+    q, k, v = attention_layer._split(torch.zeros(2, 65, 3 * 257, device="cuda"))
+    with pytest.raises(ValueError, match="head_dim 257"):
+        attention_layer.attention_core(q, k, v, 1)
     q, k, v = attention_layer._split(
         torch.zeros(2, 65, 48, device="cuda", dtype=torch.float16))
     with pytest.raises(TypeError):
@@ -475,7 +487,8 @@ def test_attention_kernel_matches_plain(cuda, dtype, shape, views):
 def test_attention_kernel_takes_other_layouts(cuda, dtype):
     """Contiguous (B, H, S, hd), a 3-d (H, S, hd) input, q, k, v with unlike
     strides, an empty batch, and a view at an address that is not 16-byte
-    aligned: read as it lies in f32, refused in bf16."""
+    aligned: read as it lies in f32, copied to an aligned buffer in bf16
+    (TMA's rule, `fused_attention._k4_views`)."""
     q, k, v = ((torch.randn(2, 3, 70, 64, generator=cuda, device="cuda") * c)
                .to(dtype) for c in (1.0, 1.0, math.sqrt(70 / math.e)))
     plain = fused_attention._plain_attention_k4
@@ -490,11 +503,8 @@ def test_attention_kernel_takes_other_layouts(cuda, dtype):
     assert fused_attention.launches_k4 == before      # nothing was launched
     flat = torch.randn(1 + 2 * 3 * 70 * 64, generator=cuda, device="cuda").to(dtype)
     odd = flat[1:].view(2, 3, 70, 64)
-    if dtype == torch.bfloat16:
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            fused_attention.fused_attention(odd, k, v)
-    else:
-        _close(fused_attention.fused_attention(odd, k, v), plain(odd, k, v), dtype)
+    assert not fused_attention._tma_rows(odd)
+    _close(fused_attention.fused_attention(odd, k, v), plain(odd, k, v), dtype, tol)
 
 
 def _exact_attention_k4(q, k, v):
@@ -1092,3 +1102,100 @@ def test_wide_regime_takes_no_model_axis(cuda, dtype):
     width = torch.tensor(200, dtype=torch.int32, device="cuda")
     _close(fused_mlp.fused_mlp(x[0], w1[0], b1[0], w2[0], b2[0], width),
            fused_mlp._plain_mlp(x[0], w1[0], b1[0], w2[0], b2[0], 200), dtype)
+
+
+# --- every width the TPU kernels take ----------------------------------------
+# K1 at hidden sizes between the narrow bodies' (1, 12, 24, 48: zero-padded
+# to the next), wide ones that a stage or tile does not divide (72, 96, 200,
+# 1,288; 1,290 and 1,030 not a multiple of 8 in bf16), ViT-H's 1,280, and up
+# to 8,192; M = 4 D (2,048 at 8,192), a width mask below M, ragged rows.
+ODD_K1 = [(1, 64), (12, 48), (24, 96), (48, 192), (72, 288), (96, 384),
+          (200, 800), (1030, 4120), (1280, 5120), (1288, 5152), (1290, 5160),
+          (2048, 8192), (8192, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,M", ODD_K1)
+def test_k1_at_every_width_matches_plain(cuda, dtype, D, M):
+    """One launch at every hidden size, on the body `_k1_body` names, held to
+    the plain version at the JAX tolerances."""
+    N, active = 70, M - M // 5
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M, dtype)
+    before = (fused_mlp.launches, fused_mlp.launches_on_k1c + fused_mlp.launches_own)
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp.launches_on_k1c
+            + fused_mlp.launches_own) == (before[0] + 1, before[1] + 1)
+    assert fused_mlp.k1_body_launched() == fused_mlp._k1_body(dtype, D)
+    assert out.dtype == dtype and out.shape == (N, D)
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active), dtype)
+
+
+# K4 and K3 at head dims on every body K4 is built for, exact (80, 256) and
+# padded (17, 20, 24, 33, 48, 72, 96, 100, 130, 160, 192, 200: 20 in bf16
+# copied, its rows not 16 bytes apart), at S = 65 and 513.
+ODD_HD = [17, 20, 24, 33, 48, 72, 80, 96, 100, 130, 160, 192, 200, 256]
+
+
+@pytest.mark.parametrize("views", ["model", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 513])
+@pytest.mark.parametrize("hd", ODD_HD)
+def test_k4_at_every_head_dim_matches_plain(cuda, hd, S, dtype, views):
+    q, k, v = _model_views(cuda, (2, 3, S, hd), dtype)
+    if views == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = fused_attention.launches_k4
+    out = fused_attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches_k4 == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = fused_attention._plain_attention_k4(q, k, v)
+    _close(out, ref, dtype, _k4_tol(dtype))
+    with pytest.raises(AssertionError):
+        _close(_without_last_key(q, k, v), ref, dtype, _k4_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 513])
+@pytest.mark.parametrize("hd", ODD_HD)
+def test_k3_at_every_head_dim_matches_plain(cuda, hd, S, dtype):
+    """K3's core on K4's body, on the views of a (B, T, 3D) buffer: in bf16
+    at a head_dim that 8 does not divide the views are copied first."""
+    H = 3
+    q, k, v = attention_layer._split(_k3_qkv(cuda, (2,), S, H, hd, dtype))
+    out = _k3_launch_checked(q, k, v, H)
+    ref = attention_layer._plain_attention_core(q, k, v, H)
+    _close(out, ref, dtype, _k4_tol(dtype))
+
+
+@pytest.mark.parametrize("impl,counts", [("auto", (2, 0, 0, 2, 0)),
+                                         ("layer", (2, 0, 2, 0, 2))])
+def test_head_dim_80_model_matches_plain_modules(cuda, impl, counts):
+    """f32: a two-layer model at D 160 in 2 heads of 80 (ViT-H's head_dim),
+    MLP 640, 65 tokens: K1's wide body and K4 (K3 on K4's body under
+    `layer`), with the launches (K1, K2, K3, K4, K3 on K4's body)."""
+    cfg = ViTConfig(patch_size=(8, 8, 8), hidden_size=160, num_heads=2,
+                    mlp_dim=640, num_layers=2, img_size=32, z_size=32)
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False)
+    x = torch.randn(2, 32, 32, 32, 1, generator=cuda, device="cuda")
+
+    def launches():
+        return (fused_mlp.launches, fused_attention.launches,
+                attention_layer.launches, fused_attention.launches_k4,
+                attention_layer.launches_k4)
+
+    attention.set_default_attention_impl(impl)
+    try:
+        with torch.no_grad():
+            before = launches()
+            out = model(x)
+            assert tuple(b - a for a, b in zip(before, launches())) == counts
+            attention.set_default_attention_impl("plain")
+            mlp_select.set_default_mlp_impl("plain")
+            ref = model(x)
+    finally:
+        mlp_select.set_default_mlp_impl("auto")
+        attention.set_default_attention_impl("auto")
+    torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)

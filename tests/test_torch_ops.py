@@ -177,6 +177,9 @@ def test_k1_routes_each_call_to_one_body():
     (513, 768, 3072, 3072), (4104, 768, 3072, 3072), (513, 768, 3072, 2072),
     (4104, 768, 3072, 2072), (70, 768, 256, 200), (1, 768, 3072, 3072),
     (33, 1024, 96, 96), (40, 768, 64, 0),
+    # ViT-H's widths, and hidden sizes that neither a stage nor a tile divides
+    (513, 1280, 5120, 5120), (4104, 1280, 5120, 5120), (65, 200, 800, 700),
+    (513, 1288, 5152, 5152), (65, 8192, 2048, 2000),
 ])
 def test_wide_f32_plan_covers_every_output_once(n, D, M, active):
     """K1's wide f32 grids on an H100's 132 SMs: every block takes a unit,
@@ -184,12 +187,13 @@ def test_wide_f32_plan_covers_every_output_once(n, D, M, active):
     each of its K splits, and the splits cover its K stages once, in order.
     At the stretch shapes the plan fills the waves: fc1 at N = 513 in 240
     tiles (1.8 waves), fc2 there in two K splits (120 units, one wave), and
-    at N = 4,104 12 and 3 whole waves."""
+    at N = 4,104 12 and 3 whole waves.  A D that a stage (32) or a tile
+    (64) does not divide ends in a ragged last one."""
     sms = 132
     plan = fmlp.wide_f32_plan(n, D, M, active, sms)
     bm, bn = fmlp.WIDE_F32_TILE
     phases = [("fc1", plan["fc1"], -(-active // bn) * bn,
-               D // fmlp.WIDE_F32_STAGE_K),
+               -(-D // fmlp.WIDE_F32_STAGE_K)),
               ("fc2", plan["fc2"], D, -(-active // fmlp.WIDE_F32_STAGE_K))]
     assert (plan["fc1"] is None) == (active == 0)
     for name, phase, width, k_stages in phases:
@@ -208,7 +212,7 @@ def test_wide_f32_plan_covers_every_output_once(n, D, M, active):
             assert k1 - k0 >= min(k_stages, fmlp.WIDE_F32_PROMOTE_K
                                   // fmlp.WIDE_F32_STAGE_K)
             cover.setdefault((row0, col0), []).append((k0, k1))
-        assert len(cover) == -(-n // bm) * (width // bn)
+        assert len(cover) == -(-n // bm) * -(-width // bn)
         for spans in cover.values():
             spans.sort()
             assert spans[0][0] == 0 and spans[-1][1] == k_stages
@@ -428,9 +432,14 @@ def test_mlp_checks_reject_what_the_kernel_does_not_take():
     fmlp._check(x, w1, b1, w2, b2)          # accepted
     with pytest.raises(TypeError):
         fmlp._check(*(t.half() for t in (x, w1, b1, w2, b2)))
-    with pytest.raises(ValueError, match="hidden size"):
-        fmlp._check(x[..., :12].contiguous(), w1[:, :12].contiguous(), b1,
-                    w2[:12].contiguous(), b2[:12].contiguous())
+    # hidden size 12, between the narrow bodies' widths, is taken (it runs
+    # zero-padded at 16); past 8,192 is refused, naming its ROADMAP item
+    fmlp._check(x[..., :12].contiguous(), w1[:, :12].contiguous(), b1,
+                w2[:12].contiguous(), b2[:12].contiguous())
+    assert fmlp.kernel_width(12, torch.float32) == 16
+    wide = _torch_mlp_args(*_mlp_data(2, 8193, 4))
+    with pytest.raises(ValueError, match="hidden size 8193 .*above 8,192"):
+        fmlp._check(*wide)
     with pytest.raises(ValueError, match="shape"):
         fmlp._check(x, w1, b1, w2.T.contiguous().T[:, :95], b2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -473,19 +482,26 @@ def test_attention_checks_reject_what_the_kernel_does_not_take():
     views = [torch.zeros(2, 513, 768).view(2, 513, 12, 64).transpose(1, 2)
              for _ in range(3)]            # as the model makes them
     fused_attention._check(*views)
-    with pytest.raises(ValueError, match="head_dim 48"):
-        odd = torch.zeros(2, 12, 65, 48)
+    # head_dim 48 is taken (K4's body for 48); past 256 is refused
+    odd = torch.zeros(2, 12, 65, 48)
+    fused_attention._check(odd, odd, odd)
+    with pytest.raises(ValueError, match="head_dim 257 .*above 256"):
+        odd = torch.zeros(2, 2, 65, 257)
         fused_attention._check(odd, odd, odd)
     with pytest.raises(ValueError, match="along head_dim"):
         strided = torch.zeros(2, 12, 64, 513).transpose(2, 3)
         fused_attention._check(strided, strided, strided)
-    # bf16 rows are copied 16 bytes at a time; f32 is read by scalars
-    flat = torch.zeros(1 + 2 * 3 * 70 * 64)
+    # bf16 rows are read by TMA, 16-byte aligned: a view off that alignment
+    # is taken and copied first (`_k4_views`); f32 is read as it lies
+    flat = torch.arange(1 + 2 * 3 * 70 * 64, dtype=torch.float32)
     odd = flat[1:].view(2, 3, 70, 64)
     fused_attention._check(odd, odd, odd)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        odd = flat.bfloat16()[1:].view(2, 3, 70, 64)
-        fused_attention._check(odd, odd, odd)
+    assert all(t is odd for t in fused_attention._k4_views(odd, odd, odd))
+    odd = flat.bfloat16()[1:].view(2, 3, 70, 64)
+    fused_attention._check(odd, odd, odd)
+    copied = fused_attention._k4_views(odd, odd, odd)
+    assert all(fused_attention._tma_rows(t) and torch.equal(t, odd)
+               for t in copied)
     with pytest.raises(ValueError, match="tokens"):
         long = torch.zeros(1, 1, 1, 32).expand(1, 1, 65535 * 64 + 1, 32)
         fused_attention._check(long, long, long)

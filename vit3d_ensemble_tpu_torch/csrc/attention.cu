@@ -21,9 +21,21 @@
 // bytes (50.4 MB); on CUDA cores they would take 97 us at the 67 TFLOP/s
 // FP32 peak.
 //
-// Which body takes which input: bf16 at head_dim 32, 64 and 128 runs the
-// `wgmma` body below; f32 at the same head dims the `mma.sync` 3xTF32 body
-// after it.  One TF32 product (10 mantissa bits) misses the JAX tolerance
+// Which body takes which input: bf16 runs the `wgmma` body below, f32 the
+// `mma.sync` 3xTF32 body after it, at every head_dim from 17 to 256, as the
+// TPU kernel takes any head_dim above 16.  Each is built for the head dims
+// K4_HDS (32, 64, 80, 128, 256), and a head_dim runs on the first at or
+// above it: the columns from hd up to that HD are zero in shared memory
+// (TMA's zero fill past the tensor map's hd columns in bf16, zero-filled
+// cp.async copies in f32), so q k^T is exact and the context's extra
+// columns, zero, are never stored.  The scale stays 1 / sqrt(hd) of the true
+// hd, as `pallas_attention.py:144` keeps it while padding hd to MIN_HD.  At
+// 32, 64 and 128 the bodies are the ones these head dims ran before any
+// other was taken; 80 is ViT-H's head_dim and 256 the cap.  A head_dim
+// between two bodies does the larger one's work: hd 48 runs as 64, 96 as
+// 128, 200 as 256.
+//
+// One TF32 product (10 mantissa bits) misses the JAX tolerance
 // of 2e-5 + 1e-4 |ref| (`tests/test_torch_stretch.py` emulates both); three
 // hold it: x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both
 // rounded to nearest, and a * b = lo_a hi_b + hi_a lo_b + hi_a hi_b with
@@ -116,10 +128,18 @@
 //     chunks of 32 and one step, not 17 chunks); keys past S are masked to
 //     -inf.  The context is divided by the f32 row sums once, at the end.
 //
+// Above hd 64 the bf16 body takes one block an SM (the consumers' HD / 2
+// context accumulators need 232 registers), and its (k, v) ring holds 4
+// stages where 227 KB of shared memory hold them beside the q tiles, 2 at
+// HD 256; the f32 body keeps 3 stages below HD 128 and 2 from there (one
+// block an SM at 256).  Swizzle: 128 bytes where 64 divides HD, 64 at HD 32,
+// 32 at HD 80 (boxes of 16 columns).
+//
 // Layout: q, k, v are (B, H, S, hd) views with unit stride along hd and any
 // strides (in elements) along B, H and S; for bf16 the base pointers and
-// strides are multiples of 16 bytes (TMA's rule).  ctx is written (B, S, H,
-// hd) contiguous, so that the model's merge of the heads is a view.
+// strides are multiples of 16 bytes (TMA's rule: the wrapper copies a view
+// that is not into a buffer whose rows are).  ctx is written (B, S, H, hd)
+// contiguous, so that the model's merge of the heads is a view.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,21 +173,31 @@ struct Strides {  // of a (B, H, S, hd) view, in elements
 constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
 constexpr int BLOCK_ROWS = CONSUMERS * ROWS;  // query rows of a block
 constexpr int WG_THREADS = 128 * (1 + CONSUMERS);
-constexpr int STAGES = 4;                     // (k, v) stages in the ring
+constexpr int SMEM_MAX = 232448;              // shared-memory bytes a block may use
 
-// The shared-memory tiles of one head_dim: 64 rows of hd bf16, stored as
-// boxes of one swizzle row's width (64 values with the 128-byte swizzle, 32
-// with the 64-byte one at hd 32), each 64 rows deep.
+// The shared-memory tiles of one body's head_dim HD (a head dim rounded up
+// to one of K4_HDS below): 64 rows of HD bf16, stored as boxes of one
+// swizzle row's width, each 64 rows deep: 64 values with the 128-byte
+// swizzle where 64 divides HD, 32 with the 64-byte one at HD 32, 16 with
+// the 32-byte one at HD 80.
 template <int HD>
 struct Tile {
-  static constexpr int SW = HD >= 64 ? 128 : 64;  // bytes of a swizzle row
+  // bytes of a swizzle row
+  static constexpr int SW = HD % 64 == 0 ? 128 : HD == 32 ? 64 : 32;
   static constexpr int BOX_COLS = SW / 2;
   static constexpr int BOXES = HD / BOX_COLS;
   static constexpr int BOX_BYTES = ROWS * SW;
-  static constexpr int BYTES = BOXES * BOX_BYTES;  // 64 rows of hd
-  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma's swizzle mode
-  // Two blocks an SM where the registers allow: at hd 128 the consumers
-  // need 64 context and 32 score accumulators and take one block an SM.
+  static constexpr int BYTES = BOXES * BOX_BYTES;  // 64 rows of HD
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma's swizzle
+  // (k, v) stages in the ring: four, or as many as the shared memory holds
+  // beside the q tiles (2 at HD 256)
+  static constexpr int STAGES_FIT =
+      (SMEM_MAX - 1024 - CONSUMERS * BYTES - 256) / (2 * BYTES);
+  static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  // Two blocks an SM where the registers allow: above hd 64 the consumers
+  // need HD / 2 context and 32 score accumulators (at hd 128 64 + 32, at
+  // 256 128 + 32) and take one block an SM.
   static constexpr int BLOCKS_PER_SM = HD <= 64 ? 2 : 1;
   // setmaxnreg: the producer's and the consumers' registers.  A block enters
   // with 65,536 / (384 * BLOCKS_PER_SM) rounded down to 8 (168 or 80); what
@@ -302,17 +332,17 @@ __global__ void __launch_bounds__(WG_THREADS, Tile<HD>::BLOCKS_PER_SM)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-                       int s, int h, int orders, float scale_log2) {
+                       int s, int h, int hd, int orders, float scale_log2) {
   using T = Tile<HD>;
   extern __shared__ __align__(16) unsigned char att_smem[];
   // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
   unsigned char* smem = att_smem + ((1024 - (smem_u32(att_smem) & 1023)) & 1023);
   unsigned char* q_st = smem;                           // [CONSUMERS][BYTES]
   unsigned char* k_st = q_st + CONSUMERS * T::BYTES;    // [STAGES][BYTES]
-  unsigned char* v_st = k_st + STAGES * T::BYTES;       // [STAGES][BYTES]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_st + STAGES * T::BYTES);
+  unsigned char* v_st = k_st + T::STAGES * T::BYTES;    // [STAGES][BYTES]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_st + T::STAGES * T::BYTES);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + STAGES;
+  uint64_t* empty = full + T::STAGES;
 
   const int b = blockIdx.x / h, hh = blockIdx.x % h;
   const int row0 = blockIdx.y * BLOCK_ROWS;
@@ -323,7 +353,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int i = 0; i < STAGES; ++i) {
+    for (int i = 0; i < T::STAGES; ++i) {
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], live);  // one arrival from each live consumer
     }
@@ -340,8 +370,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int c = 0; c < live; ++c)
         load_rows<HD>(q_st + c * T::BYTES, &map_q, oq, q_full, row0 + c * ROWS, hh, b);
       for (int i = 0; i < chunks; ++i) {
-        const int st = i % STAGES;
-        mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);  // at once on the first lap
+        const int st = i % T::STAGES;
+        mbar_wait(&empty[st], ((i / T::STAGES) & 1) ^ 1);  // at once on the first lap
         mbar_expect_tx(&full[st], 2 * T::BYTES);
         load_rows<HD>(k_st + st * T::BYTES, &map_k, ok, &full[st], i * KEYS, hh, b);
         load_rows<HD>(v_st + st * T::BYTES, &map_v, ov, &full[st], i * KEYS, hh, b);
@@ -363,8 +393,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   float l[2] = {0.f, 0.f};              // this thread's share of their sums
   mbar_wait(q_full, 0);
   for (int i = 0; i < chunks; ++i) {
-    const int st = i % STAGES;
-    mbar_wait(&full[st], (i / STAGES) & 1);
+    const int st = i % T::STAGES;
+    mbar_wait(&full[st], (i / T::STAGES) & 1);
     const unsigned char* kc = k_st + st * T::BYTES;
     const unsigned char* vc = v_st + st * T::BYTES;
     const int key0 = i * KEYS;
@@ -388,11 +418,22 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int r = row0 + c * ROWS + 16 * warp + g + 8 * i;
     if (r >= s) continue;
     const float inv = 1.f / l[i];  // each sum holds its max's exp(0) = 1
-    __nv_bfloat16* out = o + (((long long)b * s + r) * h + hh) * HD + 2 * t;
+    // rows of hd values; the columns from hd to HD hold zeros and stay here
+    __nv_bfloat16* out = o + (((long long)b * s + r) * h + hh) * hd + 2 * t;
+    if (hd % 2 == 0) {  // every column pair lies on 4 bytes
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+      for (int j = 0; j < HD / 8; ++j)
+        if (8 * j + 2 * t < hd)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + 2 * t + e < hd)
+            out[8 * j + e] = __float2bfloat16_rn(acc[4 * j + 2 * i + e] * inv);
+    }
   }
 }
 
@@ -412,10 +453,11 @@ struct F32Tile {
   // fragment read of a warp (q and k at rows g, columns t; v at rows 2t,
   // columns g) falls on 32 distinct banks.
   static constexpr int LD = HD + 4;
-  static constexpr int STAGES = HD == 128 ? 2 : 3;  // (k, v) stages in the ring
+  static constexpr int STAGES = HD >= 128 ? 2 : 3;  // (k, v) stages in the ring
   // blocks an SM that the registers must allow: as many as the shared
-  // memory does at hd 64 (3 of 70 KB), 2 at hd 128 (101 KB)
-  static constexpr int MIN_BLOCKS = HD == 128 ? 2 : 3;
+  // memory does at hd 64 (3 of 70 KB), 2 at hd 80 and 128 (86 and 101 KB),
+  // 1 at 256 (200 KB)
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;
   static constexpr int Q_FLOATS = F_ROWS * LD;
   static constexpr int KV_FLOATS = F_KEYS * LD;     // one operand of a stage
   static constexpr size_t SMEM = sizeof(float) * (size_t)(Q_FLOATS + 2 * STAGES * KV_FLOATS);
@@ -438,18 +480,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + n - 1 of one head's (S, HD) view (row r at src + r *
-// ss) into a padded tile, by cp.async (the caller commits and waits); rows at
-// or past s are zero-filled.  VEC: 16-byte copies (base and row stride
-// multiples of 16 bytes), else 4-byte ones.
+// Rows row0 .. row0 + n - 1 of one head's (S, hd) view (row r at src + r *
+// ss) into a padded tile of HD columns, by cp.async (the caller commits and
+// waits); rows at or past s and columns at or past hd are zero-filled.
+// VEC: 16-byte copies (base, row stride and hd multiples of 16 bytes), else
+// 4-byte ones.
 template <int HD, bool VEC>
 __device__ __forceinline__ void load_rows_f32(float* tile, const float* __restrict__ src,
-                                              long long ss, int row0, int n, int s) {
+                                              long long ss, int row0, int n, int s, int hd) {
   constexpr int LD = F32Tile<HD>::LD, W = VEC ? 4 : 1;  // floats a copy
 #pragma unroll 4
   for (int i = threadIdx.x; i < n * (HD / W); i += F_THREADS) {
     const int r = i / (HD / W), c = i % (HD / W) * W;
-    const bool live = row0 + r < s;
+    const bool live = row0 + r < s && c < hd;
     const float* from = live ? src + (row0 + r) * ss + c : src;
     if constexpr (VEC)
       cp_async16(smem_u32(tile + r * LD + c), from, live);
@@ -485,8 +528,9 @@ __device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2
   const float* k_row = kc + (r8 + 8 * (tile / 2)) * LD + 4 * (tile % 2);
   // KQ k-steps at a time, the hi*hi terms into `big` and the lo*hi and
   // hi*lo ones into `small`, both from 0: no small term meets a large sum
-  // inside an `mma`, and the scores take one f32 rounding a KQ k-steps
-  constexpr int KQ = HD / 8 < 4 ? HD / 8 : 4;
+  // inside an `mma`, and the scores take one f32 rounding a KQ k-steps (4,
+  // or 2 where 4 do not divide HD / 8: hd 80)
+  constexpr int KQ = (HD / 8) % 4 == 0 ? 4 : 2;
   float sc[NC / 8][4];
 #pragma unroll 1
   for (int kq = 0; kq < HD / 8; kq += KQ) {
@@ -570,8 +614,9 @@ __device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2
   // the registers it was computed in, and B reads v's rows 2t and 2t + 1
   // (column g of each 8-column n-tile).
   // in column groups of PVN n-tiles, so that pv and the context (HD / 2
-  // registers) fit beside the rest at hd 128
-  constexpr int PVN = HD == 128 ? 4 : HD / 8;
+  // registers) fit beside the rest from hd 128 (at 256, 128 context
+  // registers, two n-tiles a group: four spilled 8 bytes)
+  constexpr int PVN = HD >= 256 ? 2 : HD >= 128 ? 4 : HD / 8;
 #pragma unroll
   for (int n0 = 0; n0 < HD / 8; n0 += PVN) {
     float pv[PVN][4];
@@ -587,7 +632,9 @@ __device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2
       split_tf32(sc[kk][1], ah[2], al[2]);
       split_tf32(sc[kk][3], ah[3], al[3]);
       const float* vb = vc + (8 * kk + 2 * t) * LD + 8 * n0 + g;
-      constexpr int G = 4;  // n-tiles whose B fragments are held at once
+      // n-tiles whose B fragments are held at once: 2 where 4 do not divide
+      // PVN (hd 80, 256)
+      constexpr int G = PVN % 4 == 0 ? 4 : 2;
 #pragma unroll
       for (int n1 = 0; n1 < PVN; n1 += G) {
         uint32_t bh[G][2], bl[G][2];
@@ -615,7 +662,7 @@ __device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2
 template <int HD, bool VEC>
 __global__ void __launch_bounds__(F_THREADS, F32Tile<HD>::MIN_BLOCKS)
 attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ o, int s, int h,
+                        const float* __restrict__ v, float* __restrict__ o, int s, int h, int hd,
                         Strides qs, Strides ks, Strides vs, float scale_log2) {
   using T = F32Tile<HD>;
   extern __shared__ __align__(16) float f32_smem[];
@@ -632,12 +679,12 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   // the ring: q with the first stage in one group, then one group a stage,
   // committed even when empty so that group i is always stage i's
-  load_rows_f32<HD, VEC>(q_st, q, qs.s, row0, F_ROWS, s);
+  load_rows_f32<HD, VEC>(q_st, q, qs.s, row0, F_ROWS, s, hd);
 #pragma unroll
   for (int i = 0; i < T::STAGES - 1; ++i) {
     if (i < chunks) {
-      load_rows_f32<HD, VEC>(k_st + i * T::KV_FLOATS, k, ks.s, i * F_KEYS, F_KEYS, s);
-      load_rows_f32<HD, VEC>(v_st + i * T::KV_FLOATS, v, vs.s, i * F_KEYS, F_KEYS, s);
+      load_rows_f32<HD, VEC>(k_st + i * T::KV_FLOATS, k, ks.s, i * F_KEYS, F_KEYS, s, hd);
+      load_rows_f32<HD, VEC>(v_st + i * T::KV_FLOATS, v, vs.s, i * F_KEYS, F_KEYS, s, hd);
     }
     cp_async_commit();
   }
@@ -658,8 +705,8 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     __syncthreads();                 // everyone's have, and chunk c - 1 is done with
     const int next = c + T::STAGES - 1, nst = next % T::STAGES;
     if (next < chunks) {
-      load_rows_f32<HD, VEC>(k_st + nst * T::KV_FLOATS, k, ks.s, next * F_KEYS, F_KEYS, s);
-      load_rows_f32<HD, VEC>(v_st + nst * T::KV_FLOATS, v, vs.s, next * F_KEYS, F_KEYS, s);
+      load_rows_f32<HD, VEC>(k_st + nst * T::KV_FLOATS, k, ks.s, next * F_KEYS, F_KEYS, s, hd);
+      load_rows_f32<HD, VEC>(v_st + nst * T::KV_FLOATS, v, vs.s, next * F_KEYS, F_KEYS, s, hd);
     }
     cp_async_commit();
     if (!live) continue;
@@ -687,21 +734,33 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
     const int r = row0 + 16 * warp + g + 8 * i;
     if (r >= s) continue;
     const float inv = 1.f / l[i];  // each sum holds its max's exp(0) = 1
-    float* out = o + (((long long)b * s + r) * h + hh) * HD + 2 * t;
+    // rows of hd values; the columns from hd to HD hold zeros and stay here
+    float* out = o + (((long long)b * s + r) * h + hh) * hd + 2 * t;
+    if (hd % 2 == 0) {  // every column pair lies on 8 bytes
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<float2*>(out + 8 * n) =
-          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+      for (int n = 0; n < HD / 8; ++n)
+        if (8 * n + 2 * t < hd)
+          *reinterpret_cast<float2*>(out + 8 * n) =
+              make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    } else {
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * n + 2 * t + e < hd) out[8 * n + e] = acc[n][2 * i + e] * inv;
+    }
   }
 }
 
 // The map of one (B, H, S, hd) bf16 view: hd innermost, then S, H and B in
 // the order of their strides (smallest first), boxes of one swizzle row's
-// width by 64 rows of S; rows past S load as zeros.  `order` gets the
-// positions of the row, head and batch coordinates (see `coord`).  TMA needs
-// a 16-byte aligned base and strides that are multiples of 16 bytes.
+// width by 64 rows of S; rows past S, and the columns from hd to the body's
+// HD, load as zeros, so that the padded columns add nothing to q k^T and
+// give context columns that are never stored.  `order` gets the positions of
+// the row, head and batch coordinates (see `coord`).  TMA needs a 16-byte
+// aligned base and strides that are multiples of 16 bytes.
 template <int HD>
-bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, int s,
+bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, int s, int hd,
                  Strides st) {
   using T = Tile<HD>;
   const EncodeTiled encode = encode_tiled();
@@ -716,7 +775,7 @@ bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, i
       d[j] = d[j - 1];
       d[j - 1] = x;
     }
-  cuuint64_t dims[4] = {(cuuint64_t)HD, 0, 0, 0};
+  cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
   cuuint64_t strides[3];
   cuuint32_t box[4] = {(cuuint32_t)T::BOX_COLS, 1, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
@@ -730,7 +789,9 @@ bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, i
   }
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -749,21 +810,21 @@ cudaError_t wgmma_ready(int device) {
 
 template <int HD>
 cudaError_t launch_wgmma(int device, const void* q, const void* k, const void* v, void* o,
-                         int b, int h, int s, Strides qs, Strides ks, Strides vs, float scale,
-                         cudaStream_t stream) {
+                         int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
+                         float scale, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   int oq, ok, ov;
-  if (!encode_view<HD>(&map_q, &oq, q, b, h, s, qs) ||
-      !encode_view<HD>(&map_k, &ok, k, b, h, s, ks) ||
-      !encode_view<HD>(&map_v, &ov, v, b, h, s, vs))
+  if (!encode_view<HD>(&map_q, &oq, q, b, h, s, hd, qs) ||
+      !encode_view<HD>(&map_k, &ok, k, b, h, s, hd, ks) ||
+      !encode_view<HD>(&map_v, &ov, v, b, h, s, hd, vs))
     return cudaErrorInvalidValue;
   const cudaError_t err = wgmma_ready<HD>(device);
   if (err != cudaSuccess) return err;
   last_body.store(BF16_WGMMA, std::memory_order_relaxed);
   const dim3 grid(b * h, (s + BLOCK_ROWS - 1) / BLOCK_ROWS);
   attention_wgmma_kernel<HD><<<grid, WG_THREADS, Tile<HD>::SMEM, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, h, oq | (ok << 6) | (ov << 12),
-      scale * 1.4426950408889634f);
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, h, hd,
+      oq | (ok << 6) | (ov << 12), scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -777,7 +838,7 @@ cudaError_t tf32x3_ready(int device) {
 
 template <int HD, bool VEC>
 cudaError_t launch_tf32x3_as(int device, const void* q, const void* k, const void* v, void* o,
-                             int b, int h, int s, Strides qs, Strides ks, Strides vs,
+                             int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
                              float scale, cudaStream_t stream) {
   const cudaError_t err = tf32x3_ready<HD, VEC>(device);
   if (err != cudaSuccess) return err;
@@ -785,23 +846,36 @@ cudaError_t launch_tf32x3_as(int device, const void* q, const void* k, const voi
   const dim3 grid(b * h, (s + F_ROWS - 1) / F_ROWS);
   attention_tf32x3_kernel<HD, VEC><<<grid, F_THREADS, F32Tile<HD>::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), s, h, qs, ks, vs, scale * 1.4426950408889634f);
+      static_cast<float*>(o), s, h, hd, qs, ks, vs, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-// A view whose rows cp.async may copy 16 bytes at a time.
-bool rows_16b(const void* base, Strides st) {
-  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && st.b % 4 == 0 && st.h % 4 == 0 &&
-         st.s % 4 == 0;
+// A view whose rows of hd values cp.async may copy 16 bytes at a time.
+bool rows_16b(const void* base, int hd, Strides st) {
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && hd % 4 == 0 && st.b % 4 == 0 &&
+         st.h % 4 == 0 && st.s % 4 == 0;
 }
 
 template <int HD>
 cudaError_t launch_tf32x3(int device, const void* q, const void* k, const void* v, void* o,
-                          int b, int h, int s, Strides qs, Strides ks, Strides vs, float scale,
-                          cudaStream_t stream) {
-  if (rows_16b(q, qs) && rows_16b(k, ks) && rows_16b(v, vs))
-    return launch_tf32x3_as<HD, true>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, stream);
-  return launch_tf32x3_as<HD, false>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, stream);
+                          int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
+                          float scale, cudaStream_t stream) {
+  if (rows_16b(q, hd, qs) && rows_16b(k, hd, ks) && rows_16b(v, hd, vs))
+    return launch_tf32x3_as<HD, true>(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale,
+                                      stream);
+  return launch_tf32x3_as<HD, false>(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale, stream);
+}
+
+// The head dims the bodies are built for: a head_dim from 17 to 256 runs on
+// the first at or above it, its columns past hd zero in shared memory.
+constexpr int K4_HDS[] = {32, 64, 80, 128, 256};
+
+// The body's HD for head_dim hd, or 0 outside 17 .. 256.
+int body_hd(int hd) {
+  if (hd <= 16) return 0;
+  for (const int b : K4_HDS)
+    if (hd <= b) return b;
+  return 0;
 }
 
 // Query tiles on the busiest SM if every tile takes as long: blocks in the
@@ -889,10 +963,12 @@ cudaError_t plan_f32(int device, int b, int h, int s, int* out) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v: (b, h, s, hd) views with unit
-// stride along hd and the given strides (elements) along b, h and s; o is
-// (b, s, h, hd) contiguous.  Returns cudaGetLastError() after the launch (0
-// on success), or cudaErrorInvalidValue for a layout the bf16 body's tensor
-// maps refuse (nothing launched).  b * h == 0 or s == 0 launches nothing.
+// stride along hd (17 <= hd <= 256, on the body of `body_hd(hd)`) and the
+// given strides (elements) along b, h and s; o is (b, s, h, hd)
+// contiguous.  Returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue for a head_dim outside 17 .. 256 or a layout the
+// bf16 body's tensor maps refuse (nothing launched).  b * h == 0 or s == 0
+// launches nothing.
 extern "C" int attention_launch(int device, const void* q, const void* k, const void* v,
                                 void* o, int b, int h, int s, int hd, long long q_b,
                                 long long q_h, long long q_s, long long k_b, long long k_h,
@@ -906,11 +982,13 @@ extern "C" int attention_launch(int device, const void* q, const void* k, const 
 #define CASE(HD)                                                                              \
   case HD:                                                                                    \
     return (int)(dtype == 1                                                                   \
-                     ? launch_wgmma<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st)   \
-                     : launch_tf32x3<HD>(device, q, k, v, o, b, h, s, qs, ks, vs, scale, st));
+                     ? launch_wgmma<HD>(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale,   \
+                                        st)                                                   \
+                     : launch_tf32x3<HD>(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale,  \
+                                         st));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    CASE(32) CASE(64) CASE(128)
+  switch (body_hd(hd)) {
+    CASE(32) CASE(64) CASE(80) CASE(128) CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CASE
@@ -931,8 +1009,8 @@ extern "C" int attention_plan(int device, int b, int h, int s, int hd, int dtype
     return (int)(dtype == 1 ? plan_bf16<HD>(device, b, h, s, out)                             \
                             : plan_f32<HD>(device, b, h, s, out));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    CASE(32) CASE(64) CASE(128)
+  switch (body_hd(hd)) {
+    CASE(32) CASE(64) CASE(80) CASE(128) CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CASE

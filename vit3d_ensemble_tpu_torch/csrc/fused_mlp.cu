@@ -34,8 +34,17 @@
 // device time at every row count timed, 1 to 33,280, so it was removed
 // (PERF.md).
 //
-// The wide regime, D a multiple of 64 from 128 to 1024 (the stretch model's
-// D = 768, M = 3072).  What bounds it there: operations.  M / D is 4, so the
+// The wide regime, every D from 65 to 8,192 (the stretch model's D = 768,
+// M = 3072; ViT-H's D = 1,280, M = 5,120), as the TPU kernel takes any D.
+// The bodies stage K in 64 (bf16) or 32 (f32) columns and tile fc2's N = D
+// in 192 or 64 columns, so a D that these do not divide ends in a ragged
+// last K stage, which TMA zero-fills past D in both operands (adding
+// nothing), and a ragged last column tile, whose stores TMA clips (bf16) or
+// the epilogue masks (f32).  TMA needs rows of a multiple of 16 bytes, so D
+// is a multiple of 8 in bf16 and of 4 in f32: the wrapper
+// (`ops/fused_mlp.py`) hands any other D over as zero-padded copies of x,
+// w1, w2 and b2 (zero columns of x and w1 add nothing to h, zero rows of w2
+// and b2 give output columns it drops).  What bounds it there: operations.  M / D is 4, so the
 // intermediate is no longer the larger part of the bytes, and 4*N*D*M
 // multiply-adds at the tensor-core peak (39 us at N = 4,104 in bf16) exceed
 // the time of every byte.  The narrow plan does not carry over: a full-D f32
@@ -122,7 +131,9 @@
 //     that body is gone.
 //
 // Layouts follow torch.nn.Linear: x (n, D), w1 (m, D), b1 (m), w2 (D, m),
-// b2 (D), out (n, D), all contiguous.  f32 or bf16, f32 accumulation.
+// b2 (D), out (n, D), all contiguous.  f32 or bf16, f32 accumulation.  The
+// narrow bodies take D in {8, 16, 32, 64}; the wrapper runs a narrow D
+// outside that set zero-padded to the next of them, as above.
 //
 // The model axis (the sweep's stacked (config, fold) cells), narrow regime
 // only: the narrow bodies take P weight sets stacked along a leading axis
@@ -270,7 +281,7 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------
-// The wide regime: D a multiple of 64, 128 <= D <= 1024 (see the note above).
+// The wide regime: 64 < D <= 8,192 (see the note above).
 // bf16: two warp-specialised GEMM phases on wgmma, fed by TMA.
 // ---------------------------------------------------------------------------
 
@@ -773,7 +784,9 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
                                         models, stream);
 }
 
-bool is_wide(int d) { return d > 64 && d <= 1024 && d % 64 == 0; }
+// The wide regime's hidden sizes: above 64 and at most 8,192, rows of a
+// multiple of 16 bytes (`align` elements).
+bool is_wide(int d, int align) { return d > 64 && d <= 8192 && d % align == 0; }
 
 #define MLP_ARGS x, w1, b1, w2, b2, out, n, m, active_p, active, models, stream
 
@@ -815,13 +828,14 @@ extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 wide regime: one model, a host width.  x (n, d), w1 (m, d), b1
+// The bf16 wide regime (64 < d <= 8,192, d a multiple of 8): one model, a
+// host width.  x (n, d), w1 (m, d), b1
 // (m), w2 (d, m) with row stride ld_w2 (m, or m rounded up to 8 for a
 // zero-padded copy: TMA needs 16-byte row strides), b2 (d), h (n, ld_h) the
 // scratch for gelu(fc1) with ld_h = m rounded up to 8, out (n, d); every
 // base 16-byte aligned.  Two launches on `stream`: fc1 + GELU into h over the
-// first ceil(active / 128) column tiles, then fc2 + b2 over
-// ceil(active / 64) k-tiles of h.  Returns cudaGetLastError() after the
+// first ceil(active / 128) column tiles (ceil(d / 64) k-tiles), then fc2 +
+// b2 over ceil(active / 64) k-tiles of h.  Returns cudaGetLastError() after the
 // launches, or cudaErrorInvalidValue for a shape or layout it does not take
 // (nothing launched).  n == 0 launches nothing.
 extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, const void* b1,
@@ -830,7 +844,7 @@ extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, 
                                      void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!is_wide(d) || m < 1 || ld_w2 < m || ld_h < m || ld_h % 8 != 0)
+  if (!is_wide(d, 8) || m < 1 || ld_w2 < m || ld_h < m || ld_h % 8 != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
@@ -840,7 +854,8 @@ extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, 
   active = std::min(std::max(active, 0), m);
   if (active > 0) {
     err = launch_gemm<FC1_BN, true>(device, x, d, d, w1, m, d, d, h, ld_h, ld_h, b1, active,
-                                    n, d / G_BK, (active + FC1_BN - 1) / FC1_BN, sms, stream);
+                                    n, (d + G_BK - 1) / G_BK, (active + FC1_BN - 1) / FC1_BN,
+                                    sms, stream);
     if (err != cudaSuccess) return (int)err;
   }
   const int k_tiles = (active + G_BK - 1) / G_BK;
@@ -850,11 +865,13 @@ extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, 
     return (int)launch_gemm<FC2_BN_WIDE, false>(device, h, ld_h, ld_h, w2, d, m, ld_w2, out, d,
                                                 d, b2, d, n, k_tiles, wide_cols, sms, stream);
   return (int)launch_gemm<FC2_BN_NARROW, false>(device, h, ld_h, ld_h, w2, d, m, ld_w2, out, d,
-                                                d, b2, d, n, k_tiles, d / FC2_BN_NARROW, sms,
+                                                d, b2, d, n, k_tiles,
+                                                (d + FC2_BN_NARROW - 1) / FC2_BN_NARROW, sms,
                                                 stream);
 }
 
-// The f32 wide regime: one model, a host width.  x (n, d), w1 (m, d), b1
+// The f32 wide regime (64 < d <= 8,192, d a multiple of 4): one model, a
+// host width.  x (n, d), w1 (m, d), b1
 // (m), w2 (d, m) with row stride ld_w2 (m, or m rounded up to 4 for a
 // zero-padded copy: TMA needs 16-byte row strides), b2 (d), h (n, ld_h)
 // the scratch for gelu(fc1) with ld_h = m rounded up to 4, part the
@@ -876,7 +893,7 @@ extern "C" int fused_mlp_wide_f32_launch(int device, const void* x, const void* 
                                          void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!is_wide(d) || m < 1 || ld_w2 < m || ld_w2 % 4 != 0 || ld_h < m || ld_h % 4 != 0)
+  if (!is_wide(d, 4) || m < 1 || ld_w2 < m || ld_w2 % 4 != 0 || ld_h < m || ld_h % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
@@ -885,8 +902,8 @@ extern "C" int fused_mlp_wide_f32_launch(int device, const void* x, const void* 
   if (err != cudaSuccess) return (int)err;
   active = std::min(std::max(active, 0), m);
   const int row_tiles = (n + T_BM - 1) / T_BM;
-  const int cols1 = (active + T_BN - 1) / T_BN, k1 = d / T_BK;
-  const int cols2 = d / T_BN, k2 = (active + T_BK - 1) / T_BK;
+  const int cols1 = (active + T_BN - 1) / T_BN, k1 = (d + T_BK - 1) / T_BK;
+  const int cols2 = (d + T_BN - 1) / T_BN, k2 = (active + T_BK - 1) / T_BK;
   // a plan the kernels take: every split holds a stage, every block a unit
   const auto bad = [](int splits, int blocks, int tiles, int k) {
     return splits < 1 || splits > std::max(k, 1) || blocks < 1 || blocks > tiles * splits;

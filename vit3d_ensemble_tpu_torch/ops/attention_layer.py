@@ -13,9 +13,15 @@ serves its head_dim (`ops/fused_attention.py`), so no copy surrounds it:
     hd 9-16 the tensor cores, streamed at T <= 80, since the views of the
     QKV buffer start and step by multiples of 16 bytes; else the CUDA
     cores), counted in `launches_k2`;
-  * hd in `HEAD_DIMS_K4` (32, 64, 128; the stretch model's 64): K4's
-    tensor-core body, `csrc/attention.cu`, through `fused_attention.k4_into`,
-    counted in `launches_k4`.
+  * hd from 17 to 256 (`HEAD_DIMS_K4`; the stretch model's 64, ViT-H's 80),
+    as JAX's `_attn_core_kernel` takes any head_dim: K4's tensor-core body,
+    `csrc/attention.cu`, through `fused_attention.k4_into`, counted in
+    `launches_k4`.  In bf16 the body loads by TMA, which needs 16-byte
+    aligned views and strides: a head's view into the (B, T, 3D) buffer
+    starts at h * hd * 2 bytes, so where 8 does not divide hd the wrapper
+    copies the views into buffers whose rows are padded to a multiple of 8
+    (`fused_attention._k4_views`), a copy of the input and never a fall to
+    the plain version; in f32 the body reads the views as they are.
 
 Both write (B, T, H, hd), which is the (B, T, D) context.  The plain
 version of the core is that body's own (`fused_attention._plain`), which
@@ -50,8 +56,9 @@ launches_k4 = 0
 #: head dims served by K2's body: every head_dim up to 16, as JAX's
 #: `_attn_core_kernel` takes any.
 HEAD_DIMS = tuple(range(1, fused_attention.TINY_HD + 1))
-#: head dims served by K4's tensor-core body.
-HEAD_DIMS_K4 = fused_attention.HEAD_DIMS_K4
+#: head dims served by K4's tensor-core body: every one from 17 to 256.
+HEAD_DIMS_K4 = tuple(range(fused_attention.TINY_HD + 1,
+                           fused_attention.MAX_HD_K4 + 1))
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -110,17 +117,17 @@ def _check(q, k, v, n_heads) -> None:
         raise ValueError(f"attention_layer: {n_heads} heads do not divide "
                          f"hidden size {D}")
     hd = D // n_heads
-    if hd not in HEAD_DIMS + HEAD_DIMS_K4:
-        raise ValueError(f"attention_layer: head_dim {hd} is neither <= "
-                         f"{HEAD_DIMS[-1]} (K2's body) nor one of "
-                         f"{HEAD_DIMS_K4} (K4's)")
+    if hd > HEAD_DIMS_K4[-1]:
+        raise ValueError(
+            f"attention_layer: head_dim {hd} is above {HEAD_DIMS_K4[-1]}, the "
+            "most K4's body takes (" + fused_attention.LEFT_TO_PORT.format(
+                fused_attention.WIDEST) + ")")
     if q.stride(2) != 1:
         raise ValueError("attention_layer: q, k, v need unit column stride")
     if B >= 2 ** 31 or T >= 2 ** 31:
         raise ValueError("attention_layer: more than 2**31 - 1 volumes or tokens")
     if hd in HEAD_DIMS_K4:
-        # K4's own checks on the per-head views: in bf16 16-byte aligned
-        # addresses and strides, at most MAX_TOKENS_K4 tokens
+        # K4's own checks on the per-head views: at most MAX_TOKENS_K4 tokens
         fused_attention._check(*(_heads(t, n_heads) for t in (q, k, v)))
 
 
@@ -136,8 +143,9 @@ def _launch(q, k, v, n_heads):
     if B * T == 0:              # nothing to compute, nothing launched
         return out
     if hd in HEAD_DIMS_K4:
-        fused_attention.k4_into(*(_heads(t, n_heads) for t in (q, k, v)),
-                                out.view(B, T, n_heads, hd))
+        views = fused_attention._k4_views(*(_heads(t, n_heads)
+                                            for t in (q, k, v)))
+        fused_attention.k4_into(*views, out.view(B, T, n_heads, hd))
         launches_k4 += 1
     else:
         # the (B, T, D) views and the head count, without making the head

@@ -15,9 +15,13 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     head_dim: a view without it is copied first) and writes the context
     (B, S, H, hd), as K4 does.  K3's core at head_dim <= 16 runs on this
     body too, on the views of its (B, T, 3D) QKV buffer (`k2_into`).
-  * K4 (`csrc/attention.cu`), head_dim in {32, 64, 128} (the stretch model's
-    64 at 513 tokens): the keys are walked in chunks with an online softmax,
-    so no S x S tile is stored.  In bf16 (every head_dim) a block takes one
+  * K4 (`csrc/attention.cu`), every head_dim from 17 to 256, as the JAX
+    kernel takes any above 16 (the stretch model's 64 and ViT-H's 80 at 513
+    tokens): the keys are walked in chunks with an online softmax, so no
+    S x S tile is stored.  Its bodies are built for the head dims
+    `K4_BODY_HDS`; a head_dim runs on the first at or above it, its columns
+    past hd zero in shared memory and the scale 1 / sqrt(hd) of the true hd
+    (`k4_body_hd`).  In bf16 (every head_dim) a block takes one
     (volume, head) and 128 query rows: a producer warp loads q and a ring of
     (k, v) chunks of 64 keys by TMA, and two consumer warpgroups of 64 rows
     run both products on `wgmma` (the probabilities stay in registers,
@@ -29,9 +33,12 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     one TF32 product does not), with (k, v) stages of 32 keys coming by
     cp.async and the scores and softmax in registers.  It reads q, k, v
     through their strides (unit stride along head_dim; in bf16 a 16-byte
-    aligned address and strides that are multiples of 16 bytes, TMA's rule;
-    in f32 any, with 16-byte copies where the views allow them:
-    `k4_body_launched`), as the model's
+    aligned address and strides that are multiples of 16 bytes, TMA's rule,
+    so the wrapper copies a bf16 view that is not into a buffer whose rows
+    of hd values are padded to a multiple of 8, `_k4_views`: at a head_dim
+    that 8 does not divide, or a view off that alignment; in f32 any, with
+    16-byte copies where the views allow them: `k4_body_launched`), as the
+    model's
     `lin(x).view(B, T, H, hd).transpose(1, 2)` and K3's views into its QKV
     buffer give them, and writes the context
     (B, S, H, hd), returned as its (B, H, S, hd) view, so that the model's
@@ -56,6 +63,7 @@ import math
 import torch
 
 from vit3d_ensemble_tpu_torch.ops import _build
+from vit3d_ensemble_tpu_torch.ops.fused_mlp import LEFT_TO_PORT, WIDEST
 
 #: K2 launches in this process; the wrapper adds one per kernel launch.
 launches = 0
@@ -66,8 +74,10 @@ launches_k4 = 0
 TINY_HD = 16
 #: head_dim above which K2's bf16 body runs on the tensor cores.
 TC_HD = 8
-#: head dims K4 is instantiated for.
-HEAD_DIMS_K4 = (32, 64, 128)
+#: head dims K4's bodies are built for (`csrc/attention.cu`, `K4_HDS`); K4
+#: takes every head_dim from TINY_HD + 1 to the last.
+K4_BODY_HDS = (32, 64, 80, 128, 256)
+MAX_HD_K4 = K4_BODY_HDS[-1]
 #: most tokens K4 takes: the grid's second axis holds 65,535 row blocks, of
 #: 64 query rows in f32 (4 warps of 16) and 128 in bf16.
 MAX_TOKENS_K4 = 65535 * 64
@@ -114,15 +124,20 @@ def _plain(q, k, v):
     return _plain_attention_k4(q, k, v)
 
 
+def k4_body_hd(hd: int) -> int:
+    """The head_dim of the K4 body that runs head_dim `hd` (17 to 256)."""
+    return next(b for b in K4_BODY_HDS if hd <= b)
+
+
 def _check(q, k, v) -> None:
     """Raise on anything the kernels do not take."""
     if q.dim() < 2:
         raise ValueError(f"fused_attention: q has shape {tuple(q.shape)}")
     hd = q.shape[-1]
-    if hd > TINY_HD and hd not in HEAD_DIMS_K4:
+    if hd > MAX_HD_K4:
         raise ValueError(
-            f"fused_attention: head_dim {hd} is neither <= {TINY_HD} (K2) "
-            f"nor one of {HEAD_DIMS_K4} (K4)")
+            f"fused_attention: head_dim {hd} is above {MAX_HD_K4}, the most "
+            f"K4 takes ({LEFT_TO_PORT.format(WIDEST)})")
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} is not float32 "
                         "or bfloat16")
@@ -132,22 +147,14 @@ def _check(q, k, v) -> None:
                 f"fused_attention: {name} is {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}, q is {tuple(q.shape)} {q.dtype} on {q.device}")
     if hd > TINY_HD:
-        # K4 reads through the strides; K2's wrapper copies a view whose
-        # head_dim stride is not 1
+        # K4 reads through the strides (the bf16 body by TMA, from a copy
+        # where they are not TMA's, `_k4_views`); K2's wrapper copies a view
+        # whose head_dim stride is not 1
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(-1) != 1:
                 raise ValueError(
                     f"fused_attention: {name} has stride {t.stride(-1)} "
                     "along head_dim, K4 needs 1")
-            # the bf16 body loads by TMA (16-byte aligned base and strides);
-            # f32 by cp.async, 4 bytes at a time where 16 are not aligned
-            if t.dtype == torch.bfloat16 and (
-                    t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
-                raise ValueError(
-                    f"fused_attention: {name} at address {t.data_ptr():#x} "
-                    f"with strides {t.stride()}: in bfloat16 K4 needs a "
-                    "16-byte aligned address and strides that are multiples "
-                    "of 8")
         # the grid's second axis holds 65,535 row blocks: 64 rows in f32
         if q.shape[-2] > MAX_TOKENS_K4:
             raise ValueError(f"fused_attention: {q.shape[-2]} tokens, K4 "
@@ -255,12 +262,39 @@ def _as_bhsd(t):
     return t.flatten(0, t.dim() - 4)
 
 
+def _tma_rows(t) -> bool:
+    """Whether TMA reads the bf16 view `t` as it is: a 16-byte aligned
+    address and strides that are multiples of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+
+
+def _k4_views(q, k, v) -> list:
+    """The (B, H, S, hd) views K4 is launched on.  In bf16 a view that TMA
+    cannot read (`_tma_rows`: at a head_dim that 8 does not divide, or off
+    16-byte alignment) is copied into a buffer whose rows of hd values lie
+    8 elements apart, the kernel reading its first hd columns: a copy of
+    the input, never a fall to the plain version.  f32 views are read as
+    they are."""
+    if q.dtype != torch.bfloat16:
+        return [q, k, v]
+    views = []
+    for t in (q, k, v):
+        if not _tma_rows(t):
+            hd = t.shape[-1]
+            buf = torch.empty(*t.shape[:-1], -(-hd // 8) * 8, dtype=t.dtype,
+                              device=t.device)
+            t = buf[..., :hd].copy_(t)
+        views.append(t)
+    return views
+
+
 def k4_into(q, k, v, out) -> None:
     """Launch K4's kernel on (B, H, S, hd) views q, k, v (checked by
-    `_check`, B * H * S > 0), writing the context into `out`, a contiguous
-    (B, S, H, hd) tensor.  Counts nothing: each caller counts its own
-    launches (this module's `launches_k4`, and K3's wrapper, whose head
-    dims above 16 take this body)."""
+    `_check`, in bf16 readable by TMA, `_k4_views`; B * H * S > 0), writing
+    the context into `out`, a contiguous (B, S, H, hd) tensor.  Counts
+    nothing: each caller counts its own launches (this module's
+    `launches_k4`, and K3's wrapper, whose head dims above 16 take this
+    body)."""
     B, H, S, hd = q.shape
     if B * H >= 2 ** 31:
         raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
@@ -283,7 +317,7 @@ K4_BODIES = ("bf16_wgmma", "f32_tf32x3", "f32_tf32x3_4byte")
 
 def k4_body_launched() -> str:
     """The body of `csrc/attention.cu` that this process's last K4 launch
-    (K3's at head_dim 32-128 included) took, as the kernel's dispatch
+    (K3's above head_dim 16 included) took, as the kernel's dispatch
     reports it (one of K4_BODIES)."""
     body = _build.entry("attention", [], "attention_last_body")()
     if body < 0:
@@ -299,7 +333,7 @@ def _launch_k4(q, k, v):
     if B * H * S == 0:          # nothing to compute, nothing launched
         return q.new_empty(shape)
     out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
-    k4_into(q, k, v, out)
+    k4_into(*_k4_views(q, k, v), out)
     launches_k4 += 1
     return out.transpose(1, 2).reshape(shape)
 
@@ -332,7 +366,7 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v):
     """softmax(q k^T / sqrt(hd)) v; q, k, v: (..., H, S, hd), hd <= 16 (K2)
-    or in {32, 64, 128} (K4)."""
+    or 17 to 256 (K4)."""
     if q.device.type == "cpu":
         return _plain(q, k, v)
     return _FusedAttention.apply(q, k, v)

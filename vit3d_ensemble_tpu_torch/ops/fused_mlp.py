@@ -17,26 +17,38 @@ bounds it on the H100 and how it is laid out:
 
 `_MLP_VARIANT`, a module constant as in the JAX package, says which one
 `fused_mlp` launches; it is read at each call.  K1b and K1c take the narrow
-regime only (D in `WIDTHS`) and raise on a wide D.
+regime only (D up to 64) and raise on a wide D.
 
-Weights use the torch.nn.Linear layout: w1 (M, D), b1 (M,), w2 (D, M),
-b2 (D,).  With a leading model axis, w1 (P, M, D), b1 (P, M), w2 (P, D, M),
-b2 (P, D), x is (P, ..., D): one weight set per model, the sweep's stacked
-(config, fold) cells; the narrow regime only.  `mlp_active` masks hidden
-columns at or past it to exact zero, the runtime width mask of the sweep:
-an int for every model, or an int tensor with one entry per model (or one
-for all), which the narrow bodies read on the device, so a call never waits
-for the host.  K1's wide bodies take one model and a host width: a tensor
-width is read on the host there.
+Hidden sizes: K1 takes every D from 1 to 8,192 (`MAX_WIDTH`), as the JAX
+kernels take any D.  The narrow bodies are built for D in `WIDTHS` (8, 16,
+32, 64, every registry config's); a narrow D between them runs zero-padded
+to the next (`kernel_width`), not on the wide bodies: the narrow bodies
+keep the (tokens, M) intermediate on chip where M / D is large, and they
+alone take the model axis and a width on the device.  The wide bodies (D
+above 64) take D whose rows are a multiple of 16 bytes, so a D that 8
+(bf16) or 4 (f32) does not divide runs zero-padded to the next such D.
+Padding is exact: zero columns of x and w1 add nothing to the hidden
+activations, and the zero rows of w2 and b2 give output columns that the
+wrapper drops; it costs a copy of x and the weights a call, at no registry
+width.
+
+Weights use the torch.nn.Linear layout: w1 (M, D), b1 (M,), w2 (D, M), b2
+(D,).  With a leading model axis, w1 (P, M, D), b1 (P, M), w2 (P, D, M), b2
+(P, D), x is (P, ..., D): one weight set per model, the sweep's stacked
+(config, fold) cells; the narrow regime only (D up to 64).  `mlp_active`
+masks hidden columns at or past it to exact zero, the runtime width mask of
+the sweep: an int for every model, or an int tensor with one entry per
+model (or one for all), which the narrow bodies read on the device, so a
+call never waits for the host.  K1's wide bodies take one model and a host
+width: a tensor width is read on the host there.
 
 The GELU follows the JAX kernels' rule (`pallas_mlp.py:179`): exact erf
 in f32, and in bf16 their clamped odd polynomial (`poly_gelu`, at most
 5.73e-4 from exact GELU), in the kernels and in the plain versions alike.
 
-K1's wide calls (D a multiple of 64 from 128 to 1,024) run on two GEMM
-phases on `wgmma` fed by TMA, h through an L2-resident scratch, in f32
-with both products in 3xTF32 on the tensor cores (`wide_f32_plan` lays
-out those grids).
+K1's wide calls (D from 65 to 8,192) run on two GEMM phases on `wgmma`
+fed by TMA, h through an L2-resident scratch, in f32 with both products in
+3xTF32 on the tensor cores (`wide_f32_plan` lays out those grids).
 
 K1's narrow bf16 calls at D >= 16 run on K1c's warp-specialised `wgmma`
 pipeline (`csrc/mlp_pipelined.cu`), whatever their token rows: on an H100
@@ -84,11 +96,19 @@ _KERNELS = {"seq": ("fused_mlp", "launches"),
             "pipelined2": ("mlp_pipelined", "launches_k1c")}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: hidden sizes of the narrow regime (every D of the 22 registry configs).
+#: hidden sizes the narrow bodies are built for (every D of the 22 registry
+#: configs); a narrow D between them runs on the next, zero-padded.
 WIDTHS = (8, 16, 32, 64)
-#: the wide regime: every multiple of WIDE_STEP above it up to WIDE_MAX
-#: (the stretch model's D = 768), on K1's wide bodies.
-WIDE_STEP, WIDE_MAX = 64, 1024
+#: the most hidden size K1 takes; above WIDTHS[-1], K1's wide bodies (the
+#: stretch model's D = 768, ViT-H's 1,280).
+MAX_WIDTH = 8192
+#: The regimes the JAX kernels take and the port refuses, by their titles in
+#: ROADMAP.md (queue 2, "What is left to port"); K3's and K4's refusals
+#: quote them from here too.
+LEFT_TO_PORT = "ROADMAP queue 2, 'What is left to port': {}"
+WIDE_AXIS = "K1's wide bodies with a model axis"
+WIDE_VARIANTS = "K1b and K1c at a wide hidden size"
+WIDEST = "head_dim above 256 and hidden size above 8,192"
 #: K1's bodies, as `k1_body_launched` names them.
 K1_BODIES = ("wgmma_pipeline", "cuda_cores", "wide_wgmma", "wide_tf32x3")
 #: K1's wide f32 body (`wide_tf32x3_kernel`): (rows, columns) of an output
@@ -115,8 +135,31 @@ _BF16_GELU_COEFS = (
 
 def supported_width(D: int, variant: str = "seq") -> bool:
     """Whether the variant's kernel takes hidden size D."""
-    wide = WIDE_STEP < D <= WIDE_MAX and D % WIDE_STEP == 0
-    return D in WIDTHS or (variant == "seq" and wide)
+    return 1 <= D <= WIDTHS[-1] or (variant == "seq"
+                                    and WIDTHS[-1] < D <= MAX_WIDTH)
+
+
+def kernel_width(D: int, dtype) -> int:
+    """The hidden size the kernel runs hidden size D at: the next narrow
+    width at or above a narrow D, else D rounded up to rows of a multiple
+    of 16 bytes (8 bf16 values, 4 f32)."""
+    if D <= WIDTHS[-1]:
+        return next(w for w in WIDTHS if D <= w)
+    step = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return -(-D // step) * step
+
+
+def kernel_operands(x, w1, b1, w2, b2) -> tuple:
+    """x and the weights at the kernel's width (`kernel_width`): where it
+    is not D, zero-padded copies of x and w1 (columns) and of w2 and b2
+    (rows), whose output columns past D the caller drops; else the tensors
+    themselves.  With or without a model axis."""
+    D = x.shape[-1]
+    pad = kernel_width(D, x.dtype) - D
+    if not pad:
+        return x, w1, b1, w2, b2
+    return (F.pad(x, (0, pad)), F.pad(w1, (0, pad)), b1,
+            F.pad(w2, (0, 0, 0, pad)), F.pad(b2, (0, pad)))
 
 
 def _active_bound(mlp_active, w1, device):
@@ -213,15 +256,19 @@ def _check(x, w1, b1, w2, b2, variant: str = "seq") -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_mlp: dtype {x.dtype} is not float32 or bfloat16")
     if not supported_width(D, variant):
-        if variant == "seq":
+        if D < 1 or D > MAX_WIDTH:
             raise ValueError(
-                f"fused_mlp: hidden size {D} is not one of {WIDTHS} nor a "
-                f"multiple of {WIDE_STEP} up to {WIDE_MAX}")
-        raise ValueError(f"fused_mlp: variant {variant!r} takes the hidden "
-                         f"sizes {WIDTHS}, not hidden size {D}")
-    if lead and D not in WIDTHS:
-        raise ValueError(f"fused_mlp: the model axis takes the hidden sizes "
-                         f"{WIDTHS}, not hidden size {D}")
+                f"fused_mlp: hidden size {D} is outside 1 to {MAX_WIDTH}, "
+                f"what K1 takes ({LEFT_TO_PORT.format(WIDEST)})")
+        raise ValueError(
+            f"fused_mlp: variant {variant!r} takes hidden sizes up to "
+            f"{WIDTHS[-1]}, not hidden size {D} "
+            f"({LEFT_TO_PORT.format(WIDE_VARIANTS)})")
+    if lead and D > WIDTHS[-1]:
+        raise ValueError(
+            f"fused_mlp: the model axis takes the hidden sizes up to "
+            f"{WIDTHS[-1]}, not hidden size {D} "
+            f"({LEFT_TO_PORT.format(WIDE_AXIS)})")
     if lead and (x.dim() < 2 or x.shape[0] != lead[0]):
         raise ValueError(f"fused_mlp: x has shape {tuple(x.shape)}, expected "
                          f"({lead[0]}, ..., {D}) for {lead[0]} models")
@@ -294,8 +341,10 @@ def _wide_f32_phase(rows: int, col_tiles: int, k_stages: int, sms: int) -> dict:
 
 def wide_f32_plan(n: int, D: int, M: int, active: int, sms: int) -> dict:
     """The grids of K1's wide f32 body on a card of `sms` SMs: fc1 over
-    (n, active) in tiles of `WIDE_F32_TILE` (active rounded up to 64), K = D;
-    fc2 over (n, D), K = active.  Each phase is `units` units on `blocks`
+    (n, active) in tiles of `WIDE_F32_TILE` (active rounded up to 64), K = D
+    (rounded up to a stage, whose columns past D load as zeros); fc2 over
+    (n, D) (D rounded up to a tile, whose columns past D are not stored),
+    K = active.  Each phase is `units` units on `blocks`
     persistent blocks, at most one an SM: block b takes units b, b + blocks,
     ...  A phase whose tiles fill fewer than half the SMs splits its K into
     `splits` runs of stages (`wide_f32_unit`), at most
@@ -304,9 +353,9 @@ def wide_f32_plan(n: int, D: int, M: int, active: int, sms: int) -> dict:
     bm, bn = WIDE_F32_TILE
     rows = -(-n // bm)
     active = min(max(active, 0), M)
-    fc1 = (_wide_f32_phase(rows, -(-active // bn), D // WIDE_F32_STAGE_K, sms)
+    fc1 = (_wide_f32_phase(rows, -(-active // bn), -(-D // WIDE_F32_STAGE_K), sms)
            if active else None)
-    fc2 = _wide_f32_phase(rows, D // bn, -(-active // WIDE_F32_STAGE_K), sms)
+    fc2 = _wide_f32_phase(rows, -(-D // bn), -(-active // WIDE_F32_STAGE_K), sms)
     return {"n": n, "D": D, "M": M, "active": active, "sms": sms,
             "row_tiles": rows, "fc1": fc1, "fc2": fc2}
 
@@ -456,10 +505,11 @@ def _launch_k1b_f32(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
 
 
 def _k1_body(dtype, D: int) -> str:
-    """The body a K1 call takes: at a wide D, the `wgmma` GEMMs (in f32
-    their 3xTF32 form); in bf16 at D 16-64, K1c's pipeline; in f32 at D <=
-    64, and in bf16 at D = 8, the CUDA cores (`fused_mlp_launch`'s own
-    dispatch)."""
+    """The body a K1 call at hidden size D takes: at a wide D, the `wgmma`
+    GEMMs (in f32 their 3xTF32 form); in bf16 at D 9-64, K1c's pipeline;
+    in f32 at D <= 64, and in bf16 at D <= 8, the CUDA cores
+    (`fused_mlp_launch`'s own dispatch)."""
+    D = kernel_width(D, dtype)
     if D not in WIDTHS:
         return "wide_wgmma" if dtype == torch.bfloat16 else "wide_tf32x3"
     if dtype != torch.bfloat16 or D == 8:
@@ -481,6 +531,10 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
     _check(x, w1, b1, w2, b2, variant)
     name, counter = _KERNELS[variant]
+    width = x.shape[-1]
+    # zero-padded copies where the kernel runs at another width (see the
+    # module note)
+    x, w1, b1, w2, b2 = kernel_operands(x, w1, b1, w2, b2)
     # the kernels copy x and the weights in 16-byte pieces: realign an odd
     # view.  A model's slice of a contiguous stacked buffer starts 16-byte
     # aligned (D is a multiple of 8), so a stacked buffer is never copied;
@@ -524,7 +578,7 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
             launches_on_k1c += 1
         else:
             launches_own += 1
-    return out
+    return out if D == width else out[..., :width]
 
 
 class _FusedMlp(torch.autograd.Function):
