@@ -197,8 +197,9 @@ STRETCH_ITERS = 20
 #: Each kernel's launch counter: the wrapper module and the attribute that
 #: its wrapper adds one to per launch.
 KERNELS = {"K1": (fused_mlp, "launches"),
-           # K1's launches on K1c's `wgmma` pipeline (bf16, D 16-64) and on
-           # its own bodies
+           # K1's launches in K1c's library (bf16: the `wgmma` pipeline at D
+           # 16-64, the CUDA cores at D = 8) and in its own (f32 at D <= 64,
+           # the wide bodies)
            "K1_on_K1c": (fused_mlp, "launches_on_k1c"),
            "K1_own": (fused_mlp, "launches_own"),
            "K2": (fused_attention, "launches"),
@@ -279,7 +280,7 @@ def k1_split(n: int, dtype, D: int) -> dict:
     """`n` K1 launches at hidden size D, by the body `fused_mlp` routes
     them to: counts_of's arguments for K1 and its body counter."""
     body = fused_mlp._k1_body(dtype, D)
-    return {"K1": n, "K1_on_K1c" if body == "wgmma_pipeline" else "K1_own": n}
+    return {"K1": n, "K1_on_K1c" if body in fused_mlp.K1_BODIES_ON_K1C else "K1_own": n}
 
 
 def reset_launches() -> None:
@@ -564,6 +565,7 @@ def phase_build() -> None:
     tf32 = k4_f32_sass()
     k1_tf32 = k1_f32_sass()
     k1b_tf32 = k1b_f32_sass()
+    narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
     k1b_ptxas = ptxas_summary(logs["mlp_chunked"])
     attention_ptxas = ptxas_summary(logs["attention"])
     mlp_ptxas = ptxas_summary(logs["fused_mlp"])
@@ -582,6 +584,8 @@ def phase_build() -> None:
           **sass, "attention_f32_sass_hmma_tf32": tf32,
           "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
+          "narrow_f32_sass_hgmma_tf32": narrow_tf32,
+          "k1_narrow_f32_plan": [narrow_plan(*case) for case in K1_NARROW_F32_PLAN_CASES],
           "k1_f32_plan": [k1_f32_plan(*case) for case in K1_F32_PLAN_CASES],
           "k1b_f32_plan": [fused_mlp.k1b_f32_plan(*case) for case in K1B_F32_PLAN_CASES],
           "k4_plan": [k4_plan(*shape, dtype) for dtype in (torch.bfloat16, torch.float32)
@@ -609,6 +613,12 @@ def phase_build() -> None:
           f"K1's wide f32 body spills: {mlp_ptxas['spilling_entries']}")
     check(mlp_ptxas["wgmma_serialized"] == mlp_ptxas["wgmma_serialized_divergent"] == 0,
           "ptxas serialised K1's wgmmas")
+    for name, counts in narrow_tf32.items():
+        check(len(counts) == len(fused_mlp.WIDTHS) and all(n > 0 for n in counts.values()),
+              f"the narrow f32 body's TF32 HGMMAs in {name}: {counts}")
+        check(not any("narrow_tf32x3" in e
+                      for e in ptxas_summary(logs[name])["spilling_entries"]),
+              f"the narrow f32 body spills in {name}")
     check(len(k1b_tf32) == len(fused_mlp.WIDTHS) and all(n > 0 for n in k1b_tf32.values()),
           f"K1b's f32 instantiations' TF32 HMMAs: {k1b_tf32}")
     check(not any("tf32x3" in e for e in k1b_ptxas["spilling_entries"]),
@@ -622,10 +632,10 @@ def phase_build() -> None:
           "ptxas serialised K1c's wgmmas")
 
 
-# K1c's grid at the shapes of its phase: the bf16 serving pass (one model)
-# and the sweep's evaluation with the model axis in f32 and bf16.
-K1C_PLAN_CASES = ((torch.bfloat16, 64, B * 65, 1), (torch.float32, 64, 24 * 65, 30),
-                  (torch.bfloat16, 64, 24 * 65, 30))
+# K1c's bf16 grid at the shapes of its phase: the serving pass (one model)
+# and the sweep's evaluation with the model axis (its f32 grid, K1's narrow
+# body's: `K1_NARROW_F32_PLAN_CASES`).
+K1C_PLAN_CASES = ((torch.bfloat16, 64, B * 65, 1), (torch.bfloat16, 64, 24 * 65, 30))
 
 
 def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
@@ -647,6 +657,24 @@ def k1b_f32_sass() -> dict:
                                for line in fn.splitlines())
             for fn in sass_of(_build.library_path("mlp_chunked")).split("Function : ")[1:]
             if "chunked_tf32x3_kernel" in fn.split()[0]}
+
+
+def narrow_f32_sass(name: str) -> dict:
+    """Lines of TF32 HGMMA in each instantiation of K1's narrow f32 body
+    (one a D) in `csrc/<name>.cu`'s library, by its mangled name."""
+    return {fn.split()[0]: sum("HGMMA" in line and "TF32" in line
+                               for line in fn.splitlines())
+            for fn in sass_of(_build.library_path(name)).split("Function : ")[1:]
+            if "narrow_tf32x3_kernel" in fn.split()[0]}
+
+
+# The narrow f32 body's grids (`narrow_plan`): K1 at the training path's
+# 260 rows at (D, M) = (16, 2,048) and (64, 3,072), at 4,160 rows, and at
+# the sweep's model axis; K1c at the model axis.
+K1_NARROW_F32_PLAN_CASES = ((260, 16, 2048, 2048, 0, "seq"), (260, 64, 3072, 3072, 0, "seq"),
+                            (4160, 64, 3072, 3072, 0, "seq"),
+                            (24 * 65, 64, 3072, [2048] * 15 + [3072] * 15, 30, "seq"),
+                            (24 * 65, 64, 3072, [2048] * 15 + [3072] * 15, 30, "pipelined2"))
 
 
 # K1b's f32 grids at its timed shapes: the model axis (30 models of 1,560
@@ -726,6 +754,11 @@ TRAIN_ROWS = (4 * 65, 24 * 65)
 # (D, M) of the trained configs: conf 9 (16, 2048), conf 5 (32, 2048),
 # conf 11 (32, 3072); training runs every column (no width mask).
 K1_TRAIN_WIDTHS = ((16, 2048), (32, 2048), (32, 3072))
+# K1's narrow f32 body by device time beside the chain's: one model at the
+# training path's 260 rows and at 4,160, at the narrowest and the widest
+# class's (D, M).
+K1_NARROW_F32_TIMED = tuple((N, D, M) for N in (TRAIN_ROWS[0], 64 * 65)
+                            for D, M in ((16, 2048), (64, 3072)))
 
 
 @contextlib.contextmanager
@@ -823,9 +856,20 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
     def call():
         return fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
 
+    # K1's and K1c's narrow f32 body: its plan, and the same bits twice
+    narrow = dtype == torch.float32 and D <= fused_mlp.WIDTHS[-1] and variant != "chunked"
     with torch.no_grad(), mlp_variant(variant):
         out = call()
         body = fused_mlp.k1_body_launched() if variant == "seq" else None
+        narrow_case = {}
+        if narrow:
+            k1c_body = fused_mlp.k1c_body_launched() if variant == "pipelined2" else body
+            narrow_case = {"k1c_body": k1c_body if variant == "pipelined2" else None,
+                           "same_bits_twice": bool(torch.equal(out, call())),
+                           "plan": narrow_plan(N, D, M, active, models, variant)}
+            check(k1c_body == "narrow_tf32x3" and narrow_case["same_bits_twice"],
+                  f"{VARIANT_KERNELS[variant]} f32 at D {D}: body {k1c_body}, "
+                  f"the same bits twice: {narrow_case['same_bits_twice']}")
         ref = plain(x, w1, b1, w2, b2, widths)
         err, ok, atol, rtol = compare(out, ref, dtype)
         over_gate_ratio = over_gate(out, ref, (atol, rtol))[1]
@@ -846,7 +890,7 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
               + (4 * P if models else 0))
     bound_ms, bound_by = bound(flops, nbytes, dtype, gelus=N * live)
     tf32 = {}
-    if body == "wide_tf32x3" or (variant == "chunked" and dtype == torch.float32):
+    if body == "wide_tf32x3" or (variant != "seq" and dtype == torch.float32) or narrow:
         # the products in 3xTF32: three times the operations at the TF32
         # peak, beside the same products on CUDA cores at the FP32 peak and
         # the three at the rate `mma.sync` reaches in TF32 on this card
@@ -862,7 +906,7 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
             "max_err_over_gate": over_gate_ratio,
             "ms": ms, "host_ms": call_host_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_gelu": "erf",
-            "bound_ms": bound_ms, "bound_by": bound_by, **tf32,
+            "bound_ms": bound_ms, "bound_by": bound_by, **tf32, **narrow_case,
             # the bound's terms: the products at the peak for their type,
             # the GELUs of the kernels' form (`GELU_OF`) at their rate
             "products_ms": 4.0 * N * D * live / PEAK_FLOPS[dtype] * 1e3,
@@ -872,6 +916,27 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
     emit(case)
     check(ok, f"{case['phase']} {case}")
     return case
+
+
+def narrow_plan(N: int, D: int, M: int, active, models: int, variant: str) -> dict:
+    """`fused_mlp.k1_narrow_f32_plan` of a K1 or K1c f32 call on this card
+    (K1c's row-tile groups), with the body's occupancy and the clusters of
+    its splits the card holds at once (`fused_mlp_narrow_f32_shape`)."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    P, Dk = max(models, 1), fused_mlp.kernel_width(D, torch.float32)
+    plan = fused_mlp.k1_narrow_f32_plan(N, Dk, M, active, P, sms)
+    if variant == "pipelined2":
+        plan = fused_mlp.k1_narrow_f32_plan(N, Dk, M, active, P, sms,
+                                            fused_mlp.k1c_narrow_f32_groups(N))
+    keys = ("tile_rows", "threads_a_block", "smem_bytes_a_block", "registers",
+            "blocks_an_sm", "sms", "clusters_at_once")
+    out = (ctypes.c_int * len(keys))()
+    fn = _build.entry("fused_mlp", [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                      "fused_mlp_narrow_f32_shape")
+    _build.check("fused_mlp", fn(device.index, Dk, plan["splits"], out))
+    return {k: plan[k] for k in ("tiles", "chunks", "splits", "groups", "units",
+                                 "skipped_units", "blocks", "waves")} | dict(zip(keys, out))
 
 
 # The stretch path's K1 shapes: D=768, M=3072, the token rows of B=8 and of
@@ -888,7 +953,8 @@ def phase_k1(gen) -> tuple:
     at M = 3,072 and at conf 9's widths by device time too), at the latency
     path's (LATENCY_ROWS), at the training path's, then at the stretch
     path's (the wide bodies).  Returns the serving and the stretch path's
-    largest bf16 cases, and the latency path's cases."""
+    largest bf16 cases, the latency path's cases, the stretch path's f32
+    cases and the narrow f32 body's timed cases (`K1_NARROW_F32_TIMED`)."""
     main = None
     for dtype in (torch.bfloat16, torch.float32):
         for D in (16, 32, 64):
@@ -907,6 +973,8 @@ def phase_k1(gen) -> tuple:
     for N in TRAIN_ROWS:
         for D, M in K1_TRAIN_WIDTHS:
             k1_case(gen, torch.float32, N, D, M, M, "train")
+    narrow = [k1_case(own, torch.float32, N, D, M, M, "train", device=True)
+              for N, D, M in K1_NARROW_F32_TIMED]
     wide, wide_f32 = None, []
     for dtype in (torch.bfloat16, torch.float32):
         for N in STRETCH_ROWS:
@@ -921,12 +989,13 @@ def phase_k1(gen) -> tuple:
                     check(case["body"] == "wide_tf32x3", f"K1 f32 wide body {case}")
                     if N in STRETCH_ROWS[:2] and active == 3072:
                         wide_f32.append(case)
-    return main, wide, small, wide_f32
+    return main, wide, small, wide_f32, narrow
 
 
 def phase_f32_scaled(variant: str, N: int, D: int, seed: int) -> dict:
-    """K1's wide f32 body (variant "seq", D = 768) or K1b's f32 body
-    ("chunked") with x four times larger, where the 3xTF32 products'
+    """K1's wide f32 body (variant "seq", D = 768) or narrow one (D <= 64),
+    K1b's f32 body ("chunked") or K1c's ("pipelined2", K1's narrow body)
+    with x four times larger, where the 3xTF32 products'
     truncation inside the tensor cores weighs most, held to the exact (f64)
     MLP at the f32 tolerance at M = 3,072; the f32 plain version's own
     distance from it is printed beside.  Its inputs come from a generator
@@ -940,7 +1009,8 @@ def phase_f32_scaled(variant: str, N: int, D: int, seed: int) -> dict:
         before = launches()[kernel]
         out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, M)
         launched = launches()[kernel] - before
-        body = fused_mlp.k1_body_launched() if variant == "seq" else None
+        body = (fused_mlp.k1_body_launched() if variant == "seq" else
+                fused_mlp.k1c_body_launched() if variant == "pipelined2" else None)
         ref = exact_mlp(x, w1, b1, w2, b2)
         over, ratio = over_gate(out, ref, TOL[torch.float32])
         plain_over, plain_ratio = over_gate(plain(x, w1, b1, w2, b2, M), ref,
@@ -949,7 +1019,8 @@ def phase_f32_scaled(variant: str, N: int, D: int, seed: int) -> dict:
             "body": body, "launches": launched, "reference": "f64",
             "over_gate": over, "max_err_over_gate": ratio, "plain_over_gate": plain_over,
             "plain_max_err_over_gate": plain_ratio,
-            "ok": over == 0 and launched == 1 and body in (None, "wide_tf32x3")}
+            "ok": over == 0 and launched == 1
+            and body in (None, "wide_tf32x3", "narrow_tf32x3")}
     emit(case)
     check(case["ok"], f"{kernel} f32 scaled {case}")
     return case
@@ -1621,10 +1692,12 @@ def phase_main_path(gen) -> dict:
 
 
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
-# `pipelined_wgmma_kernel` is K1's bf16 body at D 16-64 and K1c's: every
-# path but the `variants` phase's K1c turns launches it as K1, so it is
-# K1's group.
+# `pipelined_wgmma_kernel` is K1's bf16 body at D 16-64 and K1c's, and
+# `narrow_tf32x3_kernel` their f32 body: every path but the `variants`
+# phase's K1c turns launches them as K1, so they are K1's group.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1", "wide_tf32x3"),
+                 # K1's narrow f32 body, K1c's f32 route too
+                 ("K1", "narrow_tf32x3"),
                  ("K1", "split_sum"), ("K1b", "chunked_"),
                  ("K1", "pipelined_wgmma"), ("K1c", "pipelined_core"),
                  # every kernel of `attention.cu` (its bf16 and f32 bodies,
@@ -2759,7 +2832,8 @@ def phase_model_axis(gen) -> dict:
     sweep's type) and bf16.  Returns the f32 case."""
     cases = {dtype: k1_case(gen, dtype, MODEL_AXIS_ROWS, 64, 3072,
                             MODEL_AXIS_WIDTHS, "sweep_eval",
-                            models=len(MODEL_AXIS_WIDTHS))
+                            models=len(MODEL_AXIS_WIDTHS),
+                            device=dtype == torch.float32)
              for dtype in (torch.float32, torch.bfloat16)}
     return cases[torch.float32]
 
@@ -3429,7 +3503,8 @@ def kernel_calls(into: dict):
 def cli_kernel_cases(calls: dict) -> dict:
     """K1 and K2 against their plain versions at every shape the `cli` runs
     gave them (`kernel_calls`), each shape once, on inputs from a generator
-    of their own: K1's model axis with the widths of that call."""
+    of their own: K1's model axis with the widths of that call; each by
+    device time beside the library's."""
     own = torch.Generator(device="cuda").manual_seed(SEED + 5)
     k1_shapes = {}
     for dtype, N, D, M, models, active in calls.get("K1", []):
@@ -3443,10 +3518,10 @@ def cli_kernel_cases(calls: dict) -> dict:
     check(layouts == {True}, "cli: the attention was called on q, k, v that are "
                              "not views into one QKV product, as no K2 case makes them")
     k1_cases = [k1_case(own, dtype, N, D, M, list(w) if models else w, "cli",
-                        models=models)
+                        models=models, device=True)
                 for dtype, N, D, M, models, w in sorted(
                     k1_shapes, key=lambda s: (str(s[0]), s[1:5]))]
-    k2_cases = [k2_case(own, dtype, shape, "cli", device=False)
+    k2_cases = [k2_case(own, dtype, shape, "cli", device=True)
                 for dtype, shape in k2_shapes if shape[-1] <= 16]
     return {"K1": k1_cases, "K2": k2_cases}
 
@@ -4395,8 +4470,11 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    k1, k1_wide, k1_latency, k1_wide_f32 = phase_k1(gen)
+    k1, k1_wide, k1_latency, k1_wide_f32, k1_narrow = phase_k1(gen)
     k1_scaled = phase_f32_scaled("seq", STRETCH_ROWS[1], 768, SEED + 3)
+    # the narrow f32 body, K1's and K1c's, at the training path's 260 rows
+    k1_narrow_scaled = phase_f32_scaled("seq", TRAIN_ROWS[0], 64, SEED + 8)
+    k1c_scaled = phase_f32_scaled("pipelined2", TRAIN_ROWS[0], 64, SEED + 10)
     # the phases of the fused-FFN variants and the model axis draw from a
     # generator of their own, so the phases that follow draw what they drew
     own = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -4502,6 +4580,12 @@ def main() -> int:
                 "bound_ms_cuda_cores": case["bound_ms_cuda_cores"],
                 "bound_ms_mma_sync": case["bound_ms_mma_sync"]}
 
+    def narrow_case(case, path=None):
+        """A case of the narrow f32 body (K1's or K1c's): its bounds, body,
+        plan and whether two calls gave the same bits."""
+        return {**k1b_f32_case(case), **({"launches": by_path["K1"][path]} if path else {}),
+                **{k: case[k] for k in ("body", "k1c_body", "plan", "same_bits_twice")}}
+
     emit({"kernels": [
         # K1's serving calls run on K1c's wgmma pipeline (bf16, D 16-64),
         # f32 and the wide regime on its own bodies
@@ -4527,9 +4611,15 @@ def main() -> int:
                                 "bound_ms_mma_sync": c["bound_ms_mma_sync"]}
                                for c in k1_wide_f32],
             f32_scaled_max_err_over_gate=k1_scaled["max_err_over_gate"],
-            model_axis_case=case_of(k1_models, "sweep"),
-            # f32 at every shape the baseline drivers gave it
-            cli_cases=[case_of(c) for c in cli["cases"]["K1"]],
+            # its narrow f32 body (3xTF32 on wgmma, the hidden columns split
+            # across a cluster) by device time beside the chain's, at the
+            # training path's 260 rows and at 4,160, and with x four times
+            # larger against the f64 MLP
+            narrow_f32_cases=[narrow_case(c) for c in k1_narrow],
+            narrow_f32_scaled_max_err_over_gate=k1_narrow_scaled["max_err_over_gate"],
+            model_axis_case=narrow_case(k1_models, "sweep"),
+            # f32 at every shape the baseline drivers gave it, by device time
+            cli_cases=[narrow_case(c) for c in cli["cases"]["K1"]],
             # its wide bodies at ViT-B/16's 65 tokens (the npz-initialised
             # model) and 321 (the R50 hybrid): bf16 at B=8, f32 at B=1
             pretrained_cases=[vit_b16_case(c, "pretrained") for c in vit_pre["cases"]["K1"]],
@@ -4553,8 +4643,9 @@ def main() -> int:
             device_ms=k1_variants["pipelined2"]["device_ms"],
             library_device_ms=k1_variants["pipelined2"]["library_device_ms"],
             plan=k1c_plan(*K1C_PLAN_CASES[0]),
-            model_axis_case={**case_of(k1_variants["pipelined2_model_axis"]),
-                             "plan": k1c_plan(*K1C_PLAN_CASES[1])}),
+            # f32 on K1's narrow body, on K1c's row-tile groups
+            model_axis_case=narrow_case(k1_variants["pipelined2_model_axis"]),
+            f32_scaled_max_err_over_gate=k1c_scaled["max_err_over_gate"]),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2[16], "serve",
             device_ms=k2[16]["device_ms"],

@@ -20,6 +20,23 @@ timed alike:
     `WIDE_K1_CASES`): the same, with the device ms of the f32 chain
     F.linear -> F.gelu -> F.linear (width-masked) beside, and the largest
     error over the f32 gate against ROOT's plain version;
+  * K1 and K1c (variant "pipelined2") in f32 at the narrow widths (phase
+    `k1_f32_narrow`): the training path's 260 rows at (D, M) = (16, 2,048)
+    and (64, 3,072), 4,160 rows at both, one model at three of the
+    drivers' evaluation shapes, and the sweep's model axis (30 models of
+    1,560 rows, D = 64, widths 2,048 and 3,072): device ms under the
+    profiler (10 calls), ms by CUDA events, the device ms of the library
+    chain, the body K1 took and the largest error over the f32 gate
+    against ROOT's `_plain_mlp`;
+  * where the narrow f32 body's time goes (phase `k1_f32_narrow_parts`, with
+    ROOT this checkout, on its `csrc/mlp_narrow_f32.cuh`): copies of
+    the header with one part taken out each (`NARROW_PARTS`: the GELU,
+    fc1's or fc2's wgmmas, the hi/lo split of the weights, the staging of
+    chunks after the first two, b1), built side by side into
+    `build/narrow_parts/` and timed by CUDA events (20 launches) against the
+    whole body at four of `K1_NARROW_F32_CASES`' shapes; a part's share is
+    the whole's time less the copy's (the compiler may then drop what fed
+    the part, and registers move), and no copy's output is right;
   * K1b in f32 (variant "chunked") at the sweep's model-axis shape (30
     models of 1,560 rows, D = 64, widths 2,048 and 3,072), the serving
     shape (33,280, 64, 3,072) and the f32 shapes of the card tests
@@ -41,7 +58,8 @@ timed alike:
 
 Prints one JSON line a measurement, tagged with TURN.  Run it in turns
 (parent, change, change, parent, ...) in one call and compare like lines.
-Exits non-zero when no CUDA device is present.
+`--phases k1_f32_narrow,pass` runs only those phases (all by default:
+`PHASES`).  Exits non-zero when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -75,8 +93,34 @@ K1B_F32_CASES = ((1560, 64, 3072, [2048] * 15 + [3072] * 15, 30),
                  (1560, 32, 2048, [2048, 1348, 0, 513], 4),
                  (1560, 64, 3072, [3072, 2372, 0, 513], 4),
                  (300, 64, 1100, [0, 1030, 1100], 3))
+# K1's and K1c's narrow f32 cases: (N, D, M, width, models), the width a
+# list of one a model with the model axis
+K1_NARROW_F32_CASES = ((260, 16, 2048, 2048, 0), (260, 64, 3072, 3072, 0),
+                       (4160, 16, 2048, 2048, 0), (4160, 64, 3072, 3072, 0),
+                       (585, 16, 2048, 2048, 0), (585, 64, 2048, 2048, 0),
+                       (1430, 32, 2048, 2048, 0),
+                       (1560, 64, 3072, [2048] * 15 + [3072] * 15, 30))
 BUILD = ["fused_mlp", "mlp_chunked", "mlp_pipelined", "tiny_attention",
          "attention"]
+PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
+          "pass", "latency", "stretch_f32")
+# The narrow f32 body with one part taken out: (name, text of the header ->
+# text of the copy)
+NARROW_PARTS = (
+    ("whole", lambda s: s),
+    ("no_gelu", lambda s: s.replace("mlp::gelu_erf(", "(")),
+    ("no_fc1_wgmma", lambda s: "\n".join(
+        ln for ln in s.split("\n") if "tf32x3::wgmma_tf32_ss_n32(" not in ln)),
+    ("no_fc2_wgmma", lambda s: "\n".join(
+        ln for ln in s.split("\n") if "tf32x3::wgmma_tf32_rs<NP2>(" not in ln)),
+    ("no_weight_split", lambda s: s.replace("split_store(w1_hi,", "if (0) split_store(w1_hi,")
+     .replace("split_store(w2_hi,", "if (0) split_store(w2_hi,")),
+    ("no_staging", lambda s: s.replace("stage<D>(buf, md, m, c + 2, md.active);",
+                                       "mlp::cp_async_commit();")),
+    ("no_b1", lambda s: s.replace("const float bias = b1c[2 * j + e];",
+                                  "const float bias = 0.f;")))
+NARROW_PARTS_CASES = ((260, 64, 3072, 0), (4160, 64, 3072, 0), (1560, 64, 3072, 30),
+                      (260, 16, 2048, 0))
 
 
 def load_smoke(root: pathlib.Path):
@@ -93,12 +137,77 @@ def load_smoke(root: pathlib.Path):
     return smoke
 
 
+def narrow_parts(cs, emit, fused_mlp, _build) -> None:
+    """Phase `k1_f32_narrow_parts` (see the module note)."""
+    import ctypes
+    import re
+    import subprocess
+    import torch
+    here = pathlib.Path(__file__).resolve().parent
+    csrc = here / "vit3d_ensemble_tpu_torch" / "csrc"
+    header = (csrc / "mlp_narrow_f32.cuh").read_text()
+    entry = ('#include "mlp_narrow_f32.cuh"\n'
+             'extern "C" int narrow_part(int dev, const float* x, const float* w1, '
+             'const float* b1, const float* w2, const float* b2, float* out, int n, int d, '
+             'int m, int active, const int* ap, int models, int splits, int groups, void* s) {'
+             ' return (int)narrow_f32::launch(dev, x, w1, b1, w2, b2, out, n, d, m, active, ap,'
+             ' models, splits, groups, (cudaStream_t)s); }\n')
+    jobs = {}
+    for name, edit in NARROW_PARTS:
+        d = here / "build" / "narrow_parts" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in csrc.glob("*.cuh"):
+            (d / f.name).write_text(f.read_text())
+        (d / "mlp_narrow_f32.cuh").write_text(edit(header))
+        (d / "part.cu").write_text(entry)
+        jobs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "part.so"), str(d / "part.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns, regs = {}, {}
+    for name, job in jobs.items():
+        log, _ = job.communicate()
+        if job.returncode != 0:
+            raise RuntimeError(f"narrow part {name}: nvcc failed:\n{log}")
+        regs[name] = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        fn = ctypes.CDLL(str(here / "build" / "narrow_parts" / name / "part.so")).narrow_part
+        fn.argtypes = fused_mlp._NARROW_F32_ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for N, D, M, P in NARROW_PARTS_CASES:
+        lead = (P,) if P else ()
+        x = torch.randn(*lead, N, D, generator=gen, device="cuda")
+        w1, b1, w2, b2 = cs.mlp_weights(gen, torch.float32, D, M, lead)
+        out = torch.empty_like(x)
+        widths = (torch.tensor([2048] * (P // 2) + [3072] * (P - P // 2), dtype=torch.int32,
+                               device="cuda") if P else None)
+        plan = fused_mlp.k1_narrow_f32_plan(N, D, M, M, max(P, 1), sms)
+        ms = {}
+        for name, fn in fns.items():
+            def call(fn=fn):
+                _build.check("fused_mlp", fn(
+                    0, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    b2.data_ptr(), out.data_ptr(), N, D, M, M,
+                    None if widths is None else widths.data_ptr(), max(P, 1),
+                    plan["splits"], plan["tiles"], stream))
+            ms[name] = cs.time_ms(call, 20)
+        emit({"phase": "k1_f32_narrow_parts", "N": N, "D": D, "M": M, "models": P,
+              "splits": plan["splits"], "ms": ms,
+              "registers": {k: sorted(v) for k, v in regs.items()}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", type=pathlib.Path)
     ap.add_argument("turn")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}; known {PHASES}")
     import torch
     import torch.nn.functional as F
     if not torch.cuda.is_available():
@@ -121,8 +230,36 @@ def main() -> int:
     _build.build(BUILD)
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+
+    def mlp_case(g, N, D, M, width, P):
+        """f32 inputs, the weights' widths and the library chain, as
+        `chip_smoke.k1_case` makes them (the widths folded into w2 with the
+        model axis)."""
+        lead = (P,) if P else ()
+        x = torch.randn(*lead, N, D, generator=g, device="cuda")
+        w1, b1, w2, b2 = cs.mlp_weights(g, torch.float32, D, M, lead)
+        if P:
+            widths = torch.tensor(width, dtype=torch.int32, device="cuda")
+            w2m = w2 * (torch.arange(M, device="cuda") < widths[:, None, None])
+            b1u, b2u = b1.unsqueeze(1), b2.unsqueeze(1)
+            w1t, w2t = w1.transpose(1, 2), w2m.transpose(1, 2)
+
+            def chain():
+                return torch.baddbmm(b2u, F.gelu(torch.baddbmm(b1u, x, w1t)), w2t)
+        else:
+            widths = width
+            w1a, b1a, w2a = w1[:width], b1[:width], w2[:, :width].contiguous()
+
+            def chain():
+                return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
+        return (x, w1, b1, w2, b2), widths, chain
+
+    def chain_device_ms(chain):
+        chain()
+        return cs.device_time(lambda: [chain() for _ in range(10)], host_ops=False)[0] / 10
+
     with torch.no_grad():
-        for N, D, M in K1_SHAPES:
+        for N, D, M in K1_SHAPES if "k1" in phases else ():
             x = torch.randn(N, D, generator=gen, device="cuda").to(bf16)
             weights = cs.mlp_weights(gen, bf16, D, M)
 
@@ -134,7 +271,7 @@ def main() -> int:
             emit({"phase": "k1", "N": N, "D": D, "M": M, "body": body,
                   "ms": cs.time_ms(call, 20), "device_ms": cs.mlp_device_ms(call),
                   "host_ms": cs.host_ms(call)})
-        for N, D, M, active in K1_F32_SHAPES:
+        for N, D, M, active in K1_F32_SHAPES if "k1_f32" in phases else ():
             x = torch.randn(N, D, generator=gen, device="cuda")
             weights = cs.mlp_weights(gen, torch.float32, D, M)
             w1, b1, w2, b2 = weights
@@ -148,138 +285,146 @@ def main() -> int:
 
             over = cs.over_gate(call(), fused_mlp._plain_mlp(x, *weights, active),
                                 cs.TOL[torch.float32])[1]
-            chain()
             body = getattr(fused_mlp, "k1_body_launched", lambda: None)()
-            chain_ms = cs.device_time(lambda: [chain() for _ in range(10)],
-                                      host_ops=False)[0] / 10
             emit({"phase": "k1_f32", "N": N, "D": D, "M": M, "active": active,
                   "body": body, "max_err_over_gate": over, "ms": cs.time_ms(call, 10),
                   "device_ms": cs.mlp_device_ms(call),
-                  "host_ms": cs.host_ms(call, iters=10), "chain_device_ms": chain_ms})
+                  "host_ms": cs.host_ms(call, iters=10),
+                  "chain_device_ms": chain_device_ms(chain)})
 
-        # a generator of their own, so the phases after draw what they drew
-        own = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
-        for N, D, M, width, P in K1B_F32_CASES:
-            lead = (P,) if P else ()
-            x = torch.randn(*lead, N, D, generator=own, device="cuda")
-            w1, b1, w2, b2 = cs.mlp_weights(own, torch.float32, D, M, lead)
-            if P:
-                widths = torch.tensor(width, dtype=torch.int32, device="cuda")
-                w2m = w2 * (torch.arange(M, device="cuda") < widths[:, None, None])
-                b1u, b2u = b1.unsqueeze(1), b2.unsqueeze(1)
-                w1t, w2t = w1.transpose(1, 2), w2m.transpose(1, 2)
-
-                def chain():
-                    return torch.baddbmm(b2u, F.gelu(torch.baddbmm(b1u, x, w1t)), w2t)
-            else:
-                widths = width
-                w1a, b1a, w2a = w1[:width], b1[:width], w2[:, :width].contiguous()
-
-                def chain():
-                    return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
+        # generators of their own, so the phases after draw what they drew
+        own = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+        for N, D, M, width, P in K1_NARROW_F32_CASES if "k1_f32_narrow" in phases else ():
+            args_, widths, chain = mlp_case(own, N, D, M, width, P)
 
             def call():
-                return fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+                return fused_mlp.fused_mlp(*args_, widths)
+
+            ref = fused_mlp._plain_mlp(*args_, widths)
+            line = {"phase": "k1_f32_narrow", "N": N, "D": D, "M": M,
+                    "width": width, "models": P,
+                    "chain_device_ms": chain_device_ms(chain)}
+            for variant in ("seq", "pipelined2"):
+                with cs.mlp_variant(variant):
+                    out = call()
+                    body = (getattr(fused_mlp, "k1_body_launched", lambda: None)()
+                            if variant == "seq" else None)
+                    line[variant] = {
+                        "body": body,
+                        "max_err_over_gate": cs.over_gate(out, ref, cs.TOL[torch.float32])[1],
+                        "same_bits_twice": bool(torch.equal(out, call())),
+                        "ms": cs.time_ms(call, 10), "device_ms": cs.mlp_device_ms(call)}
+            emit(line)
+
+        if "k1_f32_narrow_parts" in phases:
+            narrow_parts(cs, emit, fused_mlp, _build)
+
+        own = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+        for N, D, M, width, P in K1B_F32_CASES if "k1b_f32" in phases else ():
+            args_, widths, chain = mlp_case(own, N, D, M, width, P)
+
+            def call():
+                return fused_mlp.fused_mlp(*args_, widths)
 
             with cs.mlp_variant("chunked"):
-                over = cs.over_gate(call(), fused_mlp._plain_mlp_chunked(
-                    x, w1, b1, w2, b2, widths), cs.TOL[torch.float32])[1]
+                over = cs.over_gate(call(), fused_mlp._plain_mlp_chunked(*args_, widths),
+                                    cs.TOL[torch.float32])[1]
                 line = {"phase": "k1b_f32", "N": N, "D": D, "M": M, "width": width,
                         "models": P, "max_err_over_gate": over,
                         "ms": cs.time_ms(call, 10), "device_ms": cs.mlp_device_ms(call)}
-            chain()
-            line["chain_device_ms"] = cs.device_time(
-                lambda: [chain() for _ in range(10)], host_ops=False)[0] / 10
+            line["chain_device_ms"] = chain_device_ms(chain)
             emit(line)
-        del x, w1, b1, w2, b2
 
-        x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,
-                        device="cuda").to(bf16)
-        models = [VisionTransformer3D(ViTConfig.from_conf(c), zero_head=False,
-                                      vis=False,
-                                      generator=torch.Generator().manual_seed(c))
-                  .to(bf16).eval() for c in BASELINE_CONFS]
+        if "pass" in phases:
+            x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,
+                            device="cuda").to(bf16)
+            models = [VisionTransformer3D(ViTConfig.from_conf(c), zero_head=False,
+                                          vis=False,
+                                          generator=torch.Generator().manual_seed(c))
+                      .to(bf16).eval() for c in BASELINE_CONFS]
 
-        def one_pass():
-            for model in models:
-                model(x)
+            def one_pass():
+                for model in models:
+                    model(x)
 
-        one_pass()
-        torch.cuda.synchronize()
-        walls = [cs.timed_passes(models, x)[0] / cs.ITERS * 1e3 for _ in range(3)]
-        line = {"phase": "pass", "B": cs.B, "wall_ms": walls}
-        for impl in ("auto", "layer"):
-            cs.set_impls(impl)
-            try:
-                one_pass()
-                busy, groups, kernels, _ = cs.device_time(one_pass)
-            finally:
-                cs.set_impls("auto")
-            line[impl] = {"device_busy_ms": busy, "kernels": kernels,
-                          "by_group_ms": groups}
-        emit(line)
-        del models, x
+            one_pass()
+            torch.cuda.synchronize()
+            walls = [cs.timed_passes(models, x)[0] / cs.ITERS * 1e3 for _ in range(3)]
+            line = {"phase": "pass", "B": cs.B, "wall_ms": walls}
+            for impl in ("auto", "layer"):
+                cs.set_impls(impl)
+                try:
+                    one_pass()
+                    busy, groups, kernels, _ = cs.device_time(one_pass)
+                finally:
+                    cs.set_impls("auto")
+                line[impl] = {"device_busy_ms": busy, "kernels": kernels,
+                              "by_group_ms": groups}
+            emit(line)
+            del models, x
 
-        xl = torch.randn(max(cs.LATENCY_BATCHES), 128, 128, 5, 1, generator=gen,
-                         device="cuda").to(bf16)
-        single = VisionTransformer3D(ViTConfig.from_conf(9), zero_head=False,
-                                     vis=False,
-                                     generator=torch.Generator().manual_seed(9))
-        ensemble = TransformerEnsemble(
-            [ViTConfig.from_conf(c) for c in BEST_ENSEMBLE], zero_head=False,
-            generator=torch.Generator().manual_seed(cs.SEED))
-        served = {"conf9": single.to(bf16).eval(),
-                  "ensemble_5_9_11": ensemble.to(bf16).eval()}
-        runs = {(name, b): [] for name in served for b in cs.LATENCY_BATCHES}
-        for _ in range(args.repeats):
-            for name, model in served.items():
-                for batch in cs.LATENCY_BATCHES:
-                    res, _ = cs.latency(model, xl, batch)
-                    runs[name, batch].append(res["ms_per_batch"])
-        for (name, batch), ms in runs.items():
-            emit({"phase": "latency", "model": name, "B": batch,
-                  "ms_per_batch": ms, "median_ms": statistics.median(ms)})
-        xb = xl[:1].contiguous()
-        busy, groups, kernels, _ = cs.device_time(lambda: served["conf9"](xb))
-        emit({"phase": "latency_device", "model": "conf9", "B": 1,
-              "device_busy_ms": busy, "kernels": kernels, "by_group_ms": groups})
-        del served, single, ensemble, xl, xb
+        if "latency" in phases:
+            xl = torch.randn(max(cs.LATENCY_BATCHES), 128, 128, 5, 1, generator=gen,
+                             device="cuda").to(bf16)
+            single = VisionTransformer3D(ViTConfig.from_conf(9), zero_head=False,
+                                         vis=False,
+                                         generator=torch.Generator().manual_seed(9))
+            ensemble = TransformerEnsemble(
+                [ViTConfig.from_conf(c) for c in BEST_ENSEMBLE], zero_head=False,
+                generator=torch.Generator().manual_seed(cs.SEED))
+            served = {"conf9": single.to(bf16).eval(),
+                      "ensemble_5_9_11": ensemble.to(bf16).eval()}
+            runs = {(name, b): [] for name in served for b in cs.LATENCY_BATCHES}
+            for _ in range(args.repeats):
+                for name, model in served.items():
+                    for batch in cs.LATENCY_BATCHES:
+                        res, _ = cs.latency(model, xl, batch)
+                        runs[name, batch].append(res["ms_per_batch"])
+            for (name, batch), ms in runs.items():
+                emit({"phase": "latency", "model": name, "B": batch,
+                      "ms_per_batch": ms, "median_ms": statistics.median(ms)})
+            xb = xl[:1].contiguous()
+            busy, groups, kernels, _ = cs.device_time(lambda: served["conf9"](xb))
+            emit({"phase": "latency_device", "model": "conf9", "B": 1,
+                  "device_busy_ms": busy, "kernels": kernels, "by_group_ms": groups})
+            del served, single, ensemble, xl, xb
 
-        f32 = torch.float32
-        stretch = VisionTransformer3D(vit_b16_128cubed(), zero_head=False,
-                                      vis=False,
-                                      generator=torch.Generator().manual_seed(cs.SEED))
-        stretch.eval()
-        x1 = torch.randn(1, 128, 128, 128, 1, generator=gen, device="cuda")
-        line = {"phase": "stretch_f32", "B": 1}
-        for impl in ("auto", "layer"):
-            cs.set_impls(impl)
-            try:
-                stretch(x1)
-                busy, groups, kernels, _ = cs.device_time(lambda: stretch(x1))
-            finally:
-                cs.set_impls("auto")
-            line[impl] = {"device_busy_ms": busy, "kernels": kernels,
-                          "k4_body_ms": groups.get("K4", 0.0),
-                          "by_group_ms": groups}
-        emit(line)
-        del stretch, x1
+        if "stretch_f32" in phases:
+            f32 = torch.float32
+            stretch = VisionTransformer3D(vit_b16_128cubed(), zero_head=False,
+                                          vis=False,
+                                          generator=torch.Generator().manual_seed(cs.SEED))
+            stretch.eval()
+            x1 = torch.randn(1, 128, 128, 128, 1, generator=gen, device="cuda")
+            line = {"phase": "stretch_f32", "B": 1}
+            for impl in ("auto", "layer"):
+                cs.set_impls(impl)
+                try:
+                    stretch(x1)
+                    busy, groups, kernels, _ = cs.device_time(lambda: stretch(x1))
+                finally:
+                    cs.set_impls("auto")
+                line[impl] = {"device_busy_ms": busy, "kernels": kernels,
+                              "k4_body_ms": groups.get("K4", 0.0),
+                              "by_group_ms": groups}
+            emit(line)
+            del stretch, x1
 
-        q, k, v = cs.model_views(gen, (8, 12, 513, 64), f32)
-        fused_attention.fused_attention(q, k, v)
-        _, groups, _, _ = cs.device_time(
-            lambda: [fused_attention.fused_attention(q, k, v) for _ in range(10)],
-            host_ops=False)
-        emit({"phase": "k4_f32", "shape": [8, 12, 513, 64],
-              "device_ms": groups.get("K4", 0.0) / 10})
-        qkv = torch.randn(1, 513, 3 * 768, generator=gen, device="cuda")
-        q, k, v = attention_layer._split(qkv)
-        attention_layer.attention_core(q, k, v, 12)
-        _, groups, _, _ = cs.device_time(
-            lambda: [attention_layer.attention_core(q, k, v, 12) for _ in range(10)],
-            host_ops=False)
-        emit({"phase": "k3_f32", "B": 1, "T": 513, "D": 768, "H": 12,
-              "device_ms": groups.get("K4", 0.0) / 10})
+            q, k, v = cs.model_views(gen, (8, 12, 513, 64), f32)
+            fused_attention.fused_attention(q, k, v)
+            _, groups, _, _ = cs.device_time(
+                lambda: [fused_attention.fused_attention(q, k, v) for _ in range(10)],
+                host_ops=False)
+            emit({"phase": "k4_f32", "shape": [8, 12, 513, 64],
+                  "device_ms": groups.get("K4", 0.0) / 10})
+            qkv = torch.randn(1, 513, 3 * 768, generator=gen, device="cuda")
+            q, k, v = attention_layer._split(qkv)
+            attention_layer.attention_core(q, k, v, 12)
+            _, groups, _, _ = cs.device_time(
+                lambda: [attention_layer.attention_core(q, k, v, 12) for _ in range(10)],
+                host_ops=False)
+            emit({"phase": "k3_f32", "B": 1, "T": 513, "D": 768, "H": 12,
+                  "device_ms": groups.get("K4", 0.0) / 10})
     print(json.dumps({"turn": args.turn, "ok": True}), flush=True)
     return 0
 

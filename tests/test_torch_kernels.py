@@ -25,6 +25,7 @@ from vit3d_ensemble_tpu_torch.ops import (
     fused_mlp,
 )
 from vit3d_ensemble_tpu_torch.ops import mlp as mlp_select
+from vit3d_ensemble_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.gpu
 
@@ -1199,3 +1200,121 @@ def test_head_dim_80_model_matches_plain_modules(cuda, impl, counts):
         attention.set_default_attention_impl("auto")
     torch.testing.assert_close(out.tokens, ref.tokens, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(out.logits, ref.logits, atol=2e-4, rtol=1e-4)
+
+
+# --- K1's and K1c's narrow f32 body (3xTF32 on wgmma, split across a cluster) --
+# One model at every narrow D, at M of two and a few chunks of 32 (64, 100:
+# a ragged last chunk) and the registry's 2,048 and 3,072, at one row, a
+# volume's 65 tokens, the training path's 260 rows and 4,160.
+@pytest.mark.parametrize("N", [1, 65, 260, 4160])
+@pytest.mark.parametrize("M", [64, 100, 2048, 3072])
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+def test_k1_narrow_f32_matches_plain(cuda, D, M, N):
+    """One launch on the narrow f32 body, counted as K1's own, held to the
+    plain version at the f32 gate; two calls give the same bits."""
+    x = torch.randn(N, D, generator=cuda, device="cuda")
+    args = _mlp_weights(cuda, torch.float32, D, M)
+    before = (fused_mlp.launches, fused_mlp.launches_own, fused_mlp.launches_on_k1c)
+    out = fused_mlp.fused_mlp(x, *args, M)
+    torch.cuda.synchronize()
+    assert fused_mlp.k1_body_launched() == "narrow_tf32x3"
+    assert (fused_mlp.launches, fused_mlp.launches_own, fused_mlp.launches_on_k1c) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _close(out, fused_mlp._plain_mlp(x, *args, M), torch.float32)
+    assert torch.equal(out, fused_mlp.fused_mlp(x, *args, M))
+
+
+@pytest.mark.parametrize("P", [1, 2, 30])
+@pytest.mark.parametrize("M", [100, 2048, 3072])
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+def test_k1_narrow_f32_model_axis_widths(cuda, D, M, P):
+    """P models at 260 rows each with widths on the device, in turn 0, a
+    partial one (inside a chunk) and M: against the plain version, each
+    model launched alone with a host width (the same bits), and a second
+    call (the same bits)."""
+    N = 260
+    x = torch.randn(P, N, D, generator=cuda, device="cuda")
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, D, M, (P,))
+    widths = torch.tensor([(0, M // 2 + 3, M)[p % 3] for p in range(P)],
+                          dtype=torch.int32, device="cuda")
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+    torch.cuda.synchronize()
+    assert fused_mlp.k1_body_launched() == "narrow_tf32x3"
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, widths), torch.float32)
+    assert torch.equal(out, fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths))
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p], int(widths[p]))
+        assert torch.equal(out[p], alone)
+
+
+@pytest.mark.parametrize("N,P", [(1, 1), (260, 1), (4160, 1), (1560, 30)])
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+def test_k1c_f32_runs_on_the_narrow_body(cuda, monkeypatch, D, N, P):
+    """K1c's f32 route launches the narrow f32 body from its own library,
+    counted as K1c's, on its own row-tile groups, and gives K1's bits."""
+    M = 3072
+    lead = (P,) if P > 1 else ()
+    x = torch.randn(*lead, N, D, generator=cuda, device="cuda")
+    args = _mlp_weights(cuda, torch.float32, D, M, lead)
+    widths = (torch.tensor([2048] * (P // 2) + [3072] * (P - P // 2), dtype=torch.int32,
+                           device="cuda") if P > 1 else 2500)
+    seq = fused_mlp.fused_mlp(x, *args, widths)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
+    before = (fused_mlp.launches, fused_mlp.launches_k1c)
+    out = fused_mlp.fused_mlp(x, *args, widths)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches, fused_mlp.launches_k1c) == (before[0], before[1] + 1)
+    assert fused_mlp.k1c_body_launched() == "narrow_tf32x3"
+    _close(out, fused_mlp._plain_mlp(x, *args, widths), torch.float32)
+    assert torch.equal(out, seq)
+
+
+def test_k1_narrow_f32_with_x_four_times_larger(cuda):
+    """x four times larger at the widest class's widths, where the 3xTF32
+    truncation inside the tensor cores weighs most: within the f32 gate of
+    the exact (f64) MLP."""
+    N, D, M = 260, 64, 3072
+    x = torch.randn(N, D, generator=cuda, device="cuda") * 4
+    args = _mlp_weights(cuda, torch.float32, D, M)
+    out = fused_mlp.fused_mlp(x, *args, M)
+    _close(out, _f64_mlp(x, *args, M), torch.float32)
+
+
+def test_k1_narrow_f32_entry_refuses_what_it_does_not_take(cuda):
+    """The narrow f32 entry points launch the body or refuse (no plain
+    fallback): no split, more than 16 splits, no group, more groups than
+    row tiles, a D it has no body for."""
+    N, D, M = 130, 64, 1100
+    x = torch.randn(N, D, generator=cuda, device="cuda")
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.float32, D, M)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, out)]
+    for lib, symbol in (("fused_mlp", "fused_mlp_narrow_f32_launch"),
+                        ("mlp_pipelined", "mlp_pipelined_f32_launch")):
+        fn = fused_mlp._build.entry(lib, fused_mlp._NARROW_F32_ARGTYPES, symbol)
+        for d, splits, groups in ((D, 0, 3), (D, 17, 3), (D, 2, 0),
+                                  (D, 2, 4), (48, 2, 3)):
+            with pytest.raises(RuntimeError, match=f"{lib} launch failed"):
+                fused_mlp._build.check(lib, fn(0, *ptrs, N, d, M, M, None, 1, splits,
+                                               groups, stream))
+        fused_mlp._build.check(lib, fn(0, *ptrs, N, D, M, 900, None, 1, 16, 3, stream))
+        torch.cuda.synchronize()
+        _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, 900), torch.float32)
+
+
+# --- int8 products of few rows ---------------------------------------------------
+@pytest.mark.parametrize("lead", [(), (3,)])
+@pytest.mark.parametrize("M", [1, 5, 16, 17])
+def test_int_mm_padded_takes_few_rows_on_the_card(cuda, M, lead):
+    """`torch._int_mm` on the card takes more than 16 rows; `int_mm_padded`
+    pads a product's rows and equals the int32 product (`_plain_int_mm`, on
+    the CPU: the card has no int32 matmul) exactly."""
+    g = torch.Generator(device="cuda").manual_seed(M)
+    a = torch.randint(-127, 128, (*lead, M, 36), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (*lead, 36, 20), generator=g, device="cuda",
+                      dtype=torch.int8)
+    got = quant.int_mm_padded(a, b)
+    assert got.dtype == torch.int32 and got.shape == (*lead, M, 20)
+    assert torch.equal(got.cpu(), quant._plain_int_mm(a.cpu(), b.cpu()))

@@ -133,9 +133,18 @@ def test_padded_int_mm_is_the_int32_product(M, K, N, models):
 
 
 def test_int_mm_padded_refuses_few_rows():
-    a = torch.zeros(16, 8, dtype=torch.int8)
-    with pytest.raises(ValueError, match="16"):
-        quant.int_mm_padded(a, torch.zeros(8, 8, dtype=torch.int8))
+    """A product of 16 rows or fewer, which `torch._int_mm` on the card
+    refuses, runs with its rows zero-padded to 17 and sliced back: the
+    int32 product exactly, at 1, 5 and 16 rows, with and without a model
+    axis (it raised before, where JAX's `int8_dense` takes any row count)."""
+    g = torch.Generator().manual_seed(16)
+    for M in (1, 5, 16):
+        for lead in ((), (3,)):
+            a = torch.randint(-127, 128, (*lead, M, 36), generator=g, dtype=torch.int8)
+            b = torch.randint(-127, 128, (*lead, 36, 20), generator=g, dtype=torch.int8)
+            got = quant.int_mm_padded(a, b)
+            assert got.dtype == torch.int32 and got.shape == (*lead, M, 20)
+            assert torch.equal(got, quant._plain_int_mm(a, b))
 
 
 # --- the models ---------------------------------------------------------------------

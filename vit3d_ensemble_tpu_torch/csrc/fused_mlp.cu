@@ -3,36 +3,20 @@
 // Replaces the TPU kernel `vit3d_ensemble_tpu/ops/pallas_mlp.py:_mlp_kernel`
 // (reached through `fused_mlp` -> `_fused_mlp_impl`, variant "seq").
 //
-// What bounds it on the H100: at the reference widths (D in {16, 32, 64},
-// M in {2048, 3072}) the (tokens, M) intermediate is M/D = 32..192 times
-// larger than the input, so a plain fc1 -> GELU -> fc2 chain is bound by the
-// bytes of that intermediate going to device memory and back.  Inside this
-// kernel the intermediate never leaves the SM; what is left is operations:
-// 4*N*D*M multiply-adds and N*M GELUs.  The GELUs run on CUDA cores in f32
-// whatever the matmul units: in f32 exact erf GELUs (`gelu_erf`, 23 FP32
-// instructions and an exponential each) set the floor; in bf16 the TPU
-// kernels' polynomial (`gelu_poly`, 16 FP32 instructions, no exponential)
-// still outweighs the products at the tensor cores' rate (`mlp_common.cuh`).
-//
-// Design: one block takes a tile of 64 token rows.  The x tile and an f32
-// accumulator of (64, D) stay on chip for the whole block.  The block walks
-// the hidden width in chunks of 64 columns; per chunk it stages
-// w1[c0:c0+64, :] and w2[:, c0:c0+64] in shared memory, computes
-// h = x @ w1c^T + b1c in f32, applies the GELU of the input type in f32
-// (`gelu<T>`: the JAX kernels' choice, pallas_mlp.py:179), rounds it to the
-// input type (the rounding point of pallas_mlp.py:93), and adds h @ w2c^T into
-// the accumulator.  The loop stops at `active`, and columns past it in the
-// last chunk are zeroed, which is the runtime width mask of the sweep (the
-// JAX wrapper folds it into w2's rows instead).  The last row tile is masked,
-// so no padding is needed.  This file's body for that plan:
-//   * f32, and bf16 at D = 8: CUDA-core FMAs, each thread a 4x4 register
-//     tile of h, h staged through shared memory between the two products.
-// bf16 at D in {16, 32, 64} is not here: the wrapper (`ops/fused_mlp.py`)
-// sends those calls to K1c's warp-specialised wgmma pipeline
-// (`mlp_pipelined.cu`), which computes this function.  An earlier mma.sync
-// body of 64-row blocks served them; on an H100 the pipeline took less
-// device time at every row count timed, 1 to 33,280, so it was removed
-// (PERF.md).
+// The narrow regime, D in {8, 16, 32, 64} (every registry config's), in
+// f32: the body in `mlp_narrow_f32.cuh` (`narrow_tf32x3`), shared with K1c:
+// both products in 3xTF32 on `wgmma`, the hidden columns split across the
+// blocks of a thread-block cluster whose partial sums meet in distributed
+// shared memory; its note says what bounds it and how it is laid out.  It
+// replaced a CUDA-core body (64-row blocks each walking all of M on FFMAs),
+// which lost to F.linear -> F.gelu -> F.linear at the drivers' one-model
+// shapes (PERF.md).  bf16 in the narrow regime is not here: the wrapper
+// (`ops/fused_mlp.py`) sends those calls to K1c's library
+// (`mlp_pipelined.cu`), which computes this function: its warp-specialised
+// wgmma pipeline at D 16-64 (an earlier mma.sync body of 64-row blocks lost
+// to it at every row count timed, 1 to 33,280, and was removed) and its
+// CUDA-core tiling at D = 8.  A narrow D outside that set runs zero-padded
+// to the next of them (`kernel_width`).
 //
 // The wide regime, every D from 65 to 8,192 (the stretch model's D = 768,
 // M = 3072; ViT-H's D = 1,280, M = 5,120), as the TPU kernel takes any D.
@@ -136,11 +120,9 @@
 // outside that set zero-padded to the next of them, as above.
 //
 // The model axis (the sweep's stacked (config, fold) cells), narrow regime
-// only: the narrow bodies take P weight sets stacked along a leading axis
-// and run model p on blockIdx.y, with its own width mask read from device
-// memory (`mlp_common.cuh`, `Model`).  They are compiled twice, with and
-// without the axis (AXIS), so a single model with a host width runs the
-// code it ran before the axis existed.  The wide bodies have no model
+// only: the narrow body takes P weight sets stacked along a leading axis
+// and runs model p on blockIdx.y, with its own width mask read from device
+// memory (`mlp_common.cuh`, `Model`).  The wide bodies have no model
 // axis: on an H100, in one call against the bodies without it, the offsets
 // and the width held in registers cost them registers and time beyond the
 // grid dimension, so a stacked call at a wide D is refused.
@@ -150,6 +132,7 @@
 #include <type_traits>
 
 #include "mlp_common.cuh"
+#include "mlp_narrow_f32.cuh"
 #include "sm90_common.cuh"
 #include "tf32x3.cuh"
 
@@ -158,127 +141,6 @@ namespace {
 using namespace mlp;
 using namespace sm90;
 using namespace tf32x3;
-
-constexpr int TILE_N = 64;    // token rows per block
-constexpr int CHUNK = 64;     // hidden columns per step
-constexpr int THREADS = 256;  // CUDA-core body: a 16 x 16 grid of threads
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(TILE_N * (D + 1) + CHUNK * (D + 1) +
-                                  TILE_N * (CHUNK + 1) + D * (CHUNK + 1));
-}
-
-template <typename T, int D, bool AXIS>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                 const T* __restrict__ b1, const T* __restrict__ w2,
-                 const T* __restrict__ b2, T* __restrict__ out, int n, int m,
-                 const int* __restrict__ active_p, int active_all) {
-  int active = active_all;
-  if constexpr (AXIS) {
-    const Model<T> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
-    x = md.x, w1 = md.w1, b1 = md.b1, w2 = md.w2, b2 = md.b2, out = md.out;
-    active = md.active;
-  }
-  constexpr int DP = D + 1;          // padded rows: odd strides, no bank conflicts
-  constexpr int CP = CHUNK + 1;
-  constexpr int OJ = (D + 15) / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* xs = smem;               // [TILE_N][DP]
-  float* w1s = xs + TILE_N * DP;  // [CHUNK][DP]
-  float* hs = w1s + CHUNK * DP;   // [TILE_N][CP]
-  float* w2s = hs + TILE_N * CP;  // [D][CP]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row0 = blockIdx.x * TILE_N;
-
-  for (int i = tid; i < TILE_N * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    xs[r * DP + d] = row0 + r < n ? to_f32(x[(size_t)(row0 + r) * D + d]) : 0.f;
-  }
-
-  // Rows ty + 16*i and output columns tx + 16*j of the tile belong to this thread.
-  float acc[4][OJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < active; c0 += CHUNK) {
-    __syncthreads();  // the previous chunk's reads of w1s, hs and w2s are done
-    for (int i = tid; i < CHUNK * D; i += THREADS) {
-      const int c = i / D, d = i % D;
-      w1s[c * DP + d] = c0 + c < active ? to_f32(w1[(size_t)(c0 + c) * D + d]) : 0.f;
-    }
-    for (int i = tid; i < D * CHUNK; i += THREADS) {
-      const int o = i / CHUNK, c = i % CHUNK;
-      w2s[o * CP + c] = c0 + c < active ? to_f32(w2[(size_t)o * m + c0 + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float h[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w1s[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) h[i][j] = fmaf(xv[i], wv[j], h[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      const bool keep = col < active;
-      const float bias = keep ? to_f32(b1[col]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // gelu(h) rounded to the input type before fc2, as the TPU kernel does
-        const float g = to_f32(from_f32<T>(gelu<T>(h[i][j] + bias)));
-        hs[(ty + 16 * i) * CP + tx + 16 * j] = keep ? g : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < CHUNK; ++c) {
-      float gv[4], wv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = hs[(ty + 16 * i) * CP + c];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) {
-        const int o = tx + 16 * j;
-        wv[j] = o < D ? w2s[o * CP + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) acc[i][j] = fmaf(gv[i], wv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < OJ; ++j) {
-    const int o = tx + 16 * j;
-    if (o >= D) continue;
-    const float bias = to_f32(b2[o]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-      if (r < n) out[(size_t)r * D + o] = from_f32<T>(acc[i][j] + bias);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The wide regime: 64 < D <= 8,192 (see the note above).
@@ -632,9 +494,9 @@ wide_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int kk = 0; kk < 4; ++kk) {
         const uint32_t* f = a[P][kk];
         const int acc = j > 0 || kk > 0;  // the interval's first k-step starts from 0
-        wgmma_tf32_n64(small, f[4], f[5], f[6], f[7], dh + 2 * kk, acc);
-        wgmma_tf32_n64(small, f[0], f[1], f[2], f[3], dl + 2 * kk, 1);
-        wgmma_tf32_n64(big, f[0], f[1], f[2], f[3], dh + 2 * kk, acc);
+        wgmma_tf32_rs<64>(small, f[4], f[5], f[6], f[7], dh + 2 * kk, acc);
+        wgmma_tf32_rs<64>(small, f[0], f[1], f[2], f[3], dl + 2 * kk, 1);
+        wgmma_tf32_rs<64>(big, f[0], f[1], f[2], f[3], dh + 2 * kk, acc);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the stage before this one has been read
@@ -755,77 +617,32 @@ cudaError_t launch_tf32x3(int device, const CUtensorMap& map_a, const CUtensorMa
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool AXIS>
-cudaError_t launch_axis(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, void* out, int n, int m, const int* active_p,
-                        int active, int models, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<T, D, AXIS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + TILE_N - 1) / TILE_N, models);
-  fused_mlp_kernel<T, D, AXIS><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), n, m,
-      active_p, active);
-  return cudaGetLastError();
-}
-
-// The model axis when there is one: more than one model, or a width on the
-// device.
-template <typename T, int D>
-cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
-                   const void* b2, void* out, int n, int m, const int* active_p,
-                   int active, int models, cudaStream_t stream) {
-  return models > 1 || active_p != nullptr
-             ? launch_axis<T, D, true>(x, w1, b1, w2, b2, out, n, m, active_p, active,
-                                       models, stream)
-             : launch_axis<T, D, false>(x, w1, b1, w2, b2, out, n, m, active_p, active,
-                                        models, stream);
-}
-
 // The wide regime's hidden sizes: above 64 and at most 8,192, rows of a
 // multiple of 16 bytes (`align` elements).
 bool is_wide(int d, int align) { return d > 64 && d <= 8192 && d % align == 0; }
 
-#define MLP_ARGS x, w1, b1, w2, b2, out, n, m, active_p, active, models, stream
-
-cudaError_t dispatch_f32(int d, const void* x, const void* w1, const void* b1,
-                         const void* w2, const void* b2, void* out, int n, int m,
-                         const int* active_p, int active, int models, cudaStream_t stream) {
-  switch (d) {
-    case 8: return launch<float, 8>(MLP_ARGS);
-    case 16: return launch<float, 16>(MLP_ARGS);
-    case 32: return launch<float, 32>(MLP_ARGS);
-    case 64: return launch<float, 64>(MLP_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// n token rows per model, `models` weight sets (P >= 1).  active_p: the
-// width mask of each model on the device, or null for `active` in all; the
-// wide regime takes one model and a host width only.  dtype: 0 = float32,
-// 1 = bfloat16 (D = 8 only: `mlp_pipelined_launch` takes bf16 at D 16-64,
-// `fused_mlp_wide_launch` and `fused_mlp_wide_f32_launch` the wide
-// regime).  Returns cudaGetLastError() after the launch (0 on
-// success).  n == 0 launches nothing.
-extern "C" int fused_mlp_launch(int device, const void* x, const void* w1,
-                                const void* b1, const void* w2, const void* b2,
-                                void* out, int n, int d, int m, int active,
-                                const int* active_p, int models, int dtype,
-                                void* stream_) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n == 0 || models == 0) return 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  // the wide regime takes fused_mlp_wide_launch (bf16) and
-  // fused_mlp_wide_f32_launch
-  if (dtype == 0) return (int)dispatch_f32(d, MLP_ARGS);
-  // bf16 at D 16-64 runs on K1c's pipeline (`mlp_pipelined_launch`)
-  if (dtype == 1 && d == 8) return (int)launch<__nv_bfloat16, 8>(MLP_ARGS);
-  return (int)cudaErrorInvalidValue;
+// K1's narrow f32 body (`mlp_narrow_f32.cuh`): n token rows a model,
+// `models` weight sets (P >= 1), active_p the width mask of each model on the
+// device or null for `active` in all, on `splits` x `groups` clusters a
+// model (`fused_mlp.k1_narrow_f32_plan`; groups = ceil(n / 64), a row tile
+// each).  d in {8, 16, 32, 64}.  Returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for a shape or plan the body does
+// not take (nothing launched).  n == 0 launches nothing.
+extern "C" int fused_mlp_narrow_f32_launch(int device, const float* x, const float* w1,
+                                           const float* b1, const float* w2, const float* b2,
+                                           float* out, int n, int d, int m, int active,
+                                           const int* active_p, int models, int splits,
+                                           int groups, void* stream) {
+  return (int)narrow_f32::launch(device, x, w1, b1, w2, b2, out, n, d, m, active, active_p,
+                                 models, splits, groups, static_cast<cudaStream_t>(stream));
+}
+
+// The narrow f32 body's shape at hidden size d and `splits` blocks a
+// cluster, as `narrow_f32::describe` lists it (7 ints).
+extern "C" int fused_mlp_narrow_f32_shape(int device, int d, int splits, int* out) {
+  return (int)narrow_f32::describe(device, d, splits, out);
 }
 
 // The bf16 wide regime (64 < d <= 8,192, d a multiple of 8): one model, a

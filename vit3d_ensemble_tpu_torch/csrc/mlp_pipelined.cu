@@ -54,19 +54,23 @@
 //     which at 30 models left a second, nearly empty wave.
 // fc2's chunks are summed in the chunks' order, k-step by k-step.
 //
-// f32, and D = 8 (`pipelined_core_kernel`): K1's CUDA-core tiling (64-row
-// tile, 256 threads, a thread a 4 x 4 tile of h and 4 rows by D / 16 output
+// bf16 at D = 8 (`pipelined_core_kernel`): CUDA-core FMAs in 64-row tiles
+// (256 threads, a thread a 4 x 4 tile of h and 4 rows by D / 16 output
 // columns, h and the weight chunk through shared memory, three blocks an
-// SM) on the same persistent, balanced grid, in 64-row tiles.  One TF32
-// product a product would break the JAX tolerance of 2e-5; three (3xTF32:
-// TF32 hi and lo of each operand, lo*hi + hi*lo + hi*hi), as K4's f32 body
-// (`attention.cu`) takes its products, hold it, and this body does not take
-// them yet.  The parent's body (two shared-memory
-// buffers of every operand, 134 KB at D = 64: one block an SM) lost most of
-// its time to its grid's second wave; loading each chunk's weights into
-// registers an item ahead cost more than it hid (spills at three blocks an
-// SM, two blocks an SM without them: slower in one call on an H100 each,
-// see PERF.md).  Its sums run in K1's order, so the two agree to the bit.
+// SM) on the same persistent, balanced grid; K1's bf16 calls at D = 8 run it
+// too.  The parent's body (two shared-memory buffers of every operand, 134
+// KB at D = 64: one block an SM) lost most of its time to its grid's second
+// wave; loading each chunk's weights into registers an item ahead cost more
+// than it hid (spills at three blocks an SM, two blocks an SM without them:
+// slower in one call on an H100 each, see PERF.md).
+//
+// f32 at D in {8, 16, 32, 64}: K1's narrow f32 body (`mlp_narrow_f32.cuh`,
+// 3xTF32 on `wgmma`, the hidden columns split across a cluster), through
+// this library's own entry (`mlp_pipelined_f32_launch`) in K1c's row-tile
+// order: half as many row-tile groups as K1's, each walking two consecutive
+// row tiles (`fused_mlp.k1c_narrow_f32_groups`).  A tile's sums run as K1's,
+// so the two agree to the bit.  It replaced a copy of K1's CUDA-core f32
+// tiling on this library's persistent grid.
 //
 // Layouts follow torch.nn.Linear: x (P, n, D), w1 (P, m, D), b1 (P, m) and
 // w2 (P, D, m) with rows `ld2` elements apart (the wrapper pads them to a
@@ -76,6 +80,7 @@
 #include <atomic>
 
 #include "mlp_common.cuh"
+#include "mlp_narrow_f32.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -359,17 +364,17 @@ cudaError_t launch_wgmma(int device, const void* x, const void* w1, const void* 
 }
 
 // ---------------------------------------------------------------------------
-// f32 at D in {8, 16, 32, 64}, and bf16 at D = 8: CUDA cores, K1's tiling.
+// bf16 at D = 8: CUDA cores.
 // ---------------------------------------------------------------------------
 
 constexpr int TILE_N = 64;         // token rows a tile
 constexpr int CORE_THREADS = 256;  // a 16 x 16 grid of threads
-// K1's occupancy: the 66.5 KB of shared memory at D = 64 leave room for
-// three blocks an SM, and the registers must too (85 a thread)
+// three blocks an SM: the registers must allow them (85 a thread at D = 64
+// in f32, when this tiling served f32 too)
 constexpr int CORE_BLOCKS_AN_SM = 3;
 
 template <int D>
-struct CoreSmem {  // K1's layout: padded f32 rows, no bank conflicts
+struct CoreSmem {  // padded f32 rows, no bank conflicts
   static constexpr int DP = D + 1, CP = CHUNK + 1;
   float x[TILE_N * DP];
   float w1[CHUNK * DP];
@@ -535,14 +540,13 @@ cudaError_t describe(int device, K kernel, int rows, int threads, int smem, int*
 
 }  // namespace
 
-// The arguments of `fused_mlp_launch` (`fused_mlp.cu`): n token rows per
-// model, `models` weight sets, active_p the per-model width mask on the
-// device or null for `active` in all; dtype 0 = float32, 1 = bfloat16.  D in
-// {8, 16, 32, 64}; anything else returns cudaErrorInvalidValue.  Besides:
-// ld2, the row length of w2 and of b1 in elements (m, or m rounded up to 8
-// in zero-padded copies: in bf16 at D >= 16 TMA reads them, and their row
-// strides must be multiples of 16 bytes), and blocks, the grid's blocks a
-// model (`k1c_plan`).
+// n token rows per model, `models` weight sets (P >= 1), active_p the
+// per-model width mask on the device or null for `active` in all; dtype 1 =
+// bfloat16 (f32 takes `mlp_pipelined_f32_launch`).  D in {8, 16, 32, 64};
+// anything else returns cudaErrorInvalidValue.  Besides: ld2, the row length
+// of w2 and of b1 in elements (m, or m rounded up to 8 in zero-padded copies:
+// at D >= 16 TMA reads them, and their row strides must be multiples of 16
+// bytes), and blocks, the grid's blocks a model (`k1c_plan`).
 extern "C" int mlp_pipelined_launch(int device, const void* x, const void* w1,
                                     const void* b1, const void* w2, int ld2, const void* b2,
                                     void* out, int n, int d, int m, int active,
@@ -562,21 +566,28 @@ extern "C" int mlp_pipelined_launch(int device, const void* x, const void* w1,
       case 32: return (int)launch_wgmma<32>(WGMMA_ARGS);
       case 64: return (int)launch_wgmma<64>(WGMMA_ARGS);
     }
-  } else if (dtype == 0) {
-    switch (d) {
-      case 8: return (int)launch_core<float, 8>(CORE_ARGS);
-      case 16: return (int)launch_core<float, 16>(CORE_ARGS);
-      case 32: return (int)launch_core<float, 32>(CORE_ARGS);
-      case 64: return (int)launch_core<float, 64>(CORE_ARGS);
-    }
   }
 #undef CORE_ARGS
 #undef WGMMA_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
+// K1c in f32 on K1's narrow f32 body (`mlp_narrow_f32.cuh`): the arguments
+// of `mlp_pipelined_launch` less ld2, blocks and the dtype, on `splits` x
+// `groups` clusters a model (`fused_mlp.k1_narrow_f32_plan`,
+// `k1c_narrow_f32_groups`).  d in {8, 16, 32, 64}; anything else, or a plan
+// the body does not take, returns cudaErrorInvalidValue.
+extern "C" int mlp_pipelined_f32_launch(int device, const float* x, const float* w1,
+                                        const float* b1, const float* w2, const float* b2,
+                                        float* out, int n, int d, int m, int active,
+                                        const int* active_p, int models, int splits,
+                                        int groups, void* stream) {
+  return (int)narrow_f32::launch(device, x, w1, b1, w2, b2, out, n, d, m, active, active_p,
+                                 models, splits, groups, static_cast<cudaStream_t>(stream));
+}
+
 // The body that serves (dtype, d) and its occupancy, as `describe` lists
-// them, for `k1c_plan`.
+// them, for `k1c_plan` (in f32 the narrow f32 body's, one block a cluster).
 extern "C" int mlp_pipelined_shape(int device, int d, int dtype, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -598,12 +609,11 @@ extern "C" int mlp_pipelined_shape(int device, int d, int dtype, int* out) {
       case 64: return WGMMA_SHAPE(64);
     }
   } else if (dtype == 0) {
-    switch (d) {
-      case 8: return CORE_SHAPE(float, 8);
-      case 16: return CORE_SHAPE(float, 16);
-      case 32: return CORE_SHAPE(float, 32);
-      case 64: return CORE_SHAPE(float, 64);
-    }
+    int shape[7];
+    err = narrow_f32::describe(device, d, 1, shape);
+    if (err != cudaSuccess) return (int)err;
+    for (int i = 0; i < 6; ++i) out[i] = shape[i];
+    return 0;
   }
 #undef WGMMA_SHAPE
 #undef CORE_SHAPE

@@ -82,15 +82,69 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
                : "r"(sm90::smem_u32(row)));
 }
 
-// d (64 x 64, f32) = a (64 x 8, TF32 in registers) * b (64 x 8, TF32,
+// d (64 x N, f32) = a (64 x 8, TF32 in registers) * b (N x 8, TF32,
 // K-major in shared memory behind the descriptor) + d; with `accumulate` 0,
 // d's old value is not read.  Register i of a warp's A holds row lane / 4 +
 // 8 (i % 2) of the warp's 16, column lane % 4 + 4 (i / 2): the m16n8k8 A
 // fragment.  Accumulator register 4j + 2i + e holds row 16 * warp + lane / 4
-// + 8i, column 8j + 2 (lane % 4) + e.
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint64_t b,
-                                               int accumulate) {
+// + 8i, column 8j + 2 (lane % 4) + e.  N: 8, 16, 32 (K1's narrow f32 body's
+// fc2 at D = N) and 64 (its fc2 at D = 64, K1's wide f32 body).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b,
+                                              int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<8>(float (&d)[4], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<16>(float (&d)[8], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint64_t b,
+                                                  int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -109,6 +163,26 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint32_t a0, uint
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32, f32) = a (64 x 8, TF32, K-major in shared memory) * b (32 x
+// 8, the same) + d, both behind descriptors; with `accumulate` 0, d's old
+// value is not read.  Accumulators as `wgmma_tf32_rs`.  K1's narrow f32
+// body's fc1.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 }  // namespace tf32x3

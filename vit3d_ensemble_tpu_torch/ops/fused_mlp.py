@@ -13,7 +13,7 @@ bounds it on the H100 and how it is laid out:
   * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
     K1's function, software-pipelined in a persistent block (in bf16 at D
     >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
-    `k1c_plan` lays out.
+    `k1c_plan` lays out; in f32 K1's narrow body on K1c's row-tile groups.
 
 `_MLP_VARIANT`, a module constant as in the JAX package, says which one
 `fused_mlp` launches; it is read at each call.  K1b and K1c take the narrow
@@ -50,13 +50,18 @@ K1's wide calls (D from 65 to 8,192) run on two GEMM phases on `wgmma`
 fed by TMA, h through an L2-resident scratch, in f32 with both products in
 3xTF32 on the tensor cores (`wide_f32_plan` lays out those grids).
 
+K1's narrow f32 calls (D up to 64) run on one body with K1c's f32 route
+(`csrc/mlp_narrow_f32.cuh`, included by both libraries): both products in
+3xTF32 on `wgmma`, the hidden columns split across the blocks of a
+thread-block cluster on the grid `k1_narrow_f32_plan` lays out.
+
 K1's narrow bf16 calls at D >= 16 run on K1c's warp-specialised `wgmma`
 pipeline (`csrc/mlp_pipelined.cu`), whatever their token rows: on an H100
 it took less device time than the `mma.sync` body of 64-row blocks that
-served them before, at every row count from 1 to 33,280 (PERF.md).  A
-launch there counts as K1's (`launches`); `launches_on_k1c` and
-`launches_own` split K1's launches by library (`k1_body_launched` names the
-last body).
+served them before, at every row count from 1 to 33,280 (PERF.md); at D =
+8 on K1c's CUDA-core tiling.  A launch there counts as K1's (`launches`);
+`launches_on_k1c` and `launches_own` split K1's launches by library
+(`k1_body_launched` names the last body).
 
 On a CPU tensor `fused_mlp` computes the variant's plain version
 (`_plain_mlp`, or `_plain_mlp_chunked` for K1b); on a CUDA tensor it
@@ -80,8 +85,8 @@ from vit3d_ensemble_tpu_torch.ops import _build
 launches = 0
 launches_k1b = 0
 launches_k1c = 0
-#: K1's launches by body: on K1c's `wgmma` pipeline, and on its own bodies
-#: in `csrc/fused_mlp.cu`; the two add up to `launches`.
+#: K1's launches by library: on K1c's (`K1_BODIES_ON_K1C`), and on its own
+#: bodies in `csrc/fused_mlp.cu`; the two add up to `launches`.
 launches_on_k1c = 0
 launches_own = 0
 
@@ -109,8 +114,22 @@ LEFT_TO_PORT = "ROADMAP queue 2, 'What is left to port': {}"
 WIDE_AXIS = "K1's wide bodies with a model axis"
 WIDE_VARIANTS = "K1b and K1c at a wide hidden size"
 WIDEST = "head_dim above 256 and hidden size above 8,192"
-#: K1's bodies, as `k1_body_launched` names them.
-K1_BODIES = ("wgmma_pipeline", "cuda_cores", "wide_wgmma", "wide_tf32x3")
+#: K1's bodies, as `k1_body_launched` names them; the first two run in
+#: K1c's library (`launches_on_k1c`), the others in K1's (`launches_own`).
+K1_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma",
+             "wide_tf32x3")
+K1_BODIES_ON_K1C = K1_BODIES[:2]
+#: The narrow f32 body of K1 and K1c (`narrow_tf32x3_kernel`,
+#: `csrc/mlp_narrow_f32.cuh`): token rows of a row tile, hidden columns of a
+#: chunk (fc2's K between the promotions of its 3xTF32 accumulators into an
+#: f32 sum), and the most splits of the hidden columns (blocks of a cluster)
+#: and the fewest chunks a split.
+NARROW_F32_TILE_ROWS = 64
+NARROW_F32_CHUNK = 32
+NARROW_F32_MAX_SPLITS = 16
+NARROW_F32_MIN_SPLIT_CHUNKS = 2
+#: K1c's order on that body: row tiles a group walks in turn.
+K1C_NARROW_F32_TILES = 2
 #: K1's wide f32 body (`wide_tf32x3_kernel`): (rows, columns) of an output
 #: tile, k of a pipeline stage, k between the promotions of its 3xTF32
 #: accumulators into an f32 sum, and the most K splits of a phase.
@@ -119,6 +138,7 @@ WIDE_F32_STAGE_K = 32
 WIDE_F32_PROMOTE_K = 128
 WIDE_F32_MAX_SPLITS = 8
 _last_body = None
+_last_k1c_body = None
 #: K1b's f32 body (`chunked_tf32x3_kernel`): token rows of a block's unit
 #: (one model's row tile, `k1b_f32_plan`).
 K1B_F32_TILE_ROWS = 128
@@ -477,6 +497,92 @@ def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
               models, blocks, _DTYPES[x.dtype], stream)
 
 
+def k1_narrow_f32_plan(n: int, D: int, M: int, active, models: int,
+                       sms: int, groups: int = 0) -> dict:
+    """The grid of the narrow f32 body (K1's, and K1c's with its `groups`)
+    on a card of `sms` SMs: a unit is (row tile of `NARROW_F32_TILE_ROWS`,
+    split of the M / `NARROW_F32_CHUNK` chunks, model).  The splits of a row
+    tile are the blocks of one cluster, each a contiguous run of chunks:
+    split s takes chunks [s C / S, (s + 1) C / S).  S grows until the tiles
+    times the splits fill the SMs, up to `NARROW_F32_MAX_SPLITS`, with at
+    least `NARROW_F32_MIN_SPLIT_CHUNKS` chunks a split.  S depends on n and
+    M alone, not on the models or the widths, so a model gives the same bits
+    alone and in a stacked call.  A split whose chunks all lie at or past a
+    model's width (`active`: one int, or one a model) skips its products and
+    joins the sum with zeros.  The grid is (S x groups, models) blocks: K1
+    gives each row tile a group (`groups` 0), K1c fewer, each walking a
+    contiguous run of row tiles."""
+    tiles = -(-n // NARROW_F32_TILE_ROWS)
+    chunks = -(-M // NARROW_F32_CHUNK)
+    splits = max(1, min(NARROW_F32_MAX_SPLITS,
+                        chunks // NARROW_F32_MIN_SPLIT_CHUNKS, -(-sms // tiles)))
+    groups = groups or tiles
+    widths = list(active) if isinstance(active, (list, tuple)) else [active] * models
+    live = [-(-min(max(int(a), 0), M) // NARROW_F32_CHUNK) for a in widths]
+    bounds = [(s * chunks // splits, (s + 1) * chunks // splits)
+              for s in range(splits)]
+    skipped = sum(k0 >= c for c in live for k0, _ in bounds)
+    return {"n": n, "D": D, "M": M, "models": models, "sms": sms,
+            "tile_rows": NARROW_F32_TILE_ROWS, "chunk": NARROW_F32_CHUNK,
+            "tiles": tiles, "chunks": chunks, "splits": splits, "groups": groups,
+            "units": tiles * splits * models, "skipped_units": skipped * tiles,
+            "blocks": splits * groups * models,
+            "waves": splits * groups * models / sms}
+
+
+def k1_narrow_f32_unit(plan: dict, u: int, active) -> tuple:
+    """Unit u of `k1_narrow_f32_plan` (u = ((model * tiles) + tile) * splits
+    + split): (model, first row, row past the last, first hidden column,
+    column past the last it computes).  The columns stop at the model's
+    width (`active`: one int, or one a model), so a split past it computes
+    none."""
+    splits, tiles = plan["splits"], plan["tiles"]
+    s, tile, p = u % splits, (u // splits) % tiles, u // (splits * tiles)
+    width = active[p] if isinstance(active, (list, tuple)) else active
+    live = -(-min(max(int(width), 0), plan["M"]) // plan["chunk"])
+    k0 = s * plan["chunks"] // splits
+    k1 = min((s + 1) * plan["chunks"] // splits, live)
+    c0 = k0 * plan["chunk"]
+    c1 = max(min(k1 * plan["chunk"], int(width), plan["M"]), c0)
+    return (p, tile * plan["tile_rows"], min(plan["n"], (tile + 1) * plan["tile_rows"]),
+            c0, c1)
+
+
+#: `fused_mlp_narrow_f32_launch`'s and `mlp_pipelined_f32_launch`'s
+#: arguments, as ctypes types.
+_NARROW_F32_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                        + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def k1c_narrow_f32_groups(n: int) -> int:
+    """K1c's row-tile groups a model on the narrow f32 body: each walks
+    `K1C_NARROW_F32_TILES` consecutive row tiles (the last group what is
+    left), where K1 gives each row tile a group of its own."""
+    tiles = -(-n // NARROW_F32_TILE_ROWS)
+    return -(-tiles // K1C_NARROW_F32_TILES)
+
+
+def _launch_narrow_f32(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
+                       models: int, stream, k1c: bool = False) -> int:
+    """The narrow f32 body on `k1_narrow_f32_plan`'s grid, through K1's
+    library (`fused_mlp_narrow_f32_launch`) or K1c's
+    (`mlp_pipelined_f32_launch`, on K1c's row-tile groups).  Returns the
+    entry point's CUDA error code."""
+    D, M = x.shape[-1], w1.shape[-2]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = k1_narrow_f32_plan(n, D, M, M if per_model is not None else active,
+                              models, sms)
+    groups = k1c_narrow_f32_groups(n) if k1c else plan["tiles"]
+    fn = (_build.entry("mlp_pipelined", _NARROW_F32_ARGTYPES, "mlp_pipelined_f32_launch")
+          if k1c else _build.entry("fused_mlp", _NARROW_F32_ARGTYPES,
+                                   "fused_mlp_narrow_f32_launch"))
+    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+              w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M, active,
+              None if per_model is None else per_model.data_ptr(), models,
+              plan["splits"], groups, stream)
+
+
 def k1b_f32_plan(n: int, models: int) -> dict:
     """K1b's f32 grid: one block a unit (row tile of `K1B_F32_TILE_ROWS`,
     model), grid x the row tiles, grid y the models."""
@@ -506,15 +612,15 @@ def _launch_k1b_f32(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
 
 def _k1_body(dtype, D: int) -> str:
     """The body a K1 call at hidden size D takes: at a wide D, the `wgmma`
-    GEMMs (in f32 their 3xTF32 form); in bf16 at D 9-64, K1c's pipeline;
-    in f32 at D <= 64, and in bf16 at D <= 8, the CUDA cores
-    (`fused_mlp_launch`'s own dispatch)."""
+    GEMMs (in f32 their 3xTF32 form); in f32 at D <= 64, the narrow 3xTF32
+    body; in bf16 at D 9-64, K1c's pipeline, and at D <= 8 K1c's CUDA-core
+    tiling."""
     D = kernel_width(D, dtype)
     if D not in WIDTHS:
         return "wide_wgmma" if dtype == torch.bfloat16 else "wide_tf32x3"
-    if dtype != torch.bfloat16 or D == 8:
-        return "cuda_cores"
-    return "wgmma_pipeline"
+    if dtype != torch.bfloat16:
+        return "narrow_tf32x3"
+    return "cuda_cores" if D == 8 else "wgmma_pipeline"
 
 
 def k1_body_launched() -> str:
@@ -525,8 +631,17 @@ def k1_body_launched() -> str:
     return _last_body
 
 
+def k1c_body_launched() -> str:
+    """The body that this process's last K1c launch took: K1's narrow f32
+    body in f32 ("narrow_tf32x3"), else "wgmma_pipeline" or, at D = 8,
+    "cuda_cores"."""
+    if _last_k1c_body is None:
+        raise RuntimeError("fused_mlp: K1c has not been launched")
+    return _last_k1c_body
+
+
 def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
-    global _last_body, launches_on_k1c, launches_own
+    global _last_body, _last_k1c_body, launches_on_k1c, launches_own
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
     _check(x, w1, b1, w2, b2, variant)
@@ -549,19 +664,24 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
     n = x.numel() // (D * models)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     body = _k1_body(x.dtype, D) if variant == "seq" else None
+    f32 = x.dtype == torch.float32
     if body == "wide_wgmma":
         err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
     elif body == "wide_tf32x3":
         err = _launch_wide_f32(x, w1, b1, w2, b2, out, n, active, stream)
-    elif variant == "chunked" and x.dtype == torch.float32:
+    elif variant == "chunked" and f32:
         err = _launch_k1b_f32(x, w1, b1, w2, b2, out, n, active, per_model,
                               models, stream)
-    elif variant == "pipelined2" or body == "wgmma_pipeline":
+    elif body == "narrow_tf32x3" or (variant == "pipelined2" and f32):
+        # K1's narrow f32 body, from K1's library or K1c's
+        err = _launch_narrow_f32(x, w1, b1, w2, b2, out, n, active, per_model,
+                                 models, stream, k1c=variant == "pipelined2")
+    elif variant == "pipelined2" or body in K1_BODIES_ON_K1C:
         # K1c's library; on K1's routed calls, counted as K1's launch
         err = _launch_k1c(x, w1, b1, w2, b2, out, n, active, per_model,
                           models, stream)
         name = "mlp_pipelined"
-    else:
+    else:  # K1b in bf16
         fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
                           + [ctypes.c_int] * 4
                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -572,9 +692,12 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
                  models, _DTYPES[x.dtype], stream)
     _build.check(name, err)
     globals()[counter] += 1
+    if variant == "pipelined2":
+        _last_k1c_body = ("narrow_tf32x3" if f32 else
+                          "cuda_cores" if D == 8 else "wgmma_pipeline")
     if body is not None:
         _last_body = body
-        if body == "wgmma_pipeline":
+        if body in K1_BODIES_ON_K1C:
             launches_on_k1c += 1
         else:
             launches_own += 1

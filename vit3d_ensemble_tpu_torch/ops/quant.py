@@ -16,9 +16,9 @@ same inputs.  On a CUDA tensor the product is `torch._int_mm` (cuBLASLt's
 int8 GEMM, as JAX leaves its `lax.dot_general` to XLA: no hand-written
 kernel).  It takes more than 16 rows and K and N that are multiples of 8;
 K and N are padded with zeros to the next multiple of 8, which adds
-nothing to an integer sum (`mlp_dim` 2,204 of confs 19-22 is 4 short), and
-the result is sliced back.  A product with 16 rows or fewer raises.  On a
-CPU tensor it is the plain int32 product.
+nothing to an integer sum (`mlp_dim` 2,204 of confs 19-22 is 4 short), the
+rows of a product with 16 or fewer to 17, and the result is sliced back.
+On a CPU tensor it is the plain int32 product.
 
 Scope, as in JAX: the Q/K/V and out projections (`int8` and `int8_attn`)
 and the MLP's fc1/fc2 (`int8` only), on deterministic forwards only; the
@@ -89,18 +89,24 @@ def padded_operands(a: torch.Tensor, b: torch.Tensor):
     return a.contiguous(), b.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
+#: `torch._int_mm` on a CUDA tensor takes more rows than this.
+_INT_MM_MIN_ROWS = 16
+
+
 def int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The card's product: int8 a (M, K) or (P, M, K) by int8 b (K, N) or
     (P, K, N) -> int32, through `torch._int_mm` on the padded operands, a
-    model at a time."""
-    if a.shape[-2] <= 16:
-        raise ValueError(f"int8 product of {a.shape[-2]} rows: torch._int_mm "
-                         "takes more than 16")
-    N = b.shape[-1]
+    model at a time.  `torch._int_mm` on the card takes more than 16 rows,
+    so a product of fewer runs with a's rows zero-padded to 17 and is sliced
+    back: zero rows add nothing, so the result is exact at any row count,
+    as JAX's `int8_dense` is."""
+    M, N = a.shape[-2], b.shape[-1]
     ap, bp = padded_operands(a, b)
+    if M <= _INT_MM_MIN_ROWS:
+        ap = F.pad(ap, (0, 0, 0, _INT_MM_MIN_ROWS + 1 - M))
     if a.dim() == 2:
-        return torch._int_mm(ap, bp)[:, :N]
-    return torch.stack([torch._int_mm(ap[p], bp[p])[:, :N]
+        return torch._int_mm(ap, bp)[:M, :N]
+    return torch.stack([torch._int_mm(ap[p], bp[p])[:M, :N]
                         for p in range(ap.shape[0])])
 
 
