@@ -35,7 +35,14 @@ read just after:
     modules, bf16 at B=8 under `auto` (K4 at head_dim 80, K1's wide body at
     D 1,280) and `layer` (K3 on K4's body), the kernels at its shapes, and a
     sweep of K1 over hidden sizes from 24 to 8,192 and of K4 and K3 over
-    head dims from 20 to 256 against their plain versions (phase `widths`);
+    head dims from 20 to 256 against their plain versions (phase `widths`:
+    K1b and K1c at those hidden sizes too, and K1 with a model axis);
+  * five stacked members of the stretch model at full width (phase
+    `wide_axis`): `sweep/stacked.stacked_forward`, as the sweep evaluates
+    a config's folds in one forward, with per-member MLP widths and depths,
+    in bf16 at B=8 and in f32 at B=1 against the plain modules, under each
+    fused-FFN variant (K1, K1b and K1c at D 768 with the model axis), and
+    the single stretch and ViT-H-width models under K1b and K1c;
   * the 18-model pass under `layer` too (K3's core at head_dim <= 16 on
     K2's body: counter `K3_on_K2`), by device time beside `auto`'s;
   * the sweep engine (`run_group`) on the three groups of conf 1-18, and
@@ -558,7 +565,7 @@ def phase_build() -> None:
     # body at head_dim 16 runs on mma.sync (HMMA), and both its bodies on
     # MUFU.EX2; K4's f32 body on mma.sync in TF32, in every instantiation
     sass = {f"{name}_sass_{op.lower()}": sass_count(name, op)
-            for name in ("fused_mlp", "mlp_pipelined", "attention")
+            for name in ("fused_mlp", "mlp_chunked", "mlp_pipelined", "attention")
             for op in ("HGMMA", "UTMALDG")}
     sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
@@ -566,6 +573,7 @@ def phase_build() -> None:
     k1_tf32 = k1_f32_sass()
     k1b_tf32 = k1b_f32_sass()
     narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
+    wide = {name: wide_sass(name) for name in MLP_LIBRARIES}
     k1b_ptxas = ptxas_summary(logs["mlp_chunked"])
     attention_ptxas = ptxas_summary(logs["attention"])
     mlp_ptxas = ptxas_summary(logs["fused_mlp"])
@@ -585,6 +593,8 @@ def phase_build() -> None:
           "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "narrow_f32_sass_hgmma_tf32": narrow_tf32,
+          "wide_sass_hgmma": wide,
+          "k1c_wide_plan": [k1c_wide_plan(*case) for case in K1C_WIDE_PLAN_CASES],
           "k1_narrow_f32_plan": [narrow_plan(*case) for case in K1_NARROW_F32_PLAN_CASES],
           "k1_f32_plan": [k1_f32_plan(*case) for case in K1_F32_PLAN_CASES],
           "k1b_f32_plan": [fused_mlp.k1b_f32_plan(*case) for case in K1B_F32_PLAN_CASES],
@@ -630,6 +640,15 @@ def phase_build() -> None:
     check(gelu["poly"]["mufu"] == 0, f"the polynomial GELU takes exponentials: {gelu}")
     check(ptxas_summary(logs["mlp_pipelined"])["wgmma_serialized"] == 0,
           "ptxas serialised K1c's wgmmas")
+    # the wide bodies (`mlp_wide.cuh`), in each library that runs them
+    for name in MLP_LIBRARIES:
+        ptxas = ptxas_summary(logs[name])
+        check(wide[name] and all(n > 0 for n in wide[name].values()),
+              f"the wide bodies' HGMMAs in {name}: {wide[name]}")
+        check(not any("wide_" in e or "split_sum" in e for e in ptxas["spilling_entries"]),
+              f"the wide bodies spill in {name}: {ptxas['spilling_entries']}")
+        check(ptxas["wgmma_serialized"] == ptxas["wgmma_serialized_divergent"] == 0,
+              f"ptxas serialised wgmmas in {name}")
 
 
 # K1c's bf16 grid at the shapes of its phase: the serving pass (one model)
@@ -648,6 +667,34 @@ def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
     check(plan["blocks"] <= plan["slots"], f"K1c plan {plan} exceeds the slots")
     return {"dtype": str(dtype).split(".")[1], "D": D, "n": n, "models": models,
             **shape, **plan}
+
+
+#: The libraries of K1, K1b and K1c, each of which includes the wide bodies.
+MLP_LIBRARIES = ("fused_mlp", "mlp_chunked", "mlp_pipelined")
+
+
+def wide_sass(name: str) -> dict:
+    """Lines of HGMMA (bf16 or TF32) in each instantiation of the wide
+    bodies (`csrc/mlp_wide.cuh`: the two-launch GEMMs and K1c's queue) in
+    `csrc/<name>.cu`'s library, by its mangled name."""
+    return {fn.split()[0]: sum("HGMMA" in line for line in fn.splitlines())
+            for fn in sass_of(_build.library_path(name)).split("Function : ")[1:]
+            if re.search(r"wide_(gemm|tf32x3|queue)", fn.split()[0])}
+
+
+# K1c's wide queue at the `wide_axis` phase's shapes: five stacked members
+# in bf16 at B=8 and in f32 at B=1, and one ViT-H-width model at B=8.
+K1C_WIDE_PLAN_CASES = ((STRETCH_B * 513, 768, 3072, 5, torch.bfloat16),
+                       (513, 768, 3072, 5, torch.float32),
+                       (STRETCH_B * 513, 1280, 5120, 1, torch.bfloat16))
+
+
+def k1c_wide_plan(n: int, D: int, M: int, models: int, dtype) -> dict:
+    """`fused_mlp.k1c_wide_plan` at one shape on this card."""
+    plan = fused_mlp.k1c_wide_plan(n, D, M, models, dtype,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    check(plan["blocks"] <= plan["slots"], f"K1c wide plan {plan} exceeds the SMs")
+    return {"dtype": str(dtype).split(".")[1], **plan}
 
 
 def k1b_f32_sass() -> dict:
@@ -691,15 +738,19 @@ def k1_f32_sass() -> dict:
             if "wide_tf32x3_kernel" in fn.split()[0]}
 
 
-# K1's wide f32 grids at the K1 phase's stretch shapes (D = 768, M = 3,072).
-K1_F32_PLAN_CASES = tuple((N, 768, 3072, active) for N in (STRETCH_B * 513, 513, 70)
-                          for active in (3072, 2072))
+# K1's wide f32 grids at the K1 phase's stretch shapes (D = 768, M = 3,072),
+# and K1's and K1b's at the `wide_axis` phase's five stacked members at B=1.
+K1_F32_PLAN_CASES = ((STRETCH_B * 513, 768, 3072, 1, False), (513, 768, 3072, 1, False),
+                     (70, 768, 3072, 1, False), (513, 768, 3072, 5, False),
+                     (513, 768, 3072, 5, True))
 
 
-def k1_f32_plan(N: int, D: int, M: int, active: int) -> dict:
-    """`fused_mlp.wide_f32_plan` at one shape on this card."""
-    return fused_mlp.wide_f32_plan(N, D, M, active,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
+def k1_f32_plan(N: int, D: int, M: int, models: int, chunked: bool) -> dict:
+    """`fused_mlp.wide_f32_plan` at one shape on this card (K1b's with
+    `chunked`)."""
+    return fused_mlp.wide_f32_plan(N, D, M,
+                                   torch.cuda.get_device_properties(0).multi_processor_count,
+                                   models, chunked)
 
 
 def k4_f32_sass() -> dict:
@@ -1696,6 +1747,9 @@ def phase_main_path(gen) -> dict:
 # `narrow_tf32x3_kernel` their f32 body: every path but the `variants`
 # phase's K1c turns launches them as K1, so they are K1's group.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1", "wide_tf32x3"),
+                 # K1c's wide queue; K1b's wide calls run K1's wide kernels
+                 # (`wide_gemm`, `wide_tf32x3`, `split_sum`: group K1)
+                 ("K1c", "wide_queue"),
                  # K1's narrow f32 body, K1c's f32 route too
                  ("K1", "narrow_tf32x3"),
                  ("K1", "split_sum"), ("K1b", "chunked_"),
@@ -2009,6 +2063,8 @@ def phase_stretch(gen) -> dict:
             result[impl] = {"launches": counts, "ms_per_batch": wall,
                             "volumes_per_s": volumes / seconds,
                             "device_busy_ms": busy}
+    # the same model under K1b and K1c (their wide bodies at D 768)
+    result.update(variant_passes("stretch", model, x, ref, layers))
     return result
 
 
@@ -2401,9 +2457,180 @@ def phase_vit_h(gen) -> dict:
     expect = vit_b16_expect(cfg.num_layers)
     f32 = f32_against_plain("vit_h", model, x[:1], expect["auto"])
     served = serve_vit_b16("vit_h", model, x, expect)
-    del model
+    # the same model under K1b and K1c (their wide bodies at D 1,280)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        set_impls("plain")
+        try:
+            ref = model(xb)
+        finally:
+            set_impls("auto")
+    served.update(variant_passes("vit_h", model, xb, ref, cfg.num_layers))
+    del model, xb, ref
     cases = vit_b16_kernel_cases(gen, VIT_H_TOKENS, "vit_h", VIT_H)
     return {"f32": f32, **served, "cases": cases, "parameters": params}
+
+
+# --- the `wide_axis` phase: five stacked members of the stretch model -------
+# The five CV folds of one `vit_b16_128cubed` config evaluated as one stacked
+# forward (`sweep/stacked.stacked_forward`, the sweep engine's vmapped model),
+# with the masked widths and depths the sweep's padded templates give its
+# members: each member's MLP width and its layers.
+WIDE_AXIS_MLP = (3072, 3072, 2048, 1000, 3072)
+WIDE_AXIS_LAYERS = (12, 12, 12, 8, 12)
+# passes of a timed run (host clock), and of a variant's run on one model
+WIDE_AXIS_ITERS = 10
+VARIANT_PASS_ITERS = 3
+
+
+def stacked_members(model, gen) -> dict:
+    """The stacked parameters (P, ...) of len(WIDE_AXIS_MLP) members on the
+    card, in f32: member 0 is `model`, each other one its tensors plus noise
+    of 5 % of their mean magnitude; the MLP weights and biases past a
+    member's width are zero, as in the sweep's padded templates."""
+    P = len(WIDE_AXIS_MLP)
+    params = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().to("cuda", torch.float32)
+        noise = torch.randn((P - 1,) + tuple(v.shape), generator=gen, device="cuda")
+        params[k] = torch.cat([v[None], v + noise * (0.05 * v.abs().mean())]).contiguous()
+    for i in range(model.config.num_layers):
+        pre = f"transformer.encoder.layer.{i}.ffn"
+        for p, width in enumerate(WIDE_AXIS_MLP):
+            params[f"{pre}.fc1.weight"][p, width:] = 0
+            params[f"{pre}.fc1.bias"][p, width:] = 0
+            params[f"{pre}.fc2.weight"][p, :, width:] = 0
+    return params
+
+
+def phase_wide_axis(gen) -> dict:
+    """Five stacked members of `vit_b16_128cubed` at full width and depth
+    (D 768, MLP 3,072, 12 layers of 12 heads of 64, 513 tokens), widths
+    WIDE_AXIS_MLP and depths WIDE_AXIS_LAYERS, through
+    `stacked_forward`: in f32 at B=1 a member and in bf16 at B=8 a member
+    (20,520 token rows a fused-FFN call), each against the same stacked
+    forward on the plain modules (f32: TOKENS_F32_ATOL, the stretch phase's
+    f32 gate; bf16: TOKENS_BF16_ATOL) under each fused-FFN variant in turn,
+    so K1, K1b and K1c run their wide bodies with the model axis at D 768:
+    launches exact (one fused-FFN and one K4 launch a layer), a pass's wall
+    ms (WIDE_AXIS_ITERS passes by the host clock), its device busy ms,
+    kernels and idle share."""
+    cfg = vit_b16_128cubed()
+    model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                generator=torch.Generator().manual_seed(SEED + 11))
+    with torch.no_grad():
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+        params = stacked_members(model, gen)
+    del model
+    P, L = len(WIDE_AXIS_MLP), cfg.num_layers
+    mlp = torch.tensor(WIDE_AXIS_MLP, dtype=torch.int32, device="cuda")
+    layers = torch.tensor(WIDE_AXIS_LAYERS, dtype=torch.int32, device="cuda")
+    emit({"phase": "wide_axis_model", "config": "vit_b16_128cubed", "members": P,
+          "mlp_active": list(WIDE_AXIS_MLP), "layers_active": list(WIDE_AXIS_LAYERS),
+          "parameters": int(sum(v.numel() for v in params.values())),
+          "bytes_f32": int(sum(v.numel() * 4 for v in params.values()))})
+    result = {}
+    for dtype, B in ((torch.float32, 1), (torch.bfloat16, STRETCH_B)):
+        name = str(dtype).split(".")[1]
+        stacked = {k: v.to(dtype) for k, v in params.items()}
+        x = torch.randn(P, B, cfg.img_size, cfg.img_size, cfg.z_size, 1, generator=gen,
+                        device="cuda").to(dtype)
+
+        def run():
+            return stacked_module.stacked_forward(stacked, cfg, x, layers_active=layers,
+                                                  mlp_active=mlp)
+
+        with torch.no_grad():
+            set_impls("plain")
+            try:
+                ref = run()
+            finally:
+                set_impls("auto")
+            for variant, kernel in VARIANT_KERNELS.items():
+                with mlp_variant(variant):
+                    run()                       # warm-up
+                    reset_launches()
+                    out = run()
+                    counts = launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(WIDE_AXIS_ITERS):
+                        run()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) / WIDE_AXIS_ITERS * 1e3
+                    busy, groups, kernels, by_group = device_time(run)
+                    body = {"seq": fused_mlp.k1_body_launched,
+                            "chunked": fused_mlp.k1b_body_launched,
+                            "pipelined2": fused_mlp.k1c_body_launched}[variant]()
+                want = counts_of(K4=L, **(k1_split(L, dtype, cfg.hidden_size)
+                                          if kernel == "K1" else {kernel: L}))
+                err = float((out.float() - ref.float()).abs().max())
+                atol = TOKENS_F32_ATOL if dtype == torch.float32 else TOKENS_BF16_ATOL
+                finite = bool(torch.isfinite(out).all())
+                shape_ok = tuple(out.shape) == (P, B, cfg.num_classes)
+                mlp_ms = sum(groups.get(g, 0.0) for g in MLP_GROUPS)
+                ok = (err <= atol and finite and shape_ok and counts == want
+                      and busy > 0 and body.startswith("wide_"))
+                res = {"phase": "wide_axis", "card": card, "variant": variant,
+                       "kernel": kernel, "body": body, "dtype": name, "models": P,
+                       "B": B, "token_rows_a_call": B * cfg.seq_len,
+                       "logits_max_abs_err": err, "atol": atol, "finite": finite,
+                       "shape_ok": shape_ok, "launches": counts,
+                       "expected_launches": want, "wall_ms": wall,
+                       "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                       "mlp_device_ms": mlp_ms, "kernels": kernels,
+                       "by_group_ms": groups, "kernels_by_group": by_group, "ok": ok}
+                emit(res)
+                check(ok, f"wide_axis {name} {variant}: err {err}, launched {counts} "
+                          f"of {want}, body {body}, busy {busy}")
+                result[f"{name}_{variant}"] = res
+        del stacked, x
+    return result
+
+
+def variant_passes(name: str, model, x, ref, layers: int) -> dict:
+    """The bf16 model at B = x.shape[0] under K1b and K1c in turn (`auto`
+    attention, so K4 a layer): VARIANT_PASS_ITERS passes by the host clock
+    after a warm-up, launches exact (one fused-FFN launch a layer, on its
+    wide body), tokens against the plain modules' (`ref`) within
+    TOKENS_BF16_ATOL, and one traced pass's device busy ms."""
+    result = {}
+    with torch.no_grad():
+        for variant in ("chunked", "pipelined2"):
+            kernel = VARIANT_KERNELS[variant]
+            with mlp_variant(variant):
+                model(x)
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(VARIANT_PASS_ITERS):
+                    out = model(x)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / VARIANT_PASS_ITERS * 1e3
+                counts = launches()
+                busy, groups, kernels, _ = device_time(lambda: model(x))
+                body = (fused_mlp.k1b_body_launched() if variant == "chunked"
+                        else fused_mlp.k1c_body_launched())
+            n = layers * VARIANT_PASS_ITERS
+            want = counts_of(K4=n, **{kernel: n})
+            err = float((out.tokens.float() - ref.tokens.float()).abs().max())
+            finite = bool(torch.isfinite(out.tokens).all())
+            ok = (counts == want and err <= TOKENS_BF16_ATOL and finite and busy > 0
+                  and body == fused_mlp._variant_body(variant, x.dtype,
+                                                      model.config.hidden_size))
+            res = {"phase": f"{name}_variants", "card": card, "variant": variant,
+                   "kernel": kernel, "body": body, "dtype": "bfloat16",
+                   "B": x.shape[0], "iters": VARIANT_PASS_ITERS, "launches": counts,
+                   "expected_launches": want, "tokens_max_abs_err": err,
+                   "atol": TOKENS_BF16_ATOL, "finite": finite, "ms_per_batch": wall,
+                   "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                   "kernels": kernels, "by_group_ms": groups, "ok": ok}
+            emit(res)
+            check(ok, f"{name} under {variant}: err {err}, launched {counts} of {want}")
+            result[variant] = res
+    return result
 
 
 # The width sweep (phase `widths`), gates only: K1 at hidden sizes between
@@ -2434,13 +2661,46 @@ def sweep_gate(out, ref, dtype, tol, dropped=None) -> dict:
     return res
 
 
+def width_sweep_case(gen, variant: str, x, weights, active) -> dict:
+    """One K1 (with `active` a list: stacked over len(active) models, the
+    second model's weights drawn here), K1b or K1c call of the width sweep,
+    its launch and body held exactly, against its plain version at the JAX
+    tolerances."""
+    w1, b1, w2, b2 = weights
+    D, M = x.shape[-1], w1.shape[0]
+    if isinstance(active, list):
+        more = mlp_weights(gen, x.dtype, D, M, (len(active) - 1,))
+        w1, b1, w2, b2 = (torch.cat([t[None], m]) for t, m in zip(weights, more))
+        x = torch.stack([x] + [torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+                               for _ in active[1:]])
+        active = torch.tensor(active, dtype=torch.int32, device="cuda")
+    kernel = VARIANT_KERNELS[variant]
+    plain = fused_mlp._plain_mlp_chunked if variant == "chunked" else fused_mlp._plain_mlp
+    with mlp_variant(variant):
+        before = launches()
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+        counts = {k: n - before[k] for k, n in launches().items()}
+    body = {"seq": fused_mlp.k1_body_launched, "chunked": fused_mlp.k1b_body_launched,
+            "pipelined2": fused_mlp.k1c_body_launched}[variant]()
+    want = (counts_of(**k1_split(1, x.dtype, D)) if kernel == "K1"
+            else counts_of(**{kernel: 1}))
+    res = sweep_gate(out, plain(x, w1, b1, w2, b2, active), x.dtype, None)
+    res["ok"] = (res["ok"] and counts == want
+                 and body == fused_mlp._variant_body(variant, x.dtype, D))
+    models = w1.shape[0] if w1.dim() == 3 else 0
+    return {"dtype": str(x.dtype).split(".")[1], "N": x.shape[-2], "D": D, "M": M,
+            "active": active.tolist() if models else active, "models": models,
+            "body": body, **res}
+
+
 def phase_widths(gen) -> dict:
-    """K1, K4 and K3 over the widths of `WIDTH_SWEEP_*`, each launch counted
-    (one launch a call, on the body the wrapper names) and held to its plain
-    version: K1 at the JAX tolerances, K4 and K3 at K4's gate in bf16 on a
+    """K1, K1b, K1c, K4 and K3 over the widths of `WIDTH_SWEEP_*`, each
+    launch counted (one launch a call, on the body the wrapper names) and
+    held to its plain version: K1 (alone, and with a model axis of two
+    models), K1b and K1c at the JAX tolerances, K4 and K3 at K4's gate in bf16 on a
     context of rms 1 (`model_views`) with the dropped-key check, f32 at
     the JAX tolerance.  Prints one line a kernel and fails on any case."""
-    cases = {"K1": [], "K4": [], "K3": []}
+    cases = {"K1": [], "K1b": [], "K1c": [], "K4": [], "K3": []}
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
@@ -2450,16 +2710,11 @@ def phase_widths(gen) -> dict:
                 w1, b1, w2, b2 = mlp_weights(gen, dtype, D, M)
                 for N in WIDTH_SWEEP_ROWS:
                     x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
-                    before = launches()
-                    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
-                    counts = {k: n - before[k] for k, n in launches().items()}
-                    body = fused_mlp.k1_body_launched()
-                    res = sweep_gate(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, active),
-                                     dtype, None)
-                    res["ok"] = (res["ok"] and body == fused_mlp._k1_body(dtype, D)
-                                 and counts == counts_of(**k1_split(1, dtype, D)))
-                    cases["K1"].append({"dtype": name, "N": N, "D": D, "M": M,
-                                        "active": active, "body": body, **res})
+                    for variant, kernel in VARIANT_KERNELS.items():
+                        cases[kernel].append(width_sweep_case(
+                            gen, variant, x, (w1, b1, w2, b2), active))
+                    cases["K1"].append(width_sweep_case(
+                        gen, "seq", x, (w1, b1, w2, b2), [active, M // 2]))
             tol = K4_BF16_TOL if dtype == torch.bfloat16 else None
             for hd in WIDTH_SWEEP_HD:
                 for S in WIDTH_SWEEP_S:
@@ -2827,15 +3082,127 @@ MODEL_AXIS_ROWS = VAL_N * 65
 MODEL_AXIS_WIDTHS = [2048] * 15 + [3072] * 15
 
 
-def phase_model_axis(gen) -> dict:
+# The wide model-axis cases of K1, K1b and K1c (phases `model_axis` and
+# `mlp_variants`): (N, D, M, the models of its cases): the stretch model's
+# (D, M) at B=8's and B=1's token rows with P = 1 and 5 models, and ViT-H's
+# with P = 2; widths full, partial (M - 1,000) and 0 (`wide_case_widths`).
+WIDE_CASE_SHAPES = ((STRETCH_B * 513, 768, 3072, (1, 5)), (513, 768, 3072, (1, 5)),
+                    (STRETCH_B * 513, 1280, 5120, (2,)), (513, 1280, 5120, (2,)))
+
+
+def wide_case_widths(M: int, models: int) -> list:
+    """The width lists (one width a model) of the wide cases of `models`
+    models at hidden size M."""
+    return {1: [[M], [M - 1000], [0]], 2: [[M, M - 1000]],
+            5: [[M, M, M - 1000, M - 1000, 0]]}[models]
+
+
+#: the library chain's device ms a call, by wide case inputs: the same for
+#: every variant
+_chain_device_ms: dict = {}
+
+
+def wide_case(dtype, N: int, D: int, M: int, widths: list, variant: str) -> dict:
+    """A wide fused-FFN kernel (K1's, K1b's or K1c's wide body) with the
+    model axis (P = len(widths), one width a model as a device tensor)
+    against its plain version, on inputs drawn from a generator seeded by
+    the case (so every variant sees the same): its error over the JAX gate,
+    whether each model's slice equals that model alone (no model axis, a
+    host width) bit for bit, for K1c whether it equals K1 bit for bit (K1's
+    f32 plan splits K at some shapes, then their sums differ in order), its
+    ms (events) and device ms (profiler) beside the library chain's
+    (`baddbmm` -> `F.gelu` -> `baddbmm`, the width mask folded into w2) and
+    the bound: the products at the type's tensor-core peak (3xTF32 for
+    f32), the bytes, the GELUs."""
+    P = len(widths)
+    key = (str(dtype), N, D, M, tuple(widths))
+    own = torch.Generator(device="cuda").manual_seed(zlib.crc32(repr(key).encode()))
+    x = torch.randn(P, N, D, generator=own, device="cuda").to(dtype)
+    w1, b1, w2, b2 = mlp_weights(own, dtype, D, M, (P,))
+    wt = torch.tensor(widths, dtype=torch.int32, device="cuda")
+    plain = (fused_mlp._plain_mlp_chunked if variant == "chunked"
+             else fused_mlp._plain_mlp)
+    kernel = VARIANT_KERNELS[variant]
+
+    def call(v=variant):
+        with mlp_variant(v):
+            return fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+
+    with torch.no_grad():
+        before = launches()[kernel]
+        out = call()
+        launched = launches()[kernel] - before
+        body = {"seq": fused_mlp.k1_body_launched, "chunked": fused_mlp.k1b_body_launched,
+                "pipelined2": fused_mlp.k1c_body_launched}[variant]()
+        with mlp_variant(variant):
+            alone = all(torch.equal(fused_mlp.fused_mlp(
+                x[p], w1[p], b1[p], w2[p], b2[p], widths[p]), out[p]) for p in range(P))
+        ref = plain(x, w1, b1, w2, b2, wt)
+        err, ok, atol, rtol = compare(out, ref, dtype)
+        over_gate_ratio = over_gate(out, ref, (atol, rtol))[1]
+        k1 = {}
+        if variant == "pipelined2":
+            plan = fused_mlp.wide_f32_plan(
+                N, D, M, torch.cuda.get_device_properties(0).multi_processor_count)
+            splits = dtype == torch.float32 and max(plan["fc1"]["splits"],
+                                                    plan["fc2"]["splits"]) > 1
+            k1 = {"equal_to_k1": bool(torch.equal(out, call("seq"))),
+                  "k1_splits_k": splits}
+        ms = time_ms(call, 10)
+        plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, wt), 3)
+        device_ms = mlp_device_ms(call, 5)
+        w2m = w2 * (torch.arange(M, device="cuda") < wt[:, None, None]).to(dtype)
+        b1u, b2u = b1.unsqueeze(1), b2.unsqueeze(1)
+        w1t, w2t = w1.transpose(1, 2), w2m.transpose(1, 2)
+
+        def library():
+            return torch.baddbmm(b2u, F.gelu(torch.baddbmm(b1u, x, w1t)), w2t)
+        library_ms = time_ms(library, 10)
+        if key not in _chain_device_ms:
+            _chain_device_ms[key] = device_time(
+                lambda: [library() for _ in range(5)], host_ops=False)[0] / 5
+    live = sum(min(max(w, 0), M) for w in widths)
+    elt = x.element_size()
+    flops = 4.0 * N * D * live
+    nbytes = elt * (2 * P * N * D + 2 * D * live + live + P * D) + 4 * P
+    f32 = dtype == torch.float32
+    bound_ms, bound_by = bound(3 * flops if f32 else flops, nbytes, dtype,
+                               gelus=N * live, peak=PEAK_TF32 if f32 else 0.0)
+    case = {"phase": kernel, "card": card, "path": "wide_axis",
+            "dtype": str(dtype).split(".")[1], "N": N, "D": D, "M": M,
+            "active": widths, "models": P, "body": body, "launched": launched,
+            "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+            "max_err_over_gate": over_gate_ratio, "alone_equal": alone, **k1,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": _chain_device_ms[key],
+            "library_gelu": "erf", "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(case)
+    check(ok and alone and launched == 1 and device_ms > 0
+          and (variant != "pipelined2" or k1["equal_to_k1"] or k1["k1_splits_k"]),
+          f"{kernel} wide case {case}")
+    return case
+
+
+def wide_cases(variant: str) -> list:
+    """`wide_case` at every shape and width list of WIDE_CASE_SHAPES, in bf16
+    and f32."""
+    return [wide_case(dtype, N, D, M, widths, variant)
+            for dtype in (torch.bfloat16, torch.float32)
+            for N, D, M, models in WIDE_CASE_SHAPES
+            for P in models
+            for widths in wide_case_widths(M, P)]
+
+
+def phase_model_axis(gen) -> tuple:
     """K1 with the model axis against its plain version, in f32 (the
-    sweep's type) and bf16.  Returns the f32 case."""
+    sweep's type) and bf16 at the narrow sweep shape, then its wide bodies'
+    cases (`wide_cases`).  Returns the f32 narrow case and the wide cases."""
     cases = {dtype: k1_case(gen, dtype, MODEL_AXIS_ROWS, 64, 3072,
                             MODEL_AXIS_WIDTHS, "sweep_eval",
                             models=len(MODEL_AXIS_WIDTHS),
                             device=dtype == torch.float32)
              for dtype in (torch.float32, torch.bfloat16)}
-    return cases[torch.float32]
+    return cases[torch.float32], wide_cases("seq")
 
 
 def phase_mlp_variants(gen) -> dict:
@@ -2843,9 +3210,10 @@ def phase_mlp_variants(gen) -> dict:
     shapes, masked and unmasked, and at the model-axis shape; by device time
     beside the library chain's: K1c's serving case at (bf16, D=64, M=3072),
     K1b's f32 serving case at (D=64, M=3072) (its 3xTF32 body) and both
-    variants' model-axis cases in f32.  Returns each variant's serving case
-    at (bf16, D=64, M=3072) and its model-axis case in f32, and K1b's f32
-    serving case."""
+    variants' model-axis cases in f32; then each variant's wide bodies with
+    the model axis (`wide_cases`).  Returns each variant's serving case at
+    (bf16, D=64, M=3072), its model-axis case in f32 and its wide cases
+    (`<variant>_wide`), and K1b's f32 serving case."""
     out = {}
     for variant in ("chunked", "pipelined2"):
         for dtype in (torch.bfloat16, torch.float32):
@@ -2867,6 +3235,7 @@ def phase_mlp_variants(gen) -> dict:
                            device=dtype == torch.float32)
             if dtype == torch.float32:
                 out[f"{variant}_model_axis"] = case
+        out[f"{variant}_wide"] = wide_cases(variant)
     return out
 
 
@@ -4478,7 +4847,7 @@ def main() -> int:
     # the phases of the fused-FFN variants and the model axis draw from a
     # generator of their own, so the phases that follow draw what they drew
     own = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    k1_models = phase_model_axis(own)
+    k1_models, k1_wide_axis = phase_model_axis(own)
     k1_variants = phase_mlp_variants(own)
     k1b_scaled = phase_f32_scaled("chunked", MODEL_AXIS_ROWS, 64, SEED + 4)
     k2 = phase_k2(gen)
@@ -4497,6 +4866,7 @@ def main() -> int:
     vit_pre = phase_pretrained(torch.Generator(device="cuda").manual_seed(SEED + 5))
     hybrid = phase_hybrid(torch.Generator(device="cuda").manual_seed(SEED + 6))
     vit_h = phase_vit_h(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    wide_axis = phase_wide_axis(torch.Generator(device="cuda").manual_seed(SEED + 11))
     widths = phase_widths(torch.Generator(device="cuda").manual_seed(SEED + 9))
     quant_res = phase_quant(gen)
     train = phase_train()
@@ -4527,6 +4897,15 @@ def main() -> int:
                       "vit_h": vit_h["auto"]["launches"][name],
                       "vit_h_layer": vit_h["layer"]["launches"][name],
                       "vit_h_f32": vit_h["f32"]["launches"][name],
+                      # the stacked stretch members under each variant, and
+                      # the single stretch and ViT-H-width models under K1b
+                      # and K1c
+                      **{f"wide_axis_{dt}{v}": wide_axis[f"{dtn}_{v}"]["launches"][name]
+                         for v in VARIANT_KERNELS
+                         for dt, dtn in (("", "bfloat16"), ("f32_", "float32"))},
+                      **{f"{model}_{v}": res[v]["launches"][name]
+                         for model, res in (("stretch", stretch), ("vit_h", vit_h))
+                         for v in ("chunked", "pipelined2")},
                       "sweep": sweep["launches"][name],
                       "remat": remat["launches"][name],
                       "cli": cli["launches"][name],
@@ -4580,6 +4959,13 @@ def main() -> int:
                 "bound_ms_cuda_cores": case["bound_ms_cuda_cores"],
                 "bound_ms_mma_sync": case["bound_ms_mma_sync"]}
 
+    def wide_axis_of(variant):
+        """The stacked pass's numbers under one variant, both types."""
+        return {dt: {k: wide_axis[f"{dt}_{variant}"][k] for k in (
+            "body", "B", "logits_max_abs_err", "wall_ms", "device_busy_ms",
+            "device_idle_share", "mlp_device_ms", "kernels", "launches")}
+            for dt in ("bfloat16", "float32")}
+
     def narrow_case(case, path=None):
         """A case of the narrow f32 body (K1's or K1c's): its bounds, body,
         plan and whether two calls gave the same bits."""
@@ -4627,7 +5013,10 @@ def main() -> int:
             # its wide bodies at ViT-H's D 1,280, M 5,120, 513 tokens: bf16
             # at B=8, f32 at B=1; and the sweep over hidden sizes 24-8,192
             vit_h_cases=[vit_b16_case(c, "vit_h") for c in vit_h["cases"]["K1"]],
-            width_sweep=widths["K1"]),
+            width_sweep=widths["K1"],
+            # its wide bodies with the model axis: the cases of
+            # `wide_cases`, and the five stacked stretch members' pass
+            model_axis_wide_cases=k1_wide_axis, wide_axis=wide_axis_of("seq")),
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
             "variants_chunked",
@@ -4636,7 +5025,12 @@ def main() -> int:
             # larger against the f64 MLP
             model_axis_case=k1b_f32_case(k1_variants["chunked_model_axis"]),
             f32_case=k1b_f32_case(k1_variants["chunked_f32"]),
-            f32_scaled_max_err_over_gate=k1b_scaled["max_err_over_gate"]),
+            f32_scaled_max_err_over_gate=k1b_scaled["max_err_over_gate"],
+            # its wide bodies (K1's, fc2 summed chunk by chunk) with the
+            # model axis, over the sweep of hidden sizes, on the stacked
+            # stretch members and the single stretch and ViT-H-width models
+            wide_cases=k1_variants["chunked_wide"], width_sweep=widths["K1b"],
+            wide_axis=wide_axis_of("chunked")),
         row("K1c", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:142", k1_variants["pipelined2"],
             "variants_pipelined2",
@@ -4645,7 +5039,13 @@ def main() -> int:
             plan=k1c_plan(*K1C_PLAN_CASES[0]),
             # f32 on K1's narrow body, on K1c's row-tile groups
             model_axis_case=narrow_case(k1_variants["pipelined2_model_axis"]),
-            f32_scaled_max_err_over_gate=k1c_scaled["max_err_over_gate"]),
+            f32_scaled_max_err_over_gate=k1c_scaled["max_err_over_gate"],
+            # its wide queue (fc1 of row tile i + 1 ahead of fc2 of row
+            # tile i, one launch) with the model axis, over the sweep of
+            # hidden sizes, and on the stacked stretch members
+            wide_cases=k1_variants["pipelined2_wide"], width_sweep=widths["K1c"],
+            wide_plan=k1c_wide_plan(*K1C_WIDE_PLAN_CASES[0]),
+            wide_axis=wide_axis_of("pipelined2")),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2[16], "serve",
             device_ms=k2[16]["device_ms"],
@@ -4741,6 +5141,9 @@ def main() -> int:
             "ms_per_batch", "volumes_per_s", "device_busy_ms", "device_idle_share",
             "kernels")} for impl in ("auto", "layer")}
             for model, res in (("pretrained", vit_pre), ("hybrid", hybrid))},
+        "wide_axis": {k: {m: r[m] for m in ("wall_ms", "device_busy_ms",
+                                             "device_idle_share", "kernels")}
+                      for k, r in wide_axis.items()},
         "vit_h": {"parameters": vit_h["parameters"],
                   "f32_device_busy_ms": vit_h["f32"]["device_busy_ms"],
                   **{impl: {k: vit_h[impl][k] for k in (

@@ -172,9 +172,9 @@ def test_fused_mlp_takes_unaligned_views(cuda, dtype):
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
-    """What stays refused, naming its ROADMAP item: head_dim above 256,
-    hidden size above 8,192 and the wide model axis; head_dim 48 and hidden
-    sizes 48, 96 and 1,088, refused before, launch."""
+    """What stays refused, naming its ROADMAP item: head_dim above 256 and
+    hidden size above 8,192; head_dim 48, hidden sizes 48, 96 and 1,088 and
+    the wide model axis, refused before, launch."""
     odd = torch.zeros(1, 12, 65, 257, device="cuda")
     with pytest.raises(ValueError, match="head_dim 257"):
         fused_attention.fused_attention(odd, odd, odd)
@@ -198,9 +198,10 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
             assert fused_mlp.launches == before + 1
     x = torch.zeros(2, 65, 96, device="cuda")
     w1, w2 = torch.zeros(2, 128, 96, device="cuda"), torch.zeros(2, 96, 128, device="cuda")
-    with pytest.raises(ValueError, match="wide bodies with a model axis"):
-        fused_mlp.fused_mlp(x, w1, torch.zeros(2, 128, device="cuda"), w2,
-                            torch.zeros(2, 96, device="cuda"))
+    before = fused_mlp.launches
+    fused_mlp.fused_mlp(x, w1, torch.zeros(2, 128, device="cuda"), w2,
+                        torch.zeros(2, 96, device="cuda"))
+    assert fused_mlp.launches == before + 1
     x = torch.zeros(65, 16, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         fused_mlp.fused_mlp(x, *(torch.zeros(s, device="cuda",
@@ -623,7 +624,7 @@ def test_wide_f32_kernel_gives_the_same_bits_twice(cuda, N, D, M, active):
     513, fc1's at 70 rows, both phases' at 1 row) are summed in a fixed
     order."""
     args = _wide_inputs(cuda, N, D, M)
-    plan = fused_mlp.wide_f32_plan(N, D, M, active, torch.cuda.get_device_properties(
+    plan = fused_mlp.wide_f32_plan(N, D, M, torch.cuda.get_device_properties(
         0).multi_processor_count)
     assert max(plan["fc1"]["splits"], plan["fc2"]["splits"]) > 1
     first = fused_mlp.fused_mlp(*args, active)
@@ -649,15 +650,15 @@ def test_wide_f32_body_counts_one_and_raises(cuda):
     odd.copy_(x)
     stream = torch.cuda.current_stream().cuda_stream
     with pytest.raises(RuntimeError, match="fused_mlp launch failed"):
-        fused_mlp._build.check("fused_mlp", fused_mlp._launch_wide_f32(
-            odd, w1, b1, w2, b2, torch.empty_like(x), N, 200, stream))
+        fused_mlp._build.check("fused_mlp", fused_mlp._launch_wide(
+            odd, w1, b1, w2, b2, torch.empty_like(x), N, 200, None, 1, "seq", stream))
     fn = fused_mlp._build.entry("fused_mlp", fused_mlp._WIDE_F32_ARGTYPES,
                                 "fused_mlp_wide_f32_launch")
     h = torch.empty(N, M, device="cuda")
     # two K splits of fc2 and no partial-sum scratch
     err = fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
              w2.data_ptr(), M, b2.data_ptr(), h.data_ptr(), M, None,
-             out.data_ptr(), N, D, M, 200, 1, 1, 2, 1, stream)
+             out.data_ptr(), N, D, M, 200, None, 1, 1, 1, 2, 1, stream)
     with pytest.raises(RuntimeError, match="fused_mlp launch failed"):
         fused_mlp._build.check("fused_mlp", err)
     assert fused_mlp.launches == before[0] + 1
@@ -681,8 +682,8 @@ def test_wide_bf16_body_counts_one_and_raises(cuda):
     odd = torch.empty(N * D + 1, device="cuda", dtype=torch.bfloat16)[1:].view(N, D)
     odd.copy_(x)
     with pytest.raises(RuntimeError, match="fused_mlp launch failed"):
-        err = fused_mlp._launch_wide_bf16(
-            odd, w1, b1, w2, b2, torch.empty_like(x), N, 200,
+        err = fused_mlp._launch_wide(
+            odd, w1, b1, w2, b2, torch.empty_like(x), N, 200, None, 1, "seq",
             torch.cuda.current_stream().cuda_stream)
         fused_mlp._build.check("fused_mlp", err)
     assert fused_mlp.launches == before + 1
@@ -989,14 +990,18 @@ def test_variant_gradients_recompute_through_plain(cuda, monkeypatch, variant):
 
 
 def test_variants_raise_on_what_they_do_not_take(cuda, monkeypatch):
-    x = torch.zeros(65, 128, device="cuda")
-    args = (torch.zeros(256, 128, device="cuda"), torch.zeros(256, device="cuda"),
-            torch.zeros(128, 256, device="cuda"), torch.zeros(128, device="cuda"))
-    fused_mlp.fused_mlp(x, *args)        # K1 takes the wide regime
-    for variant in ("chunked", "pipelined2"):
+    """Every variant takes the wide regime (D 128) and raises on a hidden
+    size above 8,192, a model axis that x lacks, a width list of the wrong
+    length and an unknown variant."""
+    x = torch.randn(65, 128, generator=cuda, device="cuda")
+    args = _mlp_weights(cuda, torch.float32, 128, 256)
+    wide = [torch.zeros(s, device="cuda") for s in ((256, 8193), (256,), (8193, 256), (8193,))]
+    for variant in VARIANTS:
         monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
-        with pytest.raises(ValueError, match="hidden size 128"):
-            fused_mlp.fused_mlp(x, *args)
+        _close(fused_mlp.fused_mlp(x, *args), _plain_of(variant)(x, *args, 256),
+               torch.float32)
+        with pytest.raises(ValueError, match="hidden size 8193"):
+            fused_mlp.fused_mlp(torch.zeros(65, 8193, device="cuda"), *wide)
     monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "seq")
     w1, b1, w2, b2 = (torch.zeros(s, device="cuda")
                       for s in ((2, 64, 16), (2, 64), (2, 16, 64), (2, 16)))
@@ -1093,16 +1098,29 @@ def test_k1b_f32_entry_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_regime_takes_no_model_axis(cuda, dtype):
-    """K1's wide bodies run one model with a host width: a stacked call at a
-    wide D raises, and a tensor width is read on the host."""
+    """The wide bodies of K1, K1b and K1c take the model axis and read a
+    tensor width on the device: a stacked call at a wide D with one width a
+    model runs without a host synchronisation (CUDA's sync debug mode
+    raises on one) and matches the plain version; a single model with a
+    tensor width does too."""
     P, N, D, M = 3, 70, 128, 512
     x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
     w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
-    with pytest.raises(ValueError, match="model axis takes the hidden sizes"):
-        fused_mlp.fused_mlp(x, w1, b1, w2, b2)
+    widths = torch.tensor([512, 200, 0], dtype=torch.int32, device="cuda")
     width = torch.tensor(200, dtype=torch.int32, device="cuda")
-    _close(fused_mlp.fused_mlp(x[0], w1[0], b1[0], w2[0], b2[0], width),
-           fused_mlp._plain_mlp(x[0], w1[0], b1[0], w2[0], b2[0], 200), dtype)
+    for variant in VARIANTS:
+        fused_mlp._MLP_VARIANT = variant
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+                one = fused_mlp.fused_mlp(x[0], w1[0], b1[0], w2[0], b2[0], width)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        finally:
+            fused_mlp._MLP_VARIANT = "seq"
+        _close(out, _plain_of(variant)(x, w1, b1, w2, b2, widths), dtype)
+        _close(one, _plain_of(variant)(x[0], w1[0], b1[0], w2[0], b2[0], 200), dtype)
 
 
 # --- every width the TPU kernels take ----------------------------------------
@@ -1318,3 +1336,99 @@ def test_int_mm_padded_takes_few_rows_on_the_card(cuda, M, lead):
     got = quant.int_mm_padded(a, b)
     assert got.dtype == torch.int32 and got.shape == (*lead, M, 20)
     assert torch.equal(got.cpu(), quant._plain_int_mm(a.cpu(), b.cpu()))
+
+
+# --- the wide bodies with the model axis: K1, K1b and K1c ---------------------
+# (N, D, M, one width a model) at wide hidden sizes from 72 to 8,192: the
+# stacked stretch members' B=1 rows (widths full, partial, 0), one model at
+# B=8's, ViT-H's widths, D that 8 does not divide (bf16 padded), and the
+# widest.
+WIDE_AXIS_CASES = [(70, 72, 288, [288, 100]), (513, 768, 3072, [3072, 2072, 0, 3072, 1000]),
+                   (4104, 768, 3072, [3072]), (130, 1280, 5120, [5120, 4120]),
+                   (65, 1290, 5160, [5160, 3000]), (40, 8192, 2048, [2048, 1000]),
+                   (33, 2048, 8192, [8192])]
+WIDE_BODIES = {"seq": ("wide_wgmma", "wide_tf32x3"), "chunked": ("wide_wgmma", "wide_tf32x3"),
+               "pipelined2": ("wide_wgmma_queue", "wide_tf32x3_queue")}
+
+
+def _body_of(variant):
+    return {"seq": fused_mlp.k1_body_launched, "chunked": fused_mlp.k1b_body_launched,
+            "pipelined2": fused_mlp.k1c_body_launched}[variant]()
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,M,widths", WIDE_AXIS_CASES)
+def test_wide_model_axis_matches_plain_and_each_model_alone(cuda, monkeypatch, variant,
+                                                            dtype, N, D, M, widths):
+    """The variant's wide body with a model axis of P = 1, 2 or 5 and one
+    width a model on the device: one launch, on the variant's wide body,
+    against its plain version (K1b's fc2 over 512-column chunks), and each
+    model's slice equal, bit for bit, to that model alone with a host
+    width."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    P = len(widths)
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
+    wt = torch.tensor(widths, dtype=torch.int32, device="cuda")
+    before = getattr(fused_mlp, VARIANTS[variant])
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+    torch.cuda.synchronize()
+    assert getattr(fused_mlp, VARIANTS[variant]) == before + 1
+    assert _body_of(variant) == WIDE_BODIES[variant][dtype == torch.float32]
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, _plain_of(variant)(x, w1, b1, w2, b2, wt), dtype)
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p], widths[p])
+        assert torch.equal(alone, out[p])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,M,widths", WIDE_AXIS_CASES)
+def test_k1c_wide_equals_k1_where_k1_splits_no_k(cuda, monkeypatch, dtype, N, D, M, widths):
+    """K1c's wide queue runs K1's tiles in K1's K order: where K1's plan
+    splits no K (every bf16 call; f32 where the tiles fill the SMs) the two
+    give the same bits."""
+    P = len(widths)
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
+    wt = torch.tensor(widths, dtype=torch.int32, device="cuda")
+    k1 = fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
+    k1c = fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+    torch.cuda.synchronize()
+    plan = fused_mlp.wide_f32_plan(N, fused_mlp.kernel_width(D, dtype), M,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    if dtype == torch.bfloat16 or max(plan["fc1"]["splits"], plan["fc2"]["splits"]) == 1:
+        assert torch.equal(k1, k1c)
+    else:
+        _close(k1c, k1, dtype)
+
+
+def test_k1c_wide_refuses_a_grid_the_card_cannot_hold(cuda):
+    """K1c's wide entry refuses more blocks than the card holds at once
+    (their waits could then deadlock) and a missing counter buffer; the
+    wrapper's grid (`k1c_wide_plan`) is never larger than the SMs."""
+    N, D, M = 513, 768, 3072
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused_mlp.k1c_wide_plan(N, D, M, 1, torch.bfloat16, sms)
+    assert plan["blocks"] <= sms
+    h = torch.empty(N, M, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(x)
+    ready = torch.zeros(plan["groups"], dtype=torch.int32, device="cuda")
+    fn = fused_mlp._build.entry("mlp_pipelined", fused_mlp._K1C_WIDE_ARGTYPES,
+                                "mlp_pipelined_wide_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M,
+            b2.data_ptr(), h.data_ptr(), M)
+    assert plan["units"] > sms      # a grid of sms + 1 blocks has work for each
+    for ptr, blocks in ((ready.data_ptr(), sms + 1), (None, plan["blocks"])):
+        err = fn(*args, ptr, out.data_ptr(), N, D, M, M, None, 1, blocks, stream)
+        with pytest.raises(RuntimeError, match="mlp_pipelined launch failed"):
+            fused_mlp._build.check("mlp_pipelined", err)
+    err = fn(*args, ready.data_ptr(), out.data_ptr(), N, D, M, M, None, 1, plan["blocks"],
+             stream)
+    fused_mlp._build.check("mlp_pipelined", err)
+    torch.cuda.synchronize()
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, M), torch.bfloat16)

@@ -185,51 +185,58 @@ def test_k1_routes_each_call_to_one_body():
     (513, 1288, 5152, 5152), (65, 8192, 2048, 2000),
 ])
 def test_wide_f32_plan_covers_every_output_once(n, D, M, active):
-    """K1's wide f32 grids on an H100's 132 SMs: every block takes a unit,
-    each phase's units cover every (row, column) tile of its output once in
-    each of its K splits, and the splits cover its K stages once, in order.
-    At the stretch shapes the plan fills the waves: fc1 at N = 513 in 240
-    tiles (1.8 waves), fc2 there in two K splits (120 units, one wave), and
-    at N = 4,104 12 and 3 whole waves.  A D that a stage (32) or a tile
-    (64) does not divide ends in a ragged last one."""
+    """The wide f32 grids on an H100's 132 SMs, for one model and for three
+    stacked: every block takes a unit, each phase's units cover every
+    (model, row, column) tile of its output once in each of its K splits,
+    and the splits cover its K stages once, in order.  The splits depend on
+    (n, D, M) alone, so three stacked models split as one does.  A model's
+    width (`active`) stops its fc1 column tiles and its fc2 stages.  At the
+    stretch shapes the plan fills the waves: fc1 at N = 513 in 240 tiles
+    (1.8 waves), fc2 there in two K splits (120 units, one wave), and at N
+    = 4,104 12 and 3 whole waves.  A D that a stage (32) or a tile (64) does
+    not divide ends in a ragged last one."""
     sms = 132
-    plan = fmlp.wide_f32_plan(n, D, M, active, sms)
     bm, bn = fmlp.WIDE_F32_TILE
-    phases = [("fc1", plan["fc1"], -(-active // bn) * bn,
-               -(-D // fmlp.WIDE_F32_STAGE_K)),
-              ("fc2", plan["fc2"], D, -(-active // fmlp.WIDE_F32_STAGE_K))]
-    assert (plan["fc1"] is None) == (active == 0)
-    for name, phase, width, k_stages in phases:
-        if phase is None:
-            continue
-        assert phase["k_stages"] == k_stages
-        assert 1 <= phase["blocks"] <= min(sms, phase["units"])
-        taken = [u for b in range(phase["blocks"])
-                 for u in range(b, phase["units"], phase["blocks"])]
-        assert sorted(taken) == list(range(phase["units"]))  # once each
-        assert all(b < phase["units"] for b in range(phase["blocks"]))
-        cover = {}
-        for u in range(phase["units"]):
-            row0, col0, k0, k1 = fmlp.wide_f32_unit(phase, u)
-            assert row0 < n and col0 < width
-            assert k1 - k0 >= min(k_stages, fmlp.WIDE_F32_PROMOTE_K
-                                  // fmlp.WIDE_F32_STAGE_K)
-            cover.setdefault((row0, col0), []).append((k0, k1))
-        assert len(cover) == -(-n // bm) * -(-width // bn)
-        for spans in cover.values():
-            spans.sort()
-            assert spans[0][0] == 0 and spans[-1][1] == k_stages
-            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-        if phase["splits"] > 1:
-            assert phase["tiles"] < sms // 2 + 1
-            assert phase["units"] <= sms        # one wave, none left idle
-    if (n, active) == (513, 3072):
-        assert plan["fc1"]["tiles"] == 240 and plan["fc1"]["splits"] == 1
-        assert (plan["fc2"]["tiles"], plan["fc2"]["splits"],
-                plan["fc2"]["units"]) == (60, 2, 120)
-    if (n, active) == (4104, 3072):
-        assert plan["fc1"]["waves"] == 12 and plan["fc2"]["waves"] == 3
-        assert plan["fc1"]["splits"] == plan["fc2"]["splits"] == 1
+    stage = fmlp.WIDE_F32_STAGE_K
+    one = fmlp.wide_f32_plan(n, D, M, sms)
+    for models in (1, 3):
+        plan = fmlp.wide_f32_plan(n, D, M, sms, models)
+        phases = [(plan["fc1"], -(-M // bn) * bn, -(-D // stage)),
+                  (plan["fc2"], D, -(-M // stage))]
+        for phase, width, k_stages in phases:
+            assert phase["k_stages"] == k_stages and phase["models"] == models
+            assert phase["splits"] == one["fc1" if phase["fc1"] else "fc2"]["splits"]
+            assert 1 <= phase["blocks"] <= min(sms, phase["units"])
+            taken = [u for b in range(phase["blocks"])
+                     for u in range(b, phase["units"], phase["blocks"])]
+            assert sorted(taken) == list(range(phase["units"]))  # once each
+            cover = {}
+            for u in range(phase["units"]):
+                p, row0, col0, k0, k1 = fmlp.wide_f32_unit(phase, u)
+                assert p < models and row0 < n and col0 < width
+                assert k1 - k0 >= min(k_stages, fmlp.WIDE_F32_PROMOTE_K // stage)
+                cover.setdefault((p, row0, col0), []).append((k0, k1))
+                clipped = fmlp.wide_f32_unit(phase, u, active)
+                if phase["fc1"]:
+                    assert (clipped is None) == (col0 >= active)
+                else:
+                    assert clipped[:4] == (p, row0, col0, k0)
+                    assert clipped[4] == max(k0, min(k1, -(-active // stage)))
+            assert len(cover) == models * -(-n // bm) * -(-width // bn)
+            for spans in cover.values():
+                spans.sort()
+                assert spans[0][0] == 0 and spans[-1][1] == k_stages
+                assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            if phase["splits"] > 1:
+                assert phase["tiles"] < sms // 2 + 1
+                assert phase["units"] <= models * sms    # one wave a model
+    if (n, M) == (513, 3072):
+        assert one["fc1"]["tiles"] == 240 and one["fc1"]["splits"] == 1
+        assert (one["fc2"]["tiles"], one["fc2"]["splits"],
+                one["fc2"]["units"]) == (60, 2, 120)
+    if (n, M) == (4104, 3072):
+        assert one["fc1"]["waves"] == 12 and one["fc2"]["waves"] == 3
+        assert one["fc1"]["splits"] == one["fc2"]["splits"] == 1
 
 
 def test_fused_mlp_accepts_tensor_width():

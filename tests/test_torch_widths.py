@@ -310,20 +310,25 @@ def _mlp_args(D, M=8, lead=()):
 
 
 def test_what_stays_refused_names_its_roadmap_item():
-    """D above 8,192, head_dim above 256, the wide model axis and K1b / K1c
-    at a wide D raise a ValueError naming their item of ROADMAP queue 2."""
+    """Only D above 8,192 and head_dim above 256 raise, naming their item of
+    ROADMAP queue 2; the wide model axis is taken, and K1b and K1c run every
+    wide D up to 8,192 on their wide bodies."""
     left = "What is left to port"
-    with pytest.raises(ValueError, match=f"hidden size 8193 .*{left}.*above 8,192"):
+    item = "head_dim above 256 and hidden size above 8,192"
+    with pytest.raises(ValueError, match=f"hidden size 8193 .*{left}': {item}"):
         fmlp._check(*_mlp_args(8193))
-    q = torch.zeros(1, 1, 3, 257)
-    with pytest.raises(ValueError, match=f"head_dim 257 .*{left}.*above 256"):
-        fused_attention._check(q, q, q)
-    with pytest.raises(ValueError, match=f"head_dim 257 .*{left}.*above 256"):
-        attention_layer._check(*attention_layer._split(torch.zeros(1, 3, 3 * 257)), 1)
-    with pytest.raises(ValueError, match=f"{left}': K1's wide bodies with a model axis"):
-        fmlp._check(*_mlp_args(65, lead=(2,)))
-    fmlp._check(*_mlp_args(64, lead=(2,)))          # the narrow model axis
+    with pytest.raises(ValueError, match=f"hidden size 8193 .*{left}': {item}"):
+        fmlp._check(*_mlp_args(8193, lead=(2,)))
+    for D in (24, 64, 65, 96, 768, 1290, 8192):
+        fmlp._check(*_mlp_args(D))
+        fmlp._check(*_mlp_args(D, lead=(2,)))   # the model axis
+    assert all(fmlp.supported_width(D) for D in range(65, fmlp.MAX_WIDTH + 1))
     for variant in ("chunked", "pipelined2"):
-        with pytest.raises(ValueError, match=f"{left}': K1b and K1c at a wide hidden size"):
-            fmlp._check(*_mlp_args(65), variant)
-        fmlp._check(*_mlp_args(24), variant)         # padded to 32
+        for dtype in (torch.float32, torch.bfloat16):
+            assert all(fmlp._variant_body(variant, dtype, D).startswith("wide_")
+                       for D in range(65, fmlp.MAX_WIDTH + 1))
+    q = torch.zeros(1, 1, 3, 257)
+    with pytest.raises(ValueError, match=f"head_dim 257 .*{left}': {item}"):
+        fused_attention._check(q, q, q)
+    with pytest.raises(ValueError, match=f"head_dim 257 .*{left}': {item}"):
+        attention_layer._check(*attention_layer._split(torch.zeros(1, 3, 3 * 257)), 1)

@@ -35,7 +35,7 @@
 // Sub-chunks of 64 columns keep every buffer small.  The hand-over unit and
 // the summation chunk are separate, so the sums keep the TPU kernel's order.
 //
-// Three bodies share that plan:
+// Three bodies share that plan at D <= 64:
 //   * f32 at every D (`chunked_tf32x3_kernel`): both products on the tensor
 //     cores in 3xTF32 (mma.sync m16n8k8, `tf32x3.cuh`); see its note below;
 //   * bf16 with D in {16, 32, 64}: both products on the tensor cores
@@ -43,10 +43,19 @@
 //     one sub-chunk ahead; h passes through shared memory in bf16;
 //   * bf16 at D = 8: CUDA-core FMAs; each role's thread owns 8 rows by 4
 //     columns of h (producers) or by D / 16 output columns (consumers).
+//
+// The wide regime, every D from 65 to 8,192, with the model axis: K1's
+// wide bodies (`mlp_wide.cuh`, whose note says what bounds them and how they
+// are laid out), fc1 + GELU into an L2-resident scratch and fc2 from it,
+// with fc2 summed over the 512-column chunks in f32 in chunk order: in bf16
+// fc2's wgmma accumulators start from 0 at every chunk and are added into an
+// f32 running sum in registers at its end; in f32 fc2's K splits are its
+// chunks, whose partial sums a second launch adds in chunk order.
 
 #include <atomic>
 
 #include "mlp_common.cuh"
+#include "mlp_wide.cuh"
 #include "sm90_common.cuh"
 #include "tf32x3.cuh"
 
@@ -825,6 +834,43 @@ extern "C" int mlp_chunked_f32_launch(int device, const float* x, const float* w
   }
 #undef F32_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// K1b's wide regime in bf16 (64 < d <= 8,192, d a multiple of 8), with the
+// model axis: the operands of `fused_mlp_wide_launch` (`fused_mlp.cu`).  Two
+// launches: fc1 + GELU into h, then fc2 + b2 summed over the chunks.  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a shape
+// or layout it does not take (nothing launched).  n == 0 launches nothing.
+extern "C" int mlp_chunked_wide_launch(int device, const void* x, const void* w1, const void* b1,
+                                       const void* w2, int ld_w2, const void* b2, void* h,
+                                       int ld_h, void* out, int n, int d, int m, int active,
+                                       const int* active_p, int models, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 8)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  return (int)wide::run_bf16<wide::CHUNK_STEPS>(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, out,
+                                                n, d, m, active, active_p, models,
+                                                static_cast<cudaStream_t>(stream));
+}
+
+// K1b's wide regime in f32 (64 < d <= 8,192, d a multiple of 4), with the
+// model axis: the arguments of `fused_mlp_wide_f32_launch`, on
+// `fused_mlp.wide_f32_plan(..., chunked=True)`: splits2 must be fc2's chunks,
+// ceil(m / 512).  Returns as that entry does.
+extern "C" int mlp_chunked_wide_f32_launch(int device, const void* x, const void* w1,
+                                           const void* b1, const void* w2, int ld_w2,
+                                           const void* b2, void* h, int ld_h, void* part,
+                                           void* out, int n, int d, int m, int active,
+                                           const int* active_p, int models, int splits1,
+                                           int blocks1, int splits2, int blocks2, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 4)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  return (int)wide::run_f32(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, part, out, n, d, m,
+                            active, active_p, models, splits1, blocks1, splits2, blocks2,
+                            wide::T_CHUNK_STAGES, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mlp_chunked_error_string(int err) {

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by K1's wide bodies (`fused_mlp.cu`),
-// K1c's bf16 body (`mlp_pipelined.cu`) and K4 (`attention.cu`): shared-memory addresses, mbarriers, TMA loads and
+// Hopper (sm_90a) building blocks shared by the wide bodies of K1, K1b and K1c
+// (`mlp_wide.cuh`), K1c's bf16 body (`mlp_pipelined.cu`) and K4 (`attention.cu`): shared-memory addresses, mbarriers, TMA loads and
 // stores, wgmma descriptors and instructions, and on the host the
 // tensor-map encoder, the SM count and the shared-memory limit, each asked
 // of the runtime once a device.
@@ -57,19 +57,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One (64 columns, `rows`) box of a 2-d tensor map into shared memory; the
-// bytes count toward `bar`'s transaction (zero-filled ones past the edges too).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
-      : "memory");
-}
-
 // One box of a 3-d tensor map into shared memory at coordinates (c0, c1,
-// c2), innermost first; completion and zero fill as `tma_load`.
+// c2), innermost first; the bytes count toward `bar`'s transaction
+// (zero-filled ones past the edges too).
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -80,7 +70,7 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 }
 
 // One box of a 4-d tensor map into shared memory at coordinates (c0, c1,
-// c2, c3), innermost first; completion and zero fill as `tma_load`.
+// c2, c3), innermost first; completion and zero fill as `tma_load_3d`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -91,14 +81,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// One (64 columns, 64 rows) box from shared memory to the tensor map; the
-// hardware clips what lies past the edges.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
-                                          int row) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
-                   "l"(reinterpret_cast<uint64_t>(map)),
-               "r"(smem_u32(src)), "r"(col), "r"(row)
-               : "memory");
+// One box from shared memory to a 3-d tensor map at coordinates (c0, c1,
+// c2), innermost first; the hardware clips what lies past the edges.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_store_commit() {
@@ -513,8 +504,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
 
 // cuTensorMapEncodeTiled lives in libcuda, not the runtime: it is reached
 // through the runtime's entry-point query, so the library needs no -lcuda.  The function is looked
-// up once.  `encode_map` encodes its maps on every call; `encode_map_3d`
-// keeps the maps it encoded (see `Map3dCache`).
+// up once.  `encode_map_3d` keeps the maps it encoded (see `Map3dCache`).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -536,25 +526,6 @@ inline EncodeTiled encode_tiled() {
     fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
-}
-
-// The map of a row-major bf16 matrix (rows, cols) with row stride `ld`
-// elements, read or written in boxes of 64 columns by `box_rows` rows with the
-// 128-byte swizzle; out-of-range elements load as zero.  TMA needs a 16-byte
-// aligned base and a row stride that is a multiple of 16 bytes.
-inline bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, int ld,
-                       int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 || ld % 8 != 0)
-    return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The map of a bf16 tensor (depth, rows, cols), or an f32 one with `elt` 4,

@@ -9,24 +9,27 @@ bounds it on the H100 and how it is laid out:
   * K1b, `csrc/mlp_chunked.cu` (`_chunked_mlp_kernel`, "chunked"): fc2
     summed in f32 over chunks of `_CHUNK_M` hidden columns, on producer and
     consumer warps (in f32 both products in 3xTF32 on `mma.sync`, on the
-    grid `k1b_f32_plan` lays out);
+    grid `k1b_f32_plan` lays out); at a wide D K1's wide bodies with fc2
+    summed chunk by chunk (in f32 its chunks are fc2's K splits);
   * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
     K1's function, software-pipelined in a persistent block (in bf16 at D
     >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
-    `k1c_plan` lays out; in f32 K1's narrow body on K1c's row-tile groups.
+    `k1c_plan` lays out; in f32 K1's narrow body on K1c's row-tile groups;
+    at a wide D K1's two GEMM phases in one persistent launch, fc1 of row
+    tile i + 1 queued ahead of fc2 of row tile i (`k1c_wide_plan`).
 
 `_MLP_VARIANT`, a module constant as in the JAX package, says which one
-`fused_mlp` launches; it is read at each call.  K1b and K1c take the narrow
-regime only (D up to 64) and raise on a wide D.
+`fused_mlp` launches; it is read at each call.  All three take every hidden
+size from 1 to 8,192 and the model axis.
 
-Hidden sizes: K1 takes every D from 1 to 8,192 (`MAX_WIDTH`), as the JAX
-kernels take any D.  The narrow bodies are built for D in `WIDTHS` (8, 16,
-32, 64, every registry config's); a narrow D between them runs zero-padded
-to the next (`kernel_width`), not on the wide bodies: the narrow bodies
-keep the (tokens, M) intermediate on chip where M / D is large, and they
-alone take the model axis and a width on the device.  The wide bodies (D
-above 64) take D whose rows are a multiple of 16 bytes, so a D that 8
-(bf16) or 4 (f32) does not divide runs zero-padded to the next such D.
+Hidden sizes: K1, K1b and K1c take every D from 1 to 8,192 (`MAX_WIDTH`),
+as the JAX kernels take any D.  The narrow bodies are built for D in
+`WIDTHS` (8, 16, 32, 64, every registry config's); a narrow D between them
+runs zero-padded to the next (`kernel_width`), not on the wide bodies: the
+narrow bodies keep the (tokens, M) intermediate on chip where M / D is
+large.  The wide bodies (D above 64, `csrc/mlp_wide.cuh`) take D whose rows
+are a multiple of 16 bytes, so a D that 8 (bf16) or 4 (f32) does not divide
+runs zero-padded to the next such D.
 Padding is exact: zero columns of x and w1 add nothing to the hidden
 activations, and the zero rows of w2 and b2 give output columns that the
 wrapper drops; it costs a copy of x and the weights a call, at no registry
@@ -35,20 +38,21 @@ width.
 Weights use the torch.nn.Linear layout: w1 (M, D), b1 (M,), w2 (D, M), b2
 (D,).  With a leading model axis, w1 (P, M, D), b1 (P, M), w2 (P, D, M), b2
 (P, D), x is (P, ..., D): one weight set per model, the sweep's stacked
-(config, fold) cells; the narrow regime only (D up to 64).  `mlp_active`
-masks hidden columns at or past it to exact zero, the runtime width mask of
-the sweep: an int for every model, or an int tensor with one entry per
-model (or one for all), which the narrow bodies read on the device, so a
-call never waits for the host.  K1's wide bodies take one model and a host
-width: a tensor width is read on the host there.
+(config, fold) cells, at every D.  `mlp_active` masks hidden columns at or
+past it to exact zero, the runtime width mask of the sweep: an int for
+every model, or an int tensor with one entry per model (or one for all),
+which every body reads on the device, so a call never waits for the host.
 
 The GELU follows the JAX kernels' rule (`pallas_mlp.py:179`): exact erf
 in f32, and in bf16 their clamped odd polynomial (`poly_gelu`, at most
 5.73e-4 from exact GELU), in the kernels and in the plain versions alike.
 
-K1's wide calls (D from 65 to 8,192) run on two GEMM phases on `wgmma`
-fed by TMA, h through an L2-resident scratch, in f32 with both products in
-3xTF32 on the tensor cores (`wide_f32_plan` lays out those grids).
+The wide calls (D from 65 to 8,192) of all three run on two GEMM phases on
+`wgmma` fed by TMA, h through an L2-resident scratch, in f32 with both
+products in 3xTF32 on the tensor cores (`wide_f32_plan` lays out K1's and
+K1b's f32 grids, `k1c_wide_plan` K1c's queue); a model's tiles and K order
+depend on (n, D, M) alone, so a model gives the same bits alone and in a
+stacked call.
 
 K1's narrow f32 calls (D up to 64) run on one body with K1c's f32 route
 (`csrc/mlp_narrow_f32.cuh`, included by both libraries): both products in
@@ -61,7 +65,8 @@ it took less device time than the `mma.sync` body of 64-row blocks that
 served them before, at every row count from 1 to 33,280 (PERF.md); at D =
 8 on K1c's CUDA-core tiling.  A launch there counts as K1's (`launches`);
 `launches_on_k1c` and `launches_own` split K1's launches by library
-(`k1_body_launched` names the last body).
+(`k1_body_launched` names the last body; `k1b_body_launched` and
+`k1c_body_launched` K1b's and K1c's).
 
 On a CPU tensor `fused_mlp` computes the variant's plain version
 (`_plain_mlp`, or `_plain_mlp_chunked` for K1b); on a CUDA tensor it
@@ -111,14 +116,18 @@ MAX_WIDTH = 8192
 #: ROADMAP.md (queue 2, "What is left to port"); K3's and K4's refusals
 #: quote them from here too.
 LEFT_TO_PORT = "ROADMAP queue 2, 'What is left to port': {}"
-WIDE_AXIS = "K1's wide bodies with a model axis"
-WIDE_VARIANTS = "K1b and K1c at a wide hidden size"
 WIDEST = "head_dim above 256 and hidden size above 8,192"
 #: K1's bodies, as `k1_body_launched` names them; the first two run in
 #: K1c's library (`launches_on_k1c`), the others in K1's (`launches_own`).
 K1_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma",
              "wide_tf32x3")
 K1_BODIES_ON_K1C = K1_BODIES[:2]
+#: K1b's and K1c's bodies, as `k1b_body_launched` and `k1c_body_launched`
+#: name them: bf16 at D 16-64, at D = 8, f32 at D <= 64, and the wide bf16
+#: and f32 bodies.
+K1B_BODIES = ("mma_sync", "cuda_cores", "tf32x3_mma_sync", "wide_wgmma", "wide_tf32x3")
+K1C_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma_queue",
+              "wide_tf32x3_queue")
 #: The narrow f32 body of K1 and K1c (`narrow_tf32x3_kernel`,
 #: `csrc/mlp_narrow_f32.cuh`): token rows of a row tile, hidden columns of a
 #: chunk (fc2's K between the promotions of its 3xTF32 accumulators into an
@@ -137,7 +146,15 @@ WIDE_F32_TILE = (128, 64)
 WIDE_F32_STAGE_K = 32
 WIDE_F32_PROMOTE_K = 128
 WIDE_F32_MAX_SPLITS = 8
+#: K1b's wide f32 fc2: stages of its summation chunk, each chunk a K split.
+WIDE_F32_CHUNK_STAGES = 512 // WIDE_F32_STAGE_K
+#: The wide bf16 bodies: token rows of a tile, fc1's tile columns, and fc2's
+#: tile columns where one model's tiles fill the SMs (K1's and K1c's) or not.
+WIDE_TILE_ROWS = 128
+WIDE_FC1_COLS = 128
+WIDE_FC2_COLS = (192, 64)
 _last_body = None
+_last_k1b_body = None
 _last_k1c_body = None
 #: K1b's f32 body (`chunked_tf32x3_kernel`): token rows of a block's unit
 #: (one model's row tile, `k1b_f32_plan`).
@@ -153,10 +170,9 @@ _BF16_GELU_COEFS = (
 )
 
 
-def supported_width(D: int, variant: str = "seq") -> bool:
-    """Whether the variant's kernel takes hidden size D."""
-    return 1 <= D <= WIDTHS[-1] or (variant == "seq"
-                                    and WIDTHS[-1] < D <= MAX_WIDTH)
+def supported_width(D: int) -> bool:
+    """Whether the kernels (K1, K1b and K1c alike) take hidden size D."""
+    return 1 <= D <= MAX_WIDTH
 
 
 def kernel_width(D: int, dtype) -> int:
@@ -268,27 +284,17 @@ def _plain_mlp_chunked(x, w1, b1, w2, b2, mlp_active):
     return (acc + b2.float().unsqueeze(-2)).to(x.dtype)
 
 
-def _check(x, w1, b1, w2, b2, variant: str = "seq") -> None:
-    """Raise on anything the variant's kernel does not take."""
+def _check(x, w1, b1, w2, b2) -> None:
+    """Raise on anything the kernels do not take."""
     D = x.shape[-1]
     M = w1.shape[-2]
     lead = tuple(w1.shape[:1]) if w1.dim() == 3 else ()
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_mlp: dtype {x.dtype} is not float32 or bfloat16")
-    if not supported_width(D, variant):
-        if D < 1 or D > MAX_WIDTH:
-            raise ValueError(
-                f"fused_mlp: hidden size {D} is outside 1 to {MAX_WIDTH}, "
-                f"what K1 takes ({LEFT_TO_PORT.format(WIDEST)})")
+    if not supported_width(D):
         raise ValueError(
-            f"fused_mlp: variant {variant!r} takes hidden sizes up to "
-            f"{WIDTHS[-1]}, not hidden size {D} "
-            f"({LEFT_TO_PORT.format(WIDE_VARIANTS)})")
-    if lead and D > WIDTHS[-1]:
-        raise ValueError(
-            f"fused_mlp: the model axis takes the hidden sizes up to "
-            f"{WIDTHS[-1]}, not hidden size {D} "
-            f"({LEFT_TO_PORT.format(WIDE_AXIS)})")
+            f"fused_mlp: hidden size {D} is outside 1 to {MAX_WIDTH}, "
+            f"what K1, K1b and K1c take ({LEFT_TO_PORT.format(WIDEST)})")
     if lead and (x.dim() < 2 or x.shape[0] != lead[0]):
         raise ValueError(f"fused_mlp: x has shape {tuple(x.shape)}, expected "
                          f"({lead[0]}, ..., {D}) for {lead[0]} models")
@@ -308,13 +314,10 @@ def _check(x, w1, b1, w2, b2, variant: str = "seq") -> None:
         raise ValueError("fused_mlp: more than 2**31 - 1 token rows a model")
 
 
-def _active_arg(mlp_active, models: int, M: int, device, on_device: bool):
-    """(the width for every model, or None with an int32 tensor of one
-    width per model on `device`).  A tensor is read on the host only where
-    the kernel takes no width on the device (`on_device` False: K1's wide
-    bodies)."""
-    if isinstance(mlp_active, torch.Tensor) and not on_device:
-        mlp_active = int(mlp_active)
+def _active_arg(mlp_active, models: int, M: int, device):
+    """(the width for every model, or 0 with an int32 tensor of one width
+    per model on `device`).  A tensor width is never read on the host: every
+    body reads it on the device."""
     if not isinstance(mlp_active, torch.Tensor):
         return min(max(int(mlp_active), 0), M), None
     per_model = mlp_active.to(device=device, dtype=torch.int32).reshape(-1)
@@ -326,105 +329,174 @@ def _active_arg(mlp_active, models: int, M: int, device, on_device: bool):
     return 0, per_model.contiguous()
 
 
-def _launch_wide_bf16(x, w1, b1, w2, b2, out, n: int, active: int,
-                      stream) -> int:
-    """K1's bf16 wide body (`fused_mlp_wide_launch`): fc1 + GELU into an
-    (n, M8) scratch, M rounded up to 8, that stays in L2, then fc2 from it.
-    Returns the entry point's CUDA error code."""
-    D, M = x.shape[-1], w1.shape[0]
-    m8 = -(-M // 8) * 8
-    if m8 != M:
-        # TMA reads rows whose stride is a multiple of 16 bytes: w2's rows
-        # of M values are not, so the kernel reads a zero-padded copy
-        w2 = F.pad(w2, (0, m8 - M))
-    h = torch.empty(n, m8, dtype=x.dtype, device=x.device)
-    fn = _build.entry("fused_mlp", [ctypes.c_int] + [ctypes.c_void_p] * 4
-                      + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                      + [ctypes.c_void_p] + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p], symbol="fused_mlp_wide_launch")
-    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-              w2.data_ptr(), w2.shape[1], b2.data_ptr(), h.data_ptr(), m8,
-              out.data_ptr(), n, D, M, active, stream)
-
-
-def _wide_f32_phase(rows: int, col_tiles: int, k_stages: int, sms: int) -> dict:
+def _wide_f32_phase(rows: int, col_tiles: int, k_stages: int, models: int,
+                    sms: int, fc1: bool, M: int, chunk_stages: int = 0) -> dict:
     """One phase of `wide_f32_plan`."""
     tiles = rows * col_tiles
-    splits = max(1, min(WIDE_F32_MAX_SPLITS, sms // max(tiles, 1),
-                        k_stages * WIDE_F32_STAGE_K // WIDE_F32_PROMOTE_K))
-    units = tiles * splits
+    if chunk_stages:
+        splits = -(-k_stages // chunk_stages)
+    else:
+        splits = max(1, min(WIDE_F32_MAX_SPLITS, sms // max(tiles, 1),
+                            k_stages * WIDE_F32_STAGE_K // WIDE_F32_PROMOTE_K))
+    units = models * tiles * splits
     blocks = min(units, sms)
-    return {"tiles": tiles, "col_tiles": col_tiles, "k_stages": k_stages,
-            "splits": splits, "units": units, "blocks": blocks,
+    return {"fc1": fc1, "M": M, "models": models, "tiles": tiles,
+            "col_tiles": col_tiles, "k_stages": k_stages, "splits": splits,
+            "split_stages": chunk_stages, "units": units, "blocks": blocks,
             "waves": units / sms}
 
 
-def wide_f32_plan(n: int, D: int, M: int, active: int, sms: int) -> dict:
-    """The grids of K1's wide f32 body on a card of `sms` SMs: fc1 over
-    (n, active) in tiles of `WIDE_F32_TILE` (active rounded up to 64), K = D
+def wide_f32_plan(n: int, D: int, M: int, sms: int, models: int = 1,
+                  chunked: bool = False) -> dict:
+    """The grids of the wide f32 body (K1's; K1b's with `chunked`) on a card
+    of `sms` SMs, for `models` stacked models of n token rows: fc1 over each
+    model's (n, M) in tiles of `WIDE_F32_TILE` (M rounded up to 64), K = D
     (rounded up to a stage, whose columns past D load as zeros); fc2 over
-    (n, D) (D rounded up to a tile, whose columns past D are not stored),
-    K = active.  Each phase is `units` units on `blocks`
-    persistent blocks, at most one an SM: block b takes units b, b + blocks,
-    ...  A phase whose tiles fill fewer than half the SMs splits its K into
-    `splits` runs of stages (`wide_f32_unit`), at most
-    `WIDE_F32_MAX_SPLITS` and never below `WIDE_F32_PROMOTE_K` of K each,
-    whose partial sums a second launch adds in split order."""
+    (n, D) (D rounded up to a tile, whose columns past D are not stored), K
+    = M.  Each phase is `units` units on `blocks` persistent blocks, at most
+    one an SM: block b takes units b, b + blocks, ...  A phase whose tiles
+    fill fewer than half the SMs splits its K into `splits` runs of stages
+    (`wide_f32_unit`), at most `WIDE_F32_MAX_SPLITS` and never below
+    `WIDE_F32_PROMOTE_K` of K each, whose partial sums a second launch adds
+    in split order; K1b's fc2 splits its K into its 512-column chunks
+    (`WIDE_F32_CHUNK_STAGES`), so the chunks are summed in order.  The
+    splits depend on (n, D, M) alone, not on the models or their widths, so
+    a model gives the same bits alone and stacked: a model's width stops
+    its fc1 column tiles and its fc2 K stages (`wide_f32_unit`)."""
     bm, bn = WIDE_F32_TILE
     rows = -(-n // bm)
-    active = min(max(active, 0), M)
-    fc1 = (_wide_f32_phase(rows, -(-active // bn), -(-D // WIDE_F32_STAGE_K), sms)
-           if active else None)
-    fc2 = _wide_f32_phase(rows, -(-D // bn), -(-active // WIDE_F32_STAGE_K), sms)
-    return {"n": n, "D": D, "M": M, "active": active, "sms": sms,
+    fc1 = _wide_f32_phase(rows, -(-M // bn), -(-D // WIDE_F32_STAGE_K), models,
+                          sms, True, M)
+    fc2 = _wide_f32_phase(rows, -(-D // bn), -(-M // WIDE_F32_STAGE_K), models,
+                          sms, False, M, WIDE_F32_CHUNK_STAGES if chunked else 0)
+    return {"n": n, "D": D, "M": M, "models": models, "sms": sms,
             "row_tiles": rows, "fc1": fc1, "fc2": fc2}
 
 
-def wide_f32_unit(phase: dict, u: int) -> tuple:
+def wide_f32_unit(phase: dict, u: int, active=None):
     """Unit u of a phase of `wide_f32_plan`, as the kernel takes it
-    (`unit_of`): (first row, first column, first stage, stage past the
-    last) of tile u % tiles and K split u // tiles."""
-    t, s = u % phase["tiles"], u // phase["tiles"]
-    k, splits = phase["k_stages"], phase["splits"]
+    (`work_of` in `csrc/mlp_wide.cuh`): u = (split * models + model) *
+    tiles + tile.  Returns (model, first row, first column, first stage,
+    stage past the last).  With `active` (one int, or one a model) the
+    model's width applies: an fc1 tile at or past it computes nothing
+    (None), and fc2's stages stop at it."""
+    tiles, models = phase["tiles"], phase["models"]
+    t, ps = u % tiles, u // tiles
+    p, s = ps % models, ps // models
+    k, splits, step = phase["k_stages"], phase["splits"], phase["split_stages"]
     bm, bn = WIDE_F32_TILE
-    return ((t // phase["col_tiles"]) * bm, (t % phase["col_tiles"]) * bn,
-            s * k // splits, (s + 1) * k // splits)
+    row0, col0 = (t // phase["col_tiles"]) * bm, (t % phase["col_tiles"]) * bn
+    k0, k1 = ((s * step, min((s + 1) * step, k)) if step
+              else (s * k // splits, (s + 1) * k // splits))
+    if active is not None:
+        width = active[p] if isinstance(active, (list, tuple)) else active
+        width = min(max(int(width), 0), phase["M"])
+        if phase["fc1"] and col0 >= width:
+            return None
+        if not phase["fc1"]:
+            k1 = max(k0, min(k1, -(-width // WIDE_F32_STAGE_K)))
+    return p, row0, col0, k0, k1
 
 
-#: `fused_mlp_wide_f32_launch`'s arguments, as ctypes types.
+def k1c_wide_plan(n: int, D: int, M: int, models: int, dtype, sms: int) -> dict:
+    """K1c's wide queue (`Queue` in `csrc/mlp_wide.cuh`) on a card of `sms`
+    SMs: the (model, row tile) groups g = p * row_tiles + r in order, each
+    with `fc1_units` units (column tiles of h: 128 wide in bf16, 64 in f32)
+    and `fc2_units` (column tiles of out: K1's fc2 tiles, 192 or 64 wide in
+    bf16 from (n, D) alone, 64 in f32), queued fc1(0), then for each g
+    fc1(g + 1) and fc2(g) (`k1c_wide_unit`).  `blocks` persistent blocks take
+    units b, b + blocks, ...: no more than the SMs, since the body's shared
+    memory leaves room for one block an SM, so every block is resident at
+    once and an fc2 unit's wait for its group's fc1 units cannot deadlock."""
+    rows = -(-n // WIDE_TILE_ROWS)
+    if dtype == torch.bfloat16:
+        fc1_cols = WIDE_FC1_COLS
+        wide = rows * -(-D // WIDE_FC2_COLS[0]) >= sms
+        fc2_cols = WIDE_FC2_COLS[0] if wide else WIDE_FC2_COLS[1]
+    else:
+        fc1_cols = fc2_cols = WIDE_F32_TILE[1]
+    a, b = -(-M // fc1_cols), -(-D // fc2_cols)
+    groups = models * rows
+    units = groups * (a + b)
+    return {"n": n, "D": D, "M": M, "models": models, "row_tiles": rows,
+            "groups": groups, "fc1_units": a, "fc2_units": b,
+            "fc1_cols": fc1_cols, "fc2_cols": fc2_cols, "units": units,
+            "blocks": min(units, sms), "slots": sms,
+            "waves": units / min(units, sms)}
+
+
+def k1c_wide_unit(plan: dict, u: int) -> tuple:
+    """Unit u of `k1c_wide_plan`'s queue, as the kernel takes it
+    (`queue_unit`): ("fc1" or "fc2", group, column tile)."""
+    a, b, groups = plan["fc1_units"], plan["fc2_units"], plan["groups"]
+    if u < a:
+        return "fc1", 0, u
+    i, r = divmod(u - a, a + b)
+    if i + 1 < groups and r < a:
+        return "fc1", i + 1, r
+    return "fc2", i, r - a if i + 1 < groups else r
+
+
+#: The wide entries' arguments, as ctypes types: K1's and K1b's bf16
+#: (`*_wide_launch`), their f32 (`*_wide_f32_launch`), and K1c's (both).
+_WIDE_BF16_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_void_p])
 _WIDE_F32_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_K1C_WIDE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def _launch_wide_f32(x, w1, b1, w2, b2, out, n: int, active: int,
-                     stream) -> int:
-    """K1's f32 wide body (`fused_mlp_wide_f32_launch`) on
-    `wide_f32_plan`'s grids: fc1 + GELU into an (n, M4) scratch, M rounded
-    up to 4, then fc2 from it; a split phase's partial sums through a
-    second scratch.  Returns the entry point's CUDA error code."""
-    D, M = x.shape[-1], w1.shape[0]
-    m4 = -(-M // 4) * 4
-    if m4 != M:
+def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
+                 models: int, variant: str, stream) -> int:
+    """The variant's wide body (`csrc/mlp_wide.cuh`, through its library's
+    `*_wide_launch` or `*_wide_f32_launch`): h through a (models, n, M')
+    scratch, M' = M rounded up to rows of 16 bytes; K1's and K1b's f32 split
+    phases' partial sums through a second scratch (`wide_f32_plan`); K1c's
+    ready counters, one a (model, row tile), from 0.  Returns the entry
+    point's CUDA error code."""
+    D, M = x.shape[-1], w1.shape[-2]
+    f32 = x.dtype == torch.float32
+    step = 4 if f32 else 8
+    ld = -(-M // step) * step
+    if ld != M:
         # TMA reads rows whose stride is a multiple of 16 bytes: w2's rows
         # of M values are not, so the kernel reads a zero-padded copy
-        w2 = F.pad(w2, (0, m4 - M))
-    plan = wide_f32_plan(n, D, M, active, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
-    fc1, fc2 = plan["fc1"] or {"splits": 1, "blocks": 0}, plan["fc2"]
-    h = torch.empty(n, m4, dtype=x.dtype, device=x.device)
-    # the split phases' partial sums, one after the other in one scratch
-    width = max(fc1["splits"] * m4 if fc1["splits"] > 1 else 0,
+        w2 = F.pad(w2, (0, ld - M))
+    h = torch.empty(models, n, ld, dtype=x.dtype, device=x.device)
+    library = _KERNELS[variant][0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    operands = (x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                w2.data_ptr(), ld, b2.data_ptr(), h.data_ptr(), ld)
+    shape = (n, D, M, active, None if per_model is None else per_model.data_ptr(),
+             models)
+    if variant == "pipelined2":
+        plan = k1c_wide_plan(n, D, M, models, x.dtype, sms)
+        ready = torch.zeros(plan["groups"], dtype=torch.int32, device=x.device)
+        fn = _build.entry(library, _K1C_WIDE_ARGTYPES,
+                          f"{library}_wide{'_f32' if f32 else ''}_launch")
+        return fn(*operands, ready.data_ptr(), out.data_ptr(), *shape,
+                  plan["blocks"], stream)
+    if not f32:
+        fn = _build.entry(library, _WIDE_BF16_ARGTYPES, f"{library}_wide_launch")
+        return fn(*operands, out.data_ptr(), *shape, stream)
+    plan = wide_f32_plan(n, D, M, sms, models, chunked=variant == "chunked")
+    fc1, fc2 = plan["fc1"], plan["fc2"]
+    # the split phases' partial sums, one phase after the other in one scratch
+    width = max(fc1["splits"] * ld if fc1["splits"] > 1 else 0,
                 fc2["splits"] * D if fc2["splits"] > 1 else 0)
-    part = torch.empty(n, width, dtype=x.dtype, device=x.device) if width else None
-    fn = _build.entry("fused_mlp", _WIDE_F32_ARGTYPES,
-                      symbol="fused_mlp_wide_f32_launch")
-    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-              w2.data_ptr(), w2.shape[1], b2.data_ptr(), h.data_ptr(), m4,
-              None if part is None else part.data_ptr(), out.data_ptr(), n, D,
-              M, active, fc1["splits"], fc1["blocks"], fc2["splits"],
-              fc2["blocks"], stream)
+    part = (torch.empty(models * n * width, dtype=x.dtype, device=x.device)
+            if width else None)
+    fn = _build.entry(library, _WIDE_F32_ARGTYPES, f"{library}_wide_f32_launch")
+    return fn(*operands, None if part is None else part.data_ptr(), out.data_ptr(),
+              *shape, fc1["splits"], fc1["blocks"], fc2["splits"], fc2["blocks"],
+              stream)
 
 
 #: K1c's body at (device, D, dtype): its `mlp_pipelined_shape`, asked once.
@@ -623,6 +695,20 @@ def _k1_body(dtype, D: int) -> str:
     return "cuda_cores" if D == 8 else "wgmma_pipeline"
 
 
+def _variant_body(variant: str, dtype, D: int) -> str:
+    """The body a call of the variant at hidden size D takes: K1's
+    (`_k1_body`), or one of K1B_BODIES or K1C_BODIES, in that order: bf16 at
+    D 16-64, bf16 at D <= 8, f32 at D <= 64, wide bf16, wide f32."""
+    if variant == "seq":
+        return _k1_body(dtype, D)
+    D = kernel_width(D, dtype)
+    bodies = K1B_BODIES if variant == "chunked" else K1C_BODIES
+    f32 = dtype != torch.bfloat16
+    if D not in WIDTHS:
+        return bodies[4 if f32 else 3]
+    return bodies[2] if f32 else bodies[1] if D == 8 else bodies[0]
+
+
 def k1_body_launched() -> str:
     """The body that this process's last K1 launch took (one of
     K1_BODIES)."""
@@ -631,20 +717,29 @@ def k1_body_launched() -> str:
     return _last_body
 
 
+def k1b_body_launched() -> str:
+    """The body that this process's last K1b launch took (one of
+    K1B_BODIES)."""
+    if _last_k1b_body is None:
+        raise RuntimeError("fused_mlp: K1b has not been launched")
+    return _last_k1b_body
+
+
 def k1c_body_launched() -> str:
-    """The body that this process's last K1c launch took: K1's narrow f32
-    body in f32 ("narrow_tf32x3"), else "wgmma_pipeline" or, at D = 8,
-    "cuda_cores"."""
+    """The body that this process's last K1c launch took (one of
+    K1C_BODIES): K1's narrow f32 body in f32 at D <= 64 ("narrow_tf32x3"),
+    "wgmma_pipeline" or, at D = 8, "cuda_cores" in bf16, and at a wide D
+    the queued wide bodies."""
     if _last_k1c_body is None:
         raise RuntimeError("fused_mlp: K1c has not been launched")
     return _last_k1c_body
 
 
 def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
-    global _last_body, _last_k1c_body, launches_on_k1c, launches_own
+    global _last_body, _last_k1b_body, _last_k1c_body, launches_on_k1c, launches_own
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_mlp: kernel launch on {x.device}")
-    _check(x, w1, b1, w2, b2, variant)
+    _check(x, w1, b1, w2, b2)
     name, counter = _KERNELS[variant]
     width = x.shape[-1]
     # zero-padded copies where the kernel runs at another width (see the
@@ -658,21 +753,19 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
                  for t in (x, w1, w2))
     models = w1.shape[0] if w1.dim() == 3 else 1
     D, M = x.shape[-1], w1.shape[-2]
-    active, per_model = _active_arg(mlp_active, models, M, x.device,
-                                    on_device=D in WIDTHS)
+    active, per_model = _active_arg(mlp_active, models, M, x.device)
     out = torch.empty_like(x)
     n = x.numel() // (D * models)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    body = _k1_body(x.dtype, D) if variant == "seq" else None
+    body = _variant_body(variant, x.dtype, D)
     f32 = x.dtype == torch.float32
-    if body == "wide_wgmma":
-        err = _launch_wide_bf16(x, w1, b1, w2, b2, out, n, active, stream)
-    elif body == "wide_tf32x3":
-        err = _launch_wide_f32(x, w1, b1, w2, b2, out, n, active, stream)
+    if D not in WIDTHS:
+        err = _launch_wide(x, w1, b1, w2, b2, out, n, active, per_model, models,
+                           variant, stream)
     elif variant == "chunked" and f32:
         err = _launch_k1b_f32(x, w1, b1, w2, b2, out, n, active, per_model,
                               models, stream)
-    elif body == "narrow_tf32x3" or (variant == "pipelined2" and f32):
+    elif body == "narrow_tf32x3":
         # K1's narrow f32 body, from K1's library or K1c's
         err = _launch_narrow_f32(x, w1, b1, w2, b2, out, n, active, per_model,
                                  models, stream, k1c=variant == "pipelined2")
@@ -692,10 +785,11 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
                  models, _DTYPES[x.dtype], stream)
     _build.check(name, err)
     globals()[counter] += 1
-    if variant == "pipelined2":
-        _last_k1c_body = ("narrow_tf32x3" if f32 else
-                          "cuda_cores" if D == 8 else "wgmma_pipeline")
-    if body is not None:
+    if variant == "chunked":
+        _last_k1b_body = body
+    elif variant == "pipelined2":
+        _last_k1c_body = body
+    else:
         _last_body = body
         if body in K1_BODIES_ON_K1C:
             launches_on_k1c += 1
