@@ -690,11 +690,14 @@ K1C_WIDE_PLAN_CASES = ((STRETCH_B * 513, 768, 3072, 5, torch.bfloat16),
 
 
 def k1c_wide_plan(n: int, D: int, M: int, models: int, dtype) -> dict:
-    """`fused_mlp.k1c_wide_plan` at one shape on this card."""
-    plan = fused_mlp.k1c_wide_plan(n, D, M, models, dtype,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
-    check(plan["blocks"] <= plan["slots"], f"K1c wide plan {plan} exceeds the SMs")
-    return {"dtype": str(dtype).split(".")[1], **plan}
+    """`fused_mlp.k1c_wide_plan` at one shape on this card, with its ticket
+    count (one a unit)."""
+    card_ = torch.cuda.get_device_properties(0)
+    plan = fused_mlp.k1c_wide_plan(n, D, M, models, dtype, card_.multi_processor_count,
+                                   card_.L2_cache_size)
+    check(1 <= plan["lead"] <= plan["groups"] and plan["blocks"] <= plan["resident"],
+          f"K1c wide plan {plan}: a lead past the groups, or more blocks than the SMs")
+    return {"dtype": str(dtype).split(".")[1], **plan, "tickets": plan["units"]}
 
 
 def k1b_f32_sass() -> dict:
@@ -2573,6 +2576,15 @@ def phase_wide_axis(gen) -> dict:
                 mlp_ms = sum(groups.get(g, 0.0) for g in MLP_GROUPS)
                 ok = (err <= atol and finite and shape_ok and counts == want
                       and busy > 0 and body.startswith("wide_"))
+                more = {}
+                if variant == "pipelined2":
+                    # K1c's queue at the pass's fused-FFN call, and its FFN
+                    # time beside K1's in the same pass
+                    queue = k1c_wide_plan(B * cfg.seq_len, cfg.hidden_size, cfg.mlp_dim, P,
+                                          dtype)
+                    more = {"queue": {k: queue[k] for k in ("lead", "tickets", "resident",
+                                                            "blocks")},
+                            "k1_mlp_device_ms": result[f"{name}_seq"]["mlp_device_ms"]}
                 res = {"phase": "wide_axis", "card": card, "variant": variant,
                        "kernel": kernel, "body": body, "dtype": name, "models": P,
                        "B": B, "token_rows_a_call": B * cfg.seq_len,
@@ -2580,7 +2592,7 @@ def phase_wide_axis(gen) -> dict:
                        "shape_ok": shape_ok, "launches": counts,
                        "expected_launches": want, "wall_ms": wall,
                        "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
-                       "mlp_device_ms": mlp_ms, "kernels": kernels,
+                       "mlp_device_ms": mlp_ms, **more, "kernels": kernels,
                        "by_group_ms": groups, "kernels_by_group": by_group, "ok": ok}
                 emit(res)
                 check(ok, f"wide_axis {name} {variant}: err {err}, launched {counts} "
@@ -3100,6 +3112,9 @@ def wide_case_widths(M: int, models: int) -> list:
 #: the library chain's device ms a call, by wide case inputs: the same for
 #: every variant
 _chain_device_ms: dict = {}
+#: K1's device ms a call, by wide case inputs (`wide_cases("seq")` runs
+#: before K1c's), beside which K1c's cases print theirs
+_k1_device_ms: dict = {}
 
 
 def wide_case(dtype, N: int, D: int, M: int, widths: list, variant: str) -> dict:
@@ -3109,8 +3124,10 @@ def wide_case(dtype, N: int, D: int, M: int, widths: list, variant: str) -> dict
     the case (so every variant sees the same): its error over the JAX gate,
     whether each model's slice equals that model alone (no model axis, a
     host width) bit for bit, for K1c whether it equals K1 bit for bit (K1's
-    f32 plan splits K at some shapes, then their sums differ in order), its
-    ms (events) and device ms (profiler) beside the library chain's
+    f32 plan splits K at some shapes, then their sums differ in order), K1's
+    device ms on the same inputs and its queue's plan (lead, tickets,
+    resident blocks), its ms (events) and device ms (profiler) beside the
+    library chain's
     (`baddbmm` -> `F.gelu` -> `baddbmm`, the width mask folded into w2) and
     the bound: the products at the type's tensor-core peak (3xTF32 for
     f32), the bytes, the GELUs."""
@@ -3146,11 +3163,17 @@ def wide_case(dtype, N: int, D: int, M: int, widths: list, variant: str) -> dict
                 N, D, M, torch.cuda.get_device_properties(0).multi_processor_count)
             splits = dtype == torch.float32 and max(plan["fc1"]["splits"],
                                                     plan["fc2"]["splits"]) > 1
+            if key not in _k1_device_ms:
+                _k1_device_ms[key] = mlp_device_ms(lambda: call("seq"), 5)
+            queue = k1c_wide_plan(N, fused_mlp.kernel_width(D, dtype), M, P, dtype)
             k1 = {"equal_to_k1": bool(torch.equal(out, call("seq"))),
-                  "k1_splits_k": splits}
+                  "k1_splits_k": splits, "k1_device_ms": _k1_device_ms[key],
+                  "queue": {k: queue[k] for k in ("lead", "tickets", "resident", "blocks")}}
         ms = time_ms(call, 10)
         plain_ms = time_ms(lambda: plain(x, w1, b1, w2, b2, wt), 3)
         device_ms = mlp_device_ms(call, 5)
+        if variant == "seq":
+            _k1_device_ms[key] = device_ms
         w2m = w2 * (torch.arange(M, device="cuda") < wt[:, None, None]).to(dtype)
         b1u, b2u = b1.unsqueeze(1), b2.unsqueeze(1)
         w1t, w2t = w1.transpose(1, 2), w2m.transpose(1, 2)
@@ -4963,7 +4986,8 @@ def main() -> int:
         """The stacked pass's numbers under one variant, both types."""
         return {dt: {k: wide_axis[f"{dt}_{variant}"][k] for k in (
             "body", "B", "logits_max_abs_err", "wall_ms", "device_busy_ms",
-            "device_idle_share", "mlp_device_ms", "kernels", "launches")}
+            "device_idle_share", "mlp_device_ms", "k1_mlp_device_ms", "queue", "kernels",
+            "launches") if k in wide_axis[f"{dt}_{variant}"]}
             for dt in ("bfloat16", "float32")}
 
     def narrow_case(case, path=None):
@@ -5040,9 +5064,9 @@ def main() -> int:
             # f32 on K1's narrow body, on K1c's row-tile groups
             model_axis_case=narrow_case(k1_variants["pipelined2_model_axis"]),
             f32_scaled_max_err_over_gate=k1c_scaled["max_err_over_gate"],
-            # its wide queue (fc1 of row tile i + 1 ahead of fc2 of row
-            # tile i, one launch) with the model axis, over the sweep of
-            # hidden sizes, and on the stacked stretch members
+            # its wide queue (fc1 of row tile i + L ahead of fc2 of row
+            # tile i, taken by ticket, one launch) with the model axis, over
+            # the sweep of hidden sizes, and on the stacked stretch members
             wide_cases=k1_variants["pipelined2_wide"], width_sweep=widths["K1c"],
             wide_plan=k1c_wide_plan(*K1C_WIDE_PLAN_CASES[0]),
             wide_axis=wide_axis_of("pipelined2")),

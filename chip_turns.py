@@ -45,6 +45,20 @@ timed alike:
     -> F.gelu -> F.linear, or `baddbmm` -> F.gelu -> `baddbmm` with the
     widths folded into w2, as `chip_smoke.k1_case` times it) and the largest
     error over the f32 gate against ROOT's `_plain_mlp_chunked`;
+  * K1c's wide queue (variant "pipelined2") beside K1 (phase `k1c_wide`) at
+    the stacked stretch members' and ViT-H's wide cases, bf16 and f32:
+    (4,104 and 513 rows, 768, 3,072) with five models of widths 3,072,
+    3,072, 2,072, 2,072 and 0, and (4,104, 1,280, 5,120) with two of 5,120
+    and 4,120: device ms of each under the profiler (10 calls), ms by CUDA
+    events, the largest error over the gate against ROOT's `_plain_mlp`,
+    whether K1c gave K1's bits, and the device ms of the `baddbmm` chain
+    (the widths folded into w2);
+  * K1c's wide queue at several leads (phase `k1c_wide_leads`; ROOT's
+    entries must take a lead, as this checkout's do) at those cases and
+    at one model of each: 1, two waves of the grid, the plan's and every
+    group, each by CUDA events over 20 launches through the entry (a
+    zeroed counter buffer each, made before the timed run), whether each
+    gave K1's bits where K1 splits no K, beside K1's device ms;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
@@ -102,8 +116,17 @@ K1_NARROW_F32_CASES = ((260, 16, 2048, 2048, 0), (260, 64, 3072, 3072, 0),
                        (1560, 64, 3072, [2048] * 15 + [3072] * 15, 30))
 BUILD = ["fused_mlp", "mlp_chunked", "mlp_pipelined", "tiny_attention",
          "attention"]
+# K1c's wide cases: (dtype name, N, D, M, one width a model)
+K1C_WIDE_CASES = tuple((dtype, N, D, M, widths) for dtype in ("bfloat16", "float32")
+                       for N, D, M, widths in (
+                           (4104, 768, 3072, [3072, 3072, 2072, 2072, 0]),
+                           (513, 768, 3072, [3072, 3072, 2072, 2072, 0]),
+                           (4104, 1280, 5120, [5120, 4120])))
+K1C_LEAD_CASES = K1C_WIDE_CASES + (("bfloat16", 4104, 768, 3072, [3072]),
+                                    ("bfloat16", 4104, 1280, 5120, [5120]),
+                                    ("float32", 4104, 768, 3072, [3072]))
 PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
-          "pass", "latency", "stretch_f32")
+          "k1c_wide", "k1c_wide_leads", "pass", "latency", "stretch_f32")
 # The narrow f32 body with one part taken out: (name, text of the header ->
 # text of the copy)
 NARROW_PARTS = (
@@ -196,6 +219,54 @@ def narrow_parts(cs, emit, fused_mlp, _build) -> None:
         emit({"phase": "k1_f32_narrow_parts", "N": N, "D": D, "M": M, "models": P,
               "splits": plan["splits"], "ms": ms,
               "registers": {k: sorted(v) for k, v in regs.items()}})
+
+
+def k1c_leads(cs, emit, fused_mlp, gen, reps: int = 20) -> None:
+    """Phase `k1c_wide_leads`: K1c's wide entry at K1C_LEAD_CASES under
+    several leads, by CUDA events, beside K1's device ms."""
+    import torch
+    card = torch.cuda.get_device_properties(0)
+    for name, N, D, M, width in K1C_LEAD_CASES:
+        dtype, P = getattr(torch, name), len(width)
+        x = torch.randn(P, N, D, generator=gen, device="cuda").to(dtype)
+        w1, b1, w2, b2 = cs.mlp_weights(gen, dtype, D, M, (P,))
+        widths = torch.tensor(width, dtype=torch.int32, device="cuda")
+        plan = fused_mlp.k1c_wide_plan(N, D, M, P, dtype, card.multi_processor_count,
+                                       card.L2_cache_size)
+        h, out = torch.empty(P, N, M, dtype=dtype, device="cuda"), torch.empty_like(x)
+        f32 = dtype == torch.float32
+        fn = fused_mlp._build.entry("mlp_pipelined", fused_mlp._K1C_WIDE_ARGTYPES,
+                                    f"mlp_pipelined_wide{'_f32' if f32 else ''}_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        k1 = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+        k1_plan = fused_mlp.wide_f32_plan(N, D, M, card.multi_processor_count)
+        k1_splits = f32 and max(k1_plan["fc1"]["splits"], k1_plan["fc2"]["splits"]) > 1
+        groups, a_b = plan["groups"], plan["fc1_units"] + plan["fc2_units"]
+        leads = sorted({1, min(groups, -(-2 * plan["blocks"] // a_b)), plan["lead"], groups})
+        line = {"phase": "k1c_wide_leads", "dtype": name, "N": N, "D": D, "M": M,
+                "width": width, "models": P, "groups": groups, "plan_lead": plan["lead"],
+                "k1_device_ms": cs.mlp_device_ms(
+                    lambda: fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths))}
+        for lead in leads:
+            ready = torch.zeros(reps + 1, groups + 1, dtype=torch.int32, device="cuda")
+
+            def launch(i):
+                return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                          w2.data_ptr(), M, b2.data_ptr(), h.data_ptr(), M, ready[i].data_ptr(),
+                          out.data_ptr(), N, D, M, 0, widths.data_ptr(), P, lead,
+                          plan["blocks"], stream)
+
+            fused_mlp._build.check("mlp_pipelined", launch(reps))
+            torch.cuda.synchronize()
+            k1_bits = None if k1_splits else bool(torch.equal(out, k1))
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for i in range(reps):
+                launch(i)
+            end.record()
+            torch.cuda.synchronize()
+            line[f"lead_{lead}"] = {"ms": start.elapsed_time(end) / reps, "k1_bits": k1_bits}
+        emit(line)
 
 
 def main() -> int:
@@ -334,6 +405,40 @@ def main() -> int:
                         "ms": cs.time_ms(call, 10), "device_ms": cs.mlp_device_ms(call)}
             line["chain_device_ms"] = chain_device_ms(chain)
             emit(line)
+
+        own = torch.Generator(device="cuda").manual_seed(cs.SEED + 23)
+        for name, N, D, M, width in K1C_WIDE_CASES if "k1c_wide" in phases else ():
+            dtype, P = getattr(torch, name), len(width)
+            x = torch.randn(P, N, D, generator=own, device="cuda").to(dtype)
+            w1, b1, w2, b2 = cs.mlp_weights(own, dtype, D, M, (P,))
+            widths = torch.tensor(width, dtype=torch.int32, device="cuda")
+            w2t = (w2 * (torch.arange(M, device="cuda") < widths[:, None, None]).to(dtype)
+                   ).transpose(1, 2)
+            b1u, b2u, w1t = b1.unsqueeze(1), b2.unsqueeze(1), w1.transpose(1, 2)
+
+            def call():
+                return fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+
+            def chain():
+                return torch.baddbmm(b2u, F.gelu(torch.baddbmm(b1u, x, w1t)), w2t)
+
+            ref = fused_mlp._plain_mlp(x, w1, b1, w2, b2, widths)
+            line = {"phase": "k1c_wide", "dtype": name, "N": N, "D": D, "M": M,
+                    "width": width, "models": P}
+            outs = {}
+            for variant in ("seq", "pipelined2"):
+                with cs.mlp_variant(variant):
+                    outs[variant] = call()
+                    line[variant] = {
+                        "max_err_over_gate": cs.over_gate(outs[variant], ref, cs.TOL[dtype])[1],
+                        "ms": cs.time_ms(call, 10), "device_ms": cs.mlp_device_ms(call)}
+            line["k1c_equal_to_k1"] = bool(torch.equal(outs["seq"], outs["pipelined2"]))
+            line["chain_device_ms"] = chain_device_ms(chain)
+            emit(line)
+            del x, w1, b1, w2, b2, w2t, w1t, ref, outs
+
+        if "k1c_wide_leads" in phases:
+            k1c_leads(cs, emit, fused_mlp, torch.Generator(device="cuda").manual_seed(cs.SEED + 29))
 
         if "pass" in phases:
             x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,

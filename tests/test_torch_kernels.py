@@ -1405,30 +1405,113 @@ def test_k1c_wide_equals_k1_where_k1_splits_no_k(cuda, monkeypatch, dtype, N, D,
         _close(k1c, k1, dtype)
 
 
+def _k1c_wide_entry(x, w1, b1, w2, b2, out, ready, widths, lead, blocks):
+    """K1c's wide bf16 or f32 entry on (P, N, D) inputs whose rows are 16
+    bytes (M a multiple of 8), h a scratch of its own; returns its error
+    code."""
+    P, N, D = x.shape
+    M = w1.shape[-2]
+    f32 = x.dtype == torch.float32
+    h = torch.empty(P, N, M, dtype=x.dtype, device="cuda")
+    fn = fused_mlp._build.entry("mlp_pipelined", fused_mlp._K1C_WIDE_ARGTYPES,
+                                f"mlp_pipelined_wide{'_f32' if f32 else ''}_launch")
+    return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M,
+              b2.data_ptr(), h.data_ptr(), M, ready, out.data_ptr(), N, D, M, 0,
+              widths.data_ptr(), P, lead, blocks, torch.cuda.current_stream().cuda_stream)
+
+
 def test_k1c_wide_refuses_a_grid_the_card_cannot_hold(cuda):
-    """K1c's wide entry refuses more blocks than the card holds at once
-    (their waits could then deadlock) and a missing counter buffer; the
-    wrapper's grid (`k1c_wide_plan`) is never larger than the SMs."""
+    """K1c's wide entry refuses a grid it cannot run: no block, a block
+    without a unit (more blocks than units), a lead of no group or past the
+    groups, and a missing counter buffer.  More blocks than the card holds
+    at once it takes (the tickets; `test_k1c_wide_grid_past_the_resident_
+    blocks_ends`).  The wrapper's grid (`k1c_wide_plan`) is one block an SM
+    at most."""
     N, D, M = 513, 768, 3072
-    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M, torch.bfloat16)
+    x, w1, b1, w2, b2 = (t.unsqueeze(0) for t in _wide_inputs(cuda, N, D, M, torch.bfloat16))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = fused_mlp.k1c_wide_plan(N, D, M, 1, torch.bfloat16, sms)
-    assert plan["blocks"] <= sms
-    h = torch.empty(N, M, dtype=torch.bfloat16, device="cuda")
+    assert plan["blocks"] <= plan["resident"] == sms
     out = torch.empty_like(x)
-    ready = torch.zeros(plan["groups"], dtype=torch.int32, device="cuda")
-    fn = fused_mlp._build.entry("mlp_pipelined", fused_mlp._K1C_WIDE_ARGTYPES,
-                                "mlp_pipelined_wide_launch")
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M,
-            b2.data_ptr(), h.data_ptr(), M)
-    assert plan["units"] > sms      # a grid of sms + 1 blocks has work for each
-    for ptr, blocks in ((ready.data_ptr(), sms + 1), (None, plan["blocks"])):
-        err = fn(*args, ptr, out.data_ptr(), N, D, M, M, None, 1, blocks, stream)
+    widths = torch.tensor([M], dtype=torch.int32, device="cuda")
+    ready = torch.zeros(plan["groups"] + 1, dtype=torch.int32, device="cuda")
+    for ptr, lead, blocks in ((ready.data_ptr(), plan["lead"], 0),
+                              (ready.data_ptr(), plan["lead"], plan["units"] + 1),
+                              (ready.data_ptr(), 0, plan["blocks"]),
+                              (ready.data_ptr(), plan["groups"] + 1, plan["blocks"]),
+                              (None, plan["lead"], plan["blocks"])):
+        err = _k1c_wide_entry(x, w1, b1, w2, b2, out, ptr, widths, lead, blocks)
         with pytest.raises(RuntimeError, match="mlp_pipelined launch failed"):
             fused_mlp._build.check("mlp_pipelined", err)
-    err = fn(*args, ready.data_ptr(), out.data_ptr(), N, D, M, M, None, 1, plan["blocks"],
-             stream)
+    err = _k1c_wide_entry(x, w1, b1, w2, b2, out, ready.data_ptr(), widths, plan["lead"],
+                          plan["blocks"])
     fused_mlp._build.check("mlp_pipelined", err)
     torch.cuda.synchronize()
-    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, M), torch.bfloat16)
+    _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, widths), torch.bfloat16)
+
+
+# K1c's wide queue at the cases it was redesigned on: the stacked stretch
+# members at B=8's and B=1's rows (P = 5) and ViT-H's widths at B=8's (P =
+# 2), widths full, partial and 0 as `chip_smoke.wide_case_widths` gives.
+K1C_WIDE_CASES = [(4104, 768, 3072, [3072, 3072, 2072, 2072, 0]),
+                  (513, 768, 3072, [3072, 3072, 2072, 2072, 0]),
+                  (4104, 1280, 5120, [5120, 4120])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,M,widths", K1C_WIDE_CASES)
+def test_k1c_wide_queue_gives_k1s_bits_alone_and_stacked(cuda, monkeypatch, dtype, N, D, M,
+                                                         widths):
+    """K1c's wide queue (tickets, a lead of several row tiles, TMA stores)
+    changes the schedule only: the same bits as K1 where K1 splits no K
+    (every bf16 case; f32 at 4,104 rows), within the gate of its plain
+    version everywhere, and each model alone the same bits as its slice of
+    the stacked call."""
+    P = len(widths)
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
+    wt = torch.tensor(widths, dtype=torch.int32, device="cuda")
+    k1 = fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "pipelined2")
+    before = fused_mlp.launches_k1c
+    k1c = fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches_k1c == before + 1
+    assert fused_mlp.k1c_body_launched() == WIDE_BODIES["pipelined2"][dtype == torch.float32]
+    _close(k1c, fused_mlp._plain_mlp(x, w1, b1, w2, b2, wt), dtype)
+    plan = fused_mlp.wide_f32_plan(N, D, M, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+    if dtype == torch.bfloat16 or max(plan["fc1"]["splits"], plan["fc2"]["splits"]) == 1:
+        assert torch.equal(k1, k1c)
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p], widths[p])
+        assert torch.equal(alone, k1c[p])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1c_wide_grid_past_the_resident_blocks_ends(cuda, dtype):
+    """Tickets let K1c's wide queue run on more blocks than the card holds at
+    once (a block that is not yet resident has taken no ticket, so nothing
+    waits on it): a grid of twice the SMs and one of a single block end with
+    the bits of the plan's grid, and a lead of one group gives them too."""
+    N, D, M, widths = 4104, 768, 3072, [3072, 2072]
+    P = len(widths)
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(dtype)
+    w1, b1, w2, b2 = _mlp_weights(cuda, dtype, D, M, (P,))
+    wt = torch.tensor(widths, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused_mlp.k1c_wide_plan(N, D, M, P, dtype, sms)
+    assert plan["units"] >= 2 * sms
+    outs = []
+    for lead, blocks in ((plan["lead"], plan["blocks"]), (plan["lead"], 2 * sms),
+                         (plan["lead"], 1), (1, plan["blocks"])):
+        out = torch.empty_like(x)
+        ready = torch.zeros(plan["groups"] + 1, dtype=torch.int32, device="cuda")
+        fused_mlp._build.check("mlp_pipelined", _k1c_wide_entry(
+            x, w1, b1, w2, b2, out, ready.data_ptr(), wt, lead, blocks))
+        torch.cuda.synchronize()
+        assert int(ready[-1]) == plan["units"] + blocks  # every block drew one past the end
+        outs.append(out)
+    _close(outs[0], fused_mlp._plain_mlp(x, w1, b1, w2, b2, wt), dtype)
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])

@@ -76,10 +76,11 @@
 // (`mlp_wide.cuh`, whose note says what bounds it): K1's two GEMM phases in
 // one persistent launch (`wide_queue_kernel` in bf16 on `wgmma`,
 // `wide_queue_tf32x3_kernel` in f32 in 3xTF32), the TPU kernel's pipeline
-// across row tiles: the unit queue puts fc1 of row tile i + 1 ahead of fc2 of
-// row tile i, and an fc2 unit waits on a per-row-tile counter in global
-// memory until every fc1 column tile of its row tile is written.  Its tiles
-// and K order are K1's where K1 does not split K, so there it gives K1's bits.
+// across row tiles: the unit queue puts fc1 of row tile i + L ahead of fc2 of
+// row tile i, each block takes the queue's next unit by ticket, and an fc2
+// unit waits on a per-row-tile counter in global memory until every live fc1
+// column tile of its row tile is stored.  Its tiles and K order are K1's
+// where K1 does not split K, so there it gives K1's bits.
 //
 // Layouts follow torch.nn.Linear: x (P, n, D), w1 (P, m, D), b1 (P, m) and
 // w2 (P, D, m) with rows `ld2` elements apart (the wrapper pads them to a
@@ -632,24 +633,25 @@ extern "C" int mlp_pipelined_shape(int device, int d, int dtype, int* out) {
 
 // K1c's wide regime in bf16 (64 < d <= 8,192, d a multiple of 8), with the
 // model axis: the operands of `fused_mlp_wide_launch` (`fused_mlp.cu`), and
-// ready, models * ceil(n / 128) int32 counters, all 0, one a (model, row
-// tile), on `blocks` persistent blocks (`fused_mlp.k1c_wide_plan`), which the
-// card must hold at once.  One launch.  Returns cudaGetLastError() after it,
+// ready, models * ceil(n / 128) + 1 int32 counters, all 0 (one a (model, row
+// tile), then the tickets), with a lead of `lead` row-tile groups on `blocks`
+// persistent blocks (`fused_mlp.k1c_wide_plan`; 1 <= lead <= the groups, 1
+// <= blocks <= the units).  One launch.  Returns cudaGetLastError() after it,
 // or cudaErrorInvalidValue for a shape, layout or grid it does not take
 // (nothing launched).  n == 0 launches nothing.
 extern "C" int mlp_pipelined_wide_launch(int device, const void* x, const void* w1,
                                          const void* b1, const void* w2, int ld_w2,
                                          const void* b2, void* h, int ld_h, int* ready,
                                          void* out, int n, int d, int m, int active,
-                                         const int* active_p, int models, int blocks,
-                                         void* stream) {
+                                         const int* active_p, int models, int lead,
+                                         int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 8) || ready == nullptr)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_queue_bf16(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, ready, out, n, d,
-                                   m, active, active_p, models, blocks,
+                                   m, active, active_p, models, lead, blocks,
                                    static_cast<cudaStream_t>(stream));
 }
 
@@ -659,15 +661,15 @@ extern "C" int mlp_pipelined_wide_f32_launch(int device, const void* x, const vo
                                              const void* b1, const void* w2, int ld_w2,
                                              const void* b2, void* h, int ld_h, int* ready,
                                              void* out, int n, int d, int m, int active,
-                                             const int* active_p, int models, int blocks,
-                                             void* stream) {
+                                             const int* active_p, int models, int lead,
+                                             int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 4) || ready == nullptr)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_queue_f32(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, ready, out, n, d,
-                                  m, active, active_p, models, blocks,
+                                  m, active, active_p, models, lead, blocks,
                                   static_cast<cudaStream_t>(stream));
 }
 

@@ -59,17 +59,32 @@
 //   * K1c (`wide_queue_kernel`, `wide_queue_tf32x3_kernel`): one persistent
 //     launch, the TPU kernel's pipeline across row tiles.  Its unit queue
 //     (`Queue`) walks the (model, row tile) groups in order and puts the fc1
-//     units of group g + 1 ahead of the fc2 units of group g, so fc1 of one
-//     row tile runs beside fc2 of the one before.  An fc1 unit writes its h
-//     tile with plain stores and, after a fence, adds one to its group's
-//     ready counter in global memory (release); the producer of an fc2 unit
-//     waits until its group's counter holds every fc1 column tile (acquire),
-//     then a proxy fence orders its TMA reads of h after it.  The grid never
-//     exceeds the blocks the card holds at once (the entry checks), and a
-//     block takes its units in queue order, so the unit first in the queue
-//     not yet done can always run: the waits cannot deadlock.  Its tiles
-//     and K order are K1's where K1 does not split K, so there it gives K1's
-//     bits.
+//     units of group g + L ahead of the fc2 units of group g: a lead of L
+//     groups (`fused_mlp.k1c_wide_plan`: as many as half the L2 holds of h,
+//     at least two waves of units, at most the groups), so an fc2 unit's h
+//     was begun long before it and is still in L2.
+//     Tickets: a block's producer thread takes its next unit with one
+//     atomicAdd on a counter beside the ready counters (the ticket is the
+//     unit's place in the queue) when its ring has room, and hands it to the
+//     block's other threads through shared memory and an mbarrier.  A bf16
+//     fc1 unit's GELU tile goes through a shared-memory staging tile and TMA
+//     stores, which a storer thread of the producer's warpgroup issues; once
+//     they have completed (`cp.async.bulk.wait_group 0`, not `.read`), a
+//     `fence.proxy.async.global` orders them before `red.release.gpu`, which
+//     adds one to the group's ready counter in global memory.  (f32 stores h
+//     from registers, as K1's f32 body does, then `__threadfence` and the
+//     same release.)  The producer of an fc2 unit spins on one thread until
+//     the counter holds the group's live fc1 tiles (`ld.acquire.gpu`, then
+//     `fence.proxy.async.global` before its TMA reads of h).  The waits
+//     cannot deadlock on any grid: only a running block takes a ticket, an
+//     fc2 unit waits only on fc1 units of smaller tickets, and the unit of
+//     the smallest ticket not yet done always runs (its block's earlier
+//     units are done, and it waits on nothing later).  bf16 fc1 and fc2
+//     stages each take their own bytes in one ring (`RingPos`: stages are
+//     placed one after another, wrapping to the start, and the producer
+//     waits on the latest stage whose bytes a new one reuses).  Only the
+//     schedule differs from K1: its tiles and K order are K1's where K1 does
+//     not split K, so there it gives K1's bits, alone or stacked.
 //
 // TMA needs 16-byte rows: D is a multiple of 8 (bf16) or 4 (f32), and
 // ld_h, ld_w2 are M rounded up to 8 or 4 (the wrapper, `ops/fused_mlp.py`,
@@ -154,31 +169,77 @@ __host__ __device__ __forceinline__ int units_of(const Phase& ph) { return ph.mo
 
 // K1c's unit queue (`fused_mlp.k1c_wide_unit`) over `groups` (model, row
 // tile) groups g = p * row_tiles + r, each with `a` fc1 units (column tiles of
-// h) and `b` fc2 units (column tiles of out): fc1(0), then for each g, fc1(g +
-// 1) (while there is one) and fc2(g).  `ready[g]` counts g's fc1 units done.
+// h) and `b` fc2 units (column tiles of out), with a lead of `lead` groups (1
+// <= lead <= groups): fc1(0), ..., fc1(lead - 1), then for each g, fc1(g +
+// lead) (while there is one) and fc2(g).  `ready[g]` counts g's fc1 units
+// stored, `ready[groups]` the tickets taken; all start at 0.
 struct Queue {
-  int groups, a, b;
+  int groups, a, b, lead;
   int* ready;
 };
 
 __device__ __forceinline__ void queue_unit(const Queue& q, int u, bool* fc1, int* g, int* tile) {
-  if (u < q.a) {
-    *fc1 = true, *g = 0, *tile = u;
-    return;
-  }
-  const int v = u - q.a, i = v / (q.a + q.b), r = v % (q.a + q.b);
-  if (i + 1 < q.groups && r < q.a) {
-    *fc1 = true, *g = i + 1, *tile = r;
+  const int head = q.lead * q.a, both = (q.groups - q.lead) * (q.a + q.b);
+  if (u < head) {
+    *fc1 = true, *g = u / q.a, *tile = u % q.a;
+  } else if (u - head < both) {
+    const int i = (u - head) / (q.a + q.b), r = (u - head) % (q.a + q.b);
+    *fc1 = r < q.a, *g = r < q.a ? i + q.lead : i, *tile = r < q.a ? r : r - q.a;
   } else {
-    *fc1 = false, *g = i, *tile = i + 1 < q.groups ? r - q.a : r;
+    const int v = u - head - both;
+    *fc1 = false, *g = q.groups - q.lead + v / q.b, *tile = v % q.b;
   }
 }
 
-// An fc1 unit's h tile is written: its writes, visible to every proxy at the
-// device's scope, then one more for its group (CUTLASS's semaphore release).
+// Units the producer thread may hand the block's other threads ahead of them.
+constexpr int HAND_SLOTS = 4;
+
+// The hand-off of tickets inside a block: slot k % HAND_SLOTS holds the
+// block's k-th ticket; `full` takes the producer's arrival, `empty` one from
+// each thread that reads it.
+struct Handoff {
+  uint64_t full[HAND_SLOTS], empty[HAND_SLOTS];
+  int unit[HAND_SLOTS];
+};
+
+__device__ __forceinline__ void init_handoff(Handoff* hand, int readers) {
+  for (int s = 0; s < HAND_SLOTS; ++s) {
+    mbar_init(&hand->full[s], 1);
+    mbar_init(&hand->empty[s], readers);
+  }
+}
+
+// The producer thread's k-th ticket, handed on: the queue's next unit.
+__device__ __forceinline__ int take_ticket(const Queue& q, Handoff* hand, int k) {
+  const int u = atomicAdd(q.ready + q.groups, 1);
+  const int s = k % HAND_SLOTS;
+  mbar_wait(&hand->empty[s], ((k / HAND_SLOTS) & 1) ^ 1);  // at once on the first lap
+  hand->unit[s] = u;
+  mbar_arrive(&hand->full[s]);
+  return u;
+}
+
+// The block's k-th ticket, as a reading thread receives it.
+__device__ __forceinline__ int next_ticket(Handoff* hand, int k) {
+  const int s = k % HAND_SLOTS;
+  mbar_wait(&hand->full[s], (k / HAND_SLOTS) & 1);
+  const int u = *reinterpret_cast<volatile int*>(&hand->unit[s]);
+  mbar_arrive(&hand->empty[s]);
+  return u;
+}
+
+// An fc1 unit's h tile is written (f32: plain stores, then __threadfence):
+// its writes, visible to every proxy at the device's scope, then one more
+// for its group (CUTLASS's semaphore release).
 __device__ __forceinline__ void signal_ready(int* ready) {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(ready), "r"(1) : "memory");
+}
+
+// The issuing thread's TMA stores have completed: their writes are done, not
+// only their reads of shared memory.
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Wait until `ready` holds `target` (acquire), then order this thread's TMA
@@ -232,12 +293,12 @@ constexpr int FC2_BN_WIDE = 192, FC2_BN_NARROW = 64, K1B_BN_WIDE = 128;
 constexpr int CHUNK_STEPS = 512 / G_BK;  // K1b's summation chunk in k-steps
 
 // The stages fill the shared memory left after the epilogue's staging tile
-// (STAGING: TMA stores) and its barriers.
-template <int BN, bool STAGING>
+// (TMA stores) and its barriers.
+template <int BN>
 struct GemmShape {
   static constexpr int A_BYTES = G_BM * G_BK * 2;
   static constexpr int B_BYTES = BN * G_BK * 2;
-  static constexpr int C_BYTES = STAGING ? G_BM * BN * 2 : 0;
+  static constexpr int C_BYTES = G_BM * BN * 2;
   static constexpr int STAGES_FIT = (225 * 1024 - 2048 - C_BYTES - 256) / (A_BYTES + B_BYTES);
   static constexpr int STAGES = STAGES_FIT < 8 ? STAGES_FIT : 8;
   static constexpr size_t SMEM =
@@ -362,7 +423,7 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_out, const bf16* __restrict__ bias,
                  int bias_ld, int bias_cols, const Phase ph) {
-  using S = GemmShape<BN, true>;
+  using S = GemmShape<BN>;
   extern __shared__ __align__(16) unsigned char gemm_smem[];
   // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
   unsigned char* smem = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
@@ -423,87 +484,241 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   if (tid == 0) tma_store_wait_read();  // before the block's shared memory goes
 }
 
+// K1c's bf16 shared memory: a ring of stages, each A (128 x 64) then B
+// (fc1: 128 x 64 of w1, fc2: BN2 x 64 of w2), every stage of its own unit's
+// size (`RingPos`); the epilogue's staging tile (two 64-row halves of the
+// wider of the two tiles, in boxes of 64 columns); the barriers, the
+// tickets' hand-off and the store descriptor.
+template <int BN2>
+struct QueueShape {
+  static constexpr int BNS = BN2 > FC1_BN ? BN2 : FC1_BN;
+  static constexpr int A_BYTES = G_BM * G_BK * 2;
+  static constexpr int FC1_STAGE = A_BYTES + FC1_BN * G_BK * 2;
+  static constexpr int FC2_STAGE = A_BYTES + BN2 * G_BK * 2;
+  static constexpr int C_BYTES = G_BM * BNS * 2;
+  static constexpr int SLOTS = 8;     // barriers of the ring: stages in flight at most
+  static constexpr int CONTROL = 512;  // barriers, hand-off, store descriptor
+  // all of the 227 KB a block may have, but the alignment's slack
+  static constexpr int RING = (232448 - 1024 - C_BYTES - CONTROL) / 1024 * 1024;
+  static constexpr size_t SMEM = 1024 + (size_t)RING + C_BYTES + CONTROL;
+  static_assert(RING >= 2 * FC1_STAGE && RING >= 2 * FC2_STAGE, "the ring needs two stages");
+  static_assert(RING / FC1_STAGE <= SLOTS && RING / FC2_STAGE <= SLOTS,
+                "a stage in flight a barrier");
+  static_assert(FC1_STAGE % 1024 == 0 && FC2_STAGE % 1024 == 0 && RING / 1024 < 256,
+                "stages start on swizzle atoms; the producer keeps their bounds in KB, 8 bits");
+};
+
+// A stage's place in K1c's ring: the next stage starts where the last one
+// ended, or at 0 where it would run past the end.  Producer and consumers
+// place the same stages in the same order, so they agree on every offset.
+struct RingPos {
+  int it = 0, off = 0;  // stages placed; where the next one may start
+  __device__ __forceinline__ int place(int bytes, int cap) {
+    if (off + bytes > cap) off = 0;
+    const int at = off;
+    off += bytes;
+    ++it;
+    return at;
+  }
+};
+
+// Before the producer fills stage `it` at bytes [at, end): the consumers
+// must have read the latest earlier stage whose bytes it overlaps, and the
+// stage that last used its barriers (it - SLOTS).  They free stages in
+// order, so that one stage suffices.  starts / ends keep the last SLOTS
+// stages' bounds in KB, 8 bits a stage.
+template <int SLOTS>
+__device__ __forceinline__ void ring_wait(uint64_t* empty, uint64_t& starts, uint64_t& ends,
+                                          int it, int at, int end) {
+  int wait_for = it - SLOTS;
+  const int lo = at >> 10, hi = end >> 10;
+#pragma unroll
+  for (int back = 1; back < SLOTS; ++back) {
+    const int j = it - back, shift = 8 * (j % SLOTS);
+    if (j < 0) break;
+    if ((int)((starts >> shift) & 255) < hi && lo < (int)((ends >> shift) & 255)) {
+      wait_for = j;
+      break;
+    }
+  }
+  if (wait_for >= 0) mbar_wait(&empty[wait_for % SLOTS], (wait_for / SLOTS) & 1);
+  const int shift = 8 * (it % SLOTS);
+  starts = (starts & ~(255ull << shift)) | ((uint64_t)lo << shift);
+  ends = (ends & ~(255ull << shift)) | ((uint64_t)hi << shift);
+}
+
+// Consumer warpgroup c's k-steps [k0, k1) of one unit from K1c's ring, rows
+// 64c .. 64c + 63 of the tile: gemm_steps's wgmmas in its order (so K1's
+// bits), each stage at the place `pos` gives it.
+template <int BN, class S>
+__device__ __forceinline__ void ring_steps(float (&acc)[BN / 2], const unsigned char* ring,
+                                           RingPos& pos, uint64_t* full, uint64_t* empty, int k0,
+                                           int k1, int c, int tid) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  int pending = -1;  // the stage of the k-step still in flight
+  for (int kt = k0; kt < k1; ++kt) {
+    const int at = pos.place(S::A_BYTES + BN * G_BK * 2, S::RING), it = pos.it - 1;
+    const int s = it % S::SLOTS;
+    mbar_wait(&full[s], (it / S::SLOTS) & 1);
+    const uint64_t da = smem_desc(ring + at + c * 8192, 16, 1024, 1);
+    const uint64_t db = smem_desc(ring + at + S::A_BYTES, 16, 1024, 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the k-step before this one has been read
+    fence_regs(acc);
+    if (tid == 0 && pending >= 0) mbar_arrive(&empty[pending]);
+    pending = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (tid == 0 && pending >= 0) mbar_arrive(&empty[pending]);
+}
+
 // K1c's bf16 body: fc1 (128 x 128 tiles of h, bf16 GELU) and fc2 (128 x BN2
-// tiles of out) units on `Queue`'s order in one persistent launch.  Both
-// epilogues store from registers (row < n, column < the tensor's width).
+// tiles of out) units in `Queue`'s order, taken by ticket, in one persistent
+// launch on any grid.  Warpgroup 0: thread 0 takes the tickets and loads the
+// ring, thread 32 stores each staged tile by TMA (map_h_out, map_out: boxes
+// of 64 x 64) and releases fc1's group once the stores have completed;
+// warpgroups 1 and 2 take 64 rows each and stage the epilogue's tile.
 template <int BN2>
 __global__ void __launch_bounds__(G_THREADS, 1)
 wide_queue_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_w1,
                   const __grid_constant__ CUtensorMap map_h,
-                  const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ b1,
-                  const bf16* __restrict__ b2, bf16* __restrict__ h, int ld_h,
-                  bf16* __restrict__ out, int d, const Phase ph1, const Phase ph2,
+                  const __grid_constant__ CUtensorMap map_w2,
+                  const __grid_constant__ CUtensorMap map_h_out,
+                  const __grid_constant__ CUtensorMap map_out, const bf16* __restrict__ b1,
+                  const bf16* __restrict__ b2, int d, const Phase ph1, const Phase ph2,
                   const Queue q) {
-  constexpr int BNM = BN2 > FC1_BN ? BN2 : FC1_BN;
-  using S = GemmShape<BNM, false>;
+  using S = QueueShape<BN2>;
   extern __shared__ __align__(16) unsigned char queue_smem[];
-  unsigned char* smem = queue_smem + ((1024 - (smem_u32(queue_smem) & 1023)) & 1023);
-  unsigned char* a_st = smem;
-  unsigned char* b_st = a_st + S::STAGES * S::A_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(b_st + S::STAGES * S::B_BYTES);
-  uint64_t* empty = full + S::STAGES;
-  const int units = q.groups * (q.a + q.b), n = ph1.n;
+  unsigned char* ring = queue_smem + ((1024 - (smem_u32(queue_smem) & 1023)) & 1023);
+  unsigned char* c_st = ring + S::RING;  // [2][BNS/64][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(c_st + S::C_BYTES);
+  uint64_t* empty = full + S::SLOTS;
+  uint64_t* staged = empty + S::SLOTS;  // both warpgroups' halves are staged
+  uint64_t* staging_free = staged + 1;  // the storer has read them
+  Handoff* hand = reinterpret_cast<Handoff*>(staging_free + 1);
+  // the staged tile: model (< 0: no more), first row, first column, and the
+  // fc1 group to release (< 0: an fc2 tile)
+  volatile int* desc = reinterpret_cast<volatile int*>(hand + 1);
+  const int units = q.groups * (q.a + q.b);
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  init_ring(full, nullptr, empty, S::STAGES, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(staged, 2);
+    mbar_init(staging_free, 1);
+    init_handoff(hand, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
 
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid == 0) {
-      int it = 0;
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    if (tid == 0) {  // the tickets and the loads
+      RingPos pos;
+      uint64_t starts = 0, ends = 0;
+      for (int k = 0;; ++k) {
+        const int u = take_ticket(q, hand, k);
+        if (u >= units) break;
         bool fc1;
         int g, tile;
         queue_unit(q, u, &fc1, &g, &tile);
-        const int p = g / ph1.row_tiles, r = g % ph1.row_tiles;
-        const Work w = work_at(fc1 ? ph1 : ph2, p, r, tile, 0);
+        const Work w = work_at(fc1 ? ph1 : ph2, g / ph1.row_tiles, g % ph1.row_tiles, tile, 0);
         if (!w.live) continue;
-        if (!fc1 && w.k1 > w.k0) wait_ready(q.ready + g, q.a);
-        load_unit<S>(w, fc1 ? &map_x : &map_h, fc1 ? &map_w1 : &map_w2, fc1 ? FC1_BN : BN2,
-                     a_st, b_st, full, empty, it);
+        if (!fc1 && w.k1 > w.k0) wait_ready(q.ready + g, cdiv(w.width, FC1_BN));
+        const int b_rows = fc1 ? FC1_BN : BN2, bytes = S::A_BYTES + b_rows * G_BK * 2;
+        for (int kt = w.k0; kt < w.k1; ++kt) {
+          const int at = pos.place(bytes, S::RING), it = pos.it - 1, s = it % S::SLOTS;
+          ring_wait<S::SLOTS>(empty, starts, ends, it, at, at + bytes);
+          mbar_expect_tx(&full[s], bytes);
+          tma_load_3d(ring + at, fc1 ? &map_x : &map_h, &full[s], kt * G_BK, w.row0, w.p);
+          tma_load_3d(ring + at + S::A_BYTES, fc1 ? &map_w1 : &map_w2, &full[s], kt * G_BK,
+                      w.col0, w.p);
+        }
       }
+    } else if (tid == 32) {  // the stores
+      for (int e = 0;; ++e) {
+        mbar_wait(staged, e & 1);
+        const int p = desc[0], row0 = desc[1], col0 = desc[2], g = desc[3];
+        if (p < 0) break;
+        const int boxes = (g >= 0 ? FC1_BN : BN2) / 64;
+        for (int half = 0; half < 2; ++half)
+          for (int b = 0; b < boxes; ++b)
+            tma_store_3d(g >= 0 ? &map_h_out : &map_out,
+                         c_st + (half * (S::BNS / 64) + b) * 8192, col0 + 64 * b,
+                         row0 + 64 * half, p);
+        tma_store_commit();
+        tma_store_wait_read();
+        mbar_arrive(staging_free);
+        if (g >= 0) {
+          tma_store_wait_all();
+          signal_ready(q.ready + g);
+        }
+      }
+      tma_store_wait_all();  // before the block's shared memory goes
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const int c = wg - 1, lane = tid % 32;
-  const int row = 64 * c + 16 * (tid / 32) + lane / 4;  // of the tile, and + 8
-  int it = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+  const int c = wg - 1, lane = tid % 32, warp = tid / 32;
+  unsigned char* stage_c = c_st + c * (S::BNS / 64) * 8192;  // this warpgroup's 64 rows
+  RingPos pos;
+  int staged_tiles = 0;
+  // the staging tile is free once the storer has read the last one
+  const auto wait_staging = [&] {
+    if (staged_tiles > 0) mbar_wait(staging_free, (staged_tiles - 1) & 1);
+  };
+  // this warpgroup's half is written: visible to TMA, then the storer's,
+  // with the tile's descriptor
+  const auto hand_staged = [&](int p, int row0, int col0, int g) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(1 + c, 128);
+    if (tid == 0) {
+      if (c == 0) desc[0] = p, desc[1] = row0, desc[2] = col0, desc[3] = g;
+      mbar_arrive(staged);
+    }
+    ++staged_tiles;
+  };
+  // the staging tile of 64 columns a box is swizzled as TMA's 128-byte mode
+  // expects: 16-byte chunk q of row r lies at chunk q ^ (r % 8)
+  const auto emit = [&](int j, int i, int, float v0, float v1) {
+    const int r = 16 * warp + lane / 4 + 8 * i;
+    *reinterpret_cast<uint32_t*>(stage_c + (j / 8) * 8192 + r * 128 +
+                                 (((j % 8) ^ (r % 8)) * 16) + (lane % 4) * 4) = pack_bf16(v0, v1);
+  };
+  for (int k = 0;; ++k) {
+    const int u = next_ticket(hand, k);
+    if (u >= units) break;
     bool fc1;
     int g, tile;
     queue_unit(q, u, &fc1, &g, &tile);
-    const int p = g / ph1.row_tiles, r = g % ph1.row_tiles;
-    const Work w = work_at(fc1 ? ph1 : ph2, p, r, tile, 0);
+    const Work w = work_at(fc1 ? ph1 : ph2, g / ph1.row_tiles, g % ph1.row_tiles, tile, 0);
+    if (!w.live) continue;  // an fc1 tile at or past the width: its group waits on none
     if (fc1) {
-      if (w.live) {
-        float acc[FC1_BN / 2];
-        gemm_steps<FC1_BN, 0, S>(acc, a_st, b_st, full, empty, w.k0, w.k1, it, c, tid);
-        bf16* dst = h + (size_t)p * n * ld_h;
-        epilogue<FC1_BN, true>(acc, b1 + (size_t)p * ph1.m, w.width, w.col0, lane,
-                               [&](int, int i, int col, float v0, float v1) {
-                                 const int rr = w.row0 + row + 8 * i;
-                                 if (rr < n && col < ld_h)
-                                   *reinterpret_cast<uint32_t*>(dst + (size_t)rr * ld_h + col) =
-                                       pack_bf16(v0, v1);
-                               });
-        __threadfence();
-      }
-      bar_sync(1, 256);  // both consumer warpgroups' rows are written
-      if (threadIdx.x == 128) signal_ready(q.ready + g);
+      float acc[FC1_BN / 2];
+      ring_steps<FC1_BN, S>(acc, ring, pos, full, empty, w.k0, w.k1, c, tid);
+      wait_staging();
+      epilogue<FC1_BN, true>(acc, b1 + (size_t)w.p * ph1.m, w.width, w.col0, lane, emit);
     } else {
       float acc[BN2 / 2];
-      gemm_steps<BN2, 0, S>(acc, a_st, b_st, full, empty, w.k0, w.k1, it, c, tid);
-      bf16* dst = out + (size_t)p * n * d;
-      epilogue<BN2, false>(acc, b2 + (size_t)p * d, d, w.col0, lane,
-                           [&](int, int i, int col, float v0, float v1) {
-                             const int rr = w.row0 + row + 8 * i;
-                             if (rr < n && col < d)
-                               *reinterpret_cast<uint32_t*>(dst + (size_t)rr * d + col) =
-                                   pack_bf16(v0, v1);
-                           });
+      ring_steps<BN2, S>(acc, ring, pos, full, empty, w.k0, w.k1, c, tid);
+      wait_staging();
+      epilogue<BN2, false>(acc, b2 + (size_t)w.p * d, d, w.col0, lane, emit);
     }
+    hand_staged(w.p, w.row0, w.col0, fc1 ? g : -1);
   }
+  wait_staging();
+  hand_staged(-1, 0, 0, -1);  // no more tiles: the storer ends
 }
 
 // The maps of a bf16 GEMM's operands: (models, rows, cols) with rows `ld`
@@ -519,7 +734,7 @@ template <int BN, bool GELU, int CHUNK>
 cudaError_t launch_gemm(int device, const CUtensorMap& map_a, const CUtensorMap& map_b,
                         const CUtensorMap& map_out, const void* bias, int bias_ld,
                         int bias_cols, const Phase& ph, int sms, cudaStream_t stream) {
-  using S = GemmShape<BN, true>;
+  using S = GemmShape<BN>;
   auto* kernel = wide_gemm_kernel<BN, GELU, CHUNK>;
   static std::atomic<unsigned long long> smem_set{0};  // one bit a device
   const cudaError_t err =
@@ -579,45 +794,43 @@ cudaError_t run_bf16(int device, const void* x, const void* w1, const void* b1, 
                                                   stream);
 }
 
-// Blocks an SM of a kernel at its shared memory; the resident blocks of the
-// card are this times the SMs.
-template <typename K>
-cudaError_t blocks_an_sm(K kernel, size_t smem, int* per_sm) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, G_THREADS, smem);
+// K1c's queue over `groups` groups of a + b units, with a lead the grid's
+// kernel takes: 1 <= lead <= groups, and a block for at least one unit.
+inline bool queue_ok(const Queue& q, int blocks) {
+  return q.lead >= 1 && q.lead <= q.groups && blocks >= 1 && blocks <= q.groups * (q.a + q.b);
 }
 
-// K1c's bf16 form on `blocks` persistent blocks, which the card must hold at
-// once.  ready: groups = models * ceil(n / 128) int32, all 0.
+// K1c's bf16 form on `blocks` persistent blocks (any number: the tickets
+// need no block to be resident beside another) with a lead of `lead` groups.
+// ready: groups + 1 = models * ceil(n / 128) + 1 int32, all 0.
 template <int BN2>
 cudaError_t launch_queue_bf16(int device, const void* x, const void* w1, const void* b1,
                               const void* w2, int ld_w2, const void* b2, void* h, int ld_h,
                               int* ready, void* out, int n, int d, int m, int width,
-                              const int* widths, int models, int blocks, int sms,
+                              const int* widths, int models, int lead, int blocks,
                               cudaStream_t stream) {
-  constexpr int BNM = BN2 > FC1_BN ? BN2 : FC1_BN;
-  using S = GemmShape<BNM, false>;
+  using S = QueueShape<BN2>;
   auto* kernel = wide_queue_kernel<BN2>;
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = raise_smem_limit_once((const void*)kernel, (int)S::SMEM, device, smem_set);
+  const cudaError_t err =
+      raise_smem_limit_once((const void*)kernel, (int)S::SMEM, device, smem_set);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = blocks_an_sm(kernel, S::SMEM, &per_sm);
-  if (err != cudaSuccess) return err;
-  CUtensorMap mx, mw1, mh, mw2;
-  if (!bf16_map(&mx, x, models, n, d, d, G_BM) || !bf16_map(&mw1, w1, models, m, d, d, FC1_BN) ||
-      !bf16_map(&mh, h, models, n, ld_h, ld_h, G_BM) ||
-      !bf16_map(&mw2, w2, models, d, m, ld_w2, BN2))
-    return cudaErrorInvalidValue;
   const Phase fc1 = bf16_phase(n, models, cdiv(m, FC1_BN), cdiv(d, G_BK), true, m, width,
                                widths, FC1_BN);
   const Phase fc2 =
       bf16_phase(n, models, cdiv(d, BN2), cdiv(m, G_BK), false, m, width, widths, BN2);
-  const Queue q{models * fc1.row_tiles, fc1.col_tiles, fc2.col_tiles, ready};
-  const int units = q.groups * (q.a + q.b);
-  if (blocks < 1 || blocks > units || blocks > per_sm * sms) return cudaErrorInvalidValue;
-  kernel<<<blocks, G_THREADS, S::SMEM, stream>>>(
-      mx, mw1, mh, mw2, static_cast<const bf16*>(b1), static_cast<const bf16*>(b2),
-      static_cast<bf16*>(h), ld_h, static_cast<bf16*>(out), d, fc1, fc2, q);
+  const Queue q{models * fc1.row_tiles, fc1.col_tiles, fc2.col_tiles, lead, ready};
+  if (!queue_ok(q, blocks)) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw1, mh, mw2, mh_out, mout;
+  if (!bf16_map(&mx, x, models, n, d, d, G_BM) || !bf16_map(&mw1, w1, models, m, d, d, FC1_BN) ||
+      !bf16_map(&mh, h, models, n, ld_h, ld_h, G_BM) ||
+      !bf16_map(&mw2, w2, models, d, m, ld_w2, BN2) ||
+      !bf16_map(&mh_out, h, models, n, ld_h, ld_h, 64) ||
+      !bf16_map(&mout, out, models, n, d, d, 64))
+    return cudaErrorInvalidValue;
+  kernel<<<blocks, G_THREADS, S::SMEM, stream>>>(mx, mw1, mh, mw2, mh_out, mout,
+                                                 static_cast<const bf16*>(b1),
+                                                 static_cast<const bf16*>(b2), d, fc1, fc2, q);
   return cudaGetLastError();
 }
 
@@ -626,16 +839,16 @@ cudaError_t launch_queue_bf16(int device, const void* x, const void* w1, const v
 inline cudaError_t run_queue_bf16(int device, const void* x, const void* w1, const void* b1,
                                   const void* w2, int ld_w2, const void* b2, void* h, int ld_h,
                                   int* ready, void* out, int n, int d, int m, int width,
-                                  const int* widths, int models, int blocks,
+                                  const int* widths, int models, int lead, int blocks,
                                   cudaStream_t stream) {
   int sms = 0;
   const cudaError_t err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
   if (cdiv(n, G_BM) * cdiv(d, FC2_BN_WIDE) >= sms)
     return launch_queue_bf16<FC2_BN_WIDE>(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, ready, out,
-                                          n, d, m, width, widths, models, blocks, sms, stream);
+                                          n, d, m, width, widths, models, lead, blocks, stream);
   return launch_queue_bf16<FC2_BN_NARROW>(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, ready, out,
-                                          n, d, m, width, widths, models, blocks, sms, stream);
+                                          n, d, m, width, widths, models, lead, blocks, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -984,9 +1197,15 @@ inline cudaError_t run_f32(int device, const void* x, const void* w1, const void
                               static_cast<float*>(out), d, fc2, blocks2, sms, stream);
 }
 
+// K1c's f32 shared memory: K1's f32 ring, then the tickets' hand-off.
+constexpr size_t T_QUEUE_SMEM = T_SMEM + sizeof(Handoff);
+
 // K1c's f32 body: fc1 (128 x 64 tiles of h, exact-erf GELU) and fc2 (128 x
-// 64 tiles of out) units on `Queue`'s order in one persistent launch, K
-// unsplit.
+// 64 tiles of out) units in `Queue`'s order, taken by ticket, in one
+// persistent launch on any grid, K unsplit.  Warpgroup 0: thread 0 takes
+// the tickets and loads, warps 1-3 split B; both epilogues store from
+// registers, as K1's f32 body does (a staging tile would cost one of the
+// ring's five stages).
 __global__ void __launch_bounds__(G_THREADS, 1)
 wide_queue_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_w1,
@@ -1000,20 +1219,25 @@ wide_queue_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T_STAGES * T_STAGE_BYTES);
   uint64_t* ready = full + T_STAGES;
   uint64_t* empty = ready + T_STAGES;
+  Handoff* hand = reinterpret_cast<Handoff*>(empty + T_STAGES);
   const int units = q.groups * (q.a + q.b), n = ph1.n;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) init_handoff(hand, 256 + T_SPLITTERS);
   init_ring(full, ready, empty, T_STAGES, T_SPLITTERS);
 
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid > 0 && tid < 32) return;
     int it = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    for (int k = 0;; ++k) {
+      const int u = tid == 0 ? take_ticket(q, hand, k) : next_ticket(hand, k);
+      if (u >= units) break;
       bool fc1;
       int g, tile;
       queue_unit(q, u, &fc1, &g, &tile);
       const Work w = work_at(fc1 ? ph1 : ph2, g / ph1.row_tiles, g % ph1.row_tiles, tile, 0);
       if (!w.live) continue;
-      if (!fc1 && tid == 0 && w.k1 > w.k0) wait_ready(q.ready + g, q.a);
+      if (!fc1 && tid == 0 && w.k1 > w.k0) wait_ready(q.ready + g, cdiv(w.width, T_BN));
       tf32_load_unit(w, fc1 ? &map_x : &map_h, fc1 ? &map_w1 : &map_w2, smem, full, ready, empty,
                      it, tid);
     }
@@ -1023,21 +1247,22 @@ wide_queue_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
   const int c = wg - 1;
   float total[32];
   int it = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+  for (int k = 0;; ++k) {
+    const int u = next_ticket(hand, k);
+    if (u >= units) break;
     bool fc1;
     int g, tile;
     queue_unit(q, u, &fc1, &g, &tile);
     const int p = g / ph1.row_tiles;
     const Work w = work_at(fc1 ? ph1 : ph2, p, g % ph1.row_tiles, tile, 0);
+    if (!w.live) continue;  // an fc1 tile at or past the width: its group waits on none
     // one k-loop for both kinds of unit (two would each hold their
     // accumulators and fragments, and spill)
-    if (w.live) tf32_steps(total, w, smem, full, ready, empty, it, c, tid);
+    tf32_steps(total, w, smem, full, ready, empty, it, c, tid);
     if (fc1) {
-      if (w.live) {
-        tf32_store<T_GELU>(total, w, h + (size_t)p * n * ld_h, ld_h, n, ld_h,
-                           b1 + (size_t)p * ph1.m, w.width, c, tid);
-        __threadfence();
-      }
+      tf32_store<T_GELU>(total, w, h + (size_t)p * n * ld_h, ld_h, n, ld_h,
+                         b1 + (size_t)p * ph1.m, w.width, c, tid);
+      __threadfence();
       bar_sync(1, 256);  // both consumer warpgroups' rows are written
       if (threadIdx.x == 128) signal_ready(q.ready + g);
     } else {
@@ -1047,36 +1272,29 @@ wide_queue_tf32x3_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// K1c's f32 form on `blocks` persistent blocks, which the card must hold at
-// once.  ready: models * ceil(n / 128) int32, all 0.
+// K1c's f32 form on `blocks` persistent blocks (any number) with a lead of
+// `lead` groups.  ready: models * ceil(n / 128) + 1 int32, all 0.
 inline cudaError_t run_queue_f32(int device, const void* x, const void* w1, const void* b1,
                                  const void* w2, int ld_w2, const void* b2, void* h, int ld_h,
                                  int* ready, void* out, int n, int d, int m, int width,
-                                 const int* widths, int models, int blocks,
+                                 const int* widths, int models, int lead, int blocks,
                                  cudaStream_t stream) {
-  int sms = 0;
-  cudaError_t err = sm_count(device, &sms);
-  if (err != cudaSuccess) return err;
   static std::atomic<unsigned long long> smem_set{0};
-  err = raise_smem_limit_once((const void*)wide_queue_tf32x3_kernel, (int)T_SMEM, device,
-                              smem_set);
+  const cudaError_t err = raise_smem_limit_once((const void*)wide_queue_tf32x3_kernel,
+                                                (int)T_QUEUE_SMEM, device, smem_set);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = blocks_an_sm(wide_queue_tf32x3_kernel, T_SMEM, &per_sm);
-  if (err != cudaSuccess) return err;
+  const Phase fc1 =
+      f32_phase(n, models, cdiv(m, T_BN), cdiv(d, T_BK), 1, 0, true, m, width, widths);
+  const Phase fc2 =
+      f32_phase(n, models, cdiv(d, T_BN), cdiv(m, T_BK), 1, 0, false, m, width, widths);
+  const Queue q{models * fc1.row_tiles, fc1.col_tiles, fc2.col_tiles, lead, ready};
+  if (!queue_ok(q, blocks)) return cudaErrorInvalidValue;
   CUtensorMap mx, mw1, mh, mw2;
   if (!f32_map(&mx, x, models, n, d, d, T_BM) || !f32_map(&mw1, w1, models, m, d, d, T_BN) ||
       !f32_map(&mh, h, models, n, ld_h, ld_h, T_BM) ||
       !f32_map(&mw2, w2, models, d, ld_w2, ld_w2, T_BN))
     return cudaErrorInvalidValue;
-  const Phase fc1 =
-      f32_phase(n, models, cdiv(m, T_BN), cdiv(d, T_BK), 1, 0, true, m, width, widths);
-  const Phase fc2 =
-      f32_phase(n, models, cdiv(d, T_BN), cdiv(m, T_BK), 1, 0, false, m, width, widths);
-  const Queue q{models * fc1.row_tiles, fc1.col_tiles, fc2.col_tiles, ready};
-  const int units = q.groups * (q.a + q.b);
-  if (blocks < 1 || blocks > units || blocks > per_sm * sms) return cudaErrorInvalidValue;
-  wide_queue_tf32x3_kernel<<<blocks, G_THREADS, T_SMEM, stream>>>(
+  wide_queue_tf32x3_kernel<<<blocks, G_THREADS, T_QUEUE_SMEM, stream>>>(
       mx, mw1, mh, mw2, static_cast<const float*>(b1), static_cast<const float*>(b2),
       static_cast<float*>(h), ld_h, static_cast<float*>(out), d, fc1, fc2, q);
   return cudaGetLastError();

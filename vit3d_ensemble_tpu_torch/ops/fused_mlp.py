@@ -16,7 +16,8 @@ bounds it on the H100 and how it is laid out:
     >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
     `k1c_plan` lays out; in f32 K1's narrow body on K1c's row-tile groups;
     at a wide D K1's two GEMM phases in one persistent launch, fc1 of row
-    tile i + 1 queued ahead of fc2 of row tile i (`k1c_wide_plan`).
+    tile i + L queued ahead of fc2 of row tile i and taken by ticket
+    (`k1c_wide_plan`).
 
 `_MLP_VARIANT`, a module constant as in the JAX package, says which one
 `fused_mlp` launches; it is read at each call.  All three take every hidden
@@ -153,6 +154,9 @@ WIDE_F32_CHUNK_STAGES = 512 // WIDE_F32_STAGE_K
 WIDE_TILE_ROWS = 128
 WIDE_FC1_COLS = 128
 WIDE_FC2_COLS = (192, 64)
+#: The H100's L2 cache, the bytes K1c's wide queue plans for where the card
+#: does not say (the CPU tests): h of its lead fills at most half of it.
+WIDE_L2_BYTES = 50 * 2**20
 _last_body = None
 _last_k1b_body = None
 _last_k1c_body = None
@@ -398,16 +402,26 @@ def wide_f32_unit(phase: dict, u: int, active=None):
     return p, row0, col0, k0, k1
 
 
-def k1c_wide_plan(n: int, D: int, M: int, models: int, dtype, sms: int) -> dict:
+def k1c_wide_plan(n: int, D: int, M: int, models: int, dtype, sms: int,
+                  l2_bytes: int = WIDE_L2_BYTES) -> dict:
     """K1c's wide queue (`Queue` in `csrc/mlp_wide.cuh`) on a card of `sms`
     SMs: the (model, row tile) groups g = p * row_tiles + r in order, each
     with `fc1_units` units (column tiles of h: 128 wide in bf16, 64 in f32)
     and `fc2_units` (column tiles of out: K1's fc2 tiles, 192 or 64 wide in
-    bf16 from (n, D) alone, 64 in f32), queued fc1(0), then for each g
-    fc1(g + 1) and fc2(g) (`k1c_wide_unit`).  `blocks` persistent blocks take
-    units b, b + blocks, ...: no more than the SMs, since the body's shared
-    memory leaves room for one block an SM, so every block is resident at
-    once and an fc2 unit's wait for its group's fc1 units cannot deadlock."""
+    bf16 from (n, D) alone, 64 in f32), queued with a lead of `lead` groups:
+    fc1 of groups 0 .. lead - 1, then for each g fc1(g + lead) and fc2(g)
+    (`k1c_wide_unit`).  The lead is as many groups as half of the card's L2
+    (`l2_bytes`) holds of h (128 rows of M rounded up to 16 bytes a group),
+    at least two waves of the grid (L (fc1_units + fc2_units) >= 2 blocks)
+    and at most the groups: an fc2 unit's fc1 units were queued long before
+    it and have mostly ended when a block reaches it, and the h they wrote
+    is still in L2.  `blocks` persistent blocks, one an
+    SM (`resident`: the body's shared memory holds one block an SM), take the
+    queue's units by ticket (a ticket a unit), each block the next one when
+    its ring has room; an fc2 unit waits only on fc1 units of smaller
+    tickets, so no wait can deadlock on any grid.  The schedule follows
+    `blocks` and `models`; a unit's tile and K order do not, so a model
+    gives the same bits alone and stacked."""
     rows = -(-n // WIDE_TILE_ROWS)
     if dtype == torch.bfloat16:
         fc1_cols = WIDE_FC1_COLS
@@ -418,23 +432,30 @@ def k1c_wide_plan(n: int, D: int, M: int, models: int, dtype, sms: int) -> dict:
     a, b = -(-M // fc1_cols), -(-D // fc2_cols)
     groups = models * rows
     units = groups * (a + b)
+    blocks = min(units, sms)
+    elt = 2 if dtype == torch.bfloat16 else 4
+    group_bytes = WIDE_TILE_ROWS * -(-M * elt // 16) * 16   # a group's rows of h
+    lead = min(groups, max(-(-2 * blocks // (a + b)), l2_bytes // 2 // group_bytes))
     return {"n": n, "D": D, "M": M, "models": models, "row_tiles": rows,
             "groups": groups, "fc1_units": a, "fc2_units": b,
             "fc1_cols": fc1_cols, "fc2_cols": fc2_cols, "units": units,
-            "blocks": min(units, sms), "slots": sms,
-            "waves": units / min(units, sms)}
+            "lead": lead, "blocks": blocks, "resident": sms,
+            "waves": units / blocks}
 
 
 def k1c_wide_unit(plan: dict, u: int) -> tuple:
-    """Unit u of `k1c_wide_plan`'s queue, as the kernel takes it
-    (`queue_unit`): ("fc1" or "fc2", group, column tile)."""
-    a, b, groups = plan["fc1_units"], plan["fc2_units"], plan["groups"]
-    if u < a:
-        return "fc1", 0, u
-    i, r = divmod(u - a, a + b)
-    if i + 1 < groups and r < a:
-        return "fc1", i + 1, r
-    return "fc2", i, r - a if i + 1 < groups else r
+    """Unit u of `k1c_wide_plan`'s queue, the unit of ticket u, as the kernel
+    takes it (`queue_unit`): ("fc1" or "fc2", group, column tile)."""
+    a, b, groups, lead = (plan["fc1_units"], plan["fc2_units"], plan["groups"],
+                          plan["lead"])
+    head, both = lead * a, (groups - lead) * (a + b)
+    if u < head:
+        return "fc1", u // a, u % a
+    if u - head < both:
+        i, r = divmod(u - head, a + b)
+        return ("fc1", i + lead, r) if r < a else ("fc2", i, r - a)
+    i, r = divmod(u - head - both, b)
+    return "fc2", groups - lead + i, r
 
 
 #: The wide entries' arguments, as ctypes types: K1's and K1b's bf16
@@ -450,7 +471,7 @@ _WIDE_F32_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
 _K1C_WIDE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
@@ -459,8 +480,8 @@ def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
     `*_wide_launch` or `*_wide_f32_launch`): h through a (models, n, M')
     scratch, M' = M rounded up to rows of 16 bytes; K1's and K1b's f32 split
     phases' partial sums through a second scratch (`wide_f32_plan`); K1c's
-    ready counters, one a (model, row tile), from 0.  Returns the entry
-    point's CUDA error code."""
+    ready counters, one a (model, row tile), and its ticket counter after
+    them, all from 0.  Returns the entry point's CUDA error code."""
     D, M = x.shape[-1], w1.shape[-2]
     f32 = x.dtype == torch.float32
     step = 4 if f32 else 8
@@ -471,18 +492,19 @@ def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
         w2 = F.pad(w2, (0, ld - M))
     h = torch.empty(models, n, ld, dtype=x.dtype, device=x.device)
     library = _KERNELS[variant][0]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    card = torch.cuda.get_device_properties(x.device)
+    sms = card.multi_processor_count
     operands = (x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                 w2.data_ptr(), ld, b2.data_ptr(), h.data_ptr(), ld)
     shape = (n, D, M, active, None if per_model is None else per_model.data_ptr(),
              models)
     if variant == "pipelined2":
-        plan = k1c_wide_plan(n, D, M, models, x.dtype, sms)
-        ready = torch.zeros(plan["groups"], dtype=torch.int32, device=x.device)
+        plan = k1c_wide_plan(n, D, M, models, x.dtype, sms, card.L2_cache_size)
+        ready = torch.zeros(plan["groups"] + 1, dtype=torch.int32, device=x.device)
         fn = _build.entry(library, _K1C_WIDE_ARGTYPES,
                           f"{library}_wide{'_f32' if f32 else ''}_launch")
         return fn(*operands, ready.data_ptr(), out.data_ptr(), *shape,
-                  plan["blocks"], stream)
+                  plan["lead"], plan["blocks"], stream)
     if not f32:
         fn = _build.entry(library, _WIDE_BF16_ARGTYPES, f"{library}_wide_launch")
         return fn(*operands, out.data_ptr(), *shape, stream)
