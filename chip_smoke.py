@@ -574,6 +574,7 @@ def phase_build() -> None:
     k1b_tf32 = k1b_f32_sass()
     narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
     wide = {name: wide_sass(name) for name in MLP_LIBRARIES}
+    pipelines = {name: pipeline_sass(name, kernel) for name, kernel in PIPELINE_KERNELS.items()}
     k1b_ptxas = ptxas_summary(logs["mlp_chunked"])
     attention_ptxas = ptxas_summary(logs["attention"])
     mlp_ptxas = ptxas_summary(logs["fused_mlp"])
@@ -594,6 +595,7 @@ def phase_build() -> None:
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "narrow_f32_sass_hgmma_tf32": narrow_tf32,
           "wide_sass_hgmma": wide,
+          "pipeline_sass": pipelines,
           "k1c_wide_plan": [k1c_wide_plan(*case) for case in K1C_WIDE_PLAN_CASES],
           "k1_narrow_f32_plan": [narrow_plan(*case) for case in K1_NARROW_F32_PLAN_CASES],
           "k1_f32_plan": [k1_f32_plan(*case) for case in K1_F32_PLAN_CASES],
@@ -633,6 +635,16 @@ def phase_build() -> None:
           f"K1b's f32 instantiations' TF32 HMMAs: {k1b_tf32}")
     check(not any("tf32x3" in e for e in k1b_ptxas["spilling_entries"]),
           f"K1b's f32 body spills: {k1b_ptxas['spilling_entries']}")
+    # the bf16 wgmma pipeline (`mlp_pipeline.cuh`) in K1b's and K1c's
+    # libraries: wgmmas fed by TMA in each instantiation, no spill (ptxas's
+    # serialisation notes are checked for every library below)
+    for name, counts in pipelines.items():
+        check(len(counts) == 3 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                       for c in counts.values()),
+              f"the wgmma pipeline's HGMMA / UTMALDG in {name}: {counts}")
+        check(not any(PIPELINE_KERNELS[name] in e
+                      for e in ptxas_summary(logs[name])["spilling_entries"]),
+              f"the wgmma pipeline spills in {name}")
     for form, g in gelu.items():
         check(g["fp32"] > 0 and g["launch_error"] == 0
               and g["max_abs_err_vs_plain"] <= GELU_PROBE_ATOL,
@@ -671,6 +683,20 @@ def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
 
 #: The libraries of K1, K1b and K1c, each of which includes the wide bodies.
 MLP_LIBRARIES = ("fused_mlp", "mlp_chunked", "mlp_pipelined")
+#: The bf16 wgmma pipeline's kernel (`csrc/mlp_pipeline.cuh`) in K1b's
+#: library (fc2 summed chunk by chunk) and in K1c's.
+PIPELINE_KERNELS = {"mlp_chunked": "chunked_wgmma_kernel",
+                    "mlp_pipelined": "pipelined_wgmma_kernel"}
+
+
+def pipeline_sass(name: str, kernel: str) -> dict:
+    """Lines of HGMMA and of UTMALDG in each instantiation (one a D) of the
+    bf16 pipeline's `kernel` in `csrc/<name>.cu`'s library, by its mangled
+    name."""
+    return {fn.split()[0]: {op: sum(op in line for line in fn.splitlines())
+                            for op in ("HGMMA", "UTMALDG")}
+            for fn in sass_of(_build.library_path(name)).split("Function : ")[1:]
+            if kernel in fn.split()[0]}
 
 
 def wide_sass(name: str) -> dict:
@@ -873,7 +899,8 @@ def host_ms(fn, iters: int = 50, repeats: int = 5) -> float:
 
 
 def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
-            variant: str = "seq", models: int = 0, device: bool = False) -> dict:
+            variant: str = "seq", models: int = 0, device: bool = False,
+            k1_device: bool = False) -> dict:
     """A fused-FFN kernel (K1, or the variant's K1b or K1c) against its
     plain version on one shape, timed.  With `models` > 0 the weights carry
     that leading model axis and `active` is a list of one width a model,
@@ -883,7 +910,8 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
     computes exact erf GELU in every type: it is the yardstick of time, and
     the kernels are held to their plain versions.  With `device`, the
     kernel's and the chain's device time under the profiler too: the
-    events' `ms` is no less than the host's time to make a call."""
+    events' `ms` is no less than the host's time to make a call.  With
+    `k1_device`, K1's device time on the same inputs beside them."""
     lead = (models,) if models else ()
     x = torch.randn(*lead, N, D, generator=gen, device="cuda").to(dtype)
     w1, b1, w2, b2 = mlp_weights(gen, dtype, D, M, lead)
@@ -914,7 +942,10 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
     narrow = dtype == torch.float32 and D <= fused_mlp.WIDTHS[-1] and variant != "chunked"
     with torch.no_grad(), mlp_variant(variant):
         out = call()
-        body = fused_mlp.k1_body_launched() if variant == "seq" else None
+        body = {"seq": fused_mlp.k1_body_launched, "chunked": fused_mlp.k1b_body_launched,
+                "pipelined2": fused_mlp.k1c_body_launched}[variant]()
+        check(body == fused_mlp._variant_body(variant, dtype, D),
+              f"{VARIANT_KERNELS[variant]} at ({dtype}, D {D}) launched body {body}")
         narrow_case = {}
         if narrow:
             k1c_body = fused_mlp.k1c_body_launched() if variant == "pipelined2" else body
@@ -937,6 +968,10 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
             check(device_ms > 0, f"{VARIANT_KERNELS[variant]} device time {device_ms}")
             library_device_ms = device_time(
                 lambda: [library() for _ in range(10)], host_ops=False)[0] / 10
+    k1_device_ms = None
+    if k1_device:
+        with torch.no_grad(), mlp_variant("seq"):
+            k1_device_ms = mlp_device_ms(call)
     elt = x.element_size()
     P = max(models, 1)
     flops = 4.0 * N * D * live
@@ -967,6 +1002,8 @@ def k1_case(gen, dtype, N: int, D: int, M: int, active, path: str,
             "gelu": GELU_OF[dtype], "gelus_ms": N * live / gelu_rate[dtype] * 1e3}
     if device:
         case.update(device_ms=device_ms, library_device_ms=library_device_ms)
+    if k1_device:
+        case.update(k1_device_ms=k1_device_ms)
     emit(case)
     check(ok, f"{case['phase']} {case}")
     return case
@@ -3231,11 +3268,12 @@ def phase_model_axis(gen) -> tuple:
 def phase_mlp_variants(gen) -> dict:
     """K1b and K1c against their plain versions at K1's narrow serving
     shapes, masked and unmasked, and at the model-axis shape; by device time
-    beside the library chain's: K1c's serving case at (bf16, D=64, M=3072),
-    K1b's f32 serving case at (D=64, M=3072) (its 3xTF32 body) and both
-    variants' model-axis cases in f32; then each variant's wide bodies with
-    the model axis (`wide_cases`).  Returns each variant's serving case at
-    (bf16, D=64, M=3072), its model-axis case in f32 and its wide cases
+    beside the library chain's: both variants' serving cases at (bf16, D=64,
+    M=3072) (K1b's with K1's device time on the same inputs), K1b's f32
+    serving case at (D=64, M=3072) (its 3xTF32 body) and both variants'
+    model-axis cases in f32; then each variant's wide bodies with the model
+    axis (`wide_cases`).  Returns each variant's serving case at (bf16,
+    D=64, M=3072), its model-axis case in f32 and its wide cases
     (`<variant>_wide`), and K1b's f32 serving case."""
     out = {}
     for variant in ("chunked", "pipelined2"):
@@ -3247,7 +3285,8 @@ def phase_mlp_variants(gen) -> dict:
                         f32_main = (variant, dtype, D, M, active) == (
                             "chunked", torch.float32, 64, 3072, 3072)
                         case = k1_case(gen, dtype, B * 65, D, M, active, "serve", variant,
-                                       device=(main and variant == "pipelined2") or f32_main)
+                                       device=main or f32_main,
+                                       k1_device=main and variant == "chunked")
                         if main:
                             out[variant] = case
                         if f32_main:
@@ -5044,6 +5083,13 @@ def main() -> int:
         row("K1b", "vit3d_ensemble_tpu_torch/csrc/mlp_chunked.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:126", k1_variants["chunked"],
             "variants_chunked",
+            # bf16 at D 16-64 on K1c's wgmma pipeline (`mlp_pipeline.cuh`),
+            # fc2 summed chunk by chunk: device time at the serving shape
+            # beside K1's on the same inputs and the chain's
+            body=k1_variants["chunked"]["body"],
+            device_ms=k1_variants["chunked"]["device_ms"],
+            k1_device_ms=k1_variants["chunked"]["k1_device_ms"],
+            library_device_ms=k1_variants["chunked"]["library_device_ms"],
             # its f32 body (3xTF32 on mma.sync) at the model axis and at the
             # serving shape, with the three bounds, and with x four times
             # larger against the f64 MLP

@@ -45,6 +45,13 @@ timed alike:
     -> F.gelu -> F.linear, or `baddbmm` -> F.gelu -> `baddbmm` with the
     widths folded into w2, as `chip_smoke.k1_case` times it) and the largest
     error over the f32 gate against ROOT's `_plain_mlp_chunked`;
+  * K1b in bf16 (variant "chunked", phase `k1b_bf16`) at the serving
+    shape (33,280 rows, M = 3,072) at D = 64, 32 and 16, masked to 2,072 at
+    D = 64, and at 4,160 rows: device ms under the profiler (10 calls), ms
+    by CUDA events, the body it took, the largest error over the bf16 gate
+    against ROOT's `_plain_mlp_chunked`, beside K1's device ms on the same
+    inputs and the device ms of the chain F.linear -> F.gelu -> F.linear
+    (width-masked);
   * K1c's wide queue (variant "pipelined2") beside K1 (phase `k1c_wide`) at
     the stacked stretch members' and ViT-H's wide cases, bf16 and f32:
     (4,104 and 513 rows, 768, 3,072) with five models of widths 3,072,
@@ -107,6 +114,10 @@ K1B_F32_CASES = ((1560, 64, 3072, [2048] * 15 + [3072] * 15, 30),
                  (1560, 32, 2048, [2048, 1348, 0, 513], 4),
                  (1560, 64, 3072, [3072, 2372, 0, 513], 4),
                  (300, 64, 1100, [0, 1030, 1100], 3))
+# K1b's bf16 cases: (N, D, M, width)
+K1B_BF16_CASES = ((33280, 64, 3072, 3072), (33280, 32, 3072, 3072),
+                  (33280, 16, 3072, 3072), (33280, 64, 3072, 2072),
+                  (4160, 64, 3072, 3072))
 # K1's and K1c's narrow f32 cases: (N, D, M, width, models), the width a
 # list of one a model with the model axis
 K1_NARROW_F32_CASES = ((260, 16, 2048, 2048, 0), (260, 64, 3072, 3072, 0),
@@ -126,7 +137,7 @@ K1C_LEAD_CASES = K1C_WIDE_CASES + (("bfloat16", 4104, 768, 3072, [3072]),
                                     ("bfloat16", 4104, 1280, 5120, [5120]),
                                     ("float32", 4104, 768, 3072, [3072]))
 PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
-          "k1c_wide", "k1c_wide_leads", "pass", "latency", "stretch_f32")
+          "k1b_bf16", "k1c_wide", "k1c_wide_leads", "pass", "latency", "stretch_f32")
 # The narrow f32 body with one part taken out: (name, text of the header ->
 # text of the copy)
 NARROW_PARTS = (
@@ -403,6 +414,32 @@ def main() -> int:
                 line = {"phase": "k1b_f32", "N": N, "D": D, "M": M, "width": width,
                         "models": P, "max_err_over_gate": over,
                         "ms": cs.time_ms(call, 10), "device_ms": cs.mlp_device_ms(call)}
+            line["chain_device_ms"] = chain_device_ms(chain)
+            emit(line)
+
+        own = torch.Generator(device="cuda").manual_seed(cs.SEED + 29)
+        for N, D, M, width in K1B_BF16_CASES if "k1b_bf16" in phases else ():
+            x = torch.randn(N, D, generator=own, device="cuda").to(bf16)
+            weights = cs.mlp_weights(own, bf16, D, M)
+            w1, b1, w2, b2 = weights
+            w1a, b1a, w2a = w1[:width], b1[:width], w2[:, :width].contiguous()
+
+            def call():
+                return fused_mlp.fused_mlp(x, *weights, width)
+
+            def chain():
+                return F.linear(F.gelu(F.linear(x, w1a, b1a)), w2a, b2)
+
+            with cs.mlp_variant("chunked"):
+                out = call()
+                line = {"phase": "k1b_bf16", "N": N, "D": D, "M": M, "width": width,
+                        "body": getattr(fused_mlp, "k1b_body_launched", lambda: None)(),
+                        "max_err_over_gate": cs.over_gate(
+                            out, fused_mlp._plain_mlp_chunked(x, *weights, width),
+                            cs.TOL[bf16])[1],
+                        "ms": cs.time_ms(call, 20), "device_ms": cs.mlp_device_ms(call)}
+            with cs.mlp_variant("seq"):
+                line["k1_device_ms"] = cs.mlp_device_ms(call)
             line["chain_device_ms"] = chain_device_ms(chain)
             emit(line)
 

@@ -73,6 +73,18 @@ def _inputs(N, D, M, x_scale=1.0):
 _JAX = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the emulation's many small products (under
+    xdist's six workers the default oversubscribes the CPU), restored after
+    the module so that later files on the same worker run as they would
+    alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_mlp(N, D, M, active):
     """JAX's `fused_mlp` (`_mlp_kernel`) in interpret mode on `_inputs`, kept
     a shape."""
@@ -90,7 +102,6 @@ def _jax_mlp(N, D, M, active):
 @pytest.mark.parametrize("D", [16, 64])
 def test_narrow_tf32x3_emulation_matches_jax_mlp_kernel(D):
     N, M, active = 130, 1100, 900
-    torch.set_num_threads(1)
     plan = fused_mlp.k1_narrow_f32_plan(N, D, M, active, 1, SMS)
     assert plan["splits"] > 1 and plan["skipped_units"] > 0
     _, args = _inputs(N, D, M)
@@ -102,7 +113,6 @@ def test_one_tf32_product_misses_the_jax_tolerance_in_the_narrow_body():
     """The same order with one TF32 product a product fails the JAX
     tolerance: the test tells 3xTF32 from TF32."""
     N, D, M, active = 130, 64, 1100, 900
-    torch.set_num_threads(1)
     _, args = _inputs(N, D, M)
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(
@@ -114,7 +124,6 @@ def test_narrow_tf32x3_with_x_four_times_larger():
     """x four times larger at the widest class's widths (D = 64, M =
     3,072), where the truncation inside the tensor cores weighs most: the
     emulated body holds the f32 tolerance against the exact (f64) MLP."""
-    torch.set_num_threads(1)
     _, args = _inputs(70, 64, 3072, x_scale=4.0)
     np.testing.assert_allclose(_narrow_f32(*args, 3072).numpy(),
                                _f64_mlp(*args, 3072).numpy(), **F32_TOL)

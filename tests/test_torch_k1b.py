@@ -1,6 +1,8 @@
-"""K1b's f32 body (`chunked_tf32x3_kernel`, `csrc/mlp_chunked.cu`) on the
-CPU: its 3xTF32 arithmetic emulated against JAX's `_chunked_mlp_kernel`
-and against the exact (f64) MLP, and its grid plan (`k1b_f32_plan`).
+"""K1b's bodies (`csrc/mlp_chunked.cu`) on the CPU: the f32 body's 3xTF32
+arithmetic (`chunked_tf32x3_kernel`) and the bf16 body's sums
+(`chunked_wgmma_kernel`, `csrc/mlp_pipeline.cuh`) emulated against JAX's
+`_chunked_mlp_kernel`, the f32 one also against the exact (f64) MLP, and
+their grids (`k1b_f32_plan`; `k1c_plan` at K1b's bf16 use).
 
 The emulation takes each operand split into TF32 hi and lo to the bit, as
 the body splits it (`tests/test_torch_stretch.py:_tf32`), each k-step of 8
@@ -11,6 +13,14 @@ into a 512-column chunk's partial, the chunks added in order.  The JAX
 Pallas kernel runs in interpret mode, as the JAX package's own tests run it,
 with its variant set to "chunked" for the test alone.  The CUDA body itself
 is held to these on the card (`tests/test_torch_kernels.py`).
+
+The bf16 emulation takes h = x w1^T + b1 in f32 (the tensor cores' f32 sum
+of exact bf16 products), the polynomial GELU (`fused_mlp.poly_gelu`), the
+width mask and h rounded to bf16 (the TPU kernel's rounding point); then
+fc2 of each 512-column chunk in f32, stage by stage (64 hidden columns a
+stage, added in order into an accumulator that starts from zero at the
+chunk's first stage), the chunks added in order into an f32 sum, + b2,
+rounded to bf16 once.
 """
 
 import numpy as np
@@ -26,6 +36,10 @@ from vit3d_ensemble_tpu.ops import pallas_mlp
 from vit3d_ensemble_tpu_torch.ops import fused_mlp
 
 F32_TOL = dict(atol=2e-5, rtol=1e-4)   # the JAX package's f32 tolerance
+BF16_TOL = dict(atol=0.05, rtol=0.05)  # its bf16 tolerance (test_pallas_mlp.py:47)
+STAGE = 64                             # hidden columns of a pipeline stage
+PIPELINE_TILE_ROWS = 128               # token rows of its row tile (`W_ROWS`)
+SMS = 132                              # an H100's SMs: one block each
 
 
 def _fc1_order(D):
@@ -71,16 +85,21 @@ def _inputs(N, D, M, x_scale=1.0):
 _JAX = {}
 
 
-def _jax_chunked(monkeypatch, N, D, M, active):
-    """JAX's `_chunked_mlp_kernel` in interpret mode on `_inputs`, kept a
-    shape, so each D compiles once."""
+def _jax_chunked(monkeypatch, N, D, M, active, arrays=None):
+    """JAX's `_chunked_mlp_kernel` in interpret mode on `_inputs` (or on
+    `arrays`, numpy in JAX's layout, whose type it keeps), as f32 numpy;
+    `_inputs`' results kept a shape, so each D compiles once."""
     key = (N, D, M, active)
-    if key not in _JAX:
-        arrays, _ = _inputs(N, D, M)
+    if arrays is not None or key not in _JAX:
+        own = arrays is None
+        arrays = _inputs(N, D, M)[0] if own else arrays
         monkeypatch.setattr(pallas_mlp, "_MLP_VARIANT", "chunked")
         with pltpu.force_tpu_interpret_mode():
-            _JAX[key] = np.asarray(pallas_mlp.fused_mlp(
-                *(jnp.asarray(a) for a in arrays), active))
+            out = np.asarray(pallas_mlp.fused_mlp(
+                *(jnp.asarray(a) for a in arrays), active).astype(jnp.float32))
+        if not own:
+            return out
+        _JAX[key] = out
     return _JAX[key]
 
 
@@ -142,3 +161,118 @@ def test_k1b_f32_plan_covers_every_unit_once(n, models):
         assert hi > lo
         taken[:, lo:hi] += 1
     assert (taken == 1).all()
+
+
+# --- the bf16 body: K1c's pipeline with fc2 summed chunk by chunk ---------
+
+
+def _k1b_bf16(x, w1, b1, w2, b2, active):
+    """The bf16 body's sums (nn.Linear layout, bf16 tensors) in f32, as the
+    module note says, rounded to bf16 once."""
+    xf, w1f, b1f, w2f, b2f = (t.float() for t in (x, w1, b1, w2, b2))
+    h = fused_mlp.poly_gelu(xf @ w1f.T + b1f)
+    h[:, active:] = 0
+    h = h.bfloat16().float()
+    acc = torch.zeros(x.shape[0], w2.shape[0])
+    for c in range(0, h.shape[-1], fused_mlp._CHUNK_M):
+        part = torch.zeros_like(acc)
+        for s in range(c, min(c + fused_mlp._CHUNK_M, h.shape[-1]), STAGE):
+            part = part + h[:, s:s + STAGE] @ w2f[:, s:s + STAGE].T
+        acc = acc + part
+    return (acc + b2f).bfloat16()
+
+
+def _bf16_inputs(seed, N, D, M):
+    """numpy in JAX's layout and the port's tensors (nn.Linear layout), both
+    of bf16 values: the port's rounded from `_mlp_data`, JAX's the same
+    values as f32 arrays cast to bf16 in JAX."""
+    x, w1, b1, w2, b2 = _mlp_data(seed, N, D, M)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).bfloat16()  # noqa: E731
+    port = (t(x), t(w1.T), t(b1), t(w2.T), t(b2))
+    jax_arrays = tuple(a.float().numpy() for a in
+                       (port[0], port[1].T, port[2], port[3].T, port[4]))
+    return tuple(jnp.asarray(a).astype(jnp.bfloat16) for a in jax_arrays), port
+
+
+# 200 rows: a ragged last 128-row tile.  M = 1,100 masked at 1,030: two whole
+# 512-column chunks and a partial one, its last stage cut by the mask; M =
+# 3,072 masked at 2,072: four whole chunks and one of a single partial stage,
+# the last chunk wholly past the mask never loaded.
+@pytest.mark.parametrize("M,active", [(1100, 1030), (3072, 2072)])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_k1b_bf16_emulation_matches_jax_chunked_kernel(monkeypatch, D, M, active):
+    N = 200
+    arrays, args = _bf16_inputs(17, N, D, M)
+    ref = _jax_chunked(monkeypatch, N, D, M, active, arrays)
+    out = _k1b_bf16(*args, active)
+    np.testing.assert_allclose(out.float().numpy(), ref, **BF16_TOL)
+    # the wrapper's plain version on the CPU (`_plain_mlp_chunked`) too
+    with torch.no_grad():
+        monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+        plain = fused_mlp.fused_mlp(*args, active)
+    assert plain.dtype == torch.bfloat16
+    np.testing.assert_allclose(plain.float().numpy(), ref, **BF16_TOL)
+
+
+def test_k1b_bf16_emulation_with_three_models(monkeypatch):
+    """Three stacked models with widths 0, 1,030 and M = 1,100, 200 rows
+    each: each model's emulated sums against JAX's kernel on that model
+    alone (a width of 0 gives b2 exactly), and the wrapper's plain version
+    with the widths as one tensor against the same."""
+    N, D, M, widths = 200, 32, 1100, (0, 1030, 1100)
+    data = [_bf16_inputs(30 + p, N, D, M) for p in range(len(widths))]
+    stacked = [torch.stack([port[i] for _, port in data]) for i in range(5)]
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    with torch.no_grad():
+        plain = fused_mlp.fused_mlp(*stacked, torch.tensor(widths, dtype=torch.int32))
+    for p, ((arrays, port), width) in enumerate(zip(data, widths)):
+        ref = _jax_chunked(monkeypatch, N, D, M, width, arrays)
+        out = _k1b_bf16(*port, width)
+        np.testing.assert_allclose(out.float().numpy(), ref, **BF16_TOL)
+        np.testing.assert_allclose(plain[p].float().numpy(), ref, **BF16_TOL)
+    assert torch.equal(_k1b_bf16(*data[0][1], 0), data[0][1][4].expand(N, D))
+
+
+def test_k1b_routes_each_call_to_one_body():
+    """K1b's body by type and hidden size: bf16 at D 9-64 (run at 16, 32 or
+    64) on the `wgmma` pipeline, at D <= 8 on CUDA cores, f32 at D <= 64 on
+    the 3xTF32 body, and the wide bodies above 64."""
+    for D in (9, 16, 24, 32, 48, 64):
+        assert fused_mlp._variant_body("chunked", torch.bfloat16, D) == "chunked_wgmma"
+    for D in (1, 8):
+        assert fused_mlp._variant_body("chunked", torch.bfloat16, D) == "cuda_cores"
+    for D in (8, 64):
+        assert fused_mlp._variant_body("chunked", torch.float32, D) == "tf32x3_mma_sync"
+    assert fused_mlp._variant_body("chunked", torch.bfloat16, 768) == "wide_wgmma"
+    assert fused_mlp._variant_body("chunked", torch.float32, 768) == "wide_tf32x3"
+    assert set(fused_mlp.K1B_BODIES) == {"chunked_wgmma", "cuda_cores", "tf32x3_mma_sync",
+                                         "wide_wgmma", "wide_tf32x3"}
+
+
+# (token rows a model, models): the serving shape, the sweep's evaluation
+# shape at P = 30, a ragged last row tile, fewer row tiles than blocks, one
+# row, and many small models.
+@pytest.mark.parametrize("n,models", [(33280, 1), (520, 1), (1, 1), (1560, 3),
+                                      (200, 3), (1560, 30), (65, 30), (4160, 30)])
+def test_k1c_plan_at_k1b_bf16_use_covers_every_row_tile_once(n, models):
+    """`k1c_plan` as K1b's bf16 calls take it (128-row tiles, one block an
+    SM of an H100): every (model, row tile) falls in exactly one block, no
+    block goes without a tile, the blocks' tiles differ by at most one, and
+    the grid exceeds the resident blocks only where the models outnumber
+    them."""
+    plan = fused_mlp.k1c_plan(n, models, PIPELINE_TILE_ROWS, SMS)
+    tiles, per_model = plan["tiles_a_model"], plan["blocks_a_model"]
+    assert tiles == -(-n // PIPELINE_TILE_ROWS) and plan["blocks"] == per_model * models
+    assert plan["blocks"] <= max(SMS, models)
+    taken = np.zeros((models, tiles), dtype=np.int64)
+    counts = []
+    for p in range(models):
+        for b in range(per_model):
+            first, last = b * tiles // per_model, (b + 1) * tiles // per_model
+            assert last > first
+            taken[p, first:last] += 1
+            counts.append(last - first)
+    assert (taken == 1).all()
+    assert max(counts) - min(counts) <= 1
+    assert (max(counts), min(counts)) == (plan["most_tiles_a_block"],
+                                          plan["fewest_tiles_a_block"])

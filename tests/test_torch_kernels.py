@@ -1088,12 +1088,98 @@ def test_k1b_f32_entry_refuses_what_it_does_not_take(cuda):
     fused_mlp._build.check("mlp_chunked", f32(0, *ptrs, N, D, M, M, None, 1, 1, stream))
     torch.cuda.synchronize()
     _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, M), torch.float32)
-    bf16 = fused_mlp._build.entry("mlp_chunked", [ctypes.c_int] + [ctypes.c_void_p] * 6
-                                  + [ctypes.c_int] * 4
-                                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p])
+    bf16 = fused_mlp._build.entry("mlp_chunked", fused_mlp._K1C_ARGTYPES)
+    x_, w1_, b1_, w2_, b2_, out_ = ptrs
     with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
-        fused_mlp._build.check("mlp_chunked", bf16(0, *ptrs, N, D, M, M, None, 1, 0, stream))
+        fused_mlp._build.check("mlp_chunked", bf16(0, x_, w1_, b1_, w2_, M, b2_, out_, N, D,
+                                                   M, M, None, 1, 1, 0, stream))
+
+
+# --- K1b's bf16 body: K1c's `wgmma` pipeline, fc2 summed chunk by chunk ----
+
+
+def _k1b_bf16_case(gen, P, N, D, M):
+    x = torch.randn(*((P,) if P else ()), N, D, generator=gen, device="cuda")
+    return (x.to(torch.bfloat16),
+            *_mlp_weights(gen, torch.bfloat16, D, M, (P,) if P else ()))
+
+
+# 200 rows: a ragged last 128-row tile; M = 1,100 masked at 1,030 (a partial
+# last 512-column chunk, its last stage cut by the mask) and M = 3,072 masked
+# at 2,072 (a last chunk of one partial stage); the serving shape.
+@pytest.mark.parametrize("N,M,active", [(200, 1100, 1030), (200, 3072, 2072),
+                                        (33280, 3072, 3072)])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_k1b_bf16_on_the_wgmma_pipeline_matches_plain(cuda, monkeypatch, D, N, M, active):
+    """K1b in bf16 at D 16-64 launches its `wgmma` pipeline, one K1b launch
+    and no other, and holds `_plain_mlp_chunked` within the bf16 gate."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    x, w1, b1, w2, b2 = _k1b_bf16_case(cuda, 0, N, D, M)
+    counts = {c: getattr(fused_mlp, c) for c in VARIANTS.values()}
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    assert fused_mlp.k1b_body_launched() == "chunked_wgmma"
+    for c, n in counts.items():
+        assert getattr(fused_mlp, c) == n + (c == "launches_k1b")
+    _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, active), torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_k1b_bf16_model_axis_widths(cuda, monkeypatch, D):
+    """Three models in one launch with widths 0, 1,030 and M = 1,100, 200
+    rows each: against the plain version, b2 alone where the width is 0, and
+    each model launched alone to the bit (a model's tiles and sums do not
+    depend on the others)."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    P, N, M = 3, 200, 1100
+    x, w1, b1, w2, b2 = _k1b_bf16_case(cuda, P, N, D, M)
+    widths = torch.tensor([0, 1030, M], dtype=torch.int32, device="cuda")
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+    torch.cuda.synchronize()
+    assert fused_mlp.k1b_body_launched() == "chunked_wgmma"
+    _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, widths), torch.bfloat16)
+    assert torch.equal(out[0], b2[0].expand(N, D))
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p], int(widths[p]))
+        assert torch.equal(out[p], alone)
+
+
+# M a multiple of 8: the entry reads w2's and b1's rows by TMA as they lie
+@pytest.mark.parametrize("N,M,active", [(200, 1104, 1030), (4160, 3072, 2072)])
+@pytest.mark.parametrize("D", [16, 64])
+def test_k1b_bf16_on_one_block(cuda, monkeypatch, D, N, M, active):
+    """The entry on a grid of one block a model, which walks every row tile
+    in turn, gives the plan's grid's bits: a tile's sums do not depend on
+    the block that takes it."""
+    x, w1, b1, w2, b2 = _k1b_bf16_case(cuda, 0, N, D, M)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = fused_mlp._build.entry("mlp_chunked", fused_mlp._K1C_ARGTYPES)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    planned = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    out = torch.empty_like(x)
+    fused_mlp._build.check("mlp_chunked", fn(
+        0, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M, b2.data_ptr(),
+        out.data_ptr(), N, D, M, active, None, 1, 1, 1, stream))
+    torch.cuda.synchronize()
+    assert torch.equal(out, planned)
+    _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, active), torch.bfloat16)
+
+
+def test_k1b_bf16_shape_is_k1cs_pipeline(cuda):
+    """K1b's bf16 body has K1c's tile and threads at every D 16-64, one
+    block an SM, and K1c's shared memory and its running sums (D / 2 f32 a
+    consumer thread); its shape entry refuses D = 8 and f32."""
+    device = torch.device("cuda", 0)
+    for D in (16, 32, 64):
+        k1b = fused_mlp.k1c_shape(device, D, torch.bfloat16, "mlp_chunked")
+        k1c = fused_mlp.k1c_shape(device, D, torch.bfloat16)
+        for key in ("tile_rows", "threads_a_block", "blocks_an_sm"):
+            assert k1b[key] == k1c[key]
+        assert k1b["smem_bytes_a_block"] == k1c["smem_bytes_a_block"] + 256 * (D // 2) * 4
+        assert k1b["blocks_an_sm"] == 1
+    for D, dtype in ((8, torch.bfloat16), (64, torch.float32)):
+        with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
+            fused_mlp.k1c_shape(device, D, dtype, "mlp_chunked")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -15,34 +15,36 @@
 // exact erf in f32, the TPU kernels' polynomial in bf16, `mlp_common.cuh`).
 // In f32 the products run in 3xTF32, three TF32 products for each f32 one.
 //
-// Design: a block owns 64 token rows of one model (128 in f32, below) and
-// runs its warps in two roles that hand hidden columns over in sub-chunks of
-// 64 through two buffers of h in shared memory:
-//   * producer warps compute h = gelu(x @ w1s^T + b1s), rounded to the
-//     input type (the TPU kernel's rounding point), for sub-chunk j into
-//     h[j % 2];
-//   * consumer warps add h[(j - 1) % 2] @ w2s^T of sub-chunk j - 1 into a
-//     partial sum, and fold the partial into the f32 accumulator at the end
-//     of every 512-column chunk, which is the TPU kernel's order of sums.
-// Named barriers hand the buffers over: a producer arrives at FULL[b] when
-// h[b] is written and waits at EMPTY[b] before writing it again; a consumer
-// waits at FULL[b] and arrives at EMPTY[b] when it has read h[b].  Each role
-// stages its own weights: the producers w1's and b1's sub-chunk, the
-// consumers w2's, by cp.async ahead of use.
+// bf16 with D in {16, 32, 64} (`chunked_wgmma_kernel`): the persistent,
+// warp-specialised `wgmma` pipeline that K1c runs (`mlp_pipeline.cuh`, on
+// `k1c_plan`'s grid): a producer warpgroup feeds x row tiles and 64-column
+// stages of w1, b1 and w2 by TMA; two consumer warpgroups of 64 rows each
+// issue fc1 of the next stage as an SS wgmma while they run the GELU of this
+// one, round it to bf16 in registers (the TPU kernel's rounding point) and
+// issue fc2 as an RS wgmma.  fc2 is summed in the TPU kernel's order: its
+// accumulator restarts from zero at the first of each 512-column chunk's
+// eight stages, and each finished chunk is added into an f32 running sum in
+// registers, in chunk order; + b2 and the bf16 store once a tile.  It
+// replaced a body of `mma.sync` m16n8k16 with `cp.async` staging, producer
+// and consumer warps handing h over through shared memory at named
+// barriers, which on an H100 reached 27 % of the GELU bound at the serving
+// shape where K1c's pipeline reached 42 % (PERF.md).
 //
-// The budget: a 512-column chunk of both weight slabs is 128 KB in bf16 at
-// D = 64 (256 KB in f32), more than a block's 227 KB next to the h buffers.
-// Sub-chunks of 64 columns keep every buffer small.  The hand-over unit and
-// the summation chunk are separate, so the sums keep the TPU kernel's order.
-//
-// Three bodies share that plan at D <= 64:
+// Below, in 64-row blocks of producer and consumer warps that hand hidden
+// columns over in sub-chunks of 64 through two buffers of h in shared
+// memory (named barriers: a producer arrives at FULL[b] when h[b] is
+// written and waits at EMPTY[b] before writing it again), the consumers
+// adding each 512-column chunk's partial into the f32 sum at its end:
 //   * f32 at every D (`chunked_tf32x3_kernel`): both products on the tensor
-//     cores in 3xTF32 (mma.sync m16n8k8, `tf32x3.cuh`); see its note below;
-//   * bf16 with D in {16, 32, 64}: both products on the tensor cores
-//     (mma.sync m16n8k16, f32 accumulation); weights staged with cp.async
-//     one sub-chunk ahead; h passes through shared memory in bf16;
-//   * bf16 at D = 8: CUDA-core FMAs; each role's thread owns 8 rows by 4
-//     columns of h (producers) or by D / 16 output columns (consumers).
+//     cores in 3xTF32 (mma.sync m16n8k8, `tf32x3.cuh`), 128-row units; see
+//     its note below;
+//   * bf16 at D = 8 (`chunked_core_kernel`): CUDA-core FMAs; each role's
+//     thread owns 8 rows by 4 columns of h (producers) or by D / 16 output
+//     columns (consumers).
+// A 512-column chunk of both weight slabs is 128 KB in bf16 at D = 64 (256
+// KB in f32), more than a block's 227 KB next to the h buffers: sub-chunks
+// of 64 columns keep every buffer small, and the hand-over unit and the
+// summation chunk are separate, so the sums keep the TPU kernel's order.
 //
 // The wide regime, every D from 65 to 8,192, with the model axis: K1's
 // wide bodies (`mlp_wide.cuh`, whose note says what bounds them and how they
@@ -55,6 +57,7 @@
 #include <atomic>
 
 #include "mlp_common.cuh"
+#include "mlp_pipeline.cuh"
 #include "mlp_wide.cuh"
 #include "sm90_common.cuh"
 #include "tf32x3.cuh"
@@ -80,182 +83,22 @@ __device__ __forceinline__ bool chunk_ends(int j, int subs) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core body: bf16, D in {16, 32, 64}.
+// bf16, D in {16, 32, 64}: the wgmma pipeline of `mlp_pipeline.cuh`, fc2
+// summed over 512-column chunks.
 // ---------------------------------------------------------------------------
 
 template <int D>
-struct TcSmem {
-  static constexpr int XP = D + 8;    // w1 rows: D values + 16 bytes of pad
-  static constexpr int SP = SUB + 8;  // w2 and h rows: SUB values + 16 bytes
-  bf16 w1[2][SUB * XP];               // w1[c0 + c, :] at w1[b][c * XP]
-  float b1[2][SUB];
-  bf16 w2[2][D * SP];                 // w2[o, c0:c0+SUB] at w2[b][o * SP]
-  bf16 h[2][TILE_N * SP];             // h[r, c0 + c] at h[b][r * SP + c]
-};
-
-// Producers stage w1[c0:c0+SUB, :] and b1[c0:c0+SUB], zero past `active`.
-template <int D>
-__device__ __forceinline__ void tc_stage_w1(TcSmem<D>& s, int b, const bf16* w1,
-                                            const bf16* b1, int c0, int active, int rt) {
-  constexpr int XP = TcSmem<D>::XP;
-  for (int i = rt; i < SUB * (D / 8); i += ROLE_THREADS) {
-    const int c = i / (D / 8), p = i % (D / 8);
-    const bool live = c0 + c < active;
-    cp_async16(s.w1[b] + c * XP + p * 8, live ? w1 + (size_t)(c0 + c) * D + p * 8 : w1,
-               live ? 16 : 0);
-  }
-  for (int c = rt; c < SUB; c += ROLE_THREADS)
-    s.b1[b][c] = c0 + c < active ? __bfloat162float(b1[c0 + c]) : 0.f;
-  cp_async_commit();
-}
-
-// Consumers stage w2[:, c0:c0+SUB], zero past `active`: 16-byte copies when
-// m % 8 == 0 (every piece then starts 16-byte aligned), else by element.
-template <int D>
-__device__ __forceinline__ void tc_stage_w2(TcSmem<D>& s, int b, const bf16* w2, int m,
-                                            int c0, int active, int rt) {
-  constexpr int SP = TcSmem<D>::SP;
-  if (m % 8 == 0) {
-    for (int i = rt; i < D * (SUB / 8); i += ROLE_THREADS) {
-      const int o = i / (SUB / 8), col = c0 + (i % (SUB / 8)) * 8;
-      const int live = min(max(active - col, 0), 8);
-      cp_async16(s.w2[b] + o * SP + col - c0, live ? w2 + (size_t)o * m + col : w2, 2 * live);
-    }
-  } else {
-    for (int i = rt; i < D * SUB; i += ROLE_THREADS) {
-      const int o = i / SUB, c = i % SUB;
-      s.w2[b][o * SP + c] = c0 + c < active ? w2[(size_t)o * m + c0 + c] : __float2bfloat16(0.f);
-    }
-  }
-  cp_async_commit();
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-chunked_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                  const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                  const bf16* __restrict__ b2, bf16* __restrict__ out, int n, int m,
-                  const int* __restrict__ active_p, int active_all) {
-  const Model<bf16> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
-  constexpr int XP = TcSmem<D>::XP, SP = TcSmem<D>::SP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TcSmem<D>& s = *reinterpret_cast<TcSmem<D>*>(smem_raw);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rt = threadIdx.x % ROLE_THREADS;  // thread index within its role
-  const int rows = (warp % 4) * 16;           // this warp's 16 rows of the tile
-  const int r_lo = blockIdx.x * TILE_N + rows + g, r_hi = r_lo + 8;
-  const int active = md.active;
-  const int subs = (active + SUB - 1) / SUB;
-
-  if (warp < 4) {
-    // ---- producers: h = gelu(x @ w1s^T + b1s) ----
-    constexpr int KX = D / 16;
-    uint32_t xa[KX][4];  // x rows r_lo, r_hi as fc1's A fragments, zero past n
-#pragma unroll
-    for (int k = 0; k < KX; ++k) {
-      const int c = 16 * k + 2 * t;
-      const bf16* lo = md.x + (size_t)r_lo * D + c;
-      const bf16* hi = md.x + (size_t)r_hi * D + c;
-      xa[k][0] = r_lo < n ? *reinterpret_cast<const uint32_t*>(lo) : 0u;
-      xa[k][1] = r_hi < n ? *reinterpret_cast<const uint32_t*>(hi) : 0u;
-      xa[k][2] = r_lo < n ? *reinterpret_cast<const uint32_t*>(lo + 8) : 0u;
-      xa[k][3] = r_hi < n ? *reinterpret_cast<const uint32_t*>(hi + 8) : 0u;
-    }
-    if (subs > 0) tc_stage_w1<D>(s, 0, md.w1, md.b1, 0, active, rt);
-    for (int j = 0; j < subs; ++j) {
-      const int b = j & 1;
-      if (j + 1 < subs) {
-        tc_stage_w1<D>(s, b ^ 1, md.w1, md.b1, (j + 1) * SUB, active, rt);
-        cp_async_wait<1>();  // sub-chunk j landed
-      } else {
-        cp_async_wait<0>();
-      }
-      bar_sync(PRODUCERS, ROLE_THREADS);
-
-      // 8 tiles of 8 hidden columns; past `active` the weights and bias are
-      // zero, so h = 0 there and gelu(0) = 0
-      uint32_t hv[SUB / 8][2];
-#pragma unroll
-      for (int jt = 0; jt < SUB / 8; ++jt) {
-        float h[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* wp = s.w1[b] + (8 * jt + g) * XP + 2 * t;
-#pragma unroll
-        for (int k = 0; k < KX; ++k) mma_bf16(h, xa[k], lds32(wp + 16 * k), lds32(wp + 16 * k + 8));
-        const float bb0 = s.b1[b][8 * jt + 2 * t], bb1 = s.b1[b][8 * jt + 2 * t + 1];
-        hv[jt][0] = pack_bf16(gelu_poly(h[0] + bb0), gelu_poly(h[1] + bb1));
-        hv[jt][1] = pack_bf16(gelu_poly(h[2] + bb0), gelu_poly(h[3] + bb1));
-      }
-      bar_sync(PRODUCERS, ROLE_THREADS);  // every producer is done with w1[b], b1[b]
-
-      if (j >= 2) bar_sync(EMPTY0 + b, THREADS);  // the consumers have read h[b]
-      bf16* hw = s.h[b] + (rows + g) * SP + 2 * t;
-#pragma unroll
-      for (int jt = 0; jt < SUB / 8; ++jt) {
-        *reinterpret_cast<uint32_t*>(hw + 8 * jt) = hv[jt][0];
-        *reinterpret_cast<uint32_t*>(hw + 8 * SP + 8 * jt) = hv[jt][1];
-      }
-      bar_arrive(FULL0 + b, THREADS);
-    }
-    return;
-  }
-
-  // ---- consumers: acc += h @ w2s^T, summed per 512-column chunk ----
-  constexpr int NO = D / 8;  // output tiles of 8 columns
-  float acc[NO][4], part[NO][4];
-#pragma unroll
-  for (int jo = 0; jo < NO; ++jo)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[jo][e] = part[jo][e] = 0.f;
-
-  if (subs > 0) tc_stage_w2<D>(s, 0, md.w2, m, 0, active, rt);
-  for (int j = 0; j < subs; ++j) {
-    const int b = j & 1;
-    if (j + 1 < subs) {
-      tc_stage_w2<D>(s, b ^ 1, md.w2, m, (j + 1) * SUB, active, rt);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    bar_sync(CONSUMERS, ROLE_THREADS);
-    bar_sync(FULL0 + b, THREADS);  // the producers have written h[b]
-
-    const bf16* hr = s.h[b] + (rows + g) * SP + 2 * t;
-#pragma unroll
-    for (int k = 0; k < SUB / 16; ++k) {
-      const uint32_t a[4] = {lds32(hr + 16 * k), lds32(hr + 8 * SP + 16 * k),
-                             lds32(hr + 16 * k + 8), lds32(hr + 8 * SP + 16 * k + 8)};
-#pragma unroll
-      for (int jo = 0; jo < NO; ++jo) {
-        const bf16* wp = s.w2[b] + (8 * jo + g) * SP + 16 * k + 2 * t;
-        mma_bf16(part[jo], a, lds32(wp), lds32(wp + 8));
-      }
-    }
-    if (j + 2 < subs) bar_arrive(EMPTY0 + b, THREADS);  // a producer will wait for it
-    if (chunk_ends(j, subs)) {
-#pragma unroll
-      for (int jo = 0; jo < NO; ++jo)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[jo][e] += part[jo][e];
-          part[jo][e] = 0.f;
-        }
-    }
-    bar_sync(CONSUMERS, ROLE_THREADS);  // every consumer is done with w2[b]
-  }
-
-#pragma unroll
-  for (int jo = 0; jo < NO; ++jo) {
-    const int o = 8 * jo + 2 * t;
-    const float bb0 = __bfloat162float(md.b2[o]), bb1 = __bfloat162float(md.b2[o + 1]);
-    if (r_lo < n)
-      *reinterpret_cast<uint32_t*>(md.out + (size_t)r_lo * D + o) =
-          pack_bf16(acc[jo][0] + bb0, acc[jo][1] + bb1);
-    if (r_hi < n)
-      *reinterpret_cast<uint32_t*>(md.out + (size_t)r_hi * D + o) =
-          pack_bf16(acc[jo][2] + bb0, acc[jo][3] + bb1);
-  }
+__global__ void __launch_bounds__(pipeline::W_THREADS, 1)
+chunked_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w1,
+                     const __grid_constant__ CUtensorMap map_w2,
+                     const __grid_constant__ CUtensorMap map_b1, const bf16* __restrict__ b2,
+                     bf16* __restrict__ out, int n, int m, const int* __restrict__ active_p,
+                     int active_all) {
+  static_assert(pipeline::SUM_STAGES * pipeline::CHUNK == CHUNK_M,
+                "eight stages make fc2's summation chunk");
+  pipeline::pipeline_body<D, true>(map_x, map_w1, map_w2, map_b1, b2, out, n, m, active_p,
+                                   active_all);
 }
 
 // ---------------------------------------------------------------------------
@@ -737,36 +580,21 @@ chunked_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   cp_async_wait<0>();
 }
 
-template <typename T, typename S, typename K>
-cudaError_t launch_body(K kernel, const void* x, const void* w1, const void* b1,
-                        const void* w2, const void* b2, void* out, int n, int m,
-                        const int* active_p, int active, int models, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(S);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// bf16 at D = 8: a block a 64-row tile of one model.
+template <typename T, int D>
+cudaError_t launch_core(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* out, int n, int m, int active,
+                        const int* active_p, int models, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(CoreSmem<D>);
+  cudaError_t err = cudaFuncSetAttribute(chunked_core_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + TILE_N - 1) / TILE_N, models);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  chunked_core_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), n, m,
       active_p, active);
   return cudaGetLastError();
-}
-
-#define MLP_ARGS x, w1, b1, w2, b2, out, n, m, active_p, active, models, stream
-
-template <int D>
-cudaError_t launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
-                      const void* b2, void* out, int n, int m, const int* active_p,
-                      int active, int models, cudaStream_t stream) {
-  return launch_body<bf16, TcSmem<D>>(chunked_tc_kernel<D>, MLP_ARGS);
-}
-
-template <typename T, int D>
-cudaError_t launch_core(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, void* out, int n, int m, const int* active_p,
-                        int active, int models, cudaStream_t stream) {
-  return launch_body<T, CoreSmem<D>>(chunked_core_kernel<T, D>, MLP_ARGS);
 }
 
 template <int D>
@@ -786,33 +614,58 @@ cudaError_t launch_tf32x3(int device, const float* x, const float* w1, const flo
 
 }  // namespace
 
-// The arguments of `fused_mlp_launch` (`fused_mlp.cu`): n token rows per
-// model, `models` weight sets, active_p the per-model width mask on the
-// device or null for `active` in all; dtype 1 = bfloat16 (f32 takes
-// `mlp_chunked_f32_launch`).  D in {8, 16, 32, 64}; anything else returns
-// cudaErrorInvalidValue.
-extern "C" int mlp_chunked_launch(int device, const void* x, const void* w1,
-                                  const void* b1, const void* w2, const void* b2,
-                                  void* out, int n, int d, int m, int active,
-                                  const int* active_p, int models, int dtype,
-                                  void* stream_) {
+// The arguments of `mlp_pipelined_launch` (`mlp_pipelined.cu`): n token
+// rows per model, `models` weight sets, active_p the per-model width mask
+// on the device or null for `active` in all; dtype 1 = bfloat16 (f32 takes
+// `mlp_chunked_f32_launch`); ld2, the row length of w2 and of b1 in
+// elements (m, or m rounded up to 8 in zero-padded copies: at D >= 16 TMA
+// reads them, and their row strides must be multiples of 16 bytes); blocks,
+// the grid's blocks a model at D >= 16 (`k1c_plan`; at D = 8 the grid is a
+// block a 64-row tile, and blocks is not read).  D in {8, 16, 32, 64};
+// anything else returns cudaErrorInvalidValue.
+extern "C" int mlp_chunked_launch(int device, const void* x, const void* w1, const void* b1,
+                                  const void* w2, int ld2, const void* b2, void* out, int n,
+                                  int d, int m, int active, const int* active_p, int models,
+                                  int blocks, int dtype, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0 || models == 0) return 0;
+  if (blocks < 1 || models > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+#define WGMMA_LAUNCH(D)                                                                     \
+  (int)pipeline::launch<D, true>(chunked_wgmma_kernel<D>, device, x, w1, b1, w2, ld2, b2, out, \
+                                 n, m, active, active_p, models, blocks, stream)
   if (dtype == 1) {
     switch (d) {
-      case 8: return (int)launch_core<bf16, 8>(MLP_ARGS);
-      case 16: return (int)launch_tc<16>(MLP_ARGS);
-      case 32: return (int)launch_tc<32>(MLP_ARGS);
-      case 64: return (int)launch_tc<64>(MLP_ARGS);
+      case 8: return (int)launch_core<bf16, 8>(x, w1, b1, w2, b2, out, n, m, active, active_p,
+                                               models, stream);
+      case 16: return WGMMA_LAUNCH(16);
+      case 32: return WGMMA_LAUNCH(32);
+      case 64: return WGMMA_LAUNCH(64);
+    }
+  }
+#undef WGMMA_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 body at d in {16, 32, 64} and its occupancy, as
+// `mlp_pipelined_shape` lists K1c's, for `k1c_plan`; d = 8 (a block a
+// 64-row tile, no persistent grid) and f32 return cudaErrorInvalidValue.
+extern "C" int mlp_chunked_shape(int device, int d, int dtype, int* out) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return (int)pipeline::shape<16, true>(chunked_wgmma_kernel<16>, device, out);
+      case 32: return (int)pipeline::shape<32, true>(chunked_wgmma_kernel<32>, device, out);
+      case 64: return (int)pipeline::shape<64, true>(chunked_wgmma_kernel<64>, device, out);
     }
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // K1b in f32 on the 3xTF32 body: the arguments of `mlp_chunked_launch` less
-// the dtype, on a grid of (tiles, models) blocks (`fused_mlp.k1b_f32_plan`);
+// ld2, blocks and the dtype, on a grid of (tiles, models) blocks (`fused_mlp.k1b_f32_plan`);
 // tiles must be ceil(n / 128), the body's row tiles.  D in {8, 16, 32, 64};
 // anything else returns cudaErrorInvalidValue.
 extern "C" int mlp_chunked_f32_launch(int device, const float* x, const float* w1,

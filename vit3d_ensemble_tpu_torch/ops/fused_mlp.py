@@ -7,10 +7,13 @@ bounds it on the H100 and how it is laid out:
 
   * K1, `csrc/fused_mlp.cu` (`_mlp_kernel`, variant "seq");
   * K1b, `csrc/mlp_chunked.cu` (`_chunked_mlp_kernel`, "chunked"): fc2
-    summed in f32 over chunks of `_CHUNK_M` hidden columns, on producer and
-    consumer warps (in f32 both products in 3xTF32 on `mma.sync`, on the
-    grid `k1b_f32_plan` lays out); at a wide D K1's wide bodies with fc2
-    summed chunk by chunk (in f32 its chunks are fc2's K splits);
+    summed in f32 over chunks of `_CHUNK_M` hidden columns; in bf16 at D
+    >= 16 on K1c's `wgmma` pipeline (`csrc/mlp_pipeline.cuh`, on
+    `k1c_plan`'s grid) with fc2's accumulator restarted at each chunk and
+    added into an f32 sum, in f32 on producer and consumer warps with both
+    products in 3xTF32 on `mma.sync` (on the grid `k1b_f32_plan` lays out);
+    at a wide D K1's wide bodies with fc2 summed chunk by chunk (in f32 its
+    chunks are fc2's K splits);
   * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
     K1's function, software-pipelined in a persistent block (in bf16 at D
     >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
@@ -126,7 +129,7 @@ K1_BODIES_ON_K1C = K1_BODIES[:2]
 #: K1b's and K1c's bodies, as `k1b_body_launched` and `k1c_body_launched`
 #: name them: bf16 at D 16-64, at D = 8, f32 at D <= 64, and the wide bf16
 #: and f32 bodies.
-K1B_BODIES = ("mma_sync", "cuda_cores", "tf32x3_mma_sync", "wide_wgmma", "wide_tf32x3")
+K1B_BODIES = ("chunked_wgmma", "cuda_cores", "tf32x3_mma_sync", "wide_wgmma", "wide_tf32x3")
 K1C_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma_queue",
               "wide_tf32x3_queue")
 #: The narrow f32 body of K1 and K1c (`narrow_tf32x3_kernel`,
@@ -521,21 +524,24 @@ def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
               stream)
 
 
-#: K1c's body at (device, D, dtype): its `mlp_pipelined_shape`, asked once.
+#: K1c's body (or K1b's bf16 pipeline) at (library, device, D, dtype): its
+#: `<library>_shape`, asked once.
 _K1C_SHAPES: dict = {}
 K1C_SHAPE_KEYS = ("tile_rows", "threads_a_block", "smem_bytes_a_block",
                   "registers_at_entry", "blocks_an_sm", "sms")
 
 
-def k1c_shape(device, D: int, dtype) -> dict:
-    """K1c's body for (D, dtype) on `device`: its row tile, threads, shared
-    memory, registers, and the blocks an SM and SMs the runtime reports."""
-    key = (device.index, D, dtype)
+def k1c_shape(device, D: int, dtype, library: str = "mlp_pipelined") -> dict:
+    """K1c's body for (D, dtype) on `device`, or with `library`
+    "mlp_chunked" K1b's bf16 pipeline (D 16-64): its row tile, threads,
+    shared memory, registers, and the blocks an SM and SMs the runtime
+    reports."""
+    key = (library, device.index, D, dtype)
     if key not in _K1C_SHAPES:
         out = (ctypes.c_int * len(K1C_SHAPE_KEYS))()
-        fn = _build.entry("mlp_pipelined", [ctypes.c_int] * 3 + [ctypes.c_void_p],
-                          "mlp_pipelined_shape")
-        _build.check("mlp_pipelined", fn(device.index, D, _DTYPES[dtype], out))
+        fn = _build.entry(library, [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                          f"{library}_shape")
+        _build.check(library, fn(device.index, D, _DTYPES[dtype], out))
         _K1C_SHAPES[key] = dict(zip(K1C_SHAPE_KEYS, out))
     return _K1C_SHAPES[key]
 
@@ -561,16 +567,19 @@ def k1c_plan(n: int, models: int, tile_rows: int, slots: int) -> dict:
             "fewest_tiles_a_block": tiles // per_model}
 
 
-#: `mlp_pipelined_launch`'s arguments, as ctypes types.
+#: `mlp_pipelined_launch`'s and `mlp_chunked_launch`'s arguments, as ctypes
+#: types.
 _K1C_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
-                models: int, stream) -> int:
-    """K1c (`mlp_pipelined_launch`) on `k1c_plan`'s grid.  Returns the entry
-    point's CUDA error code."""
+                models: int, stream, library: str = "mlp_pipelined") -> int:
+    """K1c (`mlp_pipelined_launch`) on `k1c_plan`'s grid, or with `library`
+    "mlp_chunked" K1b in bf16 (`mlp_chunked_launch`: at D 16-64 the same
+    pipeline with fc2 summed chunk by chunk, on that grid; at D = 8 a block
+    a 64-row tile).  Returns the entry point's CUDA error code."""
     D, M = x.shape[-1], w1.shape[-2]
     m8 = -(-M // 8) * 8
     if x.dtype == torch.bfloat16 and D >= 16:
@@ -581,10 +590,12 @@ def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
             w2, b1 = F.pad(w2, (0, m8 - M)), F.pad(b1, (0, m8 - M))
         elif b1.data_ptr() % 16:
             b1 = b1.clone()
-    shape = k1c_shape(x.device, D, x.dtype)
-    blocks = _blocks_a_model(n, models, shape["tile_rows"],
-                             shape["sms"] * shape["blocks_an_sm"])
-    fn = _build.entry("mlp_pipelined", _K1C_ARGTYPES)
+    blocks = 1
+    if library == "mlp_pipelined" or D >= 16:
+        shape = k1c_shape(x.device, D, x.dtype, library)
+        blocks = _blocks_a_model(n, models, shape["tile_rows"],
+                                 shape["sms"] * shape["blocks_an_sm"])
+    fn = _build.entry(library, _K1C_ARGTYPES)
     return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
               w2.data_ptr(), w2.shape[-1], b2.data_ptr(), out.data_ptr(), n, D,
               M, active, None if per_model is None else per_model.data_ptr(),
@@ -797,14 +808,8 @@ def _launch(x, w1, b1, w2, b2, mlp_active, variant: str = "seq"):
                           models, stream)
         name = "mlp_pipelined"
     else:  # K1b in bf16
-        fn = _build.entry(name, [ctypes.c_int] + [ctypes.c_void_p] * 6
-                          + [ctypes.c_int] * 4
-                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p])
-        err = fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, D, M,
-                 active, None if per_model is None else per_model.data_ptr(),
-                 models, _DTYPES[x.dtype], stream)
+        err = _launch_k1c(x, w1, b1, w2, b2, out, n, active, per_model,
+                          models, stream, library=name)
     _build.check(name, err)
     globals()[counter] += 1
     if variant == "chunked":
