@@ -78,6 +78,7 @@ import contextlib
 import csv
 import ctypes
 import dataclasses
+import functools
 import itertools
 import json
 import logging
@@ -323,9 +324,11 @@ def ptxas_summary(log: str) -> dict:
             "wgmma_wait_injected": log.count("(C7517)")}
 
 
+@functools.lru_cache(maxsize=None)
 def sass_of(path) -> str:
     """`cuobjdump -sass` of a library or cubin (the toolkit's cuobjdump,
-    beside its nvcc)."""
+    beside its nvcc), once a file: `build` reads each library's SASS for
+    several counts."""
     cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     return subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
@@ -570,6 +573,7 @@ def phase_build() -> None:
     sass.update({f"tiny_attention_sass_{op.lower().replace('.', '_')}":
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
     tf32 = k4_f32_sass()
+    sliced = k4_sliced_sass()
     k1_tf32 = k1_f32_sass()
     k1b_tf32 = k1b_f32_sass()
     narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
@@ -591,6 +595,7 @@ def phase_build() -> None:
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
           **sass, "attention_f32_sass_hmma_tf32": tf32,
+          "attention_sliced_sass": sliced,
           "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "narrow_f32_sass_hgmma_tf32": narrow_tf32,
@@ -618,6 +623,12 @@ def phase_build() -> None:
           f"mma.sync / FFMA overlap probe: {overlap}")
     check(not any("tf32x3" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's f32 body spills: {attention_ptxas['spilling_entries']}")
+    # K4's sliced bodies (head_dim above 256): bf16 on wgmma fed by TMA, f32
+    # in TF32 on mma.sync in both instantiations, none spilling
+    check(len(sliced) == 3 and all(n > 0 for c in sliced.values() for n in c.values()),
+          f"K4's sliced bodies' SASS: {sliced}")
+    check(not any("sliced" in e for e in attention_ptxas["spilling_entries"]),
+          f"K4's sliced bodies spill: {attention_ptxas['spilling_entries']}")
     check(len(k1_tf32) == 3 and all(n > 0 for n in k1_tf32.values()),
           f"K1's wide f32 instantiations' TF32 HGMMAs: {k1_tf32}")
     check(not any("tf32x3" in e or "split_sum" in e
@@ -791,11 +802,27 @@ def k4_f32_sass() -> dict:
             if "attention_tf32x3_kernel" in fn.split()[0]}
 
 
+def k4_sliced_sass() -> dict:
+    """Lines of HGMMA and UTMALDG in K4's sliced bf16 body, of TF32 HMMA in
+    each instantiation of its sliced f32 body, by mangled name."""
+    out = {}
+    for fn in sass_of(_build.library_path("attention")).split("Function : ")[1:]:
+        name = fn.split()[0]
+        if "attention_sliced_wgmma_kernel" in name:
+            out[name] = {op: sum(op in line for line in fn.splitlines())
+                         for op in ("HGMMA", "UTMALDG")}
+        elif "attention_sliced_tf32x3_kernel" in name:
+            out[name] = {"HMMA_TF32": sum("HMMA" in line and "TF32" in line
+                                          for line in fn.splitlines())}
+    return out
+
+
 # K4's bodies at the stretch path's shape (and K3's on them, the same), and
 # at head_dim 128 and 32 on the card tests' S = 200; then at ViT-H's head_dim
-# 80 at B=8 (phase `vit_h`).
+# 80 at B=8 (phase `vit_h`), and the sliced bodies at the `widest` model's
+# head_dim 512 at B=2.
 K4_PLAN_SHAPES = ((STRETCH_B, 12, 513, 64), (2, 4, 200, 128), (2, 4, 200, 32),
-                  (STRETCH_B, 16, 513, 80))
+                  (STRETCH_B, 16, 513, 80), (2, 24, 513, 512))
 # `attention_plan`'s report: in bf16 the query tiles are a consumer
 # warpgroup's 64 rows and a key step 16 keys, the registers those at entry
 # (before setmaxnreg); in f32 a warp's 16 rows and 8 keys
@@ -1264,7 +1291,7 @@ def k3_case(gen, dtype, shape, timed: bool) -> dict:
     holds it; with `timed`, both device times under the profiler too."""
     nb, T, D, H = shape
     hd = D // H
-    on_k4 = hd in attention_layer.HEAD_DIMS_K4
+    on_k4 = attention_layer.on_k4(hd)
     qkv = torch.randn(nb, T, 3 * D, generator=gen, device="cuda")
     qkv[..., 2 * D:] *= math.sqrt(T / math.e)
     qkv = qkv.to(dtype)
@@ -1480,6 +1507,8 @@ def k4_case(gen, dtype, shape, views: str, device: bool) -> dict:
             lambda: fused_attention._plain_attention_k4(q, k, v), 10)
         library_ms = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v), 50)
+        # the backend SDPA takes, beside the timed cases
+        library = sdpa_backend(q, k, v) if device else {}
         # `ms` is no less than the host's time to make one call; the
         # kernel's own time is its device time under the profiler
         device_ms = library_device_ms = None
@@ -1504,14 +1533,29 @@ def k4_case(gen, dtype, shape, views: str, device: bool) -> dict:
             "heads_merge_as_view": view_ok,
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
-            "library_device_ms": library_device_ms,
+            "library_device_ms": library_device_ms, **library,
             **attention_bound(dtype, nb * H, S, hd, q.element_size())}
     emit(case)
-    body_ok = body == ("bf16_wgmma" if dtype == torch.bfloat16
-                       else "f32_tf32x3")
+    body_ok = body == k4_body_of(dtype, hd)
     check(ok and gate_ok and jax_ok and view_ok and body_ok
           and device_ms != 0.0, f"K4 {case}")
     return case
+
+
+def k4_body_of(dtype, hd: int) -> str:
+    """The K4 body a call on 16-byte views at head_dim `hd` takes: the
+    unsliced bf16 or f32 body, above 256 its sliced form."""
+    sliced = fused_attention.k4_slices(hd) > 1
+    return fused_attention.K4_BODIES[(0 if dtype == torch.bfloat16 else 1)
+                                     + (3 if sliced else 0)]
+
+
+def sdpa_backend(q, k, v) -> dict:
+    """The backend `F.scaled_dot_product_attention` takes on q, k, v, as its
+    dispatch chooses it (`torch._fused_sdp_choice`; its flash backend takes
+    no head_dim above 256)."""
+    from torch.nn.attention import SDPBackend
+    return {"library_backend": SDPBackend(torch._fused_sdp_choice(q, k, v)).name}
 
 
 def phase_k4(gen) -> dict:
@@ -2265,29 +2309,40 @@ def serve_vit_b16(name: str, model, x, expect: dict) -> dict:
     return result
 
 
-def f32_against_plain(name: str, model, x, expect: dict) -> dict:
-    """The f32 model at B = x.shape[0] under `auto` against the plain
-    modules (TOKENS_F32_ATOL), with the launches of the pass held exactly
-    and its device time."""
+def f32_against_plain(name: str, model, x, expect: dict, impl: str = "auto",
+                      ref=None) -> dict:
+    """The f32 model at B = x.shape[0] under `impl` against the plain
+    modules (TOKENS_F32_ATOL; their output `ref` where given), with the
+    launches of the pass held exactly and its device time; under an impl
+    other than `auto` also a pass's wall ms (host clock) and the idle share."""
     with torch.no_grad():
-        set_impls("plain")
+        if ref is None:
+            set_impls("plain")
+            try:
+                ref = model(x)
+            finally:
+                set_impls("auto")
+        set_impls(impl)
         try:
-            ref = model(x)
+            reset_launches()
+            out = model(x)
+            counts = launches()
+            busy, groups, kernels, _ = device_time(lambda: model(x))
+            wall = {}
+            if impl != "auto":
+                ms = time_ms(lambda: model(x), 3)
+                wall = {"wall_ms": ms, "device_idle_share": 1.0 - busy / ms}
         finally:
             set_impls("auto")
-        reset_launches()
-        out = model(x)
-        counts = launches()
-        busy, groups, kernels, _ = device_time(lambda: model(x))
     err = max(float((out.tokens - ref.tokens).abs().max()),
               float((out.logits - ref.logits).abs().max()))
     ok = err <= TOKENS_F32_ATOL and counts == expect and busy > 0
-    res = {"phase": f"{name}_f32", "impl": "auto", "B": x.shape[0],
-           "max_abs_err": err, "atol": TOKENS_F32_ATOL, "launches": counts,
-           "expected_launches": expect, "device_busy_ms": busy,
-           "kernels": kernels, "by_group_ms": groups, "ok": ok}
+    res = {"phase": f"{name}_f32" + ("" if impl == "auto" else f"_{impl}"), "impl": impl,
+           "B": x.shape[0], "max_abs_err": err, "atol": TOKENS_F32_ATOL,
+           "launches": counts, "expected_launches": expect, "device_busy_ms": busy,
+           **wall, "kernels": kernels, "by_group_ms": groups, "ok": ok}
     emit(res)
-    check(ok, f"{name} f32: max abs err {err}, launched {counts}, busy {busy}")
+    check(ok, f"{name} f32 {impl}: max abs err {err}, launched {counts}, busy {busy}")
     return res
 
 
@@ -2511,6 +2566,101 @@ def phase_vit_h(gen) -> dict:
     return {"f32": f32, **served, "cases": cases, "parameters": params}
 
 
+# --- the `widest` phase: a gate model above the published widths -----------
+# No published ViT has a hidden size above 8,192 or a head_dim above 256,
+# so this model is a gate, as phase `widths` is, and no published
+# configuration: hidden size 12,288 in 24 heads of 512 (K4's sliced bodies,
+# K3's core on them) and MLP 49,152 (K1's, K1b's and K1c's wide bodies
+# above 8,192), 2 layers, (16, 16, 16) patches on 128^3 volumes (513
+# tokens), seeded weights: 3.6e9 parameters in its layers, 7.2 GB in bf16.
+WIDEST_WIDTHS = dict(hidden_size=12288, mlp_dim=49152, num_heads=24, num_layers=2)
+WIDEST_TOKENS = 513
+WIDEST_B = 2
+
+
+def phase_widest(gen) -> dict:
+    """The widest model, made on the card from a seeded CUDA generator (the
+    model's own inits, `reset_parameters`): f32 at B=1 under `auto` (K4's
+    sliced f32 body at head_dim 512, K1's wide f32 body at D 12,288) and
+    `layer` (K3 on K4's sliced body) against the plain modules
+    (`f32_against_plain`), bf16 at B = WIDEST_B under `auto` and `layer`
+    (`serve_vit_b16`: launches exact, tokens against the plain modules'
+    within TOKENS_BF16_ATOL, ms a batch, device busy ms, kernels, idle
+    share) and under K1b and K1c (`variant_passes`); then K1, K4 and K3 at
+    its shapes against their plain versions, with device times, bounds,
+    the library's times and SDPA's backend (`widest_kernel_cases`)."""
+    cfg = ViTConfig(patch_size=(16, 16, 16), img_size=128, z_size=128, **WIDEST_WIDTHS)
+    t0 = time.perf_counter()
+    # every tensor made on the meta device (no host init of 3.6e9 values),
+    # then storage on the card and the model's own inits there
+    with torch.device("meta"):
+        model = VisionTransformer3D(cfg, zero_head=False, vis=False, device="meta")
+    model.to_empty(device="cuda")
+    model.reset_parameters(False, torch.Generator(device="cuda").manual_seed(SEED + 12))
+    model.eval()
+    with torch.no_grad():
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    layer_params = sum(p.numel() for p in model.transformer.encoder.layer.parameters())
+    x = torch.randn(WIDEST_B, 128, 128, 128, 1, generator=gen, device="cuda")
+    hd = cfg.hidden_size // cfg.num_heads
+    ok = (cfg.seq_len == WIDEST_TOKENS and hd == 512 and not list(model.buffers())
+          and fused_attention.k4_slices(hd) == 2)
+    emit({"phase": "widest_model", "source": "a gate model: no published "
+          "configuration has these widths", **WIDEST_WIDTHS, "head_dim": hd,
+          "patch_size": list(cfg.patch_size), "tokens": cfg.seq_len,
+          "parameters": params, "layer_parameters": layer_params,
+          "bytes_bf16": 2 * params, "init_s": init_s, "ok": ok})
+    check(ok, f"widest config {cfg}")
+    L = cfg.num_layers
+    expect = vit_b16_expect(L)
+    with torch.no_grad():
+        set_impls("plain")
+        try:
+            ref = model(x[:1])
+        finally:
+            set_impls("auto")
+    f32 = {impl: f32_against_plain("widest", model, x[:1], expect[impl], impl, ref)
+           for impl in ("auto", "layer")}
+    del ref
+    served = serve_vit_b16("widest", model, x, expect)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        set_impls("plain")
+        try:
+            ref = model(xb)
+        finally:
+            set_impls("auto")
+    served.update(variant_passes("widest", model, xb, ref, L))
+    del model, xb, ref
+    torch.cuda.empty_cache()
+    cases = widest_kernel_cases(gen)
+    return {"f32": f32["auto"], "f32_layer": f32["layer"], **served, "cases": cases,
+            "parameters": params}
+
+
+def widest_kernel_cases(gen) -> dict:
+    """K1's wide bodies, K4's sliced bodies and K3 on them against their
+    plain versions at the widest model's shapes: bf16 at B = WIDEST_B, f32 at
+    B = 1; each with its device time, bound and library time (the F.linear
+    -> F.gelu -> F.linear chain; SDPA, its backend named)."""
+    D, M, H = (WIDEST_WIDTHS[k] for k in ("hidden_size", "mlp_dim", "num_heads"))
+    cases = {"K1": [], "K4": [], "K3": []}
+    for dtype, nb in ((torch.bfloat16, WIDEST_B), (torch.float32, 1)):
+        case = k1_case(gen, dtype, nb * WIDEST_TOKENS, D, M, M, "widest", device=True)
+        want = "wide_wgmma" if dtype == torch.bfloat16 else "wide_tf32x3"
+        check(case["body"] == want, f"K1 widest body {case['body']}, not {want}")
+        cases["K1"].append(case)
+        cases["K4"].append(k4_case(gen, dtype, (nb, H, WIDEST_TOKENS, D // H), "model",
+                                   True))
+    cases["K3"].append(k3_case(gen, torch.bfloat16, (WIDEST_B, WIDEST_TOKENS, D, H), True))
+    return cases
+
+
 # --- the `wide_axis` phase: five stacked members of the stretch model -------
 # The five CV folds of one `vit_b16_128cubed` config evaluated as one stacked
 # forward (`sweep/stacked.stacked_forward`, the sweep engine's vmapped model),
@@ -2683,17 +2833,19 @@ def variant_passes(name: str, model, x, ref, layers: int) -> dict:
 
 
 # The width sweep (phase `widths`), gates only: K1 at hidden sizes between
-# and beyond the bodies' (M = 4 D, 2,048 at D = 8,192; a width mask below
-# M), at 65 and 513 rows, 1,290 a wide D that 8 does not divide (its
-# operands zero-padded); K4 and K3 at head dims from 20 to 256 at 65 and
-# 513 tokens, each body of `fused_attention.K4_BODY_HDS` but 64 and 128
-# (phases K4, K3 and stretch) padded from below, and 80 and 256 exact, on
-# contiguous tensors and on the model's views (K3: the views of its
-# (B, T, 3D) QKV buffer and contiguous (B, T, D) tensors), two volumes of
-# three heads.
-WIDTH_SWEEP_D = (24, 48, 96, 200, 1288, 1290, 2048, 8192)
+# and beyond the bodies' (M = 4 D, but 2,048 at D = 8,192, the one case cut;
+# a width mask below M), at 65 and 513 rows, 1,290 a wide D that 8 does not
+# divide (its operands zero-padded), and above 8,192: 8,200, the `widest`
+# model's 12,288 and 16,384 (M 65,536); K4 and K3 at head dims from 20 to
+# 1,024 at 65 and 513 tokens, each body of `fused_attention.K4_BODY_HDS`
+# but 64 and 128 (phases K4, K3 and stretch) padded from below, 80 and 256
+# exact, and above 256 the sliced bodies (264: a second slice of 8
+# columns; 288, 384, 512, 1,024), on contiguous tensors and on the model's
+# views (K3: the views of its (B, T, 3D) QKV buffer and contiguous (B, T,
+# D) tensors), two volumes of three heads.
+WIDTH_SWEEP_D = (24, 48, 96, 200, 1288, 1290, 2048, 8192, 8200, 12288, 16384)
 WIDTH_SWEEP_ROWS = (65, 513)
-WIDTH_SWEEP_HD = (20, 24, 48, 72, 80, 96, 160, 200, 256)
+WIDTH_SWEEP_HD = (20, 24, 48, 72, 80, 96, 160, 200, 256, 264, 288, 384, 512, 1024)
 WIDTH_SWEEP_S = (65, 513)
 
 
@@ -2777,7 +2929,8 @@ def phase_widths(gen) -> dict:
                         body = fused_attention.k4_body_launched()
                         res = sweep_gate(out, fused_attention._plain_attention_k4(q, k, v),
                                          dtype, tol, without_last_key(q, k, v))
-                        res["ok"] = res["ok"] and counts == counts_of(K4=1)
+                        res["ok"] = (res["ok"] and counts == counts_of(K4=1)
+                                     and body.startswith(k4_body_of(dtype, hd)))
                         cases["K4"].append({"dtype": name, "B": 2, "H": 3, "S": S,
                                             "hd": hd, "views": views, "body": body,
                                             "body_hd": fused_attention.k4_body_hd(hd),
@@ -2796,7 +2949,8 @@ def phase_widths(gen) -> dict:
                         ref = attention_layer._plain_attention_core(q, k, v, H)
                         short = attention_layer._plain_attention_core(q, k[:, :-1], v[:, :-1], H)
                         res = sweep_gate(out, ref, dtype, tol, short)
-                        res["ok"] = res["ok"] and counts == counts_of(K3=1, K3_on_K4=1)
+                        res["ok"] = (res["ok"] and counts == counts_of(K3=1, K3_on_K4=1)
+                                     and body.startswith(k4_body_of(dtype, hd)))
                         cases["K3"].append({"dtype": name, "B": 2, "T": S, "H": H,
                                             "hd": hd, "views": views, "body": body, **res})
     result = {}
@@ -3299,6 +3453,21 @@ def phase_mlp_variants(gen) -> dict:
                 out[f"{variant}_model_axis"] = case
         out[f"{variant}_wide"] = wide_cases(variant)
     return out
+
+
+# The bf16 bodies at D <= 8 (K1's and K1c's CUDA-core tiling in
+# `mlp_pipelined.cu`, K1b's in `mlp_chunked.cu`) at conf 20's FFN (D 8,
+# mlp_dim 2,204, 257 tokens, `configs.py`) at B = 8 and B = 512.
+D8_ROWS = (8 * 257, 512 * 257)
+
+
+def phase_k1_d8(gen) -> dict:
+    """K1, K1b and K1c in bf16 at D 8 (their CUDA-core bodies) against
+    their plain versions at D8_ROWS, each with its device time, the bound
+    and the F.linear -> F.gelu -> F.linear chain's device time."""
+    return {variant: [k1_case(gen, torch.bfloat16, N, 8, 2204, 2204, "d8", variant,
+                              device=True) for N in D8_ROWS]
+            for variant in VARIANT_KERNELS}
 
 
 # The 18-model pass timed under each variant in turns, as
@@ -4911,6 +5080,7 @@ def main() -> int:
     own = torch.Generator(device="cuda").manual_seed(SEED + 1)
     k1_models, k1_wide_axis = phase_model_axis(own)
     k1_variants = phase_mlp_variants(own)
+    k1_d8 = phase_k1_d8(torch.Generator(device="cuda").manual_seed(SEED + 14))
     k1b_scaled = phase_f32_scaled("chunked", MODEL_AXIS_ROWS, 64, SEED + 4)
     k2 = phase_k2(gen)
     k3, k3_stretch, k3_serve = phase_k3(gen)
@@ -4930,6 +5100,8 @@ def main() -> int:
     vit_h = phase_vit_h(torch.Generator(device="cuda").manual_seed(SEED + 7))
     wide_axis = phase_wide_axis(torch.Generator(device="cuda").manual_seed(SEED + 11))
     widths = phase_widths(torch.Generator(device="cuda").manual_seed(SEED + 9))
+    torch.cuda.empty_cache()
+    widest = phase_widest(torch.Generator(device="cuda").manual_seed(SEED + 13))
     quant_res = phase_quant(gen)
     train = phase_train()
     train_ens = phase_train_ensemble()
@@ -4959,6 +5131,11 @@ def main() -> int:
                       "vit_h": vit_h["auto"]["launches"][name],
                       "vit_h_layer": vit_h["layer"]["launches"][name],
                       "vit_h_f32": vit_h["f32"]["launches"][name],
+                      # the widest gate model: bf16 at B=2, f32 at B=1
+                      "widest": widest["auto"]["launches"][name],
+                      "widest_layer": widest["layer"]["launches"][name],
+                      "widest_f32": widest["f32"]["launches"][name],
+                      "widest_f32_layer": widest["f32_layer"]["launches"][name],
                       # the stacked stretch members under each variant, and
                       # the single stretch and ViT-H-width models under K1b
                       # and K1c
@@ -4966,7 +5143,8 @@ def main() -> int:
                          for v in VARIANT_KERNELS
                          for dt, dtn in (("", "bfloat16"), ("f32_", "float32"))},
                       **{f"{model}_{v}": res[v]["launches"][name]
-                         for model, res in (("stretch", stretch), ("vit_h", vit_h))
+                         for model, res in (("stretch", stretch), ("vit_h", vit_h),
+                                            ("widest", widest))
                          for v in ("chunked", "pipelined2")},
                       "sweep": sweep["launches"][name],
                       "remat": remat["launches"][name],
@@ -5077,6 +5255,11 @@ def main() -> int:
             # at B=8, f32 at B=1; and the sweep over hidden sizes 24-8,192
             vit_h_cases=[vit_b16_case(c, "vit_h") for c in vit_h["cases"]["K1"]],
             width_sweep=widths["K1"],
+            # its wide bodies at the widest gate model's D 12,288, M 49,152,
+            # 513 tokens: bf16 at B=2, f32 at B=1
+            widest_cases=[vit_b16_case(c, "widest") for c in widest["cases"]["K1"]],
+            # bf16 at D 8 (K1c's CUDA-core tiling) at conf 20's FFN
+            d8_cases=[{**case_of(c), "body": c["body"]} for c in k1_d8["seq"]],
             # its wide bodies with the model axis: the cases of
             # `wide_cases`, and the five stacked stretch members' pass
             model_axis_wide_cases=k1_wide_axis, wide_axis=wide_axis_of("seq")),
@@ -5100,7 +5283,10 @@ def main() -> int:
             # model axis, over the sweep of hidden sizes, on the stacked
             # stretch members and the single stretch and ViT-H-width models
             wide_cases=k1_variants["chunked_wide"], width_sweep=widths["K1b"],
-            wide_axis=wide_axis_of("chunked")),
+            wide_axis=wide_axis_of("chunked"),
+            # the widest gate model's pass under K1b (D 12,288)
+            widest_launches=by_path["K1b"]["widest_chunked"],
+            d8_cases=[{**case_of(c), "body": c["body"]} for c in k1_d8["chunked"]]),
         row("K1c", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:142", k1_variants["pipelined2"],
             "variants_pipelined2",
@@ -5115,7 +5301,11 @@ def main() -> int:
             # the sweep of hidden sizes, and on the stacked stretch members
             wide_cases=k1_variants["pipelined2_wide"], width_sweep=widths["K1c"],
             wide_plan=k1c_wide_plan(*K1C_WIDE_PLAN_CASES[0]),
-            wide_axis=wide_axis_of("pipelined2")),
+            wide_axis=wide_axis_of("pipelined2"),
+            widest_launches=by_path["K1c"]["widest_pipelined2"],
+            d8_cases=[{**case_of(c), "body": c["body"]} for c in k1_d8["pipelined2"]],
+            widest_plan=k1c_wide_plan(WIDEST_B * WIDEST_TOKENS, WIDEST_WIDTHS["hidden_size"],
+                                      WIDEST_WIDTHS["mlp_dim"], 1, torch.bfloat16)),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:46", k2[16], "serve",
             device_ms=k2[16]["device_ms"],
@@ -5128,12 +5318,13 @@ def main() -> int:
             # f32 at every shape the baseline drivers gave it
             cli_cases=[case_of(c) for c in cli["cases"]["K2"]]),
         # K3's core runs on K2's body at head_dim <= 16 (the training
-        # path's conf 9: head_dim 1) and on K4's at 17-256
+        # path's conf 9: head_dim 1) and on K4's above (its sliced bodies
+        # above 256)
         row("K3", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention_layer.py:69", k3,
             "train_layer",
             sources={"head_dim <= 16": "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",
-                     "head_dim 17-256": "vit3d_ensemble_tpu_torch/csrc/attention.cu"},
+                     "head_dim above 16": "vit3d_ensemble_tpu_torch/csrc/attention.cu"},
             body=k3["body"],
             launches_on_k2_body=by_path["K3_on_K2"]["train_layer"],
             # bf16 at the serving pass's three classes and conf 19-22's
@@ -5166,7 +5357,11 @@ def main() -> int:
             # over head dims 20-256
             vit_h_cases=[vit_b16_case(c, "vit_h_layer", "K3")
                          for c in vit_h["cases"]["K3"]],
-            width_sweep=widths["K3"]),
+            width_sweep=widths["K3"],
+            # bf16 at B=2 at the widest gate model's head_dim 512, on K4's
+            # sliced body
+            widest_cases=[vit_b16_case(c, "widest_layer", "K3")
+                          for c in widest["cases"]["K3"]]),
         row("K4", "vit3d_ensemble_tpu_torch/csrc/attention.cu",
             "vit3d_ensemble_tpu/ops/pallas_attention.py:118",
             k4[torch.bfloat16], "stretch",
@@ -5190,7 +5385,15 @@ def main() -> int:
             # the sweep over head dims 20-256
             vit_h_cases=[vit_b16_case(c, "vit_h", "K4")
                          for c in vit_h["cases"]["K4"]],
-            width_sweep=widths["K4"]),
+            width_sweep=widths["K4"],
+            # its bodies: the unsliced bf16 and f32 ones (head_dim 17-256) and
+            # their sliced forms (above 256), at the widest gate model's head
+            # dim 512, 513 tokens: bf16 at B=2, f32 at B=1, with SDPA's
+            # backend there
+            bodies=list(fused_attention.K4_BODIES),
+            widest_cases=[{**vit_b16_case(c, "widest", "K4"),
+                           "library_backend": c["library_backend"]}
+                          for c in widest["cases"]["K4"]]),
     ], "variants_volumes_per_s": {v: r["volumes_per_s"]
                                   for v, r in variants.items()},
         "training": {"train": train["timing"],
@@ -5214,6 +5417,18 @@ def main() -> int:
         "wide_axis": {k: {m: r[m] for m in ("wall_ms", "device_busy_ms",
                                              "device_idle_share", "kernels")}
                       for k, r in wide_axis.items()},
+        "widest": {"parameters": widest["parameters"],
+                   **{f"f32_{impl}": {k: widest[key][k] for k in (
+                       "device_busy_ms", "wall_ms", "device_idle_share", "kernels",
+                       "max_abs_err") if k in widest[key]}
+                      for impl, key in (("auto", "f32"), ("layer", "f32_layer"))},
+                   **{impl: {k: widest[impl][k] for k in (
+                       "ms_per_batch", "volumes_per_s", "device_busy_ms",
+                       "device_idle_share", "kernels", "tokens_max_abs_err")}
+                      for impl in ("auto", "layer")},
+                   **{v: {k: widest[v][k] for k in (
+                       "ms_per_batch", "device_busy_ms", "device_idle_share", "kernels",
+                       "tokens_max_abs_err")} for v in ("chunked", "pipelined2")}},
         "vit_h": {"parameters": vit_h["parameters"],
                   "f32_device_busy_ms": vit_h["f32"]["device_busy_ms"],
                   **{impl: {k: vit_h[impl][k] for k in (

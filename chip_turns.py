@@ -66,6 +66,12 @@ timed alike:
     group, each by CUDA events over 20 launches through the entry (a
     zeroed counter buffer each, made before the timed run), whether each
     gave K1's bits where K1 splits no K, beside K1's device ms;
+  * K1b's wide bodies' bits (phase `k1b_wide_bits`): K1b's output at every
+    case of `chip_smoke.wide_cases` (the inputs `chip_smoke.wide_case`
+    draws) and the logits and tokens of the stacked stretch members' pass
+    of `chip_smoke.phase_wide_axis` under K1b, bf16 and f32, each as the
+    SHA-256 of its bytes: two checkouts that print the same digests gave
+    the same bits;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
@@ -86,11 +92,13 @@ Prints one JSON line a measurement, tagged with TURN.  Run it in turns
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import pathlib
 import statistics
 import sys
+import zlib
 
 K1_SHAPES = ((65, 16, 2048), (260, 16, 2048), (520, 16, 2048),
              (33280, 16, 3072), (33280, 32, 3072), (33280, 64, 3072))
@@ -137,7 +145,8 @@ K1C_LEAD_CASES = K1C_WIDE_CASES + (("bfloat16", 4104, 768, 3072, [3072]),
                                     ("bfloat16", 4104, 1280, 5120, [5120]),
                                     ("float32", 4104, 768, 3072, [3072]))
 PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
-          "k1b_bf16", "k1c_wide", "k1c_wide_leads", "pass", "latency", "stretch_f32")
+          "k1b_bf16", "k1c_wide", "k1c_wide_leads", "k1b_wide_bits", "pass",
+          "latency", "stretch_f32")
 # The narrow f32 body with one part taken out: (name, text of the header ->
 # text of the copy)
 NARROW_PARTS = (
@@ -278,6 +287,60 @@ def k1c_leads(cs, emit, fused_mlp, gen, reps: int = 20) -> None:
             torch.cuda.synchronize()
             line[f"lead_{lead}"] = {"ms": start.elapsed_time(end) / reps, "k1_bits": k1_bits}
         emit(line)
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    import torch
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def k1b_wide_bits(cs, emit, fused_mlp) -> None:
+    """Phase `k1b_wide_bits` (see the module note)."""
+    import torch
+    from vit3d_ensemble_tpu_torch.configs import vit_b16_128cubed
+    from vit3d_ensemble_tpu_torch.models import VisionTransformer3D
+    from vit3d_ensemble_tpu_torch.sweep import stacked as stacked_module
+    with torch.no_grad(), cs.mlp_variant("chunked"):
+        for dtype in (torch.bfloat16, torch.float32):
+            for N, D, M, models in cs.WIDE_CASE_SHAPES:
+                for P in models:
+                    for widths in cs.wide_case_widths(M, P):
+                        key = (str(dtype), N, D, M, tuple(widths))
+                        own = torch.Generator(device="cuda").manual_seed(
+                            zlib.crc32(repr(key).encode()))
+                        x = torch.randn(P, N, D, generator=own, device="cuda").to(dtype)
+                        w1, b1, w2, b2 = cs.mlp_weights(own, dtype, D, M, (P,))
+                        wt = torch.tensor(widths, dtype=torch.int32, device="cuda")
+                        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, wt)
+                        emit({"phase": "k1b_wide_bits", "case": "wide_cases",
+                              "dtype": str(dtype).split(".")[1], "N": N, "D": D, "M": M,
+                              "widths": widths, "body": fused_mlp.k1b_body_launched(),
+                              "sha256": digest(out)})
+        # the stacked members of `chip_smoke.phase_wide_axis`, drawn as it
+        # draws them
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+        cfg = vit_b16_128cubed()
+        model = VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                    generator=torch.Generator().manual_seed(cs.SEED + 11))
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+        params = cs.stacked_members(model, gen)
+        del model
+        P = len(cs.WIDE_AXIS_MLP)
+        mlp = torch.tensor(cs.WIDE_AXIS_MLP, dtype=torch.int32, device="cuda")
+        layers = torch.tensor(cs.WIDE_AXIS_LAYERS, dtype=torch.int32, device="cuda")
+        for dtype, B in ((torch.float32, 1), (torch.bfloat16, cs.STRETCH_B)):
+            stacked = {k: v.to(dtype) for k, v in params.items()}
+            x = torch.randn(P, B, cfg.img_size, cfg.img_size, cfg.z_size, 1, generator=gen,
+                            device="cuda").to(dtype)
+            out = stacked_module.stacked_forward(stacked, cfg, x, layers_active=layers,
+                                                 mlp_active=mlp)
+            emit({"phase": "k1b_wide_bits", "case": "wide_axis",
+                  "dtype": str(dtype).split(".")[1], "B": B, "sha256": digest(out)})
+            del stacked, x
 
 
 def main() -> int:
@@ -476,6 +539,9 @@ def main() -> int:
 
         if "k1c_wide_leads" in phases:
             k1c_leads(cs, emit, fused_mlp, torch.Generator(device="cuda").manual_seed(cs.SEED + 29))
+
+        if "k1b_wide_bits" in phases:
+            k1b_wide_bits(cs, emit, fused_mlp)
 
         if "pass" in phases:
             x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,

@@ -91,21 +91,19 @@ def test_plain_attention_layer_matches_jax_at_head_dim_64(dtype, atol):
                                else 1e-4)
 
 
-@pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
-                                   (24, True), (48, True), (256, True),
-                                   (257, False)])
-def test_check_takes_k4_head_dims(hd, ok):
-    """Every head_dim from 17 to 256 passes `_check` on K4's route (the
-    QKV buffer's views pass K4's checks); above 256 it is refused, naming
-    its ROADMAP item."""
+@pytest.mark.parametrize("hd,sliced", [(32, False), (64, False), (128, False),
+                                       (24, False), (48, False), (256, False),
+                                       (257, True), (512, True), (1024, True)])
+def test_check_takes_k4_head_dims(hd, sliced):
+    """Every head_dim above 16 passes `_check` on K4's route (the QKV
+    buffer's views pass K4's checks), those above 256 on its sliced
+    bodies."""
     H = 2
     q, k, v = attention_layer._split(torch.zeros(2, 65, 3 * H * hd,
                                                  dtype=torch.bfloat16))
-    if ok:
-        attention_layer._check(q, k, v, H)
-    else:
-        with pytest.raises(ValueError, match=f"head_dim {hd}"):
-            attention_layer._check(q, k, v, H)
+    attention_layer._check(q, k, v, H)
+    assert attention_layer.on_k4(hd)
+    assert (fused_attention.k4_slices(hd) > 1) == sliced
 
 
 @pytest.mark.parametrize("hd", list(range(1, 17)))
@@ -325,9 +323,9 @@ def test_checks_reject_what_the_kernel_does_not_take():
     attention_layer._check(q, k, v, 32)         # hd 1 accepted
     wide = torch.zeros(2, 65, 240)              # hd 20 accepted: K4's body
     attention_layer._check(*attention_layer._split(wide), 4)
-    with pytest.raises(ValueError, match="head_dim 257 .*What is left to port"):
-        widest = torch.zeros(2, 65, 3 * 257)
-        attention_layer._check(*attention_layer._split(widest), 1)
+    widest = torch.zeros(2, 65, 3 * 257)         # hd 257 accepted: K4's sliced body
+    attention_layer._check(*attention_layer._split(widest), 1)
+    assert attention_layer.on_k4(257) and fused_attention.k4_slices(257) == 2
     with pytest.raises(ValueError, match="do not divide"):
         attention_layer._check(q, k, v, 5)
     with pytest.raises(TypeError):

@@ -172,12 +172,20 @@ def test_fused_mlp_takes_unaligned_views(cuda, dtype):
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
-    """What stays refused, naming its ROADMAP item: head_dim above 256 and
-    hidden size above 8,192; head_dim 48, hidden sizes 48, 96 and 1,088 and
-    the wide model axis, refused before, launch."""
-    odd = torch.zeros(1, 12, 65, 257, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 257"):
-        fused_attention.fused_attention(odd, odd, odd)
+    """What stays refused: a view strided along head_dim and float16.
+    Head dims 48, 257 and 512 (the last two on the sliced bodies), hidden
+    sizes 48, 96, 1,088, 8,193 and 12,288 (the last two refused before this
+    port took every width) and the wide model axis launch, each held to its
+    plain version."""
+    for hd in (257, 512):
+        q, k, v = _model_views(cuda, (1, 3, 65, hd), torch.bfloat16)
+        before = fused_attention.launches_k4
+        out = fused_attention.fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert fused_attention.launches_k4 == before + 1
+        assert fused_attention.k4_body_launched() == "bf16_sliced_wgmma"
+        _close(out, fused_attention._plain_attention_k4(q, k, v), torch.bfloat16,
+               K4_BF16_TOL)
     before = fused_attention.launches_k4
     hd48 = torch.zeros(1, 12, 65, 48, device="cuda")
     fused_attention.fused_attention(hd48, hd48, hd48)
@@ -185,17 +193,12 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     strided = torch.zeros(1, 12, 64, 65, device="cuda").transpose(2, 3)
     with pytest.raises(ValueError, match="along head_dim"):
         fused_attention.fused_attention(strided, strided, strided)
-    for D in (48, 96, 1088, 8193):
-        x = torch.zeros(65, D, device="cuda")
-        w1, w2 = torch.zeros(128, D, device="cuda"), torch.zeros(D, 128, device="cuda")
-        args = (x, w1, torch.zeros(128, device="cuda"), w2, torch.zeros(D, device="cuda"))
-        if D > fused_mlp.MAX_WIDTH:
-            with pytest.raises(ValueError, match="hidden size 8193"):
-                fused_mlp.fused_mlp(*args)
-        else:
-            before = fused_mlp.launches
-            fused_mlp.fused_mlp(*args)
-            assert fused_mlp.launches == before + 1
+    for D in (48, 96, 1088, 8193, 12288):
+        x, w1, b1, w2, b2 = _wide_inputs(cuda, 65, D, 128)
+        before = fused_mlp.launches
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2)
+        assert fused_mlp.launches == before + 1
+        _close(out, fused_mlp._plain_mlp(x, w1, b1, w2, b2, 128), torch.float32)
     x = torch.zeros(2, 65, 96, device="cuda")
     w1, w2 = torch.zeros(2, 128, 96, device="cuda"), torch.zeros(2, 96, 128, device="cuda")
     before = fused_mlp.launches
@@ -283,7 +286,7 @@ def _k3_launch_checked(q, k, v, H):
     before = _k3_counts()
     out = attention_layer.attention_core(q, k, v, H)
     torch.cuda.synchronize()
-    on_k4 = q.shape[-1] // H in attention_layer.HEAD_DIMS_K4
+    on_k4 = attention_layer.on_k4(q.shape[-1] // H)
     assert _k3_counts() == (before[0] + 1, before[1] + (not on_k4),
                             before[2] + on_k4, before[3], before[4])
     assert out.dtype == q.dtype and out.shape == q.shape and out.is_contiguous()
@@ -363,9 +366,13 @@ def test_attention_layer_reads_strided_views(cuda):
 
 
 def test_attention_layer_raises_on_what_it_does_not_take(cuda):
-    q, k, v = attention_layer._split(torch.zeros(2, 65, 3 * 257, device="cuda"))
-    with pytest.raises(ValueError, match="head_dim 257"):
-        attention_layer.attention_core(q, k, v, 1)
+    # head_dim 257, refused before this port took every head_dim: K4's
+    # sliced body, on views that TMA cannot read as they lie (copied)
+    q, k, v = attention_layer._split(_k3_qkv(cuda, (2,), 65, 1, 257, torch.bfloat16))
+    out = _k3_launch_checked(q, k, v, 1)
+    assert fused_attention.k4_body_launched() == "bf16_sliced_wgmma"
+    _close(out, attention_layer._plain_attention_core(q, k, v, 1), torch.bfloat16,
+           K4_BF16_TOL)
     q, k, v = attention_layer._split(
         torch.zeros(2, 65, 48, device="cuda", dtype=torch.float16))
     with pytest.raises(TypeError):
@@ -990,18 +997,21 @@ def test_variant_gradients_recompute_through_plain(cuda, monkeypatch, variant):
 
 
 def test_variants_raise_on_what_they_do_not_take(cuda, monkeypatch):
-    """Every variant takes the wide regime (D 128) and raises on a hidden
-    size above 8,192, a model axis that x lacks, a width list of the wrong
-    length and an unknown variant."""
+    """Every variant takes the wide regime (D 128, and 8,193 and 12,288,
+    refused before this port took every width) and raises on a model axis
+    that x lacks, a width list of the wrong length and an unknown
+    variant."""
     x = torch.randn(65, 128, generator=cuda, device="cuda")
     args = _mlp_weights(cuda, torch.float32, 128, 256)
-    wide = [torch.zeros(s, device="cuda") for s in ((256, 8193), (256,), (8193, 256), (8193,))]
     for variant in VARIANTS:
         monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
         _close(fused_mlp.fused_mlp(x, *args), _plain_of(variant)(x, *args, 256),
                torch.float32)
-        with pytest.raises(ValueError, match="hidden size 8193"):
-            fused_mlp.fused_mlp(torch.zeros(65, 8193, device="cuda"), *wide)
+        for D in (8193, 12288):
+            xw = torch.randn(65, D, generator=cuda, device="cuda")
+            wide = _mlp_weights(cuda, torch.float32, D, 256)
+            _close(fused_mlp.fused_mlp(xw, *wide), _plain_of(variant)(xw, *wide, 256),
+                   torch.float32)
     monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "seq")
     w1, b1, w2, b2 = (torch.zeros(s, device="cuda")
                       for s in ((2, 64, 16), (2, 64), (2, 16, 64), (2, 16)))
@@ -1272,6 +1282,96 @@ def test_k3_at_every_head_dim_matches_plain(cuda, hd, S, dtype):
     out = _k3_launch_checked(q, k, v, H)
     ref = attention_layer._plain_attention_core(q, k, v, H)
     _close(out, ref, dtype, _k4_tol(dtype))
+
+
+# K4 and K3 above head_dim 256, on the sliced bodies: 257 (8 does not
+# divide it: bf16 views copied), 264 (a second slice of 8 columns), 288,
+# 384, 512 (two slices of 256), 1,000 and 1,024.
+SLICED_HD = [257, 264, 288, 384, 512, 1000, 1024]
+SLICED_BODIES = {torch.bfloat16: "bf16_sliced_wgmma", torch.float32: "f32_sliced_tf32x3"}
+
+
+@pytest.mark.parametrize("views", ["model", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 513])
+@pytest.mark.parametrize("hd", SLICED_HD)
+def test_k4_above_head_dim_256_matches_plain(cuda, hd, S, dtype, views):
+    """One launch on the sliced body (f32 views whose rows are not 16
+    bytes apart on its 4-byte copies), held to the plain version at K4's
+    gates, which reject the plain version without the last key."""
+    q, k, v = _model_views(cuda, (2, 3, S, hd), dtype)
+    if views == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = fused_attention.launches_k4
+    out = fused_attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches_k4 == before + 1
+    want = SLICED_BODIES[dtype] + ("_4byte" if dtype == torch.float32 and hd % 4 else "")
+    assert fused_attention.k4_body_launched() == want
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = fused_attention._plain_attention_k4(q, k, v)
+    _close(out, ref, dtype, _k4_tol(dtype))
+    with pytest.raises(AssertionError):
+        _close(_without_last_key(q, k, v), ref, dtype, _k4_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [65, 513])
+@pytest.mark.parametrize("hd", SLICED_HD)
+def test_k3_above_head_dim_256_matches_plain(cuda, hd, S, dtype):
+    """K3's core on K4's sliced body, on the views of a (B, T, 3D) buffer."""
+    H = 2
+    q, k, v = attention_layer._split(_k3_qkv(cuda, (2,), S, H, hd, dtype))
+    out = _k3_launch_checked(q, k, v, H)
+    assert fused_attention.k4_body_launched().startswith(SLICED_BODIES[dtype])
+    _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype, _k4_tol(dtype))
+
+
+# K1, K1b and K1c above 8,192: 8,193 (zero-padded to 8,200 in bf16, 8,196 in
+# f32), 8,200, 12,288 (the `widest` model's, M 4 D) and 16,384, at 70 rows.
+WIDEST_K1 = [(8193, 4096), (8200, 32800), (12288, 49152), (16384, 8192)]
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,M", WIDEST_K1)
+def test_k1_variants_above_8192_match_plain(cuda, monkeypatch, variant, dtype, D, M):
+    """One launch of each variant on its wide body, held to its plain
+    version at the JAX tolerances."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    N, active = 70, M - M // 5
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M, dtype)
+    before = getattr(fused_mlp, VARIANTS[variant])
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, active)
+    torch.cuda.synchronize()
+    assert getattr(fused_mlp, VARIANTS[variant]) == before + 1
+    assert fused_mlp._variant_body(variant, dtype, D).startswith("wide_")
+    assert out.dtype == dtype and out.shape == (N, D)
+    _close(out, _plain_of(variant)(x, w1, b1, w2, b2, active), dtype)
+
+
+def test_k1b_f32_scratch_stays_within_its_bound(cuda, monkeypatch):
+    """K1b in f32 at D 12,288, M 49,152 (96 chunks of fc2's K), 1,026 rows:
+    its partial-sum scratch holds one wave of WIDE_F32_MAX_SPLITS chunks
+    (`wide_f32_scratch`), not 96, and the call's peak memory beyond its
+    inputs stays within h, the output and that scratch; the result is the
+    plain version's, its chunks summed in order."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", "chunked")
+    N, D, M = 1026, 12288, 49152
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused_mlp.wide_f32_plan(N, D, M, sms, chunked=True)
+    scratch = fused_mlp.wide_f32_scratch(plan, M)
+    assert plan["fc2"]["splits"] == M // 512
+    assert scratch == fused_mlp.WIDE_F32_MAX_SPLITS * N * D
+    x, w1, b1, w2, b2 = _wide_inputs(cuda, N, D, M)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - start
+    assert grown <= 4 * (N * M + N * D + scratch) + 2 ** 24
+    _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, M), torch.float32)
 
 
 @pytest.mark.parametrize("impl,counts", [("auto", (2, 0, 0, 2, 0)),

@@ -443,13 +443,15 @@ def test_mlp_checks_reject_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         fmlp._check(*(t.half() for t in (x, w1, b1, w2, b2)))
     # hidden size 12, between the narrow bodies' widths, is taken (it runs
-    # zero-padded at 16); past 8,192 is refused, naming its ROADMAP item
+    # zero-padded at 16); so is 8,193, past the widths once refused (on the
+    # wide bodies, zero-padded to 8,196 in f32)
     fmlp._check(x[..., :12].contiguous(), w1[:, :12].contiguous(), b1,
                 w2[:12].contiguous(), b2[:12].contiguous())
     assert fmlp.kernel_width(12, torch.float32) == 16
     wide = _torch_mlp_args(*_mlp_data(2, 8193, 4))
-    with pytest.raises(ValueError, match="hidden size 8193 .*above 8,192"):
-        fmlp._check(*wide)
+    fmlp._check(*wide)
+    assert fmlp.kernel_width(8193, torch.float32) == 8196
+    assert fmlp._variant_body("seq", torch.float32, 8193) == "wide_tf32x3"
     with pytest.raises(ValueError, match="shape"):
         fmlp._check(x, w1, b1, w2.T.contiguous().T[:, :95], b2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -492,12 +494,13 @@ def test_attention_checks_reject_what_the_kernel_does_not_take():
     views = [torch.zeros(2, 513, 768).view(2, 513, 12, 64).transpose(1, 2)
              for _ in range(3)]            # as the model makes them
     fused_attention._check(*views)
-    # head_dim 48 is taken (K4's body for 48); past 256 is refused
+    # head_dim 48 is taken (K4's body for 48); so is 257, past 256 (its
+    # sliced body, two slices)
     odd = torch.zeros(2, 12, 65, 48)
     fused_attention._check(odd, odd, odd)
-    with pytest.raises(ValueError, match="head_dim 257 .*above 256"):
-        odd = torch.zeros(2, 2, 65, 257)
-        fused_attention._check(odd, odd, odd)
+    odd = torch.zeros(2, 2, 65, 257)
+    fused_attention._check(odd, odd, odd)
+    assert fused_attention.k4_slices(257) == 2
     with pytest.raises(ValueError, match="along head_dim"):
         strided = torch.zeros(2, 12, 64, 513).transpose(2, 3)
         fused_attention._check(strided, strided, strided)

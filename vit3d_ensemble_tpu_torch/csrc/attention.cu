@@ -22,8 +22,11 @@
 // FP32 peak.
 //
 // Which body takes which input: bf16 runs the `wgmma` body below, f32 the
-// `mma.sync` 3xTF32 body after it, at every head_dim from 17 to 256, as the
-// TPU kernel takes any head_dim above 16.  Each is built for the head dims
+// `mma.sync` 3xTF32 body after it, at every head_dim from 17 to 256; above
+// 256 their sliced forms (`attention_sliced_wgmma_kernel`,
+// `attention_sliced_tf32x3_kernel`: blocks of 256 context columns, the
+// scores' K loop over hd's 64-column boxes; see their note), as the TPU
+// kernel takes any head_dim above 16.  Each unsliced body is built for the head dims
 // K4_HDS (32, 64, 80, 128, 256), and a head_dim runs on the first at or
 // above it: the columns from hd up to that HD are zero in shared memory
 // (TMA's zero fill past the tensor map's hd columns in bf16, zero-filled
@@ -219,48 +222,36 @@ __device__ __forceinline__ int coord(int order, int pos, int row, int head, int 
   return (order & 3) == pos ? row : ((order >> 2) & 3) == pos ? head : batch;
 }
 
+// One box of rows row .. row + 63 of one head, at column col, by TMA into
+// `dst`.
+__device__ __forceinline__ void load_box(unsigned char* dst, const CUtensorMap* map, int order,
+                                         uint64_t* bar, int col, int row, int head, int batch) {
+  tma_load_4d(dst, map, bar, col, coord(order, 1, row, head, batch),
+              coord(order, 2, row, head, batch), coord(order, 3, row, head, batch));
+}
+
 // Rows row .. row + 63 of one head, all hd columns, by TMA into `dst`.
 template <int HD>
 __device__ __forceinline__ void load_rows(unsigned char* dst, const CUtensorMap* map, int order,
                                           uint64_t* bar, int row, int head, int batch) {
   using T = Tile<HD>;
-  const int c1 = coord(order, 1, row, head, batch), c2 = coord(order, 2, row, head, batch),
-            c3 = coord(order, 3, row, head, batch);
 #pragma unroll
   for (int x = 0; x < T::BOXES; ++x)
-    tma_load_4d(dst + x * T::BOX_BYTES, map, bar, x * T::BOX_COLS, c1, c2, c3);
+    load_box(dst + x * T::BOX_BYTES, map, order, bar, x * T::BOX_COLS, row, head, batch);
 }
 
-// One chunk of NC keys (key0 ..) for this warpgroup's 64 query rows: scores,
-// online softmax, ctx += p v.  Accumulator register 4j + 2i + e of
+// The online softmax of one chunk of NC keys (key0 ..) for this
+// warpgroup's 64 query rows, from its scores `sc`, then ctx += p v, v's
+// stage in Tile<HD>'s layout.  Accumulator register 4j + 2i + e of
 // m64nNk16 holds row 16 * warp + lane / 4 + 8i, column 8j + 2 * (lane % 4)
 // + e; this thread's two rows are i = 0, 1.  `last`: keys at or past s are
 // masked.
 template <int HD, int NC>
-__device__ __forceinline__ void chunk(float (&o)[HD / 2], float (&m)[2], float (&l)[2],
-                                      const unsigned char* q_st, const unsigned char* k_st,
-                                      const unsigned char* v_st, int key0, int s, bool last,
-                                      float scale_log2) {
+__device__ __forceinline__ void softmax_pv(float (&o)[HD / 2], float (&m)[2], float (&l)[2],
+                                           float (&sc)[NC / 2], const unsigned char* v_st,
+                                           int key0, int s, bool last, float scale_log2) {
   using T = Tile<HD>;
   const int t = threadIdx.x % 4;
-
-  // scores: hd / 16 k-steps of 32 bytes, a box further every BOX_COLS values
-  float sc[NC / 2];
-#pragma unroll
-  for (int i = 0; i < NC / 2; ++i) sc[i] = 0.f;
-  const uint64_t dq = smem_desc(q_st, 16, 8 * T::SW, T::LAYOUT);
-  const uint64_t dk = smem_desc(k_st, 16, 8 * T::SW, T::LAYOUT);
-  fence_regs(sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk * 16 / T::BOX_COLS) * T::BOX_BYTES + (kk * 16 % T::BOX_COLS) * 2;
-    wgmma<NC>(sc, dq + (off >> 4), dk + (off >> 4));
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-
   if (last) {
 #pragma unroll
     for (int j = 0; j < NC / 8; ++j)
@@ -325,6 +316,33 @@ __device__ __forceinline__ void chunk(float (&o)[HD / 2], float (&m)[2], float (
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
+}
+
+// One chunk of NC keys (key0 ..) for this warpgroup's 64 query rows: the
+// scores q k^T, then `softmax_pv`.
+template <int HD, int NC>
+__device__ __forceinline__ void chunk(float (&o)[HD / 2], float (&m)[2], float (&l)[2],
+                                      const unsigned char* q_st, const unsigned char* k_st,
+                                      const unsigned char* v_st, int key0, int s, bool last,
+                                      float scale_log2) {
+  using T = Tile<HD>;
+  // scores: hd / 16 k-steps of 32 bytes, a box further every BOX_COLS values
+  float sc[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) sc[i] = 0.f;
+  const uint64_t dq = smem_desc(q_st, 16, 8 * T::SW, T::LAYOUT);
+  const uint64_t dk = smem_desc(k_st, 16, 8 * T::SW, T::LAYOUT);
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 16 / T::BOX_COLS) * T::BOX_BYTES + (kk * 16 % T::BOX_COLS) * 2;
+    wgmma<NC>(sc, dq + (off >> 4), dk + (off >> 4));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax_pv<HD, NC>(o, m, l, sc, v_st, key0, s, last, scale_log2);
 }
 
 template <int HD>
@@ -480,20 +498,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + n - 1 of one head's (S, hd) view (row r at src + r *
-// ss) into a padded tile of HD columns, by cp.async (the caller commits and
-// waits); rows at or past s and columns at or past hd are zero-filled.
-// VEC: 16-byte copies (base, row stride and hd multiples of 16 bytes), else
-// 4-byte ones.
-template <int HD, bool VEC>
-__device__ __forceinline__ void load_rows_f32(float* tile, const float* __restrict__ src,
-                                              long long ss, int row0, int n, int s, int hd) {
-  constexpr int LD = F32Tile<HD>::LD, W = VEC ? 4 : 1;  // floats a copy
+// Rows row0 .. row0 + n - 1, columns col0 .. col0 + COLS - 1 of one head's
+// (S, hd) view (row r at src + r * ss) into a tile of rows LD floats apart,
+// by cp.async (the caller commits and waits); rows at or past s and columns
+// at or past hd are zero-filled.  VEC: 16-byte copies (base, row stride, hd
+// and col0 multiples of 16 bytes), else 4-byte ones.
+template <int LD, int COLS, bool VEC>
+__device__ __forceinline__ void load_box_f32(float* tile, const float* __restrict__ src,
+                                             long long ss, int row0, int n, int s, int col0,
+                                             int hd) {
+  constexpr int W = VEC ? 4 : 1;  // floats a copy
 #pragma unroll 4
-  for (int i = threadIdx.x; i < n * (HD / W); i += F_THREADS) {
-    const int r = i / (HD / W), c = i % (HD / W) * W;
-    const bool live = row0 + r < s && c < hd;
-    const float* from = live ? src + (row0 + r) * ss + c : src;
+  for (int i = threadIdx.x; i < n * (COLS / W); i += F_THREADS) {
+    const int r = i / (COLS / W), c = i % (COLS / W) * W;
+    const bool live = row0 + r < s && col0 + c < hd;
+    const float* from = live ? src + (row0 + r) * ss + col0 + c : src;
     if constexpr (VEC)
       cp_async16(smem_u32(tile + r * LD + c), from, live);
     else
@@ -501,39 +520,42 @@ __device__ __forceinline__ void load_rows_f32(float* tile, const float* __restri
   }
 }
 
-// One chunk of NC keys (key0 ..) for this warp's 16 query rows (q_w, its
-// rows of the q tile): scores, online softmax, ctx += p v, both products in
-// 3xTF32: each operand split into TF32 hi and lo, and each 16x8x8 product
-// taken as lo*hi + hi*lo + hi*hi.  An `mma` aligns its terms and the sum it
-// adds them to at the largest and drops the bits below that one's f32 ulp
-// (truncating), so no `mma` adds into a long sum: the scores' hi*hi and
-// small terms go into two accumulators from 0 for every KQ k-steps, added
-// in f32, and each chunk's p v (lo*hi, hi*lo, hi*hi a k-step) starts from 0
-// and is added to the rescaled context in f32 (one FMA).  Accumulator
-// register 2i + e of n-tile j holds row g + 8i (g = lane / 4), column 8j +
-// 2t + e (t = lane % 4).  `last`: keys at or past s are masked.
-template <int HD, int NC>
-__device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2], float (&l)[2],
-                                             const float* q_w, const float* kc, const float* vc,
-                                             int key0, int s, bool last, float scale_log2) {
-  constexpr int LD = F32Tile<HD>::LD;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+// All hd columns of rows row0 .. row0 + n - 1 into a padded tile of HD
+// columns (`load_box_f32`).
+template <int HD, bool VEC>
+__device__ __forceinline__ void load_rows_f32(float* tile, const float* __restrict__ src,
+                                              long long ss, int row0, int n, int s, int hd) {
+  load_box_f32<F32Tile<HD>::LD, HD, VEC>(tile, src, ss, row0, n, s, 0, hd);
+}
 
-  // scores: A = q rows g, g + 8 at columns t, t + 4 of the 8-column k-step;
-  // B = k row (key) g at the same columns; both by ldmatrix, A's four tiles
-  // rows 0-7 and 8-15 at columns 0-3 and 4-7 of the step, B's two keys'
-  // tiles of n-tiles j and j + 1
+// The scores of KSTEPS 8-column k-steps for this warp's 16 query rows (q_w,
+// its rows of the q tile) against NC keys (kc), both tiles' rows LD floats
+// apart, in 3xTF32: each operand split into TF32 hi and lo, and each 16x8x8
+// product taken as lo*hi + hi*lo + hi*hi.  An `mma` aligns its terms and
+// the sum it adds them to at the largest and drops the bits below that
+// one's f32 ulp (truncating), so no `mma` adds into a long sum: the hi*hi
+// and small terms go into two accumulators from 0 for every KQ k-steps,
+// added into `sc` in f32 (`first`: the first of them sets it).  Accumulator
+// register 2i + e of n-tile j holds row g + 8i (g = lane / 4), column 8j +
+// 2t + e (t = lane % 4).
+template <int LD, int KSTEPS, int NC>
+__device__ __forceinline__ void scores_tf32x3(float (&sc)[NC / 8][4], const float* q_w,
+                                              const float* kc, bool first) {
+  const int lane = threadIdx.x % 32;
+  // A = q rows g, g + 8 at columns t, t + 4 of the 8-column k-step; B = k
+  // row (key) g at the same columns; both by ldmatrix, A's four tiles rows
+  // 0-7 and 8-15 at columns 0-3 and 4-7 of the step, B's two keys' tiles of
+  // n-tiles j and j + 1
   const int r8 = lane % 8, tile = lane / 8;
   const float* q_row = q_w + (r8 + 8 * (tile % 2)) * LD + 4 * (tile / 2);
   const float* k_row = kc + (r8 + 8 * (tile / 2)) * LD + 4 * (tile % 2);
   // KQ k-steps at a time, the hi*hi terms into `big` and the lo*hi and
   // hi*lo ones into `small`, both from 0: no small term meets a large sum
   // inside an `mma`, and the scores take one f32 rounding a KQ k-steps (4,
-  // or 2 where 4 do not divide HD / 8: hd 80)
-  constexpr int KQ = (HD / 8) % 4 == 0 ? 4 : 2;
-  float sc[NC / 8][4];
+  // or 2 where 4 do not divide KSTEPS: hd 80)
+  constexpr int KQ = KSTEPS % 4 == 0 ? 4 : 2;
 #pragma unroll 1
-  for (int kq = 0; kq < HD / 8; kq += KQ) {
+  for (int kq = 0; kq < KSTEPS; kq += KQ) {
     float big[NC / 8][4], small[NC / 8][4];
 #pragma unroll
     for (int j = 0; j < NC / 8; ++j)
@@ -569,9 +591,23 @@ __device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2
     for (int j = 0; j < NC / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        sc[j][e] = kq == 0 ? big[j][e] + small[j][e] : sc[j][e] + (big[j][e] + small[j][e]);
+        sc[j][e] = first && kq == 0 ? big[j][e] + small[j][e]
+                                    : sc[j][e] + (big[j][e] + small[j][e]);
   }
+}
 
+// The online softmax of one chunk of NC keys (key0 ..) for this warp's 16
+// query rows, from its scores `sc`, then ctx += p v in 3xTF32, v's stage
+// rows F32Tile<HD>::LD floats apart: each chunk's p v (lo*hi, hi*lo, hi*hi
+// a k-step) starts from 0 and is added to the rescaled context in f32 (one
+// FMA).  `last`: keys at or past s are masked.
+template <int HD, int NC>
+__device__ __forceinline__ void softmax_pv_tf32x3(float (&o)[HD / 8][4], float (&m)[2],
+                                                  float (&l)[2], float (&sc)[NC / 8][4],
+                                                  const float* vc, int key0, int s, bool last,
+                                                  float scale_log2) {
+  constexpr int LD = F32Tile<HD>::LD;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   if (last) {
 #pragma unroll
     for (int j = 0; j < NC / 8; ++j)
@@ -657,6 +693,18 @@ __device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n0 + n][e] = fmaf(o[n0 + n][e], corr[e / 2], pv[n][e]);
   }
+}
+
+// One chunk of NC keys (key0 ..) for this warp's 16 query rows (q_w, its
+// rows of the q tile): the scores over all of HD (`scores_tf32x3`), then
+// `softmax_pv_tf32x3`.
+template <int HD, int NC>
+__device__ __forceinline__ void chunk_tf32x3(float (&o)[HD / 8][4], float (&m)[2], float (&l)[2],
+                                             const float* q_w, const float* kc, const float* vc,
+                                             int key0, int s, bool last, float scale_log2) {
+  float sc[NC / 8][4];
+  scores_tf32x3<F32Tile<HD>::LD, HD / 8, NC>(sc, q_w, kc, true);
+  softmax_pv_tf32x3<HD, NC>(o, m, l, sc, vc, key0, s, last, scale_log2);
 }
 
 template <int HD, bool VEC>
@@ -752,6 +800,266 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
+// ---------------------------------------------------------------------------
+// Above head_dim 256: the context's columns in slices
+// ---------------------------------------------------------------------------
+//
+// A head_dim above 256 (K4_HDS' last) runs on the sliced bodies: the grid
+// gives each (volume, head) ceil(hd / 256) blocks a row block, one a slice
+// of 256 context columns, so that a consumer's context stays at the 128
+// accumulators a thread of the 256 body (wgmma's widest N), and no q tile
+// is held whole (at hd 512 a 64-row tile is 64 KB in bf16, 128 KB in f32).
+// Every slice walks the same chunks of keys and computes the whole scores
+// q k^T of each chunk, their 64-column boxes of hd staged one after another
+// in the ring (q's and k's boxes together), then the online softmax and
+// its slice's p v: the slices compute the same scores and softmax in the
+// same order, so their columns agree, and each recomputes the scores (at
+// hd 512, 2 slices: the first product twice; 3 products of S^2 hd where an
+// unsliced body would take 2).  Columns past hd load as zeros (TMA's zero
+// fill, zero-filled cp.async copies), so they add nothing to q k^T; the
+// scale is 1 / sqrt(hd) of the true hd.  The last chunk's keys past S are
+// masked, as in the unsliced bodies; no narrow tail chunk.
+constexpr int SLICE = 256;  // context columns a block of the sliced bodies computes
+
+// bf16: the wgmma body's three warpgroups (a producer, two consumers of 64
+// query rows) on one ring of 32 KB stages: a chunk's `boxes` = ceil(hd / 64)
+// score stages, each q's 64 x 64 box of both consumers and k's, then one v
+// stage, its slice's four 64 x 64 boxes (Tile<256>'s layout, the ones that
+// hold a column below hd loaded).  128-byte swizzle throughout.
+constexpr int SL_BOX = ROWS * 128;                 // a 64 x 64 bf16 box
+constexpr int SL_STAGE = (SLICE / 64) * SL_BOX;    // 32 KB
+constexpr int SL_STAGES = (SMEM_MAX - 1024 - 256) / SL_STAGE;
+constexpr size_t SL_SMEM = 1024 + (size_t)SL_STAGES * SL_STAGE + 2 * SL_STAGES * sizeof(uint64_t);
+static_assert(SL_STAGES >= 2 && (CONSUMERS + 1) * SL_BOX <= SL_STAGE && SL_SMEM <= SMEM_MAX,
+              "the sliced ring");
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attention_sliced_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              __nv_bfloat16* __restrict__ o, int s, int h, int hd, int slices,
+                              int orders, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  unsigned char* ring = att_smem + ((1024 - (smem_u32(att_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + SL_STAGES * SL_STAGE);
+  uint64_t* empty = full + SL_STAGES;
+
+  const int bh = blockIdx.x / slices, col0 = blockIdx.x % slices * SLICE;
+  const int b = bh / h, hh = bh % h;
+  const int row0 = blockIdx.y * BLOCK_ROWS;
+  const int live = min(CONSUMERS, (s - row0 + ROWS - 1) / ROWS);
+  const int chunks = (s + KEYS - 1) / KEYS;
+  const int boxes = (hd + 63) / 64;                        // score stages a chunk
+  const int v_boxes = min(SLICE / 64, (hd - col0 + 63) / 64);  // v's boxes below hd
+  const int stages = chunks * (boxes + 1);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SL_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], live);  // one arrival from each live consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const int oq = orders & 63, ok = (orders >> 6) & 63, ov = (orders >> 12) & 63;
+      for (int i = 0; i < stages; ++i) {
+        const int st = i % SL_STAGES, c = i / (boxes + 1), x = i % (boxes + 1);
+        unsigned char* dst = ring + st * SL_STAGE;
+        mbar_wait(&empty[st], ((i / SL_STAGES) & 1) ^ 1);  // at once on the first lap
+        if (x < boxes) {
+          mbar_expect_tx(&full[st], (live + 1) * SL_BOX);
+          for (int q = 0; q < live; ++q)
+            load_box(dst + q * SL_BOX, &map_q, oq, &full[st], 64 * x, row0 + q * ROWS, hh, b);
+          load_box(dst + CONSUMERS * SL_BOX, &map_k, ok, &full[st], 64 * x, c * KEYS, hh, b);
+        } else {
+          mbar_expect_tx(&full[st], v_boxes * SL_BOX);
+          for (int j = 0; j < v_boxes; ++j)
+            load_box(dst + j * SL_BOX, &map_v, ov, &full[st], col0 + 64 * j, c * KEYS, hh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1;
+  if (c >= live) return;  // no query row of this warpgroup lies below s
+  const int warp = tid / 32, lane = tid % 32;
+  float acc[SLICE / 2];
+#pragma unroll
+  for (int i = 0; i < SLICE / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  for (int ch = 0, i = 0; ch < chunks; ++ch) {
+    float sc[KEYS / 2];
+#pragma unroll
+    for (int j = 0; j < KEYS / 2; ++j) sc[j] = 0.f;
+    for (int x = 0; x < boxes; ++x, ++i) {
+      const int st = i % SL_STAGES;
+      mbar_wait(&full[st], (i / SL_STAGES) & 1);
+      const unsigned char* stage = ring + st * SL_STAGE;
+      const uint64_t dq = smem_desc(stage + c * SL_BOX, 16, 1024, 1);
+      const uint64_t dk = smem_desc(stage + CONSUMERS * SL_BOX, 16, 1024, 1);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma<KEYS>(sc, dq + 2 * kk, dk + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (tid == 0) mbar_arrive(&empty[st]);
+    }
+    const int st = i % SL_STAGES;
+    mbar_wait(&full[st], (i / SL_STAGES) & 1);
+    softmax_pv<SLICE, KEYS>(acc, m, l, sc, ring + st * SL_STAGE, ch * KEYS, s, ch + 1 == chunks,
+                            scale_log2);
+    if (tid == 0) mbar_arrive(&empty[st]);
+    ++i;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + c * ROWS + 16 * warp + g + 8 * i;
+    if (r >= s) continue;
+    const float inv = 1.f / l[i];
+    // this slice's columns below hd
+    __nv_bfloat16* out = o + (((long long)b * s + r) * h + hh) * hd + col0 + 2 * t;
+    if (hd % 2 == 0) {
+#pragma unroll
+      for (int j = 0; j < SLICE / 8; ++j)
+        if (col0 + 8 * j + 2 * t < hd)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < SLICE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col0 + 8 * j + 2 * t + e < hd)
+            out[8 * j + e] = __float2bfloat16_rn(acc[4 * j + 2 * i + e] * inv);
+    }
+  }
+}
+
+// f32: the 3xTF32 body's four warps of 16 query rows on a cp.async ring of
+// SF_STAGES stages: a chunk's `boxes` score stages, each q's 64 x 64 box and
+// k's 32 x 64, rows padded by 4 floats, then one v stage, its slice's 32 x
+// 256 (F32Tile<256>'s rows).  One __syncthreads a stage.  Three stages (100
+// KB) let two blocks share an SM (255 registers a thread): with four (133
+// KB, one block an SM) the body took 1.28 ms at (1, 24, 513, 512), with
+// three 0.61, SDPA (its efficient backend) 0.36-0.52 (`chip_smoke.py`
+// phase `widest`, NVIDIA H100 80GB HBM3 at 700 W).
+constexpr int SF_LD = 64 + 4;  // a score box's rows
+constexpr int SF_Q = F_ROWS * SF_LD;
+constexpr int SF_K = F_KEYS * SF_LD;
+constexpr int SF_V = F_KEYS * F32Tile<SLICE>::LD;
+constexpr int SF_STAGE = SF_Q + SF_K > SF_V ? SF_Q + SF_K : SF_V;  // floats
+constexpr int SF_STAGES = 3;
+constexpr size_t SF_SMEM = sizeof(float) * (size_t)SF_STAGES * SF_STAGE;
+
+template <bool VEC>
+__global__ void __launch_bounds__(F_THREADS, 2)
+attention_sliced_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o, int s, int h,
+                               int hd, int slices, Strides qs, Strides ks, Strides vs,
+                               float scale_log2) {
+  extern __shared__ __align__(16) float f32_smem[];
+  const int bh = blockIdx.x / slices, col0 = blockIdx.x % slices * SLICE;
+  const int b = bh / h, hh = bh % h;
+  const int row0 = blockIdx.y * F_ROWS;
+  const int chunks = (s + F_KEYS - 1) / F_KEYS;
+  const int boxes = (hd + 63) / 64;
+  const int stages = chunks * (boxes + 1);
+  q += b * qs.b + hh * qs.h;
+  k += b * ks.b + hh * ks.h;
+  v += b * vs.b + hh * vs.h;
+
+  // stage i's copies, one commit group a stage (committed even when empty,
+  // so that group i is always stage i's)
+  const auto load = [&](int i) {
+    float* st = f32_smem + i % SF_STAGES * SF_STAGE;
+    const int c = i / (boxes + 1), x = i % (boxes + 1);
+    if (x < boxes) {
+      load_box_f32<SF_LD, 64, VEC>(st, q, qs.s, row0, F_ROWS, s, 64 * x, hd);
+      load_box_f32<SF_LD, 64, VEC>(st + SF_Q, k, ks.s, c * F_KEYS, F_KEYS, s, 64 * x, hd);
+    } else {
+      load_box_f32<F32Tile<SLICE>::LD, SLICE, VEC>(st, v, vs.s, c * F_KEYS, F_KEYS, s, col0, hd);
+    }
+  };
+#pragma unroll 1
+  for (int i = 0; i < SF_STAGES - 1; ++i) {
+    if (i < stages) load(i);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool live = row0 + 16 * warp < s;  // a query row of this warp lies below s
+  float acc[SLICE / 8][4];
+#pragma unroll
+  for (int n = 0; n < SLICE / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float sc[F_KEYS / 8][4];
+
+  for (int i = 0; i < stages; ++i) {
+    cp_async_wait<SF_STAGES - 2>();  // this thread's copies of stage i have landed
+    __syncthreads();                 // everyone's have, and stage i - 1 is done with
+    if (i + SF_STAGES - 1 < stages) load(i + SF_STAGES - 1);
+    cp_async_commit();
+    if (!live) continue;
+    const float* st = f32_smem + i % SF_STAGES * SF_STAGE;
+    const int c = i / (boxes + 1), x = i % (boxes + 1);
+    if (x < boxes)
+      scores_tf32x3<SF_LD, 8, F_KEYS>(sc, st + 16 * warp * SF_LD, st + SF_Q, x == 0);
+    else
+      softmax_pv_tf32x3<SLICE, F_KEYS>(acc, m, l, sc, st, c * F_KEYS, s, c + 1 == chunks,
+                                       scale_log2);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  if (!live) return;
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 16 * warp + g + 8 * i;
+    if (r >= s) continue;
+    const float inv = 1.f / l[i];
+    float* out = o + (((long long)b * s + r) * h + hh) * hd + col0 + 2 * t;
+    if (hd % 2 == 0) {
+#pragma unroll
+      for (int n = 0; n < SLICE / 8; ++n)
+        if (col0 + 8 * n + 2 * t < hd)
+          *reinterpret_cast<float2*>(out + 8 * n) =
+              make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    } else {
+#pragma unroll
+      for (int n = 0; n < SLICE / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col0 + 8 * n + 2 * t + e < hd) out[8 * n + e] = acc[n][2 * i + e] * inv;
+    }
+  }
+}
+
 // The map of one (B, H, S, hd) bf16 view: hd innermost, then S, H and B in
 // the order of their strides (smallest first), boxes of one swizzle row's
 // width by 64 rows of S; rows past S, and the columns from hd to the body's
@@ -797,7 +1105,14 @@ bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, i
 }
 
 // The bodies of this file, by the code `attention_last_body` reports.
-enum Body { BF16_WGMMA = 0, F32_TF32X3 = 1, F32_TF32X3_4BYTE = 2 };
+enum Body {
+  BF16_WGMMA = 0,
+  F32_TF32X3 = 1,
+  F32_TF32X3_4BYTE = 2,
+  BF16_SLICED_WGMMA = 3,
+  F32_SLICED_TF32X3 = 4,
+  F32_SLICED_TF32X3_4BYTE = 5
+};
 std::atomic<int> last_body{-1};
 
 // The bf16 body's shared-memory limit, raised once a device.
@@ -866,11 +1181,78 @@ cudaError_t launch_tf32x3(int device, const void* q, const void* k, const void* 
   return launch_tf32x3_as<HD, false>(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale, stream);
 }
 
-// The head dims the bodies are built for: a head_dim from 17 to 256 runs on
-// the first at or above it, its columns past hd zero in shared memory.
-constexpr int K4_HDS[] = {32, 64, 80, 128, 256};
+// The sliced bodies' blocks of one (volume, head) and row block.
+int slices_of(int hd) { return (hd + SLICE - 1) / SLICE; }
 
-// The body's HD for head_dim hd, or 0 outside 17 .. 256.
+// The sliced bodies' shared-memory limits, raised once a device.
+cudaError_t sliced_wgmma_ready(int device) {
+  static std::atomic<unsigned long long> smem_set{0};  // one bit a device
+  return raise_smem_limit_once((const void*)attention_sliced_wgmma_kernel, (int)SL_SMEM, device,
+                               smem_set);
+}
+
+template <bool VEC>
+cudaError_t sliced_tf32x3_ready(int device) {
+  static std::atomic<unsigned long long> smem_set{0};  // one bit a device
+  return raise_smem_limit_once((const void*)attention_sliced_tf32x3_kernel<VEC>, (int)SF_SMEM,
+                               device, smem_set);
+}
+
+// The sliced bf16 body: the maps of the wgmma body's HD 256 (boxes of 64
+// columns by 64 rows, 128-byte swizzle), a block a (volume, head, slice) and
+// 128 query rows.
+cudaError_t launch_sliced_wgmma(int device, const void* q, const void* k, const void* v, void* o,
+                                int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
+                                float scale, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  int oq, ok, ov;
+  if (!encode_view<SLICE>(&map_q, &oq, q, b, h, s, hd, qs) ||
+      !encode_view<SLICE>(&map_k, &ok, k, b, h, s, hd, ks) ||
+      !encode_view<SLICE>(&map_v, &ov, v, b, h, s, hd, vs))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = sliced_wgmma_ready(device);
+  if (err != cudaSuccess) return err;
+  last_body.store(BF16_SLICED_WGMMA, std::memory_order_relaxed);
+  const int slices = slices_of(hd);
+  const dim3 grid(b * h * slices, (s + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  attention_sliced_wgmma_kernel<<<grid, WG_THREADS, SL_SMEM, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, h, hd, slices,
+      oq | (ok << 6) | (ov << 12), scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// The sliced f32 body: a block a (volume, head, slice) and 64 query rows,
+// 16-byte copies where the views allow them.
+cudaError_t launch_sliced_tf32x3(int device, const void* q, const void* k, const void* v, void* o,
+                                 int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
+                                 float scale, cudaStream_t stream) {
+  const bool vec = rows_16b(q, hd, qs) && rows_16b(k, hd, ks) && rows_16b(v, hd, vs);
+  const cudaError_t err = vec ? sliced_tf32x3_ready<true>(device) : sliced_tf32x3_ready<false>(device);
+  if (err != cudaSuccess) return err;
+  last_body.store(vec ? F32_SLICED_TF32X3 : F32_SLICED_TF32X3_4BYTE, std::memory_order_relaxed);
+  const int slices = slices_of(hd);
+  const dim3 grid(b * h * slices, (s + F_ROWS - 1) / F_ROWS);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (vec)
+    attention_sliced_tf32x3_kernel<true><<<grid, F_THREADS, SF_SMEM, stream>>>(
+        qf, kf, vf, of, s, h, hd, slices, qs, ks, vs, scale_log2);
+  else
+    attention_sliced_tf32x3_kernel<false><<<grid, F_THREADS, SF_SMEM, stream>>>(
+        qf, kf, vf, of, s, h, hd, slices, qs, ks, vs, scale_log2);
+  return cudaGetLastError();
+}
+
+// The head dims the unsliced bodies are built for: a head_dim from 17 to 256
+// runs on the first at or above it, its columns past hd zero in shared
+// memory; every head_dim above 256 on the sliced bodies.
+constexpr int K4_HDS[] = {32, 64, 80, 128, 256};
+constexpr int MAX_UNSLICED_HD = 256;
+
+// The unsliced body's HD for head_dim hd, or 0 outside 17 .. 256.
 int body_hd(int hd) {
   if (hd <= 16) return 0;
   for (const int b : K4_HDS)
@@ -925,6 +1307,47 @@ cudaError_t plan_bf16(int device, int b, int h, int s, int* out) {
   return cudaSuccess;
 }
 
+// The sliced bodies' tiles and waves: the unsliced bodies' reckoning with a
+// block a (volume, head, slice) and row block, and key steps a tile over
+// the scores' boxes and v's slice.
+cudaError_t plan_sliced(int device, int b, int h, int s, int hd, int dtype, int* out) {
+  const bool bf16 = dtype == 1;
+  const void* kernel = bf16 ? (const void*)attention_sliced_wgmma_kernel
+                            : (const void*)attention_sliced_tf32x3_kernel<true>;
+  const int threads = bf16 ? WG_THREADS : F_THREADS;
+  const size_t smem = bf16 ? SL_SMEM : SF_SMEM;
+  cudaError_t err = bf16 ? sliced_wgmma_ready(device) : sliced_tf32x3_ready<true>(device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)b * h * slices_of(hd);  // grid x
+  const int rows = bf16 ? BLOCK_ROWS : F_ROWS, tile = bf16 ? ROWS : 16;
+  const int per_block = rows / tile, keys = bf16 ? KEYS : F_KEYS, step = bf16 ? 16 : 8;
+  const int row_blocks = (s + rows - 1) / rows;
+  const int tiles = (s + tile - 1) / tile;
+  const int chunks = (s + keys - 1) / keys;
+  out[0] = rows;
+  out[1] = threads;
+  out[2] = (int)smem;
+  out[3] = attr.numRegs;
+  out[4] = per_sm;
+  out[5] = sms;
+  out[6] = (int)(units * row_blocks);
+  out[7] = (int)(units * tiles);
+  out[8] = (int)(units * (tiles % per_block ? 1 : 0));
+  // a chunk's key steps in each box of the scores and in the slice's p v
+  out[9] = chunks * (keys / step) * ((hd + 63) / 64 + 1);
+  out[10] = busiest_sm(units, row_blocks, per_block, tiles - (row_blocks - 1) * per_block,
+                       (long long)per_sm * sms, sms);
+  return cudaSuccess;
+}
+
 // The f32 body's: warp tiles of 16 query rows, F_WARPS a block.
 template <int HD>
 cudaError_t plan_f32(int device, int b, int h, int s, int* out) {
@@ -963,12 +1386,13 @@ cudaError_t plan_f32(int device, int b, int h, int s, int* out) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v: (b, h, s, hd) views with unit
-// stride along hd (17 <= hd <= 256, on the body of `body_hd(hd)`) and the
-// given strides (elements) along b, h and s; o is (b, s, h, hd)
-// contiguous.  Returns cudaGetLastError() after the launch (0 on success),
-// or cudaErrorInvalidValue for a head_dim outside 17 .. 256 or a layout the
-// bf16 body's tensor maps refuse (nothing launched).  b * h == 0 or s == 0
-// launches nothing.
+// stride along hd (17 <= hd <= 256 on the body of `body_hd(hd)`, any hd
+// above on the sliced bodies) and the given strides (elements) along b, h
+// and s; o is (b, s, h, hd) contiguous.  Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for a head_dim below
+// 17, a layout the bf16 bodies' tensor maps refuse, or a grid of 2^31
+// blocks along x (nothing launched).  b * h == 0 or s == 0 launches
+// nothing.
 extern "C" int attention_launch(int device, const void* q, const void* k, const void* v,
                                 void* o, int b, int h, int s, int hd, long long q_b,
                                 long long q_h, long long q_s, long long k_b, long long k_h,
@@ -987,6 +1411,13 @@ extern "C" int attention_launch(int device, const void* q, const void* k, const 
                      : launch_tf32x3<HD>(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale,  \
                                          st));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hd > MAX_UNSLICED_HD) {
+    if ((long long)b * h * slices_of(hd) >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 1
+                     ? launch_sliced_wgmma(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale, st)
+                     : launch_sliced_tf32x3(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale,
+                                            st));
+  }
   switch (body_hd(hd)) {
     CASE(32) CASE(64) CASE(80) CASE(128) CASE(256)
     default: return (int)cudaErrorInvalidValue;
@@ -1009,6 +1440,7 @@ extern "C" int attention_plan(int device, int b, int h, int s, int hd, int dtype
     return (int)(dtype == 1 ? plan_bf16<HD>(device, b, h, s, out)                             \
                             : plan_f32<HD>(device, b, h, s, out));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (hd > MAX_UNSLICED_HD) return (int)plan_sliced(device, b, h, s, hd, dtype, out);
   switch (body_hd(hd)) {
     CASE(32) CASE(64) CASE(80) CASE(128) CASE(256)
     default: return (int)cudaErrorInvalidValue;

@@ -18,8 +18,8 @@
 // CUDA-core tiling at D = 8.  A narrow D outside that set runs zero-padded
 // to the next of them (`kernel_width`).
 //
-// The wide regime, every D from 65 to 8,192 (the stretch model's D = 768,
-// M = 3072; ViT-H's D = 1,280, M = 5,120), as the TPU kernel takes any D,
+// The wide regime, every D above 64 (the stretch model's D = 768, M =
+// 3072; ViT-H's D = 1,280, M = 5,120), as the TPU kernel takes any D,
 // with the model axis: the bodies in `mlp_wide.cuh`, shared with K1b and
 // K1c, whose note says what bounds them and how they are laid out: two GEMM
 // phases with h through an L2-resident scratch, in bf16 on `wgmma`
@@ -67,7 +67,7 @@ extern "C" int fused_mlp_narrow_f32_shape(int device, int d, int splits, int* ou
   return (int)narrow_f32::describe(device, d, splits, out);
 }
 
-// The bf16 wide regime (64 < d <= 8,192, d a multiple of 8), with the model
+// The bf16 wide regime (d > 64, a multiple of 8), with the model
 // axis (`mlp_wide.cuh`): x (P, n, d), w1 (P, m, d), b1 (P, m), w2 (P, d,
 // ld_w2) with ld_w2 m, or m rounded up to 8 for a zero-padded copy (TMA needs
 // 16-byte row strides), b2 (P, d), h (P, n, ld_h) the scratch for gelu(fc1)
@@ -83,20 +83,21 @@ extern "C" int fused_mlp_wide_launch(int device, const void* x, const void* w1, 
                                      const int* active_p, int models, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 8)) return (int)cudaErrorInvalidValue;
+  if (!wide::wide_shape_ok(n, d, m, ld_w2, ld_h, models, 8)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_bf16<0>(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, out, n, d, m, active,
                                 active_p, models, static_cast<cudaStream_t>(stream));
 }
 
-// The f32 wide regime (64 < d <= 8,192, d a multiple of 4), with the model
+// The f32 wide regime (d > 64, a multiple of 4), with the model
 // axis: the operands of `fused_mlp_wide_launch` with ld_w2 and ld_h
 // multiples of 4, and part, the scratch of the split phases' partial sums
-// (max(splits1 * ld_h, splits2 * d) * P * n floats; unused, and may be null,
-// when both are 1).  fc1 + GELU into h on blocks1 blocks in splits1 K
-// splits, then fc2 + b2 on blocks2 blocks in splits2 K splits
-// (`fused_mlp.wide_f32_plan` lays both out); a split phase is a second
-// launch that sums its splits in order.  Returns cudaGetLastError() after
+// (max(min(splits1, 8) * ld_h, min(splits2, 8) * d) * P * n floats, the
+// ones of a phase that splits; may be null when neither does).  fc1 + GELU
+// into h on blocks1 blocks in splits1 K splits, then fc2 + b2 on blocks2
+// blocks in splits2 K splits (`fused_mlp.wide_f32_plan` lays both out); a
+// split phase runs in waves of at most 8 splits, each a launch and a
+// second launch that adds its splits, in order, into the running sum.  Returns cudaGetLastError() after
 // the launches, or cudaErrorInvalidValue for a shape, layout or plan it does
 // not take (nothing launched).  n == 0 launches nothing.
 extern "C" int fused_mlp_wide_f32_launch(int device, const void* x, const void* w1,
@@ -107,7 +108,7 @@ extern "C" int fused_mlp_wide_f32_launch(int device, const void* x, const void* 
                                          int blocks1, int splits2, int blocks2, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 4)) return (int)cudaErrorInvalidValue;
+  if (!wide::wide_shape_ok(n, d, m, ld_w2, ld_h, models, 4)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_f32(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, part, out, n, d, m,
                             active, active_p, models, splits1, blocks1, splits2, blocks2, 0,

@@ -46,7 +46,7 @@
 // of 64 columns keep every buffer small, and the hand-over unit and the
 // summation chunk are separate, so the sums keep the TPU kernel's order.
 //
-// The wide regime, every D from 65 to 8,192, with the model axis: K1's
+// The wide regime, every D above 64, with the model axis: K1's
 // wide bodies (`mlp_wide.cuh`, whose note says what bounds them and how they
 // are laid out), fc1 + GELU into an L2-resident scratch and fc2 from it,
 // with fc2 summed over the 512-column chunks in f32 in chunk order: in bf16
@@ -689,7 +689,7 @@ extern "C" int mlp_chunked_f32_launch(int device, const float* x, const float* w
   return (int)cudaErrorInvalidValue;
 }
 
-// K1b's wide regime in bf16 (64 < d <= 8,192, d a multiple of 8), with the
+// K1b's wide regime in bf16 (d > 64, a multiple of 8), with the
 // model axis: the operands of `fused_mlp_wide_launch` (`fused_mlp.cu`).  Two
 // launches: fc1 + GELU into h, then fc2 + b2 summed over the chunks.  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for a shape
@@ -700,14 +700,14 @@ extern "C" int mlp_chunked_wide_launch(int device, const void* x, const void* w1
                                        const int* active_p, int models, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 8)) return (int)cudaErrorInvalidValue;
+  if (!wide::wide_shape_ok(n, d, m, ld_w2, ld_h, models, 8)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_bf16<wide::CHUNK_STEPS>(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, out,
                                                 n, d, m, active, active_p, models,
                                                 static_cast<cudaStream_t>(stream));
 }
 
-// K1b's wide regime in f32 (64 < d <= 8,192, d a multiple of 4), with the
+// K1b's wide regime in f32 (d > 64, a multiple of 4), with the
 // model axis: the arguments of `fused_mlp_wide_f32_launch`, on
 // `fused_mlp.wide_f32_plan(..., chunked=True)`: splits2 must be fc2's chunks,
 // ceil(m / 512).  Returns as that entry does.
@@ -719,7 +719,7 @@ extern "C" int mlp_chunked_wide_f32_launch(int device, const void* x, const void
                                            int blocks1, int splits2, int blocks2, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 4)) return (int)cudaErrorInvalidValue;
+  if (!wide::wide_shape_ok(n, d, m, ld_w2, ld_h, models, 4)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_f32(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, part, out, n, d, m,
                             active, active_p, models, splits1, blocks1, splits2, blocks2,

@@ -46,7 +46,7 @@
 // so the two agree to the bit.  It replaced a copy of K1's CUDA-core f32
 // tiling on this library's persistent grid.
 //
-// The wide regime, every D from 65 to 8,192, with the model axis
+// The wide regime, every D above 64, with the model axis
 // (`mlp_wide.cuh`, whose note says what bounds it): K1's two GEMM phases in
 // one persistent launch (`wide_queue_kernel` in bf16 on `wgmma`,
 // `wide_queue_tf32x3_kernel` in f32 in 3xTF32), the TPU kernel's pipeline
@@ -328,7 +328,7 @@ extern "C" int mlp_pipelined_shape(int device, int d, int dtype, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 
-// K1c's wide regime in bf16 (64 < d <= 8,192, d a multiple of 8), with the
+// K1c's wide regime in bf16 (d > 64, a multiple of 8), with the
 // model axis: the operands of `fused_mlp_wide_launch` (`fused_mlp.cu`), and
 // ready, models * ceil(n / 128) + 1 int32 counters, all 0 (one a (model, row
 // tile), then the tickets), with a lead of `lead` row-tile groups on `blocks`
@@ -344,7 +344,7 @@ extern "C" int mlp_pipelined_wide_launch(int device, const void* x, const void* 
                                          int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 8) || ready == nullptr)
+  if (!wide::wide_shape_ok(n, d, m, ld_w2, ld_h, models, 8) || ready == nullptr)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_queue_bf16(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, ready, out, n, d,
@@ -352,7 +352,7 @@ extern "C" int mlp_pipelined_wide_launch(int device, const void* x, const void* 
                                    static_cast<cudaStream_t>(stream));
 }
 
-// K1c's wide regime in f32 (64 < d <= 8,192, d a multiple of 4): the
+// K1c's wide regime in f32 (d > 64, a multiple of 4): the
 // arguments of `mlp_pipelined_wide_launch`, ld_w2 and ld_h multiples of 4.
 extern "C" int mlp_pipelined_wide_f32_launch(int device, const void* x, const void* w1,
                                              const void* b1, const void* w2, int ld_w2,
@@ -362,7 +362,7 @@ extern "C" int mlp_pipelined_wide_f32_launch(int device, const void* x, const vo
                                              int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide::wide_shape_ok(d, m, ld_w2, ld_h, models, 4) || ready == nullptr)
+  if (!wide::wide_shape_ok(n, d, m, ld_w2, ld_h, models, 4) || ready == nullptr)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return (int)wide::run_queue_f32(device, x, w1, b1, w2, ld_w2, b2, h, ld_h, ready, out, n, d,

@@ -1,6 +1,6 @@
 // The wide bodies of K1, K1b and K1c: out = gelu(x @ w1^T + b1)[:, :active]
-// @ w2[:, :active]^T + b2 at every hidden size D from 65 to 8,192, with the
-// model axis, in bf16 and f32.
+// @ w2[:, :active]^T + b2 at every hidden size D above 64, with the model
+// axis, in bf16 and f32.
 //
 // Replaces, at those widths, the TPU kernels `vit3d_ensemble_tpu/ops/
 // pallas_mlp.py:_mlp_kernel` (K1, `fused_mlp.cu`), `_chunked_mlp_kernel`
@@ -55,7 +55,12 @@
 //     accumulators start from 0 at every chunk and are added into an f32
 //     running sum in registers at its end (128-column tiles: 64 + 64
 //     registers).  f32: fc2's K splits are its chunks, each a split, so the
-//     split sum adds the chunks in order (`WIDE_F32_CHUNK_STAGES`).
+//     split sum adds the chunks in order (`WIDE_F32_CHUNK_STAGES`).  The
+//     splits run in waves of at most T_MAX_WAVE (`launch_tf32x3`): each
+//     wave's partial sums are added, in order, into a running sum kept in
+//     the output, so the scratch holds T_MAX_WAVE partials, not M / 512
+//     (19.4 GB at D 12,288, M 49,152, n 4,104), and the sum is the same
+//     left fold in chunk order.
 //   * K1c (`wide_queue_kernel`, `wide_queue_tf32x3_kernel`): one persistent
 //     launch, the TPU kernel's pipeline across row tiles.  Its unit queue
 //     (`Queue`) walks the (model, row tile) groups in order and puts the fc1
@@ -86,6 +91,14 @@
 //     schedule differs from K1: its tiles and K order are K1's where K1 does
 //     not split K, so there it gives K1's bits, alone or stacked.
 //
+// Sizes: no upper bound on D or M.  Every element offset into x, h, out
+// and the partial sums is taken in 64 bits (a model's n M passes 2^31 at D
+// 16,384; P n D of a stack passes it too); tile, unit, stage and ticket
+// counts stay 32-bit, and a launch whose units would not fit is refused
+// (`units_fit`): at most n M / 16,384 fc1 units a model, far below 2^31 for
+// any h the card holds.  Tensor-map coordinates are 32-bit per dimension
+// (a row or column, never a product).
+//
 // TMA needs 16-byte rows: D is a multiple of 8 (bf16) or 4 (f32), and
 // ld_h, ld_w2 are M rounded up to 8 or 4 (the wrapper, `ops/fused_mlp.py`,
 // hands any other D over zero-padded, and w2 as a zero-padded copy where M is
@@ -113,25 +126,29 @@ using bf16 = __nv_bfloat16;
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The wide regime's hidden sizes: above 64 and at most 8,192, rows of a
-// multiple of 16 bytes (`align` elements).
-inline bool is_wide(int d, int align) { return d > 64 && d <= 8192 && d % align == 0; }
+// The wide regime's hidden sizes: above 64, rows of a multiple of 16 bytes
+// (`align` elements).
+inline bool is_wide(int d, int align) { return d > 64 && d % align == 0; }
 
 // One GEMM phase over `models` stacked weight sets: per model, row_tiles x
 // col_tiles output tiles of bm x bn, K in k_steps stages of bk, in `splits`
 // K splits (split s takes stages [s K / S, (s + 1) K / S), or with
-// split_steps > 0 [s split_steps, (s + 1) split_steps)).  fc1: a model's
-// width bounds its output columns; fc2: its K.  Widths: widths[p] on the
-// device, or `width` for every model when widths is null; clamped to [0, m].
+// split_steps > 0 [s split_steps, (s + 1) split_steps)), of which a launch
+// runs `wave` from `split0` on (all of them, but in K1b's f32 fc2).  fc1: a
+// model's width bounds its output columns; fc2: its K.  Widths: widths[p]
+// on the device, or `width` for every model when widths is null; clamped to
+// [0, m].
 struct Phase {
   int n, models, row_tiles, col_tiles, k_steps, splits, split_steps, fc1, m, width;
   const int* widths;
   int bm, bn, bk;
+  int split0, wave;
 };
 
-// A unit of a phase: its model, first row and column, stages [k0, k1), K
-// split, the model's width, and whether it computes anything (an fc1 tile
-// at or past the width does not).
+// A unit of a phase: its model, first row and column, stages [k0, k1), its
+// K split's place in the launch's wave (its partial sums' slot), the
+// model's width, and whether it computes anything (an fc1 tile at or past
+// the width does not).
 struct Work {
   int p, row0, col0, k0, k1, split, width;
   bool live;
@@ -144,12 +161,13 @@ __device__ __forceinline__ Work work_at(const Phase& ph, int p, int row_tile, in
   w.split = s;
   w.row0 = row_tile * ph.bm;
   w.col0 = col_tile * ph.bn;
+  const int ks = ph.split0 + s;  // the K split
   if (ph.split_steps > 0) {
-    w.k0 = s * ph.split_steps;
+    w.k0 = ks * ph.split_steps;
     w.k1 = min(w.k0 + ph.split_steps, ph.k_steps);
   } else {
-    w.k0 = (int)((long long)s * ph.k_steps / ph.splits);
-    w.k1 = (int)((long long)(s + 1) * ph.k_steps / ph.splits);
+    w.k0 = (int)((long long)ks * ph.k_steps / ph.splits);
+    w.k1 = (int)((long long)(ks + 1) * ph.k_steps / ph.splits);
   }
   w.width = min(max(ph.widths != nullptr ? ph.widths[p] : ph.width, 0), ph.m);
   w.live = !ph.fc1 || w.col0 < w.width;
@@ -157,15 +175,24 @@ __device__ __forceinline__ Work work_at(const Phase& ph, int p, int row_tile, in
   return w;
 }
 
-// Unit u of a phase (`fused_mlp.wide_f32_unit`): u = (s * P + p) * tiles + t,
-// tile t at row tile t / col_tiles and column tile t % col_tiles.
+// Unit u of a phase's launch (`fused_mlp.wide_f32_unit` at split0 0): u =
+// (s * P + p) * tiles + t, s the split's place in the wave, tile t at row
+// tile t / col_tiles and column tile t % col_tiles.
 __device__ __forceinline__ Work work_of(const Phase& ph, int u) {
   const int tiles = ph.row_tiles * ph.col_tiles;
   const int t = u % tiles, ps = u / tiles;
   return work_at(ph, ps % ph.models, t / ph.col_tiles, t % ph.col_tiles, ps / ph.models);
 }
 
-__host__ __device__ __forceinline__ int units_of(const Phase& ph) { return ph.models * ph.row_tiles * ph.col_tiles * ph.splits; }
+__host__ __device__ __forceinline__ int units_of(const Phase& ph) { return ph.models * ph.row_tiles * ph.col_tiles * ph.wave; }
+
+// Whether a launch over x (models, n, d) and h (models, n, m) numbers its
+// units, tiles and tickets in 32 bits: both phases' units at the most K
+// splits a wave (fc2's tiles on the narrowest, 64-column, tiles).
+inline bool units_fit(int n, int d, int m, int models) {
+  const long long tiles = (long long)models * cdiv(n, 64) * (cdiv(m, 64) + cdiv(d, 64));
+  return tiles * 8 < (1ll << 31);
+}
 
 // K1c's unit queue (`fused_mlp.k1c_wide_unit`) over `groups` (model, row
 // tile) groups g = p * row_tiles + r, each with `a` fc1 units (column tiles of
@@ -750,15 +777,15 @@ cudaError_t launch_gemm(int device, const CUtensorMap& map_a, const CUtensorMap&
 inline Phase bf16_phase(int n, int models, int col_tiles, int k_steps, bool fc1, int m,
                         int width, const int* widths, int bn) {
   return {n, models, cdiv(n, G_BM), col_tiles, k_steps, 1, 0, fc1 ? 1 : 0, m, width, widths,
-          G_BM, bn, G_BK};
+          G_BM, bn, G_BK, 0, 1};
 }
 
 // The arguments of a wide launch's operands, checked: x (P, n, d), w1 (P,
 // m, d), b1 (P, m), w2 (P, d, ld_w2), b2 (P, d), h (P, n, ld_h), out (P, n, d),
 // every base 16-byte aligned; `align` elements a 16-byte row.
-inline bool wide_shape_ok(int d, int m, int ld_w2, int ld_h, int models, int align) {
+inline bool wide_shape_ok(int n, int d, int m, int ld_w2, int ld_h, int models, int align) {
   return is_wide(d, align) && m >= 1 && ld_w2 >= m && ld_w2 % align == 0 && ld_h >= m &&
-         ld_h % align == 0 && models >= 1;
+         ld_h % align == 0 && models >= 1 && n >= 0 && units_fit(n, d, m, models);
 }
 
 // K1's (CHUNK 0) or K1b's (CHUNK_STEPS) bf16 form: fc1 + GELU into h, then
@@ -1074,16 +1101,18 @@ wide_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// A split phase's result: out[p, r, col] = epilogue(part[0, p] + part[1, p]
-// + ... + part[splits - 1, p]) for rows r < n and columns col < width (a
-// multiple of 4), summed in that order, then + bias[col] (zero at and past
-// the bound: with GELU model p's width, else `cols`), and with GELU the
-// exact-erf GELU, columns at or past the width written as 0.  part is
-// (splits, P, n, ld) f32, out (P, n, ld).
+// A wave of a split phase: out[p, r, col] = part[0, p] + part[1, p] + ... +
+// part[wave - 1, p] for rows r < n and columns col < width (a multiple of
+// 4), summed in that order after out's running sum where `accumulate`
+// (the earlier waves' splits), then, where `finish` (the last wave), +
+// bias[col] (zero at and past the bound: with GELU model p's width, else
+// `cols`), and with GELU the exact-erf GELU, columns at or past the width
+// written as 0.  Over the waves the splits are one left fold in split
+// order.  part is (wave, P, n, ld) f32, out (P, n, ld).
 template <bool GELU>
 __global__ void split_sum_kernel(const float* __restrict__ part, const float* __restrict__ bias,
                                  int bias_ld, float* __restrict__ out, int n, int ld, int width,
-                                 int cols, const Phase ph) {
+                                 int cols, const Phase ph, int accumulate, int finish) {
   const long long per_model = (long long)n * (width / 4);
   const long long quads = per_model * ph.models;
   const long long split_stride = (long long)ph.models * n * ld;
@@ -1096,10 +1125,14 @@ __global__ void split_sum_kernel(const float* __restrict__ part, const float* __
     const long long at = ((long long)p * n + r) * ld + col;
     const int bound =
         GELU ? min(max(ph.widths != nullptr ? ph.widths[p] : ph.width, 0), ph.m) : cols;
-    float4 v = *reinterpret_cast<const float4*>(part + at);
-    for (int s = 1; s < ph.splits; ++s) {
+    float4 v = *reinterpret_cast<const float4*>((accumulate ? out : part) + at);
+    for (int s = accumulate ? 0 : 1; s < ph.wave; ++s) {
       const float4 pv = *reinterpret_cast<const float4*>(part + s * split_stride + at);
       v.x += pv.x, v.y += pv.y, v.z += pv.z, v.w += pv.w;
+    }
+    if (!finish) {
+      *reinterpret_cast<float4*>(out + at) = v;
+      continue;
     }
     const float* b = bias + (size_t)p * bias_ld;
     float e[4] = {v.x, v.y, v.z, v.w};
@@ -1114,10 +1147,13 @@ __global__ void split_sum_kernel(const float* __restrict__ part, const float* __
 }
 
 constexpr int SUM_THREADS = 256;
+// K splits a wave of a split phase: the partial sums the scratch holds
+// (`fused_mlp.WIDE_F32_MAX_SPLITS`, the most splits of K1's phases).
+constexpr int T_MAX_WAVE = 8;
 
 // One f32 phase on `blocks` persistent blocks into out (P, n, ld_out); with
-// splits > 1, partial sums into part (splits, P, n, ld_out) and their sum
-// into out.
+// splits > 1, in waves of at most T_MAX_WAVE splits: partial sums into part
+// (T_MAX_WAVE, P, n, ld_out), each wave's added into out in split order.
 template <bool GELU>
 cudaError_t launch_tf32x3(int device, const CUtensorMap& map_a, const CUtensorMap& map_b,
                           const float* bias, int bias_ld, int bias_cols, float* part,
@@ -1134,15 +1170,28 @@ cudaError_t launch_tf32x3(int device, const CUtensorMap& map_a, const CUtensorMa
   cudaError_t err =
       raise_smem_limit_once((const void*)kernel, (int)T_SMEM, device, smem_set[ph.splits > 1]);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, G_THREADS, T_SMEM, stream>>>(map_a, map_b, bias, bias_ld, bias_cols,
-                                                ph.splits == 1 ? out : part, ld_out, width, ph);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || ph.splits == 1) return err;
+  if (ph.splits == 1) {
+    kernel<<<blocks, G_THREADS, T_SMEM, stream>>>(map_a, map_b, bias, bias_ld, bias_cols, out,
+                                                  ld_out, width, ph);
+    return cudaGetLastError();
+  }
   const long long quads = (long long)ph.models * ph.n * (width / 4);
   const int grid = (int)std::min<long long>((quads + SUM_THREADS - 1) / SUM_THREADS, 8LL * sms);
-  split_sum_kernel<GELU><<<grid, SUM_THREADS, 0, stream>>>(part, bias, bias_ld, out, ph.n, ld_out,
-                                                           width, bias_cols, ph);
-  return cudaGetLastError();
+  for (int first = 0; first < ph.splits; first += T_MAX_WAVE) {
+    Phase wave = ph;
+    wave.split0 = first;
+    wave.wave = std::min(T_MAX_WAVE, ph.splits - first);
+    kernel<<<std::min(blocks, units_of(wave)), G_THREADS, T_SMEM, stream>>>(
+        map_a, map_b, bias, bias_ld, bias_cols, part, ld_out, width, wave);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    split_sum_kernel<GELU><<<grid, SUM_THREADS, 0, stream>>>(
+        part, bias, bias_ld, out, ph.n, ld_out, width, bias_cols, wave, first > 0,
+        first + wave.wave == ph.splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 inline bool f32_map(CUtensorMap* map, const void* base, int models, int rows, int cols, int ld,
@@ -1153,15 +1202,17 @@ inline bool f32_map(CUtensorMap* map, const void* base, int models, int rows, in
 inline Phase f32_phase(int n, int models, int col_tiles, int k_steps, int splits,
                        int split_steps, bool fc1, int m, int width, const int* widths) {
   return {n, models, cdiv(n, T_BM), col_tiles, k_steps, splits, split_steps, fc1 ? 1 : 0, m,
-          width, widths, T_BM, T_BN, T_BK};
+          width, widths, T_BM, T_BN, T_BK, 0, splits};
 }
 
 // K1's (chunk_stages 0) or K1b's (T_CHUNK_STAGES: fc2's splits are its
 // chunks) f32 form on the plan's grids (`fused_mlp.wide_f32_plan`): fc1 +
 // GELU into h on blocks1 blocks in splits1 K splits, then fc2 + b2 from it
-// on blocks2 blocks in splits2; part holds a split phase's partials
-// (max(splits1 * ld_h, splits2 * d) * P * n floats; may be null when both are
-// 1).  A plan the kernels do not take returns cudaErrorInvalidValue.
+// on blocks2 blocks in splits2, each in waves of at most T_MAX_WAVE splits;
+// part holds a wave's partials (max(min(splits1, T_MAX_WAVE) * ld_h,
+// min(splits2, T_MAX_WAVE) * d) * P * n floats, the ones of a phase that
+// splits; may be null when neither does).  A plan the kernels do not take
+// returns cudaErrorInvalidValue.
 inline cudaError_t run_f32(int device, const void* x, const void* w1, const void* b1,
                            const void* w2, int ld_w2, const void* b2, void* h, int ld_h,
                            void* part, void* out, int n, int d, int m, int width,

@@ -13,15 +13,16 @@ serves its head_dim (`ops/fused_attention.py`), so no copy surrounds it:
     hd 9-16 the tensor cores, streamed at T <= 80, since the views of the
     QKV buffer start and step by multiples of 16 bytes; else the CUDA
     cores), counted in `launches_k2`;
-  * hd from 17 to 256 (`HEAD_DIMS_K4`; the stretch model's 64, ViT-H's 80),
-    as JAX's `_attn_core_kernel` takes any head_dim: K4's tensor-core body,
-    `csrc/attention.cu`, through `fused_attention.k4_into`, counted in
-    `launches_k4`.  In bf16 the body loads by TMA, which needs 16-byte
-    aligned views and strides: a head's view into the (B, T, 3D) buffer
-    starts at h * hd * 2 bytes, so where 8 does not divide hd the wrapper
-    copies the views into buffers whose rows are padded to a multiple of 8
-    (`fused_attention._k4_views`), a copy of the input and never a fall to
-    the plain version; in f32 the body reads the views as they are.
+  * every hd above 16 (the stretch model's 64, ViT-H's 80), as JAX's
+    `_attn_core_kernel` takes any head_dim: K4's tensor-core bodies,
+    `csrc/attention.cu` (above 256 their sliced forms), through
+    `fused_attention.k4_into`, counted in `launches_k4`.  In bf16 the
+    body loads by TMA, which needs 16-byte aligned views and strides: a
+    head's view into the (B, T, 3D) buffer starts at h * hd * 2 bytes, so
+    where 8 does not divide hd the wrapper copies the views into buffers
+    whose rows are padded to a multiple of 8 (`fused_attention._k4_views`),
+    a copy of the input and never a fall to the plain version; in f32 the
+    body reads the views as they are.
 
 Both write (B, T, H, hd), which is the (B, T, D) context.  The plain
 version of the core is that body's own (`fused_attention._plain`), which
@@ -50,15 +51,17 @@ from vit3d_ensemble_tpu_torch.ops import fused_attention
 launches = 0
 #: Those of them that took K2's body (head_dim in HEAD_DIMS).
 launches_k2 = 0
-#: Those of them that took K4's body (head_dim in HEAD_DIMS_K4).
+#: Those of them that took K4's body (head_dim above HEAD_DIMS[-1]).
 launches_k4 = 0
 
 #: head dims served by K2's body: every head_dim up to 16, as JAX's
-#: `_attn_core_kernel` takes any.
+#: `_attn_core_kernel` takes any; every one above takes K4's (`on_k4`).
 HEAD_DIMS = tuple(range(1, fused_attention.TINY_HD + 1))
-#: head dims served by K4's tensor-core body: every one from 17 to 256.
-HEAD_DIMS_K4 = tuple(range(fused_attention.TINY_HD + 1,
-                           fused_attention.MAX_HD_K4 + 1))
+
+
+def on_k4(hd: int) -> bool:
+    """Whether the core at head_dim `hd` runs on K4's body (else K2's)."""
+    return hd > fused_attention.TINY_HD
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -117,16 +120,11 @@ def _check(q, k, v, n_heads) -> None:
         raise ValueError(f"attention_layer: {n_heads} heads do not divide "
                          f"hidden size {D}")
     hd = D // n_heads
-    if hd > HEAD_DIMS_K4[-1]:
-        raise ValueError(
-            f"attention_layer: head_dim {hd} is above {HEAD_DIMS_K4[-1]}, the "
-            "most K4's body takes (" + fused_attention.LEFT_TO_PORT.format(
-                fused_attention.WIDEST) + ")")
     if q.stride(2) != 1:
         raise ValueError("attention_layer: q, k, v need unit column stride")
     if B >= 2 ** 31 or T >= 2 ** 31:
         raise ValueError("attention_layer: more than 2**31 - 1 volumes or tokens")
-    if hd in HEAD_DIMS_K4:
+    if on_k4(hd):
         # K4's own checks on the per-head views: at most MAX_TOKENS_K4 tokens
         fused_attention._check(*(_heads(t, n_heads) for t in (q, k, v)))
 
@@ -142,7 +140,7 @@ def _launch(q, k, v, n_heads):
     out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
     if B * T == 0:              # nothing to compute, nothing launched
         return out
-    if hd in HEAD_DIMS_K4:
+    if on_k4(hd):
         views = fused_attention._k4_views(*(_heads(t, n_heads)
                                             for t in (q, k, v)))
         fused_attention.k4_into(*views, out.view(B, T, n_heads, hd))

@@ -15,13 +15,17 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     head_dim: a view without it is copied first) and writes the context
     (B, S, H, hd), as K4 does.  K3's core at head_dim <= 16 runs on this
     body too, on the views of its (B, T, 3D) QKV buffer (`k2_into`).
-  * K4 (`csrc/attention.cu`), every head_dim from 17 to 256, as the JAX
-    kernel takes any above 16 (the stretch model's 64 and ViT-H's 80 at 513
-    tokens): the keys are walked in chunks with an online softmax, so no
-    S x S tile is stored.  Its bodies are built for the head dims
-    `K4_BODY_HDS`; a head_dim runs on the first at or above it, its columns
+  * K4 (`csrc/attention.cu`), every head_dim above 16, as the JAX kernel
+    takes any (the stretch model's 64 and ViT-H's 80 at 513 tokens): the
+    keys are walked in chunks with an online softmax, so no S x S tile is
+    stored.  Its bodies are built for the head dims `K4_BODY_HDS`; a
+    head_dim up to the last runs on the first at or above it, its columns
     past hd zero in shared memory and the scale 1 / sqrt(hd) of the true hd
-    (`k4_body_hd`).  In bf16 (every head_dim) a block takes one
+    (`k4_body_hd`).  Above the last, the sliced forms of both bodies: a
+    block computes `K4_SLICE` columns of the context, each of the (volume,
+    head)'s ceil(hd / K4_SLICE) slices computing the same scores over hd's
+    64-column boxes (staged with q's boxes, no q tile held whole) and its
+    own columns of p v.  In bf16 (every head_dim) a block takes one
     (volume, head) and 128 query rows: a producer warp loads q and a ring of
     (k, v) chunks of 64 keys by TMA, and two consumer warpgroups of 64 rows
     run both products on `wgmma` (the probabilities stay in registers,
@@ -63,7 +67,6 @@ import math
 import torch
 
 from vit3d_ensemble_tpu_torch.ops import _build
-from vit3d_ensemble_tpu_torch.ops.fused_mlp import LEFT_TO_PORT, WIDEST
 
 #: K2 launches in this process; the wrapper adds one per kernel launch.
 launches = 0
@@ -74,10 +77,11 @@ launches_k4 = 0
 TINY_HD = 16
 #: head_dim above which K2's bf16 body runs on the tensor cores.
 TC_HD = 8
-#: head dims K4's bodies are built for (`csrc/attention.cu`, `K4_HDS`); K4
-#: takes every head_dim from TINY_HD + 1 to the last.
+#: head dims K4's unsliced bodies are built for (`csrc/attention.cu`,
+#: `K4_HDS`); K4 takes every head_dim above TINY_HD, those above the last on
+#: the sliced bodies, whose blocks compute K4_SLICE context columns each.
 K4_BODY_HDS = (32, 64, 80, 128, 256)
-MAX_HD_K4 = K4_BODY_HDS[-1]
+K4_SLICE = 256
 #: most tokens K4 takes: the grid's second axis holds 65,535 row blocks, of
 #: 64 query rows in f32 (4 warps of 16) and 128 in bf16.
 MAX_TOKENS_K4 = 65535 * 64
@@ -125,8 +129,18 @@ def _plain(q, k, v):
 
 
 def k4_body_hd(hd: int) -> int:
-    """The head_dim of the K4 body that runs head_dim `hd` (17 to 256)."""
+    """The head_dim K4's body computes at head_dim `hd` (above 16), its
+    columns past hd zero: the first of K4_BODY_HDS at or above hd, and
+    above the last, hd rounded up to the sliced bodies' 64-column boxes."""
+    if hd > K4_BODY_HDS[-1]:
+        return -(-hd // 64) * 64
     return next(b for b in K4_BODY_HDS if hd <= b)
+
+
+def k4_slices(hd: int) -> int:
+    """Blocks of K4 a (volume, head) and row block: 1 on the unsliced
+    bodies, ceil(hd / K4_SLICE) on the sliced ones."""
+    return 1 if hd <= K4_BODY_HDS[-1] else -(-hd // K4_SLICE)
 
 
 def _check(q, k, v) -> None:
@@ -134,10 +148,6 @@ def _check(q, k, v) -> None:
     if q.dim() < 2:
         raise ValueError(f"fused_attention: q has shape {tuple(q.shape)}")
     hd = q.shape[-1]
-    if hd > MAX_HD_K4:
-        raise ValueError(
-            f"fused_attention: head_dim {hd} is above {MAX_HD_K4}, the most "
-            f"K4 takes ({LEFT_TO_PORT.format(WIDEST)})")
     if q.dtype not in _DTYPES:
         raise TypeError(f"fused_attention: dtype {q.dtype} is not float32 "
                         "or bfloat16")
@@ -296,8 +306,9 @@ def k4_into(q, k, v, out) -> None:
     `launches_k4`, and K3's wrapper, whose head dims above 16 take this
     body)."""
     B, H, S, hd = q.shape
-    if B * H >= 2 ** 31:
-        raise ValueError("fused_attention: more than 2**31 - 1 batch-heads")
+    if B * H * k4_slices(hd) >= 2 ** 31:
+        raise ValueError("fused_attention: more than 2**31 - 1 batch-heads "
+                         "(times the slices of a head)")
     fn = _build.entry("attention",
                       [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_longlong] * 9
@@ -311,8 +322,10 @@ def k4_into(q, k, v, out) -> None:
 
 #: the bodies of `csrc/attention.cu`, by the code its dispatch reports: bf16
 #: on `wgmma`, f32 in 3xTF32 with 16-byte copies, and with 4-byte copies
-#: (a view whose base or strides are not multiples of 16 bytes)
-K4_BODIES = ("bf16_wgmma", "f32_tf32x3", "f32_tf32x3_4byte")
+#: (a view whose base or strides are not multiples of 16 bytes); then the
+#: same three in their sliced forms (head_dim above K4_BODY_HDS[-1])
+K4_BODIES = ("bf16_wgmma", "f32_tf32x3", "f32_tf32x3_4byte",
+             "bf16_sliced_wgmma", "f32_sliced_tf32x3", "f32_sliced_tf32x3_4byte")
 
 
 def k4_body_launched() -> str:
@@ -366,7 +379,7 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v):
     """softmax(q k^T / sqrt(hd)) v; q, k, v: (..., H, S, hd), hd <= 16 (K2)
-    or 17 to 256 (K4)."""
+    or above (K4)."""
     if q.device.type == "cpu":
         return _plain(q, k, v)
     return _FusedAttention.apply(q, k, v)

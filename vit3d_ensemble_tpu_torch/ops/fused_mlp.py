@@ -24,9 +24,9 @@ bounds it on the H100 and how it is laid out:
 
 `_MLP_VARIANT`, a module constant as in the JAX package, says which one
 `fused_mlp` launches; it is read at each call.  All three take every hidden
-size from 1 to 8,192 and the model axis.
+size from 1 up and the model axis.
 
-Hidden sizes: K1, K1b and K1c take every D from 1 to 8,192 (`MAX_WIDTH`),
+Hidden sizes: K1, K1b and K1c take every D from 1 up (`supported_width`),
 as the JAX kernels take any D.  The narrow bodies are built for D in
 `WIDTHS` (8, 16, 32, 64, every registry config's); a narrow D between them
 runs zero-padded to the next (`kernel_width`), not on the wide bodies: the
@@ -51,7 +51,7 @@ The GELU follows the JAX kernels' rule (`pallas_mlp.py:179`): exact erf
 in f32, and in bf16 their clamped odd polynomial (`poly_gelu`, at most
 5.73e-4 from exact GELU), in the kernels and in the plain versions alike.
 
-The wide calls (D from 65 to 8,192) of all three run on two GEMM phases on
+The wide calls (D above 64) of all three run on two GEMM phases on
 `wgmma` fed by TMA, h through an L2-resident scratch, in f32 with both
 products in 3xTF32 on the tensor cores (`wide_f32_plan` lays out K1's and
 K1b's f32 grids, `k1c_wide_plan` K1c's queue); a model's tiles and K order
@@ -111,16 +111,10 @@ _KERNELS = {"seq": ("fused_mlp", "launches"),
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: hidden sizes the narrow bodies are built for (every D of the 22 registry
-#: configs); a narrow D between them runs on the next, zero-padded.
+#: configs); a narrow D between them runs on the next, zero-padded, and
+#: every D above the last on K1's wide bodies (the stretch model's D = 768,
+#: ViT-H's 1,280).
 WIDTHS = (8, 16, 32, 64)
-#: the most hidden size K1 takes; above WIDTHS[-1], K1's wide bodies (the
-#: stretch model's D = 768, ViT-H's 1,280).
-MAX_WIDTH = 8192
-#: The regimes the JAX kernels take and the port refuses, by their titles in
-#: ROADMAP.md (queue 2, "What is left to port"); K3's and K4's refusals
-#: quote them from here too.
-LEFT_TO_PORT = "ROADMAP queue 2, 'What is left to port': {}"
-WIDEST = "head_dim above 256 and hidden size above 8,192"
 #: K1's bodies, as `k1_body_launched` names them; the first two run in
 #: K1c's library (`launches_on_k1c`), the others in K1's (`launches_own`).
 K1_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma",
@@ -145,7 +139,9 @@ NARROW_F32_MIN_SPLIT_CHUNKS = 2
 K1C_NARROW_F32_TILES = 2
 #: K1's wide f32 body (`wide_tf32x3_kernel`): (rows, columns) of an output
 #: tile, k of a pipeline stage, k between the promotions of its 3xTF32
-#: accumulators into an f32 sum, and the most K splits of a phase.
+#: accumulators into an f32 sum, and the most K splits of K1's phases, also
+#: the most of a wave of K1b's fc2 splits (the partial sums its scratch
+#: holds).
 WIDE_F32_TILE = (128, 64)
 WIDE_F32_STAGE_K = 32
 WIDE_F32_PROMOTE_K = 128
@@ -178,8 +174,9 @@ _BF16_GELU_COEFS = (
 
 
 def supported_width(D: int) -> bool:
-    """Whether the kernels (K1, K1b and K1c alike) take hidden size D."""
-    return 1 <= D <= MAX_WIDTH
+    """Whether the kernels (K1, K1b and K1c alike) take hidden size D:
+    every D from 1 up."""
+    return D >= 1
 
 
 def kernel_width(D: int, dtype) -> int:
@@ -299,9 +296,8 @@ def _check(x, w1, b1, w2, b2) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_mlp: dtype {x.dtype} is not float32 or bfloat16")
     if not supported_width(D):
-        raise ValueError(
-            f"fused_mlp: hidden size {D} is outside 1 to {MAX_WIDTH}, "
-            f"what K1, K1b and K1c take ({LEFT_TO_PORT.format(WIDEST)})")
+        raise ValueError(f"fused_mlp: hidden size {D}; K1, K1b and K1c take "
+                         "every hidden size from 1 up")
     if lead and (x.dim() < 2 or x.shape[0] != lead[0]):
         raise ValueError(f"fused_mlp: x has shape {tuple(x.shape)}, expected "
                          f"({lead[0]}, ..., {D}) for {lead[0]} models")
@@ -350,7 +346,8 @@ def _wide_f32_phase(rows: int, col_tiles: int, k_stages: int, models: int,
     return {"fc1": fc1, "M": M, "models": models, "tiles": tiles,
             "col_tiles": col_tiles, "k_stages": k_stages, "splits": splits,
             "split_stages": chunk_stages, "units": units, "blocks": blocks,
-            "waves": units / sms}
+            "waves": units / sms,
+            "split_wave": min(splits, WIDE_F32_MAX_SPLITS) if splits > 1 else 0}
 
 
 def wide_f32_plan(n: int, D: int, M: int, sms: int, models: int = 1,
@@ -366,10 +363,14 @@ def wide_f32_plan(n: int, D: int, M: int, sms: int, models: int = 1,
     (`wide_f32_unit`), at most `WIDE_F32_MAX_SPLITS` and never below
     `WIDE_F32_PROMOTE_K` of K each, whose partial sums a second launch adds
     in split order; K1b's fc2 splits its K into its 512-column chunks
-    (`WIDE_F32_CHUNK_STAGES`), so the chunks are summed in order.  The
-    splits depend on (n, D, M) alone, not on the models or their widths, so
-    a model gives the same bits alone and stacked: a model's width stops
-    its fc1 column tiles and its fc2 K stages (`wide_f32_unit`)."""
+    (`WIDE_F32_CHUNK_STAGES`), so the chunks are summed in order.  A phase
+    runs its splits in waves of `split_wave` (at most
+    `WIDE_F32_MAX_SPLITS`), each wave's partial sums added into a running
+    sum in the output, so its scratch holds one wave (`wide_f32_scratch`)
+    and the sum is one left fold in split order.  The splits depend on (n,
+    D, M) alone, not on the models or their widths, so a model gives the
+    same bits alone and stacked: a model's width stops its fc1 column tiles
+    and its fc2 K stages (`wide_f32_unit`)."""
     bm, bn = WIDE_F32_TILE
     rows = -(-n // bm)
     fc1 = _wide_f32_phase(rows, -(-M // bn), -(-D // WIDE_F32_STAGE_K), models,
@@ -378,6 +379,17 @@ def wide_f32_plan(n: int, D: int, M: int, sms: int, models: int = 1,
                           sms, False, M, WIDE_F32_CHUNK_STAGES if chunked else 0)
     return {"n": n, "D": D, "M": M, "models": models, "sms": sms,
             "row_tiles": rows, "fc1": fc1, "fc2": fc2}
+
+
+def wide_f32_scratch(plan: dict, ld: int) -> int:
+    """The f32 values of the wide f32 body's partial-sum scratch at
+    `wide_f32_plan`'s plan, h's rows `ld` apart: one wave of the split
+    phase's partial sums, fc1's (P, n, ld) or fc2's (P, n, D) each, the
+    larger where both split; 0 where neither does.  fc2's is at most
+    WIDE_F32_MAX_SPLITS P n D; fc1 splits only where its tiles fill fewer
+    than half the SMs."""
+    rows = plan["models"] * plan["n"]
+    return max(plan["fc1"]["split_wave"] * ld, plan["fc2"]["split_wave"] * plan["D"]) * rows
 
 
 def wide_f32_unit(phase: dict, u: int, active=None):
@@ -481,8 +493,9 @@ def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
                  models: int, variant: str, stream) -> int:
     """The variant's wide body (`csrc/mlp_wide.cuh`, through its library's
     `*_wide_launch` or `*_wide_f32_launch`): h through a (models, n, M')
-    scratch, M' = M rounded up to rows of 16 bytes; K1's and K1b's f32 split
-    phases' partial sums through a second scratch (`wide_f32_plan`); K1c's
+    scratch, M' = M rounded up to rows of 16 bytes; a wave of K1's and K1b's
+    f32 split phases' partial sums through a second scratch
+    (`wide_f32_scratch`); K1c's
     ready counters, one a (model, row tile), and its ticket counter after
     them, all from 0.  Returns the entry point's CUDA error code."""
     D, M = x.shape[-1], w1.shape[-2]
@@ -513,11 +526,10 @@ def _launch_wide(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
         return fn(*operands, out.data_ptr(), *shape, stream)
     plan = wide_f32_plan(n, D, M, sms, models, chunked=variant == "chunked")
     fc1, fc2 = plan["fc1"], plan["fc2"]
-    # the split phases' partial sums, one phase after the other in one scratch
-    width = max(fc1["splits"] * ld if fc1["splits"] > 1 else 0,
-                fc2["splits"] * D if fc2["splits"] > 1 else 0)
-    part = (torch.empty(models * n * width, dtype=x.dtype, device=x.device)
-            if width else None)
+    # a wave of a split phase's partial sums, one phase after the other in
+    # one scratch
+    size = wide_f32_scratch(plan, ld)
+    part = torch.empty(size, dtype=x.dtype, device=x.device) if size else None
     fn = _build.entry(library, _WIDE_F32_ARGTYPES, f"{library}_wide_f32_launch")
     return fn(*operands, None if part is None else part.data_ptr(), out.data_ptr(),
               *shape, fc1["splits"], fc1["blocks"], fc2["splits"], fc2["blocks"],
