@@ -12,7 +12,10 @@ read just after:
     of conf 9 and of the {5,9,11} stacking ensemble (K1, K2; K2 reads q, k,
     v in place from the QKV product and writes the context for the head
     merge, so the pass holds no copies around it; K1's bf16 calls run on
-    K1c's `wgmma` pipeline: counters `K1_on_K1c` and `K1_own`);
+    K1c's `wgmma` pipeline: counters `K1_on_K1c` and `K1_own`); and conf
+    22 (D 8, 257 tokens) in bf16 at B=8 and B=512 (phase `conf22`: K1 on
+    the pipeline's D = 8 instance, the hidden columns split across a
+    cluster where the row tiles are few);
   * training, in f32: `train_baseline` on conf 9 at full width and depth
     under the attention impls `auto` (K2, K1 in evaluation) and `layer`
     (K3), and `train_ensemble` on {5,9,11} under `layer`; with dropout off,
@@ -205,9 +208,9 @@ STRETCH_ITERS = 20
 #: Each kernel's launch counter: the wrapper module and the attribute that
 #: its wrapper adds one to per launch.
 KERNELS = {"K1": (fused_mlp, "launches"),
-           # K1's launches in K1c's library (bf16: the `wgmma` pipeline at D
-           # 16-64, the CUDA cores at D = 8) and in its own (f32 at D <= 64,
-           # the wide bodies)
+           # K1's launches in K1c's library (bf16: the `wgmma` pipeline, its
+           # D = 8 instance at D <= 8) and in its own (f32 at D <= 64, the
+           # wide bodies)
            "K1_on_K1c": (fused_mlp, "launches_on_k1c"),
            "K1_own": (fused_mlp, "launches_own"),
            "K2": (fused_attention, "launches"),
@@ -579,6 +582,12 @@ def phase_build() -> None:
     narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
     wide = {name: wide_sass(name) for name in MLP_LIBRARIES}
     pipelines = {name: pipeline_sass(name, kernel) for name, kernel in PIPELINE_KERNELS.items()}
+    pipelines_d8 = {name: pipeline_sass(name, kernel)
+                    for name, kernel in PIPELINE_D8_KERNELS.items()}
+    d8_notes = {name: ptxas_notes(logs[name], kernel)
+                for name, kernel in PIPELINE_D8_KERNELS.items()}
+    device = torch.device("cuda", torch.cuda.current_device())
+    d8_clusters = {name: fused_mlp.k1_d8_clusters(device, name) for name in PIPELINE_D8_KERNELS}
     k1b_ptxas = ptxas_summary(logs["mlp_chunked"])
     attention_ptxas = ptxas_summary(logs["attention"])
     mlp_ptxas = ptxas_summary(logs["fused_mlp"])
@@ -600,7 +609,9 @@ def phase_build() -> None:
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "narrow_f32_sass_hgmma_tf32": narrow_tf32,
           "wide_sass_hgmma": wide,
-          "pipeline_sass": pipelines,
+          "pipeline_sass": pipelines, "pipeline_d8_sass": pipelines_d8,
+          "pipeline_d8_ptxas_notes": d8_notes, "k1_d8_clusters": d8_clusters,
+          "k1_d8_plan": [k1_d8_plan(n, v) for v in VARIANT_KERNELS for n in D8_ROWS],
           "k1c_wide_plan": [k1c_wide_plan(*case) for case in K1C_WIDE_PLAN_CASES],
           "k1_narrow_f32_plan": [narrow_plan(*case) for case in K1_NARROW_F32_PLAN_CASES],
           "k1_f32_plan": [k1_f32_plan(*case) for case in K1_F32_PLAN_CASES],
@@ -656,6 +667,16 @@ def phase_build() -> None:
         check(not any(PIPELINE_KERNELS[name] in e
                       for e in ptxas_summary(logs[name])["spilling_entries"]),
               f"the wgmma pipeline spills in {name}")
+    # its D = 8 instance: wgmmas fed by TMA, no spill, no wgmma serialised
+    for name, counts in pipelines_d8.items():
+        check(len(counts) == 1 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                       for c in counts.values()),
+              f"the wgmma pipeline's D = 8 HGMMA / UTMALDG in {name}: {counts}")
+        check(not any(PIPELINE_D8_KERNELS[name] in e
+                      for e in ptxas_summary(logs[name])["spilling_entries"]),
+              f"the wgmma pipeline's D = 8 instance spills in {name}")
+        check(d8_notes[name]["C7515"] == d8_notes[name]["C7518"] == 0,
+              f"ptxas serialised the D = 8 instance's wgmmas in {name}: {d8_notes[name]}")
     for form, g in gelu.items():
         check(g["fp32"] > 0 and g["launch_error"] == 0
               and g["max_abs_err_vs_plain"] <= GELU_PROBE_ATOL,
@@ -695,9 +716,20 @@ def k1c_plan(dtype, D: int, n: int, models: int) -> dict:
 #: The libraries of K1, K1b and K1c, each of which includes the wide bodies.
 MLP_LIBRARIES = ("fused_mlp", "mlp_chunked", "mlp_pipelined")
 #: The bf16 wgmma pipeline's kernel (`csrc/mlp_pipeline.cuh`) in K1b's
-#: library (fc2 summed chunk by chunk) and in K1c's.
+#: library (fc2 summed chunk by chunk) and in K1c's, at D 16-64, and its D =
+#: 8 instance (the hidden columns split across a cluster).
 PIPELINE_KERNELS = {"mlp_chunked": "chunked_wgmma_kernel",
                     "mlp_pipelined": "pipelined_wgmma_kernel"}
+PIPELINE_D8_KERNELS = {"mlp_chunked": "chunked_wgmma_d8_kernel",
+                       "mlp_pipelined": "pipelined_wgmma_d8_kernel"}
+
+
+def ptxas_notes(log: str, kernel: str) -> dict:
+    """ptxas's wgmma notes (C7515, C7517, C7518) on the entries whose
+    mangled names hold `kernel`."""
+    notes = [line for line in log.splitlines() if kernel in line and "(C75" in line]
+    return {code: sum(f"({code})" in line for line in notes)
+            for code in ("C7515", "C7517", "C7518")}
 
 
 def pipeline_sass(name: str, kernel: str) -> dict:
@@ -1827,9 +1859,10 @@ def phase_main_path(gen) -> dict:
 
 
 # Kernel names -> the layers of PERF.md's breakdown, first match wins.
-# `pipelined_wgmma_kernel` is K1's bf16 body at D 16-64 and K1c's, and
-# `narrow_tf32x3_kernel` their f32 body: every path but the `variants`
-# phase's K1c turns launches them as K1, so they are K1's group.
+# `pipelined_wgmma_kernel` is K1's bf16 body at D 16-64 and K1c's
+# (`pipelined_wgmma_d8_kernel` at D <= 8), and `narrow_tf32x3_kernel` their
+# f32 body: every path but the `variants` phase's K1c turns launches them as
+# K1, so they are K1's group.
 KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1", "wide_tf32x3"),
                  # K1c's wide queue; K1b's wide calls run K1's wide kernels
                  # (`wide_gemm`, `wide_tf32x3`, `split_sum`: group K1)
@@ -1837,7 +1870,10 @@ KERNEL_GROUPS = (("K1", "fused_mlp"), ("K1", "wide_gemm"), ("K1", "wide_tf32x3")
                  # K1's narrow f32 body, K1c's f32 route too
                  ("K1", "narrow_tf32x3"),
                  ("K1", "split_sum"), ("K1b", "chunked_"),
-                 ("K1", "pipelined_wgmma"), ("K1c", "pipelined_core"),
+                 ("K1", "pipelined_wgmma"),
+                 # an older checkout's bf16 D = 8 body, as `chip_turns.py`
+                 # times it (its K1b body is "chunked_core")
+                 ("K1", "pipelined_core"),
                  # every kernel of `attention.cu` (its bf16 and f32 bodies,
                  # and an older checkout's, as `chip_turns.py` times them)
                  ("K2", "tiny_attention"), ("K4", "attention_"),
@@ -3455,19 +3491,118 @@ def phase_mlp_variants(gen) -> dict:
     return out
 
 
-# The bf16 bodies at D <= 8 (K1's and K1c's CUDA-core tiling in
-# `mlp_pipelined.cu`, K1b's in `mlp_chunked.cu`) at conf 20's FFN (D 8,
-# mlp_dim 2,204, 257 tokens, `configs.py`) at B = 8 and B = 512.
+# The bf16 bodies at D <= 8 (the D = 8 instance of the wgmma pipeline,
+# `csrc/mlp_pipeline.cuh`: K1's and K1c's in `mlp_pipelined.cu`, K1b's in
+# `mlp_chunked.cu`) at conf 20's and 22's FFN (D 8, mlp_dim 2,204, 257
+# tokens, `configs.py`) at B = 8 and B = 512.
 D8_ROWS = (8 * 257, 512 * 257)
+D8_M = 2204
+
+
+def k1_d8_plan(n: int, variant: str) -> dict:
+    """`fused_mlp.k1_d8_plan` of one model's call of the variant at D 8 on
+    this card (K1b's: `chunked`), less its splits' hidden columns."""
+    library = "mlp_chunked" if variant == "chunked" else "mlp_pipelined"
+    device = torch.device("cuda", torch.cuda.current_device())
+    plan = fused_mlp.k1_d8_plan(n, D8_M, 1, fused_mlp.k1_d8_clusters(device, library),
+                                variant == "chunked")
+    return {k: v for k, v in plan.items() if k != "bounds"}
 
 
 def phase_k1_d8(gen) -> dict:
-    """K1, K1b and K1c in bf16 at D 8 (their CUDA-core bodies) against
-    their plain versions at D8_ROWS, each with its device time, the bound
-    and the F.linear -> F.gelu -> F.linear chain's device time."""
-    return {variant: [k1_case(gen, torch.bfloat16, N, 8, 2204, 2204, "d8", variant,
-                              device=True) for N in D8_ROWS]
-            for variant in VARIANT_KERNELS}
+    """K1, K1b and K1c in bf16 at D 8 (the pipeline's D = 8 instance, the
+    hidden columns split across a cluster where the row tiles are few)
+    against their plain versions at D8_ROWS, each with its device time, the
+    bound, the F.linear -> F.gelu -> F.linear chain's device time and its
+    plan."""
+    out = {}
+    for variant in VARIANT_KERNELS:
+        out[variant] = []
+        for N in D8_ROWS:
+            case = k1_case(gen, torch.bfloat16, N, 8, D8_M, D8_M, "d8", variant, device=True)
+            case["plan"] = k1_d8_plan(N, variant)
+            emit({"phase": "k1_d8_plan", "variant": variant, "N": N, **case["plan"]})
+            out[variant].append(case)
+    return out
+
+
+# Conf 22 (`configs.py`: patch 8, 257 tokens, D 8 in eight heads of 1,
+# mlp_dim 2,204, 6 layers) served in bf16 under `auto` on seeded weights:
+# its FFN on the bf16 D = 8 body, its attention on K2 at head_dim 1.
+CONF22 = 22
+CONF22_BATCHES = ((8, 20), (512, 5))   # (B, passes a timed run)
+
+
+def phase_conf22(gen) -> dict:
+    """Conf 22's model in bf16 under `auto` at B = 8 and 512: passes timed
+    by the host clock (REPEATS runs; ms a batch), launches of the first run
+    exact (K1 and K2 once a layer, K1 on K1c's library), the body K1 took,
+    tokens against the plain modules within TOKENS_BF16_ATOL, then one
+    traced pass: device busy ms, by group, K1's share and the idle share."""
+    cfg = ViTConfig.from_conf(CONF22)
+    model = (VisionTransformer3D(cfg, zero_head=False, vis=False,
+                                 generator=torch.Generator().manual_seed(CONF22))
+             .to(torch.bfloat16).eval())
+    L = cfg.num_layers
+    result = {}
+    with torch.no_grad():
+        emb = model.transformer.embeddings
+        emb.position_embeddings.normal_(0.0, 0.02, generator=gen)
+        emb.cls_token.normal_(0.0, 0.02, generator=gen)
+        for batch, iters in CONF22_BATCHES:
+            x = torch.randn(batch, 128, 128, 5, 1, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+
+            def passes() -> float:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    model(x)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            model(x)                        # warm-up
+            reset_launches()
+            seconds = passes()
+            counts = launches()
+            body = fused_mlp.k1_body_launched()
+            repeats = [seconds] + [passes() for _ in range(REPEATS - 1)]
+            out = model(x)
+            busy, groups, kernels, by_group = device_time(lambda: model(x))
+            set_impls("plain")
+            try:
+                ref = model(x)
+            finally:
+                set_impls("auto")
+            want = counts_of(K2=L * iters, **k1_split(L * iters, torch.bfloat16, cfg.hidden_size))
+            wall = statistics.median(repeats) / iters * 1e3
+            diff = (out.tokens.float() - ref.tokens.float()).abs()
+            shape_ok = (tuple(out.tokens.shape) == (batch, cfg.seq_len, cfg.hidden_size)
+                        and tuple(out.logits.shape) == (batch, cfg.num_classes))
+            finite = bool(torch.isfinite(out.tokens).all() and torch.isfinite(out.logits).all())
+            err = float(diff.max())
+            ok = (shape_ok and finite and err <= TOKENS_BF16_ATOL and counts == want
+                  and body == fused_mlp.K1_BODIES[1] and busy > 0)
+            res = {"phase": "conf22", "card": card, "conf": CONF22, "dtype": "bfloat16",
+                   "B": batch, "tokens": cfg.seq_len, "D": cfg.hidden_size,
+                   "mlp_dim": cfg.mlp_dim, "layers": L, "iters": iters,
+                   "ms_per_batch": wall, "ms_per_batch_repeats": [r / iters * 1e3 for r in repeats],
+                   "volumes_per_s": batch / wall * 1e3,
+                   "launches": counts, "expected_launches": want,
+                   "k1_launches_a_pass": counts["K1"] / iters, "k1_body": body,
+                   "k1_plan": k1_d8_plan(batch * cfg.seq_len, "seq"),
+                   "tokens_max_abs_err": err, "tokens_mean_abs_err": float(diff.mean()),
+                   "atol": TOKENS_BF16_ATOL, "shape_ok": shape_ok, "finite": finite,
+                   "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+                   "k1_device_ms": groups.get("K1", 0.0),
+                   "k1_share_of_busy": groups.get("K1", 0.0) / busy if busy else None,
+                   "kernels": kernels, "by_group_ms": groups, "kernels_by_group": by_group,
+                   "ok": ok}
+            emit(res)
+            check(ok, f"conf22 B={batch}: err {err}, shape {shape_ok}, finite {finite}, "
+                      f"launched {counts} of {want}, body {body}, busy {busy}")
+            result[batch] = res
+    return result
 
 
 # The 18-model pass timed under each variant in turns, as
@@ -5081,6 +5216,7 @@ def main() -> int:
     k1_models, k1_wide_axis = phase_model_axis(own)
     k1_variants = phase_mlp_variants(own)
     k1_d8 = phase_k1_d8(torch.Generator(device="cuda").manual_seed(SEED + 14))
+    conf22 = phase_conf22(torch.Generator(device="cuda").manual_seed(SEED + 15))
     k1b_scaled = phase_f32_scaled("chunked", MODEL_AXIS_ROWS, 64, SEED + 4)
     k2 = phase_k2(gen)
     k3, k3_stretch, k3_serve = phase_k3(gen)
@@ -5146,6 +5282,8 @@ def main() -> int:
                          for model, res in (("stretch", stretch), ("vit_h", vit_h),
                                             ("widest", widest))
                          for v in ("chunked", "pipelined2")},
+                      # conf 22's bf16 pass (D 8) at B = 8 and 512
+                      **{f"conf22_b{b}": conf22[b]["launches"][name] for b in conf22},
                       "sweep": sweep["launches"][name],
                       "remat": remat["launches"][name],
                       "cli": cli["launches"][name],
@@ -5258,8 +5396,14 @@ def main() -> int:
             # its wide bodies at the widest gate model's D 12,288, M 49,152,
             # 513 tokens: bf16 at B=2, f32 at B=1
             widest_cases=[vit_b16_case(c, "widest") for c in widest["cases"]["K1"]],
-            # bf16 at D 8 (K1c's CUDA-core tiling) at conf 20's FFN
-            d8_cases=[{**case_of(c), "body": c["body"]} for c in k1_d8["seq"]],
+            # bf16 at D 8 (the pipeline's D = 8 instance, the hidden columns
+            # split across a cluster) at conf 22's FFN, and conf 22's pass
+            d8_cases=[{**case_of(c), "body": c["body"], "plan": c["plan"]}
+                      for c in k1_d8["seq"]],
+            conf22={b: {k: r[k] for k in (
+                "k1_launches_a_pass", "k1_body", "ms_per_batch", "device_busy_ms",
+                "k1_device_ms", "k1_share_of_busy", "device_idle_share",
+                "tokens_max_abs_err")} for b, r in conf22.items()},
             # its wide bodies with the model axis: the cases of
             # `wide_cases`, and the five stacked stretch members' pass
             model_axis_wide_cases=k1_wide_axis, wide_axis=wide_axis_of("seq")),
@@ -5286,7 +5430,8 @@ def main() -> int:
             wide_axis=wide_axis_of("chunked"),
             # the widest gate model's pass under K1b (D 12,288)
             widest_launches=by_path["K1b"]["widest_chunked"],
-            d8_cases=[{**case_of(c), "body": c["body"]} for c in k1_d8["chunked"]]),
+            d8_cases=[{**case_of(c), "body": c["body"], "plan": c["plan"]}
+                      for c in k1_d8["chunked"]]),
         row("K1c", "vit3d_ensemble_tpu_torch/csrc/mlp_pipelined.cu",
             "vit3d_ensemble_tpu/ops/pallas_mlp.py:142", k1_variants["pipelined2"],
             "variants_pipelined2",
@@ -5303,7 +5448,8 @@ def main() -> int:
             wide_plan=k1c_wide_plan(*K1C_WIDE_PLAN_CASES[0]),
             wide_axis=wide_axis_of("pipelined2"),
             widest_launches=by_path["K1c"]["widest_pipelined2"],
-            d8_cases=[{**case_of(c), "body": c["body"]} for c in k1_d8["pipelined2"]],
+            d8_cases=[{**case_of(c), "body": c["body"], "plan": c["plan"]}
+                      for c in k1_d8["pipelined2"]],
             widest_plan=k1c_wide_plan(WIDEST_B * WIDEST_TOKENS, WIDEST_WIDTHS["hidden_size"],
                                       WIDEST_WIDTHS["mlp_dim"], 1, torch.bfloat16)),
         row("K2", "vit3d_ensemble_tpu_torch/csrc/tiny_attention.cu",

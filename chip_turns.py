@@ -72,6 +72,26 @@ timed alike:
     of `chip_smoke.phase_wide_axis` under K1b, bf16 and f32, each as the
     SHA-256 of its bytes: two checkouts that print the same digests gave
     the same bits;
+  * the bf16 D <= 8 bodies (phase `d8`): K1, K1b and K1c at conf 22's FFN
+    (D 8, M 2,204) at 2,056 and 131,584 rows (B = 8 and 512 volumes of
+    257 tokens), and beside them K1 in bf16 at (33,280, 64, 3,072),
+    (4,160, 64, 3,072) and (520, 16, 2,048) (the D 16-64 pipeline): device
+    ms under the profiler (10 calls), ms by CUDA events, the body each
+    took, the largest error over the bf16 gate against ROOT's plain
+    version and the SHA-256 of each output (the inputs are drawn from a
+    generator of the phase's own, so two checkouts that print the same
+    digest gave the same bits), with the chain's device ms at D 8;
+  * the bf16 D = 8 body at several splits (phase `d8_splits`; ROOT's
+    entries must take a split count, as this checkout's do): K1c's and
+    K1b's entries at conf 22's FFN at 257 to 16,448 rows (3 to 129 row
+    tiles), each at 1-8 and 16 splits (one cluster a row tile; one split on
+    `k1c_plan`'s grid), by CUDA events over 100 launches, three rounds in
+    turns, beside the clusters of each size the card holds at once
+    (`k1_d8_clusters`) and the split count `k1_d8_plan` takes;
+  * the wgmma pipeline's D 16-64 instantiations in ROOT's K1c and K1b
+    libraries (phase `pipeline_sass`): each one's SASS lines, and the
+    SHA-256 of its SASS with addresses and mangled names taken out, so two
+    checkouts that print the same digest compiled the same code;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
@@ -141,12 +161,16 @@ K1C_WIDE_CASES = tuple((dtype, N, D, M, widths) for dtype in ("bfloat16", "float
                            (4104, 768, 3072, [3072, 3072, 2072, 2072, 0]),
                            (513, 768, 3072, [3072, 3072, 2072, 2072, 0]),
                            (4104, 1280, 5120, [5120, 4120])))
+# Phase `d8`: (variant, N, D, M) at D 8 (conf 22's FFN), then K1 at D 16-64
+D8_CASES = tuple((v, N, 8, 2204) for v in ("seq", "chunked", "pipelined2")
+                 for N in (2056, 131584))
+D16_64_CASES = (("seq", 33280, 64, 3072), ("seq", 4160, 64, 3072), ("seq", 520, 16, 2048))
 K1C_LEAD_CASES = K1C_WIDE_CASES + (("bfloat16", 4104, 768, 3072, [3072]),
                                     ("bfloat16", 4104, 1280, 5120, [5120]),
                                     ("float32", 4104, 768, 3072, [3072]))
 PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
-          "k1b_bf16", "k1c_wide", "k1c_wide_leads", "k1b_wide_bits", "pass",
-          "latency", "stretch_f32")
+          "k1b_bf16", "k1c_wide", "k1c_wide_leads", "k1b_wide_bits", "d8", "d8_splits",
+          "pipeline_sass", "pass", "latency", "stretch_f32")
 # The narrow f32 body with one part taken out: (name, text of the header ->
 # text of the copy)
 NARROW_PARTS = (
@@ -287,6 +311,76 @@ def k1c_leads(cs, emit, fused_mlp, gen, reps: int = 20) -> None:
             torch.cuda.synchronize()
             line[f"lead_{lead}"] = {"ms": start.elapsed_time(end) / reps, "k1_bits": k1_bits}
         emit(line)
+
+
+# Phase `d8_splits`: token rows (3 to 129 row tiles of 128) and split counts
+D8_SPLIT_ROWS = (257, 1028, 2056, 4112, 8224, 16448)
+D8_SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
+
+
+def d8_splits(cs, emit, fused_mlp, gen, rounds: int = 3, reps: int = 100) -> None:
+    """Phase `d8_splits`: the bf16 D = 8 entries of K1c and K1b at conf 22's
+    FFN (M 2,204, w2 and b1 padded to 2,208 as the wrapper pads them) at
+    D8_SPLIT_ROWS and D8_SPLITS, by CUDA events over `reps` launches, the
+    cases in turns `rounds` times; with each one's largest error over the
+    bf16 gate against ROOT's plain version."""
+    import torch
+    import torch.nn.functional as F
+    M, D = 2204, 8
+    w1, b1, w2, b2 = cs.mlp_weights(gen, torch.bfloat16, D, M)
+    w2p, b1p = F.pad(w2, (0, 4)), F.pad(b1, (0, 4))
+    stream = torch.cuda.current_stream().cuda_stream
+    device = torch.device("cuda", 0)
+    for library in ("mlp_pipelined", "mlp_chunked"):
+        fn = fused_mlp._build.entry(library, fused_mlp._K1C_ARGTYPES)
+        held = fused_mlp.k1_d8_clusters(device, library)
+        plain = (fused_mlp._plain_mlp_chunked if library == "mlp_chunked"
+                 else fused_mlp._plain_mlp)
+        for N in D8_SPLIT_ROWS:
+            x = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
+            out = torch.empty_like(x)
+            tiles = -(-N // 128)
+            ref = plain(x, w1, b1, w2, b2, M)
+            ms, over = {s: [] for s in D8_SPLITS}, {}
+            for _ in range(rounds):
+                for s in D8_SPLITS:
+                    groups = tiles if s > 1 else min(tiles, held[0])
+
+                    def call(s=s, groups=groups):
+                        return fn(0, x.data_ptr(), w1.data_ptr(), b1p.data_ptr(),
+                                  w2p.data_ptr(), M + 4, b2.data_ptr(), out.data_ptr(), N, D,
+                                  M, M, None, 1, groups, s, 1, stream)
+
+                    fused_mlp._build.check(library, call())
+                    torch.cuda.synchronize()
+                    over[s] = cs.over_gate(out, ref, cs.TOL[torch.bfloat16])[1]
+                    ms[s].append(cs.time_ms(call, reps))
+            emit({"phase": "d8_splits", "library": library, "N": N, "tiles": tiles,
+                  "clusters": held, "plan_splits": fused_mlp.k1_d8_plan(
+                      N, M, 1, held, library == "mlp_chunked")["splits"],
+                  "ms": {s: v for s, v in ms.items()},
+                  "median_ms": {s: statistics.median(v) for s, v in ms.items()},
+                  "max_err_over_gate": max(over.values())})
+
+
+def pipeline_sass(cs, emit, _build) -> None:
+    """Phase `pipeline_sass`: each D 16-64 instantiation of the wgmma
+    pipeline in ROOT's K1c and K1b libraries, its SASS lines and the SHA-256
+    of its SASS with the addresses and mangled names taken out."""
+    import re
+    _build.build(["mlp_pipelined", "mlp_chunked"])
+    for library in ("mlp_pipelined", "mlp_chunked"):
+        for fn in cs.sass_of(_build.library_path(library)).split("Function : ")[1:]:
+            found = re.search(r"(pipelined|chunked)_wgmma_kernelILi(\d+)E", fn.split()[0])
+            if not found:
+                continue
+            body = [re.sub(r"_ZN\w+", "SYM", re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)).strip()
+                    for line in fn.splitlines()[1:]]
+            body = [line for line in body if line and not line.startswith(".")]
+            emit({"phase": "pipeline_sass", "library": library,
+                  "kernel": f"{found.group(1)}_wgmma_kernel<{found.group(2)}>",
+                  "lines": len(body),
+                  "sha256": hashlib.sha256("\n".join(body).encode()).hexdigest()})
 
 
 def digest(t) -> str:
@@ -542,6 +636,40 @@ def main() -> int:
 
         if "k1b_wide_bits" in phases:
             k1b_wide_bits(cs, emit, fused_mlp)
+
+        if "d8" in phases:
+            own = torch.Generator(device="cuda").manual_seed(cs.SEED + 26)
+            for variant, N, D, M in D8_CASES + D16_64_CASES:
+                x = torch.randn(N, D, generator=own, device="cuda").to(bf16)
+                weights = cs.mlp_weights(own, bf16, D, M)
+
+                def call():
+                    return fused_mlp.fused_mlp(x, *weights, M)
+
+                plain = (fused_mlp._plain_mlp_chunked if variant == "chunked"
+                         else fused_mlp._plain_mlp)
+                with cs.mlp_variant(variant):
+                    out = call()
+                    body = {"seq": fused_mlp.k1_body_launched,
+                            "chunked": fused_mlp.k1b_body_launched,
+                            "pipelined2": fused_mlp.k1c_body_launched}[variant]()
+                    line = {"phase": "d8", "variant": variant, "N": N, "D": D, "M": M,
+                            "body": body, "sha256": digest(out),
+                            "max_err_over_gate": cs.over_gate(
+                                out, plain(x, *weights, M), cs.TOL[bf16])[1],
+                            "ms": cs.time_ms(call, 20), "device_ms": cs.mlp_device_ms(call)}
+                if D == 8:
+                    w1, b1, w2, b2 = weights
+                    line["chain_device_ms"] = chain_device_ms(
+                        lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2))
+                emit(line)
+            del x, weights
+
+        if "d8_splits" in phases:
+            d8_splits(cs, emit, fused_mlp, torch.Generator(device="cuda").manual_seed(cs.SEED + 27))
+
+        if "pipeline_sass" in phases:
+            pipeline_sass(cs, emit, _build)
 
         if "pass" in phases:
             x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,

@@ -235,18 +235,19 @@ def test_k1b_bf16_emulation_with_three_models(monkeypatch):
 
 def test_k1b_routes_each_call_to_one_body():
     """K1b's body by type and hidden size: bf16 at D 9-64 (run at 16, 32 or
-    64) on the `wgmma` pipeline, at D <= 8 on CUDA cores, f32 at D <= 64 on
-    the 3xTF32 body, and the wide bodies above 64."""
+    64) on the `wgmma` pipeline, at D <= 8 on its D = 8 instance (the hidden
+    columns split across a cluster), f32 at D <= 64 on the 3xTF32 body, and
+    the wide bodies above 64."""
     for D in (9, 16, 24, 32, 48, 64):
         assert fused_mlp._variant_body("chunked", torch.bfloat16, D) == "chunked_wgmma"
     for D in (1, 8):
-        assert fused_mlp._variant_body("chunked", torch.bfloat16, D) == "cuda_cores"
+        assert fused_mlp._variant_body("chunked", torch.bfloat16, D) == "chunked_wgmma_d8"
     for D in (8, 64):
         assert fused_mlp._variant_body("chunked", torch.float32, D) == "tf32x3_mma_sync"
     assert fused_mlp._variant_body("chunked", torch.bfloat16, 768) == "wide_wgmma"
     assert fused_mlp._variant_body("chunked", torch.float32, 768) == "wide_tf32x3"
-    assert set(fused_mlp.K1B_BODIES) == {"chunked_wgmma", "cuda_cores", "tf32x3_mma_sync",
-                                         "wide_wgmma", "wide_tf32x3"}
+    assert set(fused_mlp.K1B_BODIES) == {"chunked_wgmma", "chunked_wgmma_d8",
+                                         "tf32x3_mma_sync", "wide_wgmma", "wide_tf32x3"}
 
 
 # (token rows a model, models): the serving shape, the sweep's evaluation
@@ -276,3 +277,133 @@ def test_k1c_plan_at_k1b_bf16_use_covers_every_row_tile_once(n, models):
     assert max(counts) - min(counts) <= 1
     assert (max(counts), min(counts)) == (plan["most_tiles_a_block"],
                                           plan["fewest_tiles_a_block"])
+
+
+# --- the bf16 body at D <= 8: the pipeline's D = 8 instance ---------------
+#
+# K1, K1b and K1c in bf16 at D <= 8 run one body (`csrc/mlp_pipeline.cuh`
+# at D = 8) with the hidden columns split across the blocks of a cluster,
+# on the grid `k1_d8_plan` lays out.  Its sums are emulated below in its
+# order and held, with the wrapper's plain versions, to JAX's three kernels
+# in interpret mode at conf 22's FFN.
+
+#: The clusters of s = 1 .. 16 blocks of the D = 8 body that an NVIDIA H100
+#: 80GB HBM3 holds at once (`fused_mlp.k1_d8_clusters` on the card, as
+#: `chip_smoke.py`'s build phase prints them): the plan's one-wave rule.
+H100_D8_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+CONF22_M = 2204                        # conf 22's mlp_dim (`configs.py`)
+D8_ROWS = (8 * 257, 512 * 257)         # conf 22 at B = 8 and 512
+
+
+def _d8_plan(n, M, chunked, models=1):
+    return fused_mlp.k1_d8_plan(n, M, models, H100_D8_CLUSTERS, chunked)
+
+
+# (token rows, K1b, splits): at M = 2,204 (35 stages, 5 summation chunks)
+# the most splits whose clusters, one a row tile, fit an H100 in one wave;
+# K1b at most its 5 chunks; one split from 129 row tiles up.
+@pytest.mark.parametrize("n,chunked,splits", [
+    (1, False, 16), (257, False, 16), (1028, False, 9), (D8_ROWS[0], False, 6),
+    (4112, False, 3), (8224, False, 2), (16448, False, 1), (D8_ROWS[1], False, 1),
+    (1, True, 5), (D8_ROWS[0], True, 5), (4112, True, 3), (8224, True, 2),
+    (D8_ROWS[1], True, 1)])
+def test_k1_d8_plan_splits_by_rows_and_width(n, chunked, splits):
+    """The splits depend on the rows and M alone: one and five stacked
+    models split alike; with more than one split each row tile is a
+    cluster's, the clusters fit the card at once and the blocks a model stay
+    within the SMs times the splits; with one split the grid is
+    `k1c_plan`'s."""
+    plan = _d8_plan(n, CONF22_M, chunked)
+    assert plan["splits"] == splits
+    stacked = _d8_plan(n, CONF22_M, chunked, models=5)
+    assert (stacked["splits"], stacked["bounds"]) == (plan["splits"], plan["bounds"])
+    assert stacked["blocks"] == 5 * stacked["blocks_a_model"]
+    tiles = -(-n // PIPELINE_TILE_ROWS)
+    assert plan["tiles"] == tiles
+    assert plan["blocks_a_model"] <= SMS * plan["splits"]
+    if splits > 1:
+        assert stacked["groups"] == plan["groups"] == tiles <= H100_D8_CLUSTERS[splits - 1]
+        if splits < len(H100_D8_CLUSTERS):
+            assert (tiles > H100_D8_CLUSTERS[splits] or splits == (5 if chunked else 16))
+    else:
+        for p in (plan, stacked):
+            assert p["groups"] == fused_mlp.k1c_plan(
+                n, p["models"], PIPELINE_TILE_ROWS, SMS)["blocks_a_model"]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("M", [2204, 2048, 3072, 1100, 512, 130, 64, 1])
+def test_k1_d8_plan_bounds_cover_the_hidden_columns(M, chunked):
+    """The splits' hidden columns run from 0 to M in order, none empty,
+    each at least `D8_MIN_SPLIT_STAGES` stages but the last (K1b: whole
+    512-column chunks, each starting on a chunk boundary), at every row
+    count from one tile to the card's one-split regime."""
+    for n in (1, 257, D8_ROWS[0], 4112, D8_ROWS[1]):
+        plan = _d8_plan(n, M, chunked)
+        bounds = plan["bounds"]
+        assert len(bounds) == plan["splits"] <= fused_mlp.D8_MAX_SPLITS
+        assert bounds[0][0] == 0 and bounds[-1][1] == M
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert all(c1 > c0 for c0, c1 in bounds)
+        for c0, c1 in bounds:
+            if chunked:
+                assert c0 % fused_mlp._CHUNK_M == 0
+            elif c1 < M:
+                assert c1 - c0 >= fused_mlp.D8_MIN_SPLIT_STAGES * STAGE
+
+
+def _d8_sums(x, w1, b1, w2, b2, active, chunked):
+    """The D = 8 body's sums (nn.Linear layout, bf16 tensors) in f32, in its
+    order: h as `_k1b_bf16` takes it; for each split of `k1_d8_plan` (an
+    H100's clusters), fc2 over the split's stages one after the other into
+    one accumulator (K1b: restarted at each 512-column chunk, the chunks
+    added into the split's running sum); the splits' partials added in rank
+    order from 0, + b2, rounded to bf16 once."""
+    plan = _d8_plan(x.shape[0], w1.shape[0], chunked)
+    xf, w1f, b1f, w2f, b2f = (t.float() for t in (x, w1, b1, w2, b2))
+    h = fused_mlp.poly_gelu(xf @ w1f.T + b1f)
+    h[:, active:] = 0
+    h = h.bfloat16().float()
+    total = torch.zeros(x.shape[0], w2.shape[0])
+    for c0, c1 in plan["bounds"]:
+        part = torch.zeros_like(total)
+        acc = torch.zeros_like(total)
+        for s in range(c0, c1, STAGE):
+            if chunked and s > c0 and s % fused_mlp._CHUNK_M == 0:
+                part, acc = part + acc, torch.zeros_like(total)
+            acc = acc + h[:, s:s + STAGE] @ w2f[:, s:s + STAGE].T
+        total = total + (part + acc)
+    return (total + b2f).bfloat16()
+
+
+def _jax_variant(monkeypatch, variant, active, arrays):
+    """JAX's kernel of `variant` ("seq", "chunked", "pipelined2") in
+    interpret mode on numpy arrays in its layout, as f32 numpy."""
+    monkeypatch.setattr(pallas_mlp, "_MLP_VARIANT", variant)
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(pallas_mlp.fused_mlp(
+            *(jnp.asarray(a) for a in arrays), active).astype(jnp.float32))
+
+
+# conf 22's FFN (D 8, M 2,204) and D 3, which the wrapper runs at 8
+# zero-padded; full width and a width that ends inside a stage; 65 rows (one
+# row tile, the plan's most splits).
+@pytest.mark.parametrize("active", [CONF22_M, 2000])
+@pytest.mark.parametrize("D", [8, 3])
+@pytest.mark.parametrize("variant", ["seq", "chunked", "pipelined2"])
+def test_d8_bf16_matches_jax_kernels(monkeypatch, variant, D, active):
+    """K1's, K1b's and K1c's bf16 function at D <= 8: the wrapper's plain
+    version on the CPU and the body's split sums emulated in its order, each
+    against JAX's kernel of the variant within the bf16 gate."""
+    N = 65
+    arrays, args = _bf16_inputs(23 + D, N, D, CONF22_M)
+    ref = _jax_variant(monkeypatch, variant, active, arrays)
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    with torch.no_grad():
+        plain = fused_mlp.fused_mlp(*args, active)
+    assert plain.dtype == torch.bfloat16 and plain.shape == (N, D)
+    np.testing.assert_allclose(plain.float().numpy(), ref, **BF16_TOL)
+    padded = fused_mlp.kernel_operands(*args)
+    assert padded[0].shape == (N, 8)
+    emulated = _d8_sums(*padded, active, variant == "chunked")[:, :D]
+    np.testing.assert_allclose(emulated.float().numpy(), ref, **BF16_TOL)

@@ -12,6 +12,9 @@ version accumulate in f32 and round at the same points.
 
 import ctypes
 import math
+import pathlib
+import re
+import subprocess
 
 import pytest
 import torch
@@ -1025,6 +1028,122 @@ def test_variants_raise_on_what_they_do_not_take(cuda, monkeypatch):
         fused_mlp.fused_mlp(torch.zeros(2, 65, 16, device="cuda"), w1, b1, w2, b2)
 
 
+# --- the bf16 body at D <= 8: the pipeline's D = 8 instance ---------------
+# K1, K1b and K1c in bf16 at D 1, 3 and 8 (1 and 3 zero-padded to 8) at conf
+# 22's mlp_dim of 2,204: one row, a row tile of 65, conf 22's 257 tokens,
+# and B = 8 and 512 volumes of them (2,056 rows: the plan's most splits
+# that fit the card in one wave; 131,584: one split on the persistent grid);
+# full width, a width that ends inside a stage, and 0.
+D8_M = 2204
+D8_BODIES = {"seq": "wgmma_pipeline_d8", "chunked": "chunked_wgmma_d8",
+             "pipelined2": "wgmma_pipeline_d8"}
+D8_KERNELS = {"mlp_pipelined": "pipelined_wgmma_d8_kernel",
+              "mlp_chunked": "chunked_wgmma_d8_kernel"}
+
+
+@pytest.mark.parametrize("active", [D8_M, 2000, 0])
+@pytest.mark.parametrize("N", [1, 65, 257, 2056, 131584])
+@pytest.mark.parametrize("D", [1, 3, 8])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_d8_bf16_matches_plain(cuda, monkeypatch, variant, D, N, active):
+    """One launch on the variant's counter and none on the others', the D =
+    8 body named, the plain version within the bf16 gate, and the same bits
+    from a second call."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    x = torch.randn(N, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    args = _mlp_weights(cuda, torch.bfloat16, D, D8_M)
+    counts = {c: getattr(fused_mlp, c) for c in VARIANTS.values()}
+    out = fused_mlp.fused_mlp(x, *args, active)
+    torch.cuda.synchronize()
+    for c, n in counts.items():
+        assert getattr(fused_mlp, c) == n + (c == VARIANTS[variant])
+    assert _body_of(variant) == D8_BODIES[variant]
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    _close(out, _plain_of(variant)(x, *args, active), torch.bfloat16)
+    assert torch.equal(fused_mlp.fused_mlp(x, *args, active), out)
+
+
+@pytest.mark.parametrize("N", [257, 2056])
+@pytest.mark.parametrize("D", [3, 8])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_d8_bf16_model_axis_stacked_is_alone(cuda, monkeypatch, variant, D, N):
+    """Three models in one launch with widths 2,204, 2,000 and 0 read on
+    the device: against the plain version, b2 alone where the width is 0,
+    and each model launched alone to the bit (the plan's splits depend on
+    the rows and M alone, so a model's sums do not depend on the others)."""
+    monkeypatch.setattr(fused_mlp, "_MLP_VARIANT", variant)
+    P = 3
+    x = torch.randn(P, N, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    w1, b1, w2, b2 = _mlp_weights(cuda, torch.bfloat16, D, D8_M, (P,))
+    widths = torch.tensor([D8_M, 2000, 0], dtype=torch.int32, device="cuda")
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, widths)
+    torch.cuda.synchronize()
+    assert _body_of(variant) == D8_BODIES[variant]
+    _close(out, _plain_of(variant)(x, w1, b1, w2, b2, widths), torch.bfloat16)
+    assert torch.equal(out[2], b2[2].expand(N, D))
+    for p in range(P):
+        alone = fused_mlp.fused_mlp(x[p], w1[p], b1[p], w2[p], b2[p], int(widths[p]))
+        assert torch.equal(out[p], alone)
+
+
+def test_d8_entries_refuse_a_plan_they_do_not_take(cuda):
+    """K1c's and K1b's bf16 entries at D = 8 refuse more than 16 splits, a
+    split grid with fewer groups than row tiles, more groups than row tiles,
+    and more than one split at D 16-64; each launches nothing, and the plan's
+    grid then runs."""
+    N, M = 2056, 2208          # M a multiple of 8: w2's rows as TMA reads them
+    stream = torch.cuda.current_stream().cuda_stream
+    for library in D8_KERNELS:
+        fn = fused_mlp._build.entry(library, fused_mlp._K1C_ARGTYPES)
+        for D, groups, splits in ((8, 17, 17), (8, 16, 2), (8, 18, 1), (16, 17, 2)):
+            x = torch.randn(N, D, generator=cuda, device="cuda").to(torch.bfloat16)
+            w1, b1, w2, b2 = _mlp_weights(cuda, torch.bfloat16, D, M)
+            out = torch.full_like(x, 7.0)
+            with pytest.raises(RuntimeError, match=f"{library} launch failed"):
+                fused_mlp._build.check(library, fn(
+                    0, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M,
+                    b2.data_ptr(), out.data_ptr(), N, D, M, M, None, 1, groups, splits, 1,
+                    stream))
+            torch.cuda.synchronize()
+            assert torch.all(out == 7.0)
+        fused_mlp._build.check(library, fn(
+            0, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M, b2.data_ptr(),
+            out.data_ptr(), N, 16, M, M, None, 1, 17, 1, 1, stream))
+        torch.cuda.synchronize()
+        plain = (fused_mlp._plain_mlp_chunked if library == "mlp_chunked"
+                 else fused_mlp._plain_mlp)
+        _close(out, plain(x, w1, b1, w2, b2, M), torch.bfloat16)
+
+
+def test_d8_instance_runs_on_wgmma(cuda):
+    """The D = 8 instance in K1c's and K1b's libraries: HGMMA and UTMALDG
+    instructions in its SASS, no spill, no wgmma that ptxas serialised
+    (C7515, or C7518 for a wait on a divergent path); the card holds its
+    clusters of every size up to 16, and the plan at conf 22's B = 8 fits
+    them in one wave."""
+    device = torch.device("cuda", 0)
+    for library, kernel in D8_KERNELS.items():
+        fused_mlp._build.load(library)
+        path = fused_mlp._build.library_path(library)
+        log = path.with_suffix(".log").read_text()
+        assert not any(kernel in line and ("(C7515)" in line or "(C7518)" in line)
+                       for line in log.splitlines())
+        spills = re.findall(r"Function properties for (\S+)\n\s+\d+ bytes stack "
+                            r"frame, (\d+) bytes spill stores", log)
+        assert [n for name, n in spills if kernel in name] == ["0"]
+        cuobjdump = pathlib.Path(fused_mlp._build._nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                              text=True, check=True).stdout
+        fns = [f for f in sass.split("Function : ")[1:] if kernel in f.split()[0]]
+        assert len(fns) == 1 and "HGMMA" in fns[0] and "UTMALDG" in fns[0]
+        held = fused_mlp.k1_d8_clusters(device, library)
+        assert len(held) == fused_mlp.D8_MAX_SPLITS and all(c >= 1 for c in held)
+        shape = fused_mlp.k1c_shape(device, 8, torch.bfloat16, library)
+        assert held[0] == shape["sms"] * shape["blocks_an_sm"]
+        plan = fused_mlp.k1_d8_plan(2056, D8_M, 1, held, library == "mlp_chunked")
+        assert plan["splits"] > 1 and plan["tiles"] <= held[plan["splits"] - 1]
+
+
 # --- K1b's f32 body: 3xTF32 on `mma.sync` ---------------------------------
 
 
@@ -1102,7 +1221,7 @@ def test_k1b_f32_entry_refuses_what_it_does_not_take(cuda):
     x_, w1_, b1_, w2_, b2_, out_ = ptrs
     with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
         fused_mlp._build.check("mlp_chunked", bf16(0, x_, w1_, b1_, w2_, M, b2_, out_, N, D,
-                                                   M, M, None, 1, 1, 0, stream))
+                                                   M, M, None, 1, 1, 1, 0, stream))
 
 
 # --- K1b's bf16 body: K1c's `wgmma` pipeline, fc2 summed chunk by chunk ----
@@ -1169,27 +1288,26 @@ def test_k1b_bf16_on_one_block(cuda, monkeypatch, D, N, M, active):
     out = torch.empty_like(x)
     fused_mlp._build.check("mlp_chunked", fn(
         0, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), M, b2.data_ptr(),
-        out.data_ptr(), N, D, M, active, None, 1, 1, 1, stream))
+        out.data_ptr(), N, D, M, active, None, 1, 1, 1, 1, stream))
     torch.cuda.synchronize()
     assert torch.equal(out, planned)
     _close(out, fused_mlp._plain_mlp_chunked(x, w1, b1, w2, b2, active), torch.bfloat16)
 
 
 def test_k1b_bf16_shape_is_k1cs_pipeline(cuda):
-    """K1b's bf16 body has K1c's tile and threads at every D 16-64, one
+    """K1b's bf16 body has K1c's tile and threads at every D 8-64, one
     block an SM, and K1c's shared memory and its running sums (D / 2 f32 a
-    consumer thread); its shape entry refuses D = 8 and f32."""
+    consumer thread); its shape entry refuses f32."""
     device = torch.device("cuda", 0)
-    for D in (16, 32, 64):
+    for D in (8, 16, 32, 64):
         k1b = fused_mlp.k1c_shape(device, D, torch.bfloat16, "mlp_chunked")
         k1c = fused_mlp.k1c_shape(device, D, torch.bfloat16)
         for key in ("tile_rows", "threads_a_block", "blocks_an_sm"):
             assert k1b[key] == k1c[key]
         assert k1b["smem_bytes_a_block"] == k1c["smem_bytes_a_block"] + 256 * (D // 2) * 4
         assert k1b["blocks_an_sm"] == 1
-    for D, dtype in ((8, torch.bfloat16), (64, torch.float32)):
-        with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
-            fused_mlp.k1c_shape(device, D, dtype, "mlp_chunked")
+    with pytest.raises(RuntimeError, match="mlp_chunked launch failed"):
+        fused_mlp.k1c_shape(device, 64, torch.float32, "mlp_chunked")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

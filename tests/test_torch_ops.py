@@ -159,21 +159,22 @@ def test_fused_mlp_bf16_gradients_are_the_exact_references():
 
 def test_k1_routes_each_call_to_one_body():
     """The body a K1 call takes, by type and hidden size: f32 at D <= 64 on
-    the narrow 3xTF32 body, bf16 at D = 8 on K1c's CUDA cores, bf16 at a
-    wide D on the `wgmma` GEMMs, f32 at a wide D on their 3xTF32 form, and
-    bf16 at D 16-64 on K1c's pipeline; the bodies in K1c's library are
-    counted apart."""
+    the narrow 3xTF32 body, bf16 at D <= 8 on the D = 8 instance of K1c's
+    pipeline, bf16 at a wide D on the `wgmma` GEMMs, f32 at a wide D on
+    their 3xTF32 form, and bf16 at D 16-64 on K1c's pipeline; the bodies in
+    K1c's library are counted apart."""
     for D in (1, 8, 24, 64):
         assert fmlp._k1_body(torch.float32, D) == "narrow_tf32x3"
     for D in (128, 768, 1024):
         assert fmlp._k1_body(torch.float32, D) == "wide_tf32x3"
-    assert fmlp._k1_body(torch.bfloat16, 8) == "cuda_cores"
+    for D in (1, 3, 8):
+        assert fmlp._k1_body(torch.bfloat16, D) == "wgmma_pipeline_d8"
     assert fmlp._k1_body(torch.bfloat16, 768) == "wide_wgmma"
     for D in (16, 32, 64):
         assert fmlp._k1_body(torch.bfloat16, D) == "wgmma_pipeline"
-    assert set(fmlp.K1_BODIES) == {"wgmma_pipeline", "cuda_cores", "narrow_tf32x3",
+    assert set(fmlp.K1_BODIES) == {"wgmma_pipeline", "wgmma_pipeline_d8", "narrow_tf32x3",
                                    "wide_wgmma", "wide_tf32x3"}
-    assert set(fmlp.K1_BODIES_ON_K1C) == {"wgmma_pipeline", "cuda_cores"}
+    assert set(fmlp.K1_BODIES_ON_K1C) == {"wgmma_pipeline", "wgmma_pipeline_d8"}
 
 
 @pytest.mark.parametrize("n,D,M,active", [

@@ -14,9 +14,10 @@
 // (`ops/fused_mlp.py`) sends those calls to K1c's library
 // (`mlp_pipelined.cu`), which computes this function: its warp-specialised
 // wgmma pipeline at D 16-64 (an earlier mma.sync body of 64-row blocks lost
-// to it at every row count timed, 1 to 33,280, and was removed) and its
-// CUDA-core tiling at D = 8.  A narrow D outside that set runs zero-padded
-// to the next of them (`kernel_width`).
+// to it at every row count timed, 1 to 33,280, and was removed), at D = 8
+// its D = 8 instance with the hidden columns split across a cluster.  A
+// narrow D outside that set runs zero-padded to the next of them
+// (`kernel_width`).
 //
 // The wide regime, every D above 64 (the stretch model's D = 768, M =
 // 3072; ViT-H's D = 1,280, M = 5,120), as the TPU kernel takes any D,

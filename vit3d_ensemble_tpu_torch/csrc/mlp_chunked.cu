@@ -30,21 +30,26 @@
 // barriers, which on an H100 reached 27 % of the GELU bound at the serving
 // shape where K1c's pipeline reached 42 % (PERF.md).
 //
-// Below, in 64-row blocks of producer and consumer warps that hand hidden
-// columns over in sub-chunks of 64 through two buffers of h in shared
-// memory (named barriers: a producer arrives at FULL[b] when h[b] is
-// written and waits at EMPTY[b] before writing it again), the consumers
-// adding each 512-column chunk's partial into the f32 sum at its end:
-//   * f32 at every D (`chunked_tf32x3_kernel`): both products on the tensor
-//     cores in 3xTF32 (mma.sync m16n8k8, `tf32x3.cuh`), 128-row units; see
-//     its note below;
-//   * bf16 at D = 8 (`chunked_core_kernel`): CUDA-core FMAs; each role's
-//     thread owns 8 rows by 4 columns of h (producers) or by D / 16 output
-//     columns (consumers).
-// A 512-column chunk of both weight slabs is 128 KB in bf16 at D = 64 (256
-// KB in f32), more than a block's 227 KB next to the h buffers: sub-chunks
-// of 64 columns keep every buffer small, and the hand-over unit and the
-// summation chunk are separate, so the sums keep the TPU kernel's order.
+// bf16 at D = 8 (`chunked_wgmma_d8_kernel`, every bf16 D from 1 to 8): the
+// same pipeline at fc1's K of 16 and fc2 on wgmma m64n8k16, with the hidden
+// columns split across the blocks of a cluster on 512-column boundaries where
+// the row tiles are few (`mlp_pipeline.cuh`: each block keeps its chunks'
+// running sum, and the cluster adds the blocks' sums in rank order), on the
+// grid `fused_mlp.k1_d8_plan` lays out.  It replaced a CUDA-core tiling of
+// producer and consumer warps, one block a 64-row tile, which on an H100 took
+// 4.4 times the library chain's time at 2,056 rows (PERF.md).
+//
+// f32 at every D (`chunked_tf32x3_kernel`): both products on the tensor
+// cores in 3xTF32 (mma.sync m16n8k8, `tf32x3.cuh`), 128-row units of
+// producer and consumer warps that hand hidden columns over in sub-chunks of
+// 64 through two buffers of h in shared memory (named barriers: a producer
+// arrives at FULL[b] when h[b] is written and waits at EMPTY[b] before
+// writing it again), the consumers adding each 512-column chunk's partial
+// into the f32 sum at its end; see its note below.  A 512-column chunk of
+// both weight slabs is 256 KB in f32 at D = 64, more than a block's 227 KB
+// next to the h buffers: sub-chunks of 64 columns keep every buffer small,
+// and the hand-over unit and the summation chunk are separate, so the sums
+// keep the TPU kernel's order.
 //
 // The wide regime, every D above 64, with the model axis: K1's
 // wide bodies (`mlp_wide.cuh`, whose note says what bounds them and how they
@@ -68,12 +73,9 @@ using namespace mlp;
 using namespace tf32x3;
 using bf16 = __nv_bfloat16;
 
-constexpr int TILE_N = 64;         // token rows per block
 constexpr int CHUNK_M = 512;       // fc2's summation chunk (`pallas_mlp.py:123`)
 constexpr int SUB = 64;            // hidden columns per hand-over
 constexpr int SUBS_PER_CHUNK = CHUNK_M / SUB;
-constexpr int ROLE_THREADS = 128;  // 4 warps a role
-constexpr int THREADS = 2 * ROLE_THREADS;
 
 // named barrier ids; FULL0 + b and EMPTY0 + b for buffer b
 constexpr int FULL0 = 1, EMPTY0 = 3, PRODUCERS = 5, CONSUMERS = 6;
@@ -101,149 +103,17 @@ chunked_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                                    active_all);
 }
 
-// ---------------------------------------------------------------------------
-// CUDA-core body: bf16 at D = 8 (written for any T and D; f32 takes the
-// 3xTF32 body below).  A role's thread (ty, tx) = (rt / 16, rt % 16) owns
-// rows ty + 8 i (i < 8).
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct CoreSmem {
-  static constexpr int DP = D + 1;    // padded rows: odd strides, no bank conflicts
-  static constexpr int SP = SUB + 1;
-  float x[TILE_N * DP];
-  float w1[2][SUB * DP];
-  float b1[2][SUB];
-  float w2[2][D * SP];
-  float h[2][TILE_N * SP];
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-chunked_core_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                    const T* __restrict__ b1, const T* __restrict__ w2,
-                    const T* __restrict__ b2, T* __restrict__ out, int n, int m,
-                    const int* __restrict__ active_p, int active_all) {
-  const Model<T> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
-  constexpr int DP = CoreSmem<D>::DP, SP = CoreSmem<D>::SP;
-  constexpr int OJ = (D + 15) / 16;  // output columns per consumer thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  CoreSmem<D>& s = *reinterpret_cast<CoreSmem<D>*>(smem_raw);
-
-  const int rt = threadIdx.x % ROLE_THREADS;
-  const int tx = rt % 16, ty = rt / 16;
-  const int row0 = blockIdx.x * TILE_N;
-  const int active = md.active;
-  const int subs = (active + SUB - 1) / SUB;
-
-  if (threadIdx.x < ROLE_THREADS) {
-    // ---- producers ----
-    for (int i = rt; i < TILE_N * D; i += ROLE_THREADS) {
-      const int r = i / D, d = i % D;
-      s.x[r * DP + d] = row0 + r < n ? to_f32(md.x[(size_t)(row0 + r) * D + d]) : 0.f;
-    }
-    for (int j = 0; j < subs; ++j) {
-      const int b = j & 1, c0 = j * SUB;
-      // buffer b was last read in sub-chunk j - 2, before the barrier of j - 1
-      for (int i = rt; i < SUB * D; i += ROLE_THREADS) {
-        const int c = i / D, d = i % D;
-        s.w1[b][c * DP + d] = c0 + c < active ? to_f32(md.w1[(size_t)(c0 + c) * D + d]) : 0.f;
-      }
-      for (int c = rt; c < SUB; c += ROLE_THREADS)
-        s.b1[b][c] = c0 + c < active ? to_f32(md.b1[c0 + c]) : 0.f;
-      bar_sync(PRODUCERS, ROLE_THREADS);
-
-      float h[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) h[i][jj] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float xv[8], wv[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) xv[i] = s.x[(ty + 8 * i) * DP + d];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) wv[jj] = s.w1[b][(tx + 16 * jj) * DP + d];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) h[i][jj] = fmaf(xv[i], wv[jj], h[i][jj]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tx + 16 * jj;
-        const bool keep = c0 + c < active;
-        const float bias = s.b1[b][c];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)  // rounded to the input type before fc2
-          h[i][jj] = keep ? to_f32(from_f32<T>(gelu<T>(h[i][jj] + bias))) : 0.f;
-      }
-
-      if (j >= 2) bar_sync(EMPTY0 + b, THREADS);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s.h[b][(ty + 8 * i) * SP + tx + 16 * jj] = h[i][jj];
-      bar_arrive(FULL0 + b, THREADS);
-    }
-    return;
-  }
-
-  // ---- consumers ----
-  float acc[8][OJ], part[8][OJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int jj = 0; jj < OJ; ++jj) acc[i][jj] = part[i][jj] = 0.f;
-
-  for (int j = 0; j < subs; ++j) {
-    const int b = j & 1, c0 = j * SUB;
-    for (int i = rt; i < D * SUB; i += ROLE_THREADS) {
-      const int o = i / SUB, c = i % SUB;
-      s.w2[b][o * SP + c] = c0 + c < active ? to_f32(md.w2[(size_t)o * m + c0 + c]) : 0.f;
-    }
-    bar_sync(CONSUMERS, ROLE_THREADS);
-    bar_sync(FULL0 + b, THREADS);
-
-#pragma unroll 4
-    for (int c = 0; c < SUB; ++c) {
-      float gv[8], wv[OJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) gv[i] = s.h[b][(ty + 8 * i) * SP + c];
-#pragma unroll
-      for (int jj = 0; jj < OJ; ++jj) {
-        const int o = tx + 16 * jj;
-        wv[jj] = o < D ? s.w2[b][o * SP + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < OJ; ++jj) part[i][jj] = fmaf(gv[i], wv[jj], part[i][jj]);
-    }
-    if (j + 2 < subs) bar_arrive(EMPTY0 + b, THREADS);
-    if (chunk_ends(j, subs)) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int jj = 0; jj < OJ; ++jj) {
-          acc[i][jj] += part[i][jj];
-          part[i][jj] = 0.f;
-        }
-    }
-  }
-
-#pragma unroll
-  for (int jj = 0; jj < OJ; ++jj) {
-    const int o = tx + 16 * jj;
-    if (o >= D) continue;
-    const float bias = to_f32(md.b2[o]);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = row0 + ty + 8 * i;
-      if (r < n) md.out[(size_t)r * D + o] = from_f32<T>(acc[i][jj] + bias);
-    }
-  }
+// bf16 at D = 8: the same pipeline, the hidden columns split across a
+// cluster of `splits` blocks on 512-column boundaries.
+__global__ void __launch_bounds__(pipeline::W_THREADS, 1)
+chunked_wgmma_d8_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_w1,
+                        const __grid_constant__ CUtensorMap map_w2,
+                        const __grid_constant__ CUtensorMap map_b1, const bf16* __restrict__ b2,
+                        bf16* __restrict__ out, int n, int m, const int* __restrict__ active_p,
+                        int active_all, int splits) {
+  pipeline::pipeline_body<8, true>(map_x, map_w1, map_w2, map_b1, b2, out, n, m, active_p,
+                                   active_all, splits);
 }
 
 // ---------------------------------------------------------------------------
@@ -580,23 +450,6 @@ chunked_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   cp_async_wait<0>();
 }
 
-// bf16 at D = 8: a block a 64-row tile of one model.
-template <typename T, int D>
-cudaError_t launch_core(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, void* out, int n, int m, int active,
-                        const int* active_p, int models, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(CoreSmem<D>);
-  cudaError_t err = cudaFuncSetAttribute(chunked_core_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + TILE_N - 1) / TILE_N, models);
-  chunked_core_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), n, m,
-      active_p, active);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_tf32x3(int device, const float* x, const float* w1, const float* b1,
                           const float* w2, const float* b2, float* out, int n, int m,
@@ -618,27 +471,29 @@ cudaError_t launch_tf32x3(int device, const float* x, const float* w1, const flo
 // rows per model, `models` weight sets, active_p the per-model width mask
 // on the device or null for `active` in all; dtype 1 = bfloat16 (f32 takes
 // `mlp_chunked_f32_launch`); ld2, the row length of w2 and of b1 in
-// elements (m, or m rounded up to 8 in zero-padded copies: at D >= 16 TMA
-// reads them, and their row strides must be multiples of 16 bytes); blocks,
-// the grid's blocks a model at D >= 16 (`k1c_plan`; at D = 8 the grid is a
-// block a 64-row tile, and blocks is not read).  D in {8, 16, 32, 64};
-// anything else returns cudaErrorInvalidValue.
+// elements (m, or m rounded up to 8 in zero-padded copies: TMA reads them,
+// and their row strides must be multiples of 16 bytes); blocks, the grid's
+// row-tile groups a model (`k1c_plan`, `k1_d8_plan` with `chunked`); splits,
+// the blocks of a group's cluster (D = 8; 1 at D 16-64).  D in {8, 16, 32,
+// 64}; anything else returns cudaErrorInvalidValue.
 extern "C" int mlp_chunked_launch(int device, const void* x, const void* w1, const void* b1,
                                   const void* w2, int ld2, const void* b2, void* out, int n,
                                   int d, int m, int active, const int* active_p, int models,
-                                  int blocks, int dtype, void* stream_) {
+                                  int blocks, int splits, int dtype, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0 || models == 0) return 0;
-  if (blocks < 1 || models > 65535) return (int)cudaErrorInvalidValue;
+  if (blocks < 1 || models > 65535 || (d != 8 && splits != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
 #define WGMMA_LAUNCH(D)                                                                     \
   (int)pipeline::launch<D, true>(chunked_wgmma_kernel<D>, device, x, w1, b1, w2, ld2, b2, out, \
                                  n, m, active, active_p, models, blocks, stream)
   if (dtype == 1) {
     switch (d) {
-      case 8: return (int)launch_core<bf16, 8>(x, w1, b1, w2, b2, out, n, m, active, active_p,
-                                               models, stream);
+      case 8:
+        return (int)pipeline::launch_split<true>(chunked_wgmma_d8_kernel, device, x, w1, b1, w2,
+                                                 ld2, b2, out, n, m, active, active_p, models,
+                                                 blocks, splits, stream);
       case 16: return WGMMA_LAUNCH(16);
       case 32: return WGMMA_LAUNCH(32);
       case 64: return WGMMA_LAUNCH(64);
@@ -648,20 +503,30 @@ extern "C" int mlp_chunked_launch(int device, const void* x, const void* w1, con
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 body at d in {16, 32, 64} and its occupancy, as
-// `mlp_pipelined_shape` lists K1c's, for `k1c_plan`; d = 8 (a block a
-// 64-row tile, no persistent grid) and f32 return cudaErrorInvalidValue.
+// The bf16 body at d in {8, 16, 32, 64} and its occupancy, as
+// `mlp_pipelined_shape` lists K1c's, for `k1c_plan` and `k1_d8_plan`; f32
+// returns cudaErrorInvalidValue.
 extern "C" int mlp_chunked_shape(int device, int d, int dtype, int* out) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (dtype == 1) {
     switch (d) {
+      case 8: return (int)pipeline::shape<8, true>(chunked_wgmma_d8_kernel, device, out);
       case 16: return (int)pipeline::shape<16, true>(chunked_wgmma_kernel<16>, device, out);
       case 32: return (int)pipeline::shape<32, true>(chunked_wgmma_kernel<32>, device, out);
       case 64: return (int)pipeline::shape<64, true>(chunked_wgmma_kernel<64>, device, out);
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 body at D = 8: the clusters of `splits` blocks (1-16) the card
+// holds at once, into *out.
+extern "C" int mlp_chunked_d8_clusters(int device, int splits, int* out) {
+  const cudaError_t err = cudaSetDevice(device);
+  return err != cudaSuccess
+             ? (int)err
+             : (int)pipeline::clusters<true>(chunked_wgmma_d8_kernel, device, splits, out);
 }
 
 // K1b in f32 on the 3xTF32 body: the arguments of `mlp_chunked_launch` less

@@ -28,15 +28,14 @@
 // at 30 models left a second, nearly empty wave; `k1c_plan` balances the
 // row tiles over at most the resident slots.
 //
-// bf16 at D = 8 (`pipelined_core_kernel`): CUDA-core FMAs in 64-row tiles
-// (256 threads, a thread a 4 x 4 tile of h and 4 rows by D / 16 output
-// columns, h and the weight chunk through shared memory, three blocks an
-// SM) on the same persistent, balanced grid; K1's bf16 calls at D = 8 run it
-// too.  The parent's body (two shared-memory buffers of every operand, 134
-// KB at D = 64: one block an SM) lost most of its time to its grid's second
-// wave; loading each chunk's weights into registers an item ahead cost more
-// than it hid (spills at three blocks an SM, two blocks an SM without them:
-// slower in one call on an H100 each, see PERF.md).
+// bf16 at D = 8 (`pipelined_wgmma_d8_kernel`, every bf16 D from 1 to 8):
+// the same pipeline at fc1's K of 16 (TMA zero-fills x's and w1's columns
+// 8-15) and fc2 on wgmma m64n8k16, with the hidden columns split across the
+// blocks of a cluster where the row tiles are few (`mlp_pipeline.cuh`), on
+// the grid `fused_mlp.k1_d8_plan` lays out; K1's bf16 calls at D <= 8 run it
+// too.  It replaced a CUDA-core tiling (64-row tiles, both products on FFMAs
+// beside the GELUs, each block walking all of M alone), which on an H100 took
+// 4.4 times the library chain's time at 2,056 rows (PERF.md).
 //
 // f32 at D in {8, 16, 32, 64}: K1's narrow f32 body (`mlp_narrow_f32.cuh`,
 // 3xTF32 on `wgmma`, the hidden columns split across a cluster), through
@@ -60,9 +59,6 @@
 // w2 (P, D, m) with rows `ld2` elements apart (the wrapper pads them to a
 // multiple of 8 columns where TMA needs it), b2 (P, D), out (P, n, D).
 
-#include <algorithm>
-#include <atomic>
-
 #include "mlp_common.cuh"
 #include "mlp_narrow_f32.cuh"
 #include "mlp_pipeline.cuh"
@@ -74,8 +70,6 @@ namespace {
 using namespace mlp;
 using namespace sm90;
 using bf16 = __nv_bfloat16;
-
-constexpr int CHUNK = pipeline::CHUNK;  // hidden columns per item
 
 // ---------------------------------------------------------------------------
 // bf16, D in {16, 32, 64}: the wgmma pipeline of `mlp_pipeline.cuh`, fc2
@@ -95,157 +89,19 @@ pipelined_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 8: CUDA cores.
+// bf16 at D = 8: the same pipeline, the hidden columns split across a
+// cluster of `splits` blocks.
 // ---------------------------------------------------------------------------
 
-constexpr int TILE_N = 64;         // token rows a tile
-constexpr int CORE_THREADS = 256;  // a 16 x 16 grid of threads
-// three blocks an SM: the registers must allow them (85 a thread at D = 64
-// in f32, when this tiling served f32 too)
-constexpr int CORE_BLOCKS_AN_SM = 3;
-
-template <int D>
-struct CoreSmem {  // padded f32 rows, no bank conflicts
-  static constexpr int DP = D + 1, CP = CHUNK + 1;
-  float x[TILE_N * DP];
-  float w1[CHUNK * DP];
-  float h[TILE_N * CP];
-  float w2[D * CP];
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(CORE_THREADS, CORE_BLOCKS_AN_SM)
-pipelined_core_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                      const T* __restrict__ b1, const T* __restrict__ w2,
-                      const T* __restrict__ b2, T* __restrict__ out, int n, int m,
-                      const int* __restrict__ active_p, int active_all) {
-  const Model<T> md(x, w1, b1, w2, b2, out, active_p, active_all, n, D, m);
-  using S = CoreSmem<D>;
-  constexpr int DP = S::DP, CP = S::CP;
-  constexpr int OJ = (D + 15) / 16;  // output columns a thread
-  extern __shared__ __align__(16) unsigned char core_smem[];
-  S& s = *reinterpret_cast<S*>(core_smem);
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;  // rows ty + 16 i
-  const int active = md.active;
-  const int chunks = (active + CHUNK - 1) / CHUNK;
-  int first, last;
-  pipeline::my_tiles((n + TILE_N - 1) / TILE_N, &first, &last);
-  const int items = (last - first) * chunks;
-
-  if (chunks == 0) {  // no live column: out = b2
-    for (int i = tid; i < (last - first) * TILE_N * D; i += CORE_THREADS) {
-      const int row = first * TILE_N + i / D;
-      if (row < n) md.out[(size_t)row * D + i % D] = md.b2[i % D];
-    }
-    return;
-  }
-
-  float acc[4][OJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
-
-  for (int it = 0; it < items; ++it) {
-    const int k = it / chunks, c = it % chunks, c0 = c * CHUNK;
-    const int row0 = (first + k) * TILE_N;
-    __syncthreads();  // the last item's reads of x, w1, h and w2 are done
-    if (c == 0)
-      for (int i = tid; i < TILE_N * D; i += CORE_THREADS) {
-        const int r = i / D, d = i % D;
-        s.x[r * DP + d] = row0 + r < n ? to_f32(md.x[(size_t)(row0 + r) * D + d]) : 0.f;
-      }
-    // the item's weight chunk, zero past `active`
-    for (int i = tid; i < CHUNK * D; i += CORE_THREADS) {
-      const int cc = i / D, d = i % D;
-      s.w1[cc * DP + d] = c0 + cc < active ? to_f32(md.w1[(size_t)(c0 + cc) * D + d]) : 0.f;
-    }
-    for (int i = tid; i < D * CHUNK; i += CORE_THREADS) {
-      const int o = i / CHUNK, cc = i % CHUNK;
-      s.w2[o * CP + cc] = c0 + cc < active ? to_f32(md.w2[(size_t)o * m + c0 + cc]) : 0.f;
-    }
-    __syncthreads();
-
-    float h[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float xv[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = s.x[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = s.w1[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) h[i][j] = fmaf(xv[i], wv[j], h[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      const bool keep = col < active;
-      const float bias = keep ? to_f32(md.b1[col]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // gelu(h) rounded to the input type before fc2, as the TPU kernel does
-        const float g = to_f32(from_f32<T>(gelu<T>(h[i][j] + bias)));
-        s.h[(ty + 16 * i) * CP + tx + 16 * j] = keep ? g : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int cc = 0; cc < CHUNK; ++cc) {
-      float gv[4], wv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = s.h[(ty + 16 * i) * CP + cc];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) {
-        const int o = tx + 16 * j;
-        wv[j] = o < D ? s.w2[o * CP + cc] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) acc[i][j] = fmaf(gv[i], wv[j], acc[i][j]);
-    }
-    if (c == chunks - 1) {  // the tile's last chunk: write it out
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) {
-        const int o = tx + 16 * j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = row0 + ty + 16 * i;
-          if (o < D && r < n) md.out[(size_t)r * D + o] = from_f32<T>(acc[i][j] + to_f32(md.b2[o]));
-          acc[i][j] = 0.f;
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t core_ready(int device) {
-  static std::atomic<unsigned long long> smem_set{0};
-  return raise_smem_limit_once((const void*)pipelined_core_kernel<T, D>,
-                               (int)sizeof(CoreSmem<D>), device, smem_set);
-}
-
-template <typename T, int D>
-cudaError_t launch_core(int device, const void* x, const void* w1, const void* b1,
-                        const void* w2, const void* b2, void* out, int n, int m, int active,
-                        const int* active_p, int models, int blocks, cudaStream_t stream) {
-  const cudaError_t err = core_ready<T, D>(device);
-  if (err != cudaSuccess) return err;
-  pipelined_core_kernel<T, D><<<dim3(blocks, models), CORE_THREADS, sizeof(CoreSmem<D>), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), n, m,
-      active_p, active);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(pipeline::W_THREADS, 1)
+pipelined_wgmma_d8_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w1,
+                          const __grid_constant__ CUtensorMap map_w2,
+                          const __grid_constant__ CUtensorMap map_b1,
+                          const bf16* __restrict__ b2, bf16* __restrict__ out, int n, int m,
+                          const int* __restrict__ active_p, int active_all, int splits) {
+  pipeline::pipeline_body<8, false>(map_x, map_w1, map_w2, map_b1, b2, out, n, m, active_p,
+                                    active_all, splits);
 }
 
 }  // namespace
@@ -255,31 +111,34 @@ cudaError_t launch_core(int device, const void* x, const void* w1, const void* b
 // bfloat16 (f32 takes `mlp_pipelined_f32_launch`).  D in {8, 16, 32, 64};
 // anything else returns cudaErrorInvalidValue.  Besides: ld2, the row length
 // of w2 and of b1 in elements (m, or m rounded up to 8 in zero-padded copies:
-// at D >= 16 TMA reads them, and their row strides must be multiples of 16
-// bytes), and blocks, the grid's blocks a model (`k1c_plan`).
+// TMA reads them, and their row strides must be multiples of 16 bytes);
+// blocks, the grid's row-tile groups a model (`k1c_plan`, `k1_d8_plan`); and
+// splits, the blocks of a group's cluster (D = 8, `k1_d8_plan`: with splits
+// > 1 blocks must be the row tiles; 1 at D 16-64).
 extern "C" int mlp_pipelined_launch(int device, const void* x, const void* w1,
                                     const void* b1, const void* w2, int ld2, const void* b2,
                                     void* out, int n, int d, int m, int active,
-                                    const int* active_p, int models, int blocks, int dtype,
-                                    void* stream_) {
+                                    const int* active_p, int models, int blocks, int splits,
+                                    int dtype, void* stream_) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n == 0 || models == 0) return 0;
-  if (blocks < 1 || models > 65535) return (int)cudaErrorInvalidValue;
+  if (blocks < 1 || models > 65535 || (d != 8 && splits != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-#define CORE_ARGS device, x, w1, b1, w2, b2, out, n, m, active, active_p, models, blocks, stream
 #define WGMMA_LAUNCH(D)                                                                     \
   (int)pipeline::launch<D, false>(pipelined_wgmma_kernel<D>, device, x, w1, b1, w2, ld2, b2,  \
                                   out, n, m, active, active_p, models, blocks, stream)
   if (dtype == 1) {
     switch (d) {
-      case 8: return (int)launch_core<bf16, 8>(CORE_ARGS);
+      case 8:
+        return (int)pipeline::launch_split<false>(pipelined_wgmma_d8_kernel, device, x, w1, b1,
+                                                  w2, ld2, b2, out, n, m, active, active_p,
+                                                  models, blocks, splits, stream);
       case 16: return WGMMA_LAUNCH(16);
       case 32: return WGMMA_LAUNCH(32);
       case 64: return WGMMA_LAUNCH(64);
     }
   }
-#undef CORE_ARGS
 #undef WGMMA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -304,14 +163,9 @@ extern "C" int mlp_pipelined_shape(int device, int d, int dtype, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
 #define WGMMA_SHAPE(D) (int)pipeline::shape<D, false>(pipelined_wgmma_kernel<D>, device, out)
-#define CORE_SHAPE(T, D)                                                                    \
-  (err = core_ready<T, D>(device)) != cudaSuccess                                          \
-      ? (int)err                                                                           \
-      : (int)pipeline::describe(device, pipelined_core_kernel<T, D>, TILE_N, CORE_THREADS, \
-                                (int)sizeof(CoreSmem<D>), out)
   if (dtype == 1) {
     switch (d) {
-      case 8: return CORE_SHAPE(bf16, 8);
+      case 8: return (int)pipeline::shape<8, false>(pipelined_wgmma_d8_kernel, device, out);
       case 16: return WGMMA_SHAPE(16);
       case 32: return WGMMA_SHAPE(32);
       case 64: return WGMMA_SHAPE(64);
@@ -324,8 +178,16 @@ extern "C" int mlp_pipelined_shape(int device, int d, int dtype, int* out) {
     return 0;
   }
 #undef WGMMA_SHAPE
-#undef CORE_SHAPE
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 body at D = 8: the clusters of `splits` blocks (1-16) the card
+// holds at once, into *out.
+extern "C" int mlp_pipelined_d8_clusters(int device, int splits, int* out) {
+  const cudaError_t err = cudaSetDevice(device);
+  return err != cudaSuccess
+             ? (int)err
+             : (int)pipeline::clusters<false>(pipelined_wgmma_d8_kernel, device, splits, out);
 }
 
 // K1c's wide regime in bf16 (d > 64, a multiple of 8), with the

@@ -7,17 +7,20 @@ bounds it on the H100 and how it is laid out:
 
   * K1, `csrc/fused_mlp.cu` (`_mlp_kernel`, variant "seq");
   * K1b, `csrc/mlp_chunked.cu` (`_chunked_mlp_kernel`, "chunked"): fc2
-    summed in f32 over chunks of `_CHUNK_M` hidden columns; in bf16 at D
-    >= 16 on K1c's `wgmma` pipeline (`csrc/mlp_pipeline.cuh`, on
-    `k1c_plan`'s grid) with fc2's accumulator restarted at each chunk and
-    added into an f32 sum, in f32 on producer and consumer warps with both
-    products in 3xTF32 on `mma.sync` (on the grid `k1b_f32_plan` lays out);
+    summed in f32 over chunks of `_CHUNK_M` hidden columns; in bf16 on
+    K1c's `wgmma` pipeline (`csrc/mlp_pipeline.cuh`, on `k1c_plan`'s grid,
+    at D <= 8 on `k1_d8_plan`'s) with fc2's accumulator restarted at each
+    chunk and added into an f32 sum, in f32 on producer and consumer warps
+    with both products in 3xTF32 on `mma.sync` (on the grid `k1b_f32_plan`
+    lays out);
     at a wide D K1's wide bodies with fc2 summed chunk by chunk (in f32 its
     chunks are fc2's K splits);
   * K1c, `csrc/mlp_pipelined.cu` (`_pipelined2_mlp_kernel`, "pipelined2"):
-    K1's function, software-pipelined in a persistent block (in bf16 at D
-    >= 16 a warp-specialised `wgmma` pipeline fed by TMA) on the grid that
-    `k1c_plan` lays out; in f32 K1's narrow body on K1c's row-tile groups;
+    K1's function, software-pipelined in a persistent block (in bf16 a
+    warp-specialised `wgmma` pipeline fed by TMA) on the grid that
+    `k1c_plan` lays out (at D <= 8 `k1_d8_plan`, which splits the hidden
+    columns across a cluster where the row tiles are few); in f32 K1's
+    narrow body on K1c's row-tile groups;
     at a wide D K1's two GEMM phases in one persistent launch, fc1 of row
     tile i + L queued ahead of fc2 of row tile i and taken by ticket
     (`k1c_wide_plan`).
@@ -63,11 +66,12 @@ K1's narrow f32 calls (D up to 64) run on one body with K1c's f32 route
 3xTF32 on `wgmma`, the hidden columns split across the blocks of a
 thread-block cluster on the grid `k1_narrow_f32_plan` lays out.
 
-K1's narrow bf16 calls at D >= 16 run on K1c's warp-specialised `wgmma`
-pipeline (`csrc/mlp_pipelined.cu`), whatever their token rows: on an H100
-it took less device time than the `mma.sync` body of 64-row blocks that
-served them before, at every row count from 1 to 33,280 (PERF.md); at D =
-8 on K1c's CUDA-core tiling.  A launch there counts as K1's (`launches`);
+K1's narrow bf16 calls run on K1c's warp-specialised `wgmma` pipeline
+(`csrc/mlp_pipelined.cu`), whatever their token rows: on an H100 it took
+less device time than the `mma.sync` body of 64-row blocks that served
+them before, at every row count from 1 to 33,280 (PERF.md); at D <= 8 on
+its D = 8 instance, with the hidden columns split across a thread-block
+cluster (`k1_d8_plan`).  A launch there counts as K1's (`launches`);
 `launches_on_k1c` and `launches_own` split K1's launches by library
 (`k1_body_launched` names the last body; `k1b_body_launched` and
 `k1c_body_launched` K1b's and K1c's).
@@ -117,15 +121,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WIDTHS = (8, 16, 32, 64)
 #: K1's bodies, as `k1_body_launched` names them; the first two run in
 #: K1c's library (`launches_on_k1c`), the others in K1's (`launches_own`).
-K1_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma",
+K1_BODIES = ("wgmma_pipeline", "wgmma_pipeline_d8", "narrow_tf32x3", "wide_wgmma",
              "wide_tf32x3")
 K1_BODIES_ON_K1C = K1_BODIES[:2]
 #: K1b's and K1c's bodies, as `k1b_body_launched` and `k1c_body_launched`
-#: name them: bf16 at D 16-64, at D = 8, f32 at D <= 64, and the wide bf16
+#: name them: bf16 at D 16-64, at D <= 8, f32 at D <= 64, and the wide bf16
 #: and f32 bodies.
-K1B_BODIES = ("chunked_wgmma", "cuda_cores", "tf32x3_mma_sync", "wide_wgmma", "wide_tf32x3")
-K1C_BODIES = ("wgmma_pipeline", "cuda_cores", "narrow_tf32x3", "wide_wgmma_queue",
+K1B_BODIES = ("chunked_wgmma", "chunked_wgmma_d8", "tf32x3_mma_sync", "wide_wgmma",
+              "wide_tf32x3")
+K1C_BODIES = ("wgmma_pipeline", "wgmma_pipeline_d8", "narrow_tf32x3", "wide_wgmma_queue",
               "wide_tf32x3_queue")
+#: The bf16 body at D <= 8 (the D = 8 instance of `csrc/mlp_pipeline.cuh`,
+#: K1's, K1b's and K1c's): token rows of a row tile, hidden columns of a
+#: stage, the most splits of the hidden columns (blocks of a cluster; above
+#: 8 a non-portable size), and the fewest stages a split of K1's and K1c's
+#: (K1b's splits take whole `_CHUNK_M`-column chunks).
+D8_TILE_ROWS = 128
+D8_STAGE = 64
+D8_MAX_SPLITS = 16
+D8_MIN_SPLIT_STAGES = 2
 #: The narrow f32 body of K1 and K1c (`narrow_tf32x3_kernel`,
 #: `csrc/mlp_narrow_f32.cuh`): token rows of a row tile, hidden columns of a
 #: chunk (fc2's K between the promotions of its 3xTF32 accumulators into an
@@ -545,7 +559,7 @@ K1C_SHAPE_KEYS = ("tile_rows", "threads_a_block", "smem_bytes_a_block",
 
 def k1c_shape(device, D: int, dtype, library: str = "mlp_pipelined") -> dict:
     """K1c's body for (D, dtype) on `device`, or with `library`
-    "mlp_chunked" K1b's bf16 pipeline (D 16-64): its row tile, threads,
+    "mlp_chunked" K1b's bf16 pipeline (D 8-64): its row tile, threads,
     shared memory, registers, and the blocks an SM and SMs the runtime
     reports."""
     key = (library, device.index, D, dtype)
@@ -579,39 +593,103 @@ def k1c_plan(n: int, models: int, tile_rows: int, slots: int) -> dict:
             "fewest_tiles_a_block": tiles // per_model}
 
 
+def k1_d8_plan(n: int, M: int, models: int, clusters, chunked: bool = False) -> dict:
+    """The grid of the bf16 body at D <= 8 (K1's and K1c's; K1b's with
+    `chunked`) on a card that holds `clusters[s - 1]` clusters of s blocks
+    of it at once (`k1_d8_clusters`; s = 1 .. `D8_MAX_SPLITS`, so
+    `clusters[0]` is its resident blocks): a unit is (row tile of
+    `D8_TILE_ROWS`, split of the hidden columns, model), the splits of a row
+    tile the blocks of one thread-block cluster.  Split s of S takes the
+    stages (`D8_STAGE` columns) [s C / S, (s + 1) C / S) of the C =
+    ceil(M / 64), K1b's the same of its ceil(M / 512) summation chunks, so
+    that its splits start on `_CHUNK_M`-column boundaries (`bounds`: each
+    split's hidden columns).  S is the most splits, up to `D8_MAX_SPLITS`
+    with at least `D8_MIN_SPLIT_STAGES` stages a split (K1b: a chunk), at
+    which one cluster a row tile fits the card in one wave.  On an H100 that
+    took the least time at every row count from 257 to 16,448 (PERF.md).
+    S depends on n, M and the card alone, not on the models or their
+    widths, so a model gives the same bits alone and in a stacked call; the
+    kernel cuts a split at the model's width, and a split wholly past it
+    joins the sum with zeros.
+    With S > 1 each cluster takes one row tile (`groups` = the row tiles);
+    with S = 1 the grid is `k1c_plan`'s on the resident blocks.  The grid
+    is (S x groups, models) blocks."""
+    tiles = -(-n // D8_TILE_ROWS)
+    stages = -(-M // D8_STAGE)
+    step = _CHUNK_M // D8_STAGE if chunked else 1
+    units = -(-stages // step)
+    most = min(D8_MAX_SPLITS, units if chunked else stages // D8_MIN_SPLIT_STAGES)
+    splits = max([1] + [s for s in range(2, most + 1) if tiles <= clusters[s - 1]])
+    groups = (tiles if splits > 1
+              else _blocks_a_model(n, models, D8_TILE_ROWS, clusters[0]))
+    bounds = [(step * (s * units // splits) * D8_STAGE,
+               min(step * ((s + 1) * units // splits) * D8_STAGE, M))
+              for s in range(splits)]
+    return {"n": n, "M": M, "models": models, "chunked": chunked,
+            "tile_rows": D8_TILE_ROWS, "tiles": tiles, "stages": stages,
+            "splits": splits, "groups": groups, "bounds": bounds,
+            "blocks_a_model": splits * groups, "blocks": splits * groups * models,
+            "waves": splits * groups * models / clusters[0]}
+
+
+#: The bf16 D = 8 body's cluster capacity at (library, device): its
+#: `<library>_d8_clusters` at every split count, asked once.
+_D8_CLUSTERS: dict = {}
+
+
+def k1_d8_clusters(device, library: str = "mlp_pipelined") -> tuple:
+    """The clusters of s blocks (s = 1 .. `D8_MAX_SPLITS`) of the bf16 D = 8
+    body in `library` that `device` holds at once, as the runtime reports
+    them (`cudaOccupancyMaxActiveClusters`): entry s - 1."""
+    key = (library, device.index)
+    if key not in _D8_CLUSTERS:
+        fn = _build.entry(library, [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                          f"{library}_d8_clusters")
+        held = []
+        for s in range(1, D8_MAX_SPLITS + 1):
+            out = ctypes.c_int(0)
+            _build.check(library, fn(device.index, s, ctypes.byref(out)))
+            held.append(out.value)
+        _D8_CLUSTERS[key] = tuple(held)
+    return _D8_CLUSTERS[key]
+
+
 #: `mlp_pipelined_launch`'s and `mlp_chunked_launch`'s arguments, as ctypes
 #: types.
 _K1C_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _launch_k1c(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
                 models: int, stream, library: str = "mlp_pipelined") -> int:
-    """K1c (`mlp_pipelined_launch`) on `k1c_plan`'s grid, or with `library`
-    "mlp_chunked" K1b in bf16 (`mlp_chunked_launch`: at D 16-64 the same
-    pipeline with fc2 summed chunk by chunk, on that grid; at D = 8 a block
-    a 64-row tile).  Returns the entry point's CUDA error code."""
+    """K1c in bf16 (`mlp_pipelined_launch`) on `k1c_plan`'s grid (at D = 8
+    `k1_d8_plan`'s), or with `library` "mlp_chunked" K1b in bf16
+    (`mlp_chunked_launch`: the same pipeline with fc2 summed chunk by chunk,
+    on the same grids).  Returns the entry point's CUDA error code."""
     D, M = x.shape[-1], w1.shape[-2]
     m8 = -(-M // 8) * 8
-    if x.dtype == torch.bfloat16 and D >= 16:
-        # the wgmma body reads w2 and b1 by TMA, whose rows must start on
-        # 16 bytes: zero-padded copies where M is not a multiple of 8 (no
-        # registry config), a copy of a b1 view off that alignment
-        if m8 != M:
-            w2, b1 = F.pad(w2, (0, m8 - M)), F.pad(b1, (0, m8 - M))
-        elif b1.data_ptr() % 16:
-            b1 = b1.clone()
-    blocks = 1
-    if library == "mlp_pipelined" or D >= 16:
+    # the wgmma body reads w2 and b1 by TMA, whose rows must start on 16
+    # bytes: zero-padded copies where M is not a multiple of 8 (confs 19-22's
+    # 2,204), a copy of a b1 view off that alignment
+    if m8 != M:
+        w2, b1 = F.pad(w2, (0, m8 - M)), F.pad(b1, (0, m8 - M))
+    elif b1.data_ptr() % 16:
+        b1 = b1.clone()
+    if D == 8:
+        plan = k1_d8_plan(n, M, models, k1_d8_clusters(x.device, library),
+                          library == "mlp_chunked")
+        blocks, splits = plan["groups"], plan["splits"]
+    else:
         shape = k1c_shape(x.device, D, x.dtype, library)
         blocks = _blocks_a_model(n, models, shape["tile_rows"],
                                  shape["sms"] * shape["blocks_an_sm"])
+        splits = 1
     fn = _build.entry(library, _K1C_ARGTYPES)
     return fn(x.device.index, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
               w2.data_ptr(), w2.shape[-1], b2.data_ptr(), out.data_ptr(), n, D,
               M, active, None if per_model is None else per_model.data_ptr(),
-              models, blocks, _DTYPES[x.dtype], stream)
+              models, blocks, splits, _DTYPES[x.dtype], stream)
 
 
 def k1_narrow_f32_plan(n: int, D: int, M: int, active, models: int,
@@ -730,14 +808,14 @@ def _launch_k1b_f32(x, w1, b1, w2, b2, out, n: int, active: int, per_model,
 def _k1_body(dtype, D: int) -> str:
     """The body a K1 call at hidden size D takes: at a wide D, the `wgmma`
     GEMMs (in f32 their 3xTF32 form); in f32 at D <= 64, the narrow 3xTF32
-    body; in bf16 at D 9-64, K1c's pipeline, and at D <= 8 K1c's CUDA-core
-    tiling."""
+    body; in bf16 at D 9-64, K1c's pipeline, and at D <= 8 its D = 8
+    instance, the hidden columns split across a cluster."""
     D = kernel_width(D, dtype)
     if D not in WIDTHS:
         return "wide_wgmma" if dtype == torch.bfloat16 else "wide_tf32x3"
     if dtype != torch.bfloat16:
         return "narrow_tf32x3"
-    return "cuda_cores" if D == 8 else "wgmma_pipeline"
+    return "wgmma_pipeline_d8" if D == 8 else "wgmma_pipeline"
 
 
 def _variant_body(variant: str, dtype, D: int) -> str:
@@ -773,8 +851,8 @@ def k1b_body_launched() -> str:
 def k1c_body_launched() -> str:
     """The body that this process's last K1c launch took (one of
     K1C_BODIES): K1's narrow f32 body in f32 at D <= 64 ("narrow_tf32x3"),
-    "wgmma_pipeline" or, at D = 8, "cuda_cores" in bf16, and at a wide D
-    the queued wide bodies."""
+    "wgmma_pipeline" or, at D <= 8, "wgmma_pipeline_d8" in bf16, and at a
+    wide D the queued wide bodies."""
     if _last_k1c_body is None:
         raise RuntimeError("fused_mlp: K1c has not been launched")
     return _last_k1c_body
