@@ -577,6 +577,7 @@ def phase_build() -> None:
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
     tf32 = k4_f32_sass()
     sliced = k4_sliced_sass()
+    sliced_notes = ptxas_notes(logs["attention"], "attention_sliced_f32_kernel")
     k1_tf32 = k1_f32_sass()
     k1b_tf32 = k1b_f32_sass()
     narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
@@ -604,7 +605,9 @@ def phase_build() -> None:
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
           **sass, "attention_f32_sass_hmma_tf32": tf32,
-          "attention_sliced_sass": sliced,
+          "attention_sliced_sass": sliced, "attention_sliced_f32_ptxas_notes": sliced_notes,
+          "k4_sliced_f32_plan": [k4_sliced_f32_plan(*shape)
+                                 for shape in K4_SLICED_F32_PLAN_SHAPES],
           "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "narrow_f32_sass_hgmma_tf32": narrow_tf32,
@@ -635,11 +638,16 @@ def phase_build() -> None:
     check(not any("tf32x3" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's f32 body spills: {attention_ptxas['spilling_entries']}")
     # K4's sliced bodies (head_dim above 256): bf16 on wgmma fed by TMA, f32
-    # in TF32 on mma.sync in both instantiations, none spilling
-    check(len(sliced) == 3 and all(n > 0 for c in sliced.values() for n in c.values()),
+    # in TF32 on wgmma fed by TMA (no mma.sync), neither spilling nor
+    # serialising its wgmmas
+    check(len(sliced) == 2 and all(n > 0 for c in sliced.values() for op, n in c.items()
+                                   if op != "HMMA_TF32")
+          and all(c.get("HMMA_TF32", 0) == 0 for c in sliced.values()),
           f"K4's sliced bodies' SASS: {sliced}")
     check(not any("sliced" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's sliced bodies spill: {attention_ptxas['spilling_entries']}")
+    check(sliced_notes["C7515"] == sliced_notes["C7518"] == 0,
+          f"ptxas serialised the sliced f32 body's wgmmas: {sliced_notes}")
     check(len(k1_tf32) == 3 and all(n > 0 for n in k1_tf32.values()),
           f"K1's wide f32 instantiations' TF32 HGMMAs: {k1_tf32}")
     check(not any("tf32x3" in e or "split_sum" in e
@@ -835,18 +843,49 @@ def k4_f32_sass() -> dict:
 
 
 def k4_sliced_sass() -> dict:
-    """Lines of HGMMA and UTMALDG in K4's sliced bf16 body, of TF32 HMMA in
-    each instantiation of its sliced f32 body, by mangled name."""
+    """Lines of HGMMA and UTMALDG in K4's sliced bf16 body, and of TF32
+    HGMMA, UTMALDG and TF32 HMMA in its sliced f32 body, by mangled name."""
     out = {}
     for fn in sass_of(_build.library_path("attention")).split("Function : ")[1:]:
-        name = fn.split()[0]
+        name, lines = fn.split()[0], fn.splitlines()
         if "attention_sliced_wgmma_kernel" in name:
-            out[name] = {op: sum(op in line for line in fn.splitlines())
-                         for op in ("HGMMA", "UTMALDG")}
-        elif "attention_sliced_tf32x3_kernel" in name:
-            out[name] = {"HMMA_TF32": sum("HMMA" in line and "TF32" in line
-                                          for line in fn.splitlines())}
+            out[name] = {op: sum(op in line for line in lines) for op in ("HGMMA", "UTMALDG")}
+        elif "attention_sliced_f32_kernel" in name:
+            out[name] = {"HGMMA_TF32": sum("HGMMA" in line and "TF32" in line for line in lines),
+                         "UTMALDG": sum("UTMALDG" in line for line in lines),
+                         "HMMA_TF32": sum("HMMA" in line and "TF32" in line
+                                          for line in lines)}
     return out
+
+
+# The sliced f32 body's cluster plan (`attention_sliced_f32_plan`) at the
+# `widest` model's shape and at the shapes `chip_turns.py` times it: hd 512
+# at 513 and 65 tokens, 264 (boxes 4 + 5), 1,024 (four ranks).
+K4_SLICED_F32_PLAN_SHAPES = ((1, 24, 513, 512), (1, 8, 513, 264), (1, 8, 513, 1024),
+                             (1, 24, 65, 512))
+K4_SLICED_F32_PLAN_KEYS = ("cluster", "groups", "rows_a_block", "keys_a_chunk", "stages",
+                           "boxes_busiest_rank", "boxes_idlest_rank", "clusters",
+                           "clusters_resident", "blocks", "smem_bytes_a_block",
+                           "registers_at_entry")
+
+
+def k4_sliced_f32_plan(nb: int, H: int, S: int, hd: int) -> dict:
+    """The sliced f32 body's cluster plan at one shape on this card, with its
+    waves (clusters over the clusters the card holds at once), checked
+    against `fused_attention.k4_sliced_f32_split`, the wrapper's mirror."""
+    out = (ctypes.c_int * len(K4_SLICED_F32_PLAN_KEYS))()
+    fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                      "attention_sliced_f32_plan")
+    _build.check("attention", fn(torch.cuda.current_device(), nb, H, S, hd, out))
+    plan = dict(zip(K4_SLICED_F32_PLAN_KEYS, out))
+    split = fused_attention.k4_sliced_f32_split(hd)
+    sizes = [b1 - b0 for b0, b1 in split["boxes"]]
+    check(plan["cluster"] == split["cluster"] and plan["groups"] == split["groups"]
+          and plan["boxes_busiest_rank"] == max(sizes)
+          and plan["boxes_idlest_rank"] == min(sizes) and plan["clusters_resident"] > 0,
+          f"K4's sliced f32 plan {plan} against the wrapper's split {split}")
+    return {"shape": [nb, H, S, hd], **plan, "boxes": split["boxes"],
+            "waves": plan["clusters"] / plan["clusters_resident"]}
 
 
 # K4's bodies at the stretch path's shape (and K3's on them, the same), and
@@ -857,7 +896,8 @@ K4_PLAN_SHAPES = ((STRETCH_B, 12, 513, 64), (2, 4, 200, 128), (2, 4, 200, 32),
                   (STRETCH_B, 16, 513, 80), (2, 24, 513, 512))
 # `attention_plan`'s report: in bf16 the query tiles are a consumer
 # warpgroup's 64 rows and a key step 16 keys, the registers those at entry
-# (before setmaxnreg); in f32 a warp's 16 rows and 8 keys
+# (before setmaxnreg); in f32 a warp's 16 rows and 8 keys, but above head_dim
+# 256, where the f32 body's blocks are the bf16 body's (key steps of 8)
 K4_PLAN_KEYS = {
     torch.bfloat16: ("rows_a_block", "threads_a_block", "smem_bytes_a_block",
                      "registers_at_entry", "blocks_an_sm", "sms", "blocks",
@@ -874,7 +914,8 @@ def k4_plan(nb: int, H: int, S: int, hd: int, dtype=torch.bfloat16) -> dict:
     `attention_plan` reckons them from the runtime's occupancy, with the
     waves of blocks and the query tiles an SM on average beside the busiest
     SM's."""
-    keys = K4_PLAN_KEYS[dtype]
+    # above 256 both sliced bodies take the bf16 body's blocks
+    keys = K4_PLAN_KEYS[torch.bfloat16 if fused_attention.k4_slices(hd) > 1 else dtype]
     out = (ctypes.c_int * len(keys))()
     fn = _build.entry("attention", [ctypes.c_int] * 6 + [ctypes.c_void_p],
                       "attention_plan")

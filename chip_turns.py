@@ -92,6 +92,29 @@ timed alike:
     libraries (phase `pipeline_sass`): each one's SASS lines, and the
     SHA-256 of its SASS with addresses and mangled names taken out, so two
     checkouts that print the same digest compiled the same code;
+  * K4's sliced f32 body (phase `k4_sliced`) at (1, 24, 513, 512), (1, 8,
+    513, 264), (1, 8, 513, 1,024) and (1, 24, 65, 512) on the model's
+    views: device ms under the profiler (10 calls), the body it took, the
+    SHA-256 of its output (inputs from a generator of the shape's own), the
+    largest error over the f32 gate against ROOT's plain version, SDPA's
+    device ms and backend on the same views, the 3xTF32 bound (three TF32
+    products at the TF32 peak, or the bytes) and, where ROOT's library has
+    `attention_sliced_f32_plan`, the cluster plan and its waves; then the
+    `widest` model's f32 pass at B = 1 under `auto` and `layer` (K4's
+    device ms, its share of the busy ms, the busy ms);
+  * where the sliced f32 body's time goes (phase `k4_sliced_parts`, with
+    ROOT this checkout, on its `csrc/attention.cu`): copies of the source
+    with one part taken out each (`K4_SLICED_PARTS`: the hand-over between
+    the ranks, or only its waits, or its reads of the other ranks' slots
+    (each rank adding its own partial `cluster` times), the splitters'
+    hi/lo splits, q's split in registers, the scores' or p v's wgmmas),
+    built side by side into
+    `build/k4_sliced_parts/` and timed by CUDA events (20 launches) against
+    the whole body at the four shapes; as with the narrow body's parts, no
+    copy's output is right;
+  * the SASS of every K4 body but the sliced f32 one (phase `k4_sass`):
+    each instantiation's SASS lines and the SHA-256 of its SASS with the
+    addresses and mangled names taken out, as `pipeline_sass` does;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
     and under `layer`, and wall ms a pass (three runs of 20 passes);
   * latency: conf 9 and the {5,9,11} ensemble at B = 1, 4 and 8, ms a
@@ -170,7 +193,55 @@ K1C_LEAD_CASES = K1C_WIDE_CASES + (("bfloat16", 4104, 768, 3072, [3072]),
                                     ("float32", 4104, 768, 3072, [3072]))
 PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
           "k1b_bf16", "k1c_wide", "k1c_wide_leads", "k1b_wide_bits", "d8", "d8_splits",
-          "pipeline_sass", "pass", "latency", "stretch_f32")
+          "pipeline_sass", "k4_sliced", "k4_sliced_parts", "k4_sass", "pass", "latency",
+          "stretch_f32")
+# Phase `k4_sliced`: (B, H, S, hd) of K4's sliced f32 body
+K4_SLICED_SHAPES = ((1, 24, 513, 512), (1, 8, 513, 264), (1, 8, 513, 1024), (1, 24, 65, 512))
+
+
+def _drop_lines(text: str, marker: str) -> str:
+    if marker not in text:
+        raise RuntimeError(f"no line holds {marker!r}")
+    return "\n".join(ln for ln in text.split("\n") if marker not in ln)
+
+
+def _sub(text: str, *pairs) -> str:
+    """`text` with each (old, new) of `pairs` replaced; raises where an old
+    text is missing, so that a part never measures the whole by mistake."""
+    for old, new in zip(pairs[::2], pairs[1::2]):
+        if old not in text:
+            raise RuntimeError(f"no {old!r} to take out")
+        text = text.replace(old, new)
+    return text
+
+
+# The sliced f32 body with one part taken out: (name, text of
+# `csrc/attention.cu` -> text of the copy)
+K4_SLICED_PARTS = (
+    ("whole", lambda s: s),
+    ("no_exchange", lambda s: _sub(
+        s, "mbar_wait_cluster(sw_bar(w.ring, xf + slot), (u / SW_SLOTS) & 1);", "",
+        "mbar_wait_cluster(sw_bar(w.ring, xf + (ch - 1) % SW_SLOTS), "
+        "((ch - 1) / SW_SLOTS) & 1);", "(void)0;",
+        "for (int r = 0; r < cluster; ++r) mbar_arrive_rank(",
+        "for (int r = 0; r < 0; ++r) mbar_arrive_rank(",
+        "for (int r = 0; r < cluster; ++r) {", "for (int r = 0; r < 1; ++r) {")),
+    ("no_exchange_waits", lambda s: _sub(
+        s, "mbar_wait_cluster(sw_bar(w.ring, xf + slot), (u / SW_SLOTS) & 1);", "",
+        "mbar_wait_cluster(sw_bar(w.ring, xf + (ch - 1) % SW_SLOTS), "
+        "((ch - 1) / SW_SLOTS) & 1);", "(void)0;")),
+    ("own_partial_only", lambda s: _sub(
+        s, "const uint32_t at = cluster_addr(sw_slot(w.ring, c, slot), r) + 16 * tid;",
+        "const uint32_t at = smem_u32(sw_slot(w.ring, c, slot)) + 16 * tid;",
+        "const float4 v = ld_cluster_f4(at + 16 * 128 * j);",
+        "const float4 v = *reinterpret_cast<const float4*>(sw_slot(w.ring, c, slot) + 4 * tid "
+        "+ 512 * j);")),
+    ("no_splitters", lambda s: _sub(s, "split_k_box(dst, tid - 32);", "(void)0;",
+                                    "split_v_pass(dst, tid - 32);", "(void)0;")),
+    ("no_q_split", lambda s: _sub(s, "split_tf32(raw[r], a[kk][r], a[kk][4 + r]);",
+                                  "a[kk][r] = a[kk][4 + r] = raw[r];")),
+    ("no_score_wgmma", lambda s: _drop_lines(s, "wgmma_tf32_rs<SW_KEYS>(")),
+    ("no_pv_wgmma", lambda s: _drop_lines(s, "wgmma_tf32_rs<SW_PASS>(")))
 # The narrow f32 body with one part taken out: (name, text of the header ->
 # text of the copy)
 NARROW_PARTS = (
@@ -381,6 +452,146 @@ def pipeline_sass(cs, emit, _build) -> None:
                   "kernel": f"{found.group(1)}_wgmma_kernel<{found.group(2)}>",
                   "lines": len(body),
                   "sha256": hashlib.sha256("\n".join(body).encode()).hexdigest()})
+
+
+def k4_sliced(cs, emit, fused_attention, _build) -> None:
+    """Phase `k4_sliced` (see the module note)."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    plan_fn = None
+    try:
+        plan_fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                               "attention_sliced_f32_plan")
+    except AttributeError:  # an older library: no cluster plan
+        pass
+    with torch.no_grad():
+        for shape in K4_SLICED_SHAPES:
+            own = torch.Generator(device="cuda").manual_seed(zlib.crc32(repr(shape).encode()))
+            q, k, v = cs.model_views(own, shape, torch.float32)
+            out = fused_attention.fused_attention(q, k, v)
+            body = fused_attention.k4_body_launched()
+            ref = fused_attention._plain_attention_k4(q, k, v)
+            _, groups, _, _ = cs.device_time(
+                lambda: [fused_attention.fused_attention(q, k, v) for _ in range(10)],
+                host_ops=False)
+            lib = cs.device_time(lambda: [F.scaled_dot_product_attention(q, k, v)
+                                          for _ in range(10)], host_ops=False)[0]
+            B, H, S, hd = shape
+            ops = 3 * 4.0 * B * H * S * S * hd / cs.PEAK_TF32
+            nbytes = 4.0 * B * H * S * hd * 4 / cs.PEAK_BYTES
+            line = {"phase": "k4_sliced", "shape": list(shape), "body": body,
+                    "device_ms": groups.get("K4", 0.0) / 10, "library_device_ms": lib / 10,
+                    **cs.sdpa_backend(q, k, v), "bound_ms": max(ops, nbytes) * 1e3,
+                    "bound_by": "operations" if ops >= nbytes else "bytes",
+                    "max_err_over_gate": cs.over_gate(out, ref, cs.TOL[torch.float32])[1],
+                    "sha256": digest(out)}
+            if plan_fn is not None:
+                line["plan"] = cs.k4_sliced_f32_plan(*shape)
+            emit(line)
+
+
+def widest_f32(cs, emit) -> None:
+    """The `widest` model's f32 pass at B = 1 under `auto` and `layer` (K4's
+    or K3's sliced f32 body at head_dim 512, twice a pass), the model made as
+    `chip_smoke.phase_widest` makes it: K4's device ms (its trace group, K3's
+    launches included), its share of the busy ms, the busy ms."""
+    import torch
+    from vit3d_ensemble_tpu_torch.configs import ViTConfig
+    from vit3d_ensemble_tpu_torch.models import VisionTransformer3D
+    cfg = ViTConfig(patch_size=(16, 16, 16), img_size=128, z_size=128, **cs.WIDEST_WIDTHS)
+    with torch.device("meta"):
+        model = VisionTransformer3D(cfg, zero_head=False, vis=False, device="meta")
+    model.to_empty(device="cuda")
+    model.reset_parameters(False, torch.Generator(device="cuda").manual_seed(cs.SEED + 12))
+    model.eval()
+    x = torch.randn(1, 128, 128, 128, 1, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 13))
+    line = {"phase": "widest_f32", "B": 1}
+    with torch.no_grad():
+        for impl in ("auto", "layer"):
+            cs.set_impls(impl)
+            try:
+                model(x)
+                busy, groups, kernels, _ = cs.device_time(lambda: model(x))
+            finally:
+                cs.set_impls("auto")
+            k4 = groups.get("K4", 0.0)
+            line[impl] = {"device_busy_ms": busy, "k4_device_ms": k4, "k4_share": k4 / busy,
+                          "kernels": kernels}
+    emit(line)
+    del model
+    torch.cuda.empty_cache()
+
+
+def k4_sliced_parts(cs, emit, _build) -> None:
+    """Phase `k4_sliced_parts` (see the module note)."""
+    import ctypes
+    import math
+    import subprocess
+    import torch
+    here = pathlib.Path(__file__).resolve().parent
+    csrc = here / "vit3d_ensemble_tpu_torch" / "csrc"
+    source = (csrc / "attention.cu").read_text()
+    jobs = {}
+    for name, edit in K4_SLICED_PARTS:
+        d = here / "build" / "k4_sliced_parts" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in csrc.glob("*.cuh"):
+            (d / f.name).write_text(f.read_text())
+        copy = edit(source)
+        if name != "whole" and copy == source:
+            raise RuntimeError(f"K4 sliced part {name}: the edit changed nothing")
+        (d / "attention.cu").write_text(copy)
+        jobs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "part.so"),
+             str(d / "attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, job in jobs.items():
+        log, _ = job.communicate()
+        if job.returncode != 0:
+            raise RuntimeError(f"K4 sliced part {name}: nvcc failed:\n{log}")
+        fn = ctypes.CDLL(str(here / "build" / "k4_sliced_parts" / name / "part.so")
+                         ).attention_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int,
+                                                    ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape in K4_SLICED_SHAPES:
+        own = torch.Generator(device="cuda").manual_seed(zlib.crc32(repr(shape).encode()))
+        q, k, v = cs.model_views(own, shape, torch.float32)
+        B, H, S, hd = shape
+        out = torch.empty(B, S, H, hd, device="cuda")
+        ms = {}
+        for name, fn in fns.items():
+            def call(fn=fn):
+                _build.check("attention", fn(
+                    0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, hd,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(hd),
+                    0, stream))
+            ms[name] = cs.time_ms(call, 20)
+        emit({"phase": "k4_sliced_parts", "shape": list(shape), "ms": ms})
+
+
+def k4_sass(cs, emit, _build) -> None:
+    """Phase `k4_sass`: every K4 body in ROOT's library but the sliced f32
+    one, its SASS lines and the SHA-256 of its SASS with the addresses and
+    mangled names taken out."""
+    import re
+    _build.build(["attention"])
+    for fn in cs.sass_of(_build.library_path("attention")).split("Function : ")[1:]:
+        name = fn.split()[0]
+        found = re.search(r"(attention_\w+?_kernel)(I\w+?E)?E", name)
+        if not found or "sliced_f32" in name or "sliced_tf32x3" in name:
+            continue
+        body = [re.sub(r"_ZN\w+", "SYM", re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)).strip()
+                for line in fn.splitlines()[1:]]
+        body = [line for line in body if line and not line.startswith(".")]
+        emit({"phase": "k4_sass", "kernel": found.group(1) + (found.group(2) or ""),
+              "lines": len(body), "sha256": hashlib.sha256("\n".join(body).encode()).hexdigest()})
 
 
 def digest(t) -> str:
@@ -670,6 +881,13 @@ def main() -> int:
 
         if "pipeline_sass" in phases:
             pipeline_sass(cs, emit, _build)
+        if "k4_sliced" in phases:
+            k4_sliced(cs, emit, fused_attention, _build)
+            widest_f32(cs, emit)
+        if "k4_sliced_parts" in phases:
+            k4_sliced_parts(cs, emit, _build)
+        if "k4_sass" in phases:
+            k4_sass(cs, emit, _build)
 
         if "pass" in phases:
             x = torch.randn(cs.B, 128, 128, 5, 1, generator=gen,

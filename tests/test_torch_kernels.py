@@ -1404,9 +1404,10 @@ def test_k3_at_every_head_dim_matches_plain(cuda, hd, S, dtype):
 
 # K4 and K3 above head_dim 256, on the sliced bodies: 257 (8 does not
 # divide it: bf16 views copied), 264 (a second slice of 8 columns), 288,
-# 384, 512 (two slices of 256), 1,000 and 1,024.
-SLICED_HD = [257, 264, 288, 384, 512, 1000, 1024]
-SLICED_BODIES = {torch.bfloat16: "bf16_sliced_wgmma", torch.float32: "f32_sliced_tf32x3"}
+# 384, 512 (two slices of 256), 1,000, 1,024 and 2,049 (f32: nine slices in
+# two groups of a cluster of five, one rank without context columns).
+SLICED_HD = [257, 264, 288, 384, 512, 1000, 1024, 2049]
+SLICED_BODIES = {torch.bfloat16: "bf16_sliced_wgmma", torch.float32: "f32_sliced_wgmma"}
 
 
 @pytest.mark.parametrize("views", ["model", "contiguous"])
@@ -1414,9 +1415,9 @@ SLICED_BODIES = {torch.bfloat16: "bf16_sliced_wgmma", torch.float32: "f32_sliced
 @pytest.mark.parametrize("S", [65, 513])
 @pytest.mark.parametrize("hd", SLICED_HD)
 def test_k4_above_head_dim_256_matches_plain(cuda, hd, S, dtype, views):
-    """One launch on the sliced body (f32 views whose rows are not 16
-    bytes apart on its 4-byte copies), held to the plain version at K4's
-    gates, which reject the plain version without the last key."""
+    """One launch on the sliced body (views whose rows are not a multiple of
+    16 bytes apart copied first), held to the plain version at K4's gates,
+    which reject the plain version without the last key."""
     q, k, v = _model_views(cuda, (2, 3, S, hd), dtype)
     if views == "contiguous":
         q, k, v = (t.contiguous() for t in (q, k, v))
@@ -1424,8 +1425,7 @@ def test_k4_above_head_dim_256_matches_plain(cuda, hd, S, dtype, views):
     out = fused_attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert fused_attention.launches_k4 == before + 1
-    want = SLICED_BODIES[dtype] + ("_4byte" if dtype == torch.float32 and hd % 4 else "")
-    assert fused_attention.k4_body_launched() == want
+    assert fused_attention.k4_body_launched() == SLICED_BODIES[dtype]
     assert out.dtype == dtype and out.shape == q.shape
     ref = fused_attention._plain_attention_k4(q, k, v)
     _close(out, ref, dtype, _k4_tol(dtype))
@@ -1443,6 +1443,41 @@ def test_k3_above_head_dim_256_matches_plain(cuda, hd, S, dtype):
     out = _k3_launch_checked(q, k, v, H)
     assert fused_attention.k4_body_launched().startswith(SLICED_BODIES[dtype])
     _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype, _k4_tol(dtype))
+
+
+@pytest.mark.parametrize("S", [65, 513])
+@pytest.mark.parametrize("hd", [264, 512, 1024])
+def test_k4_sliced_f32_gives_equal_bits(cuda, hd, S):
+    """Two launches of the sliced f32 body on the same views give the same
+    bits: the ranks' partial scores are added in rank order, no atomics."""
+    q, k, v = _model_views(cuda, (2, 3, S, hd), torch.float32)
+    first = fused_attention.fused_attention(q, k, v)
+    second = fused_attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.k4_body_launched() == "f32_sliced_wgmma"
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("S", [65, 513])
+def test_k4_sliced_f32_copies_views_off_16_bytes(cuda, S):
+    """f32 views at head_dim 257, 4 bytes past a 16-byte boundary with
+    rows 258 floats apart, which TMA cannot read: copied into rows of 260
+    floats, one launch, held to the plain version (v scaled as in
+    `_model_views`)."""
+    hd = 257
+    q, k, v = ((torch.randn(2, 3, S, hd + 1, generator=cuda, device="cuda") * c)[..., 1:]
+               for c in (1.0, 1.0, math.sqrt(S / math.e)))
+    assert q.data_ptr() % 16 == 4 and q.stride(2) == hd + 1
+    assert not fused_attention._tma_rows(q)
+    before = fused_attention.launches_k4
+    out = fused_attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches_k4 == before + 1
+    assert fused_attention.k4_body_launched() == "f32_sliced_wgmma"
+    ref = fused_attention._plain_attention_k4(q, k, v)
+    _close(out, ref, torch.float32, _k4_tol(torch.float32))
+    with pytest.raises(AssertionError):
+        _close(_without_last_key(q, k, v), ref, torch.float32, _k4_tol(torch.float32))
 
 
 # K1, K1b and K1c above 8,192: 8,193 (zero-padded to 8,200 in bf16, 8,196 in

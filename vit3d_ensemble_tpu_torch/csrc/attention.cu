@@ -23,10 +23,11 @@
 //
 // Which body takes which input: bf16 runs the `wgmma` body below, f32 the
 // `mma.sync` 3xTF32 body after it, at every head_dim from 17 to 256; above
-// 256 their sliced forms (`attention_sliced_wgmma_kernel`,
-// `attention_sliced_tf32x3_kernel`: blocks of 256 context columns, the
-// scores' K loop over hd's 64-column boxes; see their note), as the TPU
-// kernel takes any head_dim above 16.  Each unsliced body is built for the head dims
+// 256 the sliced bodies (`attention_sliced_wgmma_kernel`, bf16, and
+// `attention_sliced_f32_kernel`, 3xTF32 on `wgmma` fed by TMA, the scores
+// computed once across a cluster of the head's slices: blocks of 256
+// context columns; see their note), as the TPU kernel takes any head_dim
+// above 16.  Each unsliced body is built for the head dims
 // K4_HDS (32, 64, 80, 128, 256), and a head_dim runs on the first at or
 // above it: the columns from hd up to that HD are zero in shared memory
 // (TMA's zero fill past the tensor map's hd columns in bf16, zero-filled
@@ -809,16 +810,18 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 // of 256 context columns, so that a consumer's context stays at the 128
 // accumulators a thread of the 256 body (wgmma's widest N), and no q tile
 // is held whole (at hd 512 a 64-row tile is 64 KB in bf16, 128 KB in f32).
-// Every slice walks the same chunks of keys and computes the whole scores
-// q k^T of each chunk, their 64-column boxes of hd staged one after another
-// in the ring (q's and k's boxes together), then the online softmax and
-// its slice's p v: the slices compute the same scores and softmax in the
-// same order, so their columns agree, and each recomputes the scores (at
-// hd 512, 2 slices: the first product twice; 3 products of S^2 hd where an
-// unsliced body would take 2).  Columns past hd load as zeros (TMA's zero
-// fill, zero-filled cp.async copies), so they add nothing to q k^T; the
-// scale is 1 / sqrt(hd) of the true hd.  The last chunk's keys past S are
-// masked, as in the unsliced bodies; no narrow tail chunk.
+// The slices walk the same chunks of keys and share one online softmax, so
+// their columns agree.  In bf16 every slice computes the whole scores q k^T
+// of each chunk, their 64-column boxes of hd staged one after another in
+// the ring (q's and k's boxes together), then its slice's p v: at hd 512
+// (2 slices) the first product twice, 3 products of S^2 hd where an
+// unsliced body would take 2.  In f32 the slices are the ranks of one
+// cluster, which split the scores' K loop among them and add the partial
+// scores in rank order, so the card takes the 2 products of an unsliced
+// body (see the f32 body's note).  Columns past hd load as zeros (TMA's
+// zero fill), so they add nothing to q k^T; the scale is 1 / sqrt(hd) of
+// the true hd.  The last chunk's keys past S are masked, as in the
+// unsliced bodies; no narrow tail chunk.
 constexpr int SLICE = 256;  // context columns a block of the sliced bodies computes
 
 // bf16: the wgmma body's three warpgroups (a producer, two consumers of 64
@@ -953,84 +956,470 @@ attention_sliced_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// f32: the 3xTF32 body's four warps of 16 query rows on a cp.async ring of
-// SF_STAGES stages: a chunk's `boxes` score stages, each q's 64 x 64 box and
-// k's 32 x 64, rows padded by 4 floats, then one v stage, its slice's 32 x
-// 256 (F32Tile<256>'s rows).  One __syncthreads a stage.  Three stages (100
-// KB) let two blocks share an SM (255 registers a thread): with four (133
-// KB, one block an SM) the body took 1.28 ms at (1, 24, 513, 512), with
-// three 0.61, SDPA (its efficient backend) 0.36-0.52 (`chip_smoke.py`
-// phase `widest`, NVIDIA H100 80GB HBM3 at 700 W).
-constexpr int SF_LD = 64 + 4;  // a score box's rows
-constexpr int SF_Q = F_ROWS * SF_LD;
-constexpr int SF_K = F_KEYS * SF_LD;
-constexpr int SF_V = F_KEYS * F32Tile<SLICE>::LD;
-constexpr int SF_STAGE = SF_Q + SF_K > SF_V ? SF_Q + SF_K : SF_V;  // floats
-constexpr int SF_STAGES = 3;
-constexpr size_t SF_SMEM = sizeof(float) * (size_t)SF_STAGES * SF_STAGE;
+// f32: both products in 3xTF32 on wgmma fed by TMA, the scores of a chunk
+// computed once across a thread-block cluster of the head's slices.
+//
+// A cluster is `cluster` blocks (ranks r) of one (volume, head, row block of
+// 128 query rows); rank r computes the 256 context columns of slice
+// group * cluster + r, and the chunk's partial scores over its own run of
+// hd's 32-column boxes, boxes [r nbox / cluster, (r + 1) nbox / cluster) of
+// nbox = ceil(hd / 32): a K split of q k^T, as even as the boxes allow (hd
+// 512: 8 + 8; 264: 4 + 5; 1,024: 8 a rank of 4).  The slices go in groups
+// of at most 8 (a portable cluster), so up to hd 2,048 one group computes
+// the scores once; above it each group computes them.  A block is three
+// warpgroups:
+//   * Warpgroup 0, the producer (registers given up by setmaxnreg): thread
+//     0 loads a ring of SW_STAGES stages by TMA (4-d maps over the strided
+//     views, as the bf16 bodies'); warps 1-3 split each landed stage's B
+//     operand into TF32 hi and lo tiles (`split_tf32`) and arrive on its
+//     `ready` mbarrier after `fence.proxy.async`.
+//   * Warpgroups 1 and 2, the consumers, 64 query rows each, both reading
+//     every stage.
+//   * A chunk is 32 keys.  Its score stages, one a box of the rank's run:
+//     q's 64 x 32 box of each live consumer and k's 32 x 32 box, both in the
+//     128-byte swizzle; the splitters split k's box where it lies.  Its v
+//     stages, one a pass of 64 of the slice's columns (4 a slice, fewer
+//     where the slice ends at hd): v's 32 keys x 64 columns as loaded, which
+//     the splitters transpose into hi and lo tiles of 64 rows of 32 keys
+//     (K-major, 128-byte swizzle): `wgmma` takes TF32 only K-major (its
+//     transpose bits are for 16-bit types), so the bf16 bodies' N-major
+//     read of v's rows is not open here.
+//   * Scores: q's fragments by ldmatrix from its swizzled box, split in
+//     registers, A of three wgmma m64n32k8 a k-step (lo_q hi_k and hi_q lo_k
+//     into `small`, hi_q hi_k into `big`, both from 0 a box) added in f32 a
+//     box into the chunk's partial, which lies in the consumer's exchange
+//     slot in shared memory (16 values a thread), not in registers beside
+//     the context: the tensor cores truncate inside a wgmma, so no small
+//     term meets a long sum there.
+//   * The hand-over, in SW_SLOTS slots of 8 KB a consumer: once every
+//     thread of the consumer has summed its partial into the slot (a named
+//     barrier of its 128 threads), one thread arrives (release, cluster
+//     scope) on the slot's `xfull` mbarrier in every rank; once its own
+//     `xfull` completes each thread reads the 16 values at its place in
+//     every rank's slot, through distributed shared memory, and adds them
+//     in rank order.  Every rank thus holds the same bits of the chunk's
+//     scores, and the same running max and sum: one normaliser for all
+//     slices, as the unsliced body has.  No float atomics, one order: a
+//     launch gives the same bits every time.
+//   * The order of the ring: the score stages of chunk c + SW_LAG come
+//     before the v stages of chunk c, so that a consumer hands over its
+//     partials SW_LAG chunks before it waits for the others'.  A rank reads
+//     chunk c's partials before it hands over chunk c + SW_LAG + 1 (the
+//     named barrier orders its threads' reads before that release), so a
+//     slot, SW_SLOTS = SW_LAG + 2 chunks back, is free once the chunk
+//     before the one to be written is handed over everywhere: one barrier
+//     a slot, none for its reads.
+//   * Why this exchange (`chip_turns.py`, phases `k4_sliced` in turns and
+//     `k4_sliced_parts`, on an H100, at (1, 24, 513, 512)): a release
+//     arrival at cluster scope is dear, so the consumer's threads meet at
+//     a named barrier and one of them arrives, not one a warp (0.386-0.391
+//     ms against 0.402-0.404) or one a thread, and the slots need no
+//     barrier of their own for the reads (0.360-0.361 against
+//     0.387-0.388); the hand-over then costs 8 % of the body (its waits 2,
+//     the other ranks' reads 4); a lag of two chunks and four slots against
+//     one and three moved the time by 1-2 %.  Hardware cluster barriers
+//     (barrier.cluster) would take the producer's threads into every
+//     chunk's barrier as well.
+//   * Softmax and p v: keys past S are masked to -inf after the sum (every
+//     chunk holds a live key); p = exp(s - max), split into TF32 hi and lo
+//     where the score accumulators hold it: the A fragment of an 8-key step
+//     wants keys t and t + 4 where the accumulators hold 2t and 2t + 1, so
+//     the splitters store each 8 keys of v's tiles in the order 0, 2, 4, 6,
+//     1, 3, 5, 7.  A pass's p v runs as three wgmma m64n64k8 a k-step into
+//     one accumulator from 0 and is added to the rescaled context in f32,
+//     as the unsliced f32 body adds each chunk's.
+//   * Rows past S: every rank has the same row block and so the same live
+//     consumers; a consumer with no live row computes nothing, is not
+//     counted by the ring's `empty` barriers, and touches no exchange slot.
+//     Every thread of every rank joins the cluster barrier after the
+//     barriers' initialisation and the one before it exits (no block leaves
+//     while another may read its slots or arrive on its barriers).
+//
+// Budget (227 KB of shared memory, 65,536 registers, one block an SM): a
+// stage is 28 KB (two q boxes of 8 KB, k's box raw, hi and lo at 4 KB; a v
+// stage's raw, hi and lo tiles take 24 KB of it), five stages 140 KB, the
+// exchange slots 64 KB: 205 KB.  A consumer thread holds its slice's
+// context (64 rows x 256 columns: 128 registers), a box's two accumulators
+// (32) and q's fragments (32), or p's split fragments (32) and a pass's
+// accumulator (32), under setmaxnreg's 232; the producer keeps 40 (the
+// block enters with 168 a thread, and 40 + 2 x 232 is the most the
+// block's own registers give: 48 left the consumers' setmaxnreg waiting
+// for ever).  Holding the partial in registers, or splitting q in the
+// producer's warps for wgmmas with A in shared memory (with two buffers of
+// accumulators), spilled and ran slower; a third accumulator (hi_q lo_k
+// apart from lo_q hi_k) spilled too.  Rows a block: 128 (two consumers
+// sharing each k and v stage) at one block an SM gives (1, 24, 513, 512)
+// 120 clusters of 2 on the 66 the card holds at once
+// (`cudaOccupancyMaxActiveClusters`), 1.8 waves, the last row block of a
+// head with one live row; 64 rows would give 216 clusters, 3.3 waves, each
+// stage split for half the rows.
+constexpr int SW_KEYS = 32;                       // keys a chunk
+constexpr int SW_BOX = 32;                        // hd columns of a score box: 128 bytes of f32
+constexpr int SW_PASS = 64;                       // context columns of a v pass (wgmma's N)
+constexpr int SW_PASSES = SLICE / SW_PASS;
+constexpr int SW_CONSUMERS = CONSUMERS;           // warpgroups of 64 query rows
+constexpr int SW_ROWS = BLOCK_ROWS;               // query rows of a block
+constexpr int SW_THREADS = WG_THREADS;
+constexpr int SW_SPLITTERS = 96;                  // warps 1-3 of the producer's warpgroup
+constexpr int SW_MAX_CLUSTER = 8;                 // ranks of a cluster: portable
+constexpr int SW_Q = ROWS * SW_BOX * 4;           // a consumer's q box, 8 KB
+constexpr int SW_K = SW_KEYS * SW_BOX * 4;        // k's box (raw, hi or lo), 4 KB
+constexpr int SW_V = SW_KEYS * SW_PASS * 4;       // a v pass (raw, hi or lo), 8 KB
+constexpr int SW_STAGE = SW_CONSUMERS * SW_Q + 3 * SW_K;
+constexpr int SW_STAGES = 5;
+constexpr int SW_SLOT = ROWS * SW_KEYS * 4;       // a consumer's partial scores, 8 KB
+// chunks by which a consumer's scores run ahead of its softmax and p v, and
+// the exchange slots that takes (see "The order of the ring" above)
+constexpr int SW_LAG = 2;
+constexpr int SW_SLOTS = SW_LAG + 2;
+constexpr size_t SW_SMEM = 1024 + (size_t)SW_STAGES * SW_STAGE +
+                           (size_t)SW_SLOTS * SW_CONSUMERS * SW_SLOT +
+                           (3 * SW_STAGES + SW_SLOTS * SW_CONSUMERS) * sizeof(uint64_t);
+static_assert(3 * SW_V <= SW_STAGE && SW_STAGE % 1024 == 0 && SW_SMEM <= SMEM_MAX &&
+                  SW_SLOTS >= SW_LAG + 2,
+              "the sliced f32 ring");
+// Past the ring (1,024-byte aligned): the consumers' exchange slots
+// [consumer][slot], then the mbarriers, all at fixed offsets from the ring's
+// start, so that a thread holds one address for all of them.
+constexpr int SW_SLOTS_AT = SW_STAGES * SW_STAGE;
+constexpr int SW_BARS_AT = SW_SLOTS_AT + SW_SLOTS * SW_CONSUMERS * SW_SLOT;
+// the mbarriers: full, ready and empty of each stage, then xfull of each
+// consumer's slots
+constexpr int SW_FULL = 0, SW_READY = SW_STAGES, SW_EMPTY = 2 * SW_STAGES;
+constexpr int SW_XFULL = 3 * SW_STAGES;
 
-template <bool VEC>
-__global__ void __launch_bounds__(F_THREADS, 2)
-attention_sliced_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, float* __restrict__ o, int s, int h,
-                               int hd, int slices, Strides qs, Strides ks, Strides vs,
-                               float scale_log2) {
-  extern __shared__ __align__(16) float f32_smem[];
-  const int bh = blockIdx.x / slices, col0 = blockIdx.x % slices * SLICE;
-  const int b = bh / h, hh = bh % h;
-  const int row0 = blockIdx.y * F_ROWS;
-  const int chunks = (s + F_KEYS - 1) / F_KEYS;
-  const int boxes = (hd + 63) / 64;
-  const int stages = chunks * (boxes + 1);
-  q += b * qs.b + hh * qs.h;
-  k += b * ks.b + hh * ks.h;
-  v += b * vs.b + hh * vs.h;
+__device__ __forceinline__ uint64_t* sw_bar(unsigned char* ring, int i) {
+  return reinterpret_cast<uint64_t*>(ring + SW_BARS_AT) + i;
+}
+__device__ __forceinline__ float* sw_slot(unsigned char* ring, int c, int slot) {
+  return reinterpret_cast<float*>(ring + SW_SLOTS_AT + (SW_SLOTS * c + slot) * SW_SLOT);
+}
 
-  // stage i's copies, one commit group a stage (committed even when empty,
-  // so that group i is always stage i's)
-  const auto load = [&](int i) {
-    float* st = f32_smem + i % SF_STAGES * SF_STAGE;
-    const int c = i / (boxes + 1), x = i % (boxes + 1);
-    if (x < boxes) {
-      load_box_f32<SF_LD, 64, VEC>(st, q, qs.s, row0, F_ROWS, s, 64 * x, hd);
-      load_box_f32<SF_LD, 64, VEC>(st + SF_Q, k, ks.s, c * F_KEYS, F_KEYS, s, 64 * x, hd);
-    } else {
-      load_box_f32<F32Tile<SLICE>::LD, SLICE, VEC>(st, v, vs.s, c * F_KEYS, F_KEYS, s, col0, hd);
+// This block's rank in its cluster, and the cluster's size.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// The address of `p`, in this block's shared memory, in block `rank`'s.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// One arrival on the mbarrier `bar` of block `rank`, releasing this
+// thread's earlier reads and writes of shared memory to the cluster.
+__device__ __forceinline__ void mbar_arrive_rank(uint64_t* bar, int rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_addr(bar, rank))
+               : "memory");
+}
+
+// `mbar_wait` acquiring at cluster scope: what the other blocks released
+// with their arrivals is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
     }
-  };
-#pragma unroll 1
-  for (int i = 0; i < SF_STAGES - 1; ++i) {
-    if (i < stages) load(i);
-    cp_async_commit();
   }
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool live = row0 + 16 * warp < s;  // a query row of this warp lies below s
-  float acc[SLICE / 8][4];
-#pragma unroll
-  for (int n = 0; n < SLICE / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float sc[F_KEYS / 8][4];
+// 16 bytes of a block's shared memory at a cluster address.
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
-  for (int i = 0; i < stages; ++i) {
-    cp_async_wait<SF_STAGES - 2>();  // this thread's copies of stage i have landed
-    __syncthreads();                 // everyone's have, and stage i - 1 is done with
-    if (i + SF_STAGES - 1 < stages) load(i + SF_STAGES - 1);
-    cp_async_commit();
-    if (!live) continue;
-    const float* st = f32_smem + i % SF_STAGES * SF_STAGE;
-    const int c = i / (boxes + 1), x = i % (boxes + 1);
-    if (x < boxes)
-      scores_tf32x3<SF_LD, 8, F_KEYS>(sc, st + 16 * warp * SF_LD, st + SF_Q, x == 0);
-    else
-      softmax_pv_tf32x3<SLICE, F_KEYS>(acc, m, l, sc, st, c * F_KEYS, s, c + 1 == chunks,
-                                       scale_log2);
+// The 128 threads of consumer warpgroup c (named barrier 1 + c; 0 is
+// __syncthreads'), ordering their shared-memory accesses before what
+// follows in any of them.
+__device__ __forceinline__ void consumer_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+}
+
+// Every thread of every block of the cluster, each once.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Splitter i (0 .. SW_SPLITTERS - 1) on a score stage: k's landed box into
+// TF32 hi and lo boxes of its layout, 16 bytes at a time.
+__device__ __forceinline__ void split_k_box(unsigned char* st, int i) {
+  const float4* raw = reinterpret_cast<const float4*>(st + SW_CONSUMERS * SW_Q);
+  uint4* hi = reinterpret_cast<uint4*>(st + SW_CONSUMERS * SW_Q + SW_K);
+  uint4* lo = hi + SW_K / 16;
+  for (int j = i; j < SW_K / 16; j += SW_SPLITTERS) {
+    const float4 x = raw[j];
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    hi[j] = h;
+    lo[j] = l;
   }
-  cp_async_wait<0>();  // no copy outlives the block
-  if (!live) return;
+}
+
+// Splitter i on a v stage: v's landed pass (two boxes of 32 keys x 32
+// columns, row-major, unswizzled) transposed into hi and lo tiles of 64 rows
+// (the pass's columns) of 32 keys, the 128-byte swizzle (16-byte chunk q of
+// row n at q ^ (n % 8)), each 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7.
+// Item j: column j % 64 and chunk ch = j / 64 of its row, keys 8 (ch / 2) +
+// ch % 2 + {0, 2, 4, 6}; a warp's items are 32 columns of one chunk, so its
+// reads fall on 32 banks and each 8 of its 16-byte writes on distinct ones.
+__device__ __forceinline__ void split_v_pass(unsigned char* st, int i) {
+  const float* raw = reinterpret_cast<const float*>(st);
+  unsigned char* hi = st + SW_V;
+  unsigned char* lo = st + 2 * SW_V;
+  for (int j = i; j < SW_PASS * SW_KEYS / 4; j += SW_SPLITTERS) {
+    const int col = j % SW_PASS, ch = j / SW_PASS;
+    const float* src = raw + (col / SW_BOX) * (SW_KEYS * SW_BOX) +
+                       (4 * (ch & ~1) + (ch & 1)) * SW_BOX + col % SW_BOX;
+    uint4 h, l;
+    split_tf32(src[0], h.x, l.x);
+    split_tf32(src[2 * SW_BOX], h.y, l.y);
+    split_tf32(src[4 * SW_BOX], h.z, l.z);
+    split_tf32(src[6 * SW_BOX], h.w, l.w);
+    const int off = col * 128 + ((ch ^ (col & 7)) << 4);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// Consumer c's partial scores of one score stage into `part`, this thread's
+// four float4 of its exchange slot (`first`: set them, else add): q's
+// fragments (register i of k-step kk: row 16 warp + g + 8 (i % 2), column
+// 8 kk + t + 4 (i / 2) of the box) by ldmatrix from the swizzled box and
+// split in registers; 3 wgmma m64n32k8 a k-step with k's hi and lo boxes as
+// B; `big` and `small` from 0, added in f32.  Accumulator register 4j + 2i
+// + e: row 16 warp + g + 8i, key 8j + 2t + e; float4 j holds 4j .. 4j + 3.
+// The partial lies in shared memory, not in registers beside the context.
+__device__ __forceinline__ void sliced_scores_box(float4* part, const unsigned char* st, int c,
+                                                  bool first) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const unsigned char* qb = st + c * SW_Q;
+  // ldmatrix's tiles: rows 0-7 / 8-15 of the warp's 16 at columns 0-3 / 4-7
+  // of a k-step (tiles 0, 1, 2, 3), before the swizzle
+  const int a_row = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_chunk = lane >> 4;
+  const uint64_t dh = smem_desc(st + SW_CONSUMERS * SW_Q + SW_K, 16, 1024, 1);
+  const uint64_t dl = smem_desc(st + SW_CONSUMERS * SW_Q + 2 * SW_K, 16, 1024, 1);
+  float big[SW_KEYS / 2], small[SW_KEYS / 2];
+  uint32_t a[4][8];  // [k-step][hi 0-3, lo 4-7]
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t raw[4];
+    ldmatrix_x4(raw, qb + a_row * 128 + (((2 * kk + a_chunk) ^ (lane & 7)) << 4));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(raw[r], a[kk][r], a[kk][4 + r]);
+  }
+  fence_regs(big);
+  fence_regs(small);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t* f = a[kk];
+    wgmma_tf32_rs<SW_KEYS>(small, f[4], f[5], f[6], f[7], dh + 2 * kk, kk > 0);
+    wgmma_tf32_rs<SW_KEYS>(small, f[0], f[1], f[2], f[3], dl + 2 * kk, 1);
+    wgmma_tf32_rs<SW_KEYS>(big, f[0], f[1], f[2], f[3], dh + 2 * kk, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(big);
+  fence_regs(small);
+#pragma unroll
+  for (int j = 0; j < SW_KEYS / 8; ++j) {
+    float4 v = make_float4(big[4 * j] + small[4 * j], big[4 * j + 1] + small[4 * j + 1],
+                           big[4 * j + 2] + small[4 * j + 2], big[4 * j + 3] + small[4 * j + 3]);
+    if (!first) {
+      const float4 p = part[128 * j];
+      v = make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
+    }
+    part[128 * j] = v;
+  }
+}
+
+// The online softmax of one chunk (key0 ..) of this consumer's 64 rows from
+// its summed scores `sc` (`sliced_scores_box`'s layout): keys at or past s
+// masked (`last`), the running max m and this thread's share l of the sums
+// updated, `corr` the context's rescale; then p split into TF32 hi and lo as
+// the A fragments of the chunk's four 8-key steps of p v: register r (hi,
+// r + 4 lo) of step kk holds row g + 8 (r % 2), key 8 kk + 2t + r / 2 (A's
+// column t + 4 (r / 2), see `split_v_pass`).
+__device__ __forceinline__ void sliced_softmax(uint32_t (&pf)[SW_KEYS / 8][8], float (&m)[2],
+                                               float (&l)[2], float (&corr)[2],
+                                               float (&sc)[SW_KEYS / 2], int key0, int s,
+                                               bool last, float scale_log2) {
+  const int t = threadIdx.x % 4;
+  if (last) {
+#pragma unroll
+    for (int j = 0; j < SW_KEYS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (key0 + 8 * j + 2 * t + e >= s) sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < SW_KEYS / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      mx[i] = fmaxf(mx[i], fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+  float mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the four lanes of a quad share a row
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // the chunk holds a live key, so the new max is finite; the first
+    // chunk's correction is exp(-inf) = 0 on sums that are 0
+    const float next = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f((m[i] - next) * scale_log2);
+    m[i] = next;
+    mb[i] = next * scale_log2;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < SW_KEYS / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -mb[e / 2]));
+      sc[4 * j + e] = p;
+      l[e / 2] += p;
+    }
+#pragma unroll
+  for (int kk = 0; kk < SW_KEYS / 8; ++kk) {
+    split_tf32(sc[4 * kk], pf[kk][0], pf[kk][4]);
+    split_tf32(sc[4 * kk + 2], pf[kk][1], pf[kk][5]);
+    split_tf32(sc[4 * kk + 1], pf[kk][2], pf[kk][6]);
+    split_tf32(sc[4 * kk + 3], pf[kk][3], pf[kk][7]);
+  }
+}
+
+// ctx's columns 64 p .. 64 p + 63 of the slice = ctx * corr + p v of one v
+// stage: 3 wgmma m64n64k8 a k-step (lo_p hi_v, hi_p lo_v, hi_p hi_v) into
+// one accumulator from 0, added in f32 (one FMA).  The caller's loop over p
+// is unrolled, so that ctx's registers are named at compile time.
+__device__ __forceinline__ void sliced_pv_pass(float (&ctx)[SW_PASSES * SW_PASS / 2], int p,
+                                               uint32_t (&pf)[SW_KEYS / 8][8],
+                                               const float (&corr)[2], const unsigned char* st) {
+  const uint64_t dh = smem_desc(st + SW_V, 16, 1024, 1);
+  const uint64_t dl = smem_desc(st + 2 * SW_V, 16, 1024, 1);
+  float pv[SW_PASS / 2];
+  fence_regs(pv);
+  fence_regs(pf);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < SW_KEYS / 8; ++kk) {
+    const uint32_t* f = pf[kk];
+    wgmma_tf32_rs<SW_PASS>(pv, f[4], f[5], f[6], f[7], dh + 2 * kk, kk > 0);
+    wgmma_tf32_rs<SW_PASS>(pv, f[0], f[1], f[2], f[3], dl + 2 * kk, 1);
+    wgmma_tf32_rs<SW_PASS>(pv, f[0], f[1], f[2], f[3], dh + 2 * kk, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(pv);
+#pragma unroll
+  for (int j = 0; j < SW_PASS / 2; ++j)
+    ctx[p * SW_PASS / 2 + j] = fmaf(ctx[p * SW_PASS / 2 + j], corr[(j >> 1) & 1], pv[j]);
+}
+
+// The ring's shared state and one rank's work, as the producer and the
+// consumers walk it in the same order (see the note above SW_KEYS).
+struct SlicedWork {
+  unsigned char* ring;  // the ring, then the slots and the mbarriers (SW_SLOTS_AT, SW_BARS_AT)
+  int b, hh, row0, live, chunks, b0, b1, col0, passes;
+};
+
+// Consumer c (live): the chunks' scores, the hand-over, the softmax and the
+// slice's p v; then the context divided by the row sums into o.
+__device__ __forceinline__ void sliced_f32_consume(const SlicedWork& w, float* __restrict__ o,
+                                                   int s, int h, int hd, int c, int cluster,
+                                                   float scale_log2) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  float ctx[SW_PASSES * SW_PASS / 2];
+#pragma unroll
+  for (int i = 0; i < SW_PASSES * SW_PASS / 2; ++i) ctx[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8 (raw scores)
+  float l[2] = {0.f, 0.f};              // this thread's share of their sums
+  int it = 0;                           // stages of the ring taken
+  const int xf = SW_XFULL + SW_SLOTS * c;  // this consumer's slots' barriers
+  for (int ch = 0; ch < w.chunks + SW_LAG; ++ch) {
+    if (ch < w.chunks) {  // chunk ch's partial scores, summed in its slot, handed over
+      const int slot = ch % SW_SLOTS;
+      // every rank has read what this slot held SW_SLOTS chunks ago: it
+      // did so before it handed over chunk ch - 1 (SW_SLOTS >= SW_LAG + 2)
+      if (ch >= SW_SLOTS)
+        mbar_wait_cluster(sw_bar(w.ring, xf + (ch - 1) % SW_SLOTS), ((ch - 1) / SW_SLOTS) & 1);
+      float4* mine = reinterpret_cast<float4*>(sw_slot(w.ring, c, slot)) + tid;
+      for (int x = w.b0; x < w.b1; ++x, ++it) {
+        const int st = it % SW_STAGES;
+        const uint32_t phase = (it / SW_STAGES) & 1;
+        mbar_wait(sw_bar(w.ring, SW_FULL + st), phase);
+        mbar_wait(sw_bar(w.ring, SW_READY + st), phase);
+        sliced_scores_box(mine, w.ring + st * SW_STAGE, c, x == w.b0);
+        if (tid == 0) mbar_arrive(sw_bar(w.ring, SW_EMPTY + st));
+      }
+      // the warpgroup's writes, released by its first thread to every rank
+      consumer_sync(c);
+      if (tid == 0)
+        for (int r = 0; r < cluster; ++r) mbar_arrive_rank(sw_bar(w.ring, xf + slot), r);
+    }
+    if (ch >= SW_LAG) {  // chunk ch - SW_LAG: the scores summed in rank order, softmax, p v
+      const int u = ch - SW_LAG, slot = u % SW_SLOTS;
+      mbar_wait_cluster(sw_bar(w.ring, xf + slot), (u / SW_SLOTS) & 1);
+      float sc[SW_KEYS / 2];
+      for (int r = 0; r < cluster; ++r) {
+        const uint32_t at = cluster_addr(sw_slot(w.ring, c, slot), r) + 16 * tid;
+#pragma unroll
+        for (int j = 0; j < SW_KEYS / 8; ++j) {
+          const float4 v = ld_cluster_f4(at + 16 * 128 * j);
+          sc[4 * j] = r == 0 ? v.x : sc[4 * j] + v.x;
+          sc[4 * j + 1] = r == 0 ? v.y : sc[4 * j + 1] + v.y;
+          sc[4 * j + 2] = r == 0 ? v.z : sc[4 * j + 2] + v.z;
+          sc[4 * j + 3] = r == 0 ? v.w : sc[4 * j + 3] + v.w;
+        }
+      }
+      uint32_t pf[SW_KEYS / 8][8];
+      float corr[2];
+      sliced_softmax(pf, m, l, corr, sc, u * SW_KEYS, s, u + 1 == w.chunks, scale_log2);
+#pragma unroll
+      for (int p = 0; p < SW_PASSES; ++p) {
+        if (p >= w.passes) break;
+        const int st = it % SW_STAGES;
+        const uint32_t phase = (it / SW_STAGES) & 1;
+        mbar_wait(sw_bar(w.ring, SW_FULL + st), phase);
+        mbar_wait(sw_bar(w.ring, SW_READY + st), phase);
+        sliced_pv_pass(ctx, p, pf, corr, w.ring + st * SW_STAGE);
+        if (tid == 0) mbar_arrive(sw_bar(w.ring, SW_EMPTY + st));
+        ++it;
+      }
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1040,37 +1429,141 @@ attention_sliced_tf32x3_kernel(const float* __restrict__ q, const float* __restr
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = row0 + 16 * warp + g + 8 * i;
+    const int r = w.row0 + c * ROWS + 16 * warp + g + 8 * i;
     if (r >= s) continue;
-    const float inv = 1.f / l[i];
-    float* out = o + (((long long)b * s + r) * h + hh) * hd + col0 + 2 * t;
+    const float inv = 1.f / l[i];  // each sum holds its max's exp(0) = 1
+    // this slice's columns below hd; register 4n + 2i + e holds column 8n + 2t + e
+    float* out = o + (((long long)w.b * s + r) * h + w.hh) * hd + w.col0 + 2 * t;
     if (hd % 2 == 0) {
 #pragma unroll
       for (int n = 0; n < SLICE / 8; ++n)
-        if (col0 + 8 * n + 2 * t < hd)
+        if (w.col0 + 8 * n + 2 * t < hd)
           *reinterpret_cast<float2*>(out + 8 * n) =
-              make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+              make_float2(ctx[4 * n + 2 * i] * inv, ctx[4 * n + 2 * i + 1] * inv);
     } else {
 #pragma unroll
       for (int n = 0; n < SLICE / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          if (col0 + 8 * n + 2 * t + e < hd) out[8 * n + e] = acc[n][2 * i + e] * inv;
+          if (w.col0 + 8 * n + 2 * t + e < hd) out[8 * n + e] = ctx[4 * n + 2 * i + e] * inv;
     }
   }
 }
 
-// The map of one (B, H, S, hd) bf16 view: hd innermost, then S, H and B in
-// the order of their strides (smallest first), boxes of one swizzle row's
-// width by 64 rows of S; rows past S, and the columns from hd to the body's
-// HD, load as zeros, so that the padded columns add nothing to q k^T and
-// give context columns that are never stored.  `order` gets the positions of
-// the row, head and batch coordinates (see `coord`).  TMA needs a 16-byte
-// aligned base and strides that are multiples of 16 bytes.
-template <int HD>
-bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, int s, int hd,
-                 Strides st) {
-  using T = Tile<HD>;
+// The producer: thread 0's loads, warps 1-3's splits, stage by stage in the
+// consumers' order.
+__device__ __forceinline__ void sliced_f32_produce(const SlicedWork& w, const CUtensorMap* map_q,
+                                                   const CUtensorMap* map_k,
+                                                   const CUtensorMap* map_v, int orders,
+                                                   int tid) {
+  const int oq = orders & 63, ok = (orders >> 6) & 63, ov = (orders >> 12) & 63;
+  int it = 0;
+  for (int ch = 0; ch < w.chunks + SW_LAG; ++ch) {
+    const int n_score = ch < w.chunks ? w.b1 - w.b0 : 0;
+    const int n_v = ch >= SW_LAG ? w.passes : 0;
+    for (int j = 0; j < n_score + n_v; ++j, ++it) {
+      const int st = it % SW_STAGES;
+      const uint32_t phase = (it / SW_STAGES) & 1;
+      unsigned char* dst = w.ring + st * SW_STAGE;
+      uint64_t* full = sw_bar(w.ring, SW_FULL + st);
+      const bool score = j < n_score;
+      if (tid == 0) {
+        mbar_wait(sw_bar(w.ring, SW_EMPTY + st), phase ^ 1);  // at once on the first lap
+        if (score) {
+          const int col = SW_BOX * (w.b0 + j);
+          mbar_expect_tx(full, w.live * SW_Q + SW_K);
+          for (int q = 0; q < w.live; ++q)
+            load_box(dst + q * SW_Q, map_q, oq, full, col, w.row0 + q * ROWS, w.hh, w.b);
+          load_box(dst + SW_CONSUMERS * SW_Q, map_k, ok, full, col, ch * SW_KEYS, w.hh, w.b);
+        } else {
+          const int col = w.col0 + SW_PASS * (j - n_score), key = (ch - SW_LAG) * SW_KEYS;
+          mbar_expect_tx(full, SW_V);
+          load_box(dst, map_v, ov, full, col, key, w.hh, w.b);
+          load_box(dst + SW_V / 2, map_v, ov, full, col + SW_BOX, key, w.hh, w.b);
+        }
+      } else if (tid >= 32) {
+        mbar_wait(full, phase);
+        if (score)
+          split_k_box(dst, tid - 32);
+        else
+          split_v_pass(dst, tid - 32);
+        // these generic-proxy writes, visible to the consumers' wgmmas
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(sw_bar(w.ring, SW_READY + st));
+      }
+    }
+  }
+}
+
+// grid: x = (volume, head, group, rank), clusters of `cluster` blocks along
+// x; y = row block of SW_ROWS query rows.  The maps: q in boxes of 32
+// columns x 64 rows, k in 32 x 32, both 128-byte swizzled; v in 32 x 32,
+// unswizzled.
+__global__ void __launch_bounds__(SW_THREADS, 1)
+attention_sliced_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, float* __restrict__ o,
+                            int s, int h, int hd, int groups, int orders, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
+  unsigned char* ring = att_smem + ((1024 - (smem_u32(att_smem) & 1023)) & 1023);
+
+  const int cluster = cluster_size(), rank = cluster_rank();
+  const int unit = blockIdx.x / cluster;
+  const int bh = unit / groups, group = unit % groups;
+  SlicedWork w;
+  w.ring = ring;
+  w.b = bh / h;
+  w.hh = bh % h;
+  w.row0 = blockIdx.y * SW_ROWS;
+  w.live = min(SW_CONSUMERS, (s - w.row0 + ROWS - 1) / ROWS);
+  w.chunks = (s + SW_KEYS - 1) / SW_KEYS;
+  const int nbox = (hd + SW_BOX - 1) / SW_BOX;
+  w.b0 = rank * nbox / cluster;
+  w.b1 = (rank + 1) * nbox / cluster;
+  w.col0 = (group * cluster + rank) * SLICE;
+  w.passes = w.col0 < hd ? min(SW_PASSES, (hd - w.col0 + SW_PASS - 1) / SW_PASS) : 0;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < SW_STAGES; ++i) {
+      mbar_init(sw_bar(ring, SW_FULL + i), 1);
+      mbar_init(sw_bar(ring, SW_READY + i), SW_SPLITTERS);
+      mbar_init(sw_bar(ring, SW_EMPTY + i), w.live);  // one arrival from each live consumer
+    }
+    for (int i = 0; i < SW_SLOTS * SW_CONSUMERS; ++i) {
+      // one arrival from the consumer in every rank
+      mbar_init(sw_bar(ring, SW_XFULL + i), cluster);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  // every rank's barriers are set before any rank arrives on them
+  cluster_sync_all();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    sliced_f32_produce(w, &map_q, &map_k, &map_v, orders, tid);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    if (c < w.live)  // a query row of this warpgroup lies below s
+      sliced_f32_consume(w, o, s, h, hd, c, cluster, scale_log2);
+  }
+  // no block leaves while another may read its slots or arrive on its barriers
+  cluster_sync_all();
+}
+
+// The map of one (B, H, S, hd) view of `elt`-byte elements of `type`: hd
+// innermost, then S, H and B in the order of their strides (smallest
+// first), boxes of `box_cols` columns by `box_rows` rows of S, with the
+// swizzle of `swizzle` bytes (0: none); rows past S, and columns past hd,
+// load as zeros.  `order` gets the positions of the row, head and batch
+// coordinates (see `coord`).  TMA needs a 16-byte aligned base and strides
+// that are multiples of 16 bytes.
+bool encode_view_as(CUtensorMap* map, int* order, const void* base, int b, int h, int s, int hd,
+                    Strides st, CUtensorMapDataType type, int elt, int box_cols, int box_rows,
+                    int swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
   struct Dim {
@@ -1085,23 +1578,36 @@ bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, i
     }
   cuuint64_t dims[4] = {(cuuint64_t)hd, 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)T::BOX_COLS, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   *order = 0;
   for (int i = 0; i < 3; ++i) {
-    if (d[i].stride < 0 || d[i].stride % 8 != 0) return false;
+    if (d[i].stride < 0 || d[i].stride * elt % 16 != 0) return false;
     dims[i + 1] = (cuuint64_t)d[i].size;
-    strides[i] = (cuuint64_t)d[i].stride * 2;
-    if (d[i].which == 0) box[i + 1] = ROWS;
+    strides[i] = (cuuint64_t)d[i].stride * elt;
+    if (d[i].which == 0) box[i + 1] = box_rows;
     *order |= (i + 1) << (2 * d[i].which);
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                              : CU_TENSOR_MAP_SWIZZLE_32B,
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 bodies' map of a view: boxes of one swizzle row's width of the
+// body's HD (Tile<HD>) by 64 rows of S; the columns from hd to HD load as
+// zeros, so that the padded columns add nothing to q k^T and give context
+// columns that are never stored.
+template <int HD>
+bool encode_view(CUtensorMap* map, int* order, const void* base, int b, int h, int s, int hd,
+                 Strides st) {
+  using T = Tile<HD>;
+  return encode_view_as(map, order, base, b, h, s, hd, st, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        T::BOX_COLS, ROWS, T::SW);
 }
 
 // The bodies of this file, by the code `attention_last_body` reports.
@@ -1110,8 +1616,7 @@ enum Body {
   F32_TF32X3 = 1,
   F32_TF32X3_4BYTE = 2,
   BF16_SLICED_WGMMA = 3,
-  F32_SLICED_TF32X3 = 4,
-  F32_SLICED_TF32X3_4BYTE = 5
+  F32_SLICED_WGMMA = 4
 };
 std::atomic<int> last_body{-1};
 
@@ -1191,11 +1696,18 @@ cudaError_t sliced_wgmma_ready(int device) {
                                smem_set);
 }
 
-template <bool VEC>
-cudaError_t sliced_tf32x3_ready(int device) {
+// The sliced f32 body's cluster at head_dim hd: its slices in `groups`
+// groups of `cluster` ranks (at most SW_MAX_CLUSTER), as even as they divide.
+void sliced_f32_cluster(int hd, int* cluster, int* groups) {
+  const int slices = slices_of(hd);
+  *groups = (slices + SW_MAX_CLUSTER - 1) / SW_MAX_CLUSTER;
+  *cluster = (slices + *groups - 1) / *groups;
+}
+
+cudaError_t sliced_f32_ready(int device) {
   static std::atomic<unsigned long long> smem_set{0};  // one bit a device
-  return raise_smem_limit_once((const void*)attention_sliced_tf32x3_kernel<VEC>, (int)SF_SMEM,
-                               device, smem_set);
+  return raise_smem_limit_once((const void*)attention_sliced_f32_kernel, (int)SW_SMEM, device,
+                               smem_set);
 }
 
 // The sliced bf16 body: the maps of the wgmma body's HD 256 (boxes of 64
@@ -1221,29 +1733,44 @@ cudaError_t launch_sliced_wgmma(int device, const void* q, const void* k, const 
   return cudaGetLastError();
 }
 
-// The sliced f32 body: a block a (volume, head, slice) and 64 query rows,
-// 16-byte copies where the views allow them.
-cudaError_t launch_sliced_tf32x3(int device, const void* q, const void* k, const void* v, void* o,
-                                 int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
-                                 float scale, cudaStream_t stream) {
-  const bool vec = rows_16b(q, hd, qs) && rows_16b(k, hd, ks) && rows_16b(v, hd, vs);
-  const cudaError_t err = vec ? sliced_tf32x3_ready<true>(device) : sliced_tf32x3_ready<false>(device);
+// The sliced f32 body: its cluster of a (volume, head)'s slices and 128
+// query rows (see its note); the views TMA reads as they are (the wrapper
+// copies one that is not into rows of a multiple of 4 floats).
+cudaError_t launch_sliced_f32(int device, const void* q, const void* k, const void* v, void* o,
+                              int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
+                              float scale, cudaStream_t stream) {
+  int cluster = 0, groups = 0;
+  sliced_f32_cluster(hd, &cluster, &groups);
+  if ((long long)b * h * groups * cluster >= (1ll << 31)) return cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v;
+  int oq, ok, ov;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!encode_view_as(&map_q, &oq, q, b, h, s, hd, qs, F32, 4, SW_BOX, ROWS, 128) ||
+      !encode_view_as(&map_k, &ok, k, b, h, s, hd, ks, F32, 4, SW_BOX, SW_KEYS, 128) ||
+      !encode_view_as(&map_v, &ov, v, b, h, s, hd, vs, F32, 4, SW_BOX, SW_KEYS, 0))
+    return cudaErrorInvalidValue;
+  cudaError_t err = sliced_f32_ready(device);
   if (err != cudaSuccess) return err;
-  last_body.store(vec ? F32_SLICED_TF32X3 : F32_SLICED_TF32X3_4BYTE, std::memory_order_relaxed);
-  const int slices = slices_of(hd);
-  const dim3 grid(b * h * slices, (s + F_ROWS - 1) / F_ROWS);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  auto* of = static_cast<float*>(o);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  if (vec)
-    attention_sliced_tf32x3_kernel<true><<<grid, F_THREADS, SF_SMEM, stream>>>(
-        qf, kf, vf, of, s, h, hd, slices, qs, ks, vs, scale_log2);
-  else
-    attention_sliced_tf32x3_kernel<false><<<grid, F_THREADS, SF_SMEM, stream>>>(
-        qf, kf, vf, of, s, h, hd, slices, qs, ks, vs, scale_log2);
-  return cudaGetLastError();
+  last_body.store(F32_SLICED_WGMMA, std::memory_order_relaxed);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * h * groups * cluster, (s + SW_ROWS - 1) / SW_ROWS);
+  cfg.blockDim = dim3(SW_THREADS);
+  cfg.dynamicSmemBytes = SW_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attention_sliced_f32_kernel, map_q, map_k, map_v,
+                           static_cast<float*>(o), s, h, hd, groups, oq | (ok << 6) | (ov << 12),
+                           scale * 1.4426950408889634f);
+  // the runtime keeps a refused launch's error as its last one, which the
+  // next launch in this thread would read back: clear it
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 // The head dims the unsliced bodies are built for: a head_dim from 17 to 256
@@ -1308,43 +1835,91 @@ cudaError_t plan_bf16(int device, int b, int h, int s, int* out) {
 }
 
 // The sliced bodies' tiles and waves: the unsliced bodies' reckoning with a
-// block a (volume, head, slice) and row block, and key steps a tile over
-// the scores' boxes and v's slice.
+// block a (volume, head, slice) and row block (f32: a (volume, head, group,
+// rank)), and key steps a tile over the scores' boxes and v's slice.
 cudaError_t plan_sliced(int device, int b, int h, int s, int hd, int dtype, int* out) {
   const bool bf16 = dtype == 1;
   const void* kernel = bf16 ? (const void*)attention_sliced_wgmma_kernel
-                            : (const void*)attention_sliced_tf32x3_kernel<true>;
-  const int threads = bf16 ? WG_THREADS : F_THREADS;
-  const size_t smem = bf16 ? SL_SMEM : SF_SMEM;
-  cudaError_t err = bf16 ? sliced_wgmma_ready(device) : sliced_tf32x3_ready<true>(device);
+                            : (const void*)attention_sliced_f32_kernel;
+  const size_t smem = bf16 ? SL_SMEM : SW_SMEM;
+  cudaError_t err = bf16 ? sliced_wgmma_ready(device) : sliced_f32_ready(device);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG_THREADS, smem);
   if (err != cudaSuccess) return err;
   err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  const long long units = (long long)b * h * slices_of(hd);  // grid x
-  const int rows = bf16 ? BLOCK_ROWS : F_ROWS, tile = bf16 ? ROWS : 16;
-  const int per_block = rows / tile, keys = bf16 ? KEYS : F_KEYS, step = bf16 ? 16 : 8;
-  const int row_blocks = (s + rows - 1) / rows;
-  const int tiles = (s + tile - 1) / tile;
+  int cluster = slices_of(hd), groups = 1;
+  if (!bf16) sliced_f32_cluster(hd, &cluster, &groups);
+  const long long units = (long long)b * h * groups * cluster;  // grid x
+  const int keys = bf16 ? KEYS : SW_KEYS, step = bf16 ? 16 : 8;
+  const int row_blocks = (s + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int tiles = (s + ROWS - 1) / ROWS;
   const int chunks = (s + keys - 1) / keys;
-  out[0] = rows;
-  out[1] = threads;
+  out[0] = BLOCK_ROWS;
+  out[1] = WG_THREADS;
   out[2] = (int)smem;
   out[3] = attr.numRegs;
   out[4] = per_sm;
   out[5] = sms;
   out[6] = (int)(units * row_blocks);
   out[7] = (int)(units * tiles);
-  out[8] = (int)(units * (tiles % per_block ? 1 : 0));
-  // a chunk's key steps in each box of the scores and in the slice's p v
-  out[9] = chunks * (keys / step) * ((hd + 63) / 64 + 1);
-  out[10] = busiest_sm(units, row_blocks, per_block, tiles - (row_blocks - 1) * per_block,
+  out[8] = (int)(units * (tiles % CONSUMERS ? 1 : 0));
+  // a chunk's key steps in each box of the scores (f32: the busiest rank's)
+  // and in the slice's p v
+  const int nbox = (hd + SW_BOX - 1) / SW_BOX;
+  out[9] = bf16 ? chunks * (keys / step) * ((hd + 63) / 64 + 1)
+                : chunks * (keys / step) * ((nbox + cluster - 1) / cluster + SW_PASSES);
+  out[10] = busiest_sm(units, row_blocks, CONSUMERS, tiles - (row_blocks - 1) * CONSUMERS,
                        (long long)per_sm * sms, sms);
+  return cudaSuccess;
+}
+
+// The sliced f32 body's cluster plan at (b, h, s, hd), into out[12]: ranks
+// a cluster, groups a (volume, head), query rows a block, keys a chunk,
+// ring stages, score boxes (32 columns) of the busiest and the idlest rank,
+// clusters in the grid, clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters), blocks, shared-memory bytes a block,
+// registers a thread at entry (before setmaxnreg).
+cudaError_t plan_sliced_f32(int device, int b, int h, int s, int hd, int* out) {
+  cudaError_t err = sliced_f32_ready(device);
+  if (err != cudaSuccess) return err;
+  int cluster = 0, groups = 0;
+  sliced_f32_cluster(hd, &cluster, &groups);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(SW_THREADS);
+  cfg.dynamicSmemBytes = SW_SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int resident = 0;
+  err = cudaOccupancyMaxActiveClusters(&resident, attention_sliced_f32_kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, attention_sliced_f32_kernel);
+  if (err != cudaSuccess) return err;
+  const int nbox = (hd + SW_BOX - 1) / SW_BOX;
+  const long long clusters = (long long)b * h * groups * ((s + SW_ROWS - 1) / SW_ROWS);
+  out[0] = cluster;
+  out[1] = groups;
+  out[2] = SW_ROWS;
+  out[3] = SW_KEYS;
+  out[4] = SW_STAGES;
+  out[5] = (nbox + cluster - 1) / cluster;
+  out[6] = nbox / cluster;
+  out[7] = (int)clusters;
+  out[8] = resident;
+  out[9] = (int)(clusters * cluster);
+  out[10] = (int)SW_SMEM;
+  out[11] = fa.numRegs;
   return cudaSuccess;
 }
 
@@ -1415,8 +1990,7 @@ extern "C" int attention_launch(int device, const void* q, const void* k, const 
     if ((long long)b * h * slices_of(hd) >= (1ll << 31)) return (int)cudaErrorInvalidValue;
     return (int)(dtype == 1
                      ? launch_sliced_wgmma(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale, st)
-                     : launch_sliced_tf32x3(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale,
-                                            st));
+                     : launch_sliced_f32(device, q, k, v, o, b, h, s, hd, qs, ks, vs, scale, st));
   }
   switch (body_hd(hd)) {
     CASE(32) CASE(64) CASE(80) CASE(128) CASE(256)
@@ -1446,6 +2020,15 @@ extern "C" int attention_plan(int device, int b, int h, int s, int hd, int dtype
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CASE
+}
+
+// The sliced f32 body's cluster plan at (b, h, s, hd > 256) into out[12]
+// (see `plan_sliced_f32`).  Returns a cudaError_t.
+extern "C" int attention_sliced_f32_plan(int device, int b, int h, int s, int hd, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (hd <= MAX_UNSLICED_HD) return (int)cudaErrorInvalidValue;
+  return (int)plan_sliced_f32(device, b, h, s, hd, out);
 }
 
 // The body this process's last launch took (enum Body), -1 before any.

@@ -21,28 +21,32 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     stored.  Its bodies are built for the head dims `K4_BODY_HDS`; a
     head_dim up to the last runs on the first at or above it, its columns
     past hd zero in shared memory and the scale 1 / sqrt(hd) of the true hd
-    (`k4_body_hd`).  Above the last, the sliced forms of both bodies: a
-    block computes `K4_SLICE` columns of the context, each of the (volume,
-    head)'s ceil(hd / K4_SLICE) slices computing the same scores over hd's
-    64-column boxes (staged with q's boxes, no q tile held whole) and its
-    own columns of p v.  In bf16 (every head_dim) a block takes one
-    (volume, head) and 128 query rows: a producer warp loads q and a ring of
-    (k, v) chunks of 64 keys by TMA, and two consumer warpgroups of 64 rows
-    run both products on `wgmma` (the probabilities stay in registers,
-    rounded to bf16 unnormalised; a last chunk of at most 16 live keys runs
-    16 wide).  In f32 a block of 4 warps takes one (volume, head) and 64
-    query rows, 16 a warp, and runs both products on the tensor cores in
-    3xTF32 (`mma.sync` m16n8k8: each operand split into TF32 hi and lo, each
-    product lo*hi + hi*lo + hi*hi in f32, which holds the JAX tolerance where
-    one TF32 product does not), with (k, v) stages of 32 keys coming by
-    cp.async and the scores and softmax in registers.  It reads q, k, v
-    through their strides (unit stride along head_dim; in bf16 a 16-byte
-    aligned address and strides that are multiples of 16 bytes, TMA's rule,
-    so the wrapper copies a bf16 view that is not into a buffer whose rows
-    of hd values are padded to a multiple of 8, `_k4_views`: at a head_dim
-    that 8 does not divide, or a view off that alignment; in f32 any, with
-    16-byte copies where the views allow them: `k4_body_launched`), as the
-    model's
+    (`k4_body_hd`).  Above the last, the sliced bodies: a block computes
+    `K4_SLICE` columns of the context.  In bf16 (every head_dim) a block
+    takes one (volume, head) and 128 query rows: a producer warp loads q and
+    a ring of (k, v) chunks of 64 keys by TMA, and two consumer warpgroups
+    of 64 rows run both products on `wgmma` (the probabilities stay in
+    registers, rounded to bf16 unnormalised; a last chunk of at most 16
+    live keys runs 16 wide); sliced, each of a (volume, head)'s
+    ceil(hd / K4_SLICE) slices computes the whole scores over hd's
+    64-column boxes.  In f32 up to head_dim 256 a block of 4 warps takes
+    one (volume, head) and 64 query rows, 16 a warp, and runs both products
+    on the tensor cores in 3xTF32 (`mma.sync` m16n8k8: each operand split
+    into TF32 hi and lo, each product lo*hi + hi*lo + hi*hi in f32, which
+    holds the JAX tolerance where one TF32 product does not), with (k, v)
+    stages of 32 keys coming by cp.async and the scores and softmax in
+    registers.  In f32 above 256 the slices of a (volume, head) and 128
+    query rows are the blocks of one cluster (`k4_sliced_f32_split`): each
+    computes the partial scores over its own run of hd's 32-column boxes,
+    the ranks add them in rank order through distributed shared memory, and
+    each runs the softmax and its slice's p v, both products in 3xTF32 on
+    `wgmma` fed by TMA.  It reads q, k, v through their strides (unit
+    stride along head_dim; where TMA reads them, in bf16 and in f32 above
+    256, a 16-byte aligned address and strides that are multiples of 16
+    bytes, so the wrapper copies a view that is not into a buffer whose
+    rows of hd values are padded to 16 bytes, `_k4_views`; the unsliced
+    f32 body takes any, with 16-byte copies where the views allow them:
+    `k4_body_launched`), as the model's
     `lin(x).view(B, T, H, hd).transpose(1, 2)` and K3's views into its QKV
     buffer give them, and writes the context
     (B, S, H, hd), returned as its (B, H, S, hd) view, so that the model's
@@ -82,6 +86,11 @@ TC_HD = 8
 #: the sliced bodies, whose blocks compute K4_SLICE context columns each.
 K4_BODY_HDS = (32, 64, 80, 128, 256)
 K4_SLICE = 256
+#: the sliced f32 body's clusters hold at most this many slices (a portable
+#: cluster), and its ranks split the scores' K loop in boxes of K4_F32_BOX
+#: columns of hd (`k4_sliced_f32_split`)
+K4_F32_MAX_CLUSTER = 8
+K4_F32_BOX = 32
 #: most tokens K4 takes: the grid's second axis holds 65,535 row blocks, of
 #: 64 query rows in f32 (4 warps of 16) and 128 in bf16.
 MAX_TOKENS_K4 = 65535 * 64
@@ -143,6 +152,22 @@ def k4_slices(hd: int) -> int:
     return 1 if hd <= K4_BODY_HDS[-1] else -(-hd // K4_SLICE)
 
 
+def k4_sliced_f32_split(hd: int) -> dict:
+    """The sliced f32 body's cluster at head_dim `hd` (above
+    K4_BODY_HDS[-1]), as `csrc/attention.cu` lays it out: the k4_slices(hd)
+    slices in `groups` groups of `cluster` ranks (as even as they divide),
+    rank r computing the context columns of slice group * cluster + r and
+    the partial scores over boxes [b0, b1) of hd's K4_F32_BOX-column
+    boxes, `boxes[r]`."""
+    slices = k4_slices(hd)
+    groups = -(-slices // K4_F32_MAX_CLUSTER)
+    cluster = -(-slices // groups)
+    nbox = -(-hd // K4_F32_BOX)
+    return {"cluster": cluster, "groups": groups, "nbox": nbox,
+            "boxes": [(r * nbox // cluster, (r + 1) * nbox // cluster)
+                      for r in range(cluster)]}
+
+
 def _check(q, k, v) -> None:
     """Raise on anything the kernels do not take."""
     if q.dim() < 2:
@@ -157,9 +182,9 @@ def _check(q, k, v) -> None:
                 f"fused_attention: {name} is {tuple(t.shape)} {t.dtype} on "
                 f"{t.device}, q is {tuple(q.shape)} {q.dtype} on {q.device}")
     if hd > TINY_HD:
-        # K4 reads through the strides (the bf16 body by TMA, from a copy
-        # where they are not TMA's, `_k4_views`); K2's wrapper copies a view
-        # whose head_dim stride is not 1
+        # K4 reads through the strides (by TMA in bf16 and in f32 above
+        # head_dim 256, from a copy where they are not TMA's, `_k4_views`);
+        # K2's wrapper copies a view whose head_dim stride is not 1
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(-1) != 1:
                 raise ValueError(
@@ -273,25 +298,28 @@ def _as_bhsd(t):
 
 
 def _tma_rows(t) -> bool:
-    """Whether TMA reads the bf16 view `t` as it is: a 16-byte aligned
-    address and strides that are multiples of 8 elements."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
+    """Whether TMA reads the view `t` as it is: a 16-byte aligned address
+    and strides that are multiples of 16 bytes."""
+    per16 = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per16 == 0 for s in t.stride()[:-1])
 
 
 def _k4_views(q, k, v) -> list:
-    """The (B, H, S, hd) views K4 is launched on.  In bf16 a view that TMA
-    cannot read (`_tma_rows`: at a head_dim that 8 does not divide, or off
-    16-byte alignment) is copied into a buffer whose rows of hd values lie
-    8 elements apart, the kernel reading its first hd columns: a copy of
-    the input, never a fall to the plain version.  f32 views are read as
-    they are."""
-    if q.dtype != torch.bfloat16:
+    """The (B, H, S, hd) views K4 is launched on.  Where TMA feeds the body
+    (bf16; f32 above K4_BODY_HDS[-1]), a view that TMA cannot read
+    (`_tma_rows`: at a head_dim whose rows are not a multiple of 16 bytes,
+    or off 16-byte alignment) is copied into a buffer whose rows of hd
+    values lie a multiple of 16 bytes apart, the kernel reading its first
+    hd columns: a copy of the input, never a fall to the plain version.  The
+    unsliced f32 body reads its views as they are."""
+    if q.dtype != torch.bfloat16 and q.shape[-1] <= K4_BODY_HDS[-1]:
         return [q, k, v]
+    per16 = 16 // q.element_size()
     views = []
     for t in (q, k, v):
         if not _tma_rows(t):
             hd = t.shape[-1]
-            buf = torch.empty(*t.shape[:-1], -(-hd // 8) * 8, dtype=t.dtype,
+            buf = torch.empty(*t.shape[:-1], -(-hd // per16) * per16, dtype=t.dtype,
                               device=t.device)
             t = buf[..., :hd].copy_(t)
         views.append(t)
@@ -321,11 +349,12 @@ def k4_into(q, k, v, out) -> None:
 
 
 #: the bodies of `csrc/attention.cu`, by the code its dispatch reports: bf16
-#: on `wgmma`, f32 in 3xTF32 with 16-byte copies, and with 4-byte copies
-#: (a view whose base or strides are not multiples of 16 bytes); then the
-#: same three in their sliced forms (head_dim above K4_BODY_HDS[-1])
+#: on `wgmma`, f32 in 3xTF32 on `mma.sync` with 16-byte copies, and with
+#: 4-byte copies (a view whose base or strides are not multiples of 16
+#: bytes); then above K4_BODY_HDS[-1] the sliced bf16 body and the sliced
+#: f32 one (3xTF32 on `wgmma`, a cluster of the slices)
 K4_BODIES = ("bf16_wgmma", "f32_tf32x3", "f32_tf32x3_4byte",
-             "bf16_sliced_wgmma", "f32_sliced_tf32x3", "f32_sliced_tf32x3_4byte")
+             "bf16_sliced_wgmma", "f32_sliced_wgmma")
 
 
 def k4_body_launched() -> str:
