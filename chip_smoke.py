@@ -577,7 +577,8 @@ def phase_build() -> None:
                  sass_count("tiny_attention", op) for op in ("HMMA", "MUFU.EX2")})
     tf32 = k4_f32_sass()
     sliced = k4_sliced_sass()
-    sliced_notes = ptxas_notes(logs["attention"], "attention_sliced_f32_kernel")
+    sliced_notes = {kernel: ptxas_notes(logs["attention"], kernel)
+                    for kernel in ("attention_sliced_f32_kernel", "attention_sliced_wgmma_kernel")}
     k1_tf32 = k1_f32_sass()
     k1b_tf32 = k1b_f32_sass()
     narrow_tf32 = {name: narrow_f32_sass(name) for name in ("fused_mlp", "mlp_pipelined")}
@@ -605,9 +606,11 @@ def phase_build() -> None:
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": {name: ptxas_summary(log) for name, log in logs.items()},
           **sass, "attention_f32_sass_hmma_tf32": tf32,
-          "attention_sliced_sass": sliced, "attention_sliced_f32_ptxas_notes": sliced_notes,
-          "k4_sliced_f32_plan": [k4_sliced_f32_plan(*shape)
+          "attention_sliced_sass": sliced, "attention_sliced_ptxas_notes": sliced_notes,
+          "k4_sliced_f32_plan": [k4_sliced_plan(*shape, torch.float32)
                                  for shape in K4_SLICED_F32_PLAN_SHAPES],
+          "k4_sliced_bf16_plan": [k4_sliced_plan(*shape, torch.bfloat16)
+                                  for shape in K4_SLICED_BF16_PLAN_SHAPES],
           "fused_mlp_f32_sass_hgmma_tf32": k1_tf32,
           "mlp_chunked_f32_sass_hmma_tf32": k1b_tf32,
           "narrow_f32_sass_hgmma_tf32": narrow_tf32,
@@ -638,7 +641,7 @@ def phase_build() -> None:
     check(not any("tf32x3" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's f32 body spills: {attention_ptxas['spilling_entries']}")
     # K4's sliced bodies (head_dim above 256): bf16 on wgmma fed by TMA, f32
-    # in TF32 on wgmma fed by TMA (no mma.sync), neither spilling nor
+    # in TF32 on wgmma fed by TMA (no mma.sync), neither spilling nor either
     # serialising its wgmmas
     check(len(sliced) == 2 and all(n > 0 for c in sliced.values() for op, n in c.items()
                                    if op != "HMMA_TF32")
@@ -646,8 +649,8 @@ def phase_build() -> None:
           f"K4's sliced bodies' SASS: {sliced}")
     check(not any("sliced" in e for e in attention_ptxas["spilling_entries"]),
           f"K4's sliced bodies spill: {attention_ptxas['spilling_entries']}")
-    check(sliced_notes["C7515"] == sliced_notes["C7518"] == 0,
-          f"ptxas serialised the sliced f32 body's wgmmas: {sliced_notes}")
+    check(all(n["C7515"] == n["C7518"] == 0 for n in sliced_notes.values()),
+          f"ptxas serialised a sliced body's wgmmas: {sliced_notes}")
     check(len(k1_tf32) == 3 and all(n > 0 for n in k1_tf32.values()),
           f"K1's wide f32 instantiations' TF32 HGMMAs: {k1_tf32}")
     check(not any("tf32x3" in e or "split_sum" in e
@@ -858,32 +861,39 @@ def k4_sliced_sass() -> dict:
     return out
 
 
-# The sliced f32 body's cluster plan (`attention_sliced_f32_plan`) at the
-# `widest` model's shape and at the shapes `chip_turns.py` times it: hd 512
-# at 513 and 65 tokens, 264 (boxes 4 + 5), 1,024 (four ranks).
+# The sliced bodies' cluster plans (`attention_sliced_f32_plan`,
+# `attention_sliced_bf16_plan`) at the `widest` model's shape (f32 at B = 1,
+# bf16 at B = 2) and at the shapes `chip_turns.py` times them: hd 512 at 513
+# and 65 tokens, 264 (f32 boxes 4 + 5, bf16 2 + 3), 1,024 (four ranks).
 K4_SLICED_F32_PLAN_SHAPES = ((1, 24, 513, 512), (1, 8, 513, 264), (1, 8, 513, 1024),
                              (1, 24, 65, 512))
-K4_SLICED_F32_PLAN_KEYS = ("cluster", "groups", "rows_a_block", "keys_a_chunk", "stages",
-                           "boxes_busiest_rank", "boxes_idlest_rank", "clusters",
-                           "clusters_resident", "blocks", "smem_bytes_a_block",
-                           "registers_at_entry")
+K4_SLICED_BF16_PLAN_SHAPES = ((2, 24, 513, 512), (2, 8, 513, 264), (2, 8, 513, 1024),
+                              (2, 24, 65, 512))
+K4_SLICED_PLAN_KEYS = ("cluster", "groups", "rows_a_block", "keys_a_chunk", "stages",
+                       "boxes_busiest_rank", "boxes_idlest_rank", "clusters",
+                       "clusters_resident", "blocks", "smem_bytes_a_block",
+                       "registers_at_entry")
 
 
-def k4_sliced_f32_plan(nb: int, H: int, S: int, hd: int) -> dict:
-    """The sliced f32 body's cluster plan at one shape on this card, with its
-    waves (clusters over the clusters the card holds at once), checked
-    against `fused_attention.k4_sliced_f32_split`, the wrapper's mirror."""
-    out = (ctypes.c_int * len(K4_SLICED_F32_PLAN_KEYS))()
-    fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p],
-                      "attention_sliced_f32_plan")
+def k4_sliced_plan(nb: int, H: int, S: int, hd: int, dtype=torch.float32) -> dict:
+    """The sliced body's cluster plan for `dtype` at one shape on this card,
+    with its waves (clusters over the clusters the card holds at once),
+    checked against `fused_attention.k4_sliced_split`, the wrapper's
+    mirror; in bf16 every rank's run at most K4_BF16_RUN boxes (its q boxes
+    loaded once a block) up to head_dim 2,048."""
+    out = (ctypes.c_int * len(K4_SLICED_PLAN_KEYS))()
+    symbol = "attention_sliced_bf16_plan" if dtype == torch.bfloat16 else "attention_sliced_f32_plan"
+    fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p], symbol)
     _build.check("attention", fn(torch.cuda.current_device(), nb, H, S, hd, out))
-    plan = dict(zip(K4_SLICED_F32_PLAN_KEYS, out))
-    split = fused_attention.k4_sliced_f32_split(hd)
+    plan = dict(zip(K4_SLICED_PLAN_KEYS, out))
+    split = fused_attention.k4_sliced_split(hd, dtype)
     sizes = [b1 - b0 for b0, b1 in split["boxes"]]
     check(plan["cluster"] == split["cluster"] and plan["groups"] == split["groups"]
           and plan["boxes_busiest_rank"] == max(sizes)
-          and plan["boxes_idlest_rank"] == min(sizes) and plan["clusters_resident"] > 0,
-          f"K4's sliced f32 plan {plan} against the wrapper's split {split}")
+          and plan["boxes_idlest_rank"] == min(sizes) and plan["clusters_resident"] > 0
+          and (dtype != torch.bfloat16 or hd > 2048
+               or max(sizes) <= fused_attention.K4_BF16_RUN),
+          f"K4's sliced {dtype} plan {plan} against the wrapper's split {split}")
     return {"shape": [nb, H, S, hd], **plan, "boxes": split["boxes"],
             "waves": plan["clusters"] / plan["clusters_resident"]}
 

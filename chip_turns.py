@@ -112,7 +112,21 @@ timed alike:
     `build/k4_sliced_parts/` and timed by CUDA events (20 launches) against
     the whole body at the four shapes; as with the narrow body's parts, no
     copy's output is right;
-  * the SASS of every K4 body but the sliced f32 one (phase `k4_sass`):
+  * K4's sliced bf16 body (phase `k4_sliced_bf16`) at (2, 24, 513, 512),
+    (2, 8, 513, 264), (2, 8, 513, 1,024) and (2, 24, 65, 512), as phase
+    `k4_sliced` times the f32 body, with the bound of the bytes or of the
+    two products at the bf16 peak, the bf16 gate, and, where ROOT's library
+    has `attention_sliced_bf16_plan`, its cluster plan and waves; then the
+    `widest` model's bf16 pass at B = 2 under `auto` and `layer`;
+  * where the sliced bf16 body's time goes, and its other forms (phase
+    `k4_sliced_bf16_parts`, with ROOT this checkout), as `k4_sliced_parts`
+    does for f32 (`K4_SLICED_BF16_PARTS`: whole bodies at other keys a
+    chunk and lags (64 keys at lag 0; 32 keys at lags 1-3, their rings
+    deeper) and producer / consumer register splits, each held to the bf16
+    gate; copies without the hand-over, the other ranks' reads, the
+    scores' or p v's wgmmas); a copy at a time over the four shapes, its
+    line emitted before the next runs;
+  * the SASS of every K4 body but the sliced bf16 one (phase `k4_sass`):
     each instantiation's SASS lines and the SHA-256 of its SASS with the
     addresses and mangled names taken out, as `pipeline_sass` does;
   * the 18-model bf16 pass at B=512: device time of one pass under `auto`
@@ -193,10 +207,13 @@ K1C_LEAD_CASES = K1C_WIDE_CASES + (("bfloat16", 4104, 768, 3072, [3072]),
                                     ("float32", 4104, 768, 3072, [3072]))
 PHASES = ("k1", "k1_f32", "k1_f32_narrow", "k1_f32_narrow_parts", "k1b_f32",
           "k1b_bf16", "k1c_wide", "k1c_wide_leads", "k1b_wide_bits", "d8", "d8_splits",
-          "pipeline_sass", "k4_sliced", "k4_sliced_parts", "k4_sass", "pass", "latency",
-          "stretch_f32")
-# Phase `k4_sliced`: (B, H, S, hd) of K4's sliced f32 body
-K4_SLICED_SHAPES = ((1, 24, 513, 512), (1, 8, 513, 264), (1, 8, 513, 1024), (1, 24, 65, 512))
+          "pipeline_sass", "k4_sliced", "k4_sliced_parts", "k4_sliced_bf16",
+          "k4_sliced_bf16_parts", "k4_sass", "pass", "latency", "stretch_f32")
+# Phases `k4_sliced` and `k4_sliced_bf16`: (B, H, S, hd) of K4's sliced
+# bodies, by dtype name
+K4_SLICED_SHAPES = {
+    "float32": ((1, 24, 513, 512), (1, 8, 513, 264), (1, 8, 513, 1024), (1, 24, 65, 512)),
+    "bfloat16": ((2, 24, 513, 512), (2, 8, 513, 264), (2, 8, 513, 1024), (2, 24, 65, 512))}
 
 
 def _drop_lines(text: str, marker: str) -> str:
@@ -242,6 +259,47 @@ K4_SLICED_PARTS = (
                                   "a[kk][r] = a[kk][4 + r] = raw[r];")),
     ("no_score_wgmma", lambda s: _drop_lines(s, "wgmma_tf32_rs<SW_KEYS>(")),
     ("no_pv_wgmma", lambda s: _drop_lines(s, "wgmma_tf32_rs<SW_PASS>(")))
+# The sliced bf16 body at other keys a chunk and lags, with other register
+# splits, and with one part taken out: (name, text of `csrc/attention.cu` ->
+# text of the copy)
+def _bf16_keys_lag(keys: int, lag: int):
+    return lambda s: _sub(s, "constexpr int SB_KEYS = 64;", f"constexpr int SB_KEYS = {keys};",
+                          "constexpr int SB_LAG = 1;", f"constexpr int SB_LAG = {lag};")
+
+
+def _bf16_regs(producer: int, consumer: int):
+    return lambda s: _sub(
+        s, 'setmaxnreg.dec.sync.aligned.u32 40;\\n" ::: "memory");\n    if (tid == 0)\n'
+        '      sliced_bf16_produce(',
+        f'setmaxnreg.dec.sync.aligned.u32 {producer};\\n" ::: "memory");\n    if (tid == 0)\n'
+        '      sliced_bf16_produce(',
+        'setmaxnreg.inc.sync.aligned.u32 232;\\n" ::: "memory");\n    const int c = wg - 1;\n'
+        '    if (c < w.live)  // a query row of this warpgroup lies below s\n'
+        '      sliced_bf16_consume(',
+        f'setmaxnreg.inc.sync.aligned.u32 {consumer};\\n" ::: "memory");\n    const int c = wg - 1;\n'
+        '    if (c < w.live)  // a query row of this warpgroup lies below s\n'
+        '      sliced_bf16_consume(')
+
+
+K4_SLICED_BF16_PARTS = (
+    ("whole", lambda s: s),
+    ("regs56", _bf16_regs(56, 224)),
+    ("regs24", _bf16_regs(24, 240)),
+    ("no_exchange", lambda s: _sub(
+        s, "mbar_wait_cluster(sb_bar(base, SB_XFULL + xs + slot), (u / SB_SLOTS) & 1);", "",
+        "mbar_wait_cluster(sb_bar(base, SB_XFULL + xs + (ch - 1) % SB_SLOTS),", "(void)(",
+        "else if (tid % 32 == 0 && tid / 32 <= w.live)", "else if (false)",
+        "      for (int r = 0; r < cluster; ++r) {\n        const uint32_t at = cluster_addr(sb_slot(",
+        "      for (int r = 0; r < 1; ++r) {\n        const uint32_t at = cluster_addr(sb_slot(")),
+    ("own_partial_only", lambda s: _sub(
+        s, "const uint32_t at = cluster_addr(sb_slot(base, c, slot), r) + 16 * tid;",
+        "const uint32_t at = smem_u32(sb_slot(base, c, slot)) + 16 * tid;")),
+    ("no_score_wgmma", lambda s: _drop_lines(s, "wgmma<SB_KEYS>(sc,")),
+    ("no_pv_wgmma", lambda s: _drop_lines(s, "wgmma_rs_tb<SLICE>(o, pa[kk]")),
+    ("keys64_lag0", _bf16_keys_lag(64, 0)),
+    ("keys32_lag1", _bf16_keys_lag(32, 1)),
+    ("keys32_lag2", _bf16_keys_lag(32, 2)),
+    ("keys32_lag3", _bf16_keys_lag(32, 3)))
 # The narrow f32 body with one part taken out: (name, text of the header ->
 # text of the copy)
 NARROW_PARTS = (
@@ -454,21 +512,25 @@ def pipeline_sass(cs, emit, _build) -> None:
                   "sha256": hashlib.sha256("\n".join(body).encode()).hexdigest()})
 
 
-def k4_sliced(cs, emit, fused_attention, _build) -> None:
-    """Phase `k4_sliced` (see the module note)."""
+def k4_sliced(cs, emit, fused_attention, _build, dtype_name: str = "float32") -> None:
+    """Phases `k4_sliced` and `k4_sliced_bf16` (see the module note)."""
     import ctypes
     import torch
     import torch.nn.functional as F
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype == torch.bfloat16
+    phase = "k4_sliced_bf16" if bf16 else "k4_sliced"
     plan_fn = None
     try:
         plan_fn = _build.entry("attention", [ctypes.c_int] * 5 + [ctypes.c_void_p],
-                               "attention_sliced_f32_plan")
+                               "attention_sliced_bf16_plan" if bf16
+                               else "attention_sliced_f32_plan")
     except AttributeError:  # an older library: no cluster plan
         pass
     with torch.no_grad():
-        for shape in K4_SLICED_SHAPES:
+        for shape in K4_SLICED_SHAPES[dtype_name]:
             own = torch.Generator(device="cuda").manual_seed(zlib.crc32(repr(shape).encode()))
-            q, k, v = cs.model_views(own, shape, torch.float32)
+            q, k, v = cs.model_views(own, shape, dtype)
             out = fused_attention.fused_attention(q, k, v)
             body = fused_attention.k4_body_launched()
             ref = fused_attention._plain_attention_k4(q, k, v)
@@ -478,24 +540,28 @@ def k4_sliced(cs, emit, fused_attention, _build) -> None:
             lib = cs.device_time(lambda: [F.scaled_dot_product_attention(q, k, v)
                                           for _ in range(10)], host_ops=False)[0]
             B, H, S, hd = shape
-            ops = 3 * 4.0 * B * H * S * S * hd / cs.PEAK_TF32
-            nbytes = 4.0 * B * H * S * hd * 4 / cs.PEAK_BYTES
-            line = {"phase": "k4_sliced", "shape": list(shape), "body": body,
+            # two products of 2 S^2 hd a head, in f32 three TF32 ones each
+            ops = (4.0 * B * H * S * S * hd / cs.PEAK_FLOPS[dtype] if bf16
+                   else 3 * 4.0 * B * H * S * S * hd / cs.PEAK_TF32)
+            nbytes = 4.0 * B * H * S * hd * q.element_size() / cs.PEAK_BYTES
+            line = {"phase": phase, "shape": list(shape), "body": body,
                     "device_ms": groups.get("K4", 0.0) / 10, "library_device_ms": lib / 10,
                     **cs.sdpa_backend(q, k, v), "bound_ms": max(ops, nbytes) * 1e3,
                     "bound_by": "operations" if ops >= nbytes else "bytes",
-                    "max_err_over_gate": cs.over_gate(out, ref, cs.TOL[torch.float32])[1],
+                    "max_err_over_gate": cs.over_gate(
+                        out, ref, cs.K4_BF16_TOL if bf16 else cs.TOL[dtype])[1],
                     "sha256": digest(out)}
-            if plan_fn is not None:
-                line["plan"] = cs.k4_sliced_f32_plan(*shape)
+            if plan_fn is not None and hasattr(fused_attention, "k4_sliced_split"):
+                line["plan"] = cs.k4_sliced_plan(*shape, dtype)
             emit(line)
 
 
-def widest_f32(cs, emit) -> None:
-    """The `widest` model's f32 pass at B = 1 under `auto` and `layer` (K4's
-    or K3's sliced f32 body at head_dim 512, twice a pass), the model made as
-    `chip_smoke.phase_widest` makes it: K4's device ms (its trace group, K3's
-    launches included), its share of the busy ms, the busy ms."""
+def widest_pass(cs, emit, bf16: bool = False) -> None:
+    """The `widest` model's f32 pass at B = 1 (bf16: at B = 2) under `auto`
+    and `layer` (K4's or K3's sliced body at head_dim 512, twice a pass),
+    the model made as `chip_smoke.phase_widest` makes it: K4's device ms
+    (its trace group, K3's launches included), its share of the busy ms,
+    the busy ms."""
     import torch
     from vit3d_ensemble_tpu_torch.configs import ViTConfig
     from vit3d_ensemble_tpu_torch.models import VisionTransformer3D
@@ -505,9 +571,13 @@ def widest_f32(cs, emit) -> None:
     model.to_empty(device="cuda")
     model.reset_parameters(False, torch.Generator(device="cuda").manual_seed(cs.SEED + 12))
     model.eval()
-    x = torch.randn(1, 128, 128, 128, 1, device="cuda",
+    B = cs.WIDEST_B if bf16 else 1
+    x = torch.randn(B, 128, 128, 128, 1, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(cs.SEED + 13))
-    line = {"phase": "widest_f32", "B": 1}
+    if bf16:
+        model.to(torch.bfloat16)
+        x = x.to(torch.bfloat16)
+    line = {"phase": "widest_bf16" if bf16 else "widest_f32", "B": B}
     with torch.no_grad():
         for impl in ("auto", "layer"):
             cs.set_impls(impl)
@@ -524,9 +594,11 @@ def widest_f32(cs, emit) -> None:
     torch.cuda.empty_cache()
 
 
-def k4_sliced_parts(cs, emit, _build) -> None:
-    """Phase `k4_sliced_parts` (see the module note)."""
+def k4_sliced_parts(cs, emit, _build, bf16: bool = False) -> None:
+    """Phases `k4_sliced_parts` and `k4_sliced_bf16_parts` (see the module
+    note)."""
     import ctypes
+    from vit3d_ensemble_tpu_torch.ops import fused_attention
     import math
     import subprocess
     import torch
@@ -534,8 +606,9 @@ def k4_sliced_parts(cs, emit, _build) -> None:
     csrc = here / "vit3d_ensemble_tpu_torch" / "csrc"
     source = (csrc / "attention.cu").read_text()
     jobs = {}
-    for name, edit in K4_SLICED_PARTS:
-        d = here / "build" / "k4_sliced_parts" / name
+    phase = "k4_sliced_bf16_parts" if bf16 else "k4_sliced_parts"
+    for name, edit in K4_SLICED_BF16_PARTS if bf16 else K4_SLICED_PARTS:
+        d = here / "build" / phase / name
         d.mkdir(parents=True, exist_ok=True)
         for f in csrc.glob("*.cuh"):
             (d / f.name).write_text(f.read_text())
@@ -552,7 +625,10 @@ def k4_sliced_parts(cs, emit, _build) -> None:
         log, _ = job.communicate()
         if job.returncode != 0:
             raise RuntimeError(f"K4 sliced part {name}: nvcc failed:\n{log}")
-        fn = ctypes.CDLL(str(here / "build" / "k4_sliced_parts" / name / "part.so")
+        kernel = "attention_sliced_wgmma_kernel" if bf16 else "attention_sliced_f32_kernel"
+        emit({"phase": phase + "_ptxas", "part": name, "notes": cs.ptxas_notes(log, kernel),
+              "spilling": [e for e in cs.ptxas_summary(log)["spilling_entries"] if kernel in e]})
+        fn = ctypes.CDLL(str(here / "build" / phase / name / "part.so")
                          ).attention_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int,
@@ -560,24 +636,38 @@ def k4_sliced_parts(cs, emit, _build) -> None:
         fn.restype = ctypes.c_int
         fns[name] = fn
     stream = torch.cuda.current_stream().cuda_stream
-    for shape in K4_SLICED_SHAPES:
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    cases = []
+    for shape in K4_SLICED_SHAPES[str(dtype).split(".")[1]]:
         own = torch.Generator(device="cuda").manual_seed(zlib.crc32(repr(shape).encode()))
-        q, k, v = cs.model_views(own, shape, torch.float32)
+        q, k, v = cs.model_views(own, shape, dtype)
         B, H, S, hd = shape
-        out = torch.empty(B, S, H, hd, device="cuda")
-        ms = {}
-        for name, fn in fns.items():
+        cases.append((shape, q, k, v, torch.empty(B, S, H, hd, device="cuda", dtype=dtype),
+                      fused_attention._plain_attention_k4(q, k, v)))
+    # a copy at a time over every shape, its line emitted before the next
+    # copy runs (a copy that faults ends the phase with the lines before it)
+    for name, fn in fns.items():
+        line = {"phase": phase, "part": name, "ms": {}, "max_err_over_gate": {}}
+        for shape, q, k, v, out, ref in cases:
+            B, H, S, hd = shape
+
             def call(fn=fn):
                 _build.check("attention", fn(
                     0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, hd,
                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(hd),
-                    0, stream))
-            ms[name] = cs.time_ms(call, 20)
-        emit({"phase": "k4_sliced_parts", "shape": list(shape), "ms": ms})
+                    int(bf16), stream))
+            key = "x".join(map(str, shape))
+            line["ms"][key] = cs.time_ms(call, 20)
+            call()
+            torch.cuda.synchronize()
+            # whole bodies (no part taken out) must hold the gate
+            line["max_err_over_gate"][key] = cs.over_gate(
+                out.transpose(1, 2), ref, cs.K4_BF16_TOL if bf16 else cs.TOL[dtype])[1]
+        emit(line)
 
 
 def k4_sass(cs, emit, _build) -> None:
-    """Phase `k4_sass`: every K4 body in ROOT's library but the sliced f32
+    """Phase `k4_sass`: every K4 body in ROOT's library but the sliced bf16
     one, its SASS lines and the SHA-256 of its SASS with the addresses and
     mangled names taken out."""
     import re
@@ -585,7 +675,7 @@ def k4_sass(cs, emit, _build) -> None:
     for fn in cs.sass_of(_build.library_path("attention")).split("Function : ")[1:]:
         name = fn.split()[0]
         found = re.search(r"(attention_\w+?_kernel)(I\w+?E)?E", name)
-        if not found or "sliced_f32" in name or "sliced_tf32x3" in name:
+        if not found or "sliced_wgmma" in name:
             continue
         body = [re.sub(r"_ZN\w+", "SYM", re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)).strip()
                 for line in fn.splitlines()[1:]]
@@ -883,9 +973,14 @@ def main() -> int:
             pipeline_sass(cs, emit, _build)
         if "k4_sliced" in phases:
             k4_sliced(cs, emit, fused_attention, _build)
-            widest_f32(cs, emit)
+            widest_pass(cs, emit)
+        if "k4_sliced_bf16" in phases:
+            k4_sliced(cs, emit, fused_attention, _build, "bfloat16")
+            widest_pass(cs, emit, bf16=True)
         if "k4_sliced_parts" in phases:
             k4_sliced_parts(cs, emit, _build)
+        if "k4_sliced_bf16_parts" in phases:
+            k4_sliced_parts(cs, emit, _build, bf16=True)
         if "k4_sass" in phases:
             k4_sass(cs, emit, _build)
 

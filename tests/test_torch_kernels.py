@@ -1445,39 +1445,44 @@ def test_k3_above_head_dim_256_matches_plain(cuda, hd, S, dtype):
     _close(out, attention_layer._plain_attention_core(q, k, v, H), dtype, _k4_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [65, 513])
 @pytest.mark.parametrize("hd", [264, 512, 1024])
-def test_k4_sliced_f32_gives_equal_bits(cuda, hd, S):
-    """Two launches of the sliced f32 body on the same views give the same
-    bits: the ranks' partial scores are added in rank order, no atomics."""
-    q, k, v = _model_views(cuda, (2, 3, S, hd), torch.float32)
+def test_k4_sliced_f32_gives_equal_bits(cuda, hd, S, dtype):
+    """Two launches of a sliced body on the same views give the same bits:
+    the ranks' partial scores are added in rank order, no atomics."""
+    q, k, v = _model_views(cuda, (2, 3, S, hd), dtype)
     first = fused_attention.fused_attention(q, k, v)
     second = fused_attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fused_attention.k4_body_launched() == "f32_sliced_wgmma"
+    assert fused_attention.k4_body_launched() == SLICED_BODIES[dtype]
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [65, 513])
-def test_k4_sliced_f32_copies_views_off_16_bytes(cuda, S):
-    """f32 views at head_dim 257, 4 bytes past a 16-byte boundary with
-    rows 258 floats apart, which TMA cannot read: copied into rows of 260
-    floats, one launch, held to the plain version (v scaled as in
+def test_k4_sliced_f32_copies_views_off_16_bytes(cuda, S, dtype):
+    """Views at head_dim 257, one element past a 16-byte boundary with rows
+    258 elements apart (1,032 bytes in f32, 516 in bf16), which TMA cannot
+    read: copied into rows of a multiple of 16 bytes (260 floats, 264
+    bf16), one launch, held to the plain version (v scaled as in
     `_model_views`)."""
     hd = 257
-    q, k, v = ((torch.randn(2, 3, S, hd + 1, generator=cuda, device="cuda") * c)[..., 1:]
+    q, k, v = ((torch.randn(2, 3, S, hd + 1, generator=cuda, device="cuda") * c).to(dtype)[..., 1:]
                for c in (1.0, 1.0, math.sqrt(S / math.e)))
-    assert q.data_ptr() % 16 == 4 and q.stride(2) == hd + 1
+    assert q.data_ptr() % 16 == q.element_size() and q.stride(2) == hd + 1
     assert not fused_attention._tma_rows(q)
+    assert fused_attention._k4_views(q, k, v)[0].stride(2) == (260 if dtype == torch.float32
+                                                                else 264)
     before = fused_attention.launches_k4
     out = fused_attention.fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert fused_attention.launches_k4 == before + 1
-    assert fused_attention.k4_body_launched() == "f32_sliced_wgmma"
+    assert fused_attention.k4_body_launched() == SLICED_BODIES[dtype]
     ref = fused_attention._plain_attention_k4(q, k, v)
-    _close(out, ref, torch.float32, _k4_tol(torch.float32))
+    _close(out, ref, dtype, _k4_tol(dtype))
     with pytest.raises(AssertionError):
-        _close(_without_last_key(q, k, v), ref, torch.float32, _k4_tol(torch.float32))
+        _close(_without_last_key(q, k, v), ref, dtype, _k4_tol(dtype))
 
 
 # K1, K1b and K1c above 8,192: 8,193 (zero-padded to 8,200 in bf16, 8,196 in

@@ -24,8 +24,8 @@
 // Which body takes which input: bf16 runs the `wgmma` body below, f32 the
 // `mma.sync` 3xTF32 body after it, at every head_dim from 17 to 256; above
 // 256 the sliced bodies (`attention_sliced_wgmma_kernel`, bf16, and
-// `attention_sliced_f32_kernel`, 3xTF32 on `wgmma` fed by TMA, the scores
-// computed once across a cluster of the head's slices: blocks of 256
+// `attention_sliced_f32_kernel`, 3xTF32, both on `wgmma` fed by TMA, the
+// scores computed once across a cluster of the head's slices: blocks of 256
 // context columns; see their note), as the TPU kernel takes any head_dim
 // above 16.  Each unsliced body is built for the head dims
 // K4_HDS (32, 64, 80, 128, 256), and a head_dim runs on the first at or
@@ -805,156 +805,23 @@ attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k
 // Above head_dim 256: the context's columns in slices
 // ---------------------------------------------------------------------------
 //
-// A head_dim above 256 (K4_HDS' last) runs on the sliced bodies: the grid
-// gives each (volume, head) ceil(hd / 256) blocks a row block, one a slice
-// of 256 context columns, so that a consumer's context stays at the 128
+// A head_dim above 256 (K4_HDS' last) runs on the sliced bodies: the
+// ceil(hd / 256) slices of a (volume, head) and 128 query rows are the
+// blocks (ranks) of one thread-block cluster, each rank computing 256
+// context columns, so that a consumer's context stays at the 128
 // accumulators a thread of the 256 body (wgmma's widest N), and no q tile
 // is held whole (at hd 512 a 64-row tile is 64 KB in bf16, 128 KB in f32).
-// The slices walk the same chunks of keys and share one online softmax, so
-// their columns agree.  In bf16 every slice computes the whole scores q k^T
-// of each chunk, their 64-column boxes of hd staged one after another in
-// the ring (q's and k's boxes together), then its slice's p v: at hd 512
-// (2 slices) the first product twice, 3 products of S^2 hd where an
-// unsliced body would take 2.  In f32 the slices are the ranks of one
-// cluster, which split the scores' K loop among them and add the partial
-// scores in rank order, so the card takes the 2 products of an unsliced
-// body (see the f32 body's note).  Columns past hd load as zeros (TMA's
-// zero fill), so they add nothing to q k^T; the scale is 1 / sqrt(hd) of
-// the true hd.  The last chunk's keys past S are masked, as in the
-// unsliced bodies; no narrow tail chunk.
+// The ranks split the scores' K loop: rank r computes a chunk's partial
+// scores over its own run of hd's boxes, and every rank adds all ranks'
+// partials in rank order through distributed shared memory, so the card
+// takes the 2 products of an unsliced body and every rank holds the same
+// bits of the scores: one online softmax, one normaliser for all slices.
+// Columns past hd load as zeros (TMA's zero fill), so they add nothing to
+// q k^T; the scale is 1 / sqrt(hd) of the true hd.  The last chunk's keys
+// past S are masked after the sum, as in the unsliced bodies; no narrow
+// tail chunk.  The f32 body's note gives the cluster, the hand-over and
+// its traps; the bf16 body's note (after it) what bf16 does otherwise.
 constexpr int SLICE = 256;  // context columns a block of the sliced bodies computes
-
-// bf16: the wgmma body's three warpgroups (a producer, two consumers of 64
-// query rows) on one ring of 32 KB stages: a chunk's `boxes` = ceil(hd / 64)
-// score stages, each q's 64 x 64 box of both consumers and k's, then one v
-// stage, its slice's four 64 x 64 boxes (Tile<256>'s layout, the ones that
-// hold a column below hd loaded).  128-byte swizzle throughout.
-constexpr int SL_BOX = ROWS * 128;                 // a 64 x 64 bf16 box
-constexpr int SL_STAGE = (SLICE / 64) * SL_BOX;    // 32 KB
-constexpr int SL_STAGES = (SMEM_MAX - 1024 - 256) / SL_STAGE;
-constexpr size_t SL_SMEM = 1024 + (size_t)SL_STAGES * SL_STAGE + 2 * SL_STAGES * sizeof(uint64_t);
-static_assert(SL_STAGES >= 2 && (CONSUMERS + 1) * SL_BOX <= SL_STAGE && SL_SMEM <= SMEM_MAX,
-              "the sliced ring");
-
-__global__ void __launch_bounds__(WG_THREADS, 1)
-attention_sliced_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                              const __grid_constant__ CUtensorMap map_k,
-                              const __grid_constant__ CUtensorMap map_v,
-                              __nv_bfloat16* __restrict__ o, int s, int h, int hd, int slices,
-                              int orders, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char att_smem[];
-  unsigned char* ring = att_smem + ((1024 - (smem_u32(att_smem) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + SL_STAGES * SL_STAGE);
-  uint64_t* empty = full + SL_STAGES;
-
-  const int bh = blockIdx.x / slices, col0 = blockIdx.x % slices * SLICE;
-  const int b = bh / h, hh = bh % h;
-  const int row0 = blockIdx.y * BLOCK_ROWS;
-  const int live = min(CONSUMERS, (s - row0 + ROWS - 1) / ROWS);
-  const int chunks = (s + KEYS - 1) / KEYS;
-  const int boxes = (hd + 63) / 64;                        // score stages a chunk
-  const int v_boxes = min(SLICE / 64, (hd - col0 + 63) / 64);  // v's boxes below hd
-  const int stages = chunks * (boxes + 1);
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < SL_STAGES; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], live);  // one arrival from each live consumer
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid == 0) {
-      const int oq = orders & 63, ok = (orders >> 6) & 63, ov = (orders >> 12) & 63;
-      for (int i = 0; i < stages; ++i) {
-        const int st = i % SL_STAGES, c = i / (boxes + 1), x = i % (boxes + 1);
-        unsigned char* dst = ring + st * SL_STAGE;
-        mbar_wait(&empty[st], ((i / SL_STAGES) & 1) ^ 1);  // at once on the first lap
-        if (x < boxes) {
-          mbar_expect_tx(&full[st], (live + 1) * SL_BOX);
-          for (int q = 0; q < live; ++q)
-            load_box(dst + q * SL_BOX, &map_q, oq, &full[st], 64 * x, row0 + q * ROWS, hh, b);
-          load_box(dst + CONSUMERS * SL_BOX, &map_k, ok, &full[st], 64 * x, c * KEYS, hh, b);
-        } else {
-          mbar_expect_tx(&full[st], v_boxes * SL_BOX);
-          for (int j = 0; j < v_boxes; ++j)
-            load_box(dst + j * SL_BOX, &map_v, ov, &full[st], col0 + 64 * j, c * KEYS, hh, b);
-        }
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  const int c = wg - 1;
-  if (c >= live) return;  // no query row of this warpgroup lies below s
-  const int warp = tid / 32, lane = tid % 32;
-  float acc[SLICE / 2];
-#pragma unroll
-  for (int i = 0; i < SLICE / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  for (int ch = 0, i = 0; ch < chunks; ++ch) {
-    float sc[KEYS / 2];
-#pragma unroll
-    for (int j = 0; j < KEYS / 2; ++j) sc[j] = 0.f;
-    for (int x = 0; x < boxes; ++x, ++i) {
-      const int st = i % SL_STAGES;
-      mbar_wait(&full[st], (i / SL_STAGES) & 1);
-      const unsigned char* stage = ring + st * SL_STAGE;
-      const uint64_t dq = smem_desc(stage + c * SL_BOX, 16, 1024, 1);
-      const uint64_t dk = smem_desc(stage + CONSUMERS * SL_BOX, 16, 1024, 1);
-      fence_regs(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma<KEYS>(sc, dq + 2 * kk, dk + 2 * kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      if (tid == 0) mbar_arrive(&empty[st]);
-    }
-    const int st = i % SL_STAGES;
-    mbar_wait(&full[st], (i / SL_STAGES) & 1);
-    softmax_pv<SLICE, KEYS>(acc, m, l, sc, ring + st * SL_STAGE, ch * KEYS, s, ch + 1 == chunks,
-                            scale_log2);
-    if (tid == 0) mbar_arrive(&empty[st]);
-    ++i;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + c * ROWS + 16 * warp + g + 8 * i;
-    if (r >= s) continue;
-    const float inv = 1.f / l[i];
-    // this slice's columns below hd
-    __nv_bfloat16* out = o + (((long long)b * s + r) * h + hh) * hd + col0 + 2 * t;
-    if (hd % 2 == 0) {
-#pragma unroll
-      for (int j = 0; j < SLICE / 8; ++j)
-        if (col0 + 8 * j + 2 * t < hd)
-          *reinterpret_cast<uint32_t*>(out + 8 * j) =
-              pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
-    } else {
-#pragma unroll
-      for (int j = 0; j < SLICE / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (col0 + 8 * j + 2 * t + e < hd)
-            out[8 * j + e] = __float2bfloat16_rn(acc[4 * j + 2 * i + e] * inv);
-    }
-  }
-}
 
 // f32: both products in 3xTF32 on wgmma fed by TMA, the scores of a chunk
 // computed once across a thread-block cluster of the head's slices.
@@ -1554,6 +1421,470 @@ attention_sliced_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   cluster_sync_all();
 }
 
+// bf16: both products on wgmma fed by TMA, the scores of a chunk computed
+// once across the f32 body's cluster (`sliced_cluster`: the slices in groups
+// of at most 8 ranks, several groups above hd 2,048, each group computing
+// the scores).  Rank r computes the 256 context columns of slice group *
+// cluster + r and the chunk's partial scores over its run of hd's 64-column
+// boxes, [r nbox / cluster, (r + 1) nbox / cluster) of nbox = ceil(hd / 64):
+// 2 + 3 at hd 264, 4 + 4 at 512, four ranks of 4 at 1,024.  Where it
+// differs from the f32 body:
+//   * q is loaded once a block.  nbox <= 4 slices, so up to hd 2,048 (one
+//     group) a run is at most SB_RUN = 4 boxes: each live consumer's q boxes
+//     of the run (64 rows x 64 columns, 8 KB each) come by TMA at the
+//     block's start and stay for the whole key walk.  Above hd 2,048 a run
+//     can be longer; there it goes in sub-runs of at most 4 boxes, each
+//     sub-run's q boxes reloaded into the same space every chunk
+//     (`q_empty`), which only those head dims pay.
+//   * One ring of SB_STAGES equal stages carries k and v in the consumers'
+//     order: a chunk's k boxes of the run (SB_KEYS keys x 64 columns each),
+//     or its keys of v's slice (four such boxes, those holding a column
+//     below hd loaded), all in the 128-byte swizzle.  The producer's thread
+//     0 only loads: v is read through the N-major descriptor
+//     (`wgmma_rs_tb<256>`), so nothing is split or transposed.
+//   * Scores: a consumer waits for the chunk's k stage once, issues the
+//     wgmmas of every box of its run (m64n`SB_KEYS`k16, q and k from shared
+//     memory) into one accumulator in registers, commits once, waits once,
+//     then releases the stage.
+//   * The hand-over: the partial (64 rows x SB_KEYS keys in f32) stored into
+//     the consumer's exchange slot, then every consumer thread arrives on a
+//     block-local `xwritten`; a helper (lane 0 of the producer's warp 1 +
+//     c) waits for it and makes the release arrivals at cluster scope on
+//     the slot's `xfull` in every rank, off the consumer's path (a release
+//     at cluster scope waits for the writes to be performed there).  The
+//     scores run SB_LAG chunks ahead of the softmax in SB_LAG + 2 slots, a
+//     slot reused once the chunk before the one to be written has been
+//     handed over everywhere, as in the f32 body; every rank reads every
+//     rank's slot through distributed shared memory and adds them in rank
+//     order (no float atomics: a launch gives the same bits every time),
+//     then masks the keys past S to -inf.
+//   * Softmax and p v as the unsliced body's (`softmax_pv`, forked for the
+//     stage's box stride): exp(s - max) by exp2 with the scale folded in,
+//     rounded to bf16 unnormalised in registers, p v by `wgmma_rs_tb<256>`
+//     on v's stage, the context divided by the f32 row sums once.  A rank
+//     whose slice holds no column below hd (above hd 2,048) loads no v and
+//     runs no p v.
+//
+// Budget (227 KB of shared memory, one block an SM), by keys a chunk:
+//
+//   item                                    64 keys       32 keys
+//   resident q, <= 4 boxes, 2 consumers     64 KB         64 KB
+//   exchange slot of a consumer             16 KB         8 KB
+//   slots: 2 consumers x (SB_LAG + 2)       96 KB (lag 1) 64 KB (lag 2)
+//   a ring stage (k's run or v's slice)     32 KB         16 KB
+//   stages that fit beside them             2             6
+//
+// Registers: a consumer at setmaxnreg's 232 holds the slice's context
+// (128), the scores (SB_KEYS / 2) and p's bf16 fragments (SB_KEYS / 4); the
+// block enters at 168 a thread (384 threads, one block an SM), so the
+// producer keeps 40: 40 + 2 x 232 is the most the block's registers give
+// (48 for the producer left the f32 body's consumers waiting for ever).
+// The bound at (2, 24, 513, 512): 0.0301 ms for the bytes (q, k, v read
+// once, ctx written once at 3.35 TB/s) against 0.0262 ms for the two
+// products at 989 TFLOP/s.  Why this form (`chip_turns.py --phases
+// k4_sliced_bf16_parts`, copies of this file in turns on an H100 at 700 W,
+// at that shape): 64 keys a chunk at lag 1 0.16-0.17 ms; 32 keys (lag 1-3,
+// 6-8 stages) 0.19-0.25, twice the hand-overs; 64 keys at lag 0 (3 stages)
+// 0.21, the hand-over's wait exposed; the consumers' own release arrivals
+// after a named barrier, as the f32 body makes them, 0.205-0.207 against
+// 0.165 through the helpers; two slots and a third stage, the reads of
+// every rank signalled back by the helpers, 0.18; the scores' wgmmas
+// issued under the previous chunk's softmax, 0.22-0.24 (it spills); a head's
+// row blocks run together in the grid, no change.  Where the time goes
+// (copies with one part taken out): the hand-over 0.03 ms (the reads of the
+// other ranks' slots 0.014; at hd 1,024, three other ranks, 0.06), the
+// scores' wgmmas 0.026, p v's 0.018.
+// Traps kept from the f32 body: every thread of every rank joins the
+// cluster barrier after the barriers' initialisation and again before
+// exit; a consumer with no live row computes nothing, is not counted by
+// the ring's `empty` barriers and touches no slot, the same on every rank
+// (all ranks share the row block); the TMA swizzle is the wgmma
+// descriptors' (128 bytes, SBO 1,024).
+constexpr int SB_KEYS = 64;                  // keys a chunk
+constexpr int SB_LAG = 1;                    // chunks the scores run ahead of the softmax
+constexpr int SB_SLOTS = SB_LAG + 2;         // exchange slots a consumer
+constexpr int SB_BOX = 64;                   // hd columns of a box: 128 bytes of bf16
+constexpr int SB_RUN = 4;                    // q boxes a consumer keeps
+constexpr int SB_Q = ROWS * 128;             // a q box, 8 KB
+constexpr int SB_K = SB_KEYS * 128;          // a k or v box of a chunk's keys
+// a stage: the chunk's k boxes of a (sub-)run, or its keys of v's slice
+// (four boxes): the same bytes
+constexpr int SB_STAGE = SB_RUN * SB_K;
+constexpr int SB_SLOT = ROWS * SB_KEYS * 4;  // a consumer's partial scores
+constexpr int SB_Q_BYTES = CONSUMERS * SB_RUN * SB_Q;
+constexpr int SB_SLOT_BYTES = SB_SLOTS * CONSUMERS * SB_SLOT;
+constexpr int SB_BAR_BYTES = 256;
+constexpr int SB_STAGES =
+    (SMEM_MAX - 1024 - SB_BAR_BYTES - SB_Q_BYTES - SB_SLOT_BYTES) / SB_STAGE;
+// From the 1,024-byte aligned base: q [consumer][box], the ring, the slots
+// [consumer][slot], the mbarriers: q's full and empty, full and empty of
+// each stage, then of each consumer's slots: xfull (written in every rank)
+// and xwritten (written here: for the helper).
+constexpr int SB_RING_AT = SB_Q_BYTES;
+constexpr int SB_SLOTS_AT = SB_RING_AT + SB_STAGES * SB_STAGE;
+constexpr int SB_BARS_AT = SB_SLOTS_AT + SB_SLOT_BYTES;
+constexpr int SB_QFULL = 0, SB_QEMPTY = 1, SB_FULL = 2, SB_EMPTY = SB_FULL + SB_STAGES,
+              SB_XFULL = SB_EMPTY + SB_STAGES, SB_XWRITTEN = SB_XFULL + SB_SLOTS * CONSUMERS,
+              SB_BARS = SB_XWRITTEN + SB_SLOTS * CONSUMERS;
+constexpr size_t SB_SMEM = 1024 + (size_t)SB_BARS_AT + SB_BARS * sizeof(uint64_t);
+static_assert(SLICE / SB_BOX == SB_RUN && SB_STAGES >= 2 &&
+                  SB_BARS * sizeof(uint64_t) <= SB_BAR_BYTES && SB_SMEM <= SMEM_MAX &&
+                  SB_KEYS % 16 == 0 && SB_SLOTS == SB_LAG + 2,
+              "the sliced bf16 body's shared memory");
+
+__device__ __forceinline__ uint64_t* sb_bar(unsigned char* base, int i) {
+  return reinterpret_cast<uint64_t*>(base + SB_BARS_AT) + i;
+}
+__device__ __forceinline__ float* sb_slot(unsigned char* base, int c, int slot) {
+  return reinterpret_cast<float*>(base + SB_SLOTS_AT + (SB_SLOTS * c + slot) * SB_SLOT);
+}
+
+// One rank's work, as the producer and the consumers walk it in the same
+// order: hd's boxes [b0, b1) of the scores, v's boxes of the slice at col0.
+struct SlicedBf16Work {
+  unsigned char* base;
+  int b, hh, row0, live, chunks, b0, b1, col0, v_boxes;
+};
+
+// The partial scores of N boxes (q's at `q`, k's at `k`, SB_Q and SB_K
+// apart) added into `sc`: every box's 4 k-steps issued, one commit, one
+// wait.  Register 4j + 2i + e: row 16 warp + lane / 4 + 8i, key 8j +
+// 2 (lane % 4) + e.
+template <int N>
+__device__ __forceinline__ void sb_scores(float (&sc)[SB_KEYS / 2], const unsigned char* q,
+                                          const unsigned char* k) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    const uint64_t dq = smem_desc(q + x * SB_Q, 16, 1024, 1);
+    const uint64_t dk = smem_desc(k + x * SB_K, 16, 1024, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma<SB_KEYS>(sc, dq + 2 * kk, dk + 2 * kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+}
+
+// The online softmax of one chunk (key0 ..) of this consumer's 64 rows from
+// its summed scores `sc`, keys at or past s masked (`last`), then ctx += p
+// v from v's stage `v_st` once `v_full` completes its phase (null: the
+// slice holds no column below hd, no p v).  `softmax_pv` with v's boxes
+// SB_K apart (the unsliced one's are 64 keys deep).
+__device__ __forceinline__ void sb_softmax_pv(float (&o)[SLICE / 2], float (&m)[2], float (&l)[2],
+                                              float (&sc)[SB_KEYS / 2], const unsigned char* v_st,
+                                              uint64_t* v_full, uint32_t v_phase, int key0, int s,
+                                              bool last, float scale_log2) {
+  const int t = threadIdx.x % 4;
+  if (last) {
+#pragma unroll
+    for (int j = 0; j < SB_KEYS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (key0 + 8 * j + 2 * t + e >= s) sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < SB_KEYS / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mx[i] = fmaxf(mx[i], fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+  float corr[2], mb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the four lanes of a quad share a row
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // the chunk holds a live key, so the new max is finite; the first
+    // chunk's correction is exp(-inf) = 0 on sums that are 0
+    const float next = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f((m[i] - next) * scale_log2);
+    m[i] = next;
+    mb[i] = next * scale_log2;
+    l[i] *= corr[i];
+  }
+  // exp(s / sqrt(hd) - max) = exp2(s * scale_log2 - max * scale_log2)
+#pragma unroll
+  for (int j = 0; j < SB_KEYS / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + 2 * i + e], scale_log2, -mb[i]));
+        sc[4 * j + 2 * i + e] = p;
+        l[i] += p;
+      }
+  if (v_st == nullptr) return;
+#pragma unroll
+  for (int j = 0; j < SLICE / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= corr[i];
+      o[4 * j + 2 * i + 1] *= corr[i];
+    }
+  // the probabilities as A fragments of the 16-key steps of p v (see
+  // `softmax_pv`)
+  uint32_t pa[SB_KEYS / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < SB_KEYS / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  // v's stage is row-major (keys, 64-column boxes SB_K apart), N-major for
+  // wgmma: k-steps of 16 keys 16 swizzle rows apart, 8-key groups 1,024
+  // bytes apart, the boxes SB_K apart
+  const uint64_t dv = smem_desc(v_st, SB_K, 1024, 1);
+  mbar_wait(v_full, v_phase);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < SB_KEYS / 16; ++kk)
+    wgmma_rs_tb<SLICE>(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
+// Consumer c (live): each chunk's partial scores, the hand-over, the sum in
+// rank order, the softmax and the slice's p v; then the context divided by
+// the row sums into o.
+__device__ __forceinline__ void sliced_bf16_consume(const SlicedBf16Work& w,
+                                                    __nv_bfloat16* __restrict__ o, int s, int h,
+                                                    int hd, int c, int cluster, float scale_log2) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int run = w.b1 - w.b0, subs = (run + SB_RUN - 1) / SB_RUN;
+  unsigned char* const base = w.base;
+  const unsigned char* q_mine = base + c * SB_RUN * SB_Q;
+  float ctx[SLICE / 2];
+#pragma unroll
+  for (int i = 0; i < SLICE / 2; ++i) ctx[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows i = 0, 1 (raw scores)
+  float l[2] = {0.f, 0.f};              // this thread's share of their sums
+  int qi = 0, it = 0;                   // q loads and stages of the ring taken
+  const int xs = SB_SLOTS * c;          // this consumer's slots' barriers, from each kind's first
+  if (subs == 1) mbar_wait(sb_bar(base, SB_QFULL), 0);  // q, once a block
+  for (int ch = 0; ch < w.chunks + SB_LAG; ++ch) {
+    if (ch < w.chunks) {  // chunk ch's partial scores into its slot, handed over
+      float sc[SB_KEYS / 2];
+#pragma unroll
+      for (int j = 0; j < SB_KEYS / 2; ++j) sc[j] = 0.f;
+      for (int j = 0; j < subs; ++j, ++it) {
+        const int n = min(SB_RUN, run - SB_RUN * j);
+        if (subs > 1) mbar_wait(sb_bar(base, SB_QFULL), qi & 1);
+        const int st = it % SB_STAGES;
+        mbar_wait(sb_bar(base, SB_FULL + st), (it / SB_STAGES) & 1);
+        const unsigned char* k_st = base + SB_RING_AT + st * SB_STAGE;
+        switch (n) {
+          case 1: sb_scores<1>(sc, q_mine, k_st); break;
+          case 2: sb_scores<2>(sc, q_mine, k_st); break;
+          case 3: sb_scores<3>(sc, q_mine, k_st); break;
+          default: sb_scores<4>(sc, q_mine, k_st); break;
+        }
+        if (tid == 0) mbar_arrive(sb_bar(base, SB_EMPTY + st));
+        if (subs > 1) {
+          if (tid == 0) mbar_arrive(sb_bar(base, SB_QEMPTY));
+          ++qi;
+        }
+      }
+      const int slot = ch % SB_SLOTS;
+      // every rank has read what this slot held SB_SLOTS chunks ago: it did
+      // so before its helper handed over chunk ch - 1 (SB_SLOTS = SB_LAG + 2)
+      if (ch >= SB_SLOTS)
+        mbar_wait_cluster(sb_bar(base, SB_XFULL + xs + (ch - 1) % SB_SLOTS),
+                          ((ch - 1) / SB_SLOTS) & 1);
+      float4* mine = reinterpret_cast<float4*>(sb_slot(base, c, slot)) + tid;
+#pragma unroll
+      for (int j = 0; j < SB_KEYS / 8; ++j)
+        mine[128 * j] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+      // this thread's writes, to the helper that releases them to every rank
+      mbar_arrive(sb_bar(base, SB_XWRITTEN + xs + slot));
+    }
+    if (ch >= SB_LAG) {  // chunk ch - SB_LAG: the scores summed in rank order, softmax, p v
+      const int u = ch - SB_LAG, slot = u % SB_SLOTS;
+      mbar_wait_cluster(sb_bar(base, SB_XFULL + xs + slot), (u / SB_SLOTS) & 1);
+      float sc[SB_KEYS / 2];
+      for (int r = 0; r < cluster; ++r) {
+        const uint32_t at = cluster_addr(sb_slot(base, c, slot), r) + 16 * tid;
+#pragma unroll
+        for (int j = 0; j < SB_KEYS / 8; ++j) {
+          const float4 v = ld_cluster_f4(at + 16 * 128 * j);
+          sc[4 * j] = r == 0 ? v.x : sc[4 * j] + v.x;
+          sc[4 * j + 1] = r == 0 ? v.y : sc[4 * j + 1] + v.y;
+          sc[4 * j + 2] = r == 0 ? v.z : sc[4 * j + 2] + v.z;
+          sc[4 * j + 3] = r == 0 ? v.w : sc[4 * j + 3] + v.w;
+        }
+      }
+      const int st = it % SB_STAGES;
+      const bool pv = w.v_boxes > 0;
+      sb_softmax_pv(ctx, m, l, sc, pv ? base + SB_RING_AT + st * SB_STAGE : nullptr,
+                    sb_bar(base, SB_FULL + st), (it / SB_STAGES) & 1, u * SB_KEYS, s,
+                    u + 1 == w.chunks, scale_log2);
+      if (pv) {
+        if (tid == 0) mbar_arrive(sb_bar(base, SB_EMPTY + st));
+        ++it;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w.row0 + c * ROWS + 16 * warp + g + 8 * i;
+    if (r >= s) continue;
+    const float inv = 1.f / l[i];  // each sum holds its max's exp(0) = 1
+    // this slice's columns below hd
+    __nv_bfloat16* out = o + (((long long)w.b * s + r) * h + w.hh) * hd + w.col0 + 2 * t;
+    if (hd % 2 == 0) {
+#pragma unroll
+      for (int j = 0; j < SLICE / 8; ++j)
+        if (w.col0 + 8 * j + 2 * t < hd)
+          *reinterpret_cast<uint32_t*>(out + 8 * j) =
+              pack_bf16(ctx[4 * j + 2 * i] * inv, ctx[4 * j + 2 * i + 1] * inv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < SLICE / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (w.col0 + 8 * j + 2 * t + e < hd)
+            out[8 * j + e] = __float2bfloat16_rn(ctx[4 * j + 2 * i + e] * inv);
+    }
+  }
+}
+
+// The helper of consumer c (a thread of the producer's warpgroup): once
+// every thread of the consumer has written chunk ch's partial into its slot
+// (`xwritten`, release and acquire within the block), one arrival on the
+// slot's `xfull` in every rank, releasing those writes (and the reads the
+// consumer made before them) to the cluster.  Off the consumer's path: a
+// release at cluster scope waits for the memory operations before it to be
+// performed there.
+__device__ __forceinline__ void sb_hand_over(const SlicedBf16Work& w, int c, int cluster) {
+  const int xs = SB_SLOTS * c;
+  for (int ch = 0; ch < w.chunks; ++ch) {
+    const int slot = ch % SB_SLOTS;
+    mbar_wait(sb_bar(w.base, SB_XWRITTEN + xs + slot), (ch / SB_SLOTS) & 1);
+    for (int r = 0; r < cluster; ++r) mbar_arrive_rank(sb_bar(w.base, SB_XFULL + xs + slot), r);
+  }
+}
+
+// q's boxes x0 .. x0 + n - 1 of every live consumer into its resident
+// space, on q's `full` barrier.
+__device__ __forceinline__ void sb_load_q(const SlicedBf16Work& w, const CUtensorMap* map_q,
+                                          int oq, int x0, int n) {
+  uint64_t* full = sb_bar(w.base, SB_QFULL);
+  mbar_expect_tx(full, w.live * n * SB_Q);
+  for (int c = 0; c < w.live; ++c)
+    for (int x = 0; x < n; ++x)
+      load_box(w.base + (c * SB_RUN + x) * SB_Q, map_q, oq, full, SB_BOX * (x0 + x),
+               w.row0 + c * ROWS, w.hh, w.b);
+}
+
+// The producer's thread 0: q, then the k and v stages in the consumers'
+// order.
+__device__ __forceinline__ void sliced_bf16_produce(const SlicedBf16Work& w,
+                                                    const CUtensorMap* map_q,
+                                                    const CUtensorMap* map_k,
+                                                    const CUtensorMap* map_v, int orders) {
+  const int oq = orders & 63, ok = (orders >> 6) & 63, ov = (orders >> 12) & 63;
+  const int run = w.b1 - w.b0, subs = (run + SB_RUN - 1) / SB_RUN;
+  if (subs == 1) sb_load_q(w, map_q, oq, w.b0, run);
+  int qi = 0, it = 0;
+  for (int ch = 0; ch < w.chunks + SB_LAG; ++ch) {
+    // the chunk's k stages (one a sub-run), then the v stage of chunk
+    // ch - SB_LAG
+    const int n_k = ch < w.chunks ? subs : 0;
+    const int n_v = ch >= SB_LAG && w.v_boxes > 0 ? 1 : 0;
+    for (int j = 0; j < n_k + n_v; ++j, ++it) {
+      const bool is_k = j < n_k;
+      const int x0 = w.b0 + SB_RUN * j, n = is_k ? min(SB_RUN, w.b1 - x0) : w.v_boxes;
+      if (is_k && subs > 1) {  // this sub-run's q boxes, once the last one's are done with
+        mbar_wait(sb_bar(w.base, SB_QEMPTY), (qi & 1) ^ 1);  // at once the first time
+        sb_load_q(w, map_q, oq, x0, n);
+        ++qi;
+      }
+      const int st = it % SB_STAGES;
+      unsigned char* dst = w.base + SB_RING_AT + st * SB_STAGE;
+      uint64_t* full = sb_bar(w.base, SB_FULL + st);
+      mbar_wait(sb_bar(w.base, SB_EMPTY + st), ((it / SB_STAGES) & 1) ^ 1);  // at once on the first lap
+      mbar_expect_tx(full, n * SB_K);
+      for (int x = 0; x < n; ++x) {
+        if (is_k)
+          load_box(dst + x * SB_K, map_k, ok, full, SB_BOX * (x0 + x), ch * SB_KEYS, w.hh, w.b);
+        else
+          load_box(dst + x * SB_K, map_v, ov, full, w.col0 + SB_BOX * x,
+                   (ch - SB_LAG) * SB_KEYS, w.hh, w.b);
+      }
+    }
+  }
+}
+
+// grid: x = (volume, head, group, rank), clusters of `cluster` blocks along
+// x; y = row block of BLOCK_ROWS query rows.  The maps: boxes of 64 columns
+// by 64 rows (q) or SB_KEYS rows (k, v), 128-byte swizzle.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+attention_sliced_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              __nv_bfloat16* __restrict__ o, int s, int h, int hd, int groups,
+                              int orders, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  // the swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned
+  unsigned char* base = att_smem + ((1024 - (smem_u32(att_smem) & 1023)) & 1023);
+
+  const int cluster = cluster_size(), rank = cluster_rank();
+  const int unit = blockIdx.x / cluster;
+  const int bh = unit / groups, group = unit % groups;
+  SlicedBf16Work w;
+  w.base = base;
+  w.b = bh / h;
+  w.hh = bh % h;
+  w.row0 = blockIdx.y * BLOCK_ROWS;
+  w.live = min(CONSUMERS, (s - w.row0 + ROWS - 1) / ROWS);
+  w.chunks = (s + SB_KEYS - 1) / SB_KEYS;
+  const int nbox = (hd + SB_BOX - 1) / SB_BOX;
+  w.b0 = rank * nbox / cluster;
+  w.b1 = (rank + 1) * nbox / cluster;
+  w.col0 = (group * cluster + rank) * SLICE;
+  w.v_boxes = w.col0 < hd ? min(SLICE / SB_BOX, (hd - w.col0 + SB_BOX - 1) / SB_BOX) : 0;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sb_bar(base, SB_QFULL), 1);
+    mbar_init(sb_bar(base, SB_QEMPTY), w.live);
+    for (int i = 0; i < SB_STAGES; ++i) {
+      mbar_init(sb_bar(base, SB_FULL + i), 1);
+      mbar_init(sb_bar(base, SB_EMPTY + i), w.live);  // one arrival from each live consumer
+    }
+    for (int i = 0; i < SB_SLOTS * CONSUMERS; ++i) {
+      mbar_init(sb_bar(base, SB_XFULL + i), cluster);  // from the consumer's helper in every rank
+      mbar_init(sb_bar(base, SB_XWRITTEN + i), 128);   // from each thread of the consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  // every rank's barriers are set before any rank arrives on them
+  cluster_sync_all();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0)
+      sliced_bf16_produce(w, &map_q, &map_k, &map_v, orders);
+    else if (tid % 32 == 0 && tid / 32 <= w.live)  // warp 1 + c: consumer c's helper
+      sb_hand_over(w, tid / 32 - 1, cluster);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    if (c < w.live)  // a query row of this warpgroup lies below s
+      sliced_bf16_consume(w, o, s, h, hd, c, cluster, scale_log2);
+  }
+  // no block leaves while another may read its slots or arrive on its barriers
+  cluster_sync_all();
+}
+
 // The map of one (B, H, S, hd) view of `elt`-byte elements of `type`: hd
 // innermost, then S, H and B in the order of their strides (smallest
 // first), boxes of `box_cols` columns by `box_rows` rows of S, with the
@@ -1692,13 +2023,13 @@ int slices_of(int hd) { return (hd + SLICE - 1) / SLICE; }
 // The sliced bodies' shared-memory limits, raised once a device.
 cudaError_t sliced_wgmma_ready(int device) {
   static std::atomic<unsigned long long> smem_set{0};  // one bit a device
-  return raise_smem_limit_once((const void*)attention_sliced_wgmma_kernel, (int)SL_SMEM, device,
+  return raise_smem_limit_once((const void*)attention_sliced_wgmma_kernel, (int)SB_SMEM, device,
                                smem_set);
 }
 
-// The sliced f32 body's cluster at head_dim hd: its slices in `groups`
-// groups of `cluster` ranks (at most SW_MAX_CLUSTER), as even as they divide.
-void sliced_f32_cluster(int hd, int* cluster, int* groups) {
+// The sliced bodies' cluster at head_dim hd: the slices in `groups` groups
+// of `cluster` ranks (at most SW_MAX_CLUSTER), as even as they divide.
+void sliced_cluster(int hd, int* cluster, int* groups) {
   const int slices = slices_of(hd);
   *groups = (slices + SW_MAX_CLUSTER - 1) / SW_MAX_CLUSTER;
   *cluster = (slices + *groups - 1) / *groups;
@@ -1710,27 +2041,54 @@ cudaError_t sliced_f32_ready(int device) {
                                smem_set);
 }
 
-// The sliced bf16 body: the maps of the wgmma body's HD 256 (boxes of 64
-// columns by 64 rows, 128-byte swizzle), a block a (volume, head, slice) and
-// 128 query rows.
+// A launch of a sliced body: clusters of `cluster` blocks along x, the
+// runtime's error of a refused launch cleared.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int cluster, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  // the runtime keeps a refused launch's error as its last one, which the
+  // next launch in this thread would read back: clear it
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// The sliced bf16 body: its cluster of a (volume, head)'s slices and 128
+// query rows (see its note); maps of 64-column boxes, 64 rows of q and
+// SB_KEYS rows of k and v, 128-byte swizzle.
 cudaError_t launch_sliced_wgmma(int device, const void* q, const void* k, const void* v, void* o,
                                 int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
                                 float scale, cudaStream_t stream) {
+  int cluster = 0, groups = 0;
+  sliced_cluster(hd, &cluster, &groups);
+  if ((long long)b * h * groups * cluster >= (1ll << 31)) return cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v;
   int oq, ok, ov;
-  if (!encode_view<SLICE>(&map_q, &oq, q, b, h, s, hd, qs) ||
-      !encode_view<SLICE>(&map_k, &ok, k, b, h, s, hd, ks) ||
-      !encode_view<SLICE>(&map_v, &ov, v, b, h, s, hd, vs))
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_view_as(&map_q, &oq, q, b, h, s, hd, qs, BF16, 2, SB_BOX, ROWS, 128) ||
+      !encode_view_as(&map_k, &ok, k, b, h, s, hd, ks, BF16, 2, SB_BOX, SB_KEYS, 128) ||
+      !encode_view_as(&map_v, &ov, v, b, h, s, hd, vs, BF16, 2, SB_BOX, SB_KEYS, 128))
     return cudaErrorInvalidValue;
   const cudaError_t err = sliced_wgmma_ready(device);
   if (err != cudaSuccess) return err;
   last_body.store(BF16_SLICED_WGMMA, std::memory_order_relaxed);
-  const int slices = slices_of(hd);
-  const dim3 grid(b * h * slices, (s + BLOCK_ROWS - 1) / BLOCK_ROWS);
-  attention_sliced_wgmma_kernel<<<grid, WG_THREADS, SL_SMEM, stream>>>(
-      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s, h, hd, slices,
-      oq | (ok << 6) | (ov << 12), scale * 1.4426950408889634f);
-  return cudaGetLastError();
+  return launch_cluster(attention_sliced_wgmma_kernel,
+                        dim3(b * h * groups * cluster, (s + BLOCK_ROWS - 1) / BLOCK_ROWS),
+                        cluster, SB_SMEM, stream, map_q, map_k, map_v,
+                        static_cast<__nv_bfloat16*>(o), s, h, hd, groups,
+                        oq | (ok << 6) | (ov << 12), scale * 1.4426950408889634f);
 }
 
 // The sliced f32 body: its cluster of a (volume, head)'s slices and 128
@@ -1740,7 +2098,7 @@ cudaError_t launch_sliced_f32(int device, const void* q, const void* k, const vo
                               int b, int h, int s, int hd, Strides qs, Strides ks, Strides vs,
                               float scale, cudaStream_t stream) {
   int cluster = 0, groups = 0;
-  sliced_f32_cluster(hd, &cluster, &groups);
+  sliced_cluster(hd, &cluster, &groups);
   if ((long long)b * h * groups * cluster >= (1ll << 31)) return cudaErrorInvalidValue;
   CUtensorMap map_q, map_k, map_v;
   int oq, ok, ov;
@@ -1749,28 +2107,13 @@ cudaError_t launch_sliced_f32(int device, const void* q, const void* k, const vo
       !encode_view_as(&map_k, &ok, k, b, h, s, hd, ks, F32, 4, SW_BOX, SW_KEYS, 128) ||
       !encode_view_as(&map_v, &ov, v, b, h, s, hd, vs, F32, 4, SW_BOX, SW_KEYS, 0))
     return cudaErrorInvalidValue;
-  cudaError_t err = sliced_f32_ready(device);
+  const cudaError_t err = sliced_f32_ready(device);
   if (err != cudaSuccess) return err;
   last_body.store(F32_SLICED_WGMMA, std::memory_order_relaxed);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(b * h * groups * cluster, (s + SW_ROWS - 1) / SW_ROWS);
-  cfg.blockDim = dim3(SW_THREADS);
-  cfg.dynamicSmemBytes = SW_SMEM;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, attention_sliced_f32_kernel, map_q, map_k, map_v,
-                           static_cast<float*>(o), s, h, hd, groups, oq | (ok << 6) | (ov << 12),
-                           scale * 1.4426950408889634f);
-  // the runtime keeps a refused launch's error as its last one, which the
-  // next launch in this thread would read back: clear it
-  const cudaError_t last = cudaGetLastError();
-  return err != cudaSuccess ? err : last;
+  return launch_cluster(attention_sliced_f32_kernel,
+                        dim3(b * h * groups * cluster, (s + SW_ROWS - 1) / SW_ROWS), cluster,
+                        SW_SMEM, stream, map_q, map_k, map_v, static_cast<float*>(o), s, h, hd,
+                        groups, oq | (ok << 6) | (ov << 12), scale * 1.4426950408889634f);
 }
 
 // The head dims the unsliced bodies are built for: a head_dim from 17 to 256
@@ -1835,13 +2178,13 @@ cudaError_t plan_bf16(int device, int b, int h, int s, int* out) {
 }
 
 // The sliced bodies' tiles and waves: the unsliced bodies' reckoning with a
-// block a (volume, head, slice) and row block (f32: a (volume, head, group,
-// rank)), and key steps a tile over the scores' boxes and v's slice.
+// block a (volume, head, group, rank) and row block, and key steps a tile
+// over the busiest rank's score boxes and v's slice.
 cudaError_t plan_sliced(int device, int b, int h, int s, int hd, int dtype, int* out) {
   const bool bf16 = dtype == 1;
   const void* kernel = bf16 ? (const void*)attention_sliced_wgmma_kernel
                             : (const void*)attention_sliced_f32_kernel;
-  const size_t smem = bf16 ? SL_SMEM : SW_SMEM;
+  const size_t smem = bf16 ? SB_SMEM : SW_SMEM;
   cudaError_t err = bf16 ? sliced_wgmma_ready(device) : sliced_f32_ready(device);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
@@ -1852,10 +2195,10 @@ cudaError_t plan_sliced(int device, int b, int h, int s, int hd, int dtype, int*
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  int cluster = slices_of(hd), groups = 1;
-  if (!bf16) sliced_f32_cluster(hd, &cluster, &groups);
+  int cluster = 0, groups = 0;
+  sliced_cluster(hd, &cluster, &groups);
   const long long units = (long long)b * h * groups * cluster;  // grid x
-  const int keys = bf16 ? KEYS : SW_KEYS, step = bf16 ? 16 : 8;
+  const int keys = bf16 ? SB_KEYS : SW_KEYS, step = bf16 ? 16 : 8;
   const int row_blocks = (s + BLOCK_ROWS - 1) / BLOCK_ROWS;
   const int tiles = (s + ROWS - 1) / ROWS;
   const int chunks = (s + keys - 1) / keys;
@@ -1868,31 +2211,35 @@ cudaError_t plan_sliced(int device, int b, int h, int s, int hd, int dtype, int*
   out[6] = (int)(units * row_blocks);
   out[7] = (int)(units * tiles);
   out[8] = (int)(units * (tiles % CONSUMERS ? 1 : 0));
-  // a chunk's key steps in each box of the scores (f32: the busiest rank's)
-  // and in the slice's p v
-  const int nbox = (hd + SW_BOX - 1) / SW_BOX;
-  out[9] = bf16 ? chunks * (keys / step) * ((hd + 63) / 64 + 1)
-                : chunks * (keys / step) * ((nbox + cluster - 1) / cluster + SW_PASSES);
+  // a chunk's key steps in each of the busiest rank's score boxes and in
+  // the slice's p v (bf16: one wgmma of the slice's 256 columns a step; f32:
+  // one a 64-column pass)
+  const int nbox = (hd + (bf16 ? SB_BOX : SW_BOX) - 1) / (bf16 ? SB_BOX : SW_BOX);
+  out[9] = chunks * (keys / step) * ((nbox + cluster - 1) / cluster + (bf16 ? 1 : SW_PASSES));
   out[10] = busiest_sm(units, row_blocks, CONSUMERS, tiles - (row_blocks - 1) * CONSUMERS,
                        (long long)per_sm * sms, sms);
   return cudaSuccess;
 }
 
-// The sliced f32 body's cluster plan at (b, h, s, hd), into out[12]: ranks
-// a cluster, groups a (volume, head), query rows a block, keys a chunk,
-// ring stages, score boxes (32 columns) of the busiest and the idlest rank,
-// clusters in the grid, clusters the card holds at once
-// (cudaOccupancyMaxActiveClusters), blocks, shared-memory bytes a block,
-// registers a thread at entry (before setmaxnreg).
-cudaError_t plan_sliced_f32(int device, int b, int h, int s, int hd, int* out) {
-  cudaError_t err = sliced_f32_ready(device);
+// A sliced body's cluster plan at (b, h, s, hd), into out[12]: ranks a
+// cluster, groups a (volume, head), query rows a block, keys a chunk, ring
+// stages (bf16: of the k ring and of the v ring each), score boxes (f32 32
+// columns, bf16 64) of the busiest and the idlest rank, clusters in the
+// grid, clusters the card holds at once (cudaOccupancyMaxActiveClusters),
+// blocks, shared-memory bytes a block, registers a thread at entry (before
+// setmaxnreg).
+cudaError_t plan_sliced_cluster(int device, int b, int h, int s, int hd, bool bf16, int* out) {
+  const void* kernel = bf16 ? (const void*)attention_sliced_wgmma_kernel
+                            : (const void*)attention_sliced_f32_kernel;
+  const size_t smem = bf16 ? SB_SMEM : SW_SMEM;
+  cudaError_t err = bf16 ? sliced_wgmma_ready(device) : sliced_f32_ready(device);
   if (err != cudaSuccess) return err;
   int cluster = 0, groups = 0;
-  sliced_f32_cluster(hd, &cluster, &groups);
+  sliced_cluster(hd, &cluster, &groups);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(SW_THREADS);
-  cfg.dynamicSmemBytes = SW_SMEM;
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -1901,24 +2248,25 @@ cudaError_t plan_sliced_f32(int device, int b, int h, int s, int hd, int* out) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int resident = 0;
-  err = cudaOccupancyMaxActiveClusters(&resident, attention_sliced_f32_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, attention_sliced_f32_kernel);
+  err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return err;
-  const int nbox = (hd + SW_BOX - 1) / SW_BOX;
-  const long long clusters = (long long)b * h * groups * ((s + SW_ROWS - 1) / SW_ROWS);
+  const int box = bf16 ? SB_BOX : SW_BOX;
+  const int nbox = (hd + box - 1) / box;
+  const long long clusters = (long long)b * h * groups * ((s + BLOCK_ROWS - 1) / BLOCK_ROWS);
   out[0] = cluster;
   out[1] = groups;
-  out[2] = SW_ROWS;
-  out[3] = SW_KEYS;
-  out[4] = SW_STAGES;
+  out[2] = BLOCK_ROWS;
+  out[3] = bf16 ? SB_KEYS : SW_KEYS;
+  out[4] = bf16 ? SB_STAGES : SW_STAGES;
   out[5] = (nbox + cluster - 1) / cluster;
   out[6] = nbox / cluster;
   out[7] = (int)clusters;
   out[8] = resident;
   out[9] = (int)(clusters * cluster);
-  out[10] = (int)SW_SMEM;
+  out[10] = (int)smem;
   out[11] = fa.numRegs;
   return cudaSuccess;
 }
@@ -2022,13 +2370,20 @@ extern "C" int attention_plan(int device, int b, int h, int s, int hd, int dtype
 #undef CASE
 }
 
-// The sliced f32 body's cluster plan at (b, h, s, hd > 256) into out[12]
-// (see `plan_sliced_f32`).  Returns a cudaError_t.
+// The sliced f32 and bf16 bodies' cluster plans at (b, h, s, hd > 256)
+// into out[12] (see `plan_sliced_cluster`).  Return a cudaError_t.
 extern "C" int attention_sliced_f32_plan(int device, int b, int h, int s, int hd, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (hd <= MAX_UNSLICED_HD) return (int)cudaErrorInvalidValue;
-  return (int)plan_sliced_f32(device, b, h, s, hd, out);
+  return (int)plan_sliced_cluster(device, b, h, s, hd, false, out);
+}
+
+extern "C" int attention_sliced_bf16_plan(int device, int b, int h, int s, int hd, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (hd <= MAX_UNSLICED_HD) return (int)cudaErrorInvalidValue;
+  return (int)plan_sliced_cluster(device, b, h, s, hd, true, out);
 }
 
 // The body this process's last launch took (enum Body), -1 before any.

@@ -27,20 +27,19 @@ softmax(q k^T / sqrt(hd)) v, dispatched by head_dim as the JAX wrapper does.
     a ring of (k, v) chunks of 64 keys by TMA, and two consumer warpgroups
     of 64 rows run both products on `wgmma` (the probabilities stay in
     registers, rounded to bf16 unnormalised; a last chunk of at most 16
-    live keys runs 16 wide); sliced, each of a (volume, head)'s
-    ceil(hd / K4_SLICE) slices computes the whole scores over hd's
-    64-column boxes.  In f32 up to head_dim 256 a block of 4 warps takes
+    live keys runs 16 wide).  In f32 up to head_dim 256 a block of 4 warps takes
     one (volume, head) and 64 query rows, 16 a warp, and runs both products
     on the tensor cores in 3xTF32 (`mma.sync` m16n8k8: each operand split
     into TF32 hi and lo, each product lo*hi + hi*lo + hi*hi in f32, which
     holds the JAX tolerance where one TF32 product does not), with (k, v)
     stages of 32 keys coming by cp.async and the scores and softmax in
-    registers.  In f32 above 256 the slices of a (volume, head) and 128
-    query rows are the blocks of one cluster (`k4_sliced_f32_split`): each
-    computes the partial scores over its own run of hd's 32-column boxes,
-    the ranks add them in rank order through distributed shared memory, and
-    each runs the softmax and its slice's p v, both products in 3xTF32 on
-    `wgmma` fed by TMA.  It reads q, k, v through their strides (unit
+    registers.  Above 256 the slices of a (volume, head) and 128 query rows
+    are the blocks of one cluster (`k4_sliced_split`): each computes the
+    partial scores over its own run of hd's boxes (32 columns in f32, 64 in
+    bf16), the ranks add them in rank order through distributed shared
+    memory, and each runs the softmax and its slice's p v on `wgmma` fed by
+    TMA, in f32 both products in 3xTF32; in bf16 each rank loads its q
+    boxes once.  It reads q, k, v through their strides (unit
     stride along head_dim; where TMA reads them, in bf16 and in f32 above
     256, a 16-byte aligned address and strides that are multiples of 16
     bytes, so the wrapper copies a view that is not into a buffer whose
@@ -86,11 +85,13 @@ TC_HD = 8
 #: the sliced bodies, whose blocks compute K4_SLICE context columns each.
 K4_BODY_HDS = (32, 64, 80, 128, 256)
 K4_SLICE = 256
-#: the sliced f32 body's clusters hold at most this many slices (a portable
-#: cluster), and its ranks split the scores' K loop in boxes of K4_F32_BOX
-#: columns of hd (`k4_sliced_f32_split`)
-K4_F32_MAX_CLUSTER = 8
-K4_F32_BOX = 32
+#: the sliced bodies' clusters hold at most this many slices (a portable
+#: cluster), and their ranks split the scores' K loop in boxes of
+#: K4_SLICED_BOX[dtype] columns of hd (`k4_sliced_split`); a rank of the
+#: bf16 body keeps the q boxes of at most K4_BF16_RUN of them
+K4_MAX_CLUSTER = 8
+K4_SLICED_BOX = {torch.float32: 32, torch.bfloat16: 64}
+K4_BF16_RUN = 4
 #: most tokens K4 takes: the grid's second axis holds 65,535 row blocks, of
 #: 64 query rows in f32 (4 warps of 16) and 128 in bf16.
 MAX_TOKENS_K4 = 65535 * 64
@@ -152,17 +153,17 @@ def k4_slices(hd: int) -> int:
     return 1 if hd <= K4_BODY_HDS[-1] else -(-hd // K4_SLICE)
 
 
-def k4_sliced_f32_split(hd: int) -> dict:
-    """The sliced f32 body's cluster at head_dim `hd` (above
+def k4_sliced_split(hd: int, dtype=torch.float32) -> dict:
+    """The sliced body's cluster for `dtype` at head_dim `hd` (above
     K4_BODY_HDS[-1]), as `csrc/attention.cu` lays it out: the k4_slices(hd)
     slices in `groups` groups of `cluster` ranks (as even as they divide),
     rank r computing the context columns of slice group * cluster + r and
-    the partial scores over boxes [b0, b1) of hd's K4_F32_BOX-column
-    boxes, `boxes[r]`."""
+    the partial scores over boxes [b0, b1) of hd's
+    K4_SLICED_BOX[dtype]-column boxes, `boxes[r]`."""
     slices = k4_slices(hd)
-    groups = -(-slices // K4_F32_MAX_CLUSTER)
+    groups = -(-slices // K4_MAX_CLUSTER)
     cluster = -(-slices // groups)
-    nbox = -(-hd // K4_F32_BOX)
+    nbox = -(-hd // K4_SLICED_BOX[dtype])
     return {"cluster": cluster, "groups": groups, "nbox": nbox,
             "boxes": [(r * nbox // cluster, (r + 1) * nbox // cluster)
                       for r in range(cluster)]}
@@ -352,7 +353,7 @@ def k4_into(q, k, v, out) -> None:
 #: on `wgmma`, f32 in 3xTF32 on `mma.sync` with 16-byte copies, and with
 #: 4-byte copies (a view whose base or strides are not multiples of 16
 #: bytes); then above K4_BODY_HDS[-1] the sliced bf16 body and the sliced
-#: f32 one (3xTF32 on `wgmma`, a cluster of the slices)
+#: f32 one (3xTF32), both on `wgmma` in a cluster of the slices
 K4_BODIES = ("bf16_wgmma", "f32_tf32x3", "f32_tf32x3_4byte",
              "bf16_sliced_wgmma", "f32_sliced_wgmma")
 
